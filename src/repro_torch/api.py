@@ -1,0 +1,264 @@
+"""repro_torch.api -- the facade: ExperimentSpec -> ready-to-train Algorithm.
+
+The PyTorch counterpart of ``src/repro/api.py`` for this slice:
+
+    from repro_torch.api import ExperimentSpec, build
+
+    spec = ExperimentSpec(algo="porter-gc", n_agents=10,
+                          topology="erdos_renyi", topology_p=0.8,
+                          compressor="top_k", frac=0.05, eta=0.05, tau=1.0)
+    algo = build(spec, loss_fn)               # device defaults to cuda
+    state = algo.init(params0)
+    state, metrics = algo.step(state, batch, gen)
+
+``build`` resolves the topology and mixing matrix, the compressor, the
+comm-round engine and the consensus stepsize
+
+    gamma = gamma_scale * (1 - alpha) * rho
+
+with ``alpha`` the topology's mixing rate and ``rho`` the compressor's
+contraction factor.  It targets ``torch.device("cuda")`` unless the caller
+passes ``device=``; nothing here probes for a card and moves to the CPU.
+
+Registered here: ``porter-gc``, ``porter-dp`` and ``beer``.  The spec keeps
+the reference's field names; a value this slice does not run raises and
+names the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Mapping, Optional
+
+import torch
+
+from .core.beer import beer_config
+from .core.comm_round import CommRound
+from .core.compression import Compressor, make_compressor
+from .core.gossip import make_mixer
+from .core.mixing import Topology, make_topology
+from .core.porter import PorterConfig, PorterState, porter_init, porter_step
+from .core.registry import (Algorithm, AlgorithmInfo, algorithm_info,
+                            get_factory, list_algorithms, register_algorithm)
+from .tree import tree_map
+
+__all__ = ["ExperimentSpec", "build", "build_engine", "resolve_topology",
+           "resolve_compressor", "resolve_gamma", "resolve_plane_dtype",
+           "Algorithm", "AlgorithmInfo", "algorithm_info", "list_algorithms"]
+
+# compressors whose knob is a kept-fraction (rho = frac)
+_FRAC_COMPRESSORS = ("top_k", "block_top_k", "random_k")
+
+# registered in the reference, ported by a later slice
+_LATER_ALGOS = {
+    "porter-adam": "ROADMAP queue 1 item 8",
+    "dsgd": "ROADMAP queue 1 item 8",
+    "choco": "ROADMAP queue 1 item 8",
+    "dp-sgd": "ROADMAP queue 1 item 8",
+    "soteriafl": "ROADMAP queue 1 item 8",
+    "dp-csgp": "ROADMAP queue 1 item 8",
+    "clip21": "ROADMAP queue 1 item 8",
+    "subgrad-comp": "ROADMAP queue 1 item 8",
+}
+
+_PLANE_DTYPES = {"f32": torch.float32, "float32": torch.float32,
+                 "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """Declarative description of one decentralized-training experiment,
+    with the reference's field names and defaults.
+
+    ``gamma=None`` derives gamma_scale * (1 - alpha) * rho.  ``tau=None``
+    disables clipping for porter-gc (which is then BEER); porter-dp rejects
+    it.  ``comm_backend`` is 'auto' | 'kernel' | 'ref'.
+    """
+
+    algo: str = "porter-gc"
+    n_agents: int = 10
+    fleet: bool = False
+    topology: str = "ring"
+    topology_weights: str = "metropolis"
+    topology_p: float = 0.8
+    topology_seed: int = 0
+    topology_schedule: Optional[str] = None
+    compressor: str = "top_k"
+    frac: float = 0.05
+    compressor_kwargs: Mapping[str, Any] = dataclasses.field(
+        default_factory=dict)
+    gossip_mode: str = "dense"
+    wire: str = "dense"
+    overlap: bool = False
+    comm_backend: str = "auto"
+    eta: float = 0.05
+    gamma: Optional[float] = None
+    gamma_scale: float = 0.5
+    tau: Optional[float] = 1.0
+    clip_mode: str = "smooth"
+    sigma_p: float = 0.0
+    buffer_dtype: Any = torch.float32
+    plane_dtype: Any = None
+    remat_policy: Optional[str] = None
+
+    def replace(self, **kw) -> "ExperimentSpec":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Resolved:
+    """What :func:`build` constructed from a spec (the factory context)."""
+
+    info: AlgorithmInfo
+    topology: Topology
+    compressor: Compressor
+    mixer: Any
+    engine: CommRound
+    gamma: float
+    device: torch.device
+
+
+def _check_slice(spec: ExperimentSpec) -> None:
+    """Reject spec values whose code paths are not ported yet."""
+    if spec.algo in _LATER_ALGOS:
+        raise ValueError(f"algorithm {spec.algo!r} is not ported yet "
+                         f"({_LATER_ALGOS[spec.algo]})")
+    later = [("fleet", spec.fleet, False, "ROADMAP queue 1 item 10"),
+             ("topology_schedule", spec.topology_schedule, None,
+              "ROADMAP queue 1 items 3-4"),
+             ("wire", spec.wire, "dense", "ROADMAP queue 1 item 9"),
+             ("remat_policy", spec.remat_policy, None,
+              "ROADMAP queue 1 item 13")]
+    for name, value, supported, item in later:
+        if value != supported:
+            raise ValueError(f"{name}={value!r} is not ported yet ({item})")
+
+
+def resolve_topology(spec: ExperimentSpec) -> Topology:
+    return make_topology(spec.topology, spec.n_agents,
+                         weights=spec.topology_weights, p=spec.topology_p,
+                         seed=spec.topology_seed)
+
+
+def resolve_compressor(spec: ExperimentSpec) -> Compressor:
+    kwargs = dict(spec.compressor_kwargs)
+    if spec.compressor in _FRAC_COMPRESSORS:
+        kwargs.setdefault("frac", spec.frac)
+    return make_compressor(spec.compressor, **kwargs)
+
+
+def resolve_plane_dtype(spec_or_name) -> Optional[torch.dtype]:
+    """``spec.plane_dtype`` -> a torch dtype or None (f32 planes)."""
+    val = (spec_or_name.plane_dtype
+           if isinstance(spec_or_name, ExperimentSpec) else spec_or_name)
+    if val is None:
+        return None
+    if isinstance(val, str):
+        if val not in _PLANE_DTYPES:
+            raise ValueError(f"unknown plane_dtype {val!r}; have "
+                             f"{sorted(_PLANE_DTYPES)}")
+        val = _PLANE_DTYPES[val]
+    if val not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"plane_dtype must be f32 or bf16, got {val}")
+    return val
+
+
+def resolve_gamma(spec: ExperimentSpec, topology: Topology,
+                  compressor: Compressor) -> float:
+    """The paper's consensus stepsize: gamma_scale * (1 - alpha) * rho."""
+    if spec.gamma is not None:
+        return spec.gamma
+    gamma = spec.gamma_scale * (1.0 - topology.alpha) * compressor.rho
+    if gamma <= 0.0:
+        raise ValueError(
+            f"derived gamma is 0 (alpha={topology.alpha:.4g}, "
+            f"rho={compressor.rho:.4g} for {compressor.name}); pass an "
+            "explicit gamma= in the ExperimentSpec")
+    return gamma
+
+
+def build_engine(spec: ExperimentSpec, *,
+                 topology: Optional[Topology] = None) -> CommRound:
+    """Comm-round engine for ``spec`` (compressor + dense mixer + backend)."""
+    top = resolve_topology(spec) if topology is None else topology
+    return CommRound(compressor=resolve_compressor(spec),
+                     mixer=make_mixer(top, spec.gossip_mode),
+                     backend=spec.comm_backend, overlap=spec.overlap,
+                     plane_dtype=resolve_plane_dtype(spec))
+
+
+def build(spec: ExperimentSpec, loss_fn, *, device=None,
+          topology: Optional[Topology] = None) -> Algorithm:
+    """Resolve ``spec`` into a ready-to-train :class:`Algorithm`.
+
+    loss_fn: ``(params, batch) -> scalar loss`` for one agent, in torch ops
+      that ``torch.func`` can differentiate and vmap.
+    device: where the state lives; ``torch.device("cuda")`` unless given.
+    topology: pre-built Topology override.
+    """
+    _check_slice(spec)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    info = algorithm_info(spec.algo)
+    top = resolve_topology(spec) if topology is None else topology
+    engine = build_engine(spec, topology=top)
+    r = Resolved(info=info, topology=top, compressor=engine.compressor,
+                 mixer=engine.mixer, engine=engine,
+                 gamma=resolve_gamma(spec, top, engine.compressor),
+                 device=device)
+    return get_factory(spec.algo)(spec, loss_fn, r)
+
+
+def _require_tau(spec: ExperimentSpec) -> float:
+    """DP noise is calibrated to tau's sensitivity: tau=None is an error."""
+    if spec.tau is None:
+        raise ValueError(f"{spec.algo} is a DP algorithm: its Gaussian "
+                         "noise is calibrated to the clipping threshold, "
+                         "so tau=None (unclipped) would void the privacy "
+                         "guarantee -- set a finite tau")
+    return spec.tau
+
+
+def _porter_family(spec: ExperimentSpec, loss_fn, r: Resolved,
+                   variant: str) -> Algorithm:
+    if variant == "gc" and spec.tau is None:
+        # unclipped PORTER-GC is BEER (paper Section 4.3)
+        variant = "beer"
+    if variant == "beer":
+        cfg = beer_config(spec.eta, r.gamma, clip_mode=spec.clip_mode,
+                          grad_dtype=spec.buffer_dtype)
+    else:
+        tau = _require_tau(spec) if variant == "dp" else spec.tau
+        cfg = PorterConfig(eta=spec.eta, gamma=r.gamma, tau=tau,
+                           variant=variant, clip_mode=spec.clip_mode,
+                           sigma_p=spec.sigma_p, grad_dtype=spec.buffer_dtype)
+    step = functools.partial(porter_step, cfg, loss_fn, None, None,
+                             engine=r.engine)
+
+    def init(params, n_agents: Optional[int] = None, w=None):
+        # every init broadcasts one replica, so W X^0 = X^0: no mix needed
+        n = spec.n_agents if n_agents is None else n_agents
+        on_device = tree_map(
+            lambda p: torch.as_tensor(p).to(r.device), params)
+        return porter_init(on_device, n, w, buffer_dtype=spec.buffer_dtype)
+
+    return Algorithm(name=spec.algo, info=r.info, spec=spec,
+                     state_cls=PorterState, init=init, step=step,
+                     device=r.device, topology=r.topology,
+                     compressor=r.compressor, mixer=r.mixer, engine=r.engine,
+                     gamma=r.gamma, config=cfg)
+
+
+@register_algorithm("porter-gc", comm_rounds=2)
+def _build_porter_gc(spec, loss_fn, r):
+    return _porter_family(spec, loss_fn, r, "gc")
+
+
+@register_algorithm("porter-dp", dp=True, comm_rounds=2)
+def _build_porter_dp(spec, loss_fn, r):
+    return _porter_family(spec, loss_fn, r, "dp")
+
+
+@register_algorithm("beer", comm_rounds=2)
+def _build_beer(spec, loss_fn, r):
+    return _porter_family(spec, loss_fn, r, "beer")

@@ -1,0 +1,185 @@
+"""PORTER (paper Algorithm 1): decentralized nonconvex optimization with
+gradient clipping and communication compression.
+
+Every buffer is an agent-stacked tree: each leaf carries a leading
+``n_agents`` axis.  Buffers (paper notation): ``x`` parameters, ``v``
+gradient-tracking estimates, ``q_x`` / ``q_v`` compressed surrogates,
+``g_prev`` the previous clipped (and perturbed) gradient, ``m_x`` / ``m_v``
+the mixing mirrors ``W q``.  One iteration (lines 4-14):
+
+    G^t   = clipped/perturbed stochastic gradient at X^{t-1}     (DP or GC)
+    c_v   = C(V^{t-1} - Q_v^{t-1});  Q_v += c_v;  M_v += W c_v   (comm)
+    V^t   = V^{t-1} + gamma (M_v - Q_v) + G^t - G^{t-1}
+    c_x   = C(X^{t-1} - Q_x^{t-1});  Q_x += c_x;  M_x += W c_x   (comm)
+    X^t   = X^{t-1} + gamma (M_x - Q_x) - eta V^t
+
+Lines 11-14 belong to the comm-round engine (:class:`CommRound`); this
+module owns the gradient oracle and the metrics.  Gradients come from
+``torch.func.grad_and_value`` under ``torch.func.vmap`` over the agent axis.
+Nothing is updated in place, so ``porter_init`` may alias buffers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.func import grad_and_value, vmap
+
+from ..tree import tree_leaves, tree_map
+from . import clipping
+from .comm_round import CommRound, resolve_engine
+from .compression import Compressor
+from .gossip import MixFn, make_dense_mixer
+
+__all__ = ["PorterConfig", "PorterState", "porter_init", "porter_step",
+           "average_params", "consensus_error"]
+
+LossFn = Callable[[Any, Any], torch.Tensor]  # (params, batch) -> scalar
+
+
+@dataclasses.dataclass(frozen=True)
+class PorterConfig:
+    """Hyper-parameters of Algorithm 1.
+
+    variant: 'dp' (clip-then-batch + Gaussian noise, Option I),
+             'gc' (batch-then-clip, Option II),
+             'beer' (no clipping -- the BEER ancestor, tau ignored).
+    """
+
+    eta: float
+    gamma: float
+    tau: float = 1.0
+    variant: str = "gc"
+    clip_mode: str = "smooth"
+    sigma_p: float = 0.0
+    grad_dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if self.variant not in ("dp", "gc", "beer"):
+            raise ValueError(f"unknown variant {self.variant!r}")
+
+
+class PorterState(NamedTuple):
+    x: Any
+    v: Any
+    q_x: Any
+    q_v: Any
+    g_prev: Any
+    m_x: Any
+    m_v: Any
+    step: int  # absolute round index (W_t selector once schedules land)
+
+
+def porter_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
+                buffer_dtype: Any = torch.float32) -> PorterState:
+    """Initialize from one replica on its device: X^0 = x0 1^T (line 2)."""
+    x = tree_map(lambda p: p.unsqueeze(0).expand((n_agents,) + tuple(p.shape))
+                 .clone(), params)
+    zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=buffer_dtype,
+                                              device=leaf.device), x)
+    # all agents are equal and rows of W sum to 1, so W X0 = X0
+    m_x = x if w is None else make_dense_mixer(w)(x)
+    return PorterState(x=x, v=zeros, q_x=x, q_v=zeros, g_prev=zeros,
+                       m_x=m_x, m_v=zeros, step=0)
+
+
+def _gradients(cfg: PorterConfig, loss_fn: LossFn, x, batch):
+    """Per-agent losses and clipped gradients (lines 5-10, noise aside)."""
+    if cfg.variant == "dp":
+        # Option I: clip each sample's gradient, then average
+        g, losses = vmap(lambda p, b: clipping.clipped_grad_accumulate(
+            loss_fn, p, b, cfg.tau, cfg.clip_mode))(x, batch)
+        return losses, g
+    # Option II / BEER: one batch gradient, clipped after (or not at all)
+    g, losses = vmap(grad_and_value(loss_fn))(x, batch)
+    if cfg.variant == "gc":
+        g = vmap(lambda t: clipping.tree_clip(t, cfg.tau, cfg.clip_mode))(g)
+    return losses, g
+
+
+def porter_step(
+    cfg: PorterConfig,
+    loss_fn: LossFn,
+    mixer: Optional[MixFn],
+    compressor: Optional[Compressor],
+    state: PorterState,
+    batch: Any,
+    gen: Optional[torch.Generator],
+    engine: Optional[CommRound] = None,
+    grad_override: Optional[Tuple[torch.Tensor, Any]] = None,
+    noise: Any = None,
+) -> Tuple[PorterState, Dict[str, torch.Tensor]]:
+    """One PORTER iteration over all agents.
+
+    batch: tree with leaves (n_agents, b, ...).  gen: the round's generator;
+    it is drawn from in a fixed order (DP noise, then the v-side and the
+    x-side compressors) in both the sequential and the overlap order.
+    grad_override: optional ``(losses, g)`` replacing the gradient oracle.
+    noise: optional tree shaped like the gradient, standing in for the
+    N(0, 1) draws of the DP perturbation (the parity tests inject the
+    reference's draws here).
+    """
+    eng = resolve_engine(engine, mixer, compressor)
+    n = tree_leaves(state.x)[0].shape[0]
+
+    # ---- stochastic gradients (local; lines 4-10) -------------------------
+    if grad_override is None:
+        losses, g = _gradients(cfg, loss_fn, state.x, batch)
+        if cfg.variant == "dp":
+            if noise is None:
+                noise = tree_map(lambda leaf: torch.randn(
+                    leaf.shape, generator=gen, dtype=leaf.dtype,
+                    device=leaf.device), g)
+            g = tree_map(lambda leaf, z: leaf + cfg.sigma_p * z, g, noise)
+    else:
+        losses, g = grad_override
+    g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)
+
+    # ---- comm rounds: track (lines 11-12) + step (lines 13-14) ------------
+    if eng.overlap:
+        # the x-side exchange reads only (x, q_x), which the v-side update
+        # never touches: both exchanges go first, same values, same draws
+        c_v, wc_v = eng.exchange(gen, state.v, state.q_v, t=state.step)
+        c_x, wc_x = eng.exchange(gen, state.x, state.q_x, t=state.step)
+        v, q_v, m_v = eng.track_update(c_v, wc_v, state.v, state.q_v,
+                                       state.m_v, g, state.g_prev, cfg.gamma)
+        x, q_x, m_x = eng.step_update(c_x, wc_x, state.x, state.q_x,
+                                      state.m_x, v, cfg.gamma, cfg.eta)
+    else:
+        v, q_v, m_v = eng.track(gen, state.v, state.q_v, state.m_v, g,
+                                state.g_prev, cfg.gamma, t=state.step)
+        x, q_x, m_x = eng.step(gen, state.x, state.q_x, state.m_x, v,
+                               cfg.gamma, cfg.eta, t=state.step)
+
+    new_state = PorterState(x=x, v=v, q_x=q_x, q_v=q_v, g_prev=g,
+                            m_x=m_x, m_v=m_v, step=state.step + 1)
+    device = losses.device
+    metrics = {
+        "loss": torch.mean(losses),
+        "consensus_x": consensus_error(x),
+        "consensus_v": consensus_error(v),
+        "v_norm": clipping.tree_global_norm(v) / math.sqrt(n),
+        # two compressed streams (Q_x and Q_v) per round; a fill, not a copy
+        # from the host, so the step never waits on the device
+        "wire_bytes": torch.full((), 2.0 * eng.wire_bytes(state.x),
+                                 dtype=torch.float32, device=device),
+    }
+    return new_state, metrics
+
+
+def average_params(x_stacked):
+    """x-bar: the average replica (the paper's evaluation point)."""
+    return tree_map(lambda leaf: torch.mean(leaf, dim=0), x_stacked)
+
+
+def consensus_error(tree) -> torch.Tensor:
+    """|| Y - y_bar 1^T ||_F^2 across all leaves."""
+    def leaf_err(leaf):
+        lf = leaf.to(torch.float32)
+        return torch.sum(torch.square(lf - lf.mean(dim=0, keepdim=True)))
+
+    return sum(leaf_err(leaf) for leaf in tree_leaves(tree))

@@ -1,0 +1,6 @@
+"""Data: synthetic datasets (numpy) and on-device batch sources."""
+
+from .batch_source import minibatch_source
+from .synthetic import a9a_like, mnist_like, shard_to_agents
+
+__all__ = ["a9a_like", "mnist_like", "shard_to_agents", "minibatch_source"]

@@ -1,0 +1,168 @@
+"""The port's facade, registry, data, model and weight bridge against the
+JAX reference.  Exact unless stated: specs, registrations, stepsizes and
+the synthetic data come from the same numpy code; the MLP's loss and
+gradient are f32 reductions, held at atol 1e-6."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.api as japi
+from repro.configs import paper_logreg as jlogreg
+from repro.configs import paper_mnist as jmnist
+from repro.data import synthetic as jsyn
+from repro.models import paper as jpaper
+from repro_torch import api as tapi
+from repro_torch import convert
+from repro_torch.configs import paper_logreg as tlogreg
+from repro_torch.configs import paper_mnist as tmnist
+from repro_torch.core import PorterState
+from repro_torch.data import minibatch_source
+from repro_torch.data import synthetic as tsyn
+from repro_torch.models import paper as tpaper
+
+torch.set_num_threads(1)
+
+SLICE = ("beer", "porter-dp", "porter-gc")
+
+
+def _loss(params, batch):
+    return torch.sum(params["w"]) * 0.0
+
+
+def test_spec_fields_and_defaults_follow_the_reference():
+    ref = {f.name: f.default for f in dataclasses.fields(japi.ExperimentSpec)}
+    for f in dataclasses.fields(tapi.ExperimentSpec):
+        assert f.name in ref, f.name
+        if f.name not in ("buffer_dtype", "compressor_kwargs"):
+            assert f.default == ref[f.name], f.name
+
+
+def test_registry_holds_the_slice():
+    assert tapi.list_algorithms() == SLICE
+    for name in SLICE:
+        got, want = tapi.algorithm_info(name), japi.algorithm_info(name)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for name in set(japi.list_algorithms()) - set(SLICE):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            tapi.build(tapi.ExperimentSpec(algo=name), _loss, device="cpu")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        tapi.algorithm_info("no-such-algo")
+
+
+@pytest.mark.parametrize("over", [dict(fleet=True),
+                                  dict(topology_schedule="static"),
+                                  dict(wire="packed_bits"),
+                                  dict(remat_policy="full"),
+                                  dict(gossip_mode="ring"),
+                                  dict(plane_dtype="bf16"),
+                                  dict(compressor="qsgd")])
+def test_options_of_later_slices_raise(over):
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tapi.build(tapi.ExperimentSpec(**over), _loss, device="cpu")
+
+
+@pytest.mark.parametrize("over", [dict(), dict(topology="ring"),
+                                  dict(compressor="random_k", frac=0.2),
+                                  dict(compressor="identity"),
+                                  dict(gamma=0.3), dict(gamma_scale=0.25)])
+def test_gamma_and_topology_resolve_as_the_reference(over):
+    kw = dict(dict(n_agents=10, topology="erdos_renyi",
+                   topology_weights="best_constant", topology_seed=1), **over)
+    got = tapi.build(tapi.ExperimentSpec(**kw), _loss, device="cpu")
+    want = japi.build(japi.ExperimentSpec(**kw), lambda p, b: 0.0)
+    assert got.gamma == want.gamma
+    np.testing.assert_array_equal(got.topology.w, want.topology.w)
+    assert got.compressor.rho == want.compressor.rho
+
+
+def test_porter_dp_rejects_unclipped_and_porter_gc_without_tau_is_beer():
+    with pytest.raises(ValueError, match="tau"):
+        tapi.build(tapi.ExperimentSpec(algo="porter-dp", tau=None), _loss,
+                   device="cpu")
+    algo = tapi.build(tapi.ExperimentSpec(tau=None), _loss, device="cpu")
+    assert algo.config.variant == "beer"
+
+
+def test_protocol_constants_equal_reference():
+    for name in ("N_AGENTS", "GRAPH", "DIM", "LAMBDA", "RHO", "TAU", "BATCH",
+                 "PRIVACY_LEVELS"):
+        assert getattr(tlogreg, name) == getattr(jlogreg, name), name
+    for name in ("INPUT_DIM", "HIDDEN", "CLASSES"):
+        assert getattr(tmnist, name) == getattr(jmnist, name), name
+
+
+def test_synthetic_data_is_bit_identical():
+    for fn, kw in ((tsyn.a9a_like, dict(num=3001, dim=123, seed=4)),
+                   (tsyn.mnist_like, dict(num=2001, seed=5))):
+        got = fn(**kw)
+        want = getattr(jsyn, fn.__name__)(**kw)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        xs, ys = tsyn.shard_to_agents(*got, 10, seed=6)
+        jxs, jys = jsyn.shard_to_agents(*want, 10, seed=6)
+        np.testing.assert_array_equal(xs, jxs)
+        np.testing.assert_array_equal(ys, jys)
+
+
+def test_minibatch_source_draws_per_agent_rows_from_the_generator():
+    xs = np.arange(10 * 50 * 3, dtype=np.float32).reshape(10, 50, 3)
+    ys = np.arange(10 * 50, dtype=np.float32).reshape(10, 50)
+    source = minibatch_source(xs, ys, batch=8, device="cpu")
+    f, l = source(torch.Generator().manual_seed(0), 0)
+    assert f.shape == (10, 8, 3) and l.shape == (10, 8)
+    # every agent draws only from its own shard, and rows stay paired
+    assert torch.all((l // 50) == torch.arange(10)[:, None])
+    assert torch.equal(f[..., 0], 3 * l)
+    again, _ = source(torch.Generator().manual_seed(0), 1)
+    other, _ = source(torch.Generator().manual_seed(1), 0)
+    assert torch.equal(f, again) and not torch.equal(f, other)
+
+
+def test_mlp_loss_and_gradient_equal_reference():
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jpaper.mlp_init(jax.random.PRNGKey(3)))
+    rng = np.random.default_rng(7)
+    batch = (rng.random((16, 784)).astype(np.float32),
+             rng.integers(0, 10, 16).astype(np.int32))
+    want_loss, want_g = jax.value_and_grad(jpaper.mlp_loss())(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, batch))
+    tp = {k: v.requires_grad_(True)
+          for k, v in convert.to_torch(params, "cpu").items()}
+    loss = tpaper.mlp_loss()(tp, convert.to_torch(batch, "cpu"))
+    grads = torch.autograd.grad(loss, list(tp.values()))
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=0,
+                               atol=1e-6)
+    for k, g in zip(tp, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want_g[k]), rtol=0,
+                                   atol=1e-6, err_msg=k)
+
+
+def test_mlp_init_shapes_follow_the_reference():
+    got = tpaper.mlp_init(seed=0, device="cpu")
+    want = jpaper.mlp_init()
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
+    assert all(v.dtype == torch.float32 for v in got.values())
+    assert float(got["c1"].abs().max()) == 0.0
+
+
+def test_convert_round_trips_state_exactly():
+    rng = np.random.default_rng(9)
+    tree = {"w": rng.standard_normal((10, 123)).astype(np.float32),
+            "b": rng.standard_normal(10).astype(np.float32)}
+    ref_state = PorterState(*(dict(tree) for _ in range(7)),
+                            step=np.int32(17))
+    state = convert.state_to_torch(ref_state, "cpu")
+    assert isinstance(state, PorterState) and state.step == 17
+    back = convert.state_to_numpy(state)
+    for field in PorterState._fields[:-1]:
+        for k in tree:
+            np.testing.assert_array_equal(getattr(back, field)[k], tree[k])
+    assert back.step == np.int32(17)

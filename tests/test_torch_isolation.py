@@ -1,0 +1,91 @@
+"""The port stands alone: no module of ``repro_torch``, and not
+``chip_smoke.py``, imports JAX or the JAX package, and its entry points
+target the card unless the caller asks for the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.kernels import ops
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_jax_or_the_reference(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 25
+
+
+def _logreg_loss(params, batch):
+    f, l = batch
+    logits = f @ params["w"] + params["b"]
+    return torch.mean(torch.log1p(torch.exp(-(2 * l - 1) * logits)))
+
+
+def test_build_targets_cuda_unless_asked():
+    algo = api.build(api.ExperimentSpec(), _logreg_loss)
+    assert algo.device == torch.device("cuda")
+    params = {"w": np.zeros(123, np.float32), "b": np.float32(0.0)}
+    if torch.cuda.is_available():
+        assert algo.init(params).x["w"].is_cuda
+        return
+    # no card here: the first tensor op raises instead of running on the CPU
+    with pytest.raises((RuntimeError, AssertionError)):
+        algo.init(params)
+    cpu = api.build(api.ExperimentSpec(), _logreg_loss, device="cpu")
+    assert cpu.init(params).x["w"].device.type == "cpu"
+
+
+def test_kernel_backend_on_cpu_tensors_launches_nothing():
+    """The comm round's 'kernel' backend on CPU tensors runs the kernels'
+    plain versions over the flat planes and counts no launch."""
+    ops.reset_launches()
+    algo = api.build(api.ExperimentSpec(comm_backend="kernel"), _logreg_loss,
+                     device="cpu")
+    state = algo.init({"w": torch.zeros(123), "b": torch.zeros(())})
+    batch = (torch.ones(10, 4, 123), torch.ones(10, 4))
+    algo.step(state, batch, None)
+    assert ops.LAUNCHES == {"ef_track": 0, "ef_step": 0}
