@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit (``nvcc``) and PyTorch built for CUDA.  It imports nothing of JAX or
-of the ``repro`` package.  Phases, each printing its own line:
+of the ``repro`` package.  Phases, each printing its own lines:
 
 0. device: the card's name and power limit (``nvidia-smi``), versions, TF32.
 1. build: compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc`` into
-   ``build/kernels/``.
-2. kernels: ``ef_track`` / ``ef_step`` against their plain PyTorch versions
-   on the card, bitwise, at the main-path plane sizes and at 2^24 elements,
-   timed with CUDA events beside their bandwidth bound.
+   ``build/kernels/``, one process per source, all at once.
+2. kernels: ``ef_track`` / ``ef_step`` / ``ef_gossip`` (all-f32, and the
+   bf16-operand / f32-output mixes the engine issues under bf16 planes) and
+   ``sr_cast`` against their plain PyTorch versions on the card, bitwise,
+   at the main-path plane sizes and at 2^24 elements, timed with CUDA
+   events beside their bandwidth bound.
 3. the Section-5.1 quickstart (PORTER-GC, logistic regression, 10 agents,
-   ER(0.8), top-k 5 %) for 400 rounds through ``build`` + ``run_chunked``:
-   the ``gn < 0.1`` gate, and 400 launches of each kernel.
+   ER(0.8), top-k 5 %) for 400 rounds through ``build`` + ``run_chunked``,
+   with f32 and with bf16 EF planes: the ``gn < 0.1`` gate, the bf16 final
+   loss within 0.02 of the f32 one, and each kernel's launches.
 4. the Section-5.2 MLP at full width (784 -> 64 -> 10): PORTER-GC for 200
    rounds on the kernel and on the ref backend from one seed (they must
-   agree), then PORTER-DP for 50 rounds.
+   agree), in f32 and with bf16 planes (half the EF bytes); PORTER-DP;
+   CHOCO-SGD in f32 and bf16 (``ef_gossip``); DSGD, DP-SGD and SoteriaFL.
 
-Any failure raises and exits non-zero.  The line before the last is the
-kernels' JSON record; the last line is the device record.
+Every path is driven with the launch counts set to 0 just before it and
+read just after.  Any failure raises and exits non-zero.  The line before
+the last is the kernels' JSON record; the last line is the device record.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -34,6 +40,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 (non-tensor) rate
 HBM_BYTES_PER_S = 3.35e12
@@ -44,14 +51,43 @@ PLANES = {"mlp": 10 * 7 * TILE,      # Section-5.2 MLP: d=50,890 -> 7 tiles
           "logreg": 10 * 1 * TILE,   # Section-5.1 logreg: d=124 -> 1 tile
           "2^24": 1 << 24}
 MAIN_PLANE = "mlp"
-KERNELS = {
-    # operands read, outputs written, f32 operations per element
-    "ef_track": dict(reads=7, writes=3, ops=7,
-                     replaces="src/repro/kernels/ef_update.py:69"),
-    "ef_step": dict(reads=6, writes=3, ops=6,
-                    replaces="src/repro/kernels/ef_update.py:96"),
+GAMMA, ETA, SCALE = 0.0142897, 0.05, 1.0
+# Each variant: its kernel, the dtypes of the EF operands and of slot 2
+# (v / x / y), whether it writes f32, and per element the bytes it must
+# move (each operand read once, each output written once) and its
+# arithmetic operations.  The bf16 mixes are the ones the engine issues
+# under bf16 planes: bf16 EF operands, f32 outputs for the SR writeback.
+VARIANTS = {
+    "ef_track": dict(kernel="ef_track", n_in=7, ef="f32", y="f32",
+                     out_f32=False, bytes=40, ops=7),
+    "ef_step": dict(kernel="ef_step", n_in=6, ef="f32", y="f32",
+                    out_f32=False, bytes=36, ops=7),
+    "ef_gossip": dict(kernel="ef_gossip", n_in=5, ef="f32", y="f32",
+                      out_f32=False, bytes=32, ops=7),
+    "ef_track_bf16": dict(kernel="ef_track", n_in=7, ef="bf16", y="bf16",
+                          out_f32=True, bytes=7 * 2 + 3 * 4, ops=7),
+    "ef_step_bf16": dict(kernel="ef_step", n_in=6, ef="bf16", y="f32",
+                         out_f32=True, bytes=5 * 2 + 4 + 3 * 4, ops=7),
+    "ef_gossip_bf16": dict(kernel="ef_gossip", n_in=5, ef="bf16", y="f32",
+                           out_f32=True, bytes=4 * 2 + 4 + 3 * 4, ops=7),
+    # f32 in, int32 random words in (low 16 bits used), bf16 out; an and,
+    # an add and a shift, counted at the f32 rate
+    "sr_cast": dict(kernel="sr_cast", bytes=4 + 4 + 2, ops=3),
 }
-GAMMA, ETA = 0.0142897, 0.05
+KERNELS = {
+    "ef_track": dict(source="src/repro_torch/csrc/ef_update.cu",
+                     replaces="src/repro/kernels/ef_update.py:69",
+                     variant="ef_track"),
+    "ef_step": dict(source="src/repro_torch/csrc/ef_update.cu",
+                    replaces="src/repro/kernels/ef_update.py:96",
+                    variant="ef_step"),
+    "ef_gossip": dict(source="src/repro_torch/csrc/ef_update.cu",
+                      replaces="src/repro/kernels/ef_update.py:130",
+                      variant="ef_gossip"),
+    "sr_cast": dict(source="src/repro_torch/csrc/sr_cast.cu",
+                    replaces="src/repro/kernels/sr_cast.py:65",
+                    variant="sr_cast"),
+}
 # bytes of operands rotated through per timing, twice the H100's 50 MB L2
 L2_FLUSH_BYTES = 100 * 2**20
 
@@ -96,43 +132,73 @@ def device_time_ms(fn, arg_sets, reps: int = 50, inner: int = 20) -> float:
     return statistics.median(samples)
 
 
-def bound_ms(name: str, n: int):
+def bound_ms(variant: str, n: int):
     """Least time for the card: bytes over HBM bandwidth vs operations over
     the f32 rate; returns (ms, 'bytes' | 'operations')."""
-    k = KERNELS[name]
-    t_bytes = (k["reads"] + k["writes"]) * 4 * n / HBM_BYTES_PER_S
-    t_ops = k["ops"] * n / F32_OPS_PER_S
+    v = VARIANTS[variant]
+    t_bytes = v["bytes"] * n / HBM_BYTES_PER_S
+    t_ops = v["ops"] * n / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def bit_equal(torch, a, b) -> bool:
+    """Same dtype and the same bits (``torch.equal`` would let -0.0 pass
+    for 0.0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.view(as_int), b.view(as_int))
+
+
+def _variant_fns(torch, ops, ref, name):
+    """(kernel call, plain call, operand maker) of one variant."""
+    v = VARIANTS[name]
+    if name == "sr_cast":
+        def make(gen, n):
+            x = torch.randn(n // TILE, TILE, generator=gen, device=DEVICE)
+            bits = torch.randint(-(2**31), 2**31 - 1, x.shape, generator=gen,
+                                 device=DEVICE, dtype=torch.int32)
+            return [x, bits]
+        return ((lambda *a: (ops.sr_cast(*a),)),
+                (lambda *a: (ref.sr_cast_ref(*a),)), make)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    scalars = {"ef_track": (GAMMA,), "ef_step": (GAMMA, ETA),
+               "ef_gossip": (GAMMA, SCALE)}[v["kernel"]]
+    od = torch.float32 if v["out_f32"] else None
+    kern, plain = getattr(ops, v["kernel"]), getattr(ref, v["kernel"] + "_ref")
+
+    def make(gen, n):
+        return [torch.randn(n // TILE, TILE, generator=gen, device=DEVICE)
+                .to(dt[v["y"] if i == 2 else v["ef"]])
+                for i in range(v["n_in"])]
+    return ((lambda *a: kern(*a, *scalars, out_dtype=od)),
+            (lambda *a: plain(*a, *scalars, out_dtype=od)), make)
+
+
 def phase_kernels(torch, ops, ref):
-    """Each kernel against its plain version at every plane size.
+    """Each kernel variant against its plain version at every plane size.
 
     ``ms`` is timed cold: the calls rotate through enough operand sets that
     each call's bytes come from device memory, not from the 50 MB L2 (what
     the HBM bound assumes); ``ms_warm`` repeats one set, whose operands stay
     in L2 when they fit.
     """
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    fns = {"ef_track": (lambda *a: ops.ef_track(*a, GAMMA),
-                        lambda *a: ref.ef_track_ref(*a, GAMMA)),
-           "ef_step": (lambda *a: ops.ef_step(*a, GAMMA, ETA),
-                       lambda *a: ref.ef_step_ref(*a, GAMMA, ETA))}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     table = {}
     for size_name, n in PLANES.items():
-        for name, (kern, plain) in fns.items():
-            k = KERNELS[name]
-            per_call = (k["reads"] + k["writes"]) * 4 * n
+        for name in VARIANTS:
+            kern, plain, make = _variant_fns(torch, ops, ref, name)
+            per_call = VARIANTS[name]["bytes"] * n
             n_sets = -(-L2_FLUSH_BYTES // per_call) + 1
-            sets = [[torch.randn(n // TILE, TILE, generator=gen,
-                                 device="cuda") for _ in range(k["reads"])]
-                    for _ in range(n_sets)]
+            sets = [make(gen, n) for _ in range(n_sets)]
             k_out, p_out = kern(*sets[0]), plain(*sets[0])
             torch.cuda.synchronize()
-            equal = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
-            err = max(float((a - b).abs().max()) for a, b in zip(k_out, p_out))
+            equal = all(bit_equal(torch, a, b) for a, b in zip(k_out, p_out))
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(k_out, p_out))
             row = dict(elements=n, equal=equal, max_abs_err=err,
+                       out_dtypes=[str(a.dtype) for a in k_out],
                        ms=device_time_ms(kern, sets),
                        ms_warm=device_time_ms(kern, sets[:1]),
                        plain_ms=device_time_ms(plain, sets),
@@ -140,10 +206,12 @@ def phase_kernels(torch, ops, ref):
             row["bound_ms"], row["bound_by"] = bound_ms(name, n)
             table[(name, size_name)] = row
             print(f"[kernels] {name} {size_name} n={n} bitwise={equal} "
-                  f"max_abs_err={err} ms={row['ms']} "
-                  f"ms_warm={row['ms_warm']} plain_ms={row['plain_ms']} "
+                  f"max_abs_err={err} out={row['out_dtypes']} "
+                  f"ms={row['ms']} ms_warm={row['ms_warm']} "
+                  f"plain_ms={row['plain_ms']} "
                   f"plain_ms_warm={row['plain_ms_warm']} "
-                  f"bound_ms={row['bound_ms']} ({row['bound_by']})")
+                  f"bound_ms={row['bound_ms']} ({row['bound_by']}, "
+                  f"{VARIANTS[name]['bytes']} B/element)")
             if not equal:
                 raise AssertionError(f"{name} differs from its plain version "
                                      f"at {size_name}: max |diff| {err}")
@@ -172,6 +240,23 @@ def run_timed(torch, run_chunked, algo, source, state, seed, steps, chunk):
     return state, torch.cat(losses).tolist(), 1e3 * (w1 - w0) / (r1 - r0)
 
 
+def run_counted(torch, ops, runtime, algo, source, state, steps, chunk,
+                seed=0):
+    """``run_timed`` with every launch count set to 0 just before and read
+    just after; returns (state, losses, ms/round, launches)."""
+    ops.reset_launches()
+    state, losses, ms = run_timed(torch, runtime.run_chunked, algo, source,
+                                  state, seed, steps, chunk)
+    return state, losses, ms, dict(ops.LAUNCHES)
+
+
+def expect_launches(label, got, **want):
+    """Every kernel's count must be ``want`` (0 where not named)."""
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, expected {full}")
+
+
 def profile_rounds(torch, runtime, algo, source, state, rounds, label):
     """Device busy share and kernel breakdown of ``rounds`` rounds, under
     ``torch.profiler`` (which itself slows the host side)."""
@@ -194,110 +279,237 @@ def profile_rounds(torch, runtime, algo, source, state, rounds, label):
         return
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    ours = [e for e in kernels
+            if "ef_kernel" in e.key or "sr_kernel" in e.key]
     print(f"[profile] {label}: {rounds} rounds, wall {wall_us / rounds:.1f} "
           f"us/round, device busy {busy_us / rounds:.1f} us/round "
           f"({100 * busy_us / wall_us:.2f} %), {launches / rounds:.1f} "
           "kernel launches/round; top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / rounds:.1f} us "
               f"x{e.count / rounds:.1f}" for e in top))
+    print(f"[profile] {label}: the port's kernels "
+          f"{sum(e.self_device_time_total for e in ours) / rounds:.2f} "
+          "us/round: " + ("; ".join(
+              f"{e.key.replace('(anonymous namespace)::', '')[:72]} "
+              f"{e.self_device_time_total / e.count:.2f} us x"
+              f"{e.count / rounds:.1f}" for e in ours) or "none"))
 
 
-def phase_quickstart(torch, ops, api, data, runtime, average_params):
-    """Section-5.1 protocol, as examples/quickstart.py runs it."""
+def finite(values) -> bool:
+    return all(math.isfinite(v) for v in values)
+
+
+def phase_quickstart(torch, ops, api, data, runtime, average_params,
+                     rounds=400):
+    """Section-5.1 protocol, as examples/quickstart.py runs it, with f32 and
+    with bf16 EF planes."""
     x, y = data.a9a_like(num=20000, dim=123, seed=0)
     xs, ys = data.shard_to_agents(x, y, 10)
-    source = data.minibatch_source(xs, ys, batch=8)
+    source = data.minibatch_source(xs, ys, batch=8, device=DEVICE)
     spec = api.ExperimentSpec(algo="porter-gc", n_agents=10,
                               topology="erdos_renyi",
                               topology_weights="best_constant",
                               topology_p=0.8, topology_seed=1,
                               compressor="top_k", frac=0.05, eta=0.05,
                               tau=1.0)
-    algo = api.build(spec, logreg_loss)
-    state = algo.init({"w": torch.zeros(123), "b": torch.zeros(())})
-    ops.reset_launches()
-    state, losses, ms = run_timed(torch, runtime.run_chunked, algo, source,
-                                  state, 0, 400, 50)
-    launches = dict(ops.LAUNCHES)
-    full = (torch.as_tensor(xs.reshape(-1, 123), device="cuda"),
-            torch.as_tensor(ys.reshape(-1), device="cuda"))
-    gn = grad_norm(logreg_loss, average_params(state.x), full)
-    print(f"[quickstart] porter-gc 400 rounds: loss {losses[0]:.6f} -> "
-          f"{losses[-1]:.6f}, gn {gn:.6f}, {ms:.4f} ms/round, "
-          f"launches {launches}")
-    if not gn < 0.1:
-        raise AssertionError(f"quickstart gate failed: gn = {gn}")
-    if launches != {"ef_track": 400, "ef_step": 400}:
-        raise AssertionError(f"expected 400 launches of each kernel, got "
-                             f"{launches}")
-    profile_rounds(torch, runtime, algo, source, state, 20, "quickstart")
+    full = (torch.as_tensor(xs.reshape(-1, 123), device=DEVICE),
+            torch.as_tensor(ys.reshape(-1), device=DEVICE))
+    final = {}
+    for plane in (None, "bf16"):
+        algo = api.build(spec.replace(plane_dtype=plane), logreg_loss,
+                         device=DEVICE)
+        state = algo.init({"w": torch.zeros(123), "b": torch.zeros(())})
+        state, losses, ms, launches = run_counted(
+            torch, ops, runtime, algo, source, state, rounds, 50)
+        avg = average_params(state.x)
+        gn = grad_norm(logreg_loss, avg, full)
+        full_loss = float(logreg_loss(avg, full))
+        label = plane or "f32"
+        final[label] = losses[-1]
+        print(f"[quickstart] porter-gc {label} {rounds} rounds: loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}, full-data loss at "
+              f"x-bar {full_loss:.6f}, gn {gn:.6f}, {ms:.4f} ms/round, "
+              f"launches {launches}")
+        if not gn < 0.1:
+            raise AssertionError(f"quickstart {label} gate failed: gn = {gn}")
+        if plane is None:
+            expect_launches("quickstart f32", launches, ef_track=rounds,
+                            ef_step=rounds)
+            profile_rounds(torch, runtime, algo, source, state, 20,
+                           "quickstart")
+        else:
+            # 3 bf16-bound outputs of ef_track + 2 of ef_step each round
+            expect_launches("quickstart bf16", launches, ef_track=rounds,
+                            ef_step=rounds, sr_cast=5 * rounds)
+    gap = abs(final["f32"] - final["bf16"])
+    print(f"[quickstart] final loss f32 {final['f32']:.6f} bf16 "
+          f"{final['bf16']:.6f}: gap {gap:.6f} (gate 0.02)")
+    if not gap <= 0.02:
+        raise AssertionError(f"bf16 final loss is {gap} from f32's")
 
 
-def phase_mlp(torch, ops, api, data, runtime, paper, num=60000, rounds=200,
-              dp_rounds=50):
-    """Section-5.2 MLP at full width: kernel vs ref backend, then DP."""
+def _mlp_problem(api, data, paper, num):
     x, y = data.mnist_like(num=num, seed=0)
     xs, ys = data.shard_to_agents(x, y, 10)
-    source = data.minibatch_source(xs, ys, batch=8)
+    source = data.minibatch_source(xs, ys, batch=8, device=DEVICE)
     base = api.ExperimentSpec(algo="porter-gc", n_agents=10,
                               topology="erdos_renyi",
                               topology_weights="best_constant",
                               topology_p=0.8, topology_seed=1,
                               compressor="top_k", frac=0.05, eta=0.2,
                               tau=1.0)
-    loss_fn = paper.mlp_loss()
-    out = {}
-    for backend in ("kernel", "ref"):
-        algo = api.build(base.replace(comm_backend=backend), loss_fn)
-        state = algo.init(paper.mlp_init(seed=0))
-        ops.reset_launches()
-        state, losses, ms = run_timed(torch, runtime.run_chunked, algo,
-                                      source, state, 0, rounds, 50)
-        out[backend] = (state, losses, ms, dict(ops.LAUNCHES))
-        print(f"[mlp] porter-gc {backend} {rounds} rounds: loss "
-              f"{losses[0]:.6f} -> {losses[-1]:.6f}, {ms:.4f} ms/round, "
-              f"launches {out[backend][3]}")
-    (s_k, l_k, _, n_k), (s_r, _, _, n_r) = out["kernel"], out["ref"]
-    diff = max(float((s_k.x[k] - s_r.x[k]).abs().max()) for k in s_k.x)
-    print(f"[mlp] kernel vs ref backend: max |x diff| {diff}")
-    if not diff <= 1e-6:
-        raise AssertionError(f"kernel and ref trajectories differ: {diff}")
-    if n_k != {"ef_track": rounds, "ef_step": rounds}:
-        raise AssertionError(f"kernel backend launches: {n_k}")
-    if n_r != {"ef_track": 0, "ef_step": 0}:
-        raise AssertionError(f"ref backend launched kernels: {n_r}")
-    first, last = statistics.mean(l_k[:20]), statistics.mean(l_k[-20:])
+    return source, base, paper.mlp_loss()
+
+
+def _build(api, spec, loss_fn):
+    return api.build(spec, loss_fn, device=DEVICE)
+
+
+def _init(algo, paper):
+    return algo.init(paper.mlp_init(seed=0, device=DEVICE))
+
+
+def _falls(label, losses, window=20):
+    first = statistics.mean(losses[:window])
+    last = statistics.mean(losses[-window:])
     if not last < first:
-        raise AssertionError(f"MLP loss did not fall: {first} -> {last}")
+        raise AssertionError(f"{label}: loss did not fall: {first} -> {last}")
 
-    # the timing turns run the other way round (kernel, ref, ref, kernel),
-    # then one profiled window per backend
-    ms_per_round = {b: [out[b][2]] for b in out}
-    for backend in ("ref", "kernel"):
-        algo = api.build(base.replace(comm_backend=backend), loss_fn)
+
+EF_FIELDS = ("v", "q_x", "q_v", "g_prev", "m_x", "m_v")
+
+
+def ef_nbytes(state, tree_leaves) -> int:
+    return sum(leaf.nbytes for f in EF_FIELDS
+               for leaf in tree_leaves(getattr(state, f)))
+
+
+def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
+              rounds=200, dp_rounds=50):
+    """Section-5.2 MLP at full width: PORTER-GC kernel vs ref backend in f32
+    and with bf16 planes, their ms/round in turns, then PORTER-DP."""
+    source, base, loss_fn = _mlp_problem(api, data, paper, num)
+    runs = {}
+    for plane in (None, "bf16"):
+        label = plane or "f32"
+        for backend in ("kernel", "ref"):
+            algo = _build(api, base.replace(comm_backend=backend,
+                                          plane_dtype=plane), loss_fn)
+            runs[(label, backend)] = run_counted(
+                torch, ops, runtime, algo, source,
+                _init(algo, paper), rounds, 50)
+            _, losses, ms, launches = runs[(label, backend)]
+            print(f"[mlp] porter-gc {label} {backend} {rounds} rounds: loss "
+                  f"{losses[0]:.6f} -> {losses[-1]:.6f}, {ms:.4f} ms/round, "
+                  f"launches {launches}")
+        (s_k, l_k, _, n_k), (s_r, _, _, n_r) = (runs[(label, "kernel")],
+                                                runs[(label, "ref")])
+        diff = max(float((s_k.x[k] - s_r.x[k]).abs().max()) for k in s_k.x)
+        same = all(bit_equal(torch, s_k.x[k], s_r.x[k]) for k in s_k.x)
+        print(f"[mlp] {label} kernel vs ref backend: x bitwise equal {same}, "
+              f"max |x diff| {diff}")
+        if plane is None:
+            if not diff <= 1e-6:
+                raise AssertionError(f"kernel and ref trajectories differ: "
+                                     f"{diff}")
+            expect_launches("mlp f32 kernel", n_k, ef_track=rounds,
+                            ef_step=rounds)
+        else:
+            # both backends read the same plane of SR words per output
+            if not same:
+                raise AssertionError(f"bf16 kernel and ref trajectories "
+                                     f"differ: {diff}")
+            expect_launches("mlp bf16 kernel", n_k, ef_track=rounds,
+                            ef_step=rounds, sr_cast=5 * rounds)
+        expect_launches(f"mlp {label} ref", n_r)
+        _falls(f"mlp porter-gc {label}", l_k)
+
+    s32, s16 = runs[("f32", "kernel")][0], runs[("bf16", "kernel")][0]
+    b32, b16 = ef_nbytes(s32, tree_leaves), ef_nbytes(s16, tree_leaves)
+    dtypes = sorted({str(leaf.dtype) for f in EF_FIELDS
+                     for leaf in tree_leaves(getattr(s16, f))})
+    print(f"[mlp] resident EF bytes (six buffers, tensor.nbytes): f32 {b32}, "
+          f"bf16 {b16} {dtypes}, x {sorted({str(v.dtype) for v in s16.x.values()})}, "
+          f"ratio {b32 / b16}")
+    if b32 != 2 * b16:
+        raise AssertionError(f"bf16 EF bytes {b16} are not half of {b32}")
+
+    # the timing turns, after the four runs above (f32 kernel, f32 ref, bf16
+    # kernel, bf16 ref): the f32 backends run kernel, ref, ref, kernel, and
+    # counting those four runs the kernel backend's planes run f32, bf16,
+    # f32, bf16, f32, f32, bf16, bf16, f32; then one profiled window each
+    ms_per_round = {f"{plane} {backend}": [runs[(plane, backend)][2]]
+                    for plane, backend in runs}
+    turns = ["f32 ref", "f32 kernel", "bf16 kernel", "f32 kernel",
+             "f32 kernel", "bf16 kernel", "bf16 kernel", "f32 kernel"]
+    for label in turns:
+        plane, backend = label.split()
+        algo = _build(api, base.replace(
+            comm_backend=backend,
+            plane_dtype=None if plane == "f32" else plane), loss_fn)
         _, _, ms = run_timed(torch, runtime.run_chunked, algo, source,
-                             algo.init(paper.mlp_init(seed=0)), 0, rounds, 50)
-        ms_per_round[backend].append(ms)
-    print(f"[mlp] ms/round in turns (kernel, ref, ref, kernel): "
+                             _init(algo, paper), 0, rounds, 50)
+        ms_per_round[label].append(ms)
+    print(f"[mlp] ms/round per run, in run order within each label: "
           f"{ms_per_round}")
-    for backend in ("kernel", "ref"):
-        algo = api.build(base.replace(comm_backend=backend), loss_fn)
+    for label, backend, plane in (("kernel", "kernel", None),
+                                  ("ref", "ref", None),
+                                  ("bf16 kernel", "kernel", "bf16")):
+        algo = _build(api, base.replace(comm_backend=backend,
+                                      plane_dtype=plane), loss_fn)
         profile_rounds(torch, runtime, algo, source,
-                       algo.init(paper.mlp_init(seed=0)), 20, backend)
+                       _init(algo, paper), 20, label)
 
-    algo = api.build(base.replace(algo="porter-dp", sigma_p=0.01), loss_fn)
-    state = algo.init(paper.mlp_init(seed=0))
-    ops.reset_launches()
-    state, losses, ms = run_timed(torch, runtime.run_chunked, algo, source,
-                                  state, 0, dp_rounds, dp_rounds // 2)
-    dp_launches = dict(ops.LAUNCHES)
+    algo = _build(api, base.replace(algo="porter-dp", sigma_p=0.01), loss_fn)
+    _, losses, ms, dp_launches = run_counted(
+        torch, ops, runtime, algo, source, _init(algo, paper),
+        dp_rounds, dp_rounds // 2)
     print(f"[mlp] porter-dp {dp_rounds} rounds: loss {losses[0]:.6f} -> "
           f"{losses[-1]:.6f}, {ms:.4f} ms/round, launches {dp_launches}")
-    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+    if not finite(losses):
         raise AssertionError("porter-dp loss is not finite")
-    if dp_launches != {"ef_track": dp_rounds, "ef_step": dp_rounds}:
-        raise AssertionError(f"porter-dp launches: {dp_launches}")
-    return n_k, ms_per_round
+    expect_launches("porter-dp", dp_launches, ef_track=dp_rounds,
+                    ef_step=dp_rounds)
+    return runs, ms_per_round
+
+
+def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
+                    rounds=200, short=50):
+    """The paper's baselines on the full-width MLP: CHOCO-SGD (the
+    ``ef_gossip`` path) in f32 and bf16, then DSGD, DP-SGD and SoteriaFL."""
+    source, base, loss_fn = _mlp_problem(api, data, paper, num)
+    choco = {}
+    for plane in (None, "bf16"):
+        label = plane or "f32"
+        algo = _build(api, base.replace(algo="choco", plane_dtype=plane),
+                         loss_fn)
+        state, losses, ms, launches = run_counted(
+            torch, ops, runtime, algo, source,
+            _init(algo, paper), rounds, 50)
+        choco[label] = launches
+        print(f"[choco] {label} {rounds} rounds: loss {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}, {ms:.4f} ms/round, q {state.q['w1'].dtype}, "
+              f"x {state.x['w1'].dtype}, launches {launches}")
+        # the two bf16-bound outputs (q, m) of each round take sr_cast
+        expect_launches(f"choco {label}", launches, ef_gossip=rounds,
+                        sr_cast=2 * rounds if plane else 0)
+        _falls(f"choco {label}", losses)
+    for algo_name, plane, over in (("dsgd", None, {}),
+                                   ("dp-sgd", None, dict(sigma_p=0.01)),
+                                   ("soteriafl", None, dict(sigma_p=0.01)),
+                                   ("soteriafl", "bf16", dict(sigma_p=0.01))):
+        algo = _build(api, base.replace(algo=algo_name, plane_dtype=plane,
+                                      **over), loss_fn)
+        _, losses, ms, launches = run_counted(
+            torch, ops, runtime, algo, source,
+            _init(algo, paper), short, short // 2)
+        print(f"[baselines] {algo_name} {plane or 'f32'} {short} rounds: loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}, {ms:.4f} ms/round, "
+              f"launches {launches}")
+        if not finite(losses):
+            raise AssertionError(f"{algo_name} loss is not finite")
+        expect_launches(algo_name, launches)
+    return choco
 
 
 def main() -> int:
@@ -312,6 +524,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import runtime
     from repro_torch.models import paper
+    from repro_torch.tree import tree_leaves
 
     # phase 0: device
     smi = subprocess.run(
@@ -336,21 +549,32 @@ def main() -> int:
     # phase 3: Section-5.1 quickstart through the port's entry points
     phase_quickstart(torch, ops, api, data, runtime, average_params)
 
-    # phase 4: Section-5.2 MLP at full width (the main path's launches)
-    launches, ms_per_round = phase_mlp(torch, ops, api, data, runtime, paper)
-    print(f"[mlp] median ms/round: " + ", ".join(
+    # phase 4: Section-5.2 MLP at full width (the main paths' launches)
+    runs, ms_per_round = phase_mlp(torch, ops, api, data, runtime, paper,
+                                   tree_leaves)
+    print("[mlp] median ms/round: " + ", ".join(
         f"{b} {statistics.median(v):.4f}" for b, v in ms_per_round.items()))
+    choco = phase_baselines(torch, ops, api, data, runtime, paper)
 
+    # each kernel's launches on the path that carries its timed variant:
+    # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
+    # PORTER-GC (sr_cast), all on the MLP
+    launches = dict(runs[("f32", "kernel")][3])
+    launches["ef_gossip"] = choco["f32"]["ef_gossip"]
+    launches["sr_cast"] = runs[("bf16", "kernel")][3]["sr_cast"]
     record = []
-    for name in KERNELS:
-        row = table[(name, MAIN_PLANE)]
+    for name, k in KERNELS.items():
+        row = table[(k["variant"], MAIN_PLANE)]
         record.append(dict(
-            name=name, ok=row["equal"], route="cuda",
-            source="src/repro_torch/csrc/ef_update.cu",
-            replaces=KERNELS[name]["replaces"], launches=launches[name],
+            name=name, ok=row["equal"], route="cuda", source=k["source"],
+            replaces=k["replaces"], launches=launches[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None))
+            bound_by=row["bound_by"], library_ms=None,
+            bf16_variant=({"ms": table[(name + "_bf16", MAIN_PLANE)]["ms"],
+                           "bound_ms": table[(name + "_bf16",
+                                              MAIN_PLANE)]["bound_ms"]}
+                          if name + "_bf16" in VARIANTS else None)))
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,9 +20,11 @@ with ``alpha`` the topology's mixing rate and ``rho`` the compressor's
 contraction factor.  It targets ``torch.device("cuda")`` unless the caller
 passes ``device=``; nothing here probes for a card and moves to the CPU.
 
-Registered here: ``porter-gc``, ``porter-dp`` and ``beer``.  The spec keeps
-the reference's field names; a value this slice does not run raises and
-names the ROADMAP item that ports it.
+Registered here: ``porter-gc``, ``porter-dp``, ``beer``, and the paper's
+baselines ``dsgd``, ``choco``, ``dp-sgd`` and ``soteriafl``.
+``plane_dtype="bf16"`` keeps the EF buffers in bf16 (the master params stay
+f32).  The spec keeps the reference's field names; a value this slice does
+not run raises and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from .core import baselines as BL
 from .core.beer import beer_config
 from .core.comm_round import CommRound
 from .core.compression import Compressor, make_compressor
@@ -41,7 +44,7 @@ from .core.mixing import Topology, make_topology
 from .core.porter import PorterConfig, PorterState, porter_init, porter_step
 from .core.registry import (Algorithm, AlgorithmInfo, algorithm_info,
                             get_factory, list_algorithms, register_algorithm)
-from .tree import tree_map
+from .tree import tree_leaves, tree_map
 
 __all__ = ["ExperimentSpec", "build", "build_engine", "resolve_topology",
            "resolve_compressor", "resolve_gamma", "resolve_plane_dtype",
@@ -53,10 +56,6 @@ _FRAC_COMPRESSORS = ("top_k", "block_top_k", "random_k")
 # registered in the reference, ported by a later slice
 _LATER_ALGOS = {
     "porter-adam": "ROADMAP queue 1 item 8",
-    "dsgd": "ROADMAP queue 1 item 8",
-    "choco": "ROADMAP queue 1 item 8",
-    "dp-sgd": "ROADMAP queue 1 item 8",
-    "soteriafl": "ROADMAP queue 1 item 8",
     "dp-csgp": "ROADMAP queue 1 item 8",
     "clip21": "ROADMAP queue 1 item 8",
     "subgrad-comp": "ROADMAP queue 1 item 8",
@@ -98,6 +97,8 @@ class ExperimentSpec:
     tau: Optional[float] = 1.0
     clip_mode: str = "smooth"
     sigma_p: float = 0.0
+    dp: bool = False                 # per-sample clip + noise oracle (dsgd)
+    alpha_shift: float = 0.5         # soteriafl shift stepsize
     buffer_dtype: Any = torch.float32
     plane_dtype: Any = None
     remat_policy: Optional[str] = None
@@ -111,11 +112,11 @@ class Resolved:
     """What :func:`build` constructed from a spec (the factory context)."""
 
     info: AlgorithmInfo
-    topology: Topology
-    compressor: Compressor
+    topology: Optional[Topology]      # None for server/client algorithms
+    compressor: Optional[Compressor]  # None for uncompressed ones
     mixer: Any
-    engine: CommRound
-    gamma: float
+    engine: Optional[CommRound]
+    gamma: Optional[float]
     device: torch.device
 
 
@@ -200,12 +201,25 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
     _check_slice(spec)
     device = torch.device("cuda") if device is None else torch.device(device)
     info = algorithm_info(spec.algo)
-    top = resolve_topology(spec) if topology is None else topology
-    engine = build_engine(spec, topology=top)
-    r = Resolved(info=info, topology=top, compressor=engine.compressor,
-                 mixer=engine.mixer, engine=engine,
-                 gamma=resolve_gamma(spec, top, engine.compressor),
-                 device=device)
+    top, comp, mixer, engine, gamma = None, None, None, None, None
+    if info.decentralized:
+        top = resolve_topology(spec) if topology is None else topology
+    if info.decentralized and info.compressed:
+        engine = build_engine(spec, topology=top)
+        comp, mixer = engine.compressor, engine.mixer
+    elif info.decentralized:
+        mixer = make_mixer(top, spec.gossip_mode)
+    elif info.compressed:
+        # server/client: compression without gossip
+        comp = resolve_compressor(spec)
+        engine = CommRound(compressor=comp, mixer=None,
+                           backend=spec.comm_backend,
+                           plane_dtype=resolve_plane_dtype(spec))
+    if info.decentralized:
+        gamma = (resolve_gamma(spec, top, comp) if info.compressed
+                 else (1.0 if spec.gamma is None else spec.gamma))
+    r = Resolved(info=info, topology=top, compressor=comp, mixer=mixer,
+                 engine=engine, gamma=gamma, device=device)
     return get_factory(spec.algo)(spec, loss_fn, r)
 
 
@@ -219,34 +233,52 @@ def _require_tau(spec: ExperimentSpec) -> float:
     return spec.tau
 
 
+def _bind_init(spec: ExperimentSpec, r: Resolved, init_fn):
+    """Uniform ``init(params, n_agents=None, w=None)``: the params go to the
+    build's device first.  ``w`` passes through as given: every init
+    broadcasts one replica, so W X^0 = X^0 needs no mix."""
+
+    def init(params, n_agents: Optional[int] = None, w=None):
+        n = spec.n_agents if n_agents is None else n_agents
+        on_device = tree_map(
+            lambda p: torch.as_tensor(p).to(r.device), params)
+        return init_fn(on_device, n, w)
+
+    return init
+
+
+def _algorithm(spec, r: Resolved, *, state_cls, init, step,
+               config=None) -> Algorithm:
+    return Algorithm(name=spec.algo, info=r.info, spec=spec,
+                     state_cls=state_cls, init=init, step=step,
+                     device=r.device, topology=r.topology,
+                     compressor=r.compressor, mixer=r.mixer, engine=r.engine,
+                     gamma=r.gamma, config=config)
+
+
 def _porter_family(spec: ExperimentSpec, loss_fn, r: Resolved,
                    variant: str) -> Algorithm:
     if variant == "gc" and spec.tau is None:
         # unclipped PORTER-GC is BEER (paper Section 4.3)
         variant = "beer"
+    # under bf16 planes the stored gradient g_prev is a bf16 buffer, so the
+    # fresh gradient is cast to it and the state keeps its dtypes
+    pdt = resolve_plane_dtype(spec)
+    grad_dtype = spec.buffer_dtype if pdt is None else pdt
     if variant == "beer":
         cfg = beer_config(spec.eta, r.gamma, clip_mode=spec.clip_mode,
-                          grad_dtype=spec.buffer_dtype)
+                          grad_dtype=grad_dtype)
     else:
         tau = _require_tau(spec) if variant == "dp" else spec.tau
         cfg = PorterConfig(eta=spec.eta, gamma=r.gamma, tau=tau,
                            variant=variant, clip_mode=spec.clip_mode,
-                           sigma_p=spec.sigma_p, grad_dtype=spec.buffer_dtype)
+                           sigma_p=spec.sigma_p, grad_dtype=grad_dtype)
     step = functools.partial(porter_step, cfg, loss_fn, None, None,
                              engine=r.engine)
-
-    def init(params, n_agents: Optional[int] = None, w=None):
-        # every init broadcasts one replica, so W X^0 = X^0: no mix needed
-        n = spec.n_agents if n_agents is None else n_agents
-        on_device = tree_map(
-            lambda p: torch.as_tensor(p).to(r.device), params)
-        return porter_init(on_device, n, w, buffer_dtype=spec.buffer_dtype)
-
-    return Algorithm(name=spec.algo, info=r.info, spec=spec,
-                     state_cls=PorterState, init=init, step=step,
-                     device=r.device, topology=r.topology,
-                     compressor=r.compressor, mixer=r.mixer, engine=r.engine,
-                     gamma=r.gamma, config=cfg)
+    init = _bind_init(spec, r, functools.partial(
+        porter_init, buffer_dtype=spec.buffer_dtype, plane_dtype=pdt))
+    return _algorithm(spec, r, state_cls=PorterState, init=init, step=step,
+                      config=cfg)
 
 
 @register_algorithm("porter-gc", comm_rounds=2)
@@ -262,3 +294,64 @@ def _build_porter_dp(spec, loss_fn, r):
 @register_algorithm("beer", comm_rounds=2)
 def _build_beer(spec, loss_fn, r):
     return _porter_family(spec, loss_fn, r, "beer")
+
+
+@register_algorithm("dsgd", compressed=False, comm_rounds=1)
+def _build_dsgd(spec, loss_fn, r):
+    step = functools.partial(BL.dsgd_step, spec.eta, r.gamma, loss_fn,
+                             r.mixer, tau=spec.tau, clip_mode=spec.clip_mode,
+                             sigma_p=spec.sigma_p, dp=spec.dp)
+    init = _bind_init(spec, r, lambda params, n, w: BL.dsgd_init(params, n))
+    return _algorithm(spec, r, state_cls=BL.DsgdState, init=init, step=step)
+
+
+@register_algorithm("choco", comm_rounds=1)
+def _build_choco(spec, loss_fn, r):
+    step = functools.partial(BL.choco_step, spec.eta, r.gamma, loss_fn,
+                             None, None, engine=r.engine, tau=spec.tau,
+                             clip_mode=spec.clip_mode)
+    pdt = resolve_plane_dtype(spec)
+    init = _bind_init(
+        spec, r,
+        lambda params, n, w: BL.choco_init(params, n, plane_dtype=pdt))
+    return _algorithm(spec, r, state_cls=BL.ChocoState, init=init, step=step)
+
+
+@register_algorithm("dp-sgd", dp=True, decentralized=False, compressed=False)
+def _build_dpsgd(spec, loss_fn, r):
+    tau = _require_tau(spec)
+
+    def step(state, batch, gen, noise=None):
+        # the registry feeds agent-stacked batches (n_agents, b, ...); the
+        # central server pools them into one batch of n*b samples
+        lead = {leaf.shape[0] for leaf in tree_leaves(batch)
+                if leaf.dim() >= 1}
+        if lead != {spec.n_agents}:
+            raise ValueError(
+                f"dp-sgd consumes agent-stacked batches with leading dim "
+                f"n_agents={spec.n_agents}; got leading dims {sorted(lead)} "
+                "-- call repro_torch.core.baselines.dpsgd_step directly for "
+                "plain central batches")
+        flat = tree_map(lambda leaf: leaf.reshape((-1,) + leaf.shape[2:])
+                        if leaf.dim() >= 2 else leaf, batch)
+        return BL.dpsgd_step(spec.eta, loss_fn, state, flat, gen, tau=tau,
+                             clip_mode=spec.clip_mode, sigma_p=spec.sigma_p,
+                             noise=noise)
+
+    # a single server replica: n_agents and w do not apply
+    init = _bind_init(spec, r, lambda params, n, w: BL.dpsgd_init(params))
+    return _algorithm(spec, r, state_cls=BL.DpSgdState, init=init, step=step)
+
+
+@register_algorithm("soteriafl", dp=True, decentralized=False)
+def _build_soteriafl(spec, loss_fn, r):
+    tau = _require_tau(spec)
+    step = functools.partial(BL.soteria_step, spec.eta, spec.alpha_shift,
+                             loss_fn, None, engine=r.engine, tau=tau,
+                             clip_mode=spec.clip_mode, sigma_p=spec.sigma_p)
+    pdt = resolve_plane_dtype(spec)
+    init = _bind_init(
+        spec, r,
+        lambda params, n, w: BL.soteria_init(params, n, plane_dtype=pdt))
+    return _algorithm(spec, r, state_cls=BL.SoteriaState, init=init,
+                      step=step)

@@ -6,9 +6,17 @@ dicts of tensors, and back.
 
 * :func:`to_torch` / :func:`to_numpy` -- a tree of arrays <-> the same tree
   of tensors (dicts, tuples, lists and NamedTuples keep their structure).
-* :func:`state_to_torch` / :func:`state_to_numpy` -- a ``PorterState``-
-  shaped namedtuple of arrays (fields ``x, v, q_x, q_v, g_prev, m_x, m_v,
-  step``) <-> the port's :class:`~repro_torch.core.porter.PorterState`.
+* :func:`state_to_torch` / :func:`state_to_numpy` -- a state namedtuple of
+  arrays <-> the port's state of the same name: ``PorterState``,
+  ``ChocoState``, ``DsgdState``, ``DpSgdState`` or ``SoteriaState`` (every
+  field a tree, then ``step``).
+
+bf16: numpy has no bfloat16 of its own.  ``np.asarray`` of a JAX bf16
+array is an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
+rejects, so :func:`to_torch` carries it as its uint16 bit patterns and
+views them as ``torch.bfloat16``; :func:`to_numpy` returns a bf16 tensor
+as its uint16 bit patterns (``.view(ml_dtypes.bfloat16)`` on the caller's
+side gives the values back).  Nothing here imports ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -16,32 +24,58 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import baselines as BL
 from .core.porter import PorterState
 from .tree import tree_map
 
 __all__ = ["to_torch", "to_numpy", "state_to_torch", "state_to_numpy"]
 
-_BUFFERS = ("x", "v", "q_x", "q_v", "g_prev", "m_x", "m_v")
+_STATES = {cls.__name__: cls for cls in (
+    PorterState, BL.ChocoState, BL.DsgdState, BL.DpSgdState,
+    BL.SoteriaState)}
+
+
+def _tensor(a) -> torch.Tensor:
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def to_torch(tree, device=None):
     """Copy a tree of arrays into tensors on ``device`` (cuda unless given)."""
     device = torch.device("cuda") if device is None else torch.device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    return tree_map(lambda a: _tensor(a).to(device), tree)
 
 
 def to_numpy(tree):
-    """Copy a tree of tensors back to numpy arrays."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """Copy a tree of tensors back to numpy arrays (bf16 as uint16 bits)."""
+    return tree_map(_array, tree)
 
 
-def state_to_torch(state, device=None) -> PorterState:
-    """A PorterState-shaped namedtuple of arrays -> the port's state."""
-    bufs = {f: to_torch(getattr(state, f), device) for f in _BUFFERS}
-    return PorterState(**bufs, step=int(np.asarray(state.step)))
+def _port_class(state):
+    name = type(state).__name__
+    if name not in _STATES:
+        raise TypeError(f"no port state named {name}; have {sorted(_STATES)}")
+    return _STATES[name]
 
 
-def state_to_numpy(state: PorterState) -> PorterState:
-    """The port's state -> a PorterState of numpy arrays (step as int32)."""
-    bufs = {f: to_numpy(getattr(state, f)) for f in _BUFFERS}
-    return PorterState(**bufs, step=np.int32(state.step))
+def state_to_torch(state, device=None):
+    """A state namedtuple of arrays -> the port's state of that name."""
+    cls = _port_class(state)
+    bufs = {f: to_torch(getattr(state, f), device) for f in cls._fields[:-1]}
+    return cls(**bufs, step=int(np.asarray(state.step)))
+
+
+def state_to_numpy(state):
+    """The port's state -> the same class of numpy arrays (step as int32)."""
+    cls = _port_class(state)
+    bufs = {f: to_numpy(getattr(state, f)) for f in cls._fields[:-1]}
+    return cls(**bufs, step=np.int32(state.step))

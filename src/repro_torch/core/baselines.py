@@ -1,0 +1,235 @@
+"""Baseline algorithms the paper compares against (Table 1 and Section 5),
+ported from ``src/repro/core/baselines.py``.
+
+* ``dsgd``       decentralized SGD with gossip averaging (no tracking, no
+                 EF, optionally clipped or DP) -- the naive adaptation.
+* ``choco``      CHOCO-SGD [KSJ19]: compressed gossip with surrogate
+                 mirrors, no gradient tracking (``CommRound.gossip_apply``,
+                 the ``ef_gossip`` kernel).
+* ``dp_sgd``     centralized DP-SGD [ACG+16] -- Table 1's single-server
+                 baseline.
+* ``soteriafl``  SoteriaFL-SGD [LZLC22]: server/client LDP with *shifted*
+                 compression (``CommRound.shift``).
+
+All share the agent-stacked tree layout of :mod:`repro_torch.core.porter`.
+Randomness comes from the round's ``torch.Generator`` in a fixed order (DP
+noise, then the comm round's draws); the DP steps take ``noise=``, a tree
+of N(0, 1) draws shaped like the gradient, in place of their own draw (the
+parity tests inject the reference's).
+
+Metrics: ``loss`` (mean agent loss), ``consensus_x`` (decentralized
+algorithms) and ``wire_bytes`` (model-level bytes per round), as device
+tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from ..tree import tree_leaves, tree_map
+from . import clipping
+from .comm_round import CommRound, resolve_engine
+from .compression import Compressor
+from .gossip import MixFn, apply_mixer, gossip_wire_bytes
+from .porter import LossFn, consensus_error
+
+__all__ = [
+    "DsgdState", "dsgd_init", "dsgd_step",
+    "ChocoState", "choco_init", "choco_step",
+    "DpSgdState", "dpsgd_init", "dpsgd_step",
+    "SoteriaState", "soteria_init", "soteria_step",
+]
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def _stack(params, n: int):
+    return tree_map(lambda p: p.unsqueeze(0).expand((n,) + tuple(p.shape))
+                    .clone(), params)
+
+
+def _param_count(tree, n_agents: int) -> int:
+    return sum(leaf.numel() // n_agents for leaf in tree_leaves(tree))
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A device scalar filled in place (no copy from the host)."""
+    return torch.full((), float(value), dtype=torch.float32,
+                      device=like.device)
+
+
+def _perturb(g, sigma_p: float, gen, noise):
+    """g + sigma_p * z, z ~ N(0, 1) from ``gen`` leaf by leaf (or given)."""
+    if noise is None:
+        noise = tree_map(lambda leaf: torch.randn(
+            leaf.shape, generator=gen, dtype=leaf.dtype,
+            device=leaf.device), g)
+    return tree_map(lambda leaf, z: leaf + sigma_p * z, g, noise)
+
+
+def _agent_grads(loss_fn, x, batch, tau, clip_mode):
+    """Per-agent (losses, gradients), clipped by tau unless it is None."""
+    g, losses = vmap(grad_and_value(loss_fn))(x, batch)
+    if tau is not None:
+        g = vmap(lambda t: clipping.tree_clip(t, tau, clip_mode))(g)
+    return losses, g
+
+
+# ---------------------------------------------------------------------------
+# DSGD
+# ---------------------------------------------------------------------------
+
+class DsgdState(NamedTuple):
+    x: Any
+    step: int
+
+
+def dsgd_init(params, n_agents: int) -> DsgdState:
+    return DsgdState(x=_stack(params, n_agents), step=0)
+
+
+def dsgd_step(eta: float, gamma: float, loss_fn: LossFn, mixer: MixFn,
+              state: DsgdState, batch, gen: Optional[torch.Generator],
+              tau: Optional[float] = None, clip_mode: str = "smooth",
+              sigma_p: float = 0.0, dp: bool = False, noise: Any = None
+              ) -> Tuple[DsgdState, Metrics]:
+    """X^{t+1} = X + gamma X(W - I) - eta G   (uncompressed gossip)."""
+    n = tree_leaves(state.x)[0].shape[0]
+    if dp:
+        g, losses = vmap(lambda p, b: clipping.clipped_grad_accumulate(
+            loss_fn, p, b, tau, clip_mode))(state.x, batch)
+        g = _perturb(g, sigma_p, gen, noise)
+    else:
+        losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode)
+    mixed = apply_mixer(mixer, state.x, state.step)
+    x = tree_map(lambda x0, wx, gg: x0 + gamma * (wx - x0) - eta * gg,
+                 state.x, mixed, g)
+    # uncompressed gossip of the full parameter buffer every round
+    frac = getattr(mixer, "wire_frac", None)
+    wire = gossip_wire_bytes(getattr(mixer, "wire_mode", "dense"), n,
+                             _param_count(state.x, n),
+                             frac=1.0 if frac is None else frac)
+    return DsgdState(x=x, step=state.step + 1), {
+        "loss": torch.mean(losses), "consensus_x": consensus_error(x),
+        "wire_bytes": _scalar(wire, losses)}
+
+
+# ---------------------------------------------------------------------------
+# CHOCO-SGD
+# ---------------------------------------------------------------------------
+
+class ChocoState(NamedTuple):
+    x: Any
+    q: Any      # own surrogate x-hat
+    m: Any      # mixing mirror: sum_j w_ij x-hat_j
+    step: int
+
+
+def choco_init(params, n_agents: int, plane_dtype=None) -> ChocoState:
+    """``plane_dtype``: storage dtype of the surrogate / mirror buffers
+    (bf16 halves them); the params ``x`` keep their own dtype."""
+    x = _stack(params, n_agents)
+    dt = torch.float32 if plane_dtype is None else plane_dtype
+    zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=dt,
+                                              device=leaf.device), x)
+    return ChocoState(x=x, q=zeros, m=zeros, step=0)
+
+
+def choco_step(eta: float, gamma: float, loss_fn: LossFn,
+               mixer: Optional[MixFn], compressor: Optional[Compressor],
+               state: ChocoState, batch, gen: Optional[torch.Generator],
+               tau: Optional[float] = None, clip_mode: str = "smooth",
+               engine: Optional[CommRound] = None,
+               ) -> Tuple[ChocoState, Metrics]:
+    """CHOCO-SGD: x+ = x - eta g;  q += C(x+ - q);  x = x+ + gamma (m - q)."""
+    eng = resolve_engine(engine, mixer, compressor)
+    losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode)
+    x_half = tree_map(lambda x0, gg: x0 - eta * gg, state.x, g)
+    x, q, m = eng.gossip_apply(gen, x_half, state.q, state.m, gamma,
+                               t=state.step)
+    return ChocoState(x=x, q=q, m=m, step=state.step + 1), {
+        "loss": torch.mean(losses), "consensus_x": consensus_error(x),
+        "wire_bytes": _scalar(eng.wire_bytes(state.x), losses)}
+
+
+# ---------------------------------------------------------------------------
+# Centralized DP-SGD (Table 1 baseline)
+# ---------------------------------------------------------------------------
+
+class DpSgdState(NamedTuple):
+    x: Any
+    step: int
+
+
+def dpsgd_init(params) -> DpSgdState:
+    # copy: the state owns its buffers, apart from the caller's params
+    return DpSgdState(x=tree_map(torch.clone, params), step=0)
+
+
+def dpsgd_step(eta: float, loss_fn: LossFn, state: DpSgdState, batch,
+               gen: Optional[torch.Generator], tau: float = 1.0,
+               clip_mode: str = "smooth", sigma_p: float = 0.0,
+               noise: Any = None) -> Tuple[DpSgdState, Metrics]:
+    g, loss = clipping.clipped_grad_accumulate(loss_fn, state.x, batch, tau,
+                                               clip_mode)
+    g = _perturb(g, sigma_p, gen, noise)
+    x = tree_map(lambda x0, gg: x0 - eta * gg, state.x, g)
+    # one dense gradient upload to the server per round, at each buffer's
+    # own dtype width
+    wire = sum(leaf.numel() * leaf.element_size()
+               for leaf in tree_leaves(state.x))
+    return DpSgdState(x=x, step=state.step + 1), {
+        "loss": loss, "wire_bytes": _scalar(wire, loss)}
+
+
+# ---------------------------------------------------------------------------
+# SoteriaFL-SGD (server/client, shifted compression)
+# ---------------------------------------------------------------------------
+
+class SoteriaState(NamedTuple):
+    x: Any       # server model (replicated view)
+    h: Any       # per-client shift, agent-stacked
+    h_bar: Any   # server-side average shift
+    step: int
+
+
+def soteria_init(params, n_agents: int, plane_dtype=None) -> SoteriaState:
+    """``plane_dtype``: storage dtype of the agent-stacked client shifts
+    ``h`` (the memory-dominant buffer; bf16 halves it).  The server-side
+    ``h_bar`` is a single replica and stays f32."""
+    dt = torch.float32 if plane_dtype is None else plane_dtype
+    h = tree_map(lambda p: torch.zeros((n_agents,) + tuple(p.shape),
+                                       dtype=dt, device=p.device), params)
+    h_bar = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    return SoteriaState(x=tree_map(torch.clone, params), h=h, h_bar=h_bar,
+                        step=0)
+
+
+def soteria_step(eta: float, alpha_shift: float, loss_fn: LossFn,
+                 compressor: Optional[Compressor], state: SoteriaState,
+                 batch, gen: Optional[torch.Generator], tau: float = 1.0,
+                 clip_mode: str = "smooth", sigma_p: float = 0.0,
+                 engine: Optional[CommRound] = None, noise: Any = None
+                 ) -> Tuple[SoteriaState, Metrics]:
+    """SoteriaFL-SGD: clients send C(g_i - h_i); the server steps with
+    h_bar + mean(c).  g_i is each client's per-sample-clipped, perturbed
+    gradient at the server model (LDP)."""
+    eng = resolve_engine(engine, None, compressor)
+    g, losses = vmap(lambda b: clipping.clipped_grad_accumulate(
+        loss_fn, state.x, b, tau, clip_mode))(batch)
+    g = _perturb(g, sigma_p, gen, noise)
+    c, h = eng.shift(gen, g, state.h, scale=alpha_shift)
+    c_bar = tree_map(lambda cc: torch.mean(cc, dim=0), c)
+    g_tilde = tree_map(torch.add, state.h_bar, c_bar)
+    h_bar = tree_map(lambda hb, cb: hb + alpha_shift * cb, state.h_bar, c_bar)
+    x = tree_map(lambda x0, gt: (x0 - eta * gt).to(x0.dtype), state.x,
+                 g_tilde)
+    # n compressed client uploads per round (the server broadcast is not
+    # counted, as in the LDP literature's upload accounting)
+    return SoteriaState(x=x, h=h, h_bar=h_bar, step=state.step + 1), {
+        "loss": torch.mean(losses),
+        "wire_bytes": _scalar(eng.wire_bytes(state.h), losses)}

@@ -16,30 +16,48 @@ which touch every parameter once per round.
 
 Backends: ``'kernel'`` (the plane path: the CUDA kernels for CUDA tensors,
 their plain versions for CPU tensors), ``'ref'`` (leafwise PyTorch, the
-numerical oracle) and ``'auto'`` (``'kernel'`` for CUDA tensors, ``'ref'``
-for CPU ones, decided per call from the state's device).
+numerical oracle; it launches no kernel) and ``'auto'`` (``'kernel'`` for
+CUDA tensors, ``'ref'`` for CPU ones, decided per call from the state's
+device).
 
-This slice is f32 and dense-gossip only: bf16 planes, push-sum, CHOCO's
-``gossip_apply``, ``shift`` and the codec wire formats wait (ROADMAP).
+Mixed precision (``plane_dtype=bf16``): the EF buffers (q, m, v, g_prev)
+are bf16 while the master params ``x`` stay f32.  Every update accumulates
+in f32 and writes each bf16-bound result through the stochastic-rounding
+cast ``high16(bits(x) + (r & 0xFFFF))``, so the EF drift stays unbiased.
+The random words ``r`` are an operand: :meth:`CommRound.sr_draw` draws them
+from the round's generator, once per bf16-bound output, as one int32 plane
+in that output's flat layout, *before* the round's compressor draws (so the
+overlap order draws as the sequential one does).  Both backends read the
+same plane -- the kernel path whole, the ref path unpacked per leaf -- so
+they stay bitwise equal under bf16 too.  All-f32 buffers draw nothing, so
+f32 runs keep their generator streams.  The parity tests inject the
+reference's bits through ``sr_bits=``.
+
+This slice is dense-gossip only: push-sum and the codec wire formats wait
+(ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels import flatten as FL
-from ..kernels import ops
+from ..kernels import ops, ref
 from ..tree import tree_leaves, tree_map
 from .compression import Compressor
-from .gossip import MixFn, apply_mixer
+from .gossip import MixFn, apply_mixer, gossip_wire_bytes
 
 __all__ = ["CommRound", "compress_stacked", "resolve_backend",
            "resolve_engine"]
 
 _BACKENDS = ("kernel", "ref", "auto")
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+# per bf16-bound output, in kernel order (q, m, y): an int32 plane or None
+SrBits = Optional[Sequence[Optional[torch.Tensor]]]
 
 
 def resolve_backend(backend: str, device) -> str:
@@ -84,6 +102,30 @@ def _sub(y, q):
     return tree_map(lambda a, b: (a - b).to(b.dtype), y, q)
 
 
+def _bf16(tree) -> bool:
+    """True when ``tree``'s buffers take the stochastic-rounding writeback
+    (their promoted dtype is bf16, the only sub-f32 plane dtype)."""
+    return FL.derived_plane_dtype(tree) == _BF16
+
+
+def _f32(tree):
+    return tree_map(lambda leaf: leaf.to(_F32), tree)
+
+
+def _writeback(tree_f32, like, bits):
+    """Cast an f32 result tree to ``like``'s leaf dtypes (ref backend):
+    stochastic rounding into bf16 leaves with the words of ``bits`` (an
+    int32 plane in ``like``'s flat layout), a plain cast otherwise."""
+    if bits is None:
+        return tree_map(lambda v, l: v.to(l.dtype), tree_f32, like)
+    spec = FL.flat_spec(like)
+    words = FL.from_planes(bits, spec._replace(
+        dtypes=(torch.int32,) * len(spec.dtypes), plane_dtype=torch.int32))
+    return tree_map(lambda v, l, w: ref.sr_cast_ref(v, w)
+                    if l.dtype == _BF16 else v.to(l.dtype),
+                    tree_f32, like, words)
+
+
 @dataclasses.dataclass(frozen=True)
 class CommRound:
     """One compressed communication round: compress -> accumulate -> update.
@@ -93,8 +135,10 @@ class CommRound:
     backend: 'kernel' | 'ref' | 'auto'.
     overlap: issue both PORTER exchanges before either fused update; every
       value equals the sequential order's (bit-exact by construction).
-    plane_dtype: declared storage dtype of the EF planes; f32 (or None) in
-      this slice.
+    plane_dtype: declared storage dtype of the EF planes, None (f32), f32
+      or bf16.  The actual plane dtype is derived per buffer tree, so f32
+      params keep f32 planes beside bf16 EF buffers; this field drives the
+      wire-byte width of the ring and packed byte models.
     """
 
     compressor: Compressor
@@ -107,16 +151,49 @@ class CommRound:
         if self.backend not in _BACKENDS:
             raise ValueError(f"unknown comm-round backend {self.backend!r}; "
                              f"have {_BACKENDS}")
-        if self.plane_dtype not in (None, torch.float32):
+        if self.plane_dtype not in (None, _F32, _BF16):
             raise ValueError(
-                f"plane_dtype {self.plane_dtype} is not ported yet: this "
-                "slice runs f32 planes only; bf16 EF planes with their "
-                "stochastic-rounding writeback come with the sr_cast slice "
-                "(ROADMAP queue 1 item 7)")
+                f"plane_dtype must be f32 or bf16, got {self.plane_dtype}: "
+                "the stochastic-rounding writeback targets bf16 only")
 
     def _use_kernel(self, tree) -> bool:
         device = tree_leaves(tree)[0].device
         return resolve_backend(self.backend, device) == "kernel"
+
+    # -- stochastic-rounding plumbing ---------------------------------------
+
+    def sr_draw(self, gen, trees) -> SrBits:
+        """The random words of the SR writeback into ``trees`` (the three
+        outputs, in kernel order q, m, y).
+
+        Returns None, drawing nothing, when no tree is bf16; else one entry
+        per tree: an int32 plane of ``flat_spec(tree).plane_shape`` drawn
+        from ``gen`` (16 random bits per word), or None for an f32 tree.
+        Overlap-mode steps call this before :meth:`exchange`, as the
+        sequential methods do, so both orders draw alike.
+        """
+        needs = [_bf16(t) for t in trees]
+        if not any(needs):
+            return None
+        return tuple(
+            torch.randint(0, 1 << 16, FL.flat_spec(t).plane_shape,
+                          generator=gen, dtype=torch.int32,
+                          device=tree_leaves(t)[0].device) if need else None
+            for t, need in zip(trees, needs))
+
+    def _plane_update(self, kfn, trees, sr_bits: SrBits):
+        """Fused 3-output kernel over planes, with the SR writeback when
+        ``sr_bits`` are given: the kernel then writes f32 and each
+        bf16-bound plane goes through ``ops.sr_cast`` before unpacking."""
+        if sr_bits is None:
+            return FL.plane_apply(kfn, trees, 3)
+
+        def kernel(*planes):
+            outs = kfn(*planes, out_dtype=_F32)
+            return tuple(o if bits is None else ops.sr_cast(o, bits)
+                         for o, bits in zip(outs, sr_bits))
+
+        return FL.plane_apply(kernel, trees, 3)
 
     # -- the shared front half: compress + mix ------------------------------
 
@@ -126,7 +203,8 @@ class CommRound:
 
     def exchange(self, gen, y, q, t=None) -> Tuple[Any, Any]:
         """Returns ``(c, wc)``: ``c = C(y - q)`` and ``wc = W @ c``.  The
-        increment is taken in the surrogate's dtype."""
+        increment is taken in the surrogate's dtype (a deterministic cast:
+        the next round's ``y - q`` measures its error afresh)."""
         c = self.compress(gen, _sub(y, q))
         return c, apply_mixer(self.mixer, c, t)
 
@@ -135,16 +213,30 @@ class CommRound:
     def track(self, gen, v, q, m, g, g_prev, gamma: float, t=None):
         """PORTER Algorithm 1 lines 11-12: q += c; m += Wc;
         v' = v + gamma*(m - q) + g - g_prev.  Returns (v', q', m')."""
+        bits = self.sr_draw(gen, (q, m, v))
         c, wc = self.exchange(gen, v, q, t)
-        return self.track_update(c, wc, v, q, m, g, g_prev, gamma)
+        return self.track_update(c, wc, v, q, m, g, g_prev, gamma,
+                                 sr_bits=bits)
 
-    def track_update(self, c, wc, v, q, m, g, g_prev, gamma: float):
-        """The second half of :meth:`track` (no communication)."""
+    def track_update(self, c, wc, v, q, m, g, g_prev, gamma: float,
+                     sr_bits: SrBits = None):
+        """The second half of :meth:`track` (no communication).
+        ``sr_bits``: from :meth:`sr_draw` or injected; None casts
+        deterministically."""
         if self._use_kernel(q):
-            qo, mo, vo = FL.plane_apply(
-                lambda *p: ops.ef_track(*p, gamma),
-                (q, m, v, c, wc, g, g_prev), 3)
+            qo, mo, vo = self._plane_update(
+                lambda *p, out_dtype=None: ops.ef_track(
+                    *p, gamma, out_dtype=out_dtype),
+                (q, m, v, c, wc, g, g_prev), sr_bits)
             return vo, qo, mo
+        if sr_bits is not None:
+            q2 = tree_map(torch.add, _f32(q), _f32(c))
+            m2 = tree_map(torch.add, _f32(m), _f32(wc))
+            v2 = tree_map(lambda v0, mm, qq, gn, gp: v0 + gamma * (mm - qq)
+                          + gn - gp, _f32(v), m2, q2, _f32(g), _f32(g_prev))
+            return (_writeback(v2, v, sr_bits[2]),
+                    _writeback(q2, q, sr_bits[0]),
+                    _writeback(m2, m, sr_bits[1]))
         q2 = tree_map(torch.add, q, c)
         m2 = tree_map(torch.add, m, wc)
         v2 = tree_map(lambda v0, mm, qq, gn, gp: v0 + gamma * (mm - qq)
@@ -154,22 +246,73 @@ class CommRound:
     def step(self, gen, x, q, m, v, gamma: float, eta: float, t=None):
         """PORTER Algorithm 1 lines 13-14: q += c; m += Wc;
         x' = x + gamma*(m - q) - eta*v.  Returns (x', q', m')."""
+        bits = self.sr_draw(gen, (q, m, x))
         c, wc = self.exchange(gen, x, q, t)
-        return self.step_update(c, wc, x, q, m, v, gamma, eta)
+        return self.step_update(c, wc, x, q, m, v, gamma, eta, sr_bits=bits)
 
-    def step_update(self, c, wc, x, q, m, v, gamma: float, eta: float):
-        """The second half of :meth:`step` (no communication)."""
+    def step_update(self, c, wc, x, q, m, v, gamma: float, eta: float,
+                    sr_bits: SrBits = None):
+        """The second half of :meth:`step` (no communication).  The f32
+        master params take an exact writeback; only the q / m surrogates
+        round stochastically."""
         if self._use_kernel(q):
-            qo, mo, xo = FL.plane_apply(
-                lambda *p: ops.ef_step(*p, gamma, eta),
-                (q, m, x, c, wc, v), 3)
+            qo, mo, xo = self._plane_update(
+                lambda *p, out_dtype=None: ops.ef_step(
+                    *p, gamma, eta, out_dtype=out_dtype),
+                (q, m, x, c, wc, v), sr_bits)
             return xo, qo, mo
+        if sr_bits is not None:
+            q2 = tree_map(torch.add, _f32(q), _f32(c))
+            m2 = tree_map(torch.add, _f32(m), _f32(wc))
+            x2 = tree_map(lambda x0, mm, qq, vv: x0 + gamma * (mm - qq)
+                          - eta * vv, _f32(x), m2, q2, _f32(v))
+            return (_writeback(x2, x, sr_bits[2]),
+                    _writeback(q2, q, sr_bits[0]),
+                    _writeback(m2, m, sr_bits[1]))
         q2 = tree_map(torch.add, q, c)
         m2 = tree_map(torch.add, m, wc)
         x2 = tree_map(lambda x0, mm, qq, vv:
                       (x0 + gamma * (mm - qq) - eta * vv).to(x0.dtype),
                       x, m2, q2, v)
         return x2, q2, m2
+
+    def gossip_apply(self, gen, y, q, m, gamma: float, scale: float = 1.0,
+                     t=None, sr_bits: SrBits = None):
+        """CHOCO-SGD / SoteriaFL-style round (no tracking term):
+        q += scale*c; m += scale*Wc; y' = y + gamma*(m - q).
+
+        Returns (y', q', m').  ``scale`` is 1 for CHOCO and the shift
+        stepsize for shifted compression.  ``sr_bits``: injected SR words;
+        None draws them (:meth:`sr_draw`) before the exchange.
+        """
+        if sr_bits is None:
+            sr_bits = self.sr_draw(gen, (q, m, y))
+        c, wc = self.exchange(gen, y, q, t)
+        if self._use_kernel(q):
+            qo, mo, yo = self._plane_update(
+                lambda *p, out_dtype=None: ops.ef_gossip(
+                    *p, gamma, scale, out_dtype=out_dtype),
+                (q, m, y, c, wc), sr_bits)
+            return yo, qo, mo
+        if sr_bits is not None:
+            q2 = tree_map(lambda a, b: a + scale * b, _f32(q), _f32(c))
+            m2 = tree_map(lambda a, b: a + scale * b, _f32(m), _f32(wc))
+            y2 = tree_map(lambda y0, mm, qq: y0 + gamma * (mm - qq),
+                          _f32(y), m2, q2)
+            return (_writeback(y2, y, sr_bits[2]),
+                    _writeback(q2, q, sr_bits[0]),
+                    _writeback(m2, m, sr_bits[1]))
+        q2 = tree_map(lambda a, b: a + scale * b, q, c)
+        m2 = tree_map(lambda a, b: a + scale * b, m, wc)
+        y2 = tree_map(lambda y0, mm, qq: y0 + gamma * (mm - qq), y, m2, q2)
+        return y2, q2, m2
+
+    def shift(self, gen, y, q, scale: float = 1.0):
+        """SoteriaFL shifted compression (mirrorless surrogate accumulate):
+        c = C(y - q); q' = q + scale*c.  Returns (c, q'); the caller
+        aggregates ``c`` on its server (a mean, not a gossip mix)."""
+        c = self.compress(gen, _sub(y, q))
+        return c, tree_map(lambda a, b: (a + scale * b).to(a.dtype), q, c)
 
     # -- wire accounting ----------------------------------------------------
 
@@ -178,16 +321,28 @@ class CommRound:
 
         Accepts an agent-stacked tree (n and d inferred) or a per-agent
         parameter count ``d`` plus ``n_agents``.  Dense gossip charges the
-        compressor's own payload (``Compressor.wire_bits``).
+        compressor's own payload (``Compressor.wire_bits``), which does not
+        narrow with the planes; the ring and packed byte models ship values
+        at the ``plane_dtype`` width (2 B for bf16).  Only the dense
+        executor is ported, so the packed model takes the scalar ``d`` form.
         """
+        tree = None
         if n_agents is None:
-            leaves = tree_leaves(tree_or_d)
+            tree = tree_or_d
+            leaves = tree_leaves(tree)
             n_agents = leaves[0].shape[0]
             d = sum(leaf.numel() // n_agents for leaf in leaves)
         else:
             d = int(tree_or_d)
+        db = (4 if self.plane_dtype is None
+              else torch.empty((), dtype=self.plane_dtype).element_size())
         mode = getattr(self.mixer, "wire_mode", "dense")
-        if mode != "dense":
-            raise ValueError(f"wire accounting for gossip mode {mode!r} is "
-                             "not ported yet (ROADMAP queue 1 item 12)")
-        return n_agents * self.compressor.wire_bits(d) / 8.0
+        if mode == "dense":
+            return n_agents * self.compressor.wire_bits(d) / 8.0
+        if mode == "ring" or (mode == "packed" and tree is None):
+            frac = getattr(self.mixer, "wire_frac", None)
+            frac = self.compressor.rho if frac is None else frac
+            return gossip_wire_bytes(mode, n_agents, d, frac=frac,
+                                     dtype_bytes=db)
+        raise ValueError(f"wire accounting for gossip mode {mode!r} over a "
+                         "tree is not ported yet (ROADMAP queue 1 item 12)")

@@ -75,15 +75,27 @@ class PorterState(NamedTuple):
 
 
 def porter_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
-                buffer_dtype: Any = torch.float32) -> PorterState:
-    """Initialize from one replica on its device: X^0 = x0 1^T (line 2)."""
+                buffer_dtype: Any = torch.float32,
+                plane_dtype: Any = None) -> PorterState:
+    """Initialize from one replica on its device: X^0 = x0 1^T (line 2).
+
+    ``plane_dtype``: storage dtype of the six EF buffers (q_x, q_v, m_x,
+    m_v, v, g_prev); bf16 halves the resident state while the master
+    params ``x`` keep their own dtype.  None keeps the f32 layout:
+    surrogates in x's dtype, zeros in ``buffer_dtype``.
+    """
     x = tree_map(lambda p: p.unsqueeze(0).expand((n_agents,) + tuple(p.shape))
                  .clone(), params)
-    zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=buffer_dtype,
+    zero_dtype = buffer_dtype if plane_dtype is None else plane_dtype
+    zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=zero_dtype,
                                               device=leaf.device), x)
     # all agents are equal and rows of W sum to 1, so W X0 = X0
     m_x = x if w is None else make_dense_mixer(w)(x)
-    return PorterState(x=x, v=zeros, q_x=x, q_v=zeros, g_prev=zeros,
+    q_x = x
+    if plane_dtype is not None:
+        q_x = tree_map(lambda leaf: leaf.to(plane_dtype), x)
+        m_x = tree_map(lambda leaf: leaf.to(plane_dtype), m_x)
+    return PorterState(x=x, v=zeros, q_x=q_x, q_v=zeros, g_prev=zeros,
                        m_x=m_x, m_v=zeros, step=0)
 
 
@@ -117,7 +129,8 @@ def porter_step(
 
     batch: tree with leaves (n_agents, b, ...).  gen: the round's generator;
     it is drawn from in a fixed order (DP noise, then the v-side and the
-    x-side compressors) in both the sequential and the overlap order.
+    x-side rounds, each its SR words under bf16 planes and then its
+    compressor) in both the sequential and the overlap order.
     grad_override: optional ``(losses, g)`` replacing the gradient oracle.
     noise: optional tree shaped like the gradient, standing in for the
     N(0, 1) draws of the DP perturbation (the parity tests inject the
@@ -143,12 +156,17 @@ def porter_step(
     if eng.overlap:
         # the x-side exchange reads only (x, q_x), which the v-side update
         # never touches: both exchanges go first, same values, same draws
+        # (each round's SR words, then its compressor's, as track/step do)
+        bits_v = eng.sr_draw(gen, (state.q_v, state.m_v, state.v))
         c_v, wc_v = eng.exchange(gen, state.v, state.q_v, t=state.step)
+        bits_x = eng.sr_draw(gen, (state.q_x, state.m_x, state.x))
         c_x, wc_x = eng.exchange(gen, state.x, state.q_x, t=state.step)
         v, q_v, m_v = eng.track_update(c_v, wc_v, state.v, state.q_v,
-                                       state.m_v, g, state.g_prev, cfg.gamma)
+                                       state.m_v, g, state.g_prev, cfg.gamma,
+                                       sr_bits=bits_v)
         x, q_x, m_x = eng.step_update(c_x, wc_x, state.x, state.q_x,
-                                      state.m_x, v, cfg.gamma, cfg.eta)
+                                      state.m_x, v, cfg.gamma, cfg.eta,
+                                      sr_bits=bits_x)
     else:
         v, q_v, m_v = eng.track(gen, state.v, state.q_v, state.m_v, g,
                                 state.g_prev, cfg.gamma, t=state.step)

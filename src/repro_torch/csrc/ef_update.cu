@@ -1,19 +1,35 @@
-// Fused PORTER error-feedback updates (Algorithm 1 lines 11-14) for Hopper.
+// Fused error-feedback / gossip updates (Algorithm 1 lines 11-14, and the
+// CHOCO-SGD / SoteriaFL round) for Hopper.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/ef_update.py:
-//   ef_track_f32  <- ef_track (_track_kernel):  q += c; m += wc;
-//                    v = ((v + gamma*(m - q)) + g) - gp
-//   ef_step_f32   <- ef_step  (_step_kernel):   q += c; m += wc;
-//                    x = (x + gamma*(m - q)) - eta*v
+//   ef_track  <- ef_track  (_track_kernel):   q += c; m += wc;
+//                v = ((v + gamma*(m - q)) + g) - gp
+//   ef_step   <- ef_step   (_step_kernel):    q += c; m += wc;
+//                x = (x + gamma*(m - q)) - eta*v
+//   ef_gossip <- ef_gossip (_gossip_kernel):  q += s*c; m += s*wc;
+//                y = y + gamma*(m - q)
 //
-// What bounds it on an H100: memory bandwidth.  Per element ef_track reads
-// 7 f32 planes and writes 3 (40 B for 7 flops), ef_step reads 6 and writes
-// 3 (36 B for 6 flops) -- about 0.2 flop per byte against the card's ~20
-// (67 TFLOP/s f32 over 3.35 TB/s).  The design therefore makes exactly one
-// pass over the planes: every operand is read once with 16-byte loads,
-// nothing intermediate touches device memory, and each output is written
-// once.  A grid-stride loop keeps the grid a small multiple of the SM count
-// whatever the plane size.
+// Operand types.  Each operand is f32 or bf16 and is upcast to f32 inside
+// the kernel; all arithmetic is f32.  The operand in slot 2 (v, x or y: the
+// "y slot") has its own type, every other operand shares one ("the EF
+// type").  The mixes the comm-round engine issues are all f32; every
+// operand bf16 (ef_track under bf16 planes); and bf16 EF operands beside an
+// f32 y slot (ef_step and ef_gossip: the master params stay f32).  Outputs
+// are written either in their state operand's type (slots 0-1 in the EF
+// type, slot 2 in the y-slot type) or all in f32 (``out_f32``: the engine
+// then rounds the bf16-bound planes stochastically with sr_cast.cu).  A
+// bf16 result is rounded to nearest even, as PyTorch's .to(bfloat16).
+//
+// What bounds it on an H100: memory bandwidth.  Per element, all in f32,
+// ef_track moves 40 B (7 reads, 3 writes), ef_step 36 B and ef_gossip 32 B,
+// each for 7 flops; in the bf16-operand, f32-output mixes 26, 26 and 24 B
+// -- well under one flop per byte against the card's ~20 (67 TFLOP/s f32
+// over 3.35 TB/s).  So the kernel makes exactly one pass: every operand
+// is read once with 16-byte loads (4 f32 or 8 bf16 per load; a thread takes
+// 4 elements when every operand is f32 and 8 otherwise, so each of its
+// loads and stores stays 16 bytes wide), nothing intermediate touches
+// device memory, and each output is written once.  A grid-stride loop keeps
+// the grid a small multiple of the SM count whatever the plane size.
 //
 // Bit-exact arithmetic: every add, subtract and multiply is an explicit
 // round-to-nearest intrinsic, so the compiler cannot contract
@@ -22,10 +38,13 @@
 // order of operations.
 //
 // Interface: plain C, loaded with ctypes.  Pointers are device addresses of
-// contiguous f32 buffers of n elements (outputs distinct from inputs); the
-// stream is the caller's cudaStream_t.  Each function returns
-// cudaGetLastError() after its launch.
+// contiguous buffers of n elements (outputs distinct from inputs); the
+// stream is the caller's cudaStream_t.  ``ef_bf16`` / ``y_bf16`` give the
+// operand types, ``out_f32`` the output mode.  Each function returns
+// cudaGetLastError() after its launch, or cudaErrorInvalidValue for a mix
+// it does not take (bf16 y slot beside f32 EF operands).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,99 +53,154 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Elements [j*V, j*V + V) of p, as f32, through 16-byte loads.
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(const void* p, int64_t j,
+                                         float (&out)[V]) {
+  constexpr int kPer = 16 / sizeof(T);
+  static_assert(V % kPer == 0, "a thread's elements fill whole 16 B loads");
+  const uint4* src = reinterpret_cast<const uint4*>(
+      static_cast<const T*>(p) + j * V);
+#pragma unroll
+  for (int w = 0; w < V / kPer; ++w) {
+    const uint4 raw = __ldg(src + w);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) out[w * kPer + k] = to_f32(e[k]);
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_vec(void* p, int64_t j,
+                                          const float (&in)[V]) {
+  constexpr int kPer = 16 / sizeof(T);
+  uint4* dst = reinterpret_cast<uint4*>(static_cast<T*>(p) + j * V);
+#pragma unroll
+  for (int w = 0; w < V / kPer; ++w) {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) e[k] = from_f32<T>(in[w * kPer + k]);
+    dst[w] = raw;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float load_one(const void* p, int64_t j) {
+  return to_f32(static_cast<const T*>(p)[j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_one(void* p, int64_t j, float v) {
+  static_cast<T*>(p)[j] = from_f32<T>(v);
+}
+
+// a: the NIN operands of one element in kernel order; r: the 3 results
 struct Track {
+  static constexpr int kIn = 7;
   float gamma;
-  __device__ __forceinline__ void operator()(float q, float m, float v,
-                                             float c, float wc, float g,
-                                             float gp, float& qo, float& mo,
-                                             float& vo) const {
-    qo = __fadd_rn(q, c);
-    mo = __fadd_rn(m, wc);
-    vo = __fsub_rn(
-        __fadd_rn(__fadd_rn(v, __fmul_rn(gamma, __fsub_rn(mo, qo))), g), gp);
+  __device__ __forceinline__ void operator()(const float* a,
+                                             float* r) const {
+    r[0] = __fadd_rn(a[0], a[3]);
+    r[1] = __fadd_rn(a[1], a[4]);
+    r[2] = __fsub_rn(__fadd_rn(__fadd_rn(a[2], __fmul_rn(
+                                            gamma, __fsub_rn(r[1], r[0]))),
+                               a[5]),
+                     a[6]);
   }
 };
 
 struct Step {
+  static constexpr int kIn = 6;
   float gamma, eta;
-  __device__ __forceinline__ void operator()(float q, float m, float x,
-                                             float c, float wc, float v,
-                                             float& qo, float& mo,
-                                             float& xo) const {
-    qo = __fadd_rn(q, c);
-    mo = __fadd_rn(m, wc);
-    xo = __fsub_rn(__fadd_rn(x, __fmul_rn(gamma, __fsub_rn(mo, qo))),
-                   __fmul_rn(eta, v));
+  __device__ __forceinline__ void operator()(const float* a,
+                                             float* r) const {
+    r[0] = __fadd_rn(a[0], a[3]);
+    r[1] = __fadd_rn(a[1], a[4]);
+    r[2] = __fsub_rn(__fadd_rn(a[2], __fmul_rn(gamma, __fsub_rn(r[1], r[0]))),
+                     __fmul_rn(eta, a[5]));
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-track_kernel(const float* __restrict__ q, const float* __restrict__ m,
-             const float* __restrict__ v, const float* __restrict__ c,
-             const float* __restrict__ wc, const float* __restrict__ g,
-             const float* __restrict__ gp, float* __restrict__ qo,
-             float* __restrict__ mo, float* __restrict__ vo, Track op,
-             int64_t n, bool vec) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t n4 = n / 4;
-    for (int64_t j = i; j < n4; j += stride) {
-      const float4 a = reinterpret_cast<const float4*>(q)[j];
-      const float4 b = reinterpret_cast<const float4*>(m)[j];
-      const float4 s = reinterpret_cast<const float4*>(v)[j];
-      const float4 d = reinterpret_cast<const float4*>(c)[j];
-      const float4 e = reinterpret_cast<const float4*>(wc)[j];
-      const float4 f = reinterpret_cast<const float4*>(g)[j];
-      const float4 h = reinterpret_cast<const float4*>(gp)[j];
-      float4 oq, om, ov;
-      op(a.x, b.x, s.x, d.x, e.x, f.x, h.x, oq.x, om.x, ov.x);
-      op(a.y, b.y, s.y, d.y, e.y, f.y, h.y, oq.y, om.y, ov.y);
-      op(a.z, b.z, s.z, d.z, e.z, f.z, h.z, oq.z, om.z, ov.z);
-      op(a.w, b.w, s.w, d.w, e.w, f.w, h.w, oq.w, om.w, ov.w);
-      reinterpret_cast<float4*>(qo)[j] = oq;
-      reinterpret_cast<float4*>(mo)[j] = om;
-      reinterpret_cast<float4*>(vo)[j] = ov;
-    }
-    done = n4 * 4;
+struct Gossip {
+  static constexpr int kIn = 5;
+  float gamma, scale;
+  __device__ __forceinline__ void operator()(const float* a,
+                                             float* r) const {
+    r[0] = __fadd_rn(a[0], __fmul_rn(scale, a[3]));
+    r[1] = __fadd_rn(a[1], __fmul_rn(scale, a[4]));
+    r[2] = __fadd_rn(a[2], __fmul_rn(gamma, __fsub_rn(r[1], r[0])));
   }
-  for (int64_t j = done + i; j < n; j += stride) {
-    op(q[j], m[j], v[j], c[j], wc[j], g[j], gp[j], qo[j], mo[j], vo[j]);
-  }
-}
+};
 
+struct Ptrs {
+  const void* in[7];
+  void* out[3];
+};
+
+// E: EF operand type; Y: y-slot operand type; OE / OY: output types of
+// slots 0-1 and of slot 2; V: elements per thread per iteration.
+template <typename Op, typename E, typename Y, typename OE, typename OY,
+          int V>
 __global__ void __launch_bounds__(kThreads)
-step_kernel(const float* __restrict__ q, const float* __restrict__ m,
-            const float* __restrict__ x, const float* __restrict__ c,
-            const float* __restrict__ wc, const float* __restrict__ v,
-            float* __restrict__ qo, float* __restrict__ mo,
-            float* __restrict__ xo, Step op, int64_t n, bool vec) {
+ef_kernel(Ptrs p, Op op, int64_t n, bool vec) {
+  constexpr int kIn = Op::kIn;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int64_t done = 0;
   if (vec) {
-    const int64_t n4 = n / 4;
-    for (int64_t j = i; j < n4; j += stride) {
-      const float4 a = reinterpret_cast<const float4*>(q)[j];
-      const float4 b = reinterpret_cast<const float4*>(m)[j];
-      const float4 s = reinterpret_cast<const float4*>(x)[j];
-      const float4 d = reinterpret_cast<const float4*>(c)[j];
-      const float4 e = reinterpret_cast<const float4*>(wc)[j];
-      const float4 f = reinterpret_cast<const float4*>(v)[j];
-      float4 oq, om, ox;
-      op(a.x, b.x, s.x, d.x, e.x, f.x, oq.x, om.x, ox.x);
-      op(a.y, b.y, s.y, d.y, e.y, f.y, oq.y, om.y, ox.y);
-      op(a.z, b.z, s.z, d.z, e.z, f.z, oq.z, om.z, ox.z);
-      op(a.w, b.w, s.w, d.w, e.w, f.w, oq.w, om.w, ox.w);
-      reinterpret_cast<float4*>(qo)[j] = oq;
-      reinterpret_cast<float4*>(mo)[j] = om;
-      reinterpret_cast<float4*>(xo)[j] = ox;
+    const int64_t nv = n / V;
+    for (int64_t j = i; j < nv; j += stride) {
+      float a[kIn][V];
+#pragma unroll
+      for (int s = 0; s < kIn; ++s) {
+        if (s == 2) {
+          load_vec<V, Y>(p.in[s], j, a[s]);
+        } else {
+          load_vec<V, E>(p.in[s], j, a[s]);
+        }
+      }
+      float r[3][V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        float e[kIn], o[3];
+#pragma unroll
+        for (int s = 0; s < kIn; ++s) e[s] = a[s][k];
+        op(e, o);
+        r[0][k] = o[0];
+        r[1][k] = o[1];
+        r[2][k] = o[2];
+      }
+      store_vec<V, OE>(p.out[0], j, r[0]);
+      store_vec<V, OE>(p.out[1], j, r[1]);
+      store_vec<V, OY>(p.out[2], j, r[2]);
     }
-    done = n4 * 4;
+    done = nv * V;
   }
   for (int64_t j = done + i; j < n; j += stride) {
-    op(q[j], m[j], x[j], c[j], wc[j], v[j], qo[j], mo[j], xo[j]);
+    float e[kIn], o[3];
+#pragma unroll
+    for (int s = 0; s < kIn; ++s) {
+      e[s] = s == 2 ? load_one<Y>(p.in[s], j) : load_one<E>(p.in[s], j);
+    }
+    op(e, o);
+    store_one<OE>(p.out[0], j, o[0]);
+    store_one<OE>(p.out[1], j, o[1]);
+    store_one<OY>(p.out[2], j, o[2]);
   }
 }
 
@@ -134,39 +208,63 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-inline int blocks_for(int64_t n) {
-  const int64_t work = (n + 3) / 4;
-  int64_t b = (work + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return b < 1 ? 1 : (int)b;
+template <typename Op, typename E, typename Y, typename OE, typename OY,
+          int V>
+int launch(const Ptrs& p, const Op& op, int64_t n, cudaStream_t stream) {
+  bool vec = true;
+  for (int s = 0; s < Op::kIn; ++s) vec = vec && aligned16(p.in[s]);
+  for (int s = 0; s < 3; ++s) vec = vec && aligned16(p.out[s]);
+  const int64_t work = (n + V - 1) / V;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;
+  ef_kernel<Op, E, Y, OE, OY, V><<<(int)blocks, kThreads, 0, stream>>>(
+      p, op, n, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename Op>
+int dispatch(const Ptrs& p, const Op& op, int64_t n, int ef_bf16, int y_bf16,
+             int out_f32, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!ef_bf16 && !y_bf16) {
+    return launch<Op, float, float, float, float, 4>(p, op, n, s);
+  }
+  if (ef_bf16 && y_bf16) {
+    return out_f32 ? launch<Op, bf16, bf16, float, float, 8>(p, op, n, s)
+                   : launch<Op, bf16, bf16, bf16, bf16, 8>(p, op, n, s);
+  }
+  if (ef_bf16) {
+    return out_f32 ? launch<Op, bf16, float, float, float, 8>(p, op, n, s)
+                   : launch<Op, bf16, float, bf16, float, 8>(p, op, n, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int ef_track_f32(const void* q, const void* m, const void* v,
-                            const void* c, const void* wc, const void* g,
-                            const void* gp, void* qo, void* mo, void* vo,
-                            float gamma, int64_t n, void* stream) {
-  const void* ptrs[] = {q, m, v, c, wc, g, gp, qo, mo, vo};
-  bool vec = true;
-  for (const void* p : ptrs) vec = vec && aligned16(p);
-  track_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)m, (const float*)v, (const float*)c,
-      (const float*)wc, (const float*)g, (const float*)gp, (float*)qo,
-      (float*)mo, (float*)vo, Track{gamma}, n, vec);
-  return (int)cudaGetLastError();
+extern "C" int ef_track(const void* q, const void* m, const void* v,
+                        const void* c, const void* wc, const void* g,
+                        const void* gp, void* qo, void* mo, void* vo,
+                        float gamma, int64_t n, int ef_bf16, int y_bf16,
+                        int out_f32, void* stream) {
+  const Ptrs p = {{q, m, v, c, wc, g, gp}, {qo, mo, vo}};
+  return dispatch(p, Track{gamma}, n, ef_bf16, y_bf16, out_f32, stream);
 }
 
-extern "C" int ef_step_f32(const void* q, const void* m, const void* x,
-                           const void* c, const void* wc, const void* v,
-                           void* qo, void* mo, void* xo, float gamma,
-                           float eta, int64_t n, void* stream) {
-  const void* ptrs[] = {q, m, x, c, wc, v, qo, mo, xo};
-  bool vec = true;
-  for (const void* p : ptrs) vec = vec && aligned16(p);
-  step_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)m, (const float*)x, (const float*)c,
-      (const float*)wc, (const float*)v, (float*)qo, (float*)mo, (float*)xo,
-      Step{gamma, eta}, n, vec);
-  return (int)cudaGetLastError();
+extern "C" int ef_step(const void* q, const void* m, const void* x,
+                       const void* c, const void* wc, const void* v, void* qo,
+                       void* mo, void* xo, float gamma, float eta, int64_t n,
+                       int ef_bf16, int y_bf16, int out_f32, void* stream) {
+  const Ptrs p = {{q, m, x, c, wc, v, nullptr}, {qo, mo, xo}};
+  return dispatch(p, Step{gamma, eta}, n, ef_bf16, y_bf16, out_f32, stream);
+}
+
+extern "C" int ef_gossip(const void* q, const void* m, const void* y,
+                         const void* c, const void* wc, void* qo, void* mo,
+                         void* yo, float gamma, float scale, int64_t n,
+                         int ef_bf16, int y_bf16, int out_f32, void* stream) {
+  const Ptrs p = {{q, m, y, c, wc, nullptr, nullptr}, {qo, mo, yo}};
+  return dispatch(p, Gossip{gamma, scale}, n, ef_bf16, y_bf16, out_f32,
+                  stream);
 }

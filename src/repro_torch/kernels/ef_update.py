@@ -3,14 +3,17 @@
 Hand-written Hopper replacements of the Pallas kernels in
 ``src/repro/kernels/ef_update.py``:
 
-    ef_track:  q += c; m += wc; v = v + gamma*(m - q) + g - gp   (lines 11-12)
-    ef_step:   q += c; m += wc; x = x + gamma*(m - q) - eta*v    (lines 13-14)
+    ef_track:   q += c;   m += wc;   v = v + gamma*(m - q) + g - gp  (11-12)
+    ef_step:    q += c;   m += wc;   x = x + gamma*(m - q) - eta*v   (13-14)
+    ef_gossip:  q += s*c; m += s*wc; y = y + gamma*(m - q)   (CHOCO, Soteria)
 
-Both run over the flat f32 planes of :mod:`repro_torch.kernels.flatten`, one
-launch for every (agent, leaf) pair, and are bandwidth-bound (40 and 36
-bytes moved per element).  These functions only launch: operand checks,
-the CPU dispatch and the launch counters live in :mod:`repro_torch.kernels.ops`.
-The library is built and loaded on the first call, never at import.
+All three run over the flat planes of :mod:`repro_torch.kernels.flatten`,
+one launch for every (agent, leaf) pair, with f32 or bf16 operands (slot 2,
+the ``v`` / ``x`` / ``y`` operand, may be f32 beside bf16 EF operands) and
+outputs in each state's dtype or all f32.  They are bandwidth-bound.  These
+functions only launch: operand checks, the CPU dispatch and the launch
+counters live in :mod:`repro_torch.kernels.ops`.  The library is built and
+loaded on the first call, never at import.
 """
 
 from __future__ import annotations
@@ -22,13 +25,14 @@ import torch
 
 from . import build
 
-__all__ = ["ef_track", "ef_step"]
+__all__ = ["ef_track", "ef_step", "ef_gossip"]
 
-_P = ctypes.c_void_p
+_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+_TAIL = [ctypes.c_int64, _I, _I, _I, _P]  # n, ef_bf16, y_bf16, out_f32, stream
 _SIGNATURES = {
-    "ef_track_f32": [_P] * 10 + [ctypes.c_float, ctypes.c_int64, _P],
-    "ef_step_f32": [_P] * 9 + [ctypes.c_float, ctypes.c_float,
-                               ctypes.c_int64, _P],
+    "ef_track": [_P] * 10 + [_F] + _TAIL,
+    "ef_step": [_P] * 9 + [_F, _F] + _TAIL,
+    "ef_gossip": [_P] * 8 + [_F, _F] + _TAIL,
 }
 
 
@@ -42,25 +46,40 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(fn_name: str, inputs, scalars):
+def _launch(fn_name: str, inputs, scalars, out_f32: bool):
+    """``inputs`` in kernel order; slot 2 is the y slot.  Outputs are f32
+    when ``out_f32``, else in the dtypes of inputs 0-2."""
     lead = inputs[0]
-    outs = tuple(torch.empty_like(lead) for _ in range(3))
+    outs = tuple(torch.empty(lead.shape, device=lead.device,
+                             dtype=torch.float32 if out_f32 else t.dtype)
+                 for t in inputs[:3])
+    ef_bf16 = int(lead.dtype == torch.bfloat16)
+    y_bf16 = int(inputs[2].dtype == torch.bfloat16)
     with torch.cuda.device(lead.device):
         stream = torch.cuda.current_stream(lead.device).cuda_stream
         err = getattr(_lib(), fn_name)(
             *(t.data_ptr() for t in inputs), *(o.data_ptr() for o in outs),
-            *scalars, lead.numel(), stream)
+            *scalars, lead.numel(), ef_bf16, y_bf16, int(out_f32), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
     return outs
 
 
-def ef_track(q, m, v, c, wc, g, gp, gamma: float):
+def ef_track(q, m, v, c, wc, g, gp, gamma: float, out_f32: bool = False):
     """Launch the fused track kernel; returns new (q, m, v) planes."""
-    return _launch("ef_track_f32", (q, m, v, c, wc, g, gp), (float(gamma),))
+    return _launch("ef_track", (q, m, v, c, wc, g, gp), (float(gamma),),
+                   out_f32)
 
 
-def ef_step(q, m, x, c, wc, v, gamma: float, eta: float):
+def ef_step(q, m, x, c, wc, v, gamma: float, eta: float,
+            out_f32: bool = False):
     """Launch the fused step kernel; returns new (q, m, x) planes."""
-    return _launch("ef_step_f32", (q, m, x, c, wc, v),
-                   (float(gamma), float(eta)))
+    return _launch("ef_step", (q, m, x, c, wc, v),
+                   (float(gamma), float(eta)), out_f32)
+
+
+def ef_gossip(q, m, y, c, wc, gamma: float, scale: float = 1.0,
+              out_f32: bool = False):
+    """Launch the fused gossip kernel; returns new (q, m, y) planes."""
+    return _launch("ef_gossip", (q, m, y, c, wc),
+                   (float(gamma), float(scale)), out_f32)

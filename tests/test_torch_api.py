@@ -27,7 +27,8 @@ from repro_torch.models import paper as tpaper
 
 torch.set_num_threads(1)
 
-SLICE = ("beer", "porter-dp", "porter-gc")
+SLICE = ("beer", "choco", "dp-sgd", "dsgd", "porter-dp", "porter-gc",
+         "soteriafl")
 
 
 def _loss(params, batch):
@@ -59,7 +60,7 @@ def test_registry_holds_the_slice():
                                   dict(wire="packed_bits"),
                                   dict(remat_policy="full"),
                                   dict(gossip_mode="ring"),
-                                  dict(plane_dtype="bf16"),
+                                  dict(gossip_mode="packed"),
                                   dict(compressor="qsgd")])
 def test_options_of_later_slices_raise(over):
     with pytest.raises(ValueError, match="ROADMAP"):

@@ -301,8 +301,9 @@ def test_resolve_backend_and_slice_limits():
     comp = TCMP.top_k(0.1)
     with pytest.raises(ValueError):
         TCR.CommRound(comp, None, backend="cuda")
-    with pytest.raises(ValueError, match="sr_cast"):
-        TCR.CommRound(comp, None, plane_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        TCR.CommRound(comp, None, plane_dtype=torch.float16)
+    TCR.CommRound(comp, None, plane_dtype=torch.bfloat16)
     eng = TCR.CommRound(comp, None)
     assert TCR.resolve_engine(eng) is eng
     with pytest.raises(ValueError, match="conflicting"):

@@ -67,7 +67,7 @@ def test_ops_take_the_plain_path_for_cpu_tensors_and_count_nothing():
     got = ops.ef_step(*step, GAMMA, ETA)
     want = ref.ef_step_ref(*step, GAMMA, ETA)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert ops.LAUNCHES == {"ef_track": 0, "ef_step": 0}
+    assert set(ops.LAUNCHES.values()) == {0}
     assert build._LOADED == {}  # the CPU path never builds or loads
 
 
@@ -75,7 +75,7 @@ def test_ops_reject_what_the_kernels_do_not_take():
     planes = [torch.zeros(2, 8192) for _ in range(7)]
     bf16 = [p.clone() for p in planes]
     bf16[3] = bf16[3].to(torch.bfloat16)
-    with pytest.raises(TypeError, match="sr_cast"):
+    with pytest.raises(TypeError, match="operand mixes"):
         ops.ef_track(*bf16, GAMMA)
     strided = [p.clone() for p in planes]
     strided[0] = torch.zeros(8192, 2).t()
