@@ -23,6 +23,14 @@ of the ``repro`` package.  Phases, each printing its own lines:
    rounds on the kernel and on the ref backend from one seed (they must
    agree), in f32 and with bf16 planes (half the EF bytes); PORTER-DP;
    CHOCO-SGD in f32 and bf16 (``ef_gossip``); DSGD, DP-SGD and SoteriaFL.
+5. the bit-packed wire (``wire="packed_bits"``, ``gossip_mode="packed"``):
+   ``topk_pack`` / ``topk_unpack`` / ``qsgd_pack`` / ``qsgd_unpack``
+   against their plain versions, bitwise, at the MLP's and the logreg's
+   codec rows and at 2^24 elements, timed beside their bound; then
+   PORTER-GC on the full-width MLP for 200 rounds on both backends with
+   top-k 5 % in f32 and bf16 and QSGD (7 levels) in f32: kernel == ref
+   bitwise on x, the launches per round, and the measured wire bytes equal
+   to the model.  The quickstart of phase 3 also runs once on this wire.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -90,6 +98,35 @@ KERNELS = {
 }
 # bytes of operands rotated through per timing, twice the H100's 50 MB L2
 L2_FLUSH_BYTES = 100 * 2**20
+
+# the wire codecs: PACK_BLOCK windows; codec rows per size (agents x
+# windows: the MLP's w1 pads to 25 windows and c1, w2, c2 to one each; the
+# logreg's b and w to one each); kept elements k = round(frac * 2048) and
+# QSGD levels; the main path's variant of each kernel
+PACK_BLOCK = 2048
+WIRE_ROWS = {"mlp": 10 * 28, "logreg": 10 * 2, "2^24": (1 << 24) // 2048}
+TOPK_K = {"0.05": 102, "0.25": 512}
+QSGD_LEVELS = (7, 16)
+WIRE_KERNELS = {
+    "topk_pack": dict(replaces="src/repro/kernels/wire_pack.py:79",
+                      variant="topk_pack k=102"),
+    "topk_unpack": dict(replaces="src/repro/kernels/wire_pack.py:107",
+                        variant="topk_unpack k=102"),
+    "qsgd_pack": dict(replaces="src/repro/kernels/wire_pack.py:158",
+                      variant="qsgd_pack levels=7"),
+    "qsgd_unpack": dict(replaces="src/repro/kernels/wire_pack.py:192",
+                        variant="qsgd_unpack levels=7"),
+}
+# per element, the operations the codecs do on their inputs, counted at the
+# f32 rate: topk_pack's 24 bisection sweeps each compare and count (2 per
+# sweep) plus |x|, the compaction's compare and the max; qsgd_pack's square,
+# add, divide, multiply, floor, subtract, compare, add; the unpacks' shift,
+# mask and two products
+WIRE_OPS = {"topk_pack": 24 * 2 + 3, "topk_unpack": 1, "qsgd_pack": 8,
+            "qsgd_unpack": 4}
+# the bytes one exchange of one buffer ships on the MLP (n = 10, 28 windows
+# an agent): topk_bits 4 B x 102 kept a window, qsgd_bits 256 words + scale
+WIRE_BYTES_MLP = {"top_k": 10 * 28 * 4 * 102, "qsgd": 10 * 28 * (4 * 256 + 4)}
 
 
 def logreg_loss(params, batch):
@@ -279,8 +316,10 @@ def profile_rounds(torch, runtime, algo, source, state, rounds, label):
         return
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    ours = [e for e in kernels
-            if "ef_kernel" in e.key or "sr_kernel" in e.key]
+    ours = [e for e in kernels if any(
+        name in e.key for name in ("ef_kernel", "sr_kernel", "topk_pack_k",
+                                   "topk_unpack_k", "qsgd_pack_k",
+                                   "qsgd_unpack_k"))]
     print(f"[profile] {label}: {rounds} rounds, wall {wall_us / rounds:.1f} "
           f"us/round, device busy {busy_us / rounds:.1f} us/round "
           f"({100 * busy_us / wall_us:.2f} %), {launches / rounds:.1f} "
@@ -302,7 +341,7 @@ def finite(values) -> bool:
 def phase_quickstart(torch, ops, api, data, runtime, average_params,
                      rounds=400):
     """Section-5.1 protocol, as examples/quickstart.py runs it, with f32 and
-    with bf16 EF planes."""
+    with bf16 EF planes, and in f32 on the bit-packed wire."""
     x, y = data.a9a_like(num=20000, dim=123, seed=0)
     xs, ys = data.shard_to_agents(x, y, 10)
     source = data.minibatch_source(xs, ys, batch=8, device=DEVICE)
@@ -315,16 +354,16 @@ def phase_quickstart(torch, ops, api, data, runtime, average_params,
     full = (torch.as_tensor(xs.reshape(-1, 123), device=DEVICE),
             torch.as_tensor(ys.reshape(-1), device=DEVICE))
     final = {}
-    for plane in (None, "bf16"):
-        algo = api.build(spec.replace(plane_dtype=plane), logreg_loss,
-                         device=DEVICE)
+    runs = {"f32": {}, "bf16": dict(plane_dtype="bf16"),
+            "packed_bits": dict(wire="packed_bits", gossip_mode="packed")}
+    for label, over in runs.items():
+        algo = api.build(spec.replace(**over), logreg_loss, device=DEVICE)
         state = algo.init({"w": torch.zeros(123), "b": torch.zeros(())})
         state, losses, ms, launches = run_counted(
             torch, ops, runtime, algo, source, state, rounds, 50)
         avg = average_params(state.x)
         gn = grad_norm(logreg_loss, avg, full)
         full_loss = float(logreg_loss(avg, full))
-        label = plane or "f32"
         final[label] = losses[-1]
         print(f"[quickstart] porter-gc {label} {rounds} rounds: loss "
               f"{losses[0]:.6f} -> {losses[-1]:.6f}, full-data loss at "
@@ -332,15 +371,20 @@ def phase_quickstart(torch, ops, api, data, runtime, average_params,
               f"launches {launches}")
         if not gn < 0.1:
             raise AssertionError(f"quickstart {label} gate failed: gn = {gn}")
-        if plane is None:
+        if label == "f32":
             expect_launches("quickstart f32", launches, ef_track=rounds,
                             ef_step=rounds)
             profile_rounds(torch, runtime, algo, source, state, 20,
                            "quickstart")
-        else:
+        elif label == "bf16":
             # 3 bf16-bound outputs of ef_track + 2 of ef_step each round
             expect_launches("quickstart bf16", launches, ef_track=rounds,
                             ef_step=rounds, sr_cast=5 * rounds)
+        else:
+            # each of the two exchanges a round packs and unpacks once
+            expect_launches("quickstart packed_bits", launches,
+                            ef_track=rounds, ef_step=rounds,
+                            topk_pack=2 * rounds, topk_unpack=2 * rounds)
     gap = abs(final["f32"] - final["bf16"])
     print(f"[quickstart] final loss f32 {final['f32']:.6f} bf16 "
           f"{final['bf16']:.6f}: gap {gap:.6f} (gate 0.02)")
@@ -512,6 +556,190 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
     return choco
 
 
+def _wire_variants(torch, ops, ref):
+    """Each wire variant: (kernel, its plain version, the operand maker,
+    the PyTorch call timed beside it or None, that call's label).  The
+    unpacks take the plain pack's buffers of fresh rows as operands."""
+    variants = {}
+    for frac, k in TOPK_K.items():
+        def make_rows(gen, rows):
+            x = torch.randn(rows, PACK_BLOCK, generator=gen, device=DEVICE)
+            return [x]
+
+        def make_packed(gen, rows, k=k):
+            return list(ref.topk_pack_ref(make_rows(gen, rows)[0], k))
+
+        def nearest(x, k=k):
+            idx = torch.topk(x.abs(), k, dim=1).indices
+            return torch.gather(x, 1, idx).to(torch.bfloat16), idx
+
+        def scatter(vals, idx):
+            return torch.zeros(vals.shape[0], PACK_BLOCK, device=vals.device
+                               ).scatter_(1, idx.long(), vals.float())
+
+        variants[f"topk_pack k={k}"] = (
+            lambda x, k=k: ops.wire_topk_pack(x, k),
+            lambda x, k=k: ref.topk_pack_ref(x, k), make_rows, nearest,
+            "nearest call, not the same selection: torch.topk + gather")
+        variants[f"topk_unpack k={k}"] = (
+            ops.wire_topk_unpack, ref.topk_unpack_ref, make_packed, scatter,
+            "the same function: torch.zeros().scatter_(1, idx.long(), "
+            "vals.float())")
+    for levels in QSGD_LEVELS:
+        def make_noisy(gen, rows):
+            x = torch.randn(rows, PACK_BLOCK, generator=gen, device=DEVICE)
+            return [x, torch.rand(x.shape, generator=gen, device=DEVICE)]
+
+        def make_words(gen, rows, levels=levels):
+            return list(ref.qsgd_pack_ref(*make_noisy(gen, rows), levels))
+
+        variants[f"qsgd_pack levels={levels}"] = (
+            lambda x, u, lv=levels: ops.wire_qsgd_pack(x, u, lv),
+            lambda x, u, lv=levels: ref.qsgd_pack_ref(x, u, lv),
+            make_noisy, None, None)
+        variants[f"qsgd_unpack levels={levels}"] = (
+            lambda w, sc, lv=levels: ops.wire_qsgd_unpack(w, sc, lv),
+            lambda w, sc, lv=levels: ref.qsgd_unpack_ref(w, sc, lv),
+            make_words, None, None)
+    return variants
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _edge_rows(torch, gen, rows):
+    """Windows that stress the selection: small-integer ties, fewer
+    nonzeros than k, an all-zero window and a -0."""
+    x = torch.randint(-3, 4, (rows, PACK_BLOCK), generator=gen,
+                      device=DEVICE).float()
+    sparse = torch.rand(x.shape, generator=gen, device=DEVICE) < 0.02
+    x[rows // 2:] = x[rows // 2:] * sparse[rows // 2:]
+    x[0] = 0.0
+    x[1, 3] = -0.0
+    return x
+
+
+def phase_wire_kernels(torch, ops, ref, reps=20, inner=10):
+    """The four wire kernels against their plain versions, bitwise, at every
+    codec size and parameter, timed cold / warm beside their bound (each
+    input read once and each output written once, over HBM bandwidth; the
+    operations at the f32 rate)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    table = {}
+    for name, (kern, plain, make, lib, lib_label) in _wire_variants(
+            torch, ops, ref).items():
+        kernel_name = name.split()[0]
+        for size_name, rows in WIRE_ROWS.items():
+            n = rows * PACK_BLOCK
+            first = make(gen, rows)
+            k_out, p_out = _as_tuple(kern(*first)), _as_tuple(plain(*first))
+            torch.cuda.synchronize()
+            moved = (sum(t.nbytes for t in first)
+                     + sum(t.nbytes for t in k_out))
+            equal = all(bit_equal(torch, a, b) for a, b in zip(k_out, p_out))
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(k_out, p_out))
+            if size_name == "mlp" and "pack" in name and "unpack" not in name:
+                # ties, sparse, zero and -0 windows through the packs
+                edge = [_edge_rows(torch, gen, rows)] + first[1:]
+                equal = equal and all(bit_equal(torch, a, b) for a, b in zip(
+                    _as_tuple(kern(*edge)), _as_tuple(plain(*edge))))
+            n_sets = -(-L2_FLUSH_BYTES // moved) + 1
+            sets = [first] + [make(gen, rows) for _ in range(n_sets - 1)]
+            row = dict(elements=n, equal=equal, max_abs_err=err,
+                       bytes=moved,
+                       ms=device_time_ms(kern, sets, reps, inner),
+                       ms_warm=device_time_ms(kern, sets[:1], reps, inner),
+                       plain_ms=device_time_ms(plain, sets, reps, inner),
+                       library_ms=(device_time_ms(lib, sets, reps, inner)
+                                   if lib else None),
+                       library=lib_label)
+            t_bytes = moved / HBM_BYTES_PER_S
+            t_ops = WIRE_OPS[kernel_name] * n / F32_OPS_PER_S
+            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            table[(name, size_name)] = row
+            print(f"[wire-kernels] {name} {size_name} rows={rows} n={n} "
+                  f"bitwise={equal} max_abs_err={err} bytes={moved} "
+                  f"us={1e3 * row['ms']:.3f} us_warm="
+                  f"{1e3 * row['ms_warm']:.3f} plain_us="
+                  f"{1e3 * row['plain_ms']:.3f} bound_us="
+                  f"{1e3 * row['bound_ms']:.3f} ({row['bound_by']}) "
+                  + (f"library_us={1e3 * row['library_ms']:.3f} "
+                     f"({lib_label})" if lib else "library none"))
+            if not equal:
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at {size_name}: max |diff| {err}")
+            del sets, first, k_out, p_out
+    return table
+
+
+def phase_wire(torch, ops, api, data, runtime, paper, num=60000, rounds=200):
+    """PORTER-GC on the full-width MLP over the bit-packed wire, both
+    backends: top-k 5 % in f32 and bf16, QSGD with 7 levels in f32."""
+    source, base, loss_fn = _mlp_problem(api, data, paper, num)
+    wire = base.replace(wire="packed_bits", gossip_mode="packed")
+    configs = {"top_k f32": wire,
+               "qsgd f32": wire.replace(compressor="qsgd",
+                                        compressor_kwargs={"levels": 7}),
+               "top_k bf16": wire.replace(plane_dtype="bf16")}
+    launches, ms_rounds = {}, {}
+    for label, spec in configs.items():
+        comp = label.split()[0]
+        runs = {}
+        for backend in ("kernel", "ref"):
+            algo = _build(api, spec.replace(comm_backend=backend), loss_fn)
+            state, losses, ms, counts = run_counted(
+                torch, ops, runtime, algo, source, _init(algo, paper),
+                rounds, 50)
+            runs[backend] = (algo, state, losses, counts)
+            ms_rounds[f"{label} {backend}"] = ms
+            print(f"[wire] porter-gc {label} {backend} {rounds} rounds: loss "
+                  f"{losses[0]:.6f} -> {losses[-1]:.6f}, {ms:.4f} ms/round, "
+                  f"launches {counts}")
+            if not finite(losses):
+                raise AssertionError(f"wire {label} {backend}: loss is not "
+                                     "finite")
+        (algo, s_k, l_k, n_k), (_, s_r, _, n_r) = runs["kernel"], runs["ref"]
+        same = all(bit_equal(torch, s_k.x[k], s_r.x[k]) for k in s_k.x)
+        diff = max(float((s_k.x[k] - s_r.x[k]).abs().max()) for k in s_k.x)
+        print(f"[wire] {label} kernel vs ref backend: x bitwise equal {same}, "
+              f"max |x diff| {diff}")
+        if not same:
+            raise AssertionError(f"wire {label}: kernel and ref trajectories "
+                                 f"differ: {diff}")
+        pack, unpack = ("qsgd_pack", "qsgd_unpack") if comp == "qsgd" else (
+            "topk_pack", "topk_unpack")
+        want = {"ef_track": rounds, "ef_step": rounds, pack: 2 * rounds,
+                unpack: 2 * rounds}
+        if "bf16" in label:
+            want["sr_cast"] = 5 * rounds
+        expect_launches(f"wire {label} kernel", n_k, **want)
+        expect_launches(f"wire {label} ref", n_r)
+        launches[label] = n_k
+        if comp == "top_k":
+            _falls(f"wire porter-gc {label}", l_k)
+        # one buffer's exchange: measured bytes, the model, and what the
+        # executor's last exchange actually packed
+        eng = algo.engine
+        measured, model = eng.wire_bytes(s_k.x), eng.wire_bytes_model(s_k.x)
+        shipped = algo.mixer.shipped_nbytes
+        print(f"[wire] {label} bytes of one buffer's exchange: measured "
+              f"{measured}, model {model}, packed in the last exchange "
+              f"{shipped}, expected {WIRE_BYTES_MLP[comp]}")
+        if not measured == model == shipped == WIRE_BYTES_MLP[comp]:
+            raise AssertionError(f"wire {label}: bytes {measured} / {model} "
+                                 f"/ {shipped}, expected "
+                                 f"{WIRE_BYTES_MLP[comp]}")
+    print(f"[wire] ms/round: {ms_rounds}")
+    algo = _build(api, configs["top_k f32"].replace(comm_backend="kernel"),
+                  loss_fn)
+    profile_rounds(torch, runtime, algo, source, _init(algo, paper), 20,
+                   "wire top_k kernel")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -556,6 +784,10 @@ def main() -> int:
         f"{b} {statistics.median(v):.4f}" for b, v in ms_per_round.items()))
     choco = phase_baselines(torch, ops, api, data, runtime, paper)
 
+    # phase 5: the bit-packed wire, its kernels and its path
+    wire_table = phase_wire_kernels(torch, ops, ref)
+    wire_launches = phase_wire(torch, ops, api, data, runtime, paper)
+
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
     # PORTER-GC (sr_cast), all on the MLP
@@ -575,6 +807,19 @@ def main() -> int:
                            "bound_ms": table[(name + "_bf16",
                                               MAIN_PLANE)]["bound_ms"]}
                           if name + "_bf16" in VARIANTS else None)))
+    for name, k in WIRE_KERNELS.items():
+        row = wire_table[(k["variant"], MAIN_PLANE)]
+        path = "qsgd f32" if name.startswith("qsgd") else "top_k f32"
+        record.append(dict(
+            name=name, ok=row["equal"], route="cuda",
+            source="src/repro_torch/csrc/wire_pack.cu",
+            replaces=k["replaces"], launches=wire_launches[path][name],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"],
+            library_ms=(row["library_ms"] if name == "topk_unpack"
+                        else None),
+            nearest_ms=(row["library_ms"] if name == "topk_pack" else None)))
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

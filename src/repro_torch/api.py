@@ -23,8 +23,10 @@ passes ``device=``; nothing here probes for a card and moves to the CPU.
 Registered here: ``porter-gc``, ``porter-dp``, ``beer``, and the paper's
 baselines ``dsgd``, ``choco``, ``dp-sgd`` and ``soteriafl``.
 ``plane_dtype="bf16"`` keeps the EF buffers in bf16 (the master params stay
-f32).  The spec keeps the reference's field names; a value this slice does
-not run raises and names the ROADMAP item that ports it.
+f32).  ``wire="packed_bits"`` with ``gossip_mode="packed"`` gossips
+bit-packed buffers (:func:`resolve_wire_format`).  The spec keeps the
+reference's field names; a value this slice does not run raises and names
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 from .core import baselines as BL
 from .core.beer import beer_config
 from .core.comm_round import CommRound
+from .core import wire_formats
 from .core.compression import Compressor, make_compressor
 from .core.gossip import make_mixer
 from .core.mixing import Topology, make_topology
@@ -48,6 +51,7 @@ from .tree import tree_leaves, tree_map
 
 __all__ = ["ExperimentSpec", "build", "build_engine", "resolve_topology",
            "resolve_compressor", "resolve_gamma", "resolve_plane_dtype",
+           "resolve_wire_format",
            "Algorithm", "AlgorithmInfo", "algorithm_info", "list_algorithms"]
 
 # compressors whose knob is a kept-fraction (rho = frac)
@@ -128,7 +132,6 @@ def _check_slice(spec: ExperimentSpec) -> None:
     later = [("fleet", spec.fleet, False, "ROADMAP queue 1 item 10"),
              ("topology_schedule", spec.topology_schedule, None,
               "ROADMAP queue 1 items 3-4"),
-             ("wire", spec.wire, "dense", "ROADMAP queue 1 item 9"),
              ("remat_policy", spec.remat_policy, None,
               "ROADMAP queue 1 item 13")]
     for name, value, supported, item in later:
@@ -179,24 +182,61 @@ def resolve_gamma(spec: ExperimentSpec, topology: Topology,
     return gamma
 
 
+def resolve_wire_format(spec: ExperimentSpec):
+    """``spec.wire`` -> a :class:`wire_formats.WireFormat` or None.
+
+    'packed_bits' registers the compressor family's bit-packed layout
+    (top_k / block_top_k -> ``topk_bits`` at ``spec.frac``; qsgd ->
+    ``qsgd_bits`` at ``compressor_kwargs["levels"]``, 16 by default).  The
+    codec runs the CUDA kernels unless ``comm_backend='ref'``, which runs
+    their plain versions on any device.
+    """
+    if spec.wire == "dense":
+        return None
+    if spec.wire != "packed_bits":
+        raise ValueError(f"unknown wire format {spec.wire!r}; have "
+                         f"{wire_formats.WIRE_MODES}")
+    if spec.gossip_mode not in ("ring", "packed"):
+        raise ValueError(
+            "wire='packed_bits' needs gossip_mode 'ring' or 'packed' "
+            f"(got {spec.gossip_mode!r}); dense gossip ships the dense "
+            "emulation by definition")
+    use_kernel = spec.comm_backend != "ref"
+    if spec.compressor == "qsgd":
+        levels = int(spec.compressor_kwargs.get("levels", 16))
+        return wire_formats.make_wire_format("qsgd", levels=levels,
+                                             use_kernel=use_kernel)
+    return wire_formats.make_wire_format(spec.compressor, frac=spec.frac,
+                                         use_kernel=use_kernel)
+
+
 def build_engine(spec: ExperimentSpec, *,
-                 topology: Optional[Topology] = None) -> CommRound:
-    """Comm-round engine for ``spec`` (compressor + dense mixer + backend)."""
+                 topology: Optional[Topology] = None,
+                 compress_fn=None) -> CommRound:
+    """Comm-round engine for ``spec``: compressor, mixer (dense, or the
+    packed codec executor under ``wire="packed_bits"``) and backend.
+    ``compress_fn``: optional ``(gen, tree) -> tree`` compression override,
+    refused beside a codec."""
     top = resolve_topology(spec) if topology is None else topology
     return CommRound(compressor=resolve_compressor(spec),
-                     mixer=make_mixer(top, spec.gossip_mode),
-                     backend=spec.comm_backend, overlap=spec.overlap,
+                     mixer=make_mixer(top, spec.gossip_mode, frac=spec.frac,
+                                      codec=resolve_wire_format(spec)),
+                     compress_fn=compress_fn, backend=spec.comm_backend,
+                     overlap=spec.overlap,
                      plane_dtype=resolve_plane_dtype(spec))
 
 
 def build(spec: ExperimentSpec, loss_fn, *, device=None,
-          topology: Optional[Topology] = None) -> Algorithm:
+          topology: Optional[Topology] = None,
+          compress_fn=None) -> Algorithm:
     """Resolve ``spec`` into a ready-to-train :class:`Algorithm`.
 
     loss_fn: ``(params, batch) -> scalar loss`` for one agent, in torch ops
       that ``torch.func`` can differentiate and vmap.
     device: where the state lives; ``torch.device("cuda")`` unless given.
     topology: pre-built Topology override.
+    compress_fn: optional ``(gen, tree) -> tree`` compression override for
+      the decentralized compressed algorithms (not under a codec).
     """
     _check_slice(spec)
     device = torch.device("cuda") if device is None else torch.device(device)
@@ -205,10 +245,10 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
     if info.decentralized:
         top = resolve_topology(spec) if topology is None else topology
     if info.decentralized and info.compressed:
-        engine = build_engine(spec, topology=top)
+        engine = build_engine(spec, topology=top, compress_fn=compress_fn)
         comp, mixer = engine.compressor, engine.mixer
     elif info.decentralized:
-        mixer = make_mixer(top, spec.gossip_mode)
+        mixer = make_mixer(top, spec.gossip_mode, frac=spec.frac)
     elif info.compressed:
         # server/client: compression without gossip
         comp = resolve_compressor(spec)

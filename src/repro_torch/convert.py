@@ -17,6 +17,14 @@ rejects, so :func:`to_torch` carries it as its uint16 bit patterns and
 views them as ``torch.bfloat16``; :func:`to_numpy` returns a bf16 tensor
 as its uint16 bit patterns (``.view(ml_dtypes.bfloat16)`` on the caller's
 side gives the values back).  Nothing here imports ``ml_dtypes``.
+
+Wire buffers (:mod:`repro_torch.core.wire_formats`): torch's unsigned
+types have few kernels, so the reference's u16 top-k indices cross as
+int16 and its u32 qsgd words as int32, with the same bits (the indices are
+below 2048, so their values are the same too).  :func:`to_torch` views a
+uint16 / uint32 array so; :func:`wire_to_numpy` hands wire buffers back in
+the reference's dtypes: int16 as uint16, int32 as uint32, bf16 as its
+uint16 bits.
 """
 
 from __future__ import annotations
@@ -28,17 +36,23 @@ from .core import baselines as BL
 from .core.porter import PorterState
 from .tree import tree_map
 
-__all__ = ["to_torch", "to_numpy", "state_to_torch", "state_to_numpy"]
+__all__ = ["to_torch", "to_numpy", "wire_to_numpy", "state_to_torch",
+           "state_to_numpy"]
 
 _STATES = {cls.__name__: cls for cls in (
     PorterState, BL.ChocoState, BL.DsgdState, BL.DpSgdState,
     BL.SoteriaState)}
 
 
+_SIGNED = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
+
+
 def _tensor(a) -> torch.Tensor:
     arr = np.array(a)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if arr.dtype in _SIGNED:
+        return torch.from_numpy(arr.view(_SIGNED[arr.dtype]))
     return torch.from_numpy(arr)
 
 
@@ -58,6 +72,19 @@ def to_torch(tree, device=None):
 def to_numpy(tree):
     """Copy a tree of tensors back to numpy arrays (bf16 as uint16 bits)."""
     return tree_map(_array, tree)
+
+
+def wire_to_numpy(tree):
+    """Wire buffers back to the reference's dtypes: int16 indices as
+    uint16, int32 words as uint32, bf16 values as uint16 bits, others as
+    they are."""
+    unsigned = {torch.int16: np.uint16, torch.int32: np.uint32}
+
+    def one(t):
+        arr = _array(t)
+        return arr.view(unsigned[t.dtype]) if t.dtype in unsigned else arr
+
+    return tree_map(one, tree)
 
 
 def _port_class(state):

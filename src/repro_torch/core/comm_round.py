@@ -33,14 +33,18 @@ they stay bitwise equal under bf16 too.  All-f32 buffers draw nothing, so
 f32 runs keep their generator streams.  The parity tests inject the
 reference's bits through ``sr_bits=``.
 
-This slice is dense-gossip only: push-sum and the codec wire formats wait
-(ROADMAP).
+Gossip: the dense executor, or (``wire="packed_bits"``) the packed codec
+executor, to which :meth:`CommRound.exchange` hands the whole compress-and-
+mix step: the codec packs the increment, ``c`` is its unpacked round trip
+and ``wc = W @ c``.  Its qsgd noise is drawn from the round's generator
+after the SR words, where a compressor's draws would be, so the two
+backends stay bitwise comparable.  Push-sum waits (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,6 +52,7 @@ from ..kernels import flatten as FL
 from ..kernels import ops, ref
 from ..tree import tree_leaves, tree_map
 from .compression import Compressor
+from . import wire_formats as WF
 from .gossip import MixFn, apply_mixer, gossip_wire_bytes
 
 __all__ = ["CommRound", "compress_stacked", "resolve_backend",
@@ -131,7 +136,11 @@ class CommRound:
     """One compressed communication round: compress -> accumulate -> update.
 
     compressor: the rho-compressor; also drives wire accounting.
-    mixer: dense gossip executor ``tree -> W @ tree`` over the agent axis.
+    mixer: the dense executor ``tree -> W @ tree`` over the agent axis, or
+      a codec executor (``mixer.wire_codec`` set) driven through
+      ``mixer.exchange``.
+    compress_fn: optional ``(gen, delta_tree) -> tree`` replacing the
+      compressor's per-row call (not with a codec executor).
     backend: 'kernel' | 'ref' | 'auto'.
     overlap: issue both PORTER exchanges before either fused update; every
       value equals the sequential order's (bit-exact by construction).
@@ -143,6 +152,7 @@ class CommRound:
 
     compressor: Compressor
     mixer: MixFn
+    compress_fn: Optional[Callable] = None
     backend: str = "auto"
     overlap: bool = False
     plane_dtype: Any = None
@@ -155,6 +165,15 @@ class CommRound:
             raise ValueError(
                 f"plane_dtype must be f32 or bf16, got {self.plane_dtype}: "
                 "the stochastic-rounding writeback targets bf16 only")
+        if self.compress_fn is not None and self._codec is not None:
+            raise ValueError(
+                "wire='packed_bits' fuses (shard-local) compression with "
+                "packing inside the codec executor; a compress_fn override "
+                "would be silently ignored -- drop it")
+
+    @property
+    def _codec(self):
+        return getattr(self.mixer, "wire_codec", None)
 
     def _use_kernel(self, tree) -> bool:
         device = tree_leaves(tree)[0].device
@@ -199,13 +218,20 @@ class CommRound:
 
     def compress(self, gen, delta):
         """c = C(delta), per agent row of every leaf."""
+        if self.compress_fn is not None:
+            return self.compress_fn(gen, delta)
         return compress_stacked(self.compressor, gen, delta)
 
     def exchange(self, gen, y, q, t=None) -> Tuple[Any, Any]:
         """Returns ``(c, wc)``: ``c = C(y - q)`` and ``wc = W @ c``.  The
         increment is taken in the surrogate's dtype (a deterministic cast:
-        the next round's ``y - q`` measures its error afresh)."""
-        c = self.compress(gen, _sub(y, q))
+        the next round's ``y - q`` measures its error afresh).  A codec
+        executor compresses and mixes in one step: ``c`` is the increment's
+        pack / unpack round trip."""
+        delta = _sub(y, q)
+        if self._codec is not None:
+            return self.mixer.exchange(gen, delta, t)
+        c = self.compress(gen, delta)
         return c, apply_mixer(self.mixer, c, t)
 
     # -- fused state updates ------------------------------------------------
@@ -323,9 +349,13 @@ class CommRound:
         parameter count ``d`` plus ``n_agents``.  Dense gossip charges the
         compressor's own payload (``Compressor.wire_bits``), which does not
         narrow with the planes; the ring and packed byte models ship values
-        at the ``plane_dtype`` width (2 B for bf16).  Only the dense
-        executor is ported, so the packed model takes the scalar ``d`` form.
+        at the ``plane_dtype`` width (2 B for bf16).  A codec executor
+        charges the buffers its codec actually packs (:meth:`_codec_bytes`,
+        measured); :meth:`wire_bytes_model` is the layout arithmetic it is
+        checked against.
         """
+        if self._codec is not None:
+            return self._codec_bytes(tree_or_d, n_agents, measured=True)
         tree = None
         if n_agents is None:
             tree = tree_or_d
@@ -346,3 +376,42 @@ class CommRound:
                                      dtype_bytes=db)
         raise ValueError(f"wire accounting for gossip mode {mode!r} over a "
                          "tree is not ported yet (ROADMAP queue 1 item 12)")
+
+    def wire_bytes_model(self, tree_or_d,
+                         n_agents: Optional[int] = None) -> float:
+        """The analytic byte model of the same round: for a codec executor
+        the layout constants of its :class:`WireFormat` (windows times
+        payload plus overhead bytes), for every other mixer the accounting
+        of :meth:`wire_bytes` itself."""
+        if self._codec is not None:
+            return self._codec_bytes(tree_or_d, n_agents, measured=False)
+        return self.wire_bytes(tree_or_d, n_agents)
+
+    @staticmethod
+    def _packed_windows(tree, n_agents: int) -> int:
+        """PACK_BLOCK windows the packed codec executor pads for ``tree``:
+        each leaf pads separately, so windows are summed per leaf."""
+        return sum(-(-(leaf.numel() // n_agents) // WF.PACK_BLOCK)
+                   for leaf in tree_leaves(tree))
+
+    def _codec_bytes(self, tree_or_d, n_agents: Optional[int],
+                     measured: bool) -> float:
+        """Link bytes of one buffer's round under the codec executor.
+
+        Windows are counted per leaf (:meth:`_packed_windows`); the bytes of
+        a window come from the buffers the codec packs
+        (:func:`wire_formats.measured_pack_nbytes`) or from its layout
+        constants (the model).  'packed' all-gathers every agent's buffers.
+        """
+        codec = self._codec
+        if n_agents is None:
+            n_agents = tree_leaves(tree_or_d)[0].shape[0]
+            windows = self._packed_windows(tree_or_d, n_agents)
+        else:
+            windows = codec.windows(int(tree_or_d))
+        if measured:
+            per_window = float(WF.measured_pack_nbytes(codec, WF.PACK_BLOCK))
+        else:
+            per_window = float(codec.payload_bytes_per_window
+                               + codec.overhead_bytes_per_window)
+        return float(n_agents) * windows * per_window

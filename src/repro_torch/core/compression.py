@@ -1,9 +1,13 @@
 """Communication compression operators (paper Definition 3).
 
 A rho-compressor is a (possibly randomized, possibly biased) map C with
-E || C(x) - x ||^2 <= (1 - rho) ||x||^2.  This slice ports ``identity``,
-``random_k`` (paper Example 1) and ``top_k`` (paper Example 2) from
-``src/repro/core/compression.py``; the other four wait (ROADMAP queue 1).
+E || C(x) - x ||^2 <= (1 - rho) ||x||^2.  Ported from
+``src/repro/core/compression.py``: ``identity``, ``random_k`` (paper
+Example 1), ``top_k`` (paper Example 2), ``block_top_k`` (top-k inside each
+2048-element block) and ``qsgd`` (the scaled stochastic quantizer);
+``low_rank`` and ``sign`` wait (ROADMAP queue 1 item 2).  Under
+``wire="packed_bits"`` the codec of :mod:`repro_torch.core.wire_formats`
+stands in for ``fn``; the compressor still gives gamma its ``rho``.
 
 A compressor here works on *rows*: ``fn(gen, rows)`` compresses each row
 of a ``(n, d)`` tensor independently, which is how the comm-round engine
@@ -19,7 +23,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-__all__ = ["Compressor", "identity", "random_k", "top_k", "make_compressor"]
+__all__ = ["Compressor", "identity", "random_k", "top_k", "block_top_k",
+           "qsgd", "make_compressor"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,16 +91,70 @@ def top_k(frac: float) -> Compressor:
     def fn(gen, rows):
         del gen
         k = min(max(int(round(frac * rows.shape[-1])), 1), rows.shape[-1])
-        idx = torch.sort(rows.abs(), dim=-1, descending=True,
-                         stable=True).indices[..., :k]
-        return torch.zeros_like(rows).scatter_(
-            -1, idx, torch.gather(rows, -1, idx))
+        return _keep_top(rows, k)
 
     return Compressor(f"top_k({frac})", float(frac), fn, deterministic=True)
 
 
-_REGISTRY = {"identity": identity, "random_k": random_k, "top_k": top_k}
-_LATER = ("block_top_k", "low_rank", "sign", "qsgd")
+def _keep_top(rows, k: int):
+    """Zero all but the k largest magnitudes along the last axis, ties to
+    the lowest index (a stable descending sort)."""
+    idx = torch.sort(rows.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return torch.zeros_like(rows).scatter_(-1, idx,
+                                           torch.gather(rows, -1, idx))
+
+
+def block_top_k(frac: float, block: int = 2048) -> Compressor:
+    """Top-k inside each ``block``-sized window of a row (the row padded
+    with zeros to whole blocks): k_b = max(round(frac * block), 1) per
+    block, ties to the lowest index as ``jax.lax.top_k``.  Still a
+    Definition-3 compressor with rho = frac (block energies add)."""
+
+    def fn(gen, rows):
+        del gen
+        d = rows.shape[-1]
+        blocks = torch.nn.functional.pad(rows, (0, (-d) % block)).reshape(
+            *rows.shape[:-1], -1, block)
+        out = _keep_top(blocks, max(int(round(frac * block)), 1))
+        return out.reshape(*rows.shape[:-1], -1)[..., :d]
+
+    return Compressor(f"block_top_k({frac},{block})", float(frac), fn,
+                      deterministic=True)
+
+
+def qsgd(levels: int = 16) -> Compressor:
+    """Scaled stochastic quantizer over each whole row: QSGD with ``levels``
+    levels is unbiased with relative variance omega <= min(d / s^2,
+    sqrt(d) / s), so dividing by (1 + omega) makes it a rho = 1/(1 + omega)
+    contraction.  The registry's rho is the bound at d ~ 1e6, as in the
+    reference.  ``noise=`` injects the U[0, 1) draws of the stochastic
+    rounding in place of the generator's (the parity tests hand over the
+    reference's uniforms)."""
+
+    def fn(gen, rows, noise=None):
+        d = rows.shape[-1]
+        if noise is None:
+            noise = torch.rand(rows.shape, generator=gen, device=rows.device)
+        norm = torch.linalg.vector_norm(rows, dim=-1, keepdim=True) + 1e-30
+        y = rows.abs() / norm * levels
+        lo = torch.floor(y)
+        # tensor divisors: PyTorch's CUDA division by a scalar multiplies
+        # by its reciprocal, which is not the f32 quotient
+        q = (lo + (noise < y - lo).to(rows.dtype)) / torch.full_like(
+            lo, levels)
+        omega = min(np.sqrt(d) / levels, d / levels ** 2)
+        out = torch.sign(rows) * q * norm / torch.full_like(norm, 1.0 + omega)
+        return out.to(rows.dtype)
+
+    omega_typ = np.sqrt(1e6) / levels
+    return Compressor(f"qsgd({levels})", float(1.0 / (1.0 + omega_typ)), fn,
+                      bits_per_element=int(np.ceil(np.log2(levels + 1))) + 1)
+
+
+_REGISTRY = {"identity": identity, "random_k": random_k, "top_k": top_k,
+             "block_top_k": block_top_k, "qsgd": qsgd}
+_LATER = ("low_rank", "sign")
 
 
 def make_compressor(name: str, **kwargs) -> Compressor:

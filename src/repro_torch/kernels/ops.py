@@ -8,6 +8,12 @@ both launch the ``sr_cast`` kernel), so a run can show that its main path
 went through the kernels (``chip_smoke.py`` zeroes the counts before the
 path and reads them after).
 
+The wire codecs (``wire_topk_pack`` / ``wire_topk_unpack`` /
+``wire_qsgd_pack`` / ``wire_qsgd_unpack``) take ``(R, PACK_BLOCK)`` windows
+and the wire dtypes of :mod:`repro_torch.core.wire_formats`: bf16 values
+with int16 indices (top-k), int32 words with f32 scales (qsgd).  qsgd's
+U[0, 1) noise is an operand, drawn by the caller.
+
 Operand types of the ef updates, as the comm-round engine issues them: all
 f32; ``ef_track`` with every operand bf16; ``ef_step`` / ``ef_gossip`` with
 bf16 EF operands beside an f32 ``x`` / ``y``.  ``out_dtype`` is None (each
@@ -19,15 +25,20 @@ from __future__ import annotations
 
 import torch
 
+from ..core import wire_formats as WF
 from . import ef_update as _ef
 from . import ref
 from . import sr_cast as _srk
+from . import wire_pack as _wp
 from .flatten import TILE
 
 __all__ = ["LAUNCHES", "reset_launches", "ef_track", "ef_step", "ef_gossip",
-           "sr_cast", "sr_cast_leaf"]
+           "sr_cast", "sr_cast_leaf", "wire_topk_pack", "wire_topk_unpack",
+           "wire_qsgd_pack", "wire_qsgd_unpack"]
 
-LAUNCHES = {"ef_track": 0, "ef_step": 0, "ef_gossip": 0, "sr_cast": 0}
+LAUNCHES = {"ef_track": 0, "ef_step": 0, "ef_gossip": 0, "sr_cast": 0,
+            "topk_pack": 0, "topk_unpack": 0, "qsgd_pack": 0,
+            "qsgd_unpack": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 # (EF operands' dtype, slot-2 operand's dtype) each kernel takes
@@ -125,3 +136,86 @@ def sr_cast_leaf(x, bits):
     """The same cast over one leaf of any shape, without plane padding
     (``bits`` in ``x``'s shape); ``x`` is taken to f32 first."""
     return _sr_cast("sr_cast_leaf", x.to(_F32).contiguous(), bits)
+
+
+def _check_wire(name: str, tensors, dtypes, widths) -> str:
+    """2-D contiguous operands on one device with the given dtypes, last
+    dims ``widths`` (None: any) and a common first dim; 16-byte aligned on
+    the card (the kernels read and write whole vectors).  Returns the
+    device type."""
+    lead = tensors[0]
+    for t, dt, width in zip(tensors, dtypes, widths):
+        if t.dtype != dt:
+            raise TypeError(f"{name} takes {list(dtypes)}, got "
+                            f"{[x.dtype for x in tensors]}")
+        if (t.dim() != 2 or t.shape[0] != lead.shape[0] or t.shape[0] < 1
+                or (width is not None and t.shape[1] != width)):
+            raise ValueError(
+                f"{name} takes 2-D operands of widths {list(widths)} over "
+                f"the same rows, got {[tuple(x.shape) for x in tensors]}")
+        if not t.is_contiguous() or t.device != lead.device:
+            raise ValueError(f"{name} needs contiguous operands on one device")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned operands")
+    kind = lead.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {kind}")
+    return kind
+
+
+def _check_levels(levels: int) -> None:
+    if not 1 <= levels <= 2 ** 15 - 1:
+        raise ValueError(f"qsgd levels must be in [1, 32767], got {levels}")
+
+
+def wire_topk_pack(rows, k: int):
+    """Per-window top-k select and pack: ``(R, PACK_BLOCK)`` f32 -> (bf16
+    values, int16 indices), each ``(R, k)``."""
+    if not 1 <= k <= WF.PACK_BLOCK:
+        raise ValueError(f"k must be in [1, {WF.PACK_BLOCK}], got {k}")
+    if _check_wire("wire_topk_pack", (rows,), (torch.float32,),
+                   (WF.PACK_BLOCK,)) == "cpu":
+        return ref.topk_pack_ref(rows, k)
+    out = _wp.topk_pack(rows, k)
+    LAUNCHES["topk_pack"] += 1
+    return out
+
+
+def wire_topk_unpack(vals, idx):
+    """Packed ``(R, k)`` values and indices -> dense f32 ``(R,
+    PACK_BLOCK)``."""
+    if vals.dim() != 2 or idx.shape != vals.shape:
+        raise ValueError(f"wire_topk_unpack takes (R, k) values and indices, "
+                         f"got {tuple(vals.shape)} and {tuple(idx.shape)}")
+    if _check_wire("wire_topk_unpack", (vals, idx),
+                   (WF.TOPK_VALUE_DTYPE, WF.TOPK_INDEX_DTYPE),
+                   (None, None)) == "cpu":
+        return ref.topk_unpack_ref(vals, idx)
+    out = _wp.topk_unpack(vals, idx)
+    LAUNCHES["topk_unpack"] += 1
+    return out
+
+
+def wire_qsgd_pack(rows, noise, levels: int):
+    """Per-window QSGD quantize and bit-pack: ``(R, PACK_BLOCK)`` f32 and
+    its U[0, 1) noise -> (int32 words ``(R, W)``, f32 scales ``(R, 1)``)."""
+    _check_levels(levels)
+    if _check_wire("wire_qsgd_pack", (rows, noise),
+                   (torch.float32, torch.float32),
+                   (WF.PACK_BLOCK, WF.PACK_BLOCK)) == "cpu":
+        return ref.qsgd_pack_ref(rows, noise, levels)
+    out = _wp.qsgd_pack(rows, noise, levels)
+    LAUNCHES["qsgd_pack"] += 1
+    return out
+
+
+def wire_qsgd_unpack(words, scale, levels: int):
+    """Bit-packed words and scales -> dense f32 ``(R, PACK_BLOCK)``."""
+    _check_levels(levels)
+    if _check_wire("wire_qsgd_unpack", (words, scale),
+                   (WF.QSGD_WORD_DTYPE, torch.float32),
+                   (WF.qsgd_words_per_window(levels), 1)) == "cpu":
+        return ref.qsgd_unpack_ref(words, scale, levels)
+    out = _wp.qsgd_unpack(words, scale, levels)
+    LAUNCHES["qsgd_unpack"] += 1
+    return out

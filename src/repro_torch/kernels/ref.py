@@ -3,8 +3,11 @@
 They are the CPU path of :mod:`repro_torch.kernels.ops`, and the versions
 the CUDA kernels are held against, bitwise, on the card (``chip_smoke.py``).
 Each keeps the reference's order of operations
-(``src/repro/kernels/ef_update.py``, ``src/repro/kernels/sr_cast.py``): f32
-arithmetic, one op at a time, so no step is fused into an FMA.
+(``src/repro/kernels/ef_update.py``, ``src/repro/kernels/sr_cast.py``, the
+wire codecs of ``src/repro/core/wire_formats.py``): f32 arithmetic, one op
+at a time, so no step is fused into an FMA.  The wire codecs take their
+random operand explicitly (qsgd's U[0, 1) ``noise``), and their layout from
+:mod:`repro_torch.core.wire_formats`, which re-exports them.
 
 ``out_dtype`` (the ef updates): ``None`` writes each output in its state
 operand's dtype; a dtype (the engine asks for f32) writes all three in it,
@@ -15,7 +18,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ef_track_ref", "ef_step_ref", "ef_gossip_ref", "sr_cast_ref"]
+__all__ = ["ef_track_ref", "ef_step_ref", "ef_gossip_ref", "sr_cast_ref",
+           "topk_pack_ref", "topk_unpack_ref", "qsgd_pack_ref",
+           "qsgd_unpack_ref", "qsgd_sumsq"]
 
 _F32 = torch.float32
 
@@ -62,3 +67,109 @@ def sr_cast_ref(x, bits):
                          f"{tuple(bits.shape)}")
     word = x.to(_F32).contiguous().view(torch.int32) + (bits & 0xFFFF)
     return (word >> 16).to(torch.int16).view(torch.bfloat16)
+
+
+def _layout():
+    """:mod:`repro_torch.core.wire_formats`, which imports this module, so
+    it is looked up at call time."""
+    from ..core import wire_formats
+    return wire_formats
+
+
+def topk_pack_ref(rows, k: int):
+    """Per-window top-k pack: ``(nb, PACK_BLOCK)`` f32 -> (bf16 values
+    ``(nb, k)``, int16 window-local indices ``(nb, k)``).
+
+    The bisection threshold keeps >= k elements; the first k of them in
+    index order (``rank = cumsum(keep) - 1``) fill the k slots, so the
+    segments are index-ordered.  Values keep their sign, -0 included.
+    """
+    wf = _layout()
+    rows = rows.to(_F32)
+    a = rows.abs()
+    keep = a >= wf.bisect_threshold(a, k).unsqueeze(-1)
+    rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+    col = torch.where(keep & (rank < k), rank, k).long()   # spill -> slot k
+    pos = torch.arange(rows.shape[1], device=rows.device).expand_as(col)
+    nb = rows.shape[0]
+    vals = torch.zeros(nb, k + 1, dtype=_F32, device=rows.device)
+    idx = torch.zeros(nb, k + 1, dtype=torch.int64, device=rows.device)
+    vals = vals.scatter(1, col, rows)[:, :k]
+    idx = idx.scatter(1, col, pos)[:, :k]
+    return vals.to(wf.TOPK_VALUE_DTYPE), idx.to(wf.TOPK_INDEX_DTYPE)
+
+
+def topk_unpack_ref(vals, idx):
+    """``(bf16 (nb, k), int16 (nb, k)) -> (nb, PACK_BLOCK)`` f32: each value
+    added onto a zero window at its index (so -0 unpacks to +0)."""
+    out = torch.zeros(vals.shape[0], _layout().PACK_BLOCK, dtype=_F32,
+                      device=vals.device)
+    return out.scatter_add(1, idx.long(), vals.to(_F32))
+
+
+def qsgd_sumsq(rows):
+    """Per-window sum of squares in the kernel's fixed order: each of 256
+    threads sums its 8 consecutive squares in sequence, then a halving tree
+    adds partial ``i + half`` onto partial ``i``."""
+    sq = rows * rows
+    parts = sq.reshape(rows.shape[0], -1, 8)
+    s = parts[..., 0]
+    for j in range(1, 8):
+        s = s + parts[..., j]
+    while s.shape[1] > 1:
+        half = s.shape[1] // 2
+        s = s[:, :half] + s[:, half:]
+    return s[:, 0]
+
+
+def qsgd_pack_ref(rows, noise, levels: int):
+    """Per-window QSGD quantize and bit-pack: ``(nb, PACK_BLOCK)`` f32 and
+    its U[0, 1) ``noise`` -> (int32 words ``(nb, W)``, f32 scales
+    ``(nb, 1)``).
+
+    ``norm = sqrt(sumsq) + 1e-30``, ``y = |x| / norm * levels``,
+    ``code = floor(y) + (u < y - floor(y))``; field ``code | sign <<
+    (bits - 1)`` goes to bit ``bits * e`` of word ``i // epw``; the scale is
+    ``norm / f32(levels * (1 + omega))``.  Words are formed in int64 and
+    narrowed to the int32 of the same 32 bits.
+    """
+    wf = _layout()
+    bits = wf.qsgd_bits(levels)
+    epw = wf.qsgd_elems_per_word(levels)
+    words = wf.qsgd_words_per_window(levels)
+    rows = rows.to(_F32)
+    norm = torch.sqrt(qsgd_sumsq(rows)) + 1e-30
+    y = rows.abs() / norm.unsqueeze(1) * float(levels)
+    lo = torch.floor(y)
+    code = (lo + (noise < (y - lo)).to(_F32)).to(torch.int64)
+    field = code | ((rows < 0).to(torch.int64) << (bits - 1))
+    field = torch.nn.functional.pad(field, (0, words * epw - rows.shape[1]))
+    field = field.reshape(rows.shape[0], words, epw)
+    word = torch.zeros(rows.shape[0], words, dtype=torch.int64,
+                       device=rows.device)
+    for e in range(epw):
+        word = word | (field[:, :, e] << (bits * e))
+    word = word & 0xFFFFFFFF              # a 32-bit word keeps 32 bits
+    word = torch.where(word >= 2 ** 31, word - 2 ** 32, word)
+    # a tensor divisor: PyTorch's CUDA division by a scalar multiplies by
+    # its reciprocal, which is not the f32 quotient
+    denom = torch.full_like(norm, wf.qsgd_scale_denominator(levels))
+    return word.to(torch.int32), (norm / denom).unsqueeze(1)
+
+
+def qsgd_unpack_ref(word, scale, levels: int):
+    """``(int32 (nb, W), f32 (nb, 1)) -> (nb, PACK_BLOCK)`` f32: each field
+    ``f`` unpacks to ``(sgn * code) * scale`` with ``sgn = 1 - 2 * (f >>
+    (bits - 1))``."""
+    wf = _layout()
+    bits = wf.qsgd_bits(levels)
+    epw = wf.qsgd_elems_per_word(levels)
+    mag_mask, field_mask = 2 ** (bits - 1) - 1, 2 ** bits - 1
+    cols = []
+    for e in range(epw):
+        f = (word >> (bits * e)) & field_mask
+        code = (f & mag_mask).to(_F32)
+        sgn = 1.0 - 2.0 * (f >> (bits - 1)).to(_F32)
+        cols.append(sgn * code)
+    vals = torch.stack(cols, dim=2).reshape(word.shape[0], -1)
+    return vals[:, :wf.PACK_BLOCK] * scale

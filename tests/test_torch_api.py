@@ -57,25 +57,62 @@ def test_registry_holds_the_slice():
 
 @pytest.mark.parametrize("over", [dict(fleet=True),
                                   dict(topology_schedule="static"),
-                                  dict(wire="packed_bits"),
                                   dict(remat_policy="full"),
                                   dict(gossip_mode="ring"),
                                   dict(gossip_mode="packed"),
-                                  dict(compressor="qsgd")])
+                                  dict(gossip_mode="ring",
+                                       wire="packed_bits")])
 def test_options_of_later_slices_raise(over):
     with pytest.raises(ValueError, match="ROADMAP"):
         tapi.build(tapi.ExperimentSpec(**over), _loss, device="cpu")
 
 
+def test_packed_bits_errors_are_the_reference_errors():
+    """Dense gossip has no codec form, and a compress_fn beside a codec
+    would be ignored: both raise the reference's own messages."""
+    bad = (dict(wire="packed_bits"), dict(wire="bits"))
+    for over in bad:
+        with pytest.raises(ValueError) as want:
+            japi.build(japi.ExperimentSpec(**over), lambda p, b: 0.0)
+        with pytest.raises(ValueError) as got:
+            tapi.build(tapi.ExperimentSpec(**over), _loss, device="cpu")
+        assert str(got.value) == str(want.value)
+    spec = tapi.ExperimentSpec(wire="packed_bits", gossip_mode="packed")
+    with pytest.raises(ValueError, match="compress_fn override would be "
+                       "silently ignored"):
+        tapi.build(spec, _loss, device="cpu",
+                   compress_fn=lambda gen, tree: tree)
+    # on the dense wire the override is the compression
+    halve = tapi.build(tapi.ExperimentSpec(), _loss, device="cpu",
+                       compress_fn=lambda gen, tree: {
+                           k: v / 2 for k, v in tree.items()})
+    y, q = {"w": torch.ones(10, 3)}, {"w": torch.zeros(10, 3)}
+    c, _ = halve.engine.exchange(None, y, q)
+    assert torch.equal(c["w"], torch.full((10, 3), 0.5))
+    for comp in ("top_k", "block_top_k", "qsgd"):
+        algo = tapi.build(spec.replace(compressor=comp), _loss, device="cpu")
+        assert algo.mixer.wire_codec.name == (
+            "qsgd_bits" if comp == "qsgd" else "topk_bits")
+        assert algo.engine.mixer is algo.mixer
+
+
 @pytest.mark.parametrize("over", [dict(), dict(topology="ring"),
                                   dict(compressor="random_k", frac=0.2),
                                   dict(compressor="identity"),
+                                  dict(compressor="qsgd"),
+                                  dict(compressor="qsgd",
+                                       compressor_kwargs={"levels": 7}),
+                                  dict(compressor="block_top_k",
+                                       wire="packed_bits",
+                                       gossip_mode="packed"),
                                   dict(gamma=0.3), dict(gamma_scale=0.25)])
 def test_gamma_and_topology_resolve_as_the_reference(over):
     kw = dict(dict(n_agents=10, topology="erdos_renyi",
                    topology_weights="best_constant", topology_seed=1), **over)
     got = tapi.build(tapi.ExperimentSpec(**kw), _loss, device="cpu")
-    want = japi.build(japi.ExperimentSpec(**kw), lambda p, b: 0.0)
+    mesh = (jax.make_mesh((1,), ("data",))
+            if kw.get("gossip_mode") == "packed" else None)
+    want = japi.build(japi.ExperimentSpec(**kw), lambda p, b: 0.0, mesh=mesh)
     assert got.gamma == want.gamma
     np.testing.assert_array_equal(got.topology.w, want.topology.w)
     assert got.compressor.rho == want.compressor.rho

@@ -127,7 +127,10 @@ def test_random_k_draws_from_the_generator():
 
 @pytest.mark.parametrize("name,kw", [("identity", {}),
                                      ("top_k", {"frac": 0.05}),
-                                     ("random_k", {"frac": 0.1})])
+                                     ("random_k", {"frac": 0.1}),
+                                     ("block_top_k", {"frac": 0.05}),
+                                     ("qsgd", {}),
+                                     ("qsgd", {"levels": 7})])
 def test_compressor_contract_and_wire_bits_equal_reference(name, kw):
     ref, got = JCMP.make_compressor(name, **kw), TCMP.make_compressor(name,
                                                                       **kw)
@@ -137,10 +140,43 @@ def test_compressor_contract_and_wire_bits_equal_reference(name, kw):
         assert got.wire_bits(d) == ref.wire_bits(d)
 
 
-@pytest.mark.parametrize("name", ["block_top_k", "low_rank", "sign", "qsgd"])
+@pytest.mark.parametrize("name", ["low_rank", "sign"])
 def test_compressors_of_later_slices_raise(name):
     with pytest.raises(ValueError, match="ROADMAP"):
         TCMP.make_compressor(name)
+
+
+@pytest.mark.parametrize("frac", [0.05, 0.3])
+@pytest.mark.parametrize("ints", [False, True], ids=["tie_free", "ties"])
+def test_block_top_k_equals_reference(frac, ints):
+    """Exactly k per 2048-block (the row padded to whole blocks), ties to
+    the lowest index as jax.lax.top_k."""
+    tree = _stacked(14, ints=ints)
+    got = TCR.compress_stacked(TCMP.block_top_k(frac), None, _t(tree))
+    want = JCMP.compress_tree(JCMP.block_top_k(frac), jax.random.PRNGKey(0),
+                              _j(tree))
+    _assert_tree(got, want)
+
+
+@pytest.mark.parametrize("levels", [7, 16])
+def test_qsgd_with_injected_noise_equals_reference(levels):
+    """The dense-wire qsgd on the reference's uniforms.  atol 1e-6: the
+    row norm is an f32 reduction in another order, so a value may move by
+    an ulp; a rounding code moves only if a uniform falls in that sliver."""
+    rows = np.random.default_rng(15).standard_normal((N, 3001)).astype(
+        np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(16), N)
+    comp = JCMP.qsgd(levels)
+    want = np.stack([np.asarray(comp(k, jnp.asarray(r)))
+                     for k, r in zip(keys, rows)])
+    noise = np.stack([np.asarray(jax.random.uniform(k, (3001,)))
+                      for k in keys])
+    got = TCMP.qsgd(levels)(None, torch.from_numpy(rows),
+                            noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    drawn = TCMP.qsgd(levels)(torch.Generator().manual_seed(0),
+                              torch.from_numpy(rows))
+    assert drawn.shape == got.shape and torch.isfinite(drawn).all()
 
 
 def test_compress_stacked_per_agent_rows():

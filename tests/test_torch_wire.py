@@ -1,0 +1,250 @@
+"""The port's bit-packed wire layouts and the plain versions of its four
+codec kernels against the JAX reference (``repro.core.wire_formats`` and
+``repro.kernels.ops.wire_*`` in interpret mode) on the same windows.
+
+Tolerances, each with its reason:
+
+* exact: layout constants and byte counts (integer arithmetic); the top-k
+  pack (the same bisection, the same index-order selection, a bf16 cast)
+  and every unpack (a copy or one f32 product per element); qsgd words and
+  scales on windows of small integers, whose sum of squares is exact in
+  f32 in any order;
+* qsgd on Gaussian windows: the scale within 2 f32 ulps, because the
+  reference sums the 2048 squares in XLA's order and the port in the
+  kernel's fixed order (``ref.qsgd_sumsq``): the sums differ by a few ulps,
+  the square root halves that, and the division by ``levels * (1 +
+  omega)`` rounds once more (1 ulp was expected; 2 occur).  The unpacked
+  window within one quantisation step times the scale, with at most 0.1 %
+  of the codes different (a code moves only when its uniform falls within
+  an ulp-sized sliver of the rounding probability);
+* the Pallas kernel in interpret mode: its qsgd scale within 1 ulp even on
+  exact sums, because under jit XLA turns the division by the constant
+  ``levels * (1 + omega)`` into a product with its reciprocal, which the
+  reference's own ``qsgd_pack_ref`` (and the port) do not.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import wire_formats as JWF
+from repro.kernels import ops as jops
+from repro_torch import convert
+from repro_torch.core import wire_formats as TWF
+from repro_torch.kernels import ops as tops
+
+torch.set_num_threads(1)
+
+# one compiled program per shape instead of one per eager op
+_topk_pack_ref = jax.jit(JWF.topk_pack_ref, static_argnums=1)
+_topk_unpack_ref = jax.jit(JWF.topk_unpack_ref)
+
+LEVELS = (1, 3, 7, 16, 255)
+FRACS = (0.05, 0.25, 1 / 2048)
+
+
+def _windows(kind, d, seed=0):
+    """f32 windows of a d-vector: 'gauss', 'ints' (tied magnitudes),
+    'sparse' (fewer nonzeros than k, an all-zero window, a -0)."""
+    rng = np.random.default_rng(seed)
+    if kind == "gauss":
+        x = rng.standard_normal(d)
+    elif kind == "ints":
+        x = rng.integers(-3, 4, d)
+    else:
+        x = np.zeros(d)
+        hot = rng.choice(d, size=max(d // 100, 1), replace=False)
+        x[hot] = rng.integers(-3, 4, hot.size)
+    x = x.astype(np.float32)
+    rows = np.array(JWF.to_windows(jnp.asarray(x)))
+    if kind == "sparse" and rows.shape[0] > 1:
+        rows[-1] = 0.0
+        rows[0, 1] = -0.0
+    return rows
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view({2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+
+
+def _ulps(a, b):
+    return np.abs(_bits(a).astype(np.int64) - _bits(b).astype(np.int64))
+
+
+def _np(t):
+    return convert.wire_to_numpy(t)
+
+
+@pytest.mark.parametrize("levels", LEVELS)
+@pytest.mark.parametrize("frac", FRACS)
+def test_layout_constants_equal_reference(levels, frac):
+    for name in ("PACK_BLOCK", "N_BISECT_ITERS", "WIRE_MODES",
+                 "WIRE_FORMATS"):
+        assert getattr(TWF, name) == getattr(JWF, name), name
+    assert TWF.TOPK_VALUE_DTYPE == torch.bfloat16
+    assert (torch.empty((), dtype=TWF.TOPK_INDEX_DTYPE).element_size()
+            == np.dtype(JWF.TOPK_INDEX_DTYPE).itemsize)
+    assert TWF.topk_keep(frac) == JWF.topk_keep(frac)
+    for fn in ("qsgd_bits", "qsgd_elems_per_word", "qsgd_words_per_window",
+               "qsgd_window_omega"):
+        assert getattr(TWF, fn)(levels) == getattr(JWF, fn)(levels), fn
+    assert TWF.qsgd_scale_denominator(levels) == float(
+        np.float32(levels * (1.0 + JWF.qsgd_window_omega(levels))))
+    for d in (1, 2047, 2048, 2049, 50_890):
+        tf = TWF.make_wire_format("top_k", frac=frac)
+        jf = JWF.make_wire_format("top_k", frac=frac)
+        tq = TWF.make_wire_format("qsgd", levels=levels)
+        jq = JWF.make_wire_format("qsgd", levels=levels)
+        for t, j in ((tf, jf), (tq, jq)):
+            assert (t.name, t.deterministic) == (j.name, j.deterministic)
+            assert t.windows(d) == j.windows(d)
+            assert t.buffer_bytes(d) == j.buffer_bytes(d)
+            assert t.payload_bytes(d) == j.payload_bytes(d)
+            assert (TWF.codec_collective_bytes(t, "packed", 10, d)
+                    == JWF.codec_collective_bytes(j, "packed", 10, d))
+
+
+@pytest.mark.parametrize("d", (5, 2047, 2049, 20_001))
+def test_windows_round_trip_as_the_reference(d):
+    x = np.random.default_rng(d).standard_normal(d).astype(np.float32)
+    rows = TWF.to_windows(torch.from_numpy(x))
+    np.testing.assert_array_equal(rows.numpy(),
+                                  np.asarray(JWF.to_windows(jnp.asarray(x))))
+    assert torch.equal(TWF.from_windows(rows, d), torch.from_numpy(x))
+
+
+def test_bisect_threshold_equals_reference_per_row():
+    rows = np.concatenate([_windows(k, 3 * 2048, seed=1)
+                           for k in ("gauss", "ints", "sparse")])
+    a = np.abs(rows)
+    for k in (1, 102, 512, 2048):
+        got = TWF.bisect_threshold(torch.from_numpy(a), k).numpy()
+        want = jax.jit(jax.vmap(lambda r: JWF.bisect_threshold(r, k)))(a)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("kind", ("gauss", "ints", "sparse"))
+@pytest.mark.parametrize("d", (5, 2049, 10_001))
+@pytest.mark.parametrize("frac", (0.05, 0.25))
+def test_topk_codec_is_bitwise_the_reference(kind, d, frac):
+    rows = _windows(kind, d, seed=d)
+    k = TWF.topk_keep(frac)
+    vals, idx = tops.wire_topk_pack(torch.from_numpy(rows), k)
+    assert (vals.dtype, idx.dtype) == (torch.bfloat16, torch.int16)
+    j_vals, j_idx = _topk_pack_ref(jnp.asarray(rows), k)
+    np.testing.assert_array_equal(_np(vals), _bits(j_vals))
+    np.testing.assert_array_equal(_np(idx), np.asarray(j_idx))
+    dense = tops.wire_topk_unpack(vals, idx).numpy()
+    np.testing.assert_array_equal(
+        _bits(dense), _bits(_topk_unpack_ref(j_vals, j_idx)))
+    # the Pallas kernels (interpret mode) unpack to the same window
+    p_vals, p_idx = jops.wire_topk_pack(jnp.asarray(rows), k,
+                                        interpret=True)
+    np.testing.assert_array_equal(
+        _bits(dense),
+        _bits(jops.wire_topk_unpack(p_vals, p_idx, interpret=True)))
+    # and the port's unpack reads the reference's buffers
+    np.testing.assert_array_equal(_bits(dense), _bits(tops.wire_topk_unpack(
+        *convert.to_torch((j_vals, j_idx), "cpu")).numpy()))
+
+
+def _ref_uniforms(key, rows):
+    """The reference's stochastic-rounding draws, as ``ops.py`` makes
+    them from the pack's key."""
+    return np.array(jax.random.uniform(key, rows.shape, jnp.float32))
+
+
+@pytest.mark.parametrize("levels", LEVELS)
+@pytest.mark.parametrize("kind", ("ints", "sparse"))
+def test_qsgd_codec_is_bitwise_the_reference_on_exact_sums(levels, kind):
+    rows = _windows(kind, 4 * 2048 + 77, seed=levels)
+    key = jax.random.PRNGKey(levels)
+    words, scale = tops.wire_qsgd_pack(
+        torch.from_numpy(rows), torch.from_numpy(_ref_uniforms(key, rows)),
+        levels)
+    assert (words.dtype, scale.dtype) == (torch.int32, torch.float32)
+    j_words, j_scale = JWF.qsgd_pack_ref(key, jnp.asarray(rows), levels)
+    np.testing.assert_array_equal(_np(words), np.asarray(j_words))
+    np.testing.assert_array_equal(_bits(scale.numpy()), _bits(j_scale))
+    # the Pallas kernel packs the same words; its scale may sit 1 ulp off
+    p_words, p_scale = jops.wire_qsgd_pack(jnp.asarray(rows), key, levels,
+                                           interpret=True)
+    np.testing.assert_array_equal(_np(words), np.asarray(p_words))
+    assert _ulps(scale.numpy(), p_scale).max() <= 1
+    dense = tops.wire_qsgd_unpack(words, scale, levels).numpy()
+    np.testing.assert_array_equal(
+        _bits(dense), _bits(JWF.qsgd_unpack_ref(j_words, j_scale, levels)))
+    np.testing.assert_array_equal(_bits(dense), _bits(jops.wire_qsgd_unpack(
+        j_words, j_scale, levels, interpret=True)))
+
+
+@pytest.mark.parametrize("levels", LEVELS)
+def test_qsgd_codec_on_gaussian_windows(levels):
+    rows = _windows("gauss", 6 * 2048 - 5, seed=10 + levels)
+    key = jax.random.PRNGKey(20 + levels)
+    words, scale = tops.wire_qsgd_pack(
+        torch.from_numpy(rows), torch.from_numpy(_ref_uniforms(key, rows)),
+        levels)
+    j_words, j_scale = JWF.qsgd_pack_ref(key, jnp.asarray(rows), levels)
+    j_scale = np.asarray(j_scale)
+    assert _ulps(scale.numpy(), j_scale).max() <= 2
+    ones = torch.ones_like(scale)
+    codes = tops.wire_qsgd_unpack(words, ones, levels)
+    j_codes = tops.wire_qsgd_unpack(torch.from_numpy(_bits(j_words).view(
+        np.int32)), ones, levels)
+    assert float((codes != j_codes).float().mean()) <= 1e-3
+    dense = tops.wire_qsgd_unpack(words, scale, levels).numpy()
+    want = np.asarray(JWF.qsgd_unpack_ref(j_words, j_scale, levels))
+    assert np.all(np.abs(dense - want) <= 1.0001 * j_scale)
+
+
+@pytest.mark.parametrize("use_kernel", (False, True))
+def test_measured_bytes_equal_the_model(use_kernel):
+    topk = TWF.make_wire_format("top_k", frac=0.25, use_kernel=use_kernel)
+    qsgd = TWF.make_wire_format("qsgd", levels=7, use_kernel=use_kernel)
+    dense_window = 4 * TWF.PACK_BLOCK
+    assert dense_window / TWF.measured_pack_nbytes(topk, 2048) == 4.0
+    assert dense_window / qsgd.payload_bytes(2048) == 8.0
+    for d in (1, 2048, 2049, 50_890):
+        for fmt, name, kw in ((topk, "top_k", dict(frac=0.25)),
+                              (qsgd, "qsgd", dict(levels=7))):
+            got = TWF.measured_pack_nbytes(fmt, d)
+            assert got == fmt.buffer_bytes(d)
+            assert got == JWF.measured_pack_nbytes(
+                JWF.make_wire_format(name, **kw), d)
+
+
+def test_wire_buffer_converters_round_trip():
+    rows = _windows("ints", 4 * 2048 + 77, seed=16)
+    key = jax.random.PRNGKey(16)
+    buffers = (*_topk_pack_ref(jnp.asarray(rows), 102),
+               *JWF.qsgd_pack_ref(key, jnp.asarray(rows), 16))
+    tensors = convert.to_torch(buffers, "cpu")
+    assert [t.dtype for t in tensors] == [torch.bfloat16, torch.int16,
+                                          torch.int32, torch.float32]
+    for back, want in zip(convert.wire_to_numpy(tensors), buffers):
+        want = np.asarray(want)
+        if want.dtype.name == "bfloat16":
+            want = want.view(np.uint16)
+        assert back.dtype == want.dtype
+        np.testing.assert_array_equal(back, want)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    rows = torch.zeros(2, 2048)
+    with pytest.raises(ValueError, match="k must be"):
+        tops.wire_topk_pack(rows, 0)
+    with pytest.raises(ValueError, match="widths"):
+        tops.wire_topk_pack(torch.zeros(2, 1000), 5)
+    with pytest.raises(TypeError, match="takes"):
+        tops.wire_topk_pack(rows.double(), 5)
+    with pytest.raises(ValueError, match="levels"):
+        tops.wire_qsgd_pack(rows, rows, 0)
+    with pytest.raises(ValueError, match="noise"):
+        TWF.make_wire_format("qsgd", levels=7).pack(rows)
+    with pytest.raises(ValueError, match="no registered bit-packed"):
+        TWF.make_wire_format("random_k", frac=0.1)
+    assert all(v == 0 for v in tops.LAUNCHES.values())
