@@ -31,6 +31,18 @@ of the ``repro`` package.  Phases, each printing its own lines:
    top-k 5 % in f32 and bf16 and QSGD (7 levels) in f32: kernel == ref
    bitwise on x, the launches per round, and the measured wire bytes equal
    to the model.  The quickstart of phase 3 also runs once on this wire.
+6. the rwkv6 serving path: ``rwkv6_chunk`` (through ``ops.rwkv6_scan``)
+   against its plain version ``ref.rwkv6_chunk_ref`` at the path's shapes
+   (4 x 512 tokens, 64 heads x 64, bf16 r, k, v), at 2 x 4096 tokens and
+   in each of the kernel's other builds (f32 r, k, v; head dims 32, 16),
+   with a state-chaining check, timed beside its bound (``[rwkv6]``
+   lines); then rwkv6-7b at full width and depth (32 layers, d 4096,
+   vocab 65536), its parameters drawn on the card from a seed, serving
+   batch 4 x prompt 512 and 32 greedy decode steps through
+   ``launch.serve`` (32 kernel launches a prefill, finite logits, ids in
+   range, prefill and decode tokens/s, the scans' share of a profiled
+   prefill); then 4 layers in f32: decode after a 512-token prefill held
+   against ``forward`` over 528 tokens at 2e-3.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -740,6 +752,257 @@ def phase_wire(torch, ops, api, data, runtime, paper, num=60000, rounds=200):
     return launches
 
 
+# the rwkv6 serving path: the scan's shapes (B, S, H, N) and r, k, v dtype,
+# the first the serving phase's (batch 4 x prompt 512, 64 heads x 64, bf16);
+# then the f32 build (the consistency phase's), the long sequence, and the
+# two other head dims the kernel is built for (d_model 4096 split into 128
+# heads x 32 and 256 x 16) in both dtypes: every build the kernel ships.  The tolerance is normwise, max
+# |kernel - plain| <= RWKV_TOL * max |plain| for o and for the final state.
+# Both are f32 over the same factorised algorithm with the same sequential
+# cumsum; only the order of the dot products' sums differs (the kernel's
+# FMA chains against cuBLAS's f32 GEMMs, TF32 off).
+RWKV_SHAPES = {"path": ((4, 512, 64, 64), "bf16"),
+               "path f32": ((4, 512, 64, 64), "f32"),
+               "2x4096": ((2, 4096, 64, 64), "bf16"),
+               "N=32": ((4, 512, 128, 32), "bf16"),
+               "N=32 f32": ((4, 512, 128, 32), "f32"),
+               "N=16": ((4, 512, 256, 16), "bf16"),
+               "N=16 f32": ((4, 512, 256, 16), "f32")}
+RWKV_TOL = 1e-4
+RWKV_SERVE = dict(batch=4, prompt=512, gen=32)
+# decode after a 512-token prefill against forward over 528 (the
+# reference's decode-consistency tolerance)
+RWKV_CONSIST = dict(layers=4, prompt=512, extra=16, tol=2e-3)
+
+
+def rwkv6_flops(b, s, h, n, c) -> int:
+    """The scan's arithmetic on these shapes, per (b, h) pair and chunk:
+    the cumsum (C N adds); la - lw, -la, la_end - la, their three exps and
+    three products (9 C N); the u bonus (3 C N); the strictly-lower rq kk^T
+    and its product with v (2 N C(C-1)/2 each); bonus * v and the sum of
+    the two parts (3 C N); rq S and kend^T v (2 C N^2 each); the decay's
+    exps and S * decay + outer (N + 2 N^2).  An exp counts as one
+    operation."""
+    per = (16 * c * n + 2 * n * c * (c - 1) + 4 * c * n * n + 2 * n * n
+           + n)
+    return b * h * (s // c) * per
+
+
+def _rwkv6_inputs(torch, gen, shape, rkv):
+    """r, k, v N(0, 1) in ``rkv`` ("bf16" or "f32"); log w in [-4.9, -0.01]
+    (inside the model's clamp [-5, -1e-6]); u N(0, 1) f32; s0 N(0, 1)
+    f32."""
+    b, s, h, n = shape
+    dtype = torch.bfloat16 if rkv == "bf16" else torch.float32
+    r, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+               for _ in range(3))
+    logw = -(0.01 + 4.89 * torch.rand(shape, generator=gen, device=DEVICE))
+    u = torch.randn(h, n, generator=gen, device=DEVICE)
+    s0 = torch.randn(b, h, n, n, generator=gen, device=DEVICE)
+    return [r, k, v, logw, u, s0]
+
+
+def _normwise(a, b) -> tuple:
+    """(max |a - b|, that over max |b|)."""
+    err = float((a - b).abs().max())
+    return err, err / max(float(b.abs().max()), 1e-30)
+
+
+def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
+    """``rwkv6_chunk`` against its plain version at each shape and r, k, v
+    dtype, a state-chaining check, and its cold / warm time beside the plain
+    version's and its bound (inputs read once, outputs written once, over
+    HBM bandwidth; operations at the f32 rate)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[rwkv6] tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}; tolerance normwise "
+          f"{RWKV_TOL} (max |kernel - plain| / max |plain|)")
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    table = {}
+    with torch.inference_mode():
+        for name, (shape, rkv) in RWKV_SHAPES.items():
+            first = _rwkv6_inputs(torch, gen, shape, rkv)
+            k_out = ops.rwkv6_scan(*first)
+            p_out = ref.rwkv6_chunk_ref(*first)
+            torch.cuda.synchronize()
+            errs = [_normwise(a, b) for a, b in zip(k_out, p_out)]
+            finite = all(bool(torch.isfinite(t).all()) for t in k_out)
+            # two halves with the carried state against one pass
+            c = ref.RWKV_CHUNK
+            half = shape[1] // 2 // c * c
+            r, k, v, logw, u, s0 = first
+            o1, s_mid = ops.rwkv6_scan(r[:, :half].contiguous(),
+                                       k[:, :half].contiguous(),
+                                       v[:, :half].contiguous(),
+                                       logw[:, :half].contiguous(), u, s0)
+            o2, s_end = ops.rwkv6_scan(r[:, half:].contiguous(),
+                                       k[:, half:].contiguous(),
+                                       v[:, half:].contiguous(),
+                                       logw[:, half:].contiguous(), u,
+                                       s_mid)
+            chain = [_normwise(torch.cat([o1, o2], 1), k_out[0]),
+                     _normwise(s_end, k_out[1])]
+            moved = (sum(t.nbytes for t in first)
+                     + sum(t.nbytes for t in k_out))
+            n_sets = -(-L2_FLUSH_BYTES // moved) + 1
+            sets = [first] + [_rwkv6_inputs(torch, gen, shape, rkv)
+                              for _ in range(n_sets - 1)]
+            row = dict(shape=shape, max_abs_err=max(e for e, _ in errs),
+                       rel_err=max(r_ for _, r_ in errs),
+                       chain_rel_err=max(r_ for _, r_ in chain),
+                       bytes=moved, flops=rwkv6_flops(*shape, c),
+                       ms=device_time_ms(ops.rwkv6_scan, sets, reps, inner),
+                       ms_warm=device_time_ms(ops.rwkv6_scan, sets[:1], reps,
+                                              inner),
+                       plain_ms=device_time_ms(ref.rwkv6_chunk_ref, sets, 3,
+                                               2),
+                       library_ms=None)
+            t_bytes = moved / HBM_BYTES_PER_S
+            t_ops = row["flops"] / F32_OPS_PER_S
+            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["ok"] = (finite and row["rel_err"] <= RWKV_TOL
+                         and row["chain_rel_err"] <= RWKV_TOL)
+            table[name] = row
+            print(f"[rwkv6] kernel {name} (B, S, H, N)={shape} r/k/v {rkv}: "
+                  f"max_abs_err={row['max_abs_err']} rel_err="
+                  f"{row['rel_err']} (o {errs[0][1]}, state {errs[1][1]}; "
+                  f"tolerance {RWKV_TOL}) chain_rel_err="
+                  f"{row['chain_rel_err']} finite={finite} us="
+                  f"{1e3 * row['ms']:.3f} us_warm={1e3 * row['ms_warm']:.3f} "
+                  f"plain_us={1e3 * row['plain_ms']:.3f} "
+                  f"bound_us={1e3 * row['bound_ms']:.3f} ({row['bound_by']}: "
+                  f"{moved} B -> {1e6 * t_bytes:.3f} us, {row['flops']} "
+                  f"flop -> {1e6 * t_ops:.3f} us) library none")
+            if not row["ok"]:
+                raise AssertionError(f"rwkv6_chunk differs from its plain "
+                                     f"version at {name}: {row}")
+            del sets, first, k_out, p_out
+    return table
+
+
+def _profile_call(torch, label, fn):
+    """Print the device time of one call of ``fn`` by kernel name, and the
+    scans' share of it, under ``torch.profiler`` (which itself slows the
+    host side)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    if not kernels or busy <= 0:
+        print(f"[rwkv6] profile of {label}: device time not measured (the "
+              "profiler recorded no CUDA kernels)")
+        return
+    scans = [e for e in kernels if "rwkv6_chunk" in e.key]
+    scan_us = sum(e.self_device_time_total for e in scans)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[rwkv6] profile of {label}: wall {wall_us:.1f} us under the "
+          f"profiler, device busy {busy:.1f} us ({100 * busy / wall_us:.2f} "
+          f"%), {sum(e.count for e in kernels)} kernel launches; the "
+          f"rwkv6_chunk scans {scan_us:.1f} us x"
+          f"{sum(e.count for e in scans)} = {100 * scan_us / busy:.2f} % of "
+          "device time; top: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total:.1f} us x{e.count}"
+              for e in top))
+
+
+def phase_rwkv6_serve(torch, ops, serve, tree_leaves):
+    """rwkv6-7b at full width and depth, random parameters drawn on the
+    card: serve batch 4 x prompt 512 and 32 greedy decode steps through
+    ``launch.serve``; returns the kernel's launches in that run."""
+    sc = RWKV_SERVE
+    t0 = time.perf_counter()
+    cfg, bundle, params = serve.load("rwkv6-7b", device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.nbytes for t in tree_leaves(params))
+    print(f"[rwkv6] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.rwkv_cfg().n_heads} heads x {cfg.ssm_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, dtype {cfg.dtype}: {n_params} "
+          f"parameters drawn on {DEVICE} in "
+          f"{time.perf_counter() - t0:.2f} s, {n_bytes} B resident for "
+          f"serving (dense weights, lerps and embedding in {cfg.dtype})")
+    tokens = serve.make_prompt(cfg, sc["batch"], sc["prompt"], DEVICE, 1)
+    serve.generate(bundle, params, tokens, 2)       # warm: library set-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve.generate(bundle, params, tokens, sc["gen"])
+    launches = dict(ops.LAUNCHES)
+    b, s, g = sc["batch"], sc["prompt"], sc["gen"]
+    ids = out["ids"]
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (out["prefill_logits"], out["logits"]))
+    in_range = bool(((ids >= 0) & (ids < cfg.vocab)).all())
+    print(f"[rwkv6] serve batch={b} prompt={s} gen={g}: prefill "
+          f"{out['prefill_s']:.4f} s = {b * s / out['prefill_s']:.1f} tok/s, "
+          f"decode {out['decode_s']:.4f} s = {b * g / out['decode_s']:.1f} "
+          f"tok/s ({1e3 * out['decode_s'] / g:.3f} ms/step), ids "
+          f"{tuple(ids.shape)} in range {in_range}, logits finite {finite}, "
+          f"peak memory {torch.cuda.max_memory_allocated()} B, launches "
+          f"{launches}")
+    print(f"[rwkv6] sample ids {ids[0, :16].tolist()}")
+    expect_launches("rwkv6 serve", launches, rwkv6_chunk=cfg.n_layers)
+    if not (finite and in_range and tuple(ids.shape) == (b, g + 1)):
+        raise AssertionError(f"rwkv6 serve: finite {finite}, ids in range "
+                             f"{in_range}, ids {tuple(ids.shape)}")
+    with torch.inference_mode():
+        _profile_call(torch, "one prefill", lambda: bundle.prefill(
+            params, {"tokens": tokens}))
+        tok = out["ids"][:, -1:]
+        _profile_call(torch, "one decode step", lambda: bundle.decode_step(
+            params, out["cache"], tok, s + g))
+    return launches["rwkv6_chunk"], {
+        "prefill_tok_s": b * s / out["prefill_s"],
+        "decode_tok_s": b * g / out["decode_s"]}
+
+
+def phase_rwkv6_consistency(torch, ops, serve):
+    """Full width, 4 layers in f32: decode after a 512-token prefill
+    (through the kernel) against ``forward`` over 528 tokens (through the
+    kernel), step by step, and the last step against a 528-token prefill's
+    last-token logits."""
+    c = RWKV_CONSIST
+    cfg, bundle, params = serve.load("rwkv6-7b", device=DEVICE, seed=2,
+                                     dtype=torch.float32,
+                                     n_layers=c["layers"])
+    p, total = c["prompt"], c["prompt"] + c["extra"]
+    tokens = serve.make_prompt(cfg, RWKV_SERVE["batch"], total, DEVICE, 3)
+    with torch.inference_mode():
+        ops.reset_launches()
+        full = bundle.forward(params, {"tokens": tokens})
+        last, _ = bundle.prefill(params, {"tokens": tokens})
+        _, cache = bundle.prefill(params, {"tokens": tokens[:, :p]})
+        launches = dict(ops.LAUNCHES)
+        diffs, ok = [], True
+        for i in range(p, total):
+            logits, cache = bundle.decode_step(params, cache,
+                                               tokens[:, i:i + 1], i)
+            diffs.append(float((logits - full[:, i]).abs().max()))
+            ok = ok and torch.allclose(logits, full[:, i], rtol=c["tol"],
+                                       atol=c["tol"])
+        last_diff = float((logits - last[:, 0]).abs().max())
+        ok = ok and torch.allclose(logits, last[:, 0], rtol=c["tol"],
+                                   atol=c["tol"])
+    print(f"[rwkv6] consistency {cfg.n_layers} layers f32, prefill {p} then "
+          f"decode tokens {p + 1}..{total}: max |decode - forward| first "
+          f"step {diffs[0]}, all steps {max(diffs)}; last step against the "
+          f"{total}-token prefill {last_diff} (tolerance {c['tol']}); "
+          f"|logits| up to {float(full.abs().max())}; launches {launches}")
+    expect_launches("rwkv6 consistency", launches,
+                    rwkv6_chunk=3 * cfg.n_layers)
+    if not ok:
+        raise AssertionError(f"rwkv6 decode after prefill differs from "
+                             f"forward: {diffs}, last {last_diff}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -750,7 +1013,7 @@ def main() -> int:
     from repro_torch import api, data
     from repro_torch.core import average_params
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.launch import runtime
+    from repro_torch.launch import runtime, serve
     from repro_torch.models import paper
     from repro_torch.tree import tree_leaves
 
@@ -788,6 +1051,13 @@ def main() -> int:
     wire_table = phase_wire_kernels(torch, ops, ref)
     wire_launches = phase_wire(torch, ops, api, data, runtime, paper)
 
+    # phase 6: the rwkv6 serving path, its kernel and its consistency
+    rwkv_table = phase_rwkv6_kernel(torch, ops, ref)
+    rwkv_launches, rwkv_rates = phase_rwkv6_serve(torch, ops, serve,
+                                                  tree_leaves)
+    torch.cuda.empty_cache()
+    phase_rwkv6_consistency(torch, ops, serve)
+
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
     # PORTER-GC (sr_cast), all on the MLP
@@ -820,6 +1090,17 @@ def main() -> int:
             library_ms=(row["library_ms"] if name == "topk_unpack"
                         else None),
             nearest_ms=(row["library_ms"] if name == "topk_pack" else None)))
+    row = rwkv_table["path"]
+    record.append(dict(
+        name="rwkv6_chunk", ok=row["ok"], route="cuda",
+        source="src/repro_torch/csrc/rwkv6_chunk.cu",
+        replaces="src/repro/kernels/rwkv6_chunk.py:90",
+        launches=rwkv_launches, max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None, rel_err=row["rel_err"],
+        ms_2x4096=rwkv_table["2x4096"]["ms"],
+        bound_ms_2x4096=rwkv_table["2x4096"]["bound_ms"], **rwkv_rates))
+    print(smi)   # again here: a long log keeps only its end
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,6 +11,12 @@ dicts of tensors, and back.
   ``ChocoState``, ``DsgdState``, ``DpSgdState`` or ``SoteriaState`` (every
   field a tree, then ``step``).
 
+* :func:`lm_params_to_torch` -- the reference's LM parameters (a tree of
+  arrays, layer leaves stacked ``(n_layers, ...)``) -> the port's.
+* :func:`cache_to_torch` / :func:`cache_to_numpy` -- the rwkv6 recurrent
+  cache (``S``, ``shift_t``, ``shift_c``, each stacked over layers) both
+  ways.
+
 bf16: numpy has no bfloat16 of its own.  ``np.asarray`` of a JAX bf16
 array is an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
 rejects, so :func:`to_torch` carries it as its uint16 bit patterns and
@@ -34,10 +40,11 @@ import torch
 
 from .core import baselines as BL
 from .core.porter import PorterState
-from .tree import tree_map
+from .tree import tree_leaves, tree_map
 
 __all__ = ["to_torch", "to_numpy", "wire_to_numpy", "state_to_torch",
-           "state_to_numpy"]
+           "state_to_numpy", "lm_params_to_torch", "cache_to_torch",
+           "cache_to_numpy"]
 
 _STATES = {cls.__name__: cls for cls in (
     PorterState, BL.ChocoState, BL.DsgdState, BL.DpSgdState,
@@ -106,3 +113,42 @@ def state_to_numpy(state):
     cls = _port_class(state)
     bufs = {f: to_numpy(getattr(state, f)) for f in cls._fields[:-1]}
     return cls(**bufs, step=np.int32(state.step))
+
+
+_CACHE_KEYS = ("S", "shift_c", "shift_t")
+
+
+def lm_params_to_torch(params, n_layers: int, device=None):
+    """The reference's LM parameters (``bundle.init(key)[0]``: ``embed``,
+    ``final_norm``, optionally ``head``, and ``layers`` with every leaf
+    stacked over ``n_layers``) -> the same tree of tensors on ``device``
+    (cuda unless given)."""
+    missing = {"embed", "final_norm", "layers"} - set(params)
+    if missing:
+        raise ValueError(f"not an LM parameter tree: no {sorted(missing)}")
+    out = to_torch(params, device)
+    bad = [tuple(t.shape) for t in tree_leaves(out["layers"])
+           if t.dim() == 0 or t.shape[0] != n_layers]
+    if bad:
+        raise ValueError(f"layer leaves must be stacked over {n_layers} "
+                         f"layers; got leaves of shapes {bad}")
+    return out
+
+
+def _check_cache(cache):
+    if sorted(cache) != list(_CACHE_KEYS):
+        raise ValueError(f"an rwkv6 cache has the keys {_CACHE_KEYS}, got "
+                         f"{sorted(cache)}")
+
+
+def cache_to_torch(cache, device=None):
+    """The reference's rwkv6 cache -> the port's (f32 tensors on
+    ``device``, cuda unless given)."""
+    _check_cache(cache)
+    return to_torch(cache, device)
+
+
+def cache_to_numpy(cache):
+    """The port's rwkv6 cache -> numpy arrays, the reference's layout."""
+    _check_cache(cache)
+    return to_numpy(cache)

@@ -14,6 +14,10 @@ and the wire dtypes of :mod:`repro_torch.core.wire_formats`: bf16 values
 with int16 indices (top-k), int32 words with f32 scales (qsgd).  qsgd's
 U[0, 1) noise is an operand, drawn by the caller.
 
+``rwkv6_scan`` is the RWKV6 chunked scan of the rwkv6 serving path, with
+the reference's contract (``src/repro/kernels/ops.py:230``).  It has no
+backward yet, so a CUDA operand that requires grad raises.
+
 Operand types of the ef updates, as the comm-round engine issues them: all
 f32; ``ef_track`` with every operand bf16; ``ef_step`` / ``ef_gossip`` with
 bf16 EF operands beside an f32 ``x`` / ``y``.  ``out_dtype`` is None (each
@@ -28,17 +32,18 @@ import torch
 from ..core import wire_formats as WF
 from . import ef_update as _ef
 from . import ref
+from . import rwkv6_chunk as _rw
 from . import sr_cast as _srk
 from . import wire_pack as _wp
 from .flatten import TILE
 
 __all__ = ["LAUNCHES", "reset_launches", "ef_track", "ef_step", "ef_gossip",
            "sr_cast", "sr_cast_leaf", "wire_topk_pack", "wire_topk_unpack",
-           "wire_qsgd_pack", "wire_qsgd_unpack"]
+           "wire_qsgd_pack", "wire_qsgd_unpack", "rwkv6_scan"]
 
 LAUNCHES = {"ef_track": 0, "ef_step": 0, "ef_gossip": 0, "sr_cast": 0,
             "topk_pack": 0, "topk_unpack": 0, "qsgd_pack": 0,
-            "qsgd_unpack": 0}
+            "qsgd_unpack": 0, "rwkv6_chunk": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 # (EF operands' dtype, slot-2 operand's dtype) each kernel takes
@@ -218,4 +223,55 @@ def wire_qsgd_unpack(words, scale, levels: int):
         return ref.qsgd_unpack_ref(words, scale, levels)
     out = _wp.qsgd_unpack(words, scale, levels)
     LAUNCHES["qsgd_unpack"] += 1
+    return out
+
+
+def rwkv6_scan(r, k, v, logw, u, s0):
+    """RWKV6 chunked linear-attention scan.
+
+    r, k, v, logw: ``(B, S, H, N)`` with ``S % 16 == 0``; u: ``(H, N)``;
+    s0: ``(B, H, N, N)``.  Returns (o ``(B, S, H, N)`` f32, s_final
+    ``(B, H, N, N)`` f32).  On the card: r, k, v contiguous and all bf16 or
+    all f32, logw and s0 contiguous f32, N one of
+    :data:`repro_torch.kernels.rwkv6_chunk.HEAD_DIMS`; u is taken to f32.
+    """
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_scan takes (B, S, H, N) operands, got "
+                         f"{tuple(r.shape)}")
+    b, s, h, n = r.shape
+    c = ref.RWKV_CHUNK
+    if s < c or s % c:
+        raise ValueError(f"rwkv6_scan needs S a positive multiple of {c} "
+                         f"(pad the sequence), got S = {s}")
+    shapes = ((k, r.shape), (v, r.shape), (logw, r.shape), (u, (h, n)),
+              (s0, (b, h, n, n)))
+    for t, want in shapes:
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"rwkv6_scan operand of shape {tuple(t.shape)}, "
+                             f"expected {tuple(want)}")
+    operands = (r, k, v, logw, u, s0)
+    if any(t.device != r.device for t in operands):
+        raise ValueError("rwkv6_scan operands must share one device")
+    kind = r.device.type
+    if kind == "cpu":
+        return ref.rwkv6_chunk_ref(r, k, v, logw, u, s0)
+    if kind != "cuda":
+        raise ValueError(f"rwkv6_scan runs on cpu or cuda tensors, got {kind}")
+    if any(t.requires_grad for t in operands):
+        raise RuntimeError("rwkv6_scan has no backward yet (LM training, "
+                           "ROADMAP queue 1 item 13); call it under "
+                           "torch.inference_mode()")
+    if (len({r.dtype, k.dtype, v.dtype}) != 1
+            or r.dtype not in (_F32, _BF16) or logw.dtype != _F32
+            or s0.dtype != _F32):
+        raise TypeError(f"rwkv6_scan takes r, k, v all bf16 or all f32 and "
+                        f"f32 logw and s0, got "
+                        f"{[t.dtype for t in operands]}")
+    if n not in _rw.HEAD_DIMS:
+        raise ValueError(f"the rwkv6_chunk kernel takes head dims "
+                         f"{_rw.HEAD_DIMS}, got N = {n}")
+    if not all(t.is_contiguous() for t in (r, k, v, logw, s0)):
+        raise ValueError("rwkv6_scan needs contiguous operands on the card")
+    out = _rw.rwkv6_chunk(r, k, v, logw, u.to(_F32).contiguous(), s0)
+    LAUNCHES["rwkv6_chunk"] += 1
     return out

@@ -1,13 +1,18 @@
 """Plain PyTorch versions of the fused kernels.
 
 They are the CPU path of :mod:`repro_torch.kernels.ops`, and the versions
-the CUDA kernels are held against, bitwise, on the card (``chip_smoke.py``).
+the CUDA kernels are held against on the card (``chip_smoke.py``): bitwise,
+except the RWKV6 scan, which is held at a stated tolerance.
 Each keeps the reference's order of operations
 (``src/repro/kernels/ef_update.py``, ``src/repro/kernels/sr_cast.py``, the
 wire codecs of ``src/repro/core/wire_formats.py``): f32 arithmetic, one op
 at a time, so no step is fused into an FMA.  The wire codecs take their
 random operand explicitly (qsgd's U[0, 1) ``noise``), and their layout from
 :mod:`repro_torch.core.wire_formats`, which re-exports them.
+
+The RWKV6 pair (``rwkv6_chunk_ref``, ``rwkv6_scan_ref``) copies the
+chunked form and the per-token recurrence of ``src/repro/nn/ssm.py``, all
+in f32.
 
 ``out_dtype`` (the ef updates): ``None`` writes each output in its state
 operand's dtype; a dtype (the engine asks for f32) writes all three in it,
@@ -20,9 +25,15 @@ import torch
 
 __all__ = ["ef_track_ref", "ef_step_ref", "ef_gossip_ref", "sr_cast_ref",
            "topk_pack_ref", "topk_unpack_ref", "qsgd_pack_ref",
-           "qsgd_unpack_ref", "qsgd_sumsq"]
+           "qsgd_unpack_ref", "qsgd_sumsq", "rwkv6_chunk_ref",
+           "rwkv6_scan_ref", "RWKV_CHUNK"]
 
 _F32 = torch.float32
+
+# the RWKV6 scan's chunk length (``repro.nn.ssm.RWKV_CHUNK``): the
+# kernel (``csrc/rwkv6_chunk.cu``'s kC), the wrapper and the model read
+# it from here
+RWKV_CHUNK = 16
 
 
 def _outs(states, values, out_dtype):
@@ -173,3 +184,74 @@ def qsgd_unpack_ref(word, scale, levels: int):
         cols.append(sgn * code)
     vals = torch.stack(cols, dim=2).reshape(word.shape[0], -1)
     return vals[:, :wf.PACK_BLOCK] * scale
+
+
+def _cumsum_f32(x, dim: int):
+    """Inclusive cumsum by sequential f32 adds, the order of the reference
+    (XLA) and of the kernel; PyTorch's CPU ``cumsum`` accumulates in f64."""
+    acc = x.select(dim, 0)
+    parts = [acc]
+    for t in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, t)
+        parts.append(acc)
+    return torch.stack(parts, dim=dim)
+
+
+def rwkv6_chunk_ref(r, k, v, logw, u, s0):
+    """The chunked RWKV6 scan (``repro.nn.ssm._rwkv_chunk_scan``), in f32 and
+    in the reference's order of operations.
+
+    r, k, v, logw: ``(B, S, H, N)`` with ``S % 16 == 0``; u: ``(H, N)``;
+    s0: ``(B, H, N, N)``.  Returns o ``(B, S, H, N)`` and the final state
+    ``(B, H, N, N)``, both f32.  The intra-chunk product is formed whole
+    and then masked (``qk * tri``), as the reference does.
+    """
+    b, s, h, n = r.shape
+    c = RWKV_CHUNK
+    nc = s // c
+    rs, ks, vs, lw = (x.reshape(b, nc, c, h, n).to(_F32)
+                      for x in (r, k, v, logw))
+    la = _cumsum_f32(lw, dim=2)                      # inclusive
+    la_prev = la - lw                                # exclusive
+    la_end = la[:, :, -1:]                           # (B,NC,1,H,N)
+
+    rq = rs * torch.exp(la_prev)
+    kk = ks * torch.exp(-la)
+    kend = ks * torch.exp(la_end - la)
+
+    qk = torch.einsum("bnthd,bnshd->bnhts", rq, kk)  # (B,NC,H,C,C)
+    tri = torch.tril(torch.ones(c, c, dtype=_F32, device=r.device),
+                     diagonal=-1)
+    qk = qk * tri
+    bonus = torch.einsum("bnthd,hd,bnthd->bnth", rs, u.to(_F32), ks)
+    o_intra = torch.einsum("bnhts,bnshd->bnthd", qk, vs)
+    o_intra = o_intra + bonus[..., None] * vs
+
+    state = s0.to(_F32)
+    o_inter = []
+    for i in range(nc):
+        o_inter.append(torch.einsum("bthk,bhkv->bthv", rq[:, i], state))
+        outer = torch.einsum("bthk,bthv->bhkv", kend[:, i], vs[:, i])
+        decay = torch.exp(la_end[:, i, 0])           # (B,H,N) on the k-dim
+        state = state * decay[..., None] + outer
+    o = o_intra + torch.stack(o_inter, dim=1)
+    return o.reshape(b, s, h, n), state
+
+
+def rwkv6_scan_ref(r, k, v, logw, u, s0):
+    """The exact per-token RWKV6 recurrence (``repro.nn.ssm.rwkv_scan_ref``,
+    ``repro.kernels.ref.rwkv6_scan_ref``), any S, in f32::
+
+        o_t = r_t S + (r_t . (u * k_t)) v_t;   S = diag(w_t) S + k_t v_t^T
+    """
+    state = s0.to(_F32)
+    uf = u.to(_F32)
+    outs = []
+    for t in range(r.shape[1]):
+        rt, kt, vt = (x[:, t].to(_F32) for x in (r, k, v))
+        wt = torch.exp(logw[:, t].to(_F32))
+        ot = torch.einsum("bhk,bhkv->bhv", rt, state)
+        bonus = torch.einsum("bhk,hk,bhk->bh", rt, uf, kt)
+        outs.append(ot + bonus[..., None] * vt)
+        state = state * wt[..., None] + kt[..., None] * vt[:, :, None, :]
+    return torch.stack(outs, dim=1), state

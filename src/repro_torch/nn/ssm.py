@@ -1,0 +1,156 @@
+"""Linear-recurrence token mixers (``src/repro/nn/ssm.py``); this slice
+ports the RWKV6 (Finch) half.
+
+A prefill whose length is a multiple of :data:`RWKV_CHUNK` runs the
+chunked scan, ``kernels.ops.rwkv6_scan`` (the hand-written ``rwkv6_chunk``
+kernel on the card); any other length, and every decode step, runs the
+exact per-token recurrence, as the reference does.  Log w is clamped to
+[LOGW_MIN, LOGW_MAX] so that the chunk's cumulative log-decay stays within
+f32's exp range (|la| <= 80 at chunk 16).
+
+RWKV6 recurrence (head dim N):
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
+
+The Mamba2 half waits for the zamba2 slice (ROADMAP queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from ..kernels import ops, ref
+from ..kernels.ref import RWKV_CHUNK
+from .module import dense, init_dense, init_layernorm, layernorm, param
+
+__all__ = ["Rwkv6Config", "init_rwkv6_block", "rwkv6_block", "rwkv6_decode",
+           "init_rwkv6_state", "rwkv_scan_ref", "LOGW_MIN", "LOGW_MAX",
+           "RWKV_CHUNK"]
+
+LOGW_MIN, LOGW_MAX = -5.0, -1e-6
+rwkv_scan_ref = ref.rwkv6_scan_ref
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class Rwkv6Config:
+    d_model: int
+    head_dim: int = 64
+    decay_lora: int = 64
+    d_ff: int = 0           # channel-mix hidden (0 -> 3.5x d_model)
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_model // self.head_dim
+
+    @property
+    def ffn_dim(self) -> int:
+        return self.d_ff or int(3.5 * self.d_model)
+
+
+def init_rwkv6_block(gen: torch.Generator, cfg: Rwkv6Config, lead=()):
+    """One block's parameters (or a stack of them, ``lead=(n,)``), with the
+    reference's shapes and scales."""
+    d, h, n = cfg.d_model, cfg.n_heads, cfg.head_dim
+    f = cfg.ffn_dim
+    return {
+        # --- time mix (attention analogue) ---
+        "mu": param(gen, (*lead, 5, d), 0.5, mode="uniform"),
+        "wr": init_dense(gen, d, d, lead=lead),
+        "wk": init_dense(gen, d, d, lead=lead),
+        "wv": init_dense(gen, d, d, lead=lead),
+        "wg": init_dense(gen, d, d, lead=lead),
+        "w0": param(gen, (*lead, d), 0.5, mode="uniform"),
+        "w_lora_a": init_dense(gen, d, cfg.decay_lora, lead=lead),
+        "w_lora_b": init_dense(gen, cfg.decay_lora, d, scale=0.01,
+                               lead=lead),
+        "u": param(gen, (*lead, h, n), 0.3, mode="uniform"),
+        "out_norm": init_layernorm(gen, d, lead=lead),
+        "wo": init_dense(gen, d, d, lead=lead),
+        # --- channel mix ---
+        "mu_c": param(gen, (*lead, 2, d), 0.5, mode="uniform"),
+        "ck": init_dense(gen, d, f, lead=lead),
+        "cr": init_dense(gen, d, d, lead=lead),
+        "cv": init_dense(gen, f, d, lead=lead),
+    }
+
+
+def _token_shift(x, shift_state):
+    """x: (B,S,D); shift_state: (B,D) = last token of previous segment."""
+    return torch.cat([shift_state[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: exact for every x
+    (``torch.nn.functional.softplus`` returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _rwkv_rkvwg(p, cfg: Rwkv6Config, x, prev):
+    """Projections with per-channel token-shift lerp (static mu)."""
+    mu = p["mu"].to(x.dtype)  # (5, d) for r,k,v,w,g
+    mix = [x + (prev - x) * mu[i] for i in range(5)]
+    b, s, d = x.shape
+    h, n = cfg.n_heads, cfg.head_dim
+    r = dense(p["wr"], mix[0]).reshape(b, s, h, n)
+    k = dense(p["wk"], mix[1]).reshape(b, s, h, n)
+    v = dense(p["wv"], mix[2]).reshape(b, s, h, n)
+    logw_raw = p["w0"].to(_F32) + dense(
+        p["w_lora_b"], torch.tanh(dense(p["w_lora_a"], mix[3]))).to(_F32)
+    # data-dependent decay w = exp(-softplus(.)) in (0,1); clamp for chunk form
+    logw = torch.clamp(-_softplus(-logw_raw), LOGW_MIN, LOGW_MAX)
+    logw = logw.reshape(b, s, h, n)
+    g = torch.nn.functional.silu(dense(p["wg"], mix[4]))
+    return r, k, v, logw, g
+
+
+def init_rwkv6_state(batch: int, cfg: Rwkv6Config, dtype=_F32, device=None):
+    """Zero recurrent state on ``device`` (cuda unless given)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    h, n, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    return {"S": torch.zeros((batch, h, n, n), dtype=dtype, device=device),
+            "shift_t": torch.zeros((batch, d), dtype=dtype, device=device),
+            "shift_c": torch.zeros((batch, d), dtype=dtype, device=device)}
+
+
+def rwkv6_block(p, cfg: Rwkv6Config, x, state: Optional[Dict] = None,
+                chunked: bool = True):
+    """Full time-mix + channel-mix over a sequence.  x: (B,S,D).
+
+    Returns (y, final_state).  The chunked scan runs when ``chunked`` and S
+    is a multiple of RWKV_CHUNK (and above 1); otherwise the recurrence.
+    """
+    b, s, d = x.shape
+    if state is None:
+        state = init_rwkv6_state(b, cfg, device=x.device)
+    prev = _token_shift(x, state["shift_t"].to(x.dtype))
+    r, k, v, logw, g = _rwkv_rkvwg(p, cfg, x, prev)
+    u = p["u"]
+    if chunked and s % RWKV_CHUNK == 0 and s > 1:
+        o, s_fin = ops.rwkv6_scan(r, k, v, logw, u, state["S"])
+    else:
+        o, s_fin = rwkv_scan_ref(r, k, v, logw, u, state["S"])
+    o = o.reshape(b, s, d).to(x.dtype)
+    o = layernorm(p["out_norm"], o) * g
+    y = x + dense(p["wo"], o)
+
+    # channel mix
+    prev_c = _token_shift(y, state["shift_c"].to(x.dtype))
+    mu_c = p["mu_c"].to(x.dtype)
+    xr = y + (prev_c - y) * mu_c[0]
+    xk = y + (prev_c - y) * mu_c[1]
+    hidden = torch.square(torch.relu(dense(p["ck"], xk)))
+    out = torch.sigmoid(dense(p["cr"], xr)) * dense(p["cv"], hidden)
+    y2 = y + out
+    new_state = {"S": s_fin, "shift_t": x[:, -1, :].to(_F32),
+                 "shift_c": y[:, -1, :].to(_F32)}
+    return y2, new_state
+
+
+def rwkv6_decode(p, cfg: Rwkv6Config, x, state):
+    """One-token step.  x: (B,1,D)."""
+    return rwkv6_block(p, cfg, x, state, chunked=False)

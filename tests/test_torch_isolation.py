@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX, the JAX package or ``ml_dtypes``, and its
-entry points
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and no script of ``tools/``, imports JAX, the JAX package or ``ml_dtypes``, and its
+entry points (``api.build``, ``models.build_model``, ``launch.serve``)
 target the card unless the caller asks for the CPU."""
 
 import ast
@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from repro_torch import api
+from repro_torch.configs import get_smoke
 from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -21,7 +24,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_roots(path):
@@ -57,7 +61,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"}, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    # 41 modules: the paper path's, the wire's, and the rwkv6 serving
+    # path's (nn, models, configs, launch.serve, kernels.rwkv6_chunk)
+    assert int(out.stdout.split()[-1]) >= 41
 
 
 def _logreg_loss(params, batch):
@@ -90,3 +96,38 @@ def test_kernel_backend_on_cpu_tensors_launches_nothing():
     batch = (torch.ones(10, 4, 123), torch.ones(10, 4))
     algo.step(state, batch, None)
     assert set(ops.LAUNCHES.values()) == {0}
+
+
+def test_serve_targets_cuda_unless_asked(monkeypatch):
+    """``launch.serve`` loads the model on cuda unless ``--device cpu`` is
+    given; without a card it raises instead of moving to the CPU."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            serve.main(["--smoke", "--gen", "1"])
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_load(arch, smoke, device, seed):
+        seen.append(torch.device(device))
+        raise Stop
+
+    monkeypatch.setattr(serve, "device_line", lambda device: "card")
+    monkeypatch.setattr(serve, "load", fake_load)
+    for argv in (["--smoke"], ["--smoke", "--device", "cpu"]):
+        with pytest.raises(Stop):
+            serve.main(argv)
+    assert seen == [torch.device("cuda"), torch.device("cpu")]
+
+
+def test_build_model_targets_cuda_unless_asked():
+    cfg = get_smoke("rwkv6-7b")
+    bundle = build_model(cfg)
+    if torch.cuda.is_available():
+        assert bundle.init_cache(1)["S"].is_cuda
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        bundle.init_cache(1)
+    assert build_model(cfg, device="cpu").init_cache(1)["S"].device.type == \
+        "cpu"
