@@ -43,6 +43,21 @@ of the ``repro`` package.  Phases, each printing its own lines:
    range, prefill and decode tokens/s, the scans' share of a profiled
    prefill); then 4 layers in f32: decode after a 512-token prefill held
    against ``forward`` over 528 tokens at 2e-3.
+7. the zamba2 serving path: ``ssd_chunk`` (through ``ops.ssd_scan``)
+   against its plain version ``ref.ssd_chunk_ref`` at the path's shape (4
+   x 512 tokens, 112 heads x 64, state 64) with bf16 and with f32 B / C
+   (read in place as column slices of one activation, as the model passes
+   them) and at 2 x 4096 tokens, with a state-chaining check, timed beside
+   its bound (``[ssd]`` lines); then zamba2-7b at full width and depth (81
+   Mamba2 layers of d 3584, the shared attention + MLP block 13 times,
+   vocab 32000; 6,637,023,440 parameters drawn on the card from a seed),
+   serving batch 4 x prompt 512 and 32 greedy decode steps through
+   ``launch.serve`` (81 kernel launches a prefill and none in decode,
+   finite logits, ids in range, prefill and decode tokens/s, resident and
+   peak memory, a profiled prefill and decode step); then 13 layers in f32
+   (2 groups with the shared block and 1 trailing layer): decode after a
+   512-token prefill held against ``forward`` over 576 tokens at 2e-3
+   (``[zamba2]`` lines).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -881,10 +896,10 @@ def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
     return table
 
 
-def _profile_call(torch, label, fn):
+def _profile_call(torch, label, fn, tag="rwkv6", kernel="rwkv6_chunk"):
     """Print the device time of one call of ``fn`` by kernel name, and the
-    scans' share of it, under ``torch.profiler`` (which itself slows the
-    host side)."""
+    scans' (``kernel``'s) share of it, under ``torch.profiler`` (which
+    itself slows the host side)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -898,20 +913,34 @@ def _profile_call(torch, label, fn):
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels)
     if not kernels or busy <= 0:
-        print(f"[rwkv6] profile of {label}: device time not measured (the "
+        print(f"[{tag}] profile of {label}: device time not measured (the "
               "profiler recorded no CUDA kernels)")
         return
-    scans = [e for e in kernels if "rwkv6_chunk" in e.key]
+    scans = [e for e in kernels if kernel in e.key]
     scan_us = sum(e.self_device_time_total for e in scans)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[rwkv6] profile of {label}: wall {wall_us:.1f} us under the "
+    kinds = {}
+    for e in kernels:
+        name = e.key.lower()
+        kind = ("scans" if kernel in e.key else
+                "dense products" if any(w in name for w in
+                                        ("nvjet", "gemm", "cutlass")) else
+                "elementwise" if "elementwise" in name else
+                "reductions" if "reduce" in name else
+                "softmax" if "softmax" in name else "other")
+        us, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (us + e.self_device_time_total, n + e.count)
+    print(f"[{tag}] profile of {label}: wall {wall_us:.1f} us under the "
           f"profiler, device busy {busy:.1f} us ({100 * busy / wall_us:.2f} "
           f"%), {sum(e.count for e in kernels)} kernel launches; the "
-          f"rwkv6_chunk scans {scan_us:.1f} us x"
+          f"{kernel} scans {scan_us:.1f} us x"
           f"{sum(e.count for e in scans)} = {100 * scan_us / busy:.2f} % of "
           "device time; top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total:.1f} us x{e.count}"
               for e in top))
+    print(f"[{tag}] profile of {label} by kind: " + "; ".join(
+        f"{k} {us:.1f} us x{n} ({100 * us / busy:.2f} %)" for k, (us, n) in
+        sorted(kinds.items(), key=lambda kv: -kv[1][0])))
 
 
 def phase_rwkv6_serve(torch, ops, serve, tree_leaves):
@@ -1003,6 +1032,239 @@ def phase_rwkv6_consistency(torch, ops, serve):
                              f"forward: {diffs}, last {last_diff}")
 
 
+# the zamba2 serving path: the SSD scan's shapes (B, S, H, P, N) and B / C
+# dtype, the first the serving phase's (batch 4 x prompt 512, 112 heads x
+# 64, state 64, bf16 activations); then the f32 build (the consistency
+# phase's) and a long sequence.  The tolerance is normwise, max |kernel -
+# plain| <= SSD_TOL * max |plain| for y and for the final state: both f32
+# over the same chunked algorithm with the same sequential cumsum; only the
+# order of the products' sums differs (the kernel's FMA chains against
+# cuBLAS's f32 GEMMs, TF32 off).
+SSD_SHAPES = {"path": ((4, 512, 112, 64, 64), "bf16"),
+              "path f32": ((4, 512, 112, 64, 64), "f32"),
+              "2x4096": ((2, 4096, 112, 64, 64), "bf16")}
+SSD_TOL = 1e-4
+ZAMBA_SERVE = dict(batch=4, prompt=512, gen=32)
+# counted from src/repro/configs/zamba2_7b.py's shapes (the reference's
+# jax.eval_shape of its init gives the same)
+ZAMBA_PARAMS = 6_637_023_440
+# decode after a 512-token prefill against forward over 576 (9 chunks of
+# 64, so forward runs the kernel too), at 13 layers: 2 groups with the
+# shared block and 1 trailing layer (the reference's decode-consistency
+# tolerance)
+ZAMBA_CONSIST = dict(layers=13, prompt=512, extra=64, tol=2e-3)
+
+
+def ssd_flops(b, s, h, p, n, c) -> int:
+    """The SSD scan's least arithmetic on these shapes.  Per (b, chunk),
+    shared by the heads: C B^T on its lower triangle (2 N T, T = C (C + 1)
+    / 2 entries; the masked entries need no work).  Per (b, h, chunk): the
+    cumsum (C adds); each lower entry's la_t - la_s, its exp and its
+    product with C B^T (3 T); M xh on the lower triangle (2 P T); C h^T (2
+    C N P), its exp(la_t) scale (C exps, C P products) and the sum of the
+    two parts (C P); exp(la_end - la) (2 C) and its product with xh (C P);
+    (xh kend)^T B (2 C P N); the decay's exp and h * decay + outer (1 + 2 P
+    N).  An exp counts as one operation."""
+    t = c * (c + 1) // 2
+    per_bh = (c + 3 * t + 2 * p * t + 2 * c * n * p + c + 2 * c * p
+              + 2 * c + c * p + 2 * c * p * n + 1 + 2 * p * n)
+    return b * (s // c) * (2 * n * t + h * per_bh)
+
+
+def _ssd_inputs(torch, gen, shape, bc):
+    """xh N(0, 1) f32; B and C N(0, 1) in ``bc`` ("bf16" or "f32") as
+    column slices of one (B, S, 2 N + 8) activation, as ``mamba2_block``
+    passes them (the kernel reads them in place); dla in [-0.5, -0.01] (the
+    reference's kernel test); h0 N(0, 1) f32."""
+    b, s, h, p, n = shape
+    dtype = torch.bfloat16 if bc == "bf16" else torch.float32
+    xh = torch.randn(b, s, h, p, generator=gen, device=DEVICE)
+    xbc = torch.randn(b, s, 2 * n + 8, generator=gen,
+                      device=DEVICE).to(dtype)
+    dla = -(0.01 + 0.49 * torch.rand(b, s, h, generator=gen, device=DEVICE))
+    h0 = torch.randn(b, h, p, n, generator=gen, device=DEVICE)
+    return [xh, xbc[..., 8:8 + n], xbc[..., 8 + n:], dla, h0]
+
+
+def phase_ssd_kernel(torch, ops, ref, reps=10, inner=5):
+    """``ssd_chunk`` against its plain version at each shape and B / C
+    dtype, a state-chaining check, and its cold / warm time beside the
+    plain version's and its bound (inputs read once, outputs written once,
+    over HBM bandwidth; operations at the f32 rate)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[ssd] tf32 matmul={torch.backends.cuda.matmul.allow_tf32}; "
+          f"tolerance normwise {SSD_TOL} (max |kernel - plain| / max "
+          "|plain|)")
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    table = {}
+    with torch.inference_mode():
+        for name, (shape, bc) in SSD_SHAPES.items():
+            first = _ssd_inputs(torch, gen, shape, bc)
+            k_out = ops.ssd_scan(*first)
+            p_out = ref.ssd_chunk_ref(*first)
+            torch.cuda.synchronize()
+            errs = [_normwise(a, b) for a, b in zip(k_out, p_out)]
+            finite = all(bool(torch.isfinite(t).all()) for t in k_out)
+            # two halves with the carried state against one pass
+            half = shape[1] // 2 // ref.SSD_CHUNK * ref.SSD_CHUNK
+            xh, bm, cm, dla, h0 = first
+            y1, h_mid = ops.ssd_scan(xh[:, :half].contiguous(), bm[:, :half],
+                                     cm[:, :half], dla[:, :half].contiguous(),
+                                     h0)
+            y2, h_end = ops.ssd_scan(xh[:, half:].contiguous(), bm[:, half:],
+                                     cm[:, half:], dla[:, half:].contiguous(),
+                                     h_mid)
+            chain = [_normwise(torch.cat([y1, y2], 1), k_out[0]),
+                     _normwise(h_end, k_out[1])]
+            # each input read once, each output written once (``nbytes``
+            # of a column slice counts its own elements)
+            moved = (sum(t.nbytes for t in first)
+                     + sum(t.nbytes for t in k_out))
+            n_sets = -(-L2_FLUSH_BYTES // moved) + 1
+            sets = [first] + [_ssd_inputs(torch, gen, shape, bc)
+                              for _ in range(n_sets - 1)]
+            row = dict(shape=shape, max_abs_err=max(e for e, _ in errs),
+                       rel_err=max(r_ for _, r_ in errs),
+                       chain_rel_err=max(r_ for _, r_ in chain),
+                       bytes=moved,
+                       flops=ssd_flops(*shape, ref.SSD_CHUNK),
+                       ms=device_time_ms(ops.ssd_scan, sets, reps, inner),
+                       ms_warm=device_time_ms(ops.ssd_scan, sets[:1], reps,
+                                              inner),
+                       plain_ms=device_time_ms(ref.ssd_chunk_ref, sets, 3, 2),
+                       library_ms=None)
+            t_bytes = moved / HBM_BYTES_PER_S
+            t_ops = row["flops"] / F32_OPS_PER_S
+            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["ok"] = (finite and row["rel_err"] <= SSD_TOL
+                         and row["chain_rel_err"] <= SSD_TOL)
+            table[name] = row
+            print(f"[ssd] kernel {name} (B, S, H, P, N)={shape} B/C {bc}: "
+                  f"max_abs_err={row['max_abs_err']} rel_err="
+                  f"{row['rel_err']} (y {errs[0][1]}, state {errs[1][1]}; "
+                  f"tolerance {SSD_TOL}) chain_rel_err="
+                  f"{row['chain_rel_err']} finite={finite} us="
+                  f"{1e3 * row['ms']:.3f} us_warm={1e3 * row['ms_warm']:.3f} "
+                  f"plain_us={1e3 * row['plain_ms']:.3f} "
+                  f"bound_us={1e3 * row['bound_ms']:.3f} ({row['bound_by']}: "
+                  f"{moved} B -> {1e6 * t_bytes:.3f} us, {row['flops']} "
+                  f"flop -> {1e6 * t_ops:.3f} us) library none")
+            if not row["ok"]:
+                raise AssertionError(f"ssd_chunk differs from its plain "
+                                     f"version at {name}: {row}")
+            del sets, first, k_out, p_out
+    return table
+
+
+def phase_zamba2_serve(torch, ops, serve, tree_leaves):
+    """zamba2-7b at full width and depth, random parameters drawn on the
+    card: serve batch 4 x prompt 512 and 32 greedy decode steps through
+    ``launch.serve``; returns the kernel's launches in that run and the
+    rates."""
+    sc = ZAMBA_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, bundle, params = serve.load("zamba2-7b", device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.nbytes for t in tree_leaves(params))
+    mc = cfg.mamba_cfg()
+    print(f"[zamba2] {cfg.name}: {cfg.n_layers} Mamba2 layers, d "
+          f"{cfg.d_model}, d_inner {mc.d_inner}, {mc.n_heads} heads x "
+          f"{mc.head_dim}, state {mc.d_state}; the shared block "
+          f"{cfg.n_layers // cfg.attn_every} times ({cfg.n_heads} heads x "
+          f"{cfg.hd}, d_ff {cfg.d_ff}); vocab {cfg.vocab}, dtype {cfg.dtype}: "
+          f"{n_params} parameters drawn on {DEVICE} in {load_s:.2f} s, "
+          f"{n_bytes} B resident for serving (dense weights, conv and "
+          f"embedding in {cfg.dtype}), peak {load_peak} B while drawing")
+    if n_params != ZAMBA_PARAMS:
+        raise AssertionError(f"zamba2-7b has {n_params} parameters, expected "
+                             f"{ZAMBA_PARAMS}")
+    tokens = serve.make_prompt(cfg, sc["batch"], sc["prompt"], DEVICE, 1)
+    serve.generate(bundle, params, tokens, 2)       # warm: library set-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve.generate(bundle, params, tokens, sc["gen"])
+    launches = dict(ops.LAUNCHES)
+    b, s, g = sc["batch"], sc["prompt"], sc["gen"]
+    ids = out["ids"]
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (out["prefill_logits"], out["logits"]))
+    in_range = bool(((ids >= 0) & (ids < cfg.vocab)).all())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[zamba2] serve batch={b} prompt={s} gen={g}: prefill "
+          f"{out['prefill_s']:.4f} s = {b * s / out['prefill_s']:.1f} tok/s, "
+          f"decode {out['decode_s']:.4f} s = {b * g / out['decode_s']:.1f} "
+          f"tok/s ({1e3 * out['decode_s'] / g:.3f} ms/step), ids "
+          f"{tuple(ids.shape)} in range {in_range}, logits finite {finite}, "
+          f"peak memory {peak} B, launches {launches}")
+    print(f"[zamba2] sample ids {ids[0, :16].tolist()}")
+    expect_launches("zamba2 serve", launches, ssd_chunk=cfg.n_layers)
+    if not (finite and in_range and tuple(ids.shape) == (b, g + 1)):
+        raise AssertionError(f"zamba2 serve: finite {finite}, ids in range "
+                             f"{in_range}, ids {tuple(ids.shape)}")
+    with torch.inference_mode():
+        _profile_call(torch, "one prefill", lambda: bundle.prefill(
+            params, {"tokens": tokens}), "zamba2", "ssd_chunk")
+        # one more step at the last slot of the grown cache (rewritten in
+        # place); a decode step runs the recurrence, never the kernel
+        ops.reset_launches()
+        _profile_call(torch, "one decode step", lambda: bundle.decode_step(
+            params, out["cache"], ids[:, -1:], s + g - 1), "zamba2",
+            "ssd_chunk")
+        expect_launches("zamba2 decode step", dict(ops.LAUNCHES))
+    return launches["ssd_chunk"], {
+        "prefill_tok_s": b * s / out["prefill_s"],
+        "decode_tok_s": b * g / out["decode_s"], "peak_bytes": peak,
+        "resident_bytes": n_bytes, "params": n_params}
+
+
+def phase_zamba2_consistency(torch, ops, serve):
+    """Full width, 13 layers in f32 (2 groups with the shared block, 1
+    trailing layer): decode after a 512-token prefill (through the kernel)
+    against ``forward`` over 576 tokens (through the kernel), step by step,
+    and the last step against a 576-token prefill's last-token logits."""
+    c = ZAMBA_CONSIST
+    torch.cuda.reset_peak_memory_stats()
+    cfg, bundle, params = serve.load("zamba2-7b", device=DEVICE, seed=2,
+                                     dtype=torch.float32,
+                                     n_layers=c["layers"])
+    p, total = c["prompt"], c["prompt"] + c["extra"]
+    tokens = serve.make_prompt(cfg, ZAMBA_SERVE["batch"], total, DEVICE, 3)
+    with torch.inference_mode():
+        ops.reset_launches()
+        full = bundle.forward(params, {"tokens": tokens})
+        last, _ = bundle.prefill(params, {"tokens": tokens})
+        _, cache = bundle.prefill(params, {"tokens": tokens[:, :p]})
+        launches = dict(ops.LAUNCHES)
+        cache = serve.grow_cache(cache, c["extra"])
+        diffs, ok = [], True
+        for i in range(p, total):
+            logits, cache = bundle.decode_step(params, cache,
+                                               tokens[:, i:i + 1], i)
+            diffs.append(float((logits - full[:, i]).abs().max()))
+            ok = ok and torch.allclose(logits, full[:, i], rtol=c["tol"],
+                                       atol=c["tol"])
+        last_diff = float((logits - last[:, 0]).abs().max())
+        ok = ok and torch.allclose(logits, last[:, 0], rtol=c["tol"],
+                                   atol=c["tol"])
+    print(f"[zamba2] consistency {cfg.n_layers} layers f32 "
+          f"({cfg.n_layers // cfg.attn_every} shared-block applications), "
+          f"prefill {p} then decode tokens {p + 1}..{total}: max |decode - "
+          f"forward| first step {diffs[0]}, all steps {max(diffs)}; last "
+          f"step against the {total}-token prefill {last_diff} (tolerance "
+          f"{c['tol']}); |logits| up to {float(full.abs().max())}; launches "
+          f"{launches}; peak memory {torch.cuda.max_memory_allocated()} B")
+    expect_launches("zamba2 consistency", launches,
+                    ssd_chunk=3 * cfg.n_layers)
+    if not ok:
+        raise AssertionError(f"zamba2 decode after prefill differs from "
+                             f"forward: {diffs}, last {last_diff}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1057,6 +1319,17 @@ def main() -> int:
                                                   tree_leaves)
     torch.cuda.empty_cache()
     phase_rwkv6_consistency(torch, ops, serve)
+    torch.cuda.empty_cache()
+
+    # phase 7: the zamba2 serving path, its kernel and its consistency
+    print(f"[zamba2] device memory before the phase: "
+          f"{torch.cuda.memory_allocated()} B allocated, "
+          f"{torch.cuda.memory_reserved()} B reserved")
+    ssd_table = phase_ssd_kernel(torch, ops, ref)
+    ssd_launches, zamba_rates = phase_zamba2_serve(torch, ops, serve,
+                                                   tree_leaves)
+    torch.cuda.empty_cache()
+    phase_zamba2_consistency(torch, ops, serve)
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
@@ -1100,6 +1373,17 @@ def main() -> int:
         bound_by=row["bound_by"], library_ms=None, rel_err=row["rel_err"],
         ms_2x4096=rwkv_table["2x4096"]["ms"],
         bound_ms_2x4096=rwkv_table["2x4096"]["bound_ms"], **rwkv_rates))
+    row = ssd_table["path"]
+    record.append(dict(
+        name="ssd_chunk", ok=row["ok"], route="cuda",
+        source="src/repro_torch/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk.py:78",
+        launches=ssd_launches, max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None, rel_err=row["rel_err"],
+        ms_f32_bc=ssd_table["path f32"]["ms"],
+        ms_2x4096=ssd_table["2x4096"]["ms"],
+        bound_ms_2x4096=ssd_table["2x4096"]["bound_ms"], **zamba_rates))
     print(smi)   # again here: a long log keeps only its end
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

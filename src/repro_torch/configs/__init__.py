@@ -2,9 +2,9 @@
 paper's experiment protocols (``paper_logreg``, ``paper_mnist``).
 
 ``get_config("rwkv6-7b")`` / ``get_smoke("rwkv6-7b")``; arch ids use hyphens
-(CLI style), module files use underscores.  The port has the rwkv6-7b
-config; the other arches of the reference are listed and raise until their
-family is ported (ROADMAP queue 1 item 13).
+(CLI style), module files use underscores.  The port has the rwkv6-7b and
+zamba2-7b configs; the other arches of the reference are listed and raise
+until their family is ported (ROADMAP queue 1 item 13).
 """
 from importlib import import_module
 
@@ -16,6 +16,7 @@ ARCHS = [
 
 _MODULES = {
     "rwkv6-7b": "rwkv6_7b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -12,10 +12,14 @@ dicts of tensors, and back.
   field a tree, then ``step``).
 
 * :func:`lm_params_to_torch` -- the reference's LM parameters (a tree of
-  arrays, layer leaves stacked ``(n_layers, ...)``) -> the port's.
-* :func:`cache_to_torch` / :func:`cache_to_numpy` -- the rwkv6 recurrent
-  cache (``S``, ``shift_t``, ``shift_c``, each stacked over layers) both
-  ways.
+  arrays, layer leaves stacked ``(n_layers, ...)``: ``layers`` for rwkv6,
+  ``mamba`` beside the unstacked ``shared_attn`` for the hybrid) -> the
+  port's.
+* :func:`cache_to_torch` / :func:`cache_to_numpy` -- a serving cache both
+  ways: rwkv6's recurrent state (``S``, ``shift_t``, ``shift_c``, each
+  stacked over layers) or the hybrid's ``{"mamba": {"h", "conv"}, "attn":
+  {"k", "v"}}`` (mamba leaves stacked over layers, attention over groups;
+  a windowed attention cache adds ``positions``).
 
 bf16: numpy has no bfloat16 of its own.  ``np.asarray`` of a JAX bf16
 array is an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
@@ -116,18 +120,22 @@ def state_to_numpy(state):
 
 
 _CACHE_KEYS = ("S", "shift_c", "shift_t")
+_HYBRID_KEYS = {"mamba": (("conv", "h"),),
+                "attn": (("k", "v"), ("k", "positions", "v"))}
 
 
 def lm_params_to_torch(params, n_layers: int, device=None):
     """The reference's LM parameters (``bundle.init(key)[0]``: ``embed``,
-    ``final_norm``, optionally ``head``, and ``layers`` with every leaf
-    stacked over ``n_layers``) -> the same tree of tensors on ``device``
-    (cuda unless given)."""
-    missing = {"embed", "final_norm", "layers"} - set(params)
+    ``final_norm``, optionally ``head``, and the stacked layers: ``layers``
+    (rwkv6) or ``mamba`` beside an unstacked ``shared_attn`` (hybrid), every
+    stacked leaf over ``n_layers``) -> the same tree of tensors on
+    ``device`` (cuda unless given)."""
+    stacked = "layers" if "layers" in params else "mamba"
+    missing = {"embed", "final_norm", stacked} - set(params)
     if missing:
         raise ValueError(f"not an LM parameter tree: no {sorted(missing)}")
     out = to_torch(params, device)
-    bad = [tuple(t.shape) for t in tree_leaves(out["layers"])
+    bad = [tuple(t.shape) for t in tree_leaves(out[stacked])
            if t.dim() == 0 or t.shape[0] != n_layers]
     if bad:
         raise ValueError(f"layer leaves must be stacked over {n_layers} "
@@ -136,19 +144,26 @@ def lm_params_to_torch(params, n_layers: int, device=None):
 
 
 def _check_cache(cache):
-    if sorted(cache) != list(_CACHE_KEYS):
-        raise ValueError(f"an rwkv6 cache has the keys {_CACHE_KEYS}, got "
-                         f"{sorted(cache)}")
+    if sorted(cache) == list(_CACHE_KEYS):
+        return
+    if (sorted(cache) == sorted(_HYBRID_KEYS) and all(
+            tuple(sorted(cache[k])) in keys
+            for k, keys in _HYBRID_KEYS.items())):
+        return
+    raise ValueError(f"an rwkv6 cache has the keys {_CACHE_KEYS}, a hybrid "
+                     f"one {_HYBRID_KEYS}; got the keys {sorted(cache)}")
 
 
 def cache_to_torch(cache, device=None):
-    """The reference's rwkv6 cache -> the port's (f32 tensors on
-    ``device``, cuda unless given)."""
+    """The reference's serving cache (rwkv6 or hybrid) -> the port's, on
+    ``device`` (cuda unless given), in the reference's dtypes (bf16
+    attention caches as bf16)."""
     _check_cache(cache)
     return to_torch(cache, device)
 
 
 def cache_to_numpy(cache):
-    """The port's rwkv6 cache -> numpy arrays, the reference's layout."""
+    """The port's serving cache -> numpy arrays, the reference's layout
+    (bf16 as uint16 bits)."""
     _check_cache(cache)
     return to_numpy(cache)

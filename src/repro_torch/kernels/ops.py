@@ -15,8 +15,10 @@ with int16 indices (top-k), int32 words with f32 scales (qsgd).  qsgd's
 U[0, 1) noise is an operand, drawn by the caller.
 
 ``rwkv6_scan`` is the RWKV6 chunked scan of the rwkv6 serving path, with
-the reference's contract (``src/repro/kernels/ops.py:230``).  It has no
-backward yet, so a CUDA operand that requires grad raises.
+the reference's contract (``src/repro/kernels/ops.py:230``); ``ssd_scan``
+the Mamba2 SSD chunked scan of the zamba2 serving path
+(``src/repro/kernels/ops.py:256``).  Neither has a backward yet, so a CUDA
+operand that requires grad raises.
 
 Operand types of the ef updates, as the comm-round engine issues them: all
 f32; ``ef_track`` with every operand bf16; ``ef_step`` / ``ef_gossip`` with
@@ -34,16 +36,17 @@ from . import ef_update as _ef
 from . import ref
 from . import rwkv6_chunk as _rw
 from . import sr_cast as _srk
+from . import ssd_chunk as _ssd
 from . import wire_pack as _wp
 from .flatten import TILE
 
 __all__ = ["LAUNCHES", "reset_launches", "ef_track", "ef_step", "ef_gossip",
            "sr_cast", "sr_cast_leaf", "wire_topk_pack", "wire_topk_unpack",
-           "wire_qsgd_pack", "wire_qsgd_unpack", "rwkv6_scan"]
+           "wire_qsgd_pack", "wire_qsgd_unpack", "rwkv6_scan", "ssd_scan"]
 
 LAUNCHES = {"ef_track": 0, "ef_step": 0, "ef_gossip": 0, "sr_cast": 0,
             "topk_pack": 0, "topk_unpack": 0, "qsgd_pack": 0,
-            "qsgd_unpack": 0, "rwkv6_chunk": 0}
+            "qsgd_unpack": 0, "rwkv6_chunk": 0, "ssd_chunk": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 # (EF operands' dtype, slot-2 operand's dtype) each kernel takes
@@ -274,4 +277,61 @@ def rwkv6_scan(r, k, v, logw, u, s0):
         raise ValueError("rwkv6_scan needs contiguous operands on the card")
     out = _rw.rwkv6_chunk(r, k, v, logw, u.to(_F32).contiguous(), s0)
     LAUNCHES["rwkv6_chunk"] += 1
+    return out
+
+
+def ssd_scan(xh, bmat, cmat, dla, h0):
+    """Mamba2 SSD chunked scan.
+
+    xh: ``(B, S, H, P)`` dt-scaled inputs with ``S % 64 == 0``; bmat, cmat:
+    ``(B, S, N)``; dla: ``(B, S, H)`` per-step log-decay; h0: ``(B, H, P,
+    N)``.  Returns (y ``(B, S, H, P)`` f32, h_final ``(B, H, P, N)`` f32).
+    On the card: xh, dla and h0 contiguous f32 (xh 16-byte aligned); bmat
+    and cmat both bf16 or both f32, with the same strides and unit stride
+    on N (column slices of one activation are read in place); P = N = 64.
+    """
+    if xh.dim() != 4 or bmat.dim() != 3:
+        raise ValueError(f"ssd_scan takes xh (B, S, H, P) and bmat (B, S, N), "
+                         f"got {tuple(xh.shape)} and {tuple(bmat.shape)}")
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    c = ref.SSD_CHUNK
+    if s < c or s % c:
+        raise ValueError(f"ssd_scan needs S a positive multiple of {c} "
+                         f"(pad the sequence), got S = {s}")
+    shapes = ((bmat, (b, s, n)), (cmat, (b, s, n)), (dla, (b, s, h)),
+              (h0, (b, h, p, n)))
+    for t, want in shapes:
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"ssd_scan operand of shape {tuple(t.shape)}, "
+                             f"expected {tuple(want)}")
+    operands = (xh, bmat, cmat, dla, h0)
+    if any(t.device != xh.device for t in operands):
+        raise ValueError("ssd_scan operands must share one device")
+    kind = xh.device.type
+    if kind == "cpu":
+        return ref.ssd_chunk_ref(xh, bmat, cmat, dla, h0)
+    if kind != "cuda":
+        raise ValueError(f"ssd_scan runs on cpu or cuda tensors, got {kind}")
+    if any(t.requires_grad for t in operands):
+        raise RuntimeError("ssd_scan has no backward yet (LM training, "
+                           "ROADMAP queue 1 item 13); call it under "
+                           "torch.inference_mode()")
+    if (bmat.dtype != cmat.dtype or bmat.dtype not in (_F32, _BF16)
+            or any(t.dtype != _F32 for t in (xh, dla, h0))):
+        raise TypeError(f"ssd_scan takes f32 xh, dla and h0 and bmat, cmat "
+                        f"both bf16 or both f32, got "
+                        f"{[t.dtype for t in operands]}")
+    if p != _ssd.HEAD_DIM or n != _ssd.STATE_DIM:
+        raise ValueError(f"the ssd_chunk kernel takes P = {_ssd.HEAD_DIM} "
+                         f"and N = {_ssd.STATE_DIM}, got P = {p}, N = {n}")
+    if not all(t.is_contiguous() for t in (xh, dla, h0)) or xh.data_ptr() % 16:
+        raise ValueError("ssd_scan needs xh, dla and h0 contiguous (xh "
+                         "16-byte aligned) on the card")
+    if (bmat.stride() != cmat.stride() or bmat.stride(2) != 1):
+        raise ValueError(f"ssd_scan needs bmat and cmat with the same strides "
+                         f"and unit stride on N, got {bmat.stride()} and "
+                         f"{cmat.stride()}")
+    out = _ssd.ssd_chunk(xh, bmat, cmat, dla, h0)
+    LAUNCHES["ssd_chunk"] += 1
     return out

@@ -2,7 +2,7 @@
 
 They are the CPU path of :mod:`repro_torch.kernels.ops`, and the versions
 the CUDA kernels are held against on the card (``chip_smoke.py``): bitwise,
-except the RWKV6 scan, which is held at a stated tolerance.
+except the RWKV6 and SSD scans, which are held at a stated tolerance.
 Each keeps the reference's order of operations
 (``src/repro/kernels/ef_update.py``, ``src/repro/kernels/sr_cast.py``, the
 wire codecs of ``src/repro/core/wire_formats.py``): f32 arithmetic, one op
@@ -10,9 +10,9 @@ at a time, so no step is fused into an FMA.  The wire codecs take their
 random operand explicitly (qsgd's U[0, 1) ``noise``), and their layout from
 :mod:`repro_torch.core.wire_formats`, which re-exports them.
 
-The RWKV6 pair (``rwkv6_chunk_ref``, ``rwkv6_scan_ref``) copies the
-chunked form and the per-token recurrence of ``src/repro/nn/ssm.py``, all
-in f32.
+The RWKV6 pair (``rwkv6_chunk_ref``, ``rwkv6_scan_ref``) and the Mamba2
+SSD pair (``ssd_chunk_ref``, ``ssd_scan_ref``) copy the chunked forms and
+the per-token recurrences of ``src/repro/nn/ssm.py``, all in f32.
 
 ``out_dtype`` (the ef updates): ``None`` writes each output in its state
 operand's dtype; a dtype (the engine asks for f32) writes all three in it,
@@ -26,7 +26,8 @@ import torch
 __all__ = ["ef_track_ref", "ef_step_ref", "ef_gossip_ref", "sr_cast_ref",
            "topk_pack_ref", "topk_unpack_ref", "qsgd_pack_ref",
            "qsgd_unpack_ref", "qsgd_sumsq", "rwkv6_chunk_ref",
-           "rwkv6_scan_ref", "RWKV_CHUNK"]
+           "rwkv6_scan_ref", "ssd_chunk_ref", "ssd_scan_ref", "RWKV_CHUNK",
+           "SSD_CHUNK"]
 
 _F32 = torch.float32
 
@@ -34,6 +35,9 @@ _F32 = torch.float32
 # kernel (``csrc/rwkv6_chunk.cu``'s kC), the wrapper and the model read
 # it from here
 RWKV_CHUNK = 16
+# the SSD scan's chunk length (``repro.nn.ssm.SSD_CHUNK``), read from here
+# by ``csrc/ssd_chunk.cu``'s kC, the wrapper and the model alike
+SSD_CHUNK = 64
 
 
 def _outs(states, values, out_dtype):
@@ -255,3 +259,64 @@ def rwkv6_scan_ref(r, k, v, logw, u, s0):
         outs.append(ot + bonus[..., None] * vt)
         state = state * wt[..., None] + kt[..., None] * vt[:, :, None, :]
     return torch.stack(outs, dim=1), state
+
+
+def ssd_chunk_ref(xh, bmat, cmat, dla, h0):
+    """The chunked Mamba2 SSD scan (``repro.nn.ssm._ssd_chunk_scan``), in f32
+    and in the reference's order of operations.
+
+    xh: ``(B, S, H, P)`` dt-scaled inputs with ``S % 64 == 0``; bmat, cmat:
+    ``(B, S, N)``; dla: ``(B, S, H)`` per-step log-decay; h0: ``(B, H, P,
+    N)``.  Returns y ``(B, S, H, P)`` and the final state ``(B, H, P, N)``,
+    both f32.  The decay matrix exp(la_t - la_s) is masked to -inf above
+    the diagonal before ``exp``, as the reference does.
+    """
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    c = SSD_CHUNK
+    nc = s // c
+    xs = xh.reshape(b, nc, c, h, p).to(_F32)
+    bs = bmat.reshape(b, nc, c, n).to(_F32)
+    cs = cmat.reshape(b, nc, c, n).to(_F32)
+    lrel = _cumsum_f32(dla.reshape(b, nc, c, h).to(_F32), dim=2)
+    lend = lrel[:, :, -1:, :]                         # (B,NC,1,H)
+
+    dmat = lrel[:, :, :, None, :] - lrel[:, :, None, :, :]   # (B,NC,C,C,H)
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=xh.device))
+    dmat = torch.where(tri[None, None, :, :, None], dmat,
+                       torch.full((), -torch.inf, device=xh.device))
+    dec = torch.exp(dmat)
+    cb = torch.einsum("bntk,bnsk->bnts", cs, bs)      # (B,NC,C,C)
+    m = cb[..., None] * dec
+    y_intra = torch.einsum("bntsh,bnshp->bnthp", m, xs)
+
+    kend = torch.exp(lend - lrel)                     # (B,NC,C,H)
+    xdec = xs * kend[..., None]
+    outer = torch.einsum("bnchp,bnck->bnhpk", xdec, bs)      # (B,NC,H,P,N)
+    cin = torch.exp(lrel)
+
+    state = h0.to(_F32)
+    y_inter = []
+    for i in range(nc):
+        y_inter.append(torch.einsum("bck,bhpk,bch->bchp", cs[:, i], state,
+                                    cin[:, i]))
+        state = state * torch.exp(lend[:, i, 0])[:, :, None, None] + outer[:, i]
+    y = y_intra + torch.stack(y_inter, dim=1)
+    return y.reshape(b, s, h, p), state
+
+
+def ssd_scan_ref(xh, bmat, cmat, dla, h0):
+    """The exact per-token SSD recurrence (``repro.nn.ssm.ssd_scan_ref``),
+    any S, in f32::
+
+        h_t = exp(dla_t) h_{t-1} + xh_t B_t^T;   y_t = h_t C_t
+    """
+    state = h0.to(_F32)
+    ys = []
+    for t in range(xh.shape[1]):
+        a_t = torch.exp(dla[:, t].to(_F32))           # (B,H)
+        outer = torch.einsum("bhp,bk->bhpk", xh[:, t].to(_F32),
+                             bmat[:, t].to(_F32))
+        state = state * a_t[..., None, None] + outer
+        ys.append(torch.einsum("bk,bhpk->bhp", cmat[:, t].to(_F32), state))
+    return torch.stack(ys, dim=1), state

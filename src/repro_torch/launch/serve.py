@@ -1,18 +1,24 @@
 """Batched serving entry point (``src/repro/launch/serve.py``): prefill a prompt
-batch, then greedy-decode N tokens through the recurrent cache.  This slice
-serves the rwkv6 family.
+batch, then greedy-decode N tokens through the family's cache.  The port
+serves the rwkv6 family (a recurrent state) and the hybrid one (zamba2:
+mamba states plus the shared attention block's key / value caches).
 
-    python -m repro_torch.launch.serve --arch rwkv6-7b --batch 4 \\
+    python -m repro_torch.launch.serve --arch zamba2-7b --batch 4 \\
         --prompt-len 512 --gen 32                 # full width, on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
-        --smoke --prompt-len 32 --gen 16 --batch 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --smoke --prompt-len 64 --gen 8 --batch 2 --device cpu
 
 It runs on the card unless ``--device cpu`` is given, and never moves to
 the CPU by itself.  The parameters are random, drawn on the device from
 ``--seed``; the prompt from ``--seed + 1``.  Everything runs under
-``torch.inference_mode()``.  Prefill and decode tokens/s are host wall
-time around work that ends in a device synchronise.  The reference's
-``remat`` has no meaning here and is ignored.
+``torch.inference_mode()``.  After prefill the attention caches (``k`` and
+``v`` under the cache's ``"attn"``) are grown by ``gen`` positions, chosen
+by key: the reference grows every leaf whose axis 2 equals the prompt
+length, which also pads a mamba state ``h`` ``(layers, B, H, P, N)`` when
+the prompt is as long as there are heads (ROADMAP queue 3).  Prefill and
+decode tokens/s are host wall time around work that ends in a device
+synchronise; the growth counts to prefill.  The reference's ``remat`` has
+no meaning here and is ignored.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from ..configs import get_config, get_smoke
 from ..models import build_model
 from ..models.model import cast_for_serving
 
-__all__ = ["load", "make_prompt", "generate", "device_line", "main"]
+__all__ = ["load", "make_prompt", "grow_cache", "generate", "device_line",
+           "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -79,6 +86,21 @@ def make_prompt(cfg, batch: int, prompt_len: int, device="cuda",
                          device=device)
 
 
+def grow_cache(cache, gen: int):
+    """``cache`` with its attention caches' ``k`` and ``v`` (``cache["attn"]``,
+    stacked ``(groups, B, S, Hk, hd)``) grown by ``gen`` zero positions
+    along the sequence axis, so that ``gen`` decode writes fit.  A cache
+    without attention (rwkv6) is returned as it is."""
+    if "attn" not in cache:
+        return cache
+    attn = dict(cache["attn"])
+    for key in ("k", "v"):
+        t = attn[key]
+        pad = t.new_zeros(t.shape[:2] + (gen,) + t.shape[3:])
+        attn[key] = torch.cat([t, pad], dim=2)
+    return dict(cache, attn=attn)
+
+
 @torch.inference_mode()
 def generate(bundle, params, tokens, gen: int):
     """Prefill ``tokens``, then ``gen`` greedy decode steps.
@@ -92,6 +114,7 @@ def generate(bundle, params, tokens, gen: int):
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = bundle.prefill(params, {"tokens": tokens})
+    cache = grow_cache(cache, gen)
     _sync(device)
     t1 = time.perf_counter()
     prefill_logits = logits

@@ -1,5 +1,5 @@
-"""Model zoo: the rwkv6 family (``blocks``, ``model``) and the paper's
-Section-5.2 MLP (``paper``)."""
+"""Model zoo: the rwkv6 and hybrid (zamba2) families (``blocks``,
+``model``) and the paper's Section-5.2 MLP (``paper``)."""
 from .blocks import ModelConfig
 from .model import ModelBundle, build_model
 from .paper import mlp_init, mlp_loss

@@ -1,2 +1,2 @@
-"""Neural-net modules of the model zoo (this slice: ``module`` and the
-RWKV6 half of ``ssm``)."""
+"""Neural-net modules of the model zoo: ``module``, ``ssm`` (RWKV6 and
+Mamba2), the GQA half of ``attention`` and the MLP half of ``moe``."""

@@ -20,7 +20,8 @@ from typing import Optional, Sequence
 import torch
 
 __all__ = ["param", "init_dense", "dense", "init_embedding", "embedding",
-           "init_rmsnorm", "rmsnorm", "init_layernorm", "layernorm"]
+           "init_rmsnorm", "rmsnorm", "init_layernorm", "layernorm",
+           "rope_freqs", "apply_rope"]
 
 _F32 = torch.float32
 
@@ -91,3 +92,33 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     out = (xf - mu) * torch.rsqrt(var + eps)
     out = out * p["scale"].to(_F32) + p["bias"].to(_F32)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings: full / partial ("2d", chatglm-style) rotary fraction.
+# ---------------------------------------------------------------------------
+
+def rope_freqs(rotary_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, rotary_dim, 2, dtype=_F32,
+                                         device=device) / rotary_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, rotary_dim: int,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotate the first ``rotary_dim`` channels of the last axis.
+
+    x: (..., seq, heads, head_dim); positions: (..., seq) integer.
+    rotary_dim < head_dim gives partial rotary (chatglm3's "2d" RoPE).
+    """
+    hd = x.shape[-1]
+    rot, rest = x[..., :rotary_dim], x[..., rotary_dim:]
+    freqs = rope_freqs(rotary_dim, theta, x.device)   # (rotary_dim/2,)
+    ang = positions[..., None].to(_F32) * freqs        # (..., seq, rd/2)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = rot[..., : rotary_dim // 2], rot[..., rotary_dim // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rotary_dim < hd:
+        out = torch.cat([out, rest], dim=-1)
+    return out

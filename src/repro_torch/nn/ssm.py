@@ -1,18 +1,21 @@
-"""Linear-recurrence token mixers (``src/repro/nn/ssm.py``); this slice
-ports the RWKV6 (Finch) half.
+"""Linear-recurrence token mixers (``src/repro/nn/ssm.py``): RWKV6 (Finch)
+and Mamba2 (SSD).
 
-A prefill whose length is a multiple of :data:`RWKV_CHUNK` runs the
-chunked scan, ``kernels.ops.rwkv6_scan`` (the hand-written ``rwkv6_chunk``
-kernel on the card); any other length, and every decode step, runs the
-exact per-token recurrence, as the reference does.  Log w is clamped to
-[LOGW_MIN, LOGW_MAX] so that the chunk's cumulative log-decay stays within
-f32's exp range (|la| <= 80 at chunk 16).
+A prefill whose length is a multiple of the chunk length runs the chunked
+scan: ``kernels.ops.rwkv6_scan`` (chunk :data:`RWKV_CHUNK`, the
+hand-written ``rwkv6_chunk`` kernel on the card) or ``kernels.ops.ssd_scan``
+(chunk :data:`SSD_CHUNK`, the ``ssd_chunk`` kernel); any other length, and
+every decode step, runs the exact per-token recurrence, as the reference
+does.  RWKV6's log w is clamped to [LOGW_MIN, LOGW_MAX] so that the chunk's
+cumulative log-decay stays within f32's exp range (|la| <= 80 at chunk 16);
+Mamba2's decay is a scalar per step and head, so its chunk needs no clamp.
 
 RWKV6 recurrence (head dim N):
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
     o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
-
-The Mamba2 half waits for the zamba2 slice (ROADMAP queue 1 item 13).
+Mamba2 / SSD recurrence (head dim P, state N):
+    h_t = a_t h_{t-1} + (dt_t x_t) B_t^T
+    y_t = h_t C_t + D x_t
 """
 
 from __future__ import annotations
@@ -23,15 +26,18 @@ from typing import Dict, Optional
 import torch
 
 from ..kernels import ops, ref
-from ..kernels.ref import RWKV_CHUNK
+from ..kernels.ref import RWKV_CHUNK, SSD_CHUNK
 from .module import dense, init_dense, init_layernorm, layernorm, param
 
 __all__ = ["Rwkv6Config", "init_rwkv6_block", "rwkv6_block", "rwkv6_decode",
            "init_rwkv6_state", "rwkv_scan_ref", "LOGW_MIN", "LOGW_MAX",
-           "RWKV_CHUNK"]
+           "RWKV_CHUNK", "Mamba2Config", "init_mamba2_block",
+           "init_mamba2_state", "mamba2_block", "mamba2_decode",
+           "ssd_scan_ref", "SSD_CHUNK"]
 
 LOGW_MIN, LOGW_MAX = -5.0, -1e-6
 rwkv_scan_ref = ref.rwkv6_scan_ref
+ssd_scan_ref = ref.ssd_scan_ref
 
 _F32 = torch.float32
 
@@ -154,3 +160,116 @@ def rwkv6_block(p, cfg: Rwkv6Config, x, state: Optional[Dict] = None,
 def rwkv6_decode(p, cfg: Rwkv6Config, x, state):
     """One-token step.  x: (B,1,D)."""
     return rwkv6_block(p, cfg, x, state, chunked=False)
+
+
+# ===========================================================================
+# Mamba2 (SSD)
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Config:
+    d_model: int
+    d_state: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    d_conv: int = 4
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+def init_mamba2_block(gen: torch.Generator, cfg: Mamba2Config, lead=()):
+    """One block's parameters (or a stack, ``lead=(n,)``), with the
+    reference's shapes and scales."""
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_heads
+    conv_ch = di + 2 * n
+    return {
+        # in_proj -> [z (di), x (di), B (n), C (n), dt (h)]
+        "w_in": init_dense(gen, d, 2 * di + 2 * n + h, lead=lead),
+        "conv_w": param(gen, (*lead, cfg.d_conv, conv_ch),
+                        1.0 / cfg.d_conv ** 0.5),
+        "conv_b": param(gen, (*lead, conv_ch), 0.0, mode="zeros"),
+        "a_log": param(gen, (*lead, h), 0.5, mode="uniform"),
+        "dt_bias": param(gen, (*lead, h), 0.5, mode="uniform"),
+        "d_skip": param(gen, (*lead, h), 1.0, mode="ones"),
+        "out_norm": init_layernorm(gen, di, lead=lead),
+        "w_out": init_dense(gen, di, d, lead=lead),
+    }
+
+
+def _ssd_chunk_scan(xh, bmat, cmat, dla, h0):
+    """The exact chunked SSD (``repro.nn.ssm._ssd_chunk_scan``): the
+    ``ssd_chunk`` kernel on the card, its plain version on the CPU.
+
+    xh: (B,S,H,P) dt-scaled inputs; bmat/cmat: (B,S,N); dla: (B,S,H)
+    *per-step* log-decay (log a_t); h0: (B,H,P,N).  Returns (y, h_final).
+    """
+    return ops.ssd_scan(xh, bmat, cmat, dla, h0)
+
+
+def init_mamba2_state(batch: int, cfg: Mamba2Config, dtype=_F32,
+                      device=None):
+    """Zero SSM state and conv tail on ``device`` (cuda unless given)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    conv_ch = cfg.d_inner + 2 * cfg.d_state
+    return {"h": torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
+                             dtype=dtype, device=device),
+            "conv": torch.zeros((batch, cfg.d_conv - 1, conv_ch), dtype=dtype,
+                                device=device)}
+
+
+def _causal_conv(seq, w, b, conv_state):
+    """Depthwise causal conv1d.  seq: (B,S,C); w: (K,C); returns (y,
+    new_state)."""
+    k = w.shape[0]
+    padded = torch.cat([conv_state.to(seq.dtype), seq], dim=1)
+    out = padded[:, 0: seq.shape[1], :] * w[0].to(seq.dtype)
+    for i in range(1, k):
+        out = out + padded[:, i: i + seq.shape[1], :] * w[i].to(seq.dtype)
+    new_state = padded[:, -(k - 1):, :] if k > 1 else conv_state
+    return out + b.to(seq.dtype), new_state
+
+
+def mamba2_block(p, cfg: Mamba2Config, x, state: Optional[Dict] = None,
+                 chunked: bool = True):
+    """x: (B,S,D) -> (y, new_state).  The chunked scan runs when
+    ``chunked`` and S is a multiple of SSD_CHUNK (and above 1); otherwise
+    the recurrence."""
+    b, s, d = x.shape
+    di, n, h, pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    if state is None:
+        state = init_mamba2_state(b, cfg, device=x.device)
+    zxbcdt = dense(p["w_in"], x)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di: di + di + 2 * n]
+    dt_raw = zxbcdt[..., -h:]
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                                   state["conv"])
+    xbc = torch.nn.functional.silu(xbc)
+    xin = xbc[..., :di].reshape(b, s, h, pd)
+    bmat = xbc[..., di: di + n]
+    cmat = xbc[..., di + n:]
+    dt = _softplus(dt_raw.to(_F32) + p["dt_bias"].to(_F32))   # (B,S,H)
+    a = -torch.exp(p["a_log"].to(_F32))                        # (H,) negative
+    dla = dt * a[None, None, :]                                # per-step log a
+    xh = xin.to(_F32) * dt[..., None]
+    if chunked and s % SSD_CHUNK == 0 and s > 1:
+        y, h_fin = _ssd_chunk_scan(xh, bmat, cmat, dla, state["h"])
+    else:
+        y, h_fin = ssd_scan_ref(xh, bmat, cmat, dla, state["h"])
+    y = y + xin.to(_F32) * p["d_skip"].to(_F32)[None, None, :, None]
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = layernorm(p["out_norm"], y * torch.nn.functional.silu(z))
+    out = dense(p["w_out"], y)
+    new_state = {"h": h_fin, "conv": conv_state.to(_F32)}
+    return out, new_state
+
+
+def mamba2_decode(p, cfg: Mamba2Config, x, state):
+    """One-token step.  x: (B,1,D)."""
+    return mamba2_block(p, cfg, x, state, chunked=False)

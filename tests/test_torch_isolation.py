@@ -61,9 +61,22 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"}, timeout=120)
     assert out.returncode == 0, out.stderr
-    # 41 modules: the paper path's, the wire's, and the rwkv6 serving
-    # path's (nn, models, configs, launch.serve, kernels.rwkv6_chunk)
-    assert int(out.stdout.split()[-1]) >= 41
+    # 45 modules: the paper path's, the wire's, the rwkv6 serving path's
+    # (nn, models, configs, launch.serve, kernels.rwkv6_chunk) and the
+    # zamba2 one's (nn.attention, nn.moe, kernels.ssd_chunk,
+    # configs.zamba2_7b)
+    assert int(out.stdout.split()[-1]) >= 45
+
+
+@pytest.mark.parametrize("module", ["nn/attention.py", "nn/moe.py",
+                                    "kernels/ssd_chunk.py",
+                                    "configs/zamba2_7b.py"])
+def test_zamba2_modules_are_checked(module):
+    """The zamba2 serving path's new modules are among the files held to
+    import no JAX and no ``repro``."""
+    path = PORT / module
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
 
 
 def _logreg_loss(params, batch):
@@ -131,3 +144,16 @@ def test_build_model_targets_cuda_unless_asked():
         bundle.init_cache(1)
     assert build_model(cfg, device="cpu").init_cache(1)["S"].device.type == \
         "cpu"
+
+
+def test_hybrid_bundle_targets_cuda_unless_asked():
+    cfg = get_smoke("zamba2-7b")
+    bundle = build_model(cfg)
+    if torch.cuda.is_available():
+        assert bundle.init_cache(1, 8)["attn"]["k"].is_cuda
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        bundle.init_cache(1, 8)
+    cache = build_model(cfg, device="cpu").init_cache(1, 8)
+    assert {t.device.type for part in cache.values()
+            for t in part.values()} == {"cpu"}
