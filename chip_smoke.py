@@ -58,6 +58,28 @@ of the ``repro`` package.  Phases, each printing its own lines:
    (2 groups with the shared block and 1 trailing layer): decode after a
    512-token prefill held against ``forward`` over 576 tokens at 2e-3
    (``[zamba2]`` lines).
+8. the last four kernels: ``sumsq``, ``scale`` and ``scale_noise``
+   (``csrc/smooth_clip.cu``) against their plain versions, bitwise, in
+   f32 and bf16, at the MLP's agent plane (10 rows x 7 tiles), the
+   quickstart's (10 x 1), PORTER-DP's per-sample plane (80 x 7), the DP
+   perturbation's (1 x 63, factor 1) and 2^24 elements as 1 and 16 rows,
+   timed beside their bound, the PyTorch call for the same function
+   (``torch.linalg.vecdot``, ``torch.mul``) and the nearest one
+   (``[clip]`` lines); the row-stacked clip of a real MLP gradient against
+   the plain composition, and its perturbation against ``g + sigma * z``;
+   PORTER-GC and PORTER-DP rounds with the clip kernels against the same
+   rounds with the plain clip on the card, x bitwise;
+   ``block_topk`` (``csrc/block_topk.cu``) bitwise at the MLP's w1 windows
+   (250 x 2048, k = 1, 102, 512, 2048), on tie, zero and -0.0 windows and
+   at 2^24 elements, beside ``torch.topk`` + ``scatter``
+   (``[block_topk]``); the host's µs a wrapper call against a PyTorch op
+   (``[host]``); then PORTER-GC on the full-width MLP with the
+   ``block_top_k`` compressor (5 %) for 200 rounds, f32 and bf16, kernel
+   and ref backends, with the MLP phase's gates (``[block_top_k]``).  The
+   clip runs outside the comm round, so every PORTER-GC, DSGD and CHOCO
+   round of the earlier phases also counts one ``sumsq`` and one
+   ``scale`` launch, on the ref backend too, and every DP round one
+   ``scale_noise``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -346,7 +368,8 @@ def profile_rounds(torch, runtime, algo, source, state, rounds, label):
     ours = [e for e in kernels if any(
         name in e.key for name in ("ef_kernel", "sr_kernel", "topk_pack_k",
                                    "topk_unpack_k", "qsgd_pack_k",
-                                   "qsgd_unpack_k"))]
+                                   "qsgd_unpack_k", "sumsq_kernel",
+                                   "scale_kernel", "block_topk_kernel"))]
     print(f"[profile] {label}: {rounds} rounds, wall {wall_us / rounds:.1f} "
           f"us/round, device busy {busy_us / rounds:.1f} us/round "
           f"({100 * busy_us / wall_us:.2f} %), {launches / rounds:.1f} "
@@ -398,25 +421,32 @@ def phase_quickstart(torch, ops, api, data, runtime, average_params,
               f"launches {launches}")
         if not gn < 0.1:
             raise AssertionError(f"quickstart {label} gate failed: gn = {gn}")
+        # every round clips the agents' gradients once (sumsq + scale)
         if label == "f32":
             expect_launches("quickstart f32", launches, ef_track=rounds,
-                            ef_step=rounds)
+                            ef_step=rounds, sumsq=rounds, scale=rounds)
             profile_rounds(torch, runtime, algo, source, state, 20,
                            "quickstart")
         elif label == "bf16":
             # 3 bf16-bound outputs of ef_track + 2 of ef_step each round
             expect_launches("quickstart bf16", launches, ef_track=rounds,
-                            ef_step=rounds, sr_cast=5 * rounds)
+                            ef_step=rounds, sr_cast=5 * rounds,
+                            sumsq=rounds, scale=rounds)
         else:
             # each of the two exchanges a round packs and unpacks once
             expect_launches("quickstart packed_bits", launches,
                             ef_track=rounds, ef_step=rounds,
-                            topk_pack=2 * rounds, topk_unpack=2 * rounds)
+                            topk_pack=2 * rounds, topk_unpack=2 * rounds,
+                            sumsq=rounds, scale=rounds)
     gap = abs(final["f32"] - final["bf16"])
     print(f"[quickstart] final loss f32 {final['f32']:.6f} bf16 "
           f"{final['bf16']:.6f}: gap {gap:.6f} (gate 0.02)")
     if not gap <= 0.02:
         raise AssertionError(f"bf16 final loss is {gap} from f32's")
+
+
+# sigma_p of every DP run on the MLP (PORTER-DP, DP-SGD, SoteriaFL)
+DP_SIGMA = 0.01
 
 
 def _mlp_problem(api, data, paper, num):
@@ -484,15 +514,18 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
                 raise AssertionError(f"kernel and ref trajectories differ: "
                                      f"{diff}")
             expect_launches("mlp f32 kernel", n_k, ef_track=rounds,
-                            ef_step=rounds)
+                            ef_step=rounds, sumsq=rounds, scale=rounds)
         else:
             # both backends read the same plane of SR words per output
             if not same:
                 raise AssertionError(f"bf16 kernel and ref trajectories "
                                      f"differ: {diff}")
             expect_launches("mlp bf16 kernel", n_k, ef_track=rounds,
-                            ef_step=rounds, sr_cast=5 * rounds)
-        expect_launches(f"mlp {label} ref", n_r)
+                            ef_step=rounds, sr_cast=5 * rounds,
+                            sumsq=rounds, scale=rounds)
+        # the clip sits outside the comm round: the ref backend clips
+        # through the kernels too
+        expect_launches(f"mlp {label} ref", n_r, sumsq=rounds, scale=rounds)
         _falls(f"mlp porter-gc {label}", l_k)
 
     s32, s16 = runs[("f32", "kernel")][0], runs[("bf16", "kernel")][0]
@@ -531,7 +564,8 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
         profile_rounds(torch, runtime, algo, source,
                        _init(algo, paper), 20, label)
 
-    algo = _build(api, base.replace(algo="porter-dp", sigma_p=0.01), loss_fn)
+    algo = _build(api, base.replace(algo="porter-dp", sigma_p=DP_SIGMA),
+                  loss_fn)
     _, losses, ms, dp_launches = run_counted(
         torch, ops, runtime, algo, source, _init(algo, paper),
         dp_rounds, dp_rounds // 2)
@@ -539,9 +573,14 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
           f"{losses[-1]:.6f}, {ms:.4f} ms/round, launches {dp_launches}")
     if not finite(losses):
         raise AssertionError("porter-dp loss is not finite")
+    # one clip of all agents' per-sample gradients and one perturbation a
+    # round
     expect_launches("porter-dp", dp_launches, ef_track=dp_rounds,
-                    ef_step=dp_rounds)
-    return runs, ms_per_round
+                    ef_step=dp_rounds, sumsq=dp_rounds, scale=dp_rounds,
+                    scale_noise=dp_rounds)
+    profile_rounds(torch, runtime, algo, source, _init(algo, paper), 20,
+                   "porter-dp")
+    return runs, ms_per_round, dp_launches
 
 
 def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
@@ -563,12 +602,14 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
               f"x {state.x['w1'].dtype}, launches {launches}")
         # the two bf16-bound outputs (q, m) of each round take sr_cast
         expect_launches(f"choco {label}", launches, ef_gossip=rounds,
-                        sr_cast=2 * rounds if plane else 0)
+                        sr_cast=2 * rounds if plane else 0, sumsq=rounds,
+                        scale=rounds)
         _falls(f"choco {label}", losses)
+    dp = dict(sigma_p=DP_SIGMA)
     for algo_name, plane, over in (("dsgd", None, {}),
-                                   ("dp-sgd", None, dict(sigma_p=0.01)),
-                                   ("soteriafl", None, dict(sigma_p=0.01)),
-                                   ("soteriafl", "bf16", dict(sigma_p=0.01))):
+                                   ("dp-sgd", None, dp),
+                                   ("soteriafl", None, dp),
+                                   ("soteriafl", "bf16", dp)):
         algo = _build(api, base.replace(algo=algo_name, plane_dtype=plane,
                                       **over), loss_fn)
         _, losses, ms, launches = run_counted(
@@ -579,7 +620,10 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
               f"launches {launches}")
         if not finite(losses):
             raise AssertionError(f"{algo_name} loss is not finite")
-        expect_launches(algo_name, launches)
+        # each round clips once (dsgd: the agents' gradients; the DP ones:
+        # every sample's) and the DP ones perturb once
+        expect_launches(algo_name, launches, sumsq=short, scale=short,
+                        scale_noise=0 if algo_name == "dsgd" else short)
     return choco
 
 
@@ -742,8 +786,9 @@ def phase_wire(torch, ops, api, data, runtime, paper, num=60000, rounds=200):
                 unpack: 2 * rounds}
         if "bf16" in label:
             want["sr_cast"] = 5 * rounds
-        expect_launches(f"wire {label} kernel", n_k, **want)
-        expect_launches(f"wire {label} ref", n_r)
+        expect_launches(f"wire {label} kernel", n_k, sumsq=rounds,
+                        scale=rounds, **want)
+        expect_launches(f"wire {label} ref", n_r, sumsq=rounds, scale=rounds)
         launches[label] = n_k
         if comp == "top_k":
             _falls(f"wire porter-gc {label}", l_k)
@@ -1265,7 +1310,409 @@ def phase_zamba2_consistency(torch, ops, serve):
                              f"forward: {diffs}, last {last_diff}")
 
 
+# phase 8: the last four kernels.  The clip planes, as (rows, tiles a row):
+# the MLP's agent plane (10 agents x 7 tiles: what PORTER-GC, CHOCO and
+# DSGD clip each round), the quickstart's (10 agents x 1 tile),
+# PORTER-DP's per-sample plane (10 agents x 8 samples), the DP
+# perturbation's (the MLP's 10-agent gradient as one row of 63 tiles, at
+# factor 1: ``clipping.perturb``), and 2^24 elements as 1 row and as 16.
+CLIP_PLANES = {"mlp": (10, 7), "quickstart": (10, 1), "dp": (80, 7),
+               "dp noise": (1, 63), "2^24 x1": (1, 2048),
+               "2^24 x16": (16, 128)}
+UNIT_FACTOR_PLANES = ("dp noise",)
+CLIP_KERNELS = {"sumsq": "src/repro/kernels/smooth_clip.py:41",
+                "scale": "src/repro/kernels/smooth_clip.py:69",
+                "scale_noise": "src/repro/kernels/smooth_clip.py:77"}
+# per element, the operations on the inputs, counted at the f32 rate:
+# sumsq's square and add, scale's product, scale_noise's two products and
+# an add
+CLIP_OPS = {"sumsq": 2, "scale": 1, "scale_noise": 3}
+# block_topk: windows and k at each size; "w1" is the MLP's w1 gradient
+# (10 agents x 25 windows), "edge" small-integer ties, sparse, all-zero
+# and -0.0 windows (``_edge_rows``), "2^24" Gaussian windows
+TOPK_CELLS = {"w1": (250, (1, 102, 512, 2048)),
+              "edge": (250, (1, 102, 512, 2048)),
+              "2^24": (8192, (102,))}
+# per element: the key mask, 31 compare-and-count steps (2 operations
+# each), the tie compare and the select, counted at the f32 rate
+TOPK_OPS = 1 + 31 * 2 + 2
+TOPK_REPLACES = "src/repro/kernels/block_topk.py:54"
+DTYPES = ("f32", "bf16")
+
+
+def _dtype(torch, name):
+    return {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+def _clip_variants(torch, ops, ref, rows):
+    """Per clip kernel: (kernel, plain version, the PyTorch calls timed
+    beside it as (label, call, whether it computes the kernel's function
+    in f32)).  Each takes (plane, factor, noise)."""
+    def vecdot(p, f, z):
+        return torch.linalg.vecdot(p, p, dim=1)
+
+    def norm(p, f, z):
+        return torch.linalg.vector_norm(p.view(rows, -1), dim=1,
+                                         dtype=torch.float32)
+
+    def mul(p, f, z):
+        return torch.mul(p.view(rows, -1), f[:, None])
+
+    def add(p, f, z):
+        return torch.add(p.view(rows, -1) * f[:, None], z.view(rows, -1),
+                         alpha=DP_SIGMA)
+
+    return {
+        "sumsq": (lambda p, f, z: ops.clip_sumsq(p),
+                  lambda p, f, z: ref.clip_sumsq(p),
+                  [("torch.linalg.vecdot(p, p, dim=1): a tile's sum of "
+                    "squares", vecdot, True),
+                   ("nearest: torch.linalg.vector_norm(dim=1), the norm a "
+                    "row", norm, False)]),
+        "scale": (lambda p, f, z: ops.clip_scale(p, f),
+                  lambda p, f, z: ref.clip_scale_ref(p, f),
+                  [("torch.mul broadcast over the rows", mul, True)]),
+        "scale_noise": (lambda p, f, z: ops.clip_scale(p, f, z, DP_SIGMA),
+                        lambda p, f, z: ref.clip_scale_ref(p, f, z,
+                                                           DP_SIGMA),
+                        [("nearest: torch.add(x * f, z, alpha=sigma), two "
+                          "calls", add, False)])}
+
+
+def _clip_bytes(name, plane, rows):
+    """Bytes the kernel must move: each input read once, each output
+    written once."""
+    n, tiles = plane.nbytes, plane.shape[0]
+    return {"sumsq": n + 4 * tiles, "scale": 2 * n + 4 * rows,
+            "scale_noise": 3 * n + 4 * rows}[name]
+
+
+def phase_clip_kernels(torch, ops, ref, reps=20, inner=10):
+    """``sumsq``, ``scale`` and ``scale_noise`` against their plain versions,
+    bitwise, at every clip plane in f32 and bf16 (the perturbation's plane
+    at factor 1 and the path's sigma), timed cold / warm beside their bound
+    and the PyTorch calls for the same function (in f32) or the nearest."""
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    table = {}
+    for size, (rows, tiles) in CLIP_PLANES.items():
+        for dt in DTYPES:
+            def make():
+                p = (3 * torch.randn(rows * tiles, TILE, generator=gen,
+                                     device=DEVICE)).to(_dtype(torch, dt))
+                z = torch.randn(p.shape, generator=gen, device=DEVICE).to(
+                    p.dtype)
+                f = (torch.ones(rows, device=DEVICE)
+                     if size in UNIT_FACTOR_PLANES else
+                     torch.rand(rows, generator=gen, device=DEVICE))
+                return [p, f, z]
+            first = make()
+            n_sets = -(-L2_FLUSH_BYTES // (3 * first[0].nbytes)) + 1
+            sets = [first] + [make() for _ in range(n_sets - 1)]
+            for name, (kern, plain, calls) in _clip_variants(
+                    torch, ops, ref, rows).items():
+                k_out, p_out = kern(*first), plain(*first)
+                torch.cuda.synchronize()
+                equal = bit_equal(torch, k_out, p_out)
+                err = float((k_out.float() - p_out.float()).abs().max())
+                moved = _clip_bytes(name, first[0], rows)
+                n = rows * tiles * TILE
+                row = dict(elements=n, rows=rows, equal=equal,
+                           max_abs_err=err, bytes=moved,
+                           ms=device_time_ms(kern, sets, reps, inner),
+                           ms_warm=device_time_ms(kern, sets[:1], reps,
+                                                  inner),
+                           plain_ms=device_time_ms(plain, sets, reps, inner),
+                           library_ms=None, nearest_ms=None)
+                t_bytes = moved / HBM_BYTES_PER_S
+                t_ops = CLIP_OPS[name] * n / F32_OPS_PER_S
+                row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+                row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                timed = []
+                for label, call, same in calls:
+                    ms = device_time_ms(call, sets, reps, inner)
+                    same = same and dt == "f32"
+                    key = "library_ms" if same else "nearest_ms"
+                    if row[key] is None:
+                        row[key] = ms
+                    timed.append(f"{'torch' if same else 'nearest'}_us="
+                                 f"{1e3 * ms:.3f} ({label})")
+                table[(name, size, dt)] = row
+                print(f"[clip] {name} {size} rows={rows} tiles/row={tiles} "
+                      f"{dt} n={n} bitwise={equal} max_abs_err={err} "
+                      f"bytes={moved} us={1e3 * row['ms']:.3f} us_warm="
+                      f"{1e3 * row['ms_warm']:.3f} plain_us="
+                      f"{1e3 * row['plain_ms']:.3f} bound_us="
+                      f"{1e3 * row['bound_ms']:.3f} ({row['bound_by']}) "
+                      + " ".join(timed))
+                if not equal:
+                    raise AssertionError(f"{name} differs from its plain "
+                                         f"version at {size} {dt}: {err}")
+            del sets, first
+    return table
+
+
+def phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
+                        clipping):
+    """The row-stacked clip of one real MLP gradient (10 agents at full
+    width, one minibatch) through the kernels, bitwise against the plain
+    composition on the same CUDA tensors, and its DP perturbation (the
+    whole tree as one row of 63 tiles, factor 1) bitwise against ``g +
+    sigma * z`` leaf by leaf; returns the gradient."""
+    from torch.func import grad_and_value, vmap
+    source, base, loss_fn = _mlp_problem(api, data, paper, 60000)
+    params = paper.mlp_init(seed=0, device=DEVICE)
+    x = {k: v.unsqueeze(0).expand((10,) + tuple(v.shape)).clone()
+         for k, v in params.items()}
+    batch = source(torch.Generator(device=DEVICE).manual_seed(9), 0)
+    g, _ = vmap(grad_and_value(loss_fn))(x, batch)
+    for dt in DTYPES:
+        gt = {k: v.to(_dtype(torch, dt)) for k, v in g.items()}
+        ops.reset_launches()
+        got = clipping.stacked_clip(gt, 1.0)
+        launches = dict(ops.LAUNCHES)
+        spec = flatten.flat_spec(gt)
+        planes = flatten.to_planes(gt, spec)
+        factor = ops.smooth_factors(ref.clip_sumsq(planes), spec.rows, 1.0)
+        want = flatten.from_planes(ref.clip_scale_ref(planes, factor), spec)
+        torch.cuda.synchronize()
+        same = all(bit_equal(torch, got[k], want[k]) for k in g)
+        norms = torch.sqrt(ref.clip_sumsq(planes).view(10, -1).sum(1))
+        print(f"[clip] row-stacked clip of the MLP gradient ({dt}, 10 "
+              f"agents, {spec.d} elements each, plane "
+              f"{tuple(planes.shape)}): bitwise equal to the plain "
+              f"composition {same}; row norms "
+              f"{[round(float(v), 6) for v in norms]}; launches {launches}")
+        expect_launches(f"clip gradient {dt}", launches, sumsq=1, scale=1)
+        if not same:
+            raise AssertionError(f"row-stacked clip differs ({dt})")
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    z = {k: torch.randn(v.shape, generator=gen, device=DEVICE)
+         for k, v in g.items()}
+    ops.reset_launches()
+    got = clipping.perturb(g, z, DP_SIGMA)
+    launches = dict(ops.LAUNCHES)
+    want = {k: g[k] + DP_SIGMA * z[k] for k in g}
+    torch.cuda.synchronize()
+    same = all(bit_equal(torch, got[k], want[k]) for k in g)
+    spec = flatten.flat_spec(g, stacked=False)
+    print(f"[clip] DP perturbation of the MLP gradient (plane "
+          f"{spec.plane_shape}, sigma {DP_SIGMA}): bitwise equal to g + "
+          f"sigma * z {same}; launches {launches}")
+    expect_launches("clip perturbation", launches, scale_noise=1)
+    if not same:
+        raise AssertionError("DP perturbation differs from g + sigma * z")
+    return g
+
+
+def phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper,
+                          num=60000, rounds=50):
+    """PORTER-GC and PORTER-DP on the full-width MLP (f32, kernel backend)
+    twice from one seed: with the clip through the kernels, then with
+    ``ops.clip_sumsq`` / ``ops.clip_scale`` swapped for their plain
+    versions on the same CUDA tensors.  x must agree bitwise, and the plain
+    run must launch no clip kernel."""
+    source, base, loss_fn = _mlp_problem(api, data, paper, num)
+    for name, over in (("porter-gc", {}),
+                       ("porter-dp", dict(algo="porter-dp",
+                                          sigma_p=DP_SIGMA))):
+        algo = _build(api, base.replace(**over), loss_fn)
+
+        def run():
+            return run_counted(torch, ops, runtime, algo, source,
+                               _init(algo, paper), rounds, rounds // 2)
+
+        s_k, l_k, ms_k, n_k = run()
+        saved = ops.clip_sumsq, ops.clip_scale
+        ops.clip_sumsq, ops.clip_scale = ref.clip_sumsq, ref.clip_scale_ref
+        try:
+            s_p, l_p, ms_p, n_p = run()
+        finally:
+            ops.clip_sumsq, ops.clip_scale = saved
+        same = all(bit_equal(torch, s_k.x[k], s_p.x[k]) for k in s_k.x)
+        diff = max(float((s_k.x[k] - s_p.x[k]).abs().max()) for k in s_k.x)
+        print(f"[clip] {name} {rounds} rounds, clip kernels vs plain clip: "
+              f"x bitwise equal {same}, max |x diff| {diff}, loss "
+              f"{l_k[-1]:.6f} / {l_p[-1]:.6f}, {ms_k:.4f} / {ms_p:.4f} "
+              f"ms/round, launches {n_k} / {n_p}")
+        dp = rounds if name == "porter-dp" else 0
+        expect_launches(f"{name} clip kernels", n_k, ef_track=rounds,
+                        ef_step=rounds, sumsq=rounds, scale=rounds,
+                        scale_noise=dp)
+        expect_launches(f"{name} plain clip", n_p, ef_track=rounds,
+                        ef_step=rounds)
+        if not same:
+            s_r = run()[0]
+            again = all(bit_equal(torch, s_k.x[k], s_r.x[k]) for k in s_k.x)
+            raise AssertionError(f"{name}: the clip kernels' trajectory "
+                                 f"differs from the plain clip's ({diff}); "
+                                 f"a second kernel run is bitwise the "
+                                 f"first: {again}")
+
+
+def _topk_windows(torch, gen, cell, windows, w1, dt):
+    if cell == "w1":
+        x = torch.nn.functional.pad(w1.reshape(10, -1),
+                                    (0, (-w1[0].numel()) % PACK_BLOCK))
+        x = x.reshape(-1, PACK_BLOCK).contiguous()
+        assert x.shape[0] == windows
+    elif cell == "edge":
+        x = _edge_rows(torch, gen, windows)
+    else:
+        x = torch.randn(windows, PACK_BLOCK, generator=gen, device=DEVICE)
+    return x.to(_dtype(torch, dt)).contiguous()
+
+
+def phase_block_topk_kernel(torch, ops, ref, grad, reps=20, inner=10):
+    """``block_topk`` against its plain version, bitwise, at the MLP's w1
+    windows, on tie / zero / -0.0 windows and at 2^24 elements, f32 and
+    bf16, timed cold / warm beside its bound and ``torch.topk`` +
+    ``scatter`` (nearest: not the same tie order)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+
+    def nearest(x, k):
+        idx = torch.topk(x.abs(), k, dim=1).indices
+        return torch.zeros_like(x).scatter_(1, idx, torch.gather(x, 1, idx))
+
+    table = {}
+    for cell, (windows, ks) in TOPK_CELLS.items():
+        for dt in DTYPES:
+            first = _topk_windows(torch, gen, cell, windows, grad["w1"], dt)
+            for k in ks:
+                k_out, p_out = ops.block_topk(first, k), ref.block_topk_ref(
+                    first, k)
+                torch.cuda.synchronize()
+                equal = bit_equal(torch, k_out, p_out)
+                kept = int(((k_out != 0) | torch.signbit(k_out.float()))
+                           .sum(1).max())
+                err = float((k_out.float() - p_out.float()).abs().max())
+                moved = 2 * first.nbytes
+                if cell == "edge":
+                    print(f"[block_topk] {cell} windows={windows} {dt} k={k} "
+                          f"bitwise={equal} kept<={kept} max_abs_err={err}")
+                    if not (equal and kept <= k):
+                        raise AssertionError(f"block_topk differs from its "
+                                             f"plain version at {cell} {dt} "
+                                             f"k={k}: {err}, kept {kept}")
+                    continue
+                n_sets = -(-L2_FLUSH_BYTES // moved) + 1
+                sets = [[first, k]] + [
+                    [torch.randn(first.shape, generator=gen, device=DEVICE)
+                     .to(first.dtype), k] for _ in range(n_sets - 1)]
+                n = first.numel()
+                row = dict(elements=n, equal=equal, max_abs_err=err,
+                           bytes=moved, kept_max=kept,
+                           ms=device_time_ms(ops.block_topk, sets, reps,
+                                             inner),
+                           ms_warm=device_time_ms(ops.block_topk, sets[:1],
+                                                  reps, inner),
+                           plain_ms=device_time_ms(ref.block_topk_ref, sets,
+                                                   reps, inner),
+                           nearest_ms=device_time_ms(nearest, sets, reps,
+                                                     inner))
+                t_bytes = moved / HBM_BYTES_PER_S
+                t_ops = TOPK_OPS * n / F32_OPS_PER_S
+                row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+                row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                table[(cell, dt, k)] = row
+                print(f"[block_topk] {cell} windows={windows} {dt} k={k} "
+                      f"bitwise={equal} kept<={kept} max_abs_err={err} "
+                      f"bytes={moved} us={1e3 * row['ms']:.3f} us_warm="
+                      f"{1e3 * row['ms_warm']:.3f} plain_us="
+                      f"{1e3 * row['plain_ms']:.3f} bound_us="
+                      f"{1e3 * row['bound_ms']:.3f} ({row['bound_by']}) "
+                      f"nearest_us={1e3 * row['nearest_ms']:.3f} (nearest, "
+                      "not the same tie order: torch.topk + scatter)")
+                if not (equal and kept <= k):
+                    raise AssertionError(f"block_topk differs from its plain "
+                                         f"version at {cell} {dt} k={k}: "
+                                         f"{err}, kept {kept}")
+                del sets
+    return table
+
+
+def phase_launch_host_cost(torch, ops, calls=2000):
+    """Wall µs a call over ``calls`` back-to-back calls on one small
+    operand (one 8192 tile, one 2048 window), ended by one synchronize:
+    the host's cost of a call wherever it exceeds the device's few µs.
+    The ctypes wrappers (checks, ``torch.cuda.device``, the stream
+    lookup, the library call) against PyTorch ops on the same operand."""
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    tile = torch.randn(1, TILE, generator=gen, device=DEVICE)
+    win = torch.randn(1, PACK_BLOCK, generator=gen, device=DEVICE)
+    one = torch.ones(1, device=DEVICE)
+    fns = {"ops.clip_sumsq": lambda: ops.clip_sumsq(tile),
+           "ops.clip_scale": lambda: ops.clip_scale(tile, one),
+           "ops.block_topk k=102": lambda: ops.block_topk(win, 102),
+           "torch.mul": lambda: torch.mul(tile, one),
+           "torch.linalg.vector_norm": lambda: torch.linalg.vector_norm(
+               tile, dim=1)}
+    cost = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        cost[name] = 1e6 * (time.perf_counter() - t0) / calls
+    print("[host] wall us a call, back to back: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in cost.items()))
+    return cost
+
+
+def phase_block_top_k(torch, ops, api, data, runtime, paper, num=60000,
+                      rounds=200):
+    """PORTER-GC on the full-width MLP with the ``block_top_k`` compressor
+    (5 %) on the dense wire, f32 and bf16 planes, kernel and ref backends:
+    the MLP phase's gates, with 8 ``block_topk`` launches a round (4 leaves,
+    2 exchanges) on both backends."""
+    source, base, loss_fn = _mlp_problem(api, data, paper, num)
+    spec = base.replace(compressor="block_top_k")
+    launches, ms_rounds = {}, {}
+    for plane in (None, "bf16"):
+        label = plane or "f32"
+        runs = {}
+        for backend in ("kernel", "ref"):
+            algo = _build(api, spec.replace(comm_backend=backend,
+                                            plane_dtype=plane), loss_fn)
+            state, losses, ms, counts = run_counted(
+                torch, ops, runtime, algo, source, _init(algo, paper),
+                rounds, 50)
+            runs[backend] = (state, losses, counts)
+            ms_rounds[f"{label} {backend}"] = ms
+            print(f"[block_top_k] porter-gc {label} {backend} {rounds} "
+                  f"rounds: loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+                  f"{ms:.4f} ms/round, launches {counts}")
+            if not finite(losses):
+                raise AssertionError(f"block_top_k {label} {backend}: loss "
+                                     "is not finite")
+        (s_k, l_k, n_k), (s_r, _, n_r) = runs["kernel"], runs["ref"]
+        same = all(bit_equal(torch, s_k.x[k], s_r.x[k]) for k in s_k.x)
+        diff = max(float((s_k.x[k] - s_r.x[k]).abs().max()) for k in s_k.x)
+        print(f"[block_top_k] {label} kernel vs ref backend: x bitwise equal "
+              f"{same}, max |x diff| {diff}")
+        if plane is None and not diff <= 1e-6:
+            raise AssertionError(f"block_top_k kernel and ref trajectories "
+                                 f"differ: {diff}")
+        if plane is not None and not same:
+            raise AssertionError(f"block_top_k bf16 kernel and ref "
+                                 f"trajectories differ: {diff}")
+        common = dict(sumsq=rounds, scale=rounds, block_topk=8 * rounds)
+        expect_launches(f"block_top_k {label} kernel", n_k, ef_track=rounds,
+                        ef_step=rounds,
+                        sr_cast=5 * rounds if plane else 0, **common)
+        expect_launches(f"block_top_k {label} ref", n_r, **common)
+        _falls(f"block_top_k porter-gc {label}", l_k)
+        launches[label] = n_k
+    print(f"[block_top_k] ms/round: {ms_rounds}")
+    algo = _build(api, spec.replace(comm_backend="kernel"), loss_fn)
+    profile_rounds(torch, runtime, algo, source, _init(algo, paper), 20,
+                   "block_top_k kernel")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is visible",
@@ -1273,8 +1720,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api, data
-    from repro_torch.core import average_params
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.core import average_params, clipping
+    from repro_torch.kernels import build, flatten, ops, ref
     from repro_torch.launch import runtime, serve
     from repro_torch.models import paper
     from repro_torch.tree import tree_leaves
@@ -1303,8 +1750,8 @@ def main() -> int:
     phase_quickstart(torch, ops, api, data, runtime, average_params)
 
     # phase 4: Section-5.2 MLP at full width (the main paths' launches)
-    runs, ms_per_round = phase_mlp(torch, ops, api, data, runtime, paper,
-                                   tree_leaves)
+    runs, ms_per_round, dp_launches = phase_mlp(
+        torch, ops, api, data, runtime, paper, tree_leaves)
     print("[mlp] median ms/round: " + ", ".join(
         f"{b} {statistics.median(v):.4f}" for b, v in ms_per_round.items()))
     choco = phase_baselines(torch, ops, api, data, runtime, paper)
@@ -1330,6 +1777,16 @@ def main() -> int:
                                                    tree_leaves)
     torch.cuda.empty_cache()
     phase_zamba2_consistency(torch, ops, serve)
+    torch.cuda.empty_cache()
+
+    # phase 8: the clip kernels, block_topk, and the block_top_k path
+    clip_table = phase_clip_kernels(torch, ops, ref)
+    grad = phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
+                               clipping)
+    phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper)
+    topk_table = phase_block_topk_kernel(torch, ops, ref, grad)
+    phase_launch_host_cost(torch, ops)
+    topk_launches = phase_block_top_k(torch, ops, api, data, runtime, paper)
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
@@ -1384,6 +1841,40 @@ def main() -> int:
         ms_f32_bc=ssd_table["path f32"]["ms"],
         ms_2x4096=ssd_table["2x4096"]["ms"],
         bound_ms_2x4096=ssd_table["2x4096"]["bound_ms"], **zamba_rates))
+    # the clip kernels on PORTER-GC's agent plane (sumsq, scale: the f32
+    # MLP run) and on PORTER-DP's perturbation plane (scale_noise);
+    # block_topk at w1's windows, k = 102, on the f32 block_top_k run
+    for name, replaces in CLIP_KERNELS.items():
+        plane = "dp noise" if name == "scale_noise" else "mlp"
+        row = clip_table[(name, plane, "f32")]
+        record.append(dict(
+            name=name, ok=row["equal"], route="cuda",
+            source="src/repro_torch/csrc/smooth_clip.cu", replaces=replaces,
+            launches=(dp_launches if name == "scale_noise"
+                      else launches)[name],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            nearest_ms=row["nearest_ms"], plane=plane,
+            ms_bf16=clip_table[(name, plane, "bf16")]["ms"],
+            ms_dp_plane=clip_table[(name, "dp", "f32")]["ms"],
+            bound_ms_dp_plane=clip_table[(name, "dp", "f32")]["bound_ms"],
+            ms_2p24=clip_table[(name, "2^24 x1", "f32")]["ms"],
+            bound_ms_2p24=clip_table[(name, "2^24 x1", "f32")]["bound_ms"]))
+    row = topk_table[("w1", "f32", 102)]
+    record.append(dict(
+        name="block_topk", ok=row["equal"], route="cuda",
+        source="src/repro_torch/csrc/block_topk.cu", replaces=TOPK_REPLACES,
+        launches=topk_launches["f32"]["block_topk"],
+        max_abs_err=row["max_abs_err"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None,
+        nearest_ms=row["nearest_ms"],
+        ms_bf16=topk_table[("w1", "bf16", 102)]["ms"],
+        ms_2p24=topk_table[("2^24", "f32", 102)]["ms"],
+        bound_ms_2p24=topk_table[("2^24", "f32", 102)]["bound_ms"]))
+    print(f"[time] the whole script took "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)   # again here: a long log keeps only its end
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -67,14 +67,14 @@ def _perturb(g, sigma_p: float, gen, noise):
         noise = tree_map(lambda leaf: torch.randn(
             leaf.shape, generator=gen, dtype=leaf.dtype,
             device=leaf.device), g)
-    return tree_map(lambda leaf, z: leaf + sigma_p * z, g, noise)
+    return clipping.perturb(g, noise, sigma_p)
 
 
 def _agent_grads(loss_fn, x, batch, tau, clip_mode):
     """Per-agent (losses, gradients), clipped by tau unless it is None."""
     g, losses = vmap(grad_and_value(loss_fn))(x, batch)
     if tau is not None:
-        g = vmap(lambda t: clipping.tree_clip(t, tau, clip_mode))(g)
+        g = clipping.stacked_clip(g, tau, clip_mode)
     return losses, g
 
 
@@ -99,8 +99,8 @@ def dsgd_step(eta: float, gamma: float, loss_fn: LossFn, mixer: MixFn,
     """X^{t+1} = X + gamma X(W - I) - eta G   (uncompressed gossip)."""
     n = tree_leaves(state.x)[0].shape[0]
     if dp:
-        g, losses = vmap(lambda p, b: clipping.clipped_grad_accumulate(
-            loss_fn, p, b, tau, clip_mode))(state.x, batch)
+        g, losses = clipping.clipped_grad_accumulate(
+            loss_fn, state.x, batch, tau, clip_mode, agents="stacked")
         g = _perturb(g, sigma_p, gen, noise)
     else:
         losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode)
@@ -219,8 +219,8 @@ def soteria_step(eta: float, alpha_shift: float, loss_fn: LossFn,
     h_bar + mean(c).  g_i is each client's per-sample-clipped, perturbed
     gradient at the server model (LDP)."""
     eng = resolve_engine(engine, None, compressor)
-    g, losses = vmap(lambda b: clipping.clipped_grad_accumulate(
-        loss_fn, state.x, b, tau, clip_mode))(batch)
+    g, losses = clipping.clipped_grad_accumulate(
+        loss_fn, state.x, batch, tau, clip_mode, agents="shared")
     g = _perturb(g, sigma_p, gen, noise)
     c, h = eng.shift(gen, g, state.h, scale=alpha_shift)
     c_bar = tree_map(lambda cc: torch.mean(cc, dim=0), c)

@@ -3,36 +3,59 @@
 * ``smooth_clip``     Clip_tau(x) = tau / (tau + ||x||) * x      (Definition 2)
 * ``piecewise_clip``  Clip_tau(x) = x * min(1, tau/||x||)        (Remark 1)
 
-Tree versions clip by the global norm across all leaves.  Per-sample
-clipped mini-batch gradients for PORTER-DP come from
-:func:`clipped_grad_accumulate`, which takes per-sample gradients with
-``torch.func.vmap`` (the reference scans one sample at a time).
+Tree versions clip by the global norm across all leaves.  Every factor is
+the correctly rounded f32 quotient that the reference (XLA) gives: the
+dividend is a tensor, because PyTorch computes ``float / tensor`` as
+``tensor.reciprocal() * float``, one f32 ulp away in about a quarter of
+cases at tau = 0.3 (exact only when tau is a power of two).
+
+The algorithms clip many trees at once: :func:`stacked_clip` takes a
+row-stacked tree (each leaf's leading axis one agent, or one sample) and
+clips each row by its own norm over all its leaves.  The smooth mode runs
+on the flat tile planes of :mod:`repro_torch.kernels.flatten` through the
+``sumsq`` and ``scale`` kernels (``kernels/ops.py``), one launch each for
+all rows; piecewise and none stay eager (the reference has no kernel for
+them).  :func:`perturb` adds the DP noise ``g + sigma * z`` through the
+``scale_noise`` kernel at factor 1.  Per-sample clipped mini-batch
+gradients come from :func:`clipped_grad_accumulate`, which takes the
+per-sample gradients with ``torch.func.vmap`` (the reference scans one
+sample at a time) and clips them all in one row-stacked call outside the
+vmap, where a kernel can launch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Literal
+from typing import Callable, Literal, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
 
+from ..kernels import flatten as FL
+from ..kernels import ops
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["smooth_clip", "piecewise_clip", "tree_global_norm", "tree_clip",
-           "clip_factor", "clipped_grad_accumulate"]
+           "clip_factor", "stacked_clip", "perturb",
+           "clipped_grad_accumulate"]
 
 ClipMode = Literal["smooth", "piecewise", "none"]
 
 
+def _quotient(tau: float, den: torch.Tensor) -> torch.Tensor:
+    """``tau / den``, correctly rounded (a tensor dividend)."""
+    return torch.full_like(den, tau) / den
+
+
 def smooth_clip(x: torch.Tensor, tau: float) -> torch.Tensor:
     """Definition 2 on a single tensor (norm over the whole tensor)."""
-    return (tau / (tau + torch.linalg.vector_norm(x))) * x
+    return _quotient(tau, tau + torch.linalg.vector_norm(x)) * x
 
 
 def piecewise_clip(x: torch.Tensor, tau: float) -> torch.Tensor:
     """Remark 1 on a single tensor."""
     nrm = torch.linalg.vector_norm(x)
-    return x * torch.clamp(tau / torch.clamp(nrm, min=1e-30), max=1.0)
+    return x * torch.clamp(_quotient(tau, torch.clamp(nrm, min=1e-30)),
+                           max=1.0)
 
 
 def tree_global_norm(tree) -> torch.Tensor:
@@ -43,9 +66,10 @@ def tree_global_norm(tree) -> torch.Tensor:
 
 def clip_factor(norm: torch.Tensor, tau: float, mode: ClipMode) -> torch.Tensor:
     if mode == "smooth":
-        return tau / (tau + norm)
+        return _quotient(tau, tau + norm)
     if mode == "piecewise":
-        return torch.clamp(tau / torch.clamp(norm, min=1e-30), max=1.0)
+        return torch.clamp(_quotient(tau, torch.clamp(norm, min=1e-30)),
+                           max=1.0)
     if mode == "none":
         return torch.ones_like(norm)
     raise ValueError(f"unknown clip mode {mode!r}")
@@ -57,21 +81,67 @@ def tree_clip(tree, tau: float, mode: ClipMode = "smooth"):
     return tree_map(lambda leaf: (leaf * c).to(leaf.dtype), tree)
 
 
+def stacked_clip(tree, tau: float, mode: ClipMode = "smooth"):
+    """Clip each row of a row-stacked tree by the norm of that row over
+    all leaves: ``tree_clip`` of every row.  Smooth clipping packs the
+    rows into one flat plane, takes the per-tile sums of squares
+    (``ops.clip_sumsq``), combines them into one factor a row
+    (``ops.smooth_factors``) and scales (``ops.clip_scale``), all in
+    ``ops.clip_planes``; each leaf comes back in its own dtype."""
+    if mode != "smooth":
+        return vmap(lambda t: tree_clip(t, tau, mode))(tree)
+    spec = FL.flat_spec(tree)
+    return FL.from_planes(
+        ops.clip_planes(FL.to_planes(tree, spec), spec.rows, tau), spec)
+
+
+def perturb(tree, noise, sigma: float):
+    """``g + sigma * z`` leaf by leaf, through the ``scale_noise`` kernel
+    at factor 1 over the flat planes of ``tree`` and of ``noise`` (a tree
+    of its shape).  The factor is 1 everywhere, so the whole tree is one
+    row, agent axis or not."""
+    spec = FL.flat_spec(tree, stacked=False)
+    planes = FL.to_planes(tree, spec)
+    one = torch.ones(1, dtype=torch.float32, device=planes.device)
+    return FL.from_planes(
+        ops.clip_scale(planes, one, FL.to_planes(noise, spec), sigma), spec)
+
+
 def clipped_grad_accumulate(loss_fn: Callable, params, batch, tau: float,
-                            mode: ClipMode = "smooth"):
+                            mode: ClipMode = "smooth",
+                            agents: Optional[str] = None):
     """Mean of per-sample clipped gradients: (1/b) sum_z Clip_tau(grad l(x; z)).
 
     PORTER-DP line 6.  ``batch`` is a tree whose leaves have a leading
-    local-batch axis b; each sample keeps a singleton batch dimension, as
-    loss functions are written for batched inputs.  Returns
-    ``(mean_clipped_grad, mean_loss)``.
+    local-batch axis b (after the agent axis, when there is one); each
+    sample keeps a singleton batch dimension, as loss functions are written
+    for batched inputs.  ``agents``: None for one model (DP-SGD);
+    ``"stacked"`` when the params and the batch carry a leading agent axis
+    (PORTER-DP, DSGD); ``"shared"`` when only the batch does and every
+    agent differentiates the same params (SoteriaFL's clients).  The
+    per-sample gradients of all agents are clipped in one
+    :func:`stacked_clip` call.  Returns ``(mean_clipped_grad, mean_loss)``,
+    with a leading agent axis unless ``agents`` is None.
     """
-    b = tree_leaves(batch)[0].shape[0]
+    if agents not in (None, "stacked", "shared"):
+        raise ValueError(f"agents must be None, 'stacked' or 'shared', got "
+                         f"{agents!r}")
 
-    def one(sample):
+    def one(p, sample):
         sample = tree_map(lambda a: a.unsqueeze(0), sample)
-        g, loss = grad_and_value(loss_fn)(params, sample)
-        return tree_clip(g, tau, mode), loss
+        return grad_and_value(loss_fn)(p, sample)
 
-    gs, losses = vmap(one)(batch)
-    return tree_map(lambda a: a.sum(0) / b, gs), losses.sum() / b
+    per_sample = vmap(one, in_dims=(None, 0))
+    if agents == "stacked":
+        per_sample = vmap(per_sample)
+    elif agents == "shared":
+        per_sample = vmap(per_sample, in_dims=(None, 0))
+    gs, losses = per_sample(params, batch)
+    lead = tuple(losses.shape)          # (b,) or (agents, b)
+    b = lead[-1]
+    rows = tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[len(lead):])),
+                    gs)
+    gs = tree_map(lambda a: a.reshape(lead + tuple(a.shape[1:])),
+                  stacked_clip(rows, tau, mode))
+    return (tree_map(lambda a: a.sum(len(lead) - 1) / b, gs),
+            losses.sum(-1) / b)

@@ -23,6 +23,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..kernels import ops
+from .wire_formats import PACK_BLOCK
+
 __all__ = ["Compressor", "identity", "random_k", "top_k", "block_top_k",
            "qsgd", "make_compressor"]
 
@@ -98,28 +101,34 @@ def top_k(frac: float) -> Compressor:
 
 def _keep_top(rows, k: int):
     """Zero all but the k largest magnitudes along the last axis, ties to
-    the lowest index (a stable descending sort)."""
+    the lowest index (a stable descending sort).  The whole-row top-k: the
+    block_topk kernel takes 2048-element windows only."""
     idx = torch.sort(rows.abs(), dim=-1, descending=True,
                      stable=True).indices[..., :k]
     return torch.zeros_like(rows).scatter_(-1, idx,
                                            torch.gather(rows, -1, idx))
 
 
-def block_top_k(frac: float, block: int = 2048) -> Compressor:
-    """Top-k inside each ``block``-sized window of a row (the row padded
-    with zeros to whole blocks): k_b = max(round(frac * block), 1) per
-    block, ties to the lowest index as ``jax.lax.top_k``.  Still a
-    Definition-3 compressor with rho = frac (block energies add)."""
+def block_top_k(frac: float) -> Compressor:
+    """Top-k inside each 2048-element window of a row (the row padded with
+    zeros to whole windows): k_b = max(round(frac * 2048), 1) per window,
+    ties to the lowest index as ``jax.lax.top_k``.  Still a Definition-3
+    compressor with rho = frac (window energies add).
+
+    Every window of a leaf goes through one ``ops.block_topk`` call (one
+    kernel launch a compressed leaf on the card).  The window is the
+    kernel's, so the reference's ``block`` argument (2048 by default, set
+    by no caller) has no counterpart."""
 
     def fn(gen, rows):
         del gen
         d = rows.shape[-1]
-        blocks = torch.nn.functional.pad(rows, (0, (-d) % block)).reshape(
-            *rows.shape[:-1], -1, block)
-        out = _keep_top(blocks, max(int(round(frac * block)), 1))
+        windows = torch.nn.functional.pad(
+            rows, (0, (-d) % PACK_BLOCK)).reshape(-1, PACK_BLOCK).contiguous()
+        out = ops.block_topk(windows, max(int(round(frac * PACK_BLOCK)), 1))
         return out.reshape(*rows.shape[:-1], -1)[..., :d]
 
-    return Compressor(f"block_top_k({frac},{block})", float(frac), fn,
+    return Compressor(f"block_top_k({frac},{PACK_BLOCK})", float(frac), fn,
                       deterministic=True)
 
 

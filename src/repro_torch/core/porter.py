@@ -15,7 +15,9 @@ the mixing mirrors ``W q``.  One iteration (lines 4-14):
 
 Lines 11-14 belong to the comm-round engine (:class:`CommRound`); this
 module owns the gradient oracle and the metrics.  Gradients come from
-``torch.func.grad_and_value`` under ``torch.func.vmap`` over the agent axis.
+``torch.func.grad_and_value`` under ``torch.func.vmap`` over the agent axis;
+the clip and the DP noise run after the vmap, over all agents at once
+(:mod:`repro_torch.core.clipping`).
 Nothing is updated in place, so ``porter_init`` may alias buffers.
 """
 
@@ -100,16 +102,18 @@ def porter_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
 
 
 def _gradients(cfg: PorterConfig, loss_fn: LossFn, x, batch):
-    """Per-agent losses and clipped gradients (lines 5-10, noise aside)."""
+    """Per-agent losses and clipped gradients (lines 5-10, noise aside).
+    Every agent's (or every sample's) gradient is clipped in one
+    row-stacked call, outside the vmap."""
     if cfg.variant == "dp":
         # Option I: clip each sample's gradient, then average
-        g, losses = vmap(lambda p, b: clipping.clipped_grad_accumulate(
-            loss_fn, p, b, cfg.tau, cfg.clip_mode))(x, batch)
+        g, losses = clipping.clipped_grad_accumulate(
+            loss_fn, x, batch, cfg.tau, cfg.clip_mode, agents="stacked")
         return losses, g
     # Option II / BEER: one batch gradient, clipped after (or not at all)
     g, losses = vmap(grad_and_value(loss_fn))(x, batch)
     if cfg.variant == "gc":
-        g = vmap(lambda t: clipping.tree_clip(t, cfg.tau, cfg.clip_mode))(g)
+        g = clipping.stacked_clip(g, cfg.tau, cfg.clip_mode)
     return losses, g
 
 
@@ -147,7 +151,7 @@ def porter_step(
                 noise = tree_map(lambda leaf: torch.randn(
                     leaf.shape, generator=gen, dtype=leaf.dtype,
                     device=leaf.device), g)
-            g = tree_map(lambda leaf, z: leaf + cfg.sigma_p * z, g, noise)
+            g = clipping.perturb(g, noise, cfg.sigma_p)
     else:
         losses, g = grad_override
     g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)

@@ -14,6 +14,17 @@ and the wire dtypes of :mod:`repro_torch.core.wire_formats`: bf16 values
 with int16 indices (top-k), int32 words with f32 scales (qsgd).  qsgd's
 U[0, 1) noise is an operand, drawn by the caller.
 
+The clip pair (``clip_sumsq`` / ``clip_scale``) runs Definition 2 over a
+flat ``(rows * tiles, TILE)`` plane of f32 or bf16 that stacks rows
+(agents, or samples): one partial sum of squares a tile, then
+:func:`smooth_factors` combines each row's partials into its factor
+``tau / (tau + ||row||)``, the same code for the kernel and the plain path
+(the reference's wrapper combines with ``jnp.sum``, ``ops.py:60``), then one
+scale a row (``+ sigma * z`` with a noise plane: the ``scale_noise``
+kernel); :func:`clip_planes` is that composition.  ``smooth_clip`` keeps
+the reference's contract: one norm over the whole array.  ``block_topk`` keeps exactly k per ``(R, 2048)`` window,
+ties to the lower index.
+
 ``rwkv6_scan`` is the RWKV6 chunked scan of the rwkv6 serving path, with
 the reference's contract (``src/repro/kernels/ops.py:230``); ``ssd_scan``
 the Mamba2 SSD chunked scan of the zamba2 serving path
@@ -32,19 +43,25 @@ from __future__ import annotations
 import torch
 
 from ..core import wire_formats as WF
+from . import block_topk as _bt
 from . import ef_update as _ef
 from . import ref
 from . import rwkv6_chunk as _rw
+from . import smooth_clip as _sc
 from . import sr_cast as _srk
 from . import ssd_chunk as _ssd
 from . import wire_pack as _wp
+from . import flatten as FL
 from .flatten import TILE
 
 __all__ = ["LAUNCHES", "reset_launches", "ef_track", "ef_step", "ef_gossip",
-           "sr_cast", "sr_cast_leaf", "wire_topk_pack", "wire_topk_unpack",
-           "wire_qsgd_pack", "wire_qsgd_unpack", "rwkv6_scan", "ssd_scan"]
+           "sr_cast", "sr_cast_leaf", "clip_sumsq", "clip_scale",
+           "smooth_factors", "clip_planes", "smooth_clip", "block_topk",
+           "wire_topk_pack", "wire_topk_unpack", "wire_qsgd_pack", "wire_qsgd_unpack",
+           "rwkv6_scan", "ssd_scan"]
 
 LAUNCHES = {"ef_track": 0, "ef_step": 0, "ef_gossip": 0, "sr_cast": 0,
+            "sumsq": 0, "scale": 0, "scale_noise": 0, "block_topk": 0,
             "topk_pack": 0, "topk_unpack": 0, "qsgd_pack": 0,
             "qsgd_unpack": 0, "rwkv6_chunk": 0, "ssd_chunk": 0}
 
@@ -144,6 +161,96 @@ def sr_cast_leaf(x, bits):
     """The same cast over one leaf of any shape, without plane padding
     (``bits`` in ``x``'s shape); ``x`` is taken to f32 first."""
     return _sr_cast("sr_cast_leaf", x.to(_F32).contiguous(), bits)
+
+
+def _check_plane(name: str, tensors, width: int) -> str:
+    """Contiguous ``(rows, width)`` operands of one dtype, f32 or bf16, on
+    one device (see :func:`_check_wire`).  Returns the device type."""
+    dt = tensors[0].dtype
+    if dt not in (_F32, _BF16):
+        raise TypeError(f"{name} takes f32 or bf16 operands, got {dt}")
+    return _check_wire(name, tensors, (dt,) * len(tensors),
+                       (width,) * len(tensors))
+
+
+def clip_sumsq(planes):
+    """Per-tile sum of squares of a ``(tiles, TILE)`` f32 or bf16 plane, in
+    f32 and in a fixed order -> ``(tiles,)`` f32."""
+    if _check_plane("clip_sumsq", (planes,), TILE) == "cpu":
+        return ref.clip_sumsq(planes)
+    out = _sc.sumsq(planes)
+    LAUNCHES["sumsq"] += 1
+    return out
+
+
+def clip_scale(planes, factor, noise=None, sigma: float = 0.0):
+    """``planes * factor[row]`` (``+ sigma * noise``) over a ``(rows *
+    tiles, TILE)`` plane, f32 inside, in ``planes``' dtype.  ``factor``:
+    ``(rows,)`` f32, one per logical row of ``tiles`` consecutive plane
+    rows; ``noise``: a plane like ``planes``.  The noise form launches the
+    ``scale_noise`` kernel."""
+    operands = (planes,) if noise is None else (planes, noise)
+    kind = _check_plane("clip_scale", operands, TILE)
+    if (factor.dim() != 1 or factor.dtype != _F32
+            or not factor.is_contiguous() or factor.device != planes.device
+            or factor.shape[0] < 1 or planes.shape[0] % factor.shape[0]):
+        raise ValueError(
+            f"clip_scale takes a contiguous f32 (rows,) factor on the "
+            f"plane's device whose length divides the plane's "
+            f"{planes.shape[0]} tiles, got {factor.dtype} "
+            f"{tuple(factor.shape)} on {factor.device}")
+    if kind == "cpu":
+        return ref.clip_scale_ref(planes, factor, noise, sigma)
+    out = _sc.scale(planes, factor, noise, sigma)
+    LAUNCHES["scale" if noise is None else "scale_noise"] += 1
+    return out
+
+
+def smooth_factors(partials, rows: int, tau: float):
+    """Each row's Definition-2 factor ``tau / (tau + ||row||)`` from its
+    tiles' partial sums of squares (``partials``: ``(rows * tiles,)``).
+    The dividend is a tensor: PyTorch computes ``float / tensor`` as
+    ``tensor.reciprocal() * float``, which is not the correctly rounded
+    quotient that XLA and the reference give."""
+    norm = torch.sqrt(partials.view(rows, -1).sum(1))
+    return torch.full_like(norm, tau) / (tau + norm)
+
+
+def clip_planes(planes, rows: int, tau: float, noise=None,
+                sigma: float = 0.0):
+    """Definition 2 over a ``(rows * tiles, TILE)`` plane, each logical row
+    by its own norm (plus ``sigma * noise``): :func:`clip_sumsq`, then
+    :func:`smooth_factors`, then :func:`clip_scale`.  The composition of
+    :func:`smooth_clip` and of ``core.clipping.stacked_clip``."""
+    return clip_scale(planes, smooth_factors(clip_sumsq(planes), rows, tau),
+                      noise, sigma)
+
+
+def smooth_clip(x, tau: float, noise=None, sigma: float = 0.0):
+    """Definition 2 over a whole f32 or bf16 array of any shape (one norm),
+    plus ``sigma * noise`` (an array like ``x``) when given: the
+    reference's ``repro.kernels.ops.smooth_clip``."""
+    if noise is not None and (noise.shape != x.shape
+                              or noise.dtype != x.dtype):
+        raise ValueError(f"smooth_clip takes noise of x's shape and dtype, "
+                         f"got {noise.dtype} {tuple(noise.shape)} beside "
+                         f"{x.dtype} {tuple(x.shape)}")
+    spec = FL.flat_spec(x, stacked=False)
+    z = None if noise is None else FL.to_planes(noise, spec)
+    return FL.from_planes(clip_planes(FL.to_planes(x, spec), 1, tau, z,
+                                      sigma), spec)
+
+
+def block_topk(windows, k: int):
+    """Keep the k largest magnitudes of each ``(R, 2048)`` f32 or bf16
+    window, +0.0 elsewhere; ties to the lower index (exactly k kept)."""
+    if not 1 <= k <= WF.PACK_BLOCK:
+        raise ValueError(f"k must be in [1, {WF.PACK_BLOCK}], got {k}")
+    if _check_plane("block_topk", (windows,), WF.PACK_BLOCK) == "cpu":
+        return ref.block_topk_ref(windows, k)
+    out = _bt.block_topk(windows, k)
+    LAUNCHES["block_topk"] += 1
+    return out
 
 
 def _check_wire(name: str, tensors, dtypes, widths) -> str:

@@ -10,6 +10,12 @@ at a time, so no step is fused into an FMA.  The wire codecs take their
 random operand explicitly (qsgd's U[0, 1) ``noise``), and their layout from
 :mod:`repro_torch.core.wire_formats`, which re-exports them.
 
+The clip pair (``clip_sumsq``, ``clip_scale_ref``) and ``smooth_clip_ref``
+copy Definition 2 of ``src/repro/kernels/smooth_clip.py`` and
+``src/repro/kernels/ref.py:10``; ``block_topk_ref`` is the exact-k window
+selection of ``src/repro/kernels/ref.py:20`` and of the reference's
+``block_top_k`` compressor.
+
 The RWKV6 pair (``rwkv6_chunk_ref``, ``rwkv6_scan_ref``) and the Mamba2
 SSD pair (``ssd_chunk_ref``, ``ssd_scan_ref``) copy the chunked forms and
 the per-token recurrences of ``src/repro/nn/ssm.py``, all in f32.
@@ -24,6 +30,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ef_track_ref", "ef_step_ref", "ef_gossip_ref", "sr_cast_ref",
+           "clip_sumsq", "clip_scale_ref", "smooth_clip_ref",
+           "block_topk_ref",
            "topk_pack_ref", "topk_unpack_ref", "qsgd_pack_ref",
            "qsgd_unpack_ref", "qsgd_sumsq", "rwkv6_chunk_ref",
            "rwkv6_scan_ref", "ssd_chunk_ref", "ssd_scan_ref", "RWKV_CHUNK",
@@ -84,6 +92,48 @@ def sr_cast_ref(x, bits):
     return (word >> 16).to(torch.int16).view(torch.bfloat16)
 
 
+def clip_sumsq(planes):
+    """Per-tile sum of squares of a ``(tiles, TILE)`` plane of any float
+    dtype, in f32 and in the kernel's fixed order (:func:`qsgd_sumsq`'s,
+    at 1024 partials of 8) -> ``(tiles,)`` f32."""
+    return qsgd_sumsq(planes.to(_F32))
+
+
+def clip_scale_ref(planes, factor, noise=None, sigma: float = 0.0):
+    """``y = x * f_row`` (``+ sigma * z``) over a ``(rows * tiles, TILE)``
+    plane with one f32 factor per logical row (``factor``: ``(rows,)``),
+    in f32 and written in ``planes``' dtype.  The product and the noise
+    term ``sigma * z`` are rounded apart, then added."""
+    tiles = planes.shape[0] // factor.shape[0]
+    f = factor.to(_F32).repeat_interleave(tiles).unsqueeze(1)
+    y = planes.to(_F32) * f
+    if noise is not None:
+        y = y + sigma * noise.to(_F32)
+    return y.to(planes.dtype)
+
+
+def smooth_clip_ref(x, tau: float, noise=None, sigma: float = 0.0):
+    """Definition 2 over the flattened tensor (``tau / (tau + ||x||) * x``,
+    the quotient correctly rounded), plus ``sigma * noise`` when given; f32
+    inside, the result in ``x``'s dtype."""
+    xf = x.to(_F32)
+    norm = torch.linalg.vector_norm(xf.reshape(-1))
+    y = xf * (torch.full_like(norm, tau) / (tau + norm))
+    if noise is not None:
+        y = y + sigma * noise.to(_F32)
+    return y.to(x.dtype)
+
+
+def block_topk_ref(windows, k: int):
+    """Keep the k largest magnitudes of each row, zero the rest (+0.0);
+    ties at the k-th magnitude go to the lowest index, as
+    ``jax.lax.top_k``'s: the stable descending sort of the whole-row
+    ``top_k`` compressor (``core.compression._keep_top``; ``torch.topk``
+    promises no order among ties)."""
+    from ..core.compression import _keep_top
+    return _keep_top(windows, k)
+
+
 def _layout():
     """:mod:`repro_torch.core.wire_formats`, which imports this module, so
     it is looked up at call time."""
@@ -123,9 +173,11 @@ def topk_unpack_ref(vals, idx):
 
 
 def qsgd_sumsq(rows):
-    """Per-window sum of squares in the kernel's fixed order: each of 256
-    threads sums its 8 consecutive squares in sequence, then a halving tree
-    adds partial ``i + half`` onto partial ``i``."""
+    """Per-row sum of squares in the kernels' fixed order: each of width / 8
+    partials (256 threads of ``qsgd_pack`` over a 2048 window, 1024 of
+    ``sumsq`` over an 8192 tile) sums its 8 consecutive squares in
+    sequence, then a halving tree adds partial ``i + half`` onto partial
+    ``i``."""
     sq = rows * rows
     parts = sq.reshape(rows.shape[0], -1, 8)
     s = parts[..., 0]

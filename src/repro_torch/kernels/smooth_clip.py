@@ -1,0 +1,73 @@
+"""Launchers for the smooth-clip kernels (``csrc/smooth_clip.cu``).
+
+Hand-written Hopper replacements of the Pallas kernels in
+``src/repro/kernels/smooth_clip.py``, over a flat ``(tiles, 8192)`` plane
+of f32 or bf16:
+
+    sumsq:        per-tile sum of squares, in a fixed order -> (tiles,) f32
+    scale:        y = x * f_row, one f32 factor per logical row
+    scale_noise:  y = x * f_row + sigma * z
+
+These functions only allocate and launch: operand checks, the CPU dispatch,
+the combine of the partials into each row's factor and the launch counters
+live in :mod:`repro_torch.kernels.ops`.  The library is built and loaded on
+the first call, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+__all__ = ["sumsq", "scale"]
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    "clip_sumsq": [_P, _I, _P, _I64, _P],
+    "clip_scale": [_P, _I, _P, _I64, _P, ctypes.c_float, _P, _I64, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("smooth_clip")
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, lead: torch.Tensor, *args) -> None:
+    with torch.cuda.device(lead.device):
+        stream = torch.cuda.current_stream(lead.device).cuda_stream
+        err = getattr(_lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def sumsq(planes):
+    """Launch the per-tile sum of squares of a contiguous plane."""
+    tiles = planes.shape[0]
+    out = torch.empty(tiles, dtype=torch.float32, device=planes.device)
+    _launch("clip_sumsq", planes, planes.data_ptr(),
+            int(planes.dtype == torch.bfloat16), out.data_ptr(), tiles)
+    return out
+
+
+def scale(planes, factor, noise=None, sigma: float = 0.0):
+    """Launch ``planes * factor[row]`` (``+ sigma * noise``); ``factor``
+    holds one f32 per logical row of ``planes.shape[0] // len(factor)``
+    tiles."""
+    tiles = planes.shape[0]
+    out = torch.empty_like(planes)
+    _launch("clip_scale", planes, planes.data_ptr(),
+            int(planes.dtype == torch.bfloat16), factor.data_ptr(),
+            tiles // factor.shape[0],
+            None if noise is None else noise.data_ptr(), float(sigma),
+            out.data_ptr(), tiles)
+    return out

@@ -1,0 +1,140 @@
+"""The ``block_topk`` kernel's wrapper and the ``block_top_k`` compressor
+against the JAX reference on the CPU.
+
+On the CPU ``ops.block_topk`` runs the kernel's plain version, the stable
+sort that keeps exactly k per 2048-window with ties to the lower index;
+``chip_smoke.py`` holds the CUDA kernel bitwise against it on the card.
+Every check here is bitwise (uint32 / uint16 patterns, so a kept -0.0 must
+stay -0.0): a selection and a copy.
+
+* against ``repro.kernels.ref.block_topk_ref`` (``jax.lax.top_k``) and the
+  reference compressor ``repro.core.compression.block_top_k``, with
+  Gaussian, integer-valued (ties), all-zero and -0.0 windows;
+* against the Pallas kernel in interpret mode on tie-free Gaussian rows;
+* on exact ties the Pallas kernel keeps more than k (everything at or
+  above its bisection threshold), the port exactly k.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import compression as JCMP
+from repro.kernels import ops as JO
+from repro.kernels import ref as JR
+from repro_torch import convert
+from repro_torch.core import compression as TCMP
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)
+
+BLOCK = 2048
+LENGTHS = [1, 2047, 2048, 3 * 2048 + 17]
+KS = [1, 102, 512, 2048]
+
+
+def _row(kind, d, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "gauss":
+        return rng.standard_normal(d).astype(np.float32)
+    if kind == "ties":
+        return rng.integers(-3, 4, d).astype(np.float32)
+    x = np.zeros(d, np.float32)
+    if kind == "negzero":
+        x[::3] = -0.0
+        x[d // 2] = 1.5
+    return x
+
+
+def _windows(x):
+    pad = (-x.shape[0]) % BLOCK
+    return np.pad(x, (0, pad)).reshape(-1, BLOCK)
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view({4: np.uint32, 2: np.uint16}[a.dtype.itemsize])
+
+
+@pytest.mark.parametrize("kind", ["gauss", "ties", "zeros", "negzero"])
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("d", LENGTHS)
+def test_block_topk_equals_reference(d, k, kind):
+    x = _row(kind, d, seed=d + k)
+    win = _windows(x)
+    got = ops.block_topk(torch.from_numpy(win), k).numpy()
+    want = np.asarray(JR.block_topk_ref(jnp.asarray(win), k))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert ((got != 0) | np.signbit(got)).sum(1).max() <= k
+    # the compressor (one row, padded to whole windows) is the same
+    # selection as the reference's
+    frac = k / BLOCK
+    got_c = TCMP.block_top_k(frac)(None, torch.from_numpy(x)[None])[0]
+    want_c = JCMP.block_top_k(frac).fn(jax.random.PRNGKey(0), jnp.asarray(x))
+    np.testing.assert_array_equal(_bits(got_c.numpy()), _bits(want_c))
+
+
+@pytest.mark.parametrize("kind", ["gauss", "ties"])
+@pytest.mark.parametrize("k", [1, 102, 2048])
+def test_block_topk_in_bf16_equals_reference(k, kind):
+    x = jnp.asarray(_windows(_row(kind, 3 * BLOCK, seed=k))).astype(
+        jnp.bfloat16)
+    got = ops.block_topk(convert.to_torch(np.asarray(x), "cpu"), k)
+    assert got.dtype == torch.bfloat16
+    want = JR.block_topk_ref(x, k)
+    np.testing.assert_array_equal(convert.to_numpy(got), _bits(want))
+
+
+@pytest.mark.parametrize("frac", [1 / BLOCK, 0.05, 0.25])
+def test_block_topk_equals_pallas_kernel_on_tie_free_rows(frac):
+    x = _row("gauss", 4 * BLOCK + 300, seed=int(frac * 1e4))
+    want = JO.block_topk(jnp.asarray(x), frac, interpret=True)
+    k = max(int(round(frac * BLOCK)), 1)
+    got = ops.block_topk(torch.from_numpy(_windows(x)), k).numpy()
+    np.testing.assert_array_equal(_bits(got.reshape(-1)[:x.shape[0]]),
+                                  _bits(want))
+
+
+def test_pallas_kernel_keeps_more_than_k_on_ties_the_port_exactly_k():
+    """Integer-valued windows: the k-th magnitude is tied many times.  The
+    TPU kernel keeps every element at or above its threshold; its own
+    oracle, the reference compressor and the port keep exactly k, ties to
+    the lower index."""
+    x = _row("ties", 2 * BLOCK, seed=3)
+    k = 102
+    pallas = np.asarray(JO.block_topk(jnp.asarray(x), k / BLOCK,
+                                      interpret=True)).reshape(-1, BLOCK)
+    got = ops.block_topk(torch.from_numpy(_windows(x)), k).numpy()
+    assert ((pallas != 0).sum(1) > k).all()
+    assert ((got != 0).sum(1) == k).all()
+    np.testing.assert_array_equal(
+        got, np.asarray(JR.block_topk_ref(jnp.asarray(_windows(x)), k)))
+    # the port's kept set is the first k in index order among the ties
+    kept = np.nonzero(got[0])[0]
+    top = np.abs(x[:BLOCK]).max()
+    assert (np.abs(got[0][kept]) == top).all()
+    assert np.array_equal(kept, np.nonzero(np.abs(x[:BLOCK]) == top)[0][:k])
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: ops.block_topk(torch.zeros(2, BLOCK), 0), "k must be"),
+    (lambda: ops.block_topk(torch.zeros(2, BLOCK), BLOCK + 1), "k must be"),
+    (lambda: ops.block_topk(torch.zeros(2, 1024), 5), "rows"),
+    (lambda: ops.block_topk(torch.zeros(2, BLOCK, dtype=torch.float64), 5),
+     "f32 or bf16"),
+])
+def test_block_topk_refuses_what_the_kernel_does_not_take(call, match):
+    with pytest.raises((ValueError, TypeError), match=match):
+        call()
+
+
+def test_top_k_keeps_the_whole_row_sort():
+    """``top_k`` selects over the whole row (not the kernel's windows)
+    with the same stable-sort selection."""
+    x = torch.from_numpy(_row("ties", 3000, seed=4))[None]
+    got = TCMP.top_k(0.05)(None, x)
+    want = JCMP.top_k(0.05).fn(jax.random.PRNGKey(0), jnp.asarray(x[0].numpy()))
+    np.testing.assert_array_equal(_bits(got[0].numpy()), _bits(want))
+    assert torch.equal(got, ref.block_topk_ref(x, 150))

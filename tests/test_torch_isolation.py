@@ -79,6 +79,17 @@ def test_zamba2_modules_are_checked(module):
     assert not set(_imported_roots(path)) & set(FORBIDDEN)
 
 
+@pytest.mark.parametrize("module", ["kernels/smooth_clip.py",
+                                    "kernels/block_topk.py"])
+def test_clip_and_block_topk_modules_are_checked(module):
+    """The launchers of the last four kernels (``sumsq``, ``scale``,
+    ``scale_noise``, ``block_topk``) are among the files held to import no
+    JAX and no ``repro``."""
+    path = PORT / module
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
 def _logreg_loss(params, batch):
     f, l = batch
     logits = f @ params["w"] + params["b"]

@@ -20,6 +20,10 @@ Tolerances, each with its reason:
   rounding differences compound;
 * exact: overlap vs sequential order, chunk 1 vs chunk 7, and the port's
   kernel backend (flat planes) vs its ref backend (leafwise).
+
+PORTER-GC also runs with the ``block_top_k`` compressor (per-2048-window
+top-k, the reference LM launchers' default), which goes through
+``ops.block_topk``; the reference selects with ``jax.lax.top_k``.
 """
 
 import functools
@@ -122,8 +126,9 @@ def reference_noise(key, params):
                               for i in range(len(leaves))])
 
 
-def _spec_kw(algo):
-    kw = dict(PAPER_GRAPH, algo=algo, eta=0.05, tau=1.0)
+def _spec_kw(algo, compressor="top_k"):
+    kw = dict(PAPER_GRAPH, algo=algo, eta=0.05, tau=1.0,
+              compressor=compressor)
     if algo == "porter-dp":
         kw["sigma_p"] = SIGMA_P
     if algo == "beer":
@@ -132,11 +137,12 @@ def _spec_kw(algo):
 
 
 @functools.lru_cache(maxsize=None)
-def reference_trajectory(model, algo):
+def reference_trajectory(model, algo, compressor="top_k"):
     """``ROUNDS`` reference steps: (states, metrics, batches, noise, params,
     gamma)."""
     (loss_j, _), params, data = PROBLEMS[model]()
-    ralgo = japi.build(japi.ExperimentSpec(**_spec_kw(algo)), loss_j)
+    ralgo = japi.build(japi.ExperimentSpec(**_spec_kw(algo, compressor)),
+                       loss_j)
     step = jax.jit(ralgo.step)
     state = ralgo.init(jax.tree_util.tree_map(jnp.asarray, params))
     batches = _batches(data, ROUNDS)
@@ -170,11 +176,22 @@ CASES = [("logreg", "porter-gc"), ("logreg", "porter-dp"),
          ("mlp", "porter-gc"), ("mlp", "porter-dp")]
 
 
-@pytest.mark.parametrize("model,algo", CASES + [("logreg", "beer")])
-def test_teacher_forced_steps_equal_reference(model, algo):
-    states, metrics, batches, noise, _, gamma = reference_trajectory(model,
-                                                                     algo)
-    talgo = _port(model, algo)
+def _top_k(cases):
+    return [pytest.param(model, algo, "top_k", id=f"{model}-{algo}")
+            for model, algo in cases]
+
+
+BLOCK_CASES = [pytest.param(model, "porter-gc", "block_top_k",
+                            id=f"{model}-porter-gc-block_top_k")
+               for model in ("logreg", "mlp")]
+
+
+@pytest.mark.parametrize("model,algo,comp",
+                         _top_k(CASES + [("logreg", "beer")]) + BLOCK_CASES)
+def test_teacher_forced_steps_equal_reference(model, algo, comp):
+    states, metrics, batches, noise, _, gamma = reference_trajectory(
+        model, algo, comp)
+    talgo = _port(model, algo, compressor=comp)
     assert talgo.gamma == gamma
     for t in range(ROUNDS):
         state = convert.state_to_torch(states[t], "cpu")
@@ -189,10 +206,10 @@ def test_teacher_forced_steps_equal_reference(model, algo):
                                        rtol=0, atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("model,algo", CASES)
-def test_free_running_trajectory_equals_reference(model, algo):
-    states, _, batches, noise, _, _ = reference_trajectory(model, algo)
-    talgo = _port(model, algo)
+@pytest.mark.parametrize("model,algo,comp", _top_k(CASES) + BLOCK_CASES)
+def test_free_running_trajectory_equals_reference(model, algo, comp):
+    states, _, batches, noise, _, _ = reference_trajectory(model, algo, comp)
+    talgo = _port(model, algo, compressor=comp)
     state = convert.state_to_torch(states[0], "cpu")
     for t in range(ROUNDS):
         kw = {} if noise[t] is None else {"noise": convert.to_torch(

@@ -1,0 +1,75 @@
+"""ms per round of PORTER-GC and PORTER-DP on the full-width MLP, for the
+port in a given source tree, on one card: what ``chip_smoke.py`` phase 4
+runs (Section 5.2, 10 agents, ER(0.8), top-k 5 %, batch 8; and PORTER-GC
+with the ``block_top_k`` compressor at 5 %), timed the same
+way (host wall clock from the end of the first 50-round chunk to the end
+of the last, each chunk ended by a synchronize).
+
+    python3 tools/round_ab.py [--src SRC] [--label LABEL] [--rounds N]
+
+SRC is the ``src`` directory of a checkout (default: this checkout's), so
+two commits can be compared on one card in one call: unpack the other
+commit into a git-ignored directory (``git archive``) and run the script
+once per tree, in turns (A, B, B, A).  Each run imports ``repro_torch``
+from SRC, builds that tree's kernels into its own ``build/``, and prints
+one ``[round-ab]`` line per configuration and a JSON line of medians.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CONFIGS = {"porter-gc kernel": dict(comm_backend="kernel"),
+           "porter-gc ref": dict(comm_backend="ref"),
+           "porter-dp kernel": dict(algo="porter-dp", sigma_p=0.01,
+                                    comm_backend="kernel"),
+           "porter-gc block_top_k kernel": dict(compressor="block_top_k",
+                                                comm_backend="kernel")}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--rounds", type=int, default=200)
+    ap.add_argument("--repeats", type=int, default=3)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("round_ab.py needs a CUDA device; none is visible",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch import api, data
+    from repro_torch.launch import runtime
+    from repro_torch.models import paper
+    import repro_torch
+    print(f"[round-ab] {args.label}: repro_torch from "
+          f"{Path(repro_torch.__file__).parent}, "
+          f"{torch.cuda.get_device_name(0)}")
+    source, base, loss_fn = cs._mlp_problem(api, data, paper, 60000)
+    medians = {}
+    for name, over in CONFIGS.items():
+        algo = cs._build(api, base.replace(**over), loss_fn)
+        times = []
+        for _ in range(args.repeats):
+            _, losses, ms = cs.run_timed(torch, runtime.run_chunked, algo,
+                                         source, cs._init(algo, paper), 0,
+                                         args.rounds, 50)
+            times.append(ms)
+        medians[name] = statistics.median(times)
+        print(f"[round-ab] {args.label} {name}: ms/round {times}, loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    print(json.dumps({"label": args.label, "ms_per_round": medians}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
