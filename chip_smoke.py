@@ -35,7 +35,9 @@ of the ``repro`` package.  Phases, each printing its own lines:
    against its plain version ``ref.rwkv6_chunk_ref`` at the path's shapes
    (4 x 512 tokens, 64 heads x 64, bf16 r, k, v), at 2 x 4096 tokens and
    in each of the kernel's other builds (f32 r, k, v; head dims 32, 16),
-   with a state-chaining check, timed beside its bound (``[rwkv6]``
+   with a state-chaining check, timed beside its bound (``scan_bound``:
+   the bytes over HBM bandwidth against the operations on the tensor
+   cores, the earlier f32-rate figure printed beside it; ``[rwkv6]``
    lines); then rwkv6-7b at full width and depth (32 layers, d 4096,
    vocab 65536), its parameters drawn on the card from a seed, serving
    batch 4 x prompt 512 and 32 greedy decode steps through
@@ -47,8 +49,13 @@ of the ``repro`` package.  Phases, each printing its own lines:
    against its plain version ``ref.ssd_chunk_ref`` at the path's shape (4
    x 512 tokens, 112 heads x 64, state 64) with bf16 and with f32 B / C
    (read in place as column slices of one activation, as the model passes
-   them) and at 2 x 4096 tokens, with a state-chaining check, timed beside
-   its bound (``[ssd]`` lines); then zamba2-7b at full width and depth (81
+   them), at 2 x 4096 tokens, and at other (P, N) in both B / C dtypes
+   (the zamba2 smoke config's 32 x 16, the reference kernel test's 8 x 16
+   and 16 x 8, and 5 x 7), with a state-chaining check, timed beside its
+   bound (``scan_bound``), and P or N of 65 refused (``[ssd]`` lines); the
+   zamba2 smoke config served on the card (a 128-token prefill, 5
+   launches; in f32, prefill and 64 decode steps against ``forward`` at
+   2e-3); then zamba2-7b at full width and depth (81
    Mamba2 layers of d 3584, the shared attention + MLP block 13 times,
    vocab 32000; 6,637,023,440 parameters drawn on the card from a seed),
    serving batch 4 x prompt 512 and 32 greedy decode steps through
@@ -102,6 +109,9 @@ DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 (non-tensor) rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the tensor cores' dense TF32 rate: a scan's products at f32-accurate
+# results take at least three TF32 passes there (hi.hi + hi.lo + lo.hi)
+TF32_OPS_PER_S = 495e12
 
 TILE = 8 * 1024
 PLANES = {"mlp": 10 * 7 * TILE,      # Section-5.2 MLP: d=50,890 -> 7 tiles
@@ -226,6 +236,27 @@ def bound_ms(variant: str, n: int):
     t_ops = v["ops"] * n / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_bound(moved: int, flops: int):
+    """Least time for the card for a scan: (ms, 'bytes' | 'operations',
+    and in seconds the bytes over HBM bandwidth, the operations on the
+    tensor cores as three TF32 passes, and the operations at the f32 rate
+    outside the tensor cores, the bound these scans were first held to)."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_tc = 3 * flops / TF32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_tc),
+            "bytes" if t_bytes >= t_tc else "operations", t_bytes, t_tc,
+            flops / F32_OPS_PER_S)
+
+
+def bound_text(moved: int, flops: int) -> str:
+    """The parts of ``scan_bound`` for a log line."""
+    ms, by, t_bytes, t_tc, t_f32 = scan_bound(moved, flops)
+    return (f"bound_us={1e3 * ms:.3f} ({by}: {moved} B -> "
+            f"{1e6 * t_bytes:.3f} us; {flops} flop as three TF32 passes -> "
+            f"{1e6 * t_tc:.3f} us; at the f32 rate, the earlier bound, -> "
+            f"{1e6 * t_f32:.3f} us)")
 
 
 def bit_equal(torch, a, b) -> bool:
@@ -871,8 +902,9 @@ def _normwise(a, b) -> tuple:
 def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
     """``rwkv6_chunk`` against its plain version at each shape and r, k, v
     dtype, a state-chaining check, and its cold / warm time beside the plain
-    version's and its bound (inputs read once, outputs written once, over
-    HBM bandwidth; operations at the f32 rate)."""
+    version's and its bound (``scan_bound``: inputs read once, outputs
+    written once, over HBM bandwidth, against the operations on the tensor
+    cores)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[rwkv6] tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}; tolerance normwise "
@@ -917,10 +949,9 @@ def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
                        plain_ms=device_time_ms(ref.rwkv6_chunk_ref, sets, 3,
                                                2),
                        library_ms=None)
-            t_bytes = moved / HBM_BYTES_PER_S
-            t_ops = row["flops"] / F32_OPS_PER_S
-            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            (row["bound_ms"], row["bound_by"], _, _,
+             t_f32) = scan_bound(moved, row["flops"])
+            row["bound_ms_f32_rate"] = 1e3 * t_f32
             row["ok"] = (finite and row["rel_err"] <= RWKV_TOL
                          and row["chain_rel_err"] <= RWKV_TOL)
             table[name] = row
@@ -931,9 +962,7 @@ def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
                   f"{row['chain_rel_err']} finite={finite} us="
                   f"{1e3 * row['ms']:.3f} us_warm={1e3 * row['ms_warm']:.3f} "
                   f"plain_us={1e3 * row['plain_ms']:.3f} "
-                  f"bound_us={1e3 * row['bound_ms']:.3f} ({row['bound_by']}: "
-                  f"{moved} B -> {1e6 * t_bytes:.3f} us, {row['flops']} "
-                  f"flop -> {1e6 * t_ops:.3f} us) library none")
+                  f"{bound_text(moved, row['flops'])} library none")
             if not row["ok"]:
                 raise AssertionError(f"rwkv6_chunk differs from its plain "
                                      f"version at {name}: {row}")
@@ -1080,14 +1109,30 @@ def phase_rwkv6_consistency(torch, ops, serve):
 # the zamba2 serving path: the SSD scan's shapes (B, S, H, P, N) and B / C
 # dtype, the first the serving phase's (batch 4 x prompt 512, 112 heads x
 # 64, state 64, bf16 activations); then the f32 build (the consistency
-# phase's) and a long sequence.  The tolerance is normwise, max |kernel -
-# plain| <= SSD_TOL * max |plain| for y and for the final state: both f32
-# over the same chunked algorithm with the same sequential cumsum; only the
-# order of the products' sums differs (the kernel's FMA chains against
-# cuBLAS's f32 GEMMs, TF32 off).
+# phase's) and a long sequence; then other (P, N), each in both B / C
+# dtypes: the zamba2 smoke config's (8 heads x 32, state 16), the
+# reference kernel test's draws (P 8, N 16 and P 16, N 8), and P 5, N 7
+# (rows that are not 16-byte multiples: the kernel's element-wise loads).
+# The tolerance is normwise, max |kernel - plain| <= SSD_TOL * max |plain|
+# for y and for the final state: both f32 over the same recurrence; the
+# kernel forms its products on the tensor cores from bf16 parts of the
+# f32 operands (16 or 24 significant bits) and passes the state between
+# 16-row blocks, the plain version runs cuBLAS's f32 GEMMs (TF32 off) over
+# 64-step chunks.
 SSD_SHAPES = {"path": ((4, 512, 112, 64, 64), "bf16"),
               "path f32": ((4, 512, 112, 64, 64), "f32"),
-              "2x4096": ((2, 4096, 112, 64, 64), "bf16")}
+              "2x4096": ((2, 4096, 112, 64, 64), "bf16"),
+              "smoke": ((4, 512, 8, 32, 16), "bf16"),
+              "smoke f32": ((4, 512, 8, 32, 16), "f32"),
+              "P8 N16": ((2, 128, 3, 8, 16), "bf16"),
+              "P8 N16 f32": ((2, 128, 3, 8, 16), "f32"),
+              "P16 N8": ((1, 128, 2, 16, 8), "bf16"),
+              "P16 N8 f32": ((1, 128, 2, 16, 8), "f32"),
+              "P5 N7": ((1, 128, 3, 5, 7), "bf16"),
+              "P5 N7 f32": ((1, 128, 3, 5, 7), "f32")}
+# cells that move less than this are timed warm only (a cold time would
+# need thousands of input sets to flush L2)
+SSD_COLD_MIN_BYTES = 1 << 20
 SSD_TOL = 1e-4
 ZAMBA_SERVE = dict(batch=4, prompt=512, gen=32)
 # counted from src/repro/configs/zamba2_7b.py's shapes (the reference's
@@ -1098,6 +1143,11 @@ ZAMBA_PARAMS = 6_637_023_440
 # shared block and 1 trailing layer (the reference's decode-consistency
 # tolerance)
 ZAMBA_CONSIST = dict(layers=13, prompt=512, extra=64, tol=2e-3)
+# the zamba2 smoke config (5 Mamba2 layers, 8 heads x 32, state 16): a
+# 128-token prefill in its serving dtype, then in f32 a 128-token prefill
+# and 64 decode steps against forward over 192 tokens (3 chunks of 64, so
+# forward runs the kernel too), at the same tolerance
+ZAMBA_SMOKE = dict(batch=4, prompt=128, extra=64, tol=2e-3)
 
 
 def ssd_flops(b, s, h, p, n, c) -> int:
@@ -1134,8 +1184,9 @@ def _ssd_inputs(torch, gen, shape, bc):
 def phase_ssd_kernel(torch, ops, ref, reps=10, inner=5):
     """``ssd_chunk`` against its plain version at each shape and B / C
     dtype, a state-chaining check, and its cold / warm time beside the
-    plain version's and its bound (inputs read once, outputs written once,
-    over HBM bandwidth; operations at the f32 rate)."""
+    plain version's and its bound (``scan_bound``: inputs read once,
+    outputs written once, over HBM bandwidth, against the operations on
+    the tensor cores); then P or N above the widest instance refused."""
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[ssd] tf32 matmul={torch.backends.cuda.matmul.allow_tf32}; "
           f"tolerance normwise {SSD_TOL} (max |kernel - plain| / max "
@@ -1165,7 +1216,8 @@ def phase_ssd_kernel(torch, ops, ref, reps=10, inner=5):
             # of a column slice counts its own elements)
             moved = (sum(t.nbytes for t in first)
                      + sum(t.nbytes for t in k_out))
-            n_sets = -(-L2_FLUSH_BYTES // moved) + 1
+            cold = moved >= SSD_COLD_MIN_BYTES
+            n_sets = -(-L2_FLUSH_BYTES // moved) + 1 if cold else 1
             sets = [first] + [_ssd_inputs(torch, gen, shape, bc)
                               for _ in range(n_sets - 1)]
             row = dict(shape=shape, max_abs_err=max(e for e, _ in errs),
@@ -1173,33 +1225,93 @@ def phase_ssd_kernel(torch, ops, ref, reps=10, inner=5):
                        chain_rel_err=max(r_ for _, r_ in chain),
                        bytes=moved,
                        flops=ssd_flops(*shape, ref.SSD_CHUNK),
-                       ms=device_time_ms(ops.ssd_scan, sets, reps, inner),
                        ms_warm=device_time_ms(ops.ssd_scan, sets[:1], reps,
                                               inner),
                        plain_ms=device_time_ms(ref.ssd_chunk_ref, sets, 3, 2),
                        library_ms=None)
-            t_bytes = moved / HBM_BYTES_PER_S
-            t_ops = row["flops"] / F32_OPS_PER_S
-            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["ms"] = (device_time_ms(ops.ssd_scan, sets, reps, inner)
+                         if cold else None)
+            (row["bound_ms"], row["bound_by"], _, _,
+             t_f32) = scan_bound(moved, row["flops"])
+            row["bound_ms_f32_rate"] = 1e3 * t_f32
             row["ok"] = (finite and row["rel_err"] <= SSD_TOL
                          and row["chain_rel_err"] <= SSD_TOL)
             table[name] = row
+            us = (f"us={1e3 * row['ms']:.3f}" if cold
+                  else "us=not timed cold (fits in L2)")
             print(f"[ssd] kernel {name} (B, S, H, P, N)={shape} B/C {bc}: "
                   f"max_abs_err={row['max_abs_err']} rel_err="
                   f"{row['rel_err']} (y {errs[0][1]}, state {errs[1][1]}; "
                   f"tolerance {SSD_TOL}) chain_rel_err="
-                  f"{row['chain_rel_err']} finite={finite} us="
-                  f"{1e3 * row['ms']:.3f} us_warm={1e3 * row['ms_warm']:.3f} "
+                  f"{row['chain_rel_err']} finite={finite} {us} "
+                  f"us_warm={1e3 * row['ms_warm']:.3f} "
                   f"plain_us={1e3 * row['plain_ms']:.3f} "
-                  f"bound_us={1e3 * row['bound_ms']:.3f} ({row['bound_by']}: "
-                  f"{moved} B -> {1e6 * t_bytes:.3f} us, {row['flops']} "
-                  f"flop -> {1e6 * t_ops:.3f} us) library none")
+                  f"{bound_text(moved, row['flops'])} library none")
             if not row["ok"]:
                 raise AssertionError(f"ssd_chunk differs from its plain "
                                      f"version at {name}: {row}")
             del sets, first, k_out, p_out
+        # P or N above the widest instance: refused before any launch
+        for p, n in ((65, 16), (32, 65)):
+            args = _ssd_inputs(torch, gen, (1, 64, 2, p, n), "bf16")
+            try:
+                ops.ssd_scan(*args)
+            except ValueError as err:
+                if "queue 2 item 12" not in str(err):
+                    raise
+                print(f"[ssd] P={p} N={n} refused: {err}")
+            else:
+                raise AssertionError(f"ssd_scan took P={p} N={n}")
     return table
+
+
+def phase_zamba2_smoke(torch, ops, serve):
+    """The zamba2 smoke config on the card: a prefill in its serving dtype
+    through the kernel (a launch a layer, finite logits), then in f32 a
+    prefill and decode steps against ``forward`` over the longer prompt."""
+    c = ZAMBA_SMOKE
+    p, total = c["prompt"], c["prompt"] + c["extra"]
+    with torch.inference_mode():
+        cfg, bundle, params = serve.load("zamba2-7b", smoke=True,
+                                         device=DEVICE, seed=6)
+        tokens = serve.make_prompt(cfg, c["batch"], total, DEVICE, 7)
+        ops.reset_launches()
+        served, _ = bundle.prefill(params, {"tokens": tokens[:, :p]})
+        torch.cuda.synchronize()
+        served_launches = dict(ops.LAUNCHES)
+        finite = bool(torch.isfinite(served.float()).all())
+        mc = cfg.mamba_cfg()
+        print(f"[zamba2] smoke {cfg.name}: {cfg.n_layers} Mamba2 layers, "
+              f"{mc.n_heads} heads x {mc.head_dim}, state {mc.d_state}, "
+              f"dtype {cfg.dtype}: prefill batch={c['batch']} prompt={p} "
+              f"logits finite {finite}, launches {served_launches}")
+        expect_launches("zamba2 smoke prefill", served_launches,
+                        ssd_chunk=cfg.n_layers)
+        cfg, bundle, params = serve.load("zamba2-7b", smoke=True,
+                                         device=DEVICE, seed=6,
+                                         dtype=torch.float32)
+        ops.reset_launches()
+        last, cache = bundle.prefill(params, {"tokens": tokens[:, :p]})
+        launches = dict(ops.LAUNCHES)
+        full = bundle.forward(params, {"tokens": tokens})
+        diffs = [float((last[:, 0] - full[:, p - 1]).abs().max())]
+        ok = torch.allclose(last[:, 0], full[:, p - 1], rtol=c["tol"],
+                            atol=c["tol"])
+        cache = serve.grow_cache(cache, c["extra"])
+        for i in range(p, total):
+            logits, cache = bundle.decode_step(params, cache,
+                                               tokens[:, i:i + 1], i)
+            diffs.append(float((logits - full[:, i]).abs().max()))
+            ok = ok and torch.allclose(logits, full[:, i], rtol=c["tol"],
+                                       atol=c["tol"])
+    print(f"[zamba2] smoke f32: prefill {p} (launches {launches}) then "
+          f"decode tokens {p + 1}..{total} against forward over {total}: "
+          f"max |diff| prefill's last token {diffs[0]}, decode steps "
+          f"{max(diffs[1:])} (tolerance {c['tol']})")
+    expect_launches("zamba2 smoke f32 prefill", launches,
+                    ssd_chunk=cfg.n_layers)
+    if not (finite and ok):
+        raise AssertionError(f"zamba2 smoke: finite {finite}, diffs {diffs}")
 
 
 def phase_zamba2_serve(torch, ops, serve, tree_leaves):
@@ -1333,9 +1445,10 @@ CLIP_OPS = {"sumsq": 2, "scale": 1, "scale_noise": 3}
 TOPK_CELLS = {"w1": (250, (1, 102, 512, 2048)),
               "edge": (250, (1, 102, 512, 2048)),
               "2^24": (8192, (102,))}
-# per element: the key mask, 31 compare-and-count steps (2 operations
-# each), the tie compare and the select, counted at the f32 rate
-TOPK_OPS = 1 + 31 * 2 + 2
+# per element: the key mask, at most four digit passes of the radix select
+# (the prefix compare, the digit and its count: 3 operations each), the
+# tie compare and the select, counted at the f32 rate
+TOPK_OPS = 1 + 4 * 3 + 2
 TOPK_REPLACES = "src/repro/kernels/block_topk.py:54"
 DTYPES = ("f32", "bf16")
 
@@ -1773,6 +1886,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated()} B allocated, "
           f"{torch.cuda.memory_reserved()} B reserved")
     ssd_table = phase_ssd_kernel(torch, ops, ref)
+    phase_zamba2_smoke(torch, ops, serve)
     ssd_launches, zamba_rates = phase_zamba2_serve(torch, ops, serve,
                                                    tree_leaves)
     torch.cuda.empty_cache()
@@ -1828,6 +1942,7 @@ def main() -> int:
         launches=rwkv_launches, max_abs_err=row["max_abs_err"],
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=None, rel_err=row["rel_err"],
+        bound_ms_f32_rate=row["bound_ms_f32_rate"],
         ms_2x4096=rwkv_table["2x4096"]["ms"],
         bound_ms_2x4096=rwkv_table["2x4096"]["bound_ms"], **rwkv_rates))
     row = ssd_table["path"]
@@ -1838,9 +1953,12 @@ def main() -> int:
         launches=ssd_launches, max_abs_err=row["max_abs_err"],
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=None, rel_err=row["rel_err"],
+        bound_ms_f32_rate=row["bound_ms_f32_rate"],
         ms_f32_bc=ssd_table["path f32"]["ms"],
         ms_2x4096=ssd_table["2x4096"]["ms"],
-        bound_ms_2x4096=ssd_table["2x4096"]["bound_ms"], **zamba_rates))
+        bound_ms_2x4096=ssd_table["2x4096"]["bound_ms"],
+        ms_smoke=ssd_table["smoke"]["ms"],
+        bound_ms_smoke=ssd_table["smoke"]["bound_ms"], **zamba_rates))
     # the clip kernels on PORTER-GC's agent plane (sumsq, scale: the f32
     # MLP run) and on PORTER-DP's perturbation plane (scale_noise);
     # block_topk at w1's windows, k = 102, on the f32 block_top_k run

@@ -13,21 +13,34 @@
 // on exact ties; its own oracle keeps k.)  A kept -0.0 stays -0.0.  NaN
 // magnitudes are out of contract.
 //
-// Selection.  |x| is ordered as the uint32 key bits(x) & 0x7fffffff (bf16
-// inputs are widened to f32 first, which is exact and keeps the order).
-// A 31-step bisection on the integer key finds the largest T with
-// count(key >= T) >= k, which is the k-th largest key itself; the count of
-// keys above it falls out of the same steps.  Each step is a block-wide
-// count: 8 compares a thread, a warp sum, one partial a warp in shared
-// memory (two buffers, so one barrier a step suffices).  The ties at T get
-// their rank in index order from an exclusive prefix of per-thread tie
-// counts: a warp scan by shuffles, then the warp totals.
+// Selection: a radix select.  |x| is ordered as the integer key bits(x) &
+// 0x7fffffff (f32) or bits(x) & 0x7fff (bf16).  The k-th largest key is
+// found a digit at a time, most significant first (f32: bits 30-23, 22-15,
+// 14-7, 6-0; bf16: 14-7, 6-0).  In each pass every thread adds the digits
+// of its keys that match the digits found so far into a 256-bin
+// histogram in shared memory (shared-memory atomics); after one
+// __syncthreads every warp reads the whole histogram and finds, by a warp
+// prefix over the bins from the top (a lane sums 8 bins, then a shuffle
+// scan), the bin where the count reaches the rank still sought; the
+// counts above it are keys known to be larger.  Three histograms in turn
+// let a pass clear the one of two passes later without a second barrier.
+// The passes stop early once every key that shares the digits found so
+// far is kept (in f32 Gaussian windows usually after two or three).  So a
+// window takes at most 6 barriers in f32 (one to start, one a pass, one
+// for the ties) and 4 in bf16, against the 32 of a 31-step bisection on
+// the key with a block-wide count a step.  When the last pass still
+// leaves more ties at the k-th key than fit, they get their rank in index
+// order from a block-wide exclusive prefix of per-thread tie counts.
 //
-// What bounds it on an H100: bytes, at about 8 B an element in f32 (4 in
-// bf16) against ~70 integer operations an element (31 compare-and-count
-// steps); at small sizes the 31 dependent block-wide steps, one barrier
-// each, set the time.  One CTA of 256 threads a window; a thread holds 8
-// consecutive elements in registers (16-byte loads and stores).
+// What bounds it on an H100: bytes, at 8 B an element in f32 (4 in bf16),
+// against ~15 integer operations an element; at a few hundred windows the
+// launch and the passes' latency (atomics, a barrier, a scan) set the
+// time.  One CTA of 256 threads a window; a thread holds 8 consecutive
+// elements in registers (16-byte loads and stores).  One warp a window
+// (64 keys a lane) was slower on the MLP's few hundred windows, its 64
+// shared atomics a lane a pass one chain; so were 512 threads of 4
+// elements.  ptxas: 48 registers, 8 (f32) and 12 (bf16) bytes of spill
+// stores, 3,104 bytes of shared memory.
 //
 // Interface: plain C, loaded with ctypes.  x and out are device addresses
 // of contiguous, 16-byte aligned (nb, 2048) buffers of f32 (bf16 == 0) or
@@ -41,32 +54,53 @@
 
 namespace {
 
-constexpr int kBlock = 2048;            // wire_formats.PACK_BLOCK
+constexpr int kBlock = 2048;             // wire_formats.PACK_BLOCK
 constexpr int kVec = 8;
 constexpr int kThreads = kBlock / kVec;  // 256
 constexpr int kWarps = kThreads / 32;
+constexpr int kBins = 256;               // == kThreads: a bin a thread
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
+template <typename T>
+struct Key;
 
-// the raw 32-bit words of 8 elements, and their f32 magnitudes as keys
-__device__ __forceinline__ void load8(const float* p, uint32_t raw[kVec],
-                                      uint32_t key[kVec]) {
+template <>
+struct Key<float> {
+  static constexpr int kPasses = 4;
+  static constexpr int kTop = 31;   // key bits
+  // digit `pass`: bits [shift, shift + width)
+  __host__ __device__ static constexpr int shift(int pass) {
+    return pass == 0 ? 23 : pass == 1 ? 15 : pass == 2 ? 7 : 0;
+  }
+  __host__ __device__ static constexpr int width(int pass) {
+    return pass == 3 ? 7 : 8;
+  }
+  __device__ static uint32_t key(uint32_t raw) { return raw & 0x7fffffffu; }
+};
+
+template <>
+struct Key<__nv_bfloat16> {
+  static constexpr int kPasses = 2;
+  static constexpr int kTop = 15;
+  __host__ __device__ static constexpr int shift(int pass) {
+    return pass == 0 ? 7 : 0;
+  }
+  __host__ __device__ static constexpr int width(int pass) {
+    return pass == 0 ? 8 : 7;
+  }
+  __device__ static uint32_t key(uint32_t raw) { return raw & 0x7fffu; }
+};
+
+// the raw bits of 8 consecutive elements (bf16 in the low 16 bits)
+__device__ __forceinline__ void load8(const float* p, uint32_t raw[kVec]) {
   const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
   const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
   raw[0] = a.x; raw[1] = a.y; raw[2] = a.z; raw[3] = a.w;
   raw[4] = b.x; raw[5] = b.y; raw[6] = b.z; raw[7] = b.w;
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) key[j] = raw[j] & 0x7fffffffu;
 }
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      uint32_t raw[kVec],
-                                      uint32_t key[kVec]) {
+                                      uint32_t raw[kVec]) {
   const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
   const uint32_t w[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
@@ -74,8 +108,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
     raw[2 * i] = w[i] & 0xffffu;
     raw[2 * i + 1] = w[i] >> 16;
   }
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) key[j] = (raw[j] << 16) & 0x7fffffffu;
 }
 
 __device__ __forceinline__ void store8(float* p, const uint32_t o[kVec]) {
@@ -90,62 +122,114 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p,
                  o[4] | (o[5] << 16), o[6] | (o[7] << 16));
 }
 
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += n;
+  }
+  return v;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 block_topk_kernel(const T* __restrict__ x, T* __restrict__ out, int k) {
-  __shared__ int part[2][kWarps];
+  using KT = Key<T>;
+  __shared__ int4 hist4[3][kBins / 4];
   __shared__ int warp_ties[kWarps];
+  int* hist = reinterpret_cast<int*>(hist4);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t at = (int64_t)blockIdx.x * kBlock + kVec * t;
-  uint32_t raw[kVec], key[kVec];
-  load8(x + at, raw, key);
-
-  // invariant: count(key >= lo) >= k > count(key >= hi) = above
-  uint32_t lo = 0u, hi = 0x80000000u;
-  int above = 0;
-  for (int it = 0; it < 31; ++it) {
-    const uint32_t mid = lo + ((hi - lo) >> 1);
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) c += key[j] >= mid;
-    c = warp_sum(c);
-    if (lane == 0) part[it & 1][warp] = c;
-    __syncthreads();
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += part[it & 1][w];
-    if (total >= k) {
-      lo = mid;
-    } else {
-      hi = mid;
-      above = total;
-    }
-  }
-  // hi == lo + 1: lo is the k-th largest key, `above` keys exceed it, and
-  // the first k - above keys equal to it (in index order) are kept
-  const int need = k - above;
-  int ties = 0;
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) ties += key[j] == lo;
-  int incl = ties;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int n = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += n;
-  }
-  if (lane == 31) warp_ties[warp] = incl;
+  hist[t] = 0;           // the histograms of passes 0 and 1; pass 0
+  hist[kBins + t] = 0;   // clears pass 2's
+  uint32_t raw[kVec];
+  load8(x + at, raw);
   __syncthreads();
-  int rank = incl - ties;
-  for (int w = 0; w < warp; ++w) rank += warp_ties[w];
-  uint32_t o[kVec];
+
+  // the k-th largest key, a digit at a time: prefix holds the digits
+  // found (the key's bits from `low` up), krem the rank still sought
+  // among the keys that share them (the keys above them are known to be
+  // larger), eq how many keys share them.  Once eq == krem every key that
+  // shares the prefix is kept, and the lower digits need not be found:
+  // the passes stop (all threads take the same branch).
+  uint32_t prefix = 0u;
+  int krem = k, eq = 0, low = KT::kTop;
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    bool keep = key[j] > lo;
-    if (key[j] == lo) {
-      keep = rank < need;
-      ++rank;
+  for (int pass = 0; pass < KT::kPasses; ++pass) {
+    const int shift = KT::shift(pass);
+    const int high = shift + KT::width(pass);
+    const uint32_t mask = (1u << KT::width(pass)) - 1u;
+    int* hb = hist + (pass % 3) * kBins;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const uint32_t key = KT::key(raw[j]);
+      if (high >= KT::kTop || (key >> high) == prefix) {
+        atomicAdd(hb + ((key >> shift) & mask), 1);
+      }
     }
-    o[j] = keep ? raw[j] : 0u;
+    __syncthreads();
+    // every reader of pass - 1's histogram passed the barrier above
+    hist[((pass + 2) % 3) * kBins + t] = 0;
+    // this lane's bins, from the top: 255 - 8 lane - v
+    const int4 lo = hist4[pass % 3][(kBins - 8 - 8 * lane) / 4];
+    const int4 hi = hist4[pass % 3][(kBins - 4 - 8 * lane) / 4];
+    const int c[8] = {hi.w, hi.z, hi.y, hi.x, lo.w, lo.z, lo.y, lo.x};
+    int sum = 0;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) sum += c[v];
+    const int incl = warp_incl_scan(sum, lane);
+    const int excl = incl - sum;
+    const unsigned hit = __ballot_sync(kFull, excl < krem && krem <= incl);
+    const int src = __ffs(hit) - 1;
+    int digit = 0, run = excl, cnt = 0;
+    bool found = false;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      if (!found && run + c[v] >= krem) {
+        digit = kBins - 1 - 8 * lane - v;
+        cnt = c[v];
+        found = true;
+      } else if (!found) {
+        run += c[v];
+      }
+    }
+    digit = __shfl_sync(kFull, digit, src);
+    run = __shfl_sync(kFull, run, src);
+    eq = __shfl_sync(kFull, cnt, src);
+    krem -= run;
+    prefix = (prefix << KT::width(pass)) | (uint32_t)digit;
+    low = shift;
+    if (eq == krem) break;
+  }
+  // k - krem keys have a prefix above `prefix`; the first krem (>= 1) of
+  // the eq that share it, in index order, are kept.  The branch is the
+  // same in every thread.
+  uint32_t o[kVec];
+  if (eq == krem) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+      o[j] = (KT::key(raw[j]) >> low) >= prefix ? raw[j] : 0u;
+  } else {
+    // every pass ran: prefix is the k-th largest key itself
+    const uint32_t kth = prefix;
+    int ties = 0;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) ties += KT::key(raw[j]) == kth;
+    const int incl = warp_incl_scan(ties, lane);
+    if (lane == 31) warp_ties[warp] = incl;
+    __syncthreads();
+    int rank = incl - ties;
+    for (int w = 0; w < warp; ++w) rank += warp_ties[w];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const uint32_t key = KT::key(raw[j]);
+      bool keep = key > kth;
+      if (key == kth) {
+        keep = rank < krem;
+        ++rank;
+      }
+      o[j] = keep ? raw[j] : 0u;
+    }
   }
   store8(out + at, o);
 }

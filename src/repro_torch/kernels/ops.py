@@ -395,7 +395,9 @@ def ssd_scan(xh, bmat, cmat, dla, h0):
     N)``.  Returns (y ``(B, S, H, P)`` f32, h_final ``(B, H, P, N)`` f32).
     On the card: xh, dla and h0 contiguous f32 (xh 16-byte aligned); bmat
     and cmat both bf16 or both f32, with the same strides and unit stride
-    on N (column slices of one activation are read in place); P = N = 64.
+    on N (column slices of one activation are read in place); 1 <= P, N <=
+    64 (each padded on chip to a width of
+    :data:`repro_torch.kernels.ssd_chunk.WIDTHS`).
     """
     if xh.dim() != 4 or bmat.dim() != 3:
         raise ValueError(f"ssd_scan takes xh (B, S, H, P) and bmat (B, S, N), "
@@ -429,9 +431,10 @@ def ssd_scan(xh, bmat, cmat, dla, h0):
         raise TypeError(f"ssd_scan takes f32 xh, dla and h0 and bmat, cmat "
                         f"both bf16 or both f32, got "
                         f"{[t.dtype for t in operands]}")
-    if p != _ssd.HEAD_DIM or n != _ssd.STATE_DIM:
-        raise ValueError(f"the ssd_chunk kernel takes P = {_ssd.HEAD_DIM} "
-                         f"and N = {_ssd.STATE_DIM}, got P = {p}, N = {n}")
+    if not (1 <= p <= max(_ssd.WIDTHS) and 1 <= n <= max(_ssd.WIDTHS)):
+        raise ValueError(f"the ssd_chunk kernel takes P and N in [1, "
+                         f"{max(_ssd.WIDTHS)}], got P = {p}, N = {n} (wider "
+                         f"heads or states: ROADMAP queue 2 item 12)")
     if not all(t.is_contiguous() for t in (xh, dla, h0)) or xh.data_ptr() % 16:
         raise ValueError("ssd_scan needs xh, dla and h0 contiguous (xh "
                          "16-byte aligned) on the card")

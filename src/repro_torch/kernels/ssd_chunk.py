@@ -8,9 +8,12 @@ SSD recurrence with a scalar per-step decay
     y_t = h_t C_t
 
 over chunks of ``ref.SSD_CHUNK`` tokens, with the f32 state kept on chip
-from chunk to chunk.  It reads xh ``(B, S, H, P)`` and dla ``(B, S, H)`` in
-place, and B / C ``(B, S, N)`` through their batch and time strides (unit
-stride on N), so the model's column slices need no copy.  This function
+from chunk to chunk, its products on the tensor cores.  It reads xh ``(B,
+S, H, P)`` and dla ``(B, S, H)`` in place, and B / C ``(B, S, N)`` through
+their batch and time strides (unit stride on N), so the model's column
+slices need no copy.  It is instantiated for head and state widths of
+:data:`WIDTHS`; any P and N in [1, 64] run in the smallest width that
+holds them, zero-padded on chip.  This function
 only allocates and launches: operand checks, the CPU dispatch and the
 launch counter live in :mod:`repro_torch.kernels.ops`.  The library is
 built and loaded on the first call, never at import.
@@ -25,10 +28,9 @@ import torch
 
 from . import build
 
-__all__ = ["HEAD_DIM", "STATE_DIM", "ssd_chunk"]
+__all__ = ["WIDTHS", "ssd_chunk"]
 
-HEAD_DIM = 64    # P and N the kernel is built for
-STATE_DIM = 64
+WIDTHS = (16, 32, 64)   # the P and N widths the kernel is instantiated for
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 

@@ -12,7 +12,10 @@ stay -0.0): a selection and a copy.
   Gaussian, integer-valued (ties), all-zero and -0.0 windows;
 * against the Pallas kernel in interpret mode on tie-free Gaussian rows;
 * on exact ties the Pallas kernel keeps more than k (everything at or
-  above its bisection threshold), the port exactly k.
+  above its bisection threshold), the port exactly k;
+* an emulation of the CUDA kernel's selection (``_radix_select``: a digit
+  at a time from 256-bin histograms, stopping once every key that shares
+  the digits found is kept, ties ranked in index order) against both.
 """
 
 import jax
@@ -138,3 +141,90 @@ def test_top_k_keeps_the_whole_row_sort():
     want = JCMP.top_k(0.05).fn(jax.random.PRNGKey(0), jnp.asarray(x[0].numpy()))
     np.testing.assert_array_equal(_bits(got[0].numpy()), _bits(want))
     assert torch.equal(got, ref.block_topk_ref(x, 150))
+
+
+# -- the CUDA kernel's selection, emulated on the CPU ------------------------
+#
+# ``csrc/block_topk.cu`` orders |x| as the integer key bits & 0x7fffffff
+# (f32) or bits & 0x7fff (bf16) and finds the k-th largest key a digit at
+# a time, most significant first, from a 256-bin histogram of the digits of
+# the keys that share the digits found so far.  It stops once all of those
+# keys are kept (their count equals the rank still sought); else the ties
+# at the k-th key are ranked in index order.
+
+_PASSES = {4: ((23, 8), (15, 8), (7, 8), (0, 7)), 2: ((7, 8), (0, 7))}
+_TOP = {4: 31, 2: 15}
+
+
+def _radix_select(win, k, passes=None):
+    """The kernel's selection on an ``(nb, 2048)`` numpy f32 or bf16
+    array; returns the same dtype, +0.0 where not kept.  ``passes``, a
+    list, gets the number of digit passes each window took."""
+    size = win.dtype.itemsize
+    raw = win.view({4: np.uint32, 2: np.uint16}[size]).astype(np.int64)
+    keys = raw & ((1 << _TOP[size]) - 1)
+    out = np.zeros_like(raw)
+    for w, key in enumerate(keys):
+        prefix, krem, low = 0, k, _TOP[size]
+        for n_pass, (shift, width) in enumerate(_PASSES[size], 1):
+            high = shift + width
+            sel = key if high >= _TOP[size] else key[(key >> high) == prefix]
+            hist = np.bincount((sel >> shift) & ((1 << width) - 1),
+                               minlength=256)
+            cum = np.cumsum(hist[::-1])            # counts from the top bin
+            at = int(np.argmax(cum >= krem))
+            digit = 255 - at
+            eq = int(hist[digit])
+            krem -= int(cum[at]) - eq
+            prefix, low = (prefix << width) | digit, shift
+            if eq == krem:
+                break
+        if passes is not None:
+            passes.append(n_pass)
+        if eq == krem:
+            keep = (key >> low) >= prefix
+        else:
+            keep = key > prefix
+            keep[np.flatnonzero(key == prefix)[:krem]] = True
+        out[w] = np.where(keep, raw[w], 0)
+    return out.astype({4: np.uint32, 2: np.uint16}[size]).view(win.dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["gauss", "ties", "zeros", "negzero"])
+@pytest.mark.parametrize("k", KS)
+def test_kernel_selection_equals_reference(k, kind, dt):
+    """The emulated radix select, bitwise, against the port's plain version
+    and the reference's oracle and compressor, in f32 and bf16."""
+    win = _windows(_row(kind, 3 * BLOCK + 17, seed=k + 7))
+    if dt == "bf16":
+        win = np.asarray(jnp.asarray(win).astype(jnp.bfloat16))
+    got = _radix_select(win, k)
+    assert ((got != 0) | np.signbit(got.astype(np.float32))).sum(1).max() <= k
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(JR.block_topk_ref(jnp.asarray(win), k)))
+    want = ref.block_topk_ref(convert.to_torch(win, "cpu"), k)
+    np.testing.assert_array_equal(_bits(got), convert.to_numpy(want)
+                                  if dt == "bf16" else _bits(want.numpy()))
+    if dt == "f32":
+        row = win.reshape(-1)
+        comp = JCMP.block_top_k(k / BLOCK).fn(jax.random.PRNGKey(0),
+                                              jnp.asarray(row))
+        np.testing.assert_array_equal(_bits(got.reshape(-1)), _bits(comp))
+
+
+def test_kernel_selection_stops_early_and_ranks_ties():
+    """The two ends of the selection: a Gaussian window whose kept set is
+    fixed after the first digits, and an integer window whose k-th
+    magnitude is tied many times (every pass runs, ties by index)."""
+    gauss = _windows(_row("gauss", BLOCK, seed=1))
+    ties = _windows(_row("ties", BLOCK, seed=2))
+    passes = []
+    for win in (gauss, ties):
+        np.testing.assert_array_equal(
+            _bits(_radix_select(win, 102, passes)),
+            _bits(JR.block_topk_ref(jnp.asarray(win), 102)))
+    assert passes[0] < 4 and passes[1] == 4
+    kept = np.flatnonzero(_radix_select(ties, 102)[0])
+    top = np.abs(ties[0]).max()
+    assert np.array_equal(kept, np.flatnonzero(np.abs(ties[0]) == top)[:102])

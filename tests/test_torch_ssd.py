@@ -21,7 +21,10 @@ tolerances, each with its reason:
   form multiplies decays exp(la_t - la_s) that the recurrence forms step by
   step;
 * bf16 B / C (the serving path's dtype): the same tolerances, since every
-  form upcasts them to f32 before any arithmetic.
+  form upcasts them to f32 before any arithmetic;
+* 1e-4 for the emulation of the CUDA kernel's split-precision products
+  (``_emulate_kernel``; the gate ``chip_smoke.py`` holds the kernel to on
+  the card): bf16 products with f32 operands split into bf16 parts.
 """
 
 import jax
@@ -173,3 +176,106 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
         tops.ssd_scan(xh, bm, cm, dla, h0[:, :, :2])
     with pytest.raises(ValueError, match=r"\(B, S, H, P\)"):
         tops.ssd_scan(xh[0], bm, cm, dla, h0)
+
+
+# -- the CUDA kernel's numeric plan, emulated on the CPU --------------------
+#
+# ``csrc/ssd_chunk.cu`` walks each 64-step chunk in four 16-row blocks, the
+# state passed from block to block, with la the chunk's sequential f32
+# cumsum (bitwise the plain version's).  Its products run as bf16 mma with
+# f32 accumulation: C h^T and (xh * kend)^T B with the f32 operand split
+# into two bf16 parts (hi + lo, 16 significant bits), C B^T exact when B / C
+# are bf16, and with f32 B / C those split too (hi.hi + hi.lo + lo.hi);
+# M xh with both operands split into three bf16 parts (24 significant
+# bits) and the six products whose order is at most 2^-16.  The emulation
+# rounds with torch's bf16 cast (to nearest even, as the kernel's
+# cvt.rn.bf16x2.f32) and sums in another order than the tensor cores.
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _parts(x, n):
+    """x as n bf16 parts whose sum carries 8 n significant bits."""
+    out = []
+    for _ in range(n - 1):
+        hi = _bf16(x)
+        out.append(hi)
+        x = x - hi
+    return out + [_bf16(x)]
+
+
+def _product(a, b, a_exact, b_exact, three=False):
+    """a @ b as the kernel forms it from bf16 parts of a and b."""
+    if three:                                   # M xh
+        a1, a2, a3 = _parts(a, 3)
+        b1, b2, b3 = _parts(b, 3)
+        return (a3 @ b1 + a1 @ b3 + a2 @ b2) + (a2 @ b1 + a1 @ b2) + a1 @ b1
+    if a_exact and b_exact:                     # C B^T, bf16 B / C
+        return a @ b
+    if b_exact:                                 # (xh kend)^T B, bf16 B
+        ah, al = _parts(a, 2)
+        return al @ b + ah @ b
+    ah, al = _parts(a, 2)
+    bh, bl = _parts(b, 2)
+    if a_exact:                                 # C h^T, bf16 C
+        return ah @ bl + ah @ bh
+    return ah @ bl + al @ bh + ah @ bh          # either with f32 B / C
+
+
+def _emulate_kernel(xh, bmat, cmat, dla, h0):
+    """The kernel's arithmetic in plain PyTorch on the CPU."""
+    b, s, h, p = xh.shape
+    exact = bmat.dtype == torch.bfloat16
+    xs, bs, cs = (t.to(torch.float32) for t in (xh, bmat, cmat))
+    state = h0.to(torch.float32)
+    ys = []
+    tri = torch.tril(torch.ones(16, 16, dtype=torch.bool))
+    zero = torch.zeros(())
+    for c0 in range(0, s, tref.SSD_CHUNK):
+        la = tref._cumsum_f32(dla[:, c0:c0 + tref.SSD_CHUNK].float(), dim=1)
+        for g0 in range(0, tref.SSD_CHUNK, 16):
+            rows = slice(c0 + g0, c0 + g0 + 16)
+            cg, bg = cs[:, rows], bs[:, rows]                   # (b, 16, n)
+            xg = xs[:, rows].permute(0, 2, 1, 3)                # (b, h, 16, p)
+            lg = la[:, g0:g0 + 16].permute(0, 2, 1)             # (b, h, 16)
+            base = la[:, g0 - 1].unsqueeze(-1) if g0 else torch.zeros(())
+            lend = lg[..., -1:]
+            y = torch.exp(lg - base)[..., None] * _product(
+                cg[:, None], state.transpose(-1, -2), exact, False)
+            cb = _product(cg, bg.transpose(-1, -2), exact, exact)[:, None]
+            dmat = lg[..., :, None] - lg[..., None, :]
+            m = torch.where(tri, cb * torch.exp(torch.where(tri, dmat, zero)),
+                            zero)
+            y = y + _product(m, xg, False, False, three=True)
+            ys.append(y.permute(0, 2, 1, 3))
+            a = (xg * torch.exp(lend - lg)[..., None]).transpose(-1, -2)
+            state = (state * torch.exp(lend - base)[..., None]
+                     + _product(a, bg[:, None], False, exact))
+    return torch.cat(ys, dim=1), state
+
+
+@pytest.mark.parametrize("bc", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 128, 2, 64, 64)] + SHAPES, ids=_ids)
+def test_kernel_numeric_plan_matches_the_jnp_chunked_form(shape, bc):
+    """The split-precision products at the serving P = N = 64 (small B, S,
+    H) and at each (P, N) of ``SHAPES``, in both B / C dtypes, within the
+    kernel's gate of the reference's ``_ssd_chunk_scan``."""
+    dtype = jnp.bfloat16 if bc == "bf16" else np.float32
+    args = _inputs(*shape, seed=sum(shape) + 3, bc_dtype=dtype)
+    got = _emulate_kernel(*convert.to_torch(args, "cpu"))
+    _close(_np(got), _chunk_scan(*args), 1e-4)
+
+
+def test_kernel_numeric_plan_chains_state():
+    """Two halves through the emulation with the carried state equal one
+    pass, as the kernel's state chaining check on the card."""
+    xh, bm, cm, dla, h0 = convert.to_torch(
+        _inputs(1, 256, 2, 64, 64, seed=11, bc_dtype=jnp.bfloat16), "cpu")
+    y, hf = _emulate_kernel(xh, bm, cm, dla, h0)
+    y1, hm = _emulate_kernel(xh[:, :128], bm[:, :128], cm[:, :128],
+                             dla[:, :128], h0)
+    y2, hf2 = _emulate_kernel(xh[:, 128:], bm[:, 128:], cm[:, 128:],
+                              dla[:, 128:], hm)
+    _close(_np([torch.cat([y1, y2], 1), hf2]), _np([y, hf]), 1e-4)
