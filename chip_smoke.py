@@ -26,19 +26,21 @@ of the ``repro`` package.  Phases, each printing its own lines:
 5. the bit-packed wire (``wire="packed_bits"``, ``gossip_mode="packed"``):
    ``topk_pack`` / ``topk_unpack`` / ``qsgd_pack`` / ``qsgd_unpack``
    against their plain versions, bitwise, at the MLP's and the logreg's
-   codec rows and at 2^24 elements, timed beside their bound; then
+   codec rows and at 2^24 elements (``topk_pack`` also at k = 1 and 2048,
+   and on tie, sparse, zero, -0.0 and all-equal windows), timed beside
+   their bound; then
    PORTER-GC on the full-width MLP for 200 rounds on both backends with
    top-k 5 % in f32 and bf16 and QSGD (7 levels) in f32: kernel == ref
    bitwise on x, the launches per round, and the measured wire bytes equal
    to the model.  The quickstart of phase 3 also runs once on this wire.
 6. the rwkv6 serving path: ``rwkv6_chunk`` (through ``ops.rwkv6_scan``)
    against its plain version ``ref.rwkv6_chunk_ref`` at the path's shapes
-   (4 x 512 tokens, 64 heads x 64, bf16 r, k, v), at 2 x 4096 tokens and
-   in each of the kernel's other builds (f32 r, k, v; head dims 32, 16),
-   with a state-chaining check, timed beside its bound (``scan_bound``:
-   the bytes over HBM bandwidth against the operations on the tensor
-   cores, the earlier f32-rate figure printed beside it; ``[rwkv6]``
-   lines); then rwkv6-7b at full width and depth (32 layers, d 4096,
+   (4 x 512 tokens, 64 heads x 64, bf16 r, k, v), at 2 x 4096 tokens, in
+   each of the kernel's other builds (f32 r, k, v; widths 32, 16) and at
+   head dims padded on chip (8, 5, 48), with a state-chaining check, timed
+   beside its bound (``scan_bound``: the bytes over HBM bandwidth against
+   the operations on the tensor cores, the earlier f32-rate figure printed
+   beside it), and N = 65 refused (``[rwkv6]`` lines); then rwkv6-7b at full width and depth (32 layers, d 4096,
    vocab 65536), its parameters drawn on the card from a seed, serving
    batch 4 x prompt 512 and 32 greedy decode steps through
    ``launch.serve`` (32 kernel launches a prefill, finite logits, ids in
@@ -165,6 +167,8 @@ L2_FLUSH_BYTES = 100 * 2**20
 PACK_BLOCK = 2048
 WIRE_ROWS = {"mlp": 10 * 28, "logreg": 10 * 2, "2^24": (1 << 24) // 2048}
 TOPK_K = {"0.05": 102, "0.25": 512}
+# topk_pack alone at the ends of k: the frac 1/2048 and the whole window
+TOPK_PACK_ENDS = {"1/2048": 1, "1": 2048}
 QSGD_LEVELS = (7, 16)
 WIRE_KERNELS = {
     "topk_pack": dict(replaces="src/repro/kernels/wire_pack.py:79",
@@ -177,11 +181,12 @@ WIRE_KERNELS = {
                         variant="qsgd_unpack levels=7"),
 }
 # per element, the operations the codecs do on their inputs, counted at the
-# f32 rate: topk_pack's 24 bisection sweeps each compare and count (2 per
-# sweep) plus |x|, the compaction's compare and the max; qsgd_pack's square,
-# add, divide, multiply, floor, subtract, compare, add; the unpacks' shift,
-# mask and two products
-WIRE_OPS = {"topk_pack": 24 * 2 + 3, "topk_unpack": 1, "qsgd_pack": 8,
+# f32 rate: topk_pack's key (|x|) and max, the radix select's at most four
+# digit passes of a prefix compare and a histogram add (its 24 bisection
+# steps run on two scalars a window), the compaction's compare and count;
+# qsgd_pack's square, add, divide, multiply, floor, subtract, compare, add;
+# the unpacks' shift, mask and two products
+WIRE_OPS = {"topk_pack": 2 + 4 * 2 + 2, "topk_unpack": 1, "qsgd_pack": 8,
             "qsgd_unpack": 4}
 # the bytes one exchange of one buffer ships on the MLP (n = 10, 28 windows
 # an agent): topk_bits 4 B x 102 kept a window, qsgd_bits 256 words + scale
@@ -663,6 +668,11 @@ def _wire_variants(torch, ops, ref):
     the PyTorch call timed beside it or None, that call's label).  The
     unpacks take the plain pack's buffers of fresh rows as operands."""
     variants = {}
+
+    def nearest(x, k):
+        idx = torch.topk(x.abs(), k, dim=1).indices
+        return torch.gather(x, 1, idx).to(torch.bfloat16), idx
+
     for frac, k in TOPK_K.items():
         def make_rows(gen, rows):
             x = torch.randn(rows, PACK_BLOCK, generator=gen, device=DEVICE)
@@ -671,9 +681,6 @@ def _wire_variants(torch, ops, ref):
         def make_packed(gen, rows, k=k):
             return list(ref.topk_pack_ref(make_rows(gen, rows)[0], k))
 
-        def nearest(x, k=k):
-            idx = torch.topk(x.abs(), k, dim=1).indices
-            return torch.gather(x, 1, idx).to(torch.bfloat16), idx
 
         def scatter(vals, idx):
             return torch.zeros(vals.shape[0], PACK_BLOCK, device=vals.device
@@ -681,12 +688,19 @@ def _wire_variants(torch, ops, ref):
 
         variants[f"topk_pack k={k}"] = (
             lambda x, k=k: ops.wire_topk_pack(x, k),
-            lambda x, k=k: ref.topk_pack_ref(x, k), make_rows, nearest,
+            lambda x, k=k: ref.topk_pack_ref(x, k), make_rows,
+            lambda x, k=k: nearest(x, k),
             "nearest call, not the same selection: torch.topk + gather")
         variants[f"topk_unpack k={k}"] = (
             ops.wire_topk_unpack, ref.topk_unpack_ref, make_packed, scatter,
             "the same function: torch.zeros().scatter_(1, idx.long(), "
             "vals.float())")
+    for k in TOPK_PACK_ENDS.values():
+        variants[f"topk_pack k={k}"] = (
+            lambda x, k=k: ops.wire_topk_pack(x, k),
+            lambda x, k=k: ref.topk_pack_ref(x, k), make_rows,
+            lambda x, k=k: nearest(x, k),
+            "nearest call, not the same selection: torch.topk + gather")
     for levels in QSGD_LEVELS:
         def make_noisy(gen, rows):
             x = torch.randn(rows, PACK_BLOCK, generator=gen, device=DEVICE)
@@ -743,10 +757,15 @@ def phase_wire_kernels(torch, ops, ref, reps=20, inner=10):
             err = max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(k_out, p_out))
             if size_name == "mlp" and "pack" in name and "unpack" not in name:
-                # ties, sparse, zero and -0 windows through the packs
-                edge = [_edge_rows(torch, gen, rows)] + first[1:]
-                equal = equal and all(bit_equal(torch, a, b) for a, b in zip(
-                    _as_tuple(kern(*edge)), _as_tuple(plain(*edge))))
+                # ties, sparse, zero and -0 windows through the packs, and
+                # windows of one repeated value
+                for x in (_edge_rows(torch, gen, rows),
+                          torch.full((rows, PACK_BLOCK), -0.75,
+                                     device=DEVICE)):
+                    edge = [x] + first[1:]
+                    equal = equal and all(
+                        bit_equal(torch, a, b) for a, b in zip(
+                            _as_tuple(kern(*edge)), _as_tuple(plain(*edge))))
             n_sets = -(-L2_FLUSH_BYTES // moved) + 1
             sets = [first] + [make(gen, rows) for _ in range(n_sets - 1)]
             row = dict(elements=n, equal=equal, max_abs_err=err,
@@ -846,19 +865,31 @@ def phase_wire(torch, ops, api, data, runtime, paper, num=60000, rounds=200):
 # the rwkv6 serving path: the scan's shapes (B, S, H, N) and r, k, v dtype,
 # the first the serving phase's (batch 4 x prompt 512, 64 heads x 64, bf16);
 # then the f32 build (the consistency phase's), the long sequence, and the
-# two other head dims the kernel is built for (d_model 4096 split into 128
-# heads x 32 and 256 x 16) in both dtypes: every build the kernel ships.  The tolerance is normwise, max
-# |kernel - plain| <= RWKV_TOL * max |plain| for o and for the final state.
-# Both are f32 over the same factorised algorithm with the same sequential
-# cumsum; only the order of the dot products' sums differs (the kernel's
-# FMA chains against cuBLAS's f32 GEMMs, TF32 off).
+# two other widths the kernel is built for (d_model 4096 split into 128
+# heads x 32 and 256 x 16) in both dtypes; then, at small B and S, head
+# dims padded on chip: 8 and 5 (into 16; 5 x 2 B rows are not 16-byte
+# multiples, so they load element by element) and 48 (into 64).  The
+# tolerance is normwise, max |kernel - plain| <= RWKV_TOL * max |plain| for
+# o and for the final state: both f32 over the same factorised algorithm
+# with the same sequential cumsum; the kernel forms its products on the
+# tensor cores from bf16 parts of the f32 operands (16 significant bits),
+# the plain version runs cuBLAS's f32 GEMMs (TF32 off).
+# scan cells that move less than this are timed warm only (a cold time
+# would need thousands of input sets to flush L2)
+COLD_MIN_BYTES = 1 << 20
 RWKV_SHAPES = {"path": ((4, 512, 64, 64), "bf16"),
                "path f32": ((4, 512, 64, 64), "f32"),
                "2x4096": ((2, 4096, 64, 64), "bf16"),
                "N=32": ((4, 512, 128, 32), "bf16"),
                "N=32 f32": ((4, 512, 128, 32), "f32"),
                "N=16": ((4, 512, 256, 16), "bf16"),
-               "N=16 f32": ((4, 512, 256, 16), "f32")}
+               "N=16 f32": ((4, 512, 256, 16), "f32"),
+               "N=8": ((2, 64, 3, 8), "bf16"),
+               "N=8 f32": ((2, 64, 3, 8), "f32"),
+               "N=5": ((2, 64, 3, 5), "bf16"),
+               "N=5 f32": ((2, 64, 3, 5), "f32"),
+               "N=48": ((2, 128, 3, 48), "bf16"),
+               "N=48 f32": ((2, 128, 3, 48), "f32")}
 RWKV_TOL = 1e-4
 RWKV_SERVE = dict(batch=4, prompt=512, gen=32)
 # decode after a 512-token prefill against forward over 528 (the
@@ -904,7 +935,7 @@ def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
     dtype, a state-chaining check, and its cold / warm time beside the plain
     version's and its bound (``scan_bound``: inputs read once, outputs
     written once, over HBM bandwidth, against the operations on the tensor
-    cores)."""
+    cores); then N above the widest instance refused."""
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[rwkv6] tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}; tolerance normwise "
@@ -936,14 +967,16 @@ def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
                      _normwise(s_end, k_out[1])]
             moved = (sum(t.nbytes for t in first)
                      + sum(t.nbytes for t in k_out))
-            n_sets = -(-L2_FLUSH_BYTES // moved) + 1
+            cold = moved >= COLD_MIN_BYTES
+            n_sets = -(-L2_FLUSH_BYTES // moved) + 1 if cold else 1
             sets = [first] + [_rwkv6_inputs(torch, gen, shape, rkv)
                               for _ in range(n_sets - 1)]
             row = dict(shape=shape, max_abs_err=max(e for e, _ in errs),
                        rel_err=max(r_ for _, r_ in errs),
                        chain_rel_err=max(r_ for _, r_ in chain),
                        bytes=moved, flops=rwkv6_flops(*shape, c),
-                       ms=device_time_ms(ops.rwkv6_scan, sets, reps, inner),
+                       ms=(device_time_ms(ops.rwkv6_scan, sets, reps, inner)
+                           if cold else None),
                        ms_warm=device_time_ms(ops.rwkv6_scan, sets[:1], reps,
                                               inner),
                        plain_ms=device_time_ms(ref.rwkv6_chunk_ref, sets, 3,
@@ -955,18 +988,30 @@ def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
             row["ok"] = (finite and row["rel_err"] <= RWKV_TOL
                          and row["chain_rel_err"] <= RWKV_TOL)
             table[name] = row
+            us = (f"us={1e3 * row['ms']:.3f}" if cold
+                  else "us=not timed cold (fits in L2)")
             print(f"[rwkv6] kernel {name} (B, S, H, N)={shape} r/k/v {rkv}: "
                   f"max_abs_err={row['max_abs_err']} rel_err="
                   f"{row['rel_err']} (o {errs[0][1]}, state {errs[1][1]}; "
                   f"tolerance {RWKV_TOL}) chain_rel_err="
-                  f"{row['chain_rel_err']} finite={finite} us="
-                  f"{1e3 * row['ms']:.3f} us_warm={1e3 * row['ms_warm']:.3f} "
+                  f"{row['chain_rel_err']} finite={finite} {us} "
+                  f"us_warm={1e3 * row['ms_warm']:.3f} "
                   f"plain_us={1e3 * row['plain_ms']:.3f} "
                   f"{bound_text(moved, row['flops'])} library none")
             if not row["ok"]:
                 raise AssertionError(f"rwkv6_chunk differs from its plain "
                                      f"version at {name}: {row}")
             del sets, first, k_out, p_out
+        # a head dim above the widest instance: refused before any launch
+        args = _rwkv6_inputs(torch, gen, (1, 16, 2, 65), "bf16")
+        try:
+            ops.rwkv6_scan(*args)
+        except ValueError as err:
+            if "queue 2 item 11" not in str(err):
+                raise
+            print(f"[rwkv6] N=65 refused: {err}")
+        else:
+            raise AssertionError("rwkv6_scan took N=65")
     return table
 
 
@@ -1130,9 +1175,6 @@ SSD_SHAPES = {"path": ((4, 512, 112, 64, 64), "bf16"),
               "P16 N8 f32": ((1, 128, 2, 16, 8), "f32"),
               "P5 N7": ((1, 128, 3, 5, 7), "bf16"),
               "P5 N7 f32": ((1, 128, 3, 5, 7), "f32")}
-# cells that move less than this are timed warm only (a cold time would
-# need thousands of input sets to flush L2)
-SSD_COLD_MIN_BYTES = 1 << 20
 SSD_TOL = 1e-4
 ZAMBA_SERVE = dict(batch=4, prompt=512, gen=32)
 # counted from src/repro/configs/zamba2_7b.py's shapes (the reference's
@@ -1216,7 +1258,7 @@ def phase_ssd_kernel(torch, ops, ref, reps=10, inner=5):
             # of a column slice counts its own elements)
             moved = (sum(t.nbytes for t in first)
                      + sum(t.nbytes for t in k_out))
-            cold = moved >= SSD_COLD_MIN_BYTES
+            cold = moved >= COLD_MIN_BYTES
             n_sets = -(-L2_FLUSH_BYTES // moved) + 1 if cold else 1
             sets = [first] + [_ssd_inputs(torch, gen, shape, bc)
                               for _ in range(n_sets - 1)]

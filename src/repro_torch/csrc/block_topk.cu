@@ -13,22 +13,13 @@
 // on exact ties; its own oracle keeps k.)  A kept -0.0 stays -0.0.  NaN
 // magnitudes are out of contract.
 //
-// Selection: a radix select.  |x| is ordered as the integer key bits(x) &
-// 0x7fffffff (f32) or bits(x) & 0x7fff (bf16).  The k-th largest key is
-// found a digit at a time, most significant first (f32: bits 30-23, 22-15,
-// 14-7, 6-0; bf16: 14-7, 6-0).  In each pass every thread adds the digits
-// of its keys that match the digits found so far into a 256-bin
-// histogram in shared memory (shared-memory atomics); after one
-// __syncthreads every warp reads the whole histogram and finds, by a warp
-// prefix over the bins from the top (a lane sums 8 bins, then a shuffle
-// scan), the bin where the count reaches the rank still sought; the
-// counts above it are keys known to be larger.  Three histograms in turn
-// let a pass clear the one of two passes later without a second barrier.
-// The passes stop early once every key that shares the digits found so
-// far is kept (in f32 Gaussian windows usually after two or three).  So a
-// window takes at most 6 barriers in f32 (one to start, one a pass, one
-// for the ties) and 4 in bf16, against the 32 of a 31-step bisection on
-// the key with a block-wide count a step.  When the last pass still
+// Selection: the radix select of radix_select.cuh, which finds the k-th
+// largest magnitude a digit at a time from 256-bin histograms, one barrier
+// a pass, and stops early once every key that shares the digits found so
+// far is kept (in f32 Gaussian windows usually after two or three passes).
+// So a window takes at most 6 barriers in f32 (one to start, one a pass,
+// one for the ties) and 4 in bf16, against the 32 of a 31-step bisection
+// on the key with a block-wide count a step.  When the last pass still
 // leaves more ties at the k-th key than fit, they get their rank in index
 // order from a block-wide exclusive prefix of per-thread tie counts.
 //
@@ -52,44 +43,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radix_select.cuh"
+
 namespace {
 
-constexpr int kBlock = 2048;             // wire_formats.PACK_BLOCK
-constexpr int kVec = 8;
-constexpr int kThreads = kBlock / kVec;  // 256
-constexpr int kWarps = kThreads / 32;
-constexpr int kBins = 256;               // == kThreads: a bin a thread
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-struct Key;
-
-template <>
-struct Key<float> {
-  static constexpr int kPasses = 4;
-  static constexpr int kTop = 31;   // key bits
-  // digit `pass`: bits [shift, shift + width)
-  __host__ __device__ static constexpr int shift(int pass) {
-    return pass == 0 ? 23 : pass == 1 ? 15 : pass == 2 ? 7 : 0;
-  }
-  __host__ __device__ static constexpr int width(int pass) {
-    return pass == 3 ? 7 : 8;
-  }
-  __device__ static uint32_t key(uint32_t raw) { return raw & 0x7fffffffu; }
-};
-
-template <>
-struct Key<__nv_bfloat16> {
-  static constexpr int kPasses = 2;
-  static constexpr int kTop = 15;
-  __host__ __device__ static constexpr int shift(int pass) {
-    return pass == 0 ? 7 : 0;
-  }
-  __host__ __device__ static constexpr int width(int pass) {
-    return pass == 0 ? 8 : 7;
-  }
-  __device__ static uint32_t key(uint32_t raw) { return raw & 0x7fffu; }
-};
+using radix_select::kBins;
+using radix_select::kBlock;
+using radix_select::kThreads;
+using radix_select::kVec;
+using radix_select::kWarps;
+using radix_select::Key;
+using radix_select::warp_incl_scan;
 
 // the raw bits of 8 consecutive elements (bf16 in the low 16 bits)
 __device__ __forceinline__ void load8(const float* p, uint32_t raw[kVec]) {
@@ -122,15 +86,6 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p,
                  o[4] | (o[5] << 16), o[6] | (o[7] << 16));
 }
 
-__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int n = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v += n;
-  }
-  return v;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 block_topk_kernel(const T* __restrict__ x, T* __restrict__ out, int k) {
@@ -146,61 +101,12 @@ block_topk_kernel(const T* __restrict__ x, T* __restrict__ out, int k) {
   load8(x + at, raw);
   __syncthreads();
 
-  // the k-th largest key, a digit at a time: prefix holds the digits
-  // found (the key's bits from `low` up), krem the rank still sought
-  // among the keys that share them (the keys above them are known to be
-  // larger), eq how many keys share them.  Once eq == krem every key that
-  // shares the prefix is kept, and the lower digits need not be found:
-  // the passes stop (all threads take the same branch).
-  uint32_t prefix = 0u;
-  int krem = k, eq = 0, low = KT::kTop;
-#pragma unroll
-  for (int pass = 0; pass < KT::kPasses; ++pass) {
-    const int shift = KT::shift(pass);
-    const int high = shift + KT::width(pass);
-    const uint32_t mask = (1u << KT::width(pass)) - 1u;
-    int* hb = hist + (pass % 3) * kBins;
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      const uint32_t key = KT::key(raw[j]);
-      if (high >= KT::kTop || (key >> high) == prefix) {
-        atomicAdd(hb + ((key >> shift) & mask), 1);
-      }
-    }
-    __syncthreads();
-    // every reader of pass - 1's histogram passed the barrier above
-    hist[((pass + 2) % 3) * kBins + t] = 0;
-    // this lane's bins, from the top: 255 - 8 lane - v
-    const int4 lo = hist4[pass % 3][(kBins - 8 - 8 * lane) / 4];
-    const int4 hi = hist4[pass % 3][(kBins - 4 - 8 * lane) / 4];
-    const int c[8] = {hi.w, hi.z, hi.y, hi.x, lo.w, lo.z, lo.y, lo.x};
-    int sum = 0;
-#pragma unroll
-    for (int v = 0; v < 8; ++v) sum += c[v];
-    const int incl = warp_incl_scan(sum, lane);
-    const int excl = incl - sum;
-    const unsigned hit = __ballot_sync(kFull, excl < krem && krem <= incl);
-    const int src = __ffs(hit) - 1;
-    int digit = 0, run = excl, cnt = 0;
-    bool found = false;
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      if (!found && run + c[v] >= krem) {
-        digit = kBins - 1 - 8 * lane - v;
-        cnt = c[v];
-        found = true;
-      } else if (!found) {
-        run += c[v];
-      }
-    }
-    digit = __shfl_sync(kFull, digit, src);
-    run = __shfl_sync(kFull, run, src);
-    eq = __shfl_sync(kFull, cnt, src);
-    krem -= run;
-    prefix = (prefix << KT::width(pass)) | (uint32_t)digit;
-    low = shift;
-    if (eq == krem) break;
-  }
+  // the k-th largest key, a digit at a time; once eq == krem every key
+  // that shares the prefix is kept, and the lower digits are not needed
+  const radix_select::Found f = radix_select::select<T>(raw, k, hist4, t,
+                                                        lane);
+  const uint32_t prefix = f.prefix;
+  const int krem = f.krem, eq = f.eq, low = f.low;
   // k - krem keys have a prefix above `prefix`; the first krem (>= 1) of
   // the eq that share it, in index order, are kept.  The branch is the
   // same in every thread.

@@ -28,7 +28,8 @@
 // instance (bf16, P' = N' = 64).
 //
 // Products.  All four run on the tensor cores as mma.sync.m16n8k16 with
-// bf16 operands and f32 accumulation.  mma.sync takes the 16 x 8 tiles
+// bf16 operands and f32 accumulation (the copy, fragment-load, mma and
+// split helpers are in mma_sm90.cuh, shared with rwkv6_chunk.cu).  mma.sync takes the 16 x 8 tiles
 // that the small (P, N) instances need, and since the bytes and not the
 // tensor rate bound the kernel, wgmma's wider tiles would buy nothing
 // here.  bf16 rather than TF32: on this card an m16n8k8 TF32 mma.sync
@@ -107,7 +108,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace mma_sm90;
 
 constexpr int kC = 64;   // chunk length: kernels/ref.py SSD_CHUNK
 
@@ -130,99 +135,10 @@ struct Cfg {
   static constexpr int kMinBlocks = sizeof(T) == 2 ? 2 : 1;
 };
 
-// chunk index of (row t, chunk ch) in a [64][CPR-chunk] tile, XOR-swizzled
-// so that 8 rows of one column chunk fall in 8 distinct 16-B bank groups
-template <int CPR>
-__device__ __forceinline__ int swz(int t, int ch) {
-  constexpr int kRpw = CPR >= 8 ? 1 : 8 / CPR;   // rows a 128-B window
-  constexpr int kXm = CPR >= 8 ? 7 : CPR - 1;
-  return t * CPR + (ch ^ ((t / kRpw) & kXm));
-}
-
 // element offset of (t, p) in a warp's [64][16] f32 xh slice (4 chunks a
 // row, swizzled by row pairs: the fragment reads are at most 2-way)
 __device__ __forceinline__ int xoff(int t, int p) {
   return (t * 4 + ((p >> 2) ^ ((t >> 1) & 3))) * 4 + (p & 3);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(row))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(row))
-      : "memory");
-}
-
-// d += a b: m16n8k16, bf16 operands, f32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as a bf16 pair hi (x0 in the low half) and the pair of the
-// residuals lo: hi + lo carries 16 significant bits of each
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
-// (x0, x1) as three bf16 pairs a1 + a2 + a3: 24 significant bits of each
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& a1,
-                                       uint32_t& a2, uint32_t& a3) {
-  const __nv_bfloat162 h1 = __floats2bfloat162_rn(x0, x1);
-  const float2 f1 = __bfloat1622float2(h1);
-  const float r0 = x0 - f1.x, r1 = x1 - f1.y;
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(r0, r1);
-  const float2 f2 = __bfloat1622float2(h2);
-  a1 = bits(h1);
-  a2 = bits(h2);
-  a3 = bits(__floats2bfloat162_rn(r0 - f2.x, r1 - f2.y));
 }
 
 // The swizzle repeats every 16 rows (swz<CPR>(16 g + t, c) = 16 g CPR +
@@ -235,9 +151,7 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& a1,
 template <int NW>
 __device__ __forceinline__ void load_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                        const __nv_bfloat16* m, int n0, int lane) {
-  constexpr int kCpr = NW / 8;
-  const int t = (lane & 7) + 8 * ((lane >> 3) & 1);
-  ldsm_x4(hi, m + swz<kCpr>(t, (n0 >> 3) + (lane >> 4)) * 8);
+  ldsm_a<NW>(hi, m, n0, lane);
   (void)lo;
 }
 
@@ -263,9 +177,7 @@ __device__ __forceinline__ void load_b_rows(uint32_t (&hi)[4],
                                             uint32_t (&lo)[4],
                                             const __nv_bfloat16* m, int n0,
                                             int lane) {
-  constexpr int kCpr = NW / 8;
-  const int s = (lane & 7) + 8 * (lane >> 4);
-  ldsm_x4(hi, m + swz<kCpr>(s, (n0 >> 3) + ((lane >> 3) & 1)) * 8);
+  ldsm_b_rows<NW>(hi, m, n0, lane);
   (void)lo;
 }
 
@@ -293,9 +205,7 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&hi)[4],
                                             uint32_t (&lo)[4],
                                             const __nv_bfloat16* m, int n0,
                                             int lane) {
-  constexpr int kCpr = NW / 8;
-  const int t = (lane & 7) + 8 * ((lane >> 3) & 1);
-  ldsm_x4_t(hi, m + swz<kCpr>(t, (n0 >> 3) + (lane >> 4)) * 8);
+  ldsm_b_cols<NW>(hi, m, n0, lane);
   (void)lo;
 }
 

@@ -20,15 +20,33 @@
 // matmuls because a TPU has no scatter; here survivors are ranked with a
 // warp ballot and written directly, and unpack scatters into shared memory.
 //
+// topk_pack's threshold.  The bisection (wire_formats.bisect_threshold)
+// starts from lo = 0, hi = max |x| and takes N_BISECT_ITERS steps of mid =
+// 0.5 (lo + hi), lo = mid where count(|x| >= mid) >= k, else hi = mid.
+// That count is >= k exactly when mid <= a_k, the k-th largest magnitude
+// counted with multiplicity (if mid <= a_k the k largest are all >= mid;
+// if mid > a_k at most the k - 1 above a_k are).  So the final lo is a
+// function of max |x| and a_k alone, and the kernel finds a_k with the
+// radix select of radix_select.cuh (a digit at a time, one barrier a pass,
+// an early stop; then the smallest key of the last bucket), the max beside
+// it at no extra barrier, and runs the 24 steps on two scalars: no count
+// sweeps, bitwise the plain version's lo.  The first k elements with |x|
+// >= lo, in index order, take their rank from a block-wide exclusive
+// prefix (warp ballots and scans, then the warps' totals).
+//
 // What bounds them on an H100.  By bytes, the packs read 4 B (top-k) or
 // 8 B (qsgd: values and noise) per element and the unpacks write 4 B per
-// element; every kernel moves under 10 B per element.  topk_pack also does
-// 24 compare-and-count sweeps of its window, about 50 integer operations
-// per element, so at small sizes it is bound by the latency of one warp's
-// sweeps rather than by either rate.  The designs:
-//   * topk_pack: one warp per window, 64 values in registers per lane
-//     (lane l of step s holds element 32 s + l, so loads coalesce); the
-//     counts are warp reductions, no barrier and no shared memory.
+// element; every kernel moves under 10 B per element.  At the wire's few
+// hundred windows the launch and the latency of a CTA's loads, barriers
+// and scans set the time.  The designs:
+//   * topk_pack: one CTA of 256 threads per window, 8 consecutive elements
+//     a thread in registers (two 16-byte loads); 3 to 7 barriers a window
+//     (one to start, one a digit pass, typically 2 or 3 on Gaussian
+//     windows, one for the bucket's minimum after an early stop, one for
+//     the compaction's prefix), against 24 count sweeps of one warp before.
+//     On the MLP's 280 windows the select takes about half the time, the
+//     launch, loads and compaction a third, the bisection a tenth
+//     (PERF.md section 6).
 //   * topk_unpack: one CTA per window; the window is built in shared
 //     memory and stored with 16-byte writes.
 //   * qsgd_pack: one CTA of 256 threads per window, 8 consecutive elements
@@ -49,73 +67,102 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radix_select.cuh"
+
 namespace {
 
 constexpr int kBlock = 2048;            // wire_formats.PACK_BLOCK
 constexpr int kIters = 24;              // wire_formats.N_BISECT_ITERS
-constexpr int kPerLane = kBlock / 32;   // values a lane holds in topk_pack
-constexpr int kPackWarps = 2;           // windows per CTA in topk_pack
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(kThreads == radix_select::kThreads, "one CTA a window");
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  }
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(32 * kPackWarps)
+__global__ void __launch_bounds__(kThreads)
 topk_pack_kernel(const float* __restrict__ rows,
                  __nv_bfloat16* __restrict__ vals,
-                 uint16_t* __restrict__ idx, int64_t nb, int k) {
-  const int lane = threadIdx.x & 31;
-  const int64_t w = (int64_t)blockIdx.x * kPackWarps + (threadIdx.x >> 5);
-  if (w >= nb) return;  // the whole warp leaves together
-  const float* row = rows + w * kBlock;
-  float x[kPerLane];
-  float hi = 0.0f;
+                 uint16_t* __restrict__ idx, int k) {
+  using radix_select::kBins;
+  using radix_select::kVec;
+  using radix_select::kWarps;
+  using KT = radix_select::Key<float>;
+  __shared__ int4 hist4[3][kBins / 4];
+  __shared__ uint32_t warp_max[kWarps];
+  __shared__ uint32_t warp_min[kWarps];
+  __shared__ int warp_keep[kWarps];
+  int* hist = reinterpret_cast<int*>(hist4);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t w = blockIdx.x;
+  hist[t] = 0;           // the select's first two histograms
+  hist[kBins + t] = 0;
+  const uint4* src = reinterpret_cast<const uint4*>(rows + w * kBlock) + 2 * t;
+  const uint4 a = __ldg(src), b = __ldg(src + 1);
+  const uint32_t raw[kVec] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  // the largest key, published at the select's first barrier
+  uint32_t top = 0u;
 #pragma unroll
-  for (int s = 0; s < kPerLane; ++s) {
-    x[s] = __ldg(row + 32 * s + lane);
-    hi = fmaxf(hi, fabsf(x[s]));
+  for (int j = 0; j < kVec; ++j) top = max(top, KT::key(raw[j]));
+  top = __reduce_max_sync(kFull, top);
+  if (lane == 0) warp_max[warp] = top;
+  __syncthreads();
+
+  const radix_select::Found f =
+      radix_select::select<float>(raw, k, hist4, t, lane);
+  uint32_t kth = f.prefix;   // every pass ran: the digits are the whole key
+  if (f.eq == f.krem && f.low > 0) {
+    // an early stop: the k-th largest key is the smallest of the bucket
+    // (the keys that share the prefix), all of which rank within k
+    uint32_t m = 0xffffffffu;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const uint32_t key = KT::key(raw[j]);
+      if ((key >> f.low) == f.prefix) m = min(m, key);
+    }
+    m = __reduce_min_sync(kFull, m);
+    if (lane == 0) warp_min[warp] = m;
+    __syncthreads();
+    kth = warp_min[0];
+#pragma unroll
+    for (int i = 1; i < kWarps; ++i) kth = min(kth, warp_min[i]);
   }
-  hi = warp_max(hi);
-  // bisection: every lane holds the same lo / hi after each warp count
-  float lo = 0.0f;
+  top = warp_max[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) top = max(top, warp_max[i]);
+
+  // the bisection on two scalars: count(|x| >= mid) >= k iff mid <= a_k
+  const float a_k = __uint_as_float(kth);
+  float lo = 0.0f, hi = __uint_as_float(top);
+#pragma unroll
   for (int it = 0; it < kIters; ++it) {
     const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    int cnt = 0;
-#pragma unroll
-    for (int s = 0; s < kPerLane; ++s) cnt += fabsf(x[s]) >= mid;
-    if (warp_sum(cnt) >= k) {
+    if (mid <= a_k) {
       lo = mid;
     } else {
       hi = mid;
     }
   }
+
   // compaction in index order: rank = survivors at lower indices
-  const unsigned below = (1u << lane) - 1u;
+  bool keep[kVec];
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    keep[j] = __uint_as_float(KT::key(raw[j])) >= lo;
+    cnt += keep[j];
+  }
+  const int incl = radix_select::warp_incl_scan(cnt, lane);
+  if (lane == 31) warp_keep[warp] = incl;
+  __syncthreads();
+  int rank = incl - cnt;
+  for (int i = 0; i < warp; ++i) rank += warp_keep[i];
   __nv_bfloat16* v_out = vals + w * k;
   uint16_t* i_out = idx + w * k;
-  int base = 0;
 #pragma unroll
-  for (int s = 0; s < kPerLane; ++s) {
-    const bool keep = fabsf(x[s]) >= lo;
-    const unsigned ballot = __ballot_sync(kFull, keep);
-    const int rank = base + __popc(ballot & below);
-    if (keep && rank < k) {
-      v_out[rank] = __float2bfloat16_rn(x[s]);
-      i_out[rank] = (uint16_t)(32 * s + lane);
+  for (int j = 0; j < kVec; ++j) {
+    if (keep[j] && rank < k) {
+      v_out[rank] = __float2bfloat16_rn(__uint_as_float(raw[j]));
+      i_out[rank] = (uint16_t)(kVec * t + j);
     }
-    base += __popc(ballot);
+    rank += keep[j];
   }
 }
 
@@ -217,11 +264,11 @@ inline bool qsgd_layout_ok(int bits, int epw, int nwords) {
 
 extern "C" int topk_pack(const void* rows, void* vals, void* idx, int64_t nb,
                          int k, void* stream) {
-  if (nb < 1 || k < 1 || k > kBlock) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (nb + kPackWarps - 1) / kPackWarps;
-  topk_pack_kernel<<<(unsigned)blocks, 32 * kPackWarps, 0,
-                     (cudaStream_t)stream>>>(
-      (const float*)rows, (__nv_bfloat16*)vals, (uint16_t*)idx, nb, k);
+  if (nb < 1 || nb > 0x7fffffff || k < 1 || k > kBlock) {
+    return (int)cudaErrorInvalidValue;
+  }
+  topk_pack_kernel<<<(unsigned)nb, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)rows, (__nv_bfloat16*)vals, (uint16_t*)idx, k);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,8 @@ Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, which is loaded with ``ctypes``.  The build runs at first use,
 from the sources in the checkout only, into ``build/kernels/`` at the root
 of the checkout (listed in ``.gitignore``).  A library's file name carries a
-hash of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing here runs at import time: the CPU tests
+hash of its source, the shared headers and the flags, so an edited source
+or header is rebuilt and a stale library is never loaded.  Nothing here runs at import time: the CPU tests
 import every module on a machine without ``nvcc``.
 """
 
@@ -45,9 +45,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives once built."""
+    """Where the library of ``csrc/<name>.cu`` lives once built.  The hash
+    covers the source, the shared headers ``csrc/*.cuh`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

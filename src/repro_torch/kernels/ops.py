@@ -342,8 +342,9 @@ def rwkv6_scan(r, k, v, logw, u, s0):
     r, k, v, logw: ``(B, S, H, N)`` with ``S % 16 == 0``; u: ``(H, N)``;
     s0: ``(B, H, N, N)``.  Returns (o ``(B, S, H, N)`` f32, s_final
     ``(B, H, N, N)`` f32).  On the card: r, k, v contiguous and all bf16 or
-    all f32, logw and s0 contiguous f32, N one of
-    :data:`repro_torch.kernels.rwkv6_chunk.HEAD_DIMS`; u is taken to f32.
+    all f32, logw and s0 contiguous f32, 1 <= N <= 64 (padded on chip to a
+    width of :data:`repro_torch.kernels.rwkv6_chunk.WIDTHS`); u is taken to
+    f32.
     """
     if r.dim() != 4:
         raise ValueError(f"rwkv6_scan takes (B, S, H, N) operands, got "
@@ -377,9 +378,10 @@ def rwkv6_scan(r, k, v, logw, u, s0):
         raise TypeError(f"rwkv6_scan takes r, k, v all bf16 or all f32 and "
                         f"f32 logw and s0, got "
                         f"{[t.dtype for t in operands]}")
-    if n not in _rw.HEAD_DIMS:
-        raise ValueError(f"the rwkv6_chunk kernel takes head dims "
-                         f"{_rw.HEAD_DIMS}, got N = {n}")
+    if not 1 <= n <= max(_rw.WIDTHS):
+        raise ValueError(f"the rwkv6_chunk kernel takes N in [1, "
+                         f"{max(_rw.WIDTHS)}], got N = {n} (wider heads: "
+                         f"ROADMAP queue 2 item 11)")
     if not all(t.is_contiguous() for t in (r, k, v, logw, s0)):
         raise ValueError("rwkv6_scan needs contiguous operands on the card")
     out = _rw.rwkv6_chunk(r, k, v, logw, u.to(_F32).contiguous(), s0)

@@ -8,8 +8,10 @@ the RWKV6 recurrence
     o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
 
 over chunks of ``ref.RWKV_CHUNK`` tokens, with the f32 state kept on chip from
-chunk to chunk.  It reads the ``(B, S, H, N)`` layout in place.  This
-function only allocates and launches: operand checks, the CPU dispatch and
+chunk to chunk, its products on the tensor cores.  It reads the ``(B, S, H,
+N)`` layout in place.  It is instantiated for head dims of :data:`WIDTHS`;
+any N in [1, 64] runs in the smallest width that holds it, zero-padded on
+chip.  This function only allocates and launches: operand checks, the CPU dispatch and
 the launch counter live in :mod:`repro_torch.kernels.ops`.  The library is
 built and loaded on the first call, never at import.
 """
@@ -23,9 +25,9 @@ import torch
 
 from . import build
 
-__all__ = ["HEAD_DIMS", "rwkv6_chunk"]
+__all__ = ["WIDTHS", "rwkv6_chunk"]
 
-HEAD_DIMS = (16, 32, 64)   # the head dims the kernel is instantiated for
+WIDTHS = (16, 32, 64)   # the head dims the kernel is instantiated for
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

@@ -31,6 +31,8 @@ from repro_torch import convert
 from repro_torch.core import compression as TCMP
 from repro_torch.kernels import ops, ref
 
+import radix_select_emulation as RSE
+
 torch.set_num_threads(1)
 
 BLOCK = 2048
@@ -145,49 +147,13 @@ def test_top_k_keeps_the_whole_row_sort():
 
 # -- the CUDA kernel's selection, emulated on the CPU ------------------------
 #
-# ``csrc/block_topk.cu`` orders |x| as the integer key bits & 0x7fffffff
-# (f32) or bits & 0x7fff (bf16) and finds the k-th largest key a digit at
-# a time, most significant first, from a 256-bin histogram of the digits of
-# the keys that share the digits found so far.  It stops once all of those
-# keys are kept (their count equals the rank still sought); else the ties
-# at the k-th key are ranked in index order.
+# ``csrc/block_topk.cu`` finds the k-th largest key with the radix select of
+# ``csrc/radix_select.cuh`` (emulated in ``radix_select_emulation``: a digit
+# at a time from 256-bin histograms, stopping once every key that shares
+# the digits found is kept); else the ties at the k-th key are ranked in
+# index order.
 
-_PASSES = {4: ((23, 8), (15, 8), (7, 8), (0, 7)), 2: ((7, 8), (0, 7))}
-_TOP = {4: 31, 2: 15}
-
-
-def _radix_select(win, k, passes=None):
-    """The kernel's selection on an ``(nb, 2048)`` numpy f32 or bf16
-    array; returns the same dtype, +0.0 where not kept.  ``passes``, a
-    list, gets the number of digit passes each window took."""
-    size = win.dtype.itemsize
-    raw = win.view({4: np.uint32, 2: np.uint16}[size]).astype(np.int64)
-    keys = raw & ((1 << _TOP[size]) - 1)
-    out = np.zeros_like(raw)
-    for w, key in enumerate(keys):
-        prefix, krem, low = 0, k, _TOP[size]
-        for n_pass, (shift, width) in enumerate(_PASSES[size], 1):
-            high = shift + width
-            sel = key if high >= _TOP[size] else key[(key >> high) == prefix]
-            hist = np.bincount((sel >> shift) & ((1 << width) - 1),
-                               minlength=256)
-            cum = np.cumsum(hist[::-1])            # counts from the top bin
-            at = int(np.argmax(cum >= krem))
-            digit = 255 - at
-            eq = int(hist[digit])
-            krem -= int(cum[at]) - eq
-            prefix, low = (prefix << width) | digit, shift
-            if eq == krem:
-                break
-        if passes is not None:
-            passes.append(n_pass)
-        if eq == krem:
-            keep = (key >> low) >= prefix
-        else:
-            keep = key > prefix
-            keep[np.flatnonzero(key == prefix)[:krem]] = True
-        out[w] = np.where(keep, raw[w], 0)
-    return out.astype({4: np.uint32, 2: np.uint16}[size]).view(win.dtype)
+_radix_select = RSE.radix_select
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

@@ -17,6 +17,10 @@ Tolerances, each with its reason:
   window within one quantisation step times the scale, with at most 0.1 %
   of the codes different (a code moves only when its uniform falls within
   an ulp-sized sliver of the rounding probability);
+* exact, too: ``topk_pack``'s threshold from the k-th largest magnitude
+  and an emulation of the CUDA kernel's selection, on the magnitudes each
+  package computes with (XLA on the CPU flushes subnormals, the port does
+  not);
 * the Pallas kernel in interpret mode: its qsgd scale within 1 ulp even on
   exact sums, because under jit XLA turns the division by the constant
   ``levels * (1 + omega)`` into a product with its reciprocal, which the
@@ -34,6 +38,8 @@ from repro.kernels import ops as jops
 from repro_torch import convert
 from repro_torch.core import wire_formats as TWF
 from repro_torch.kernels import ops as tops
+
+import radix_select_emulation as RSE
 
 torch.set_num_threads(1)
 
@@ -248,3 +254,141 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="no registered bit-packed"):
         TWF.make_wire_format("random_k", frac=0.1)
     assert all(v == 0 for v in tops.LAUNCHES.values())
+
+
+# -- the CUDA topk_pack kernel's selection, emulated on the CPU -------------
+#
+# ``csrc/wire_pack.cu`` does not sweep the window once a bisection step.  In
+# ``bisect_threshold`` the test count(|x| >= mid) >= k holds exactly when
+# mid <= a_k, the k-th largest magnitude counted with multiplicity, so the
+# 24 steps run on two scalars, max |x| and a_k; a_k comes from the radix
+# select of ``csrc/radix_select.cuh`` (``radix_select_emulation``), and the
+# first k elements with |x| >= lo are compacted in index order.  Every
+# check is bitwise.
+#
+# Subnormal magnitudes: XLA on the CPU flushes f32 subnormals to zero (as a
+# TPU does), so the reference's threshold is that of the flushed
+# magnitudes; the port (PyTorch on the CPU, and the CUDA kernel) computes
+# with them.  The tests hold the port to the identity on the magnitudes and
+# the reference to the identity on the flushed ones (ROADMAP queue 3).
+
+EDGE_KINDS = ("gauss", "ints", "sparse", "zeros", "negzero", "huge",
+              "subnormal", "equal")
+EDGE_KS = (1, 102, 512, 2048)
+_TINY = np.finfo(np.float32).tiny
+
+
+def _edge_windows(kind, seed):
+    """Two f32 windows that stress the threshold: small-integer ties, fewer
+    nonzeros than k, all zeros, -0.0 among zeros, one huge value (whose
+    bisection overflows to inf in the reference too), subnormal magnitudes,
+    one repeated value."""
+    rng = np.random.default_rng(seed)
+    shape = (2, 2048)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if kind == "ints":
+        x = rng.integers(-3, 4, shape).astype(np.float32)
+    elif kind == "sparse":
+        x = np.where(rng.random(shape) < 0.02, x, 0.0).astype(np.float32)
+    elif kind == "zeros":
+        x = np.zeros(shape, np.float32)
+    elif kind == "negzero":
+        x = np.where(rng.random(shape) < 0.5, np.float32(-0.0),
+                     np.float32(0.0))
+        x[:, 7] = 1.5
+    elif kind == "huge":
+        x[:, 100] = 3e38
+    elif kind == "subnormal":
+        x = (x * np.float32(1e-39)).astype(np.float32)
+    elif kind == "equal":
+        x = np.full(shape, -0.75, np.float32)
+    return x
+
+
+def _flushed(a):
+    """Magnitudes as XLA on the CPU computes with them: subnormals as 0."""
+    return np.where(a < _TINY, np.float32(0.0), a).astype(np.float32)
+
+
+def _bisect_from_kth(top, a_k):
+    """``N_BISECT_ITERS`` steps of the reference's bisection driven by the
+    k-th largest magnitude: mid <= a_k stands for count(|x| >= mid) >= k."""
+    lo, hi = np.float32(0.0), np.float32(top)
+    with np.errstate(over="ignore"):
+        for _ in range(TWF.N_BISECT_ITERS):
+            mid = np.float32(np.float32(lo + hi) * np.float32(0.5))
+            if mid <= a_k:
+                lo = mid
+            else:
+                hi = mid
+    return lo
+
+
+def _from_kth(a, k):
+    """The scalar bisection of each row of magnitudes ``a``, a_k from a
+    sort."""
+    return np.array([_bisect_from_kth(row.max(), np.sort(row)[::-1][k - 1])
+                     for row in a], np.float32)
+
+
+def _emulate_topk_pack(rows, k, flush=False):
+    """The kernel's arithmetic: a_k by the radix select, the max, the
+    scalar bisection, the compaction in index order (on flushed magnitudes
+    with ``flush``).  Returns (bf16 bit patterns as uint16, int16 indices),
+    each ``(nb, k)``."""
+    raw, keys = RSE.keys(rows)
+    if flush:
+        keys = np.where(keys < _TINY.view(np.uint32), 0, keys)
+    vals = np.zeros((rows.shape[0], k), np.uint16)
+    idx = np.zeros((rows.shape[0], k), np.int16)
+    for w, key in enumerate(keys):
+        a_k = np.uint32(RSE.kth_key(key, k, 4)).view(np.float32)
+        top = np.uint32(key.max()).view(np.float32)
+        lo = _bisect_from_kth(top, a_k)
+        keep = np.flatnonzero(key.astype(np.uint32).view(np.float32)
+                              >= lo)[:k]
+        vals[w] = _bits(np.asarray(jnp.asarray(rows[w, keep], jnp.bfloat16)))
+        idx[w] = keep
+    return vals, idx
+
+
+@pytest.mark.parametrize("k", EDGE_KS)
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_bisection_from_the_kth_magnitude_equals_bisect_threshold(kind, k):
+    """The 24 scalar steps driven by a_k (from a sort) give the port's
+    ``bisect_threshold`` bitwise, and the reference's on the magnitudes it
+    computes with (the same ones unless subnormal)."""
+    a = np.abs(_edge_windows(kind, seed=k + len(kind)))
+    got = _from_kth(a, k)
+    port = TWF.bisect_threshold(torch.from_numpy(a), k).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(port))
+    want = jax.jit(jax.vmap(lambda r: JWF.bisect_threshold(r, k)))(a)
+    np.testing.assert_array_equal(_bits(_from_kth(_flushed(a), k)),
+                                  _bits(want))
+    if kind != "subnormal":
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("k", EDGE_KS)
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_kernel_topk_pack_emulation_equals_plain_and_reference(kind, k):
+    """The emulated kernel (radix select, scalar bisection, index-order
+    compaction) against the port's plain ``topk_pack_ref`` and, on the
+    magnitudes the reference computes with, the reference's
+    ``topk_pack_ref``, bitwise; the selected a_k is the k-th largest key
+    of a sort."""
+    rows = _edge_windows(kind, seed=k + 2 * len(kind))
+    vals, idx = _emulate_topk_pack(rows, k)
+    p_vals, p_idx = tops.wire_topk_pack(torch.from_numpy(rows), k)
+    np.testing.assert_array_equal(vals, _np(p_vals))
+    np.testing.assert_array_equal(idx, _np(p_idx))
+    j_vals, j_idx = _topk_pack_ref(jnp.asarray(rows), k)
+    f_vals, f_idx = _emulate_topk_pack(rows, k, flush=True)
+    np.testing.assert_array_equal(f_vals, _bits(j_vals))
+    np.testing.assert_array_equal(f_idx.view(np.uint16), np.asarray(j_idx))
+    if kind != "subnormal":
+        np.testing.assert_array_equal(vals, f_vals)
+        np.testing.assert_array_equal(idx, f_idx)
+    _, keys = RSE.keys(rows)
+    for key in keys:
+        assert RSE.kth_key(key, k, 4) == np.sort(key)[::-1][k - 1]

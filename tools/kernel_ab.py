@@ -1,13 +1,25 @@
-"""Device µs of ``ssd_chunk`` and ``block_topk``, and optionally the
-zamba2-7b prefill, for the port in a given source tree, on one card: the
-kernels at the shapes ``chip_smoke.py`` phases 7 and 8 time (the SSD scan
-at 4 x 512 tokens, 112 heads x 64, state 64, bf16 and f32 B / C, and at 2 x
-4096 tokens; the top-k on 250 windows and on 8,192 windows of 2048, k =
-102, f32 and bf16), each from CUDA events over inputs that exceed L2, and
-the prefill as ``launch.serve.generate`` times it (batch 4 x prompt 512,
-synchronized wall clock, median of 3 after a warm call).
+"""Device µs of the redesigned scan and top-k kernels, and optionally the
+two served models' prefills, for the port in a given source tree, on one
+card: the kernels at the shapes ``chip_smoke.py`` phases 5-8 time, each
+from CUDA events over inputs that exceed L2:
 
-    python3 tools/kernel_ab.py [--src SRC] [--label LABEL] [--prefill]
+- ``ssd_chunk`` at 4 x 512 tokens, 112 heads x 64, state 64, bf16 and f32
+  B / C, and at 2 x 4096 tokens;
+- ``rwkv6_chunk`` at 4 x 512 tokens, 64 heads x 64, bf16 and f32 r, k, v,
+  and at 2 x 4096 tokens;
+- ``block_topk`` on 250 and 8,192 windows of 2048, k = 102, f32 and bf16;
+- ``topk_pack`` on 280 (the MLP's codec rows) and 8,192 windows, k = 102;
+
+and with ``--prefill`` the zamba2-7b and rwkv6-7b prefills as
+``launch.serve.generate`` times them (batch 4 x prompt 512, synchronized
+wall clock, median of 3 after a warm call; each model freed before the
+next is drawn).  ``--ptxas`` first compiles the tree's scan and top-k
+sources with ``-Xptxas -v`` and prints each kernel's registers and spills.
+Each kernel cell also prints a SHA-256 digest of the outputs of its first
+input set; the inputs come from one seed in a fixed order, so two trees
+whose kernels compute bitwise alike print the same digests.
+
+    python3 tools/kernel_ab.py [--src SRC] [--label LABEL] [--prefill] [--ptxas]
 
 SRC is the ``src`` directory of a checkout (default: this checkout's), so
 two commits can be compared on one card in one call: unpack the other
@@ -20,8 +32,10 @@ one ``[kernel-ab]`` line per measurement and a JSON line of them all.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -29,10 +43,15 @@ ROOT = Path(__file__).resolve().parents[1]
 SSD_CELLS = {"ssd path bf16": ((4, 512, 112, 64, 64), "bf16"),
              "ssd path f32": ((4, 512, 112, 64, 64), "f32"),
              "ssd 2x4096 bf16": ((2, 4096, 112, 64, 64), "bf16")}
+RWKV_CELLS = {"rwkv6 path bf16": ((4, 512, 64, 64), "bf16"),
+              "rwkv6 path f32": ((4, 512, 64, 64), "f32"),
+              "rwkv6 2x4096 bf16": ((2, 4096, 64, 64), "bf16")}
 TOPK_CELLS = {"block_topk 250 f32": (250, "f32"),
               "block_topk 250 bf16": (250, "bf16"),
               "block_topk 8192 f32": (8192, "f32")}
+PACK_CELLS = {"topk_pack 280": 280, "topk_pack 8192": 8192}
 TOPK_K = 102
+PTXAS_SOURCES = ("rwkv6_chunk", "ssd_chunk", "wire_pack", "block_topk")
 
 
 def _sets(cs, make, first_bytes):
@@ -41,11 +60,57 @@ def _sets(cs, make, first_bytes):
     return [make() for _ in range(n_sets)]
 
 
+def _digest(torch, out) -> str:
+    """SHA-256 of the bytes of a kernel's outputs (a tensor or a tuple)."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ptxas(build, label):
+    """Each kernel's registers and spills, as ptxas reports them."""
+    out = Path(build.BUILD_DIR) / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out / f"lib{name}.so"), str(build.CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in PTXAS_SOURCES}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and ("spill" in line or "Used" in line):
+                print(f"[kernel-ab] {label} ptxas {name} {entry}: "
+                      f"{line.strip()}")
+
+
+def _prefill(torch, serve, arch, sc, label):
+    cfg, bundle, params = serve.load(arch, device="cuda", seed=0)
+    tokens = serve.make_prompt(cfg, sc["batch"], sc["prompt"], "cuda", 1)
+    serve.generate(bundle, params, tokens, 1)     # warm
+    times = [1e3 * serve.generate(bundle, params, tokens, 1)["prefill_s"]
+             for _ in range(3)]
+    ms = statistics.median(times)
+    print(f"[kernel-ab] {label} {arch} prefill batch {sc['batch']} x "
+          f"{sc['prompt']}: ms {times}, median {ms:.3f} = "
+          f"{sc['batch'] * sc['prompt'] / ms * 1e3:.1f} tok/s")
+    del cfg, bundle, params, tokens
+    torch.cuda.empty_cache()
+    return ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--prefill", action="store_true")
+    ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -56,12 +121,14 @@ def main(argv=None) -> int:
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
     import repro_torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     print(f"[kernel-ab] {args.label}: repro_torch from "
           f"{Path(repro_torch.__file__).parent}, "
           f"{torch.cuda.get_device_name(0)}")
+    if args.ptxas:
+        _ptxas(build, args.label)
     gen = torch.Generator(device="cuda").manual_seed(12)
-    us = {}
+    us, digest = {}, {}
     with torch.inference_mode():
         for name, (shape, bc) in SSD_CELLS.items():
             first = cs._ssd_inputs(torch, gen, shape, bc)
@@ -70,8 +137,20 @@ def main(argv=None) -> int:
             sets = _sets(cs, lambda: cs._ssd_inputs(torch, gen, shape, bc),
                          moved)
             us[name] = 1e3 * cs.device_time_ms(ops.ssd_scan, sets, 10, 5)
+            digest[name] = _digest(torch, ops.ssd_scan(*sets[0]))
             print(f"[kernel-ab] {args.label} {name} {shape}: {us[name]:.3f} "
-                  f"us")
+                  f"us, outputs {digest[name]}")
+            del sets, first
+        for name, (shape, rkv) in RWKV_CELLS.items():
+            first = cs._rwkv6_inputs(torch, gen, shape, rkv)
+            moved = (sum(t.nbytes for t in first)       # + o and s_final
+                     + 4 * first[0].numel() + first[5].nbytes)
+            sets = _sets(cs, lambda: cs._rwkv6_inputs(torch, gen, shape,
+                                                      rkv), moved)
+            us[name] = 1e3 * cs.device_time_ms(ops.rwkv6_scan, sets, 10, 5)
+            digest[name] = _digest(torch, ops.rwkv6_scan(*sets[0]))
+            print(f"[kernel-ab] {args.label} {name} {shape}: {us[name]:.3f} "
+                  f"us, outputs {digest[name]}")
             del sets, first
         for name, (windows, dt) in TOPK_CELLS.items():
             dtype = torch.float32 if dt == "f32" else torch.bfloat16
@@ -82,25 +161,29 @@ def main(argv=None) -> int:
             nbytes = 2 * windows * cs.PACK_BLOCK * (4 if dt == "f32" else 2)
             sets = _sets(cs, make, nbytes)
             us[name] = 1e3 * cs.device_time_ms(ops.block_topk, sets, 20, 10)
+            digest[name] = _digest(torch, ops.block_topk(*sets[0]))
             print(f"[kernel-ab] {args.label} {name} k={TOPK_K}: "
-                  f"{us[name]:.3f} us")
+                  f"{us[name]:.3f} us, outputs {digest[name]}")
             del sets
-    prefill = None
+        for name, windows in PACK_CELLS.items():
+            def make():
+                return [torch.randn(windows, cs.PACK_BLOCK, generator=gen,
+                                    device="cuda"), TOPK_K]
+            sets = _sets(cs, make, windows * cs.PACK_BLOCK * 4)
+            us[name] = 1e3 * cs.device_time_ms(ops.wire_topk_pack, sets, 20,
+                                               10)
+            digest[name] = _digest(torch, ops.wire_topk_pack(*sets[0]))
+            print(f"[kernel-ab] {args.label} {name} k={TOPK_K}: "
+                  f"{us[name]:.3f} us, outputs {digest[name]}")
+            del sets
+    prefill = {}
     if args.prefill:
         from repro_torch.launch import serve
-        sc = cs.ZAMBA_SERVE
-        cfg, bundle, params = serve.load("zamba2-7b", device="cuda", seed=0)
-        tokens = serve.make_prompt(cfg, sc["batch"], sc["prompt"], "cuda", 1)
-        serve.generate(bundle, params, tokens, 1)     # warm
-        times = [1e3 * serve.generate(bundle, params, tokens, 1)["prefill_s"]
-                 for _ in range(3)]
-        prefill = statistics.median(times)
-        print(f"[kernel-ab] {args.label} zamba2-7b prefill batch "
-              f"{sc['batch']} x {sc['prompt']}: ms {times}, median "
-              f"{prefill:.3f} = {sc['batch'] * sc['prompt'] / prefill * 1e3:.1f}"
-              f" tok/s")
-    print(json.dumps({"label": args.label, "us": us,
-                      "zamba2_prefill_ms": prefill}))
+        for arch, sc in (("zamba2-7b", cs.ZAMBA_SERVE),
+                         ("rwkv6-7b", cs.RWKV_SERVE)):
+            prefill[arch] = _prefill(torch, serve, arch, sc, args.label)
+    print(json.dumps({"label": args.label, "us": us, "outputs": digest,
+                      "prefill_ms": prefill or None}))
     return 0
 
 
