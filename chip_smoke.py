@@ -10,11 +10,16 @@ of the ``repro`` package.  Phases, each printing its own lines:
 0. device: the card's name and power limit (``nvidia-smi``), versions, TF32.
 1. build: compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc`` into
    ``build/kernels/``, one process per source, all at once.
-2. kernels: ``ef_track`` / ``ef_step`` / ``ef_gossip`` (all-f32, and the
-   bf16-operand / f32-output mixes the engine issues under bf16 planes) and
-   ``sr_cast`` against their plain PyTorch versions on the card, bitwise,
-   at the main-path plane sizes and at 2^24 elements, timed with CUDA
-   events beside their bandwidth bound.
+2. kernels: ``ef_track`` / ``ef_step`` / ``ef_gossip`` (all-f32, the
+   bf16-operand / f32-output mixes, and the bf16 mixes with the
+   stochastic-rounding epilogue the engine issues under bf16 planes) and
+   the standalone ``sr_cast`` against their plain PyTorch versions on the
+   card, bitwise, at the main-path plane sizes and at 2^24 elements, timed
+   with CUDA events beside their bandwidth bound; the epilogue variants
+   also bitwise the kernel's own two steps (f32 outputs, then ``sr_cast``)
+   and on edge values (signed zeros, low halves at or above 0x8000,
+   magnitudes near the largest finite bf16), timed beside those two
+   steps.
 3. the Section-5.1 quickstart (PORTER-GC, logistic regression, 10 agents,
    ER(0.8), top-k 5 %) for 400 rounds through ``build`` + ``run_chunked``,
    with f32 and with bf16 EF planes: the ``gn < 0.1`` gate, the bf16 final
@@ -27,8 +32,11 @@ of the ``repro`` package.  Phases, each printing its own lines:
    ``topk_pack`` / ``topk_unpack`` / ``qsgd_pack`` / ``qsgd_unpack``
    against their plain versions, bitwise, at the MLP's and the logreg's
    codec rows and at 2^24 elements (``topk_pack`` also at k = 1 and 2048,
-   and on tie, sparse, zero, -0.0 and all-equal windows), timed beside
-   their bound; then
+   and on tie, sparse, zero, -0.0 and all-equal windows; the QSGD pair at
+   levels 1, 3, 7, 16, 127 and 32767, every way ``qsgd_pack`` builds its
+   words, and ``qsgd_pack`` on zero, one-nonzero, all-negative, -0.0 and
+   subnormal windows), timed beside their bound (QSGD at 7 and 16
+   levels); then
    PORTER-GC on the full-width MLP for 200 rounds on both backends with
    top-k 5 % in f32 and bf16 and QSGD (7 levels) in f32: kernel == ref
    bitwise on x, the launches per round, and the measured wire bytes equal
@@ -122,10 +130,15 @@ PLANES = {"mlp": 10 * 7 * TILE,      # Section-5.2 MLP: d=50,890 -> 7 tiles
 MAIN_PLANE = "mlp"
 GAMMA, ETA, SCALE = 0.0142897, 0.05, 1.0
 # Each variant: its kernel, the dtypes of the EF operands and of slot 2
-# (v / x / y), whether it writes f32, and per element the bytes it must
-# move (each operand read once, each output written once) and its
-# arithmetic operations.  The bf16 mixes are the ones the engine issues
-# under bf16 planes: bf16 EF operands, f32 outputs for the SR writeback.
+# (v / x / y), whether it writes f32, the outputs it rounds stochastically
+# in its epilogue (``sr``), and per element the bytes it must move (each
+# operand read once, each output written once) and its arithmetic
+# operations.  The ``_sr`` mixes are the ones the engine issues under
+# bf16 planes: bf16 EF operands, each bf16 output rounded with its int32
+# word (4 B read and 2 B written an output, an and, an add and a shift).
+# The ``out_f32`` mixes (``_bf16``) are no path's: they are the first step
+# of the two-step reference (f32 outputs, then ``sr_cast``) that the
+# ``_sr`` mixes are held against, checked here as a mode of the kernel.
 VARIANTS = {
     "ef_track": dict(kernel="ef_track", n_in=7, ef="f32", y="f32",
                      out_f32=False, bytes=40, ops=7),
@@ -139,6 +152,17 @@ VARIANTS = {
                          out_f32=True, bytes=5 * 2 + 4 + 3 * 4, ops=7),
     "ef_gossip_bf16": dict(kernel="ef_gossip", n_in=5, ef="bf16", y="f32",
                            out_f32=True, bytes=4 * 2 + 4 + 3 * 4, ops=7),
+    "ef_track_bf16_sr": dict(kernel="ef_track", n_in=7, ef="bf16", y="bf16",
+                             out_f32=False, sr=3,
+                             bytes=7 * 2 + 3 * (4 + 2), ops=7 + 3 * 3),
+    "ef_step_bf16_sr": dict(kernel="ef_step", n_in=6, ef="bf16", y="f32",
+                            out_f32=False, sr=2,
+                            bytes=5 * 2 + 4 + 2 * (4 + 2) + 4,
+                            ops=7 + 2 * 3),
+    "ef_gossip_bf16_sr": dict(kernel="ef_gossip", n_in=5, ef="bf16",
+                              y="f32", out_f32=False, sr=2,
+                              bytes=4 * 2 + 4 + 2 * (4 + 2) + 4,
+                              ops=7 + 2 * 3),
     # f32 in, int32 random words in (low 16 bits used), bf16 out; an and,
     # an add and a shift, counted at the f32 rate
     "sr_cast": dict(kernel="sr_cast", bytes=4 + 4 + 2, ops=3),
@@ -169,7 +193,12 @@ WIRE_ROWS = {"mlp": 10 * 28, "logreg": 10 * 2, "2^24": (1 << 24) // 2048}
 TOPK_K = {"0.05": 102, "0.25": 512}
 # topk_pack alone at the ends of k: the frac 1/2048 and the whole window
 TOPK_PACK_ENDS = {"1/2048": 1, "1": 2048}
-QSGD_LEVELS = (7, 16)
+# QSGD levels: field widths 2, 3, 4, 6, 8 and 16 bits, so every way
+# qsgd_pack builds its words runs (words in registers at 7, 127 and 32767
+# levels, a shuffle joining two threads' halves at 1, shared fields at 3
+# and 16); the kernels are timed at QSGD_TIMED
+QSGD_LEVELS = (1, 3, 7, 16, 127, 32767)
+QSGD_TIMED = (7, 16)
 WIRE_KERNELS = {
     "topk_pack": dict(replaces="src/repro/kernels/wire_pack.py:79",
                       variant="topk_pack k=102"),
@@ -210,25 +239,40 @@ def grad_norm(loss_fn, params, batch) -> float:
     return float(torch.sqrt(sum(torch.sum(g * g) for g in grads)))
 
 
-def device_time_ms(fn, arg_sets, reps: int = 50, inner: int = 20) -> float:
+def device_time_ms(fn, arg_sets, reps: int = 50, inner: int = 20,
+                   cover: bool = False) -> float:
     """Median device time of one call, from CUDA events around ``inner``
     back-to-back calls that rotate through ``arg_sets``.  A sleep kernel
     queued first keeps the card busy while the host enqueues the calls, so
-    the events bracket device work and not the host's launch rate."""
+    the events bracket device work and not the host's launch rate.  With
+    ``cover``, each sample also checks that the sleep was still running
+    when the last call was enqueued (the start event not yet reached); if
+    it was not, the sleep doubles and the samples start again, and a sleep
+    of 2^7 times the first that still ends first raises.  That is for a
+    ``fn`` of several wrapper calls, whose enqueue can outlast the sleep;
+    ``fn`` must not synchronize."""
     import torch
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
+    cycles, samples = 5_000_000, []
+    while len(samples) < reps:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(5_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for i in range(inner):
             fn(*arg_sets[i % len(arg_sets)])
+        late = cover and start.query()
         end.record()
         end.synchronize()
+        if late:
+            if cycles >= 5_000_000 << 7:
+                raise RuntimeError(
+                    f"enqueueing {inner} calls outlasts a sleep of {cycles} "
+                    "cycles: the time would be the host's")
+            cycles, samples = 2 * cycles, []
+            continue
         samples.append(start.elapsed_time(end) / inner)
     return statistics.median(samples)
 
@@ -273,29 +317,74 @@ def bit_equal(torch, a, b) -> bool:
     return torch.equal(a.view(as_int), b.view(as_int))
 
 
+def _words(torch, gen, shape):
+    """Random int32 words over the whole range (the high bits set, to be
+    ignored: only the low 16 round)."""
+    return torch.randint(-(2**31), 2**31 - 1, shape, generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+
+
+# (q, c) pairs, taken to bf16, whose f32 sum q + c is an edge of the
+# stochastic rounding: signed zeros, low halves 0x8000, 0xC000 and 0xFF00,
+# magnitudes whose rounding up passes the largest finite bf16 (0x7F7F8000
+# + r may carry into the exponent), subnormals
+SR_EDGE_QC = ((0.0, 0.0), (-0.0, -0.0), (0.0, -0.0), (1.0, 2.0 ** -8),
+              (-1.0, -2.0 ** -8), (1.0, 1.5 * 2.0 ** -8),
+              (1.0, 255 * 2.0 ** -15), (3.3895314e38, 2.0 ** 119),
+              (-3.3895314e38, -2.0 ** 119), (2.0 ** -130, 2.0 ** -133),
+              (0.1, -0.3))
+
+
 def _variant_fns(torch, ops, ref, name):
-    """(kernel call, plain call, operand maker) of one variant."""
+    """(kernel call, plain call, operand maker, two-step call, edge maker)
+    of one variant; the last two only for the epilogue variants (the
+    kernel's ``out_dtype=f32`` outputs, then ``ops.sr_cast`` on each output
+    given words; operands with q = m and c = wc from ``SR_EDGE_QC``)."""
     v = VARIANTS[name]
     if name == "sr_cast":
         def make(gen, n):
             x = torch.randn(n // TILE, TILE, generator=gen, device=DEVICE)
-            bits = torch.randint(-(2**31), 2**31 - 1, x.shape, generator=gen,
-                                 device=DEVICE, dtype=torch.int32)
-            return [x, bits]
+            return [x, _words(torch, gen, x.shape)]
         return ((lambda *a: (ops.sr_cast(*a),)),
-                (lambda *a: (ref.sr_cast_ref(*a),)), make)
+                (lambda *a: (ref.sr_cast_ref(*a),)), make, None, None)
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
     scalars = {"ef_track": (GAMMA,), "ef_step": (GAMMA, ETA),
                "ef_gossip": (GAMMA, SCALE)}[v["kernel"]]
     od = torch.float32 if v["out_f32"] else None
     kern, plain = getattr(ops, v["kernel"]), getattr(ref, v["kernel"] + "_ref")
+    n_in, n_sr = v["n_in"], v.get("sr", 0)
 
     def make(gen, n):
-        return [torch.randn(n // TILE, TILE, generator=gen, device=DEVICE)
-                .to(dt[v["y"] if i == 2 else v["ef"]])
-                for i in range(v["n_in"])]
-    return ((lambda *a: kern(*a, *scalars, out_dtype=od)),
-            (lambda *a: plain(*a, *scalars, out_dtype=od)), make)
+        return ([torch.randn(n // TILE, TILE, generator=gen, device=DEVICE)
+                 .to(dt[v["y"] if i == 2 else v["ef"]])
+                 for i in range(n_in)]
+                + [_words(torch, gen, (n // TILE, TILE))
+                   for _ in range(n_sr)])
+    if not n_sr:
+        return ((lambda *a: kern(*a, *scalars, out_dtype=od)),
+                (lambda *a: plain(*a, *scalars, out_dtype=od)), make, None,
+                None)
+
+    def words(a):
+        return tuple(a[n_in:]) + (None,) * (3 - n_sr)
+
+    def composite(fn, cast):
+        def call(*a):
+            outs = fn(*a[:n_in], *scalars, out_dtype=torch.float32)
+            return tuple(o if w is None else cast(o, w)
+                         for o, w in zip(outs, words(a)))
+        return call
+
+    def make_edge(gen, n):
+        a = make(gen, n)
+        pairs = torch.tensor(SR_EDGE_QC, device=DEVICE).repeat(
+            -(-n // len(SR_EDGE_QC)), 1)[:n]
+        for slot, col in ((0, 0), (1, 0), (3, 1), (4, 1)):
+            a[slot] = pairs[:, col].reshape(a[slot].shape).to(a[slot].dtype)
+        return a
+    return ((lambda *a: kern(*a[:n_in], *scalars, sr_bits=words(a))),
+            composite(plain, ref.sr_cast_ref), make,
+            composite(kern, ops.sr_cast), make_edge)
 
 
 def phase_kernels(torch, ops, ref):
@@ -304,13 +393,17 @@ def phase_kernels(torch, ops, ref):
     ``ms`` is timed cold: the calls rotate through enough operand sets that
     each call's bytes come from device memory, not from the 50 MB L2 (what
     the HBM bound assumes); ``ms_warm`` repeats one set, whose operands stay
-    in L2 when they fit.
+    in L2 when they fit.  An epilogue variant is also held bitwise against
+    the kernel's own two steps (f32 outputs, then ``sr_cast``), on its
+    random operands and on the edge operands, and ``unfused_ms`` times
+    those two steps.
     """
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     table = {}
     for size_name, n in PLANES.items():
         for name in VARIANTS:
-            kern, plain, make = _variant_fns(torch, ops, ref, name)
+            kern, plain, make, two_step, make_edge = _variant_fns(
+                torch, ops, ref, name)
             per_call = VARIANTS[name]["bytes"] * n
             n_sets = -(-L2_FLUSH_BYTES // per_call) + 1
             sets = [make(gen, n) for _ in range(n_sets)]
@@ -319,24 +412,40 @@ def phase_kernels(torch, ops, ref):
             equal = all(bit_equal(torch, a, b) for a, b in zip(k_out, p_out))
             err = max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(k_out, p_out))
+            checks = {"plain": equal}
+            if two_step is not None:
+                edge = make_edge(gen, n)
+                e_out = kern(*edge)
+                for label, got, want in (
+                        ("two_step", k_out, two_step(*sets[0])),
+                        ("edge_plain", e_out, plain(*edge)),
+                        ("edge_two_step", e_out, two_step(*edge))):
+                    checks[label] = all(bit_equal(torch, a, b)
+                                         for a, b in zip(got, want))
+                equal = all(checks.values())
+                del edge, e_out
             row = dict(elements=n, equal=equal, max_abs_err=err,
                        out_dtypes=[str(a.dtype) for a in k_out],
                        ms=device_time_ms(kern, sets),
                        ms_warm=device_time_ms(kern, sets[:1]),
                        plain_ms=device_time_ms(plain, sets),
-                       plain_ms_warm=device_time_ms(plain, sets[:1]))
+                       plain_ms_warm=device_time_ms(plain, sets[:1]),
+                       unfused_ms=(device_time_ms(two_step, sets,
+                                                  cover=True)
+                                   if two_step else None))
             row["bound_ms"], row["bound_by"] = bound_ms(name, n)
             table[(name, size_name)] = row
-            print(f"[kernels] {name} {size_name} n={n} bitwise={equal} "
+            print(f"[kernels] {name} {size_name} n={n} bitwise={checks} "
                   f"max_abs_err={err} out={row['out_dtypes']} "
                   f"ms={row['ms']} ms_warm={row['ms_warm']} "
                   f"plain_ms={row['plain_ms']} "
                   f"plain_ms_warm={row['plain_ms_warm']} "
-                  f"bound_ms={row['bound_ms']} ({row['bound_by']}, "
+                  + (f"unfused_ms={row['unfused_ms']} " if two_step else "")
+                  + f"bound_ms={row['bound_ms']} ({row['bound_by']}, "
                   f"{VARIANTS[name]['bytes']} B/element)")
             if not equal:
-                raise AssertionError(f"{name} differs from its plain version "
-                                     f"at {size_name}: max |diff| {err}")
+                raise AssertionError(f"{name} differs at {size_name}: "
+                                     f"{checks}, max |diff| {err}")
             del sets, k_out, p_out
     return table
 
@@ -464,9 +573,10 @@ def phase_quickstart(torch, ops, api, data, runtime, average_params,
             profile_rounds(torch, runtime, algo, source, state, 20,
                            "quickstart")
         elif label == "bf16":
-            # 3 bf16-bound outputs of ef_track + 2 of ef_step each round
+            # 3 bf16-bound outputs of ef_track + 2 of ef_step each round,
+            # rounded in the ef kernels' epilogue: no sr_cast launch
             expect_launches("quickstart bf16", launches, ef_track=rounds,
-                            ef_step=rounds, sr_cast=5 * rounds,
+                            ef_step=rounds, sr_epilogue=5 * rounds,
                             sumsq=rounds, scale=rounds)
         else:
             # each of the two exchanges a round packs and unpacks once
@@ -557,7 +667,7 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
                 raise AssertionError(f"bf16 kernel and ref trajectories "
                                      f"differ: {diff}")
             expect_launches("mlp bf16 kernel", n_k, ef_track=rounds,
-                            ef_step=rounds, sr_cast=5 * rounds,
+                            ef_step=rounds, sr_epilogue=5 * rounds,
                             sumsq=rounds, scale=rounds)
         # the clip sits outside the comm round: the ref backend clips
         # through the kernels too
@@ -636,9 +746,10 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
         print(f"[choco] {label} {rounds} rounds: loss {losses[0]:.6f} -> "
               f"{losses[-1]:.6f}, {ms:.4f} ms/round, q {state.q['w1'].dtype}, "
               f"x {state.x['w1'].dtype}, launches {launches}")
-        # the two bf16-bound outputs (q, m) of each round take sr_cast
+        # the two bf16-bound outputs (q, m) of each round are rounded in
+        # ef_gossip's epilogue
         expect_launches(f"choco {label}", launches, ef_gossip=rounds,
-                        sr_cast=2 * rounds if plane else 0, sumsq=rounds,
+                        sr_epilogue=2 * rounds if plane else 0, sumsq=rounds,
                         scale=rounds)
         _falls(f"choco {label}", losses)
     dp = dict(sigma_p=DP_SIGMA)
@@ -724,6 +835,20 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def _qsgd_edge_rows(torch, gen, rows):
+    """Windows that stress qsgd_pack's norm and fields, in turn: all zero,
+    one nonzero, all negative, all -0.0, subnormal magnitudes, Gaussian."""
+    x = torch.randn(rows, PACK_BLOCK, generator=gen, device=DEVICE)
+    kind = torch.arange(rows, device=DEVICE) % 6
+    x[kind == 0] = 0.0
+    x[kind == 1] = 0.0
+    x[kind == 1, 1234] = -2.5
+    x[kind == 2] = -x[kind == 2].abs()
+    x[kind == 3] = -0.0
+    x[kind == 4] = x[kind == 4] * 1e-40
+    return x
+
+
 def _edge_rows(torch, gen, rows):
     """Windows that stress the selection: small-integer ties, fewer
     nonzeros than k, an all-zero window and a -0."""
@@ -740,12 +865,15 @@ def phase_wire_kernels(torch, ops, ref, reps=20, inner=10):
     """The four wire kernels against their plain versions, bitwise, at every
     codec size and parameter, timed cold / warm beside their bound (each
     input read once and each output written once, over HBM bandwidth; the
-    operations at the f32 rate)."""
+    operations at the f32 rate); QSGD at levels outside ``QSGD_TIMED`` is
+    checked only."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     table = {}
     for name, (kern, plain, make, lib, lib_label) in _wire_variants(
             torch, ops, ref).items():
         kernel_name = name.split()[0]
+        timed = (not kernel_name.startswith("qsgd")
+                 or int(name.split("=")[1]) in QSGD_TIMED)
         for size_name, rows in WIRE_ROWS.items():
             n = rows * PACK_BLOCK
             first = make(gen, rows)
@@ -766,6 +894,22 @@ def phase_wire_kernels(torch, ops, ref, reps=20, inner=10):
                     equal = equal and all(
                         bit_equal(torch, a, b) for a, b in zip(
                             _as_tuple(kern(*edge)), _as_tuple(plain(*edge))))
+            if kernel_name == "qsgd_pack":
+                # zero, one-nonzero, negative, -0.0 and subnormal windows
+                edge = [_qsgd_edge_rows(torch, gen, rows)] + first[1:]
+                equal = equal and all(
+                    bit_equal(torch, a, b) for a, b in zip(
+                        _as_tuple(kern(*edge)), _as_tuple(plain(*edge))))
+            if not timed:
+                table[(name, size_name)] = dict(elements=n, equal=equal,
+                                                max_abs_err=err)
+                print(f"[wire-kernels] {name} {size_name} rows={rows} n={n} "
+                      f"bitwise={equal} max_abs_err={err} (not timed)")
+                if not equal:
+                    raise AssertionError(f"{name} differs from its plain "
+                                         f"version at {size_name}")
+                del first, k_out, p_out
+                continue
             n_sets = -(-L2_FLUSH_BYTES // moved) + 1
             sets = [first] + [make(gen, rows) for _ in range(n_sets - 1)]
             row = dict(elements=n, equal=equal, max_abs_err=err,
@@ -835,7 +979,7 @@ def phase_wire(torch, ops, api, data, runtime, paper, num=60000, rounds=200):
         want = {"ef_track": rounds, "ef_step": rounds, pack: 2 * rounds,
                 unpack: 2 * rounds}
         if "bf16" in label:
-            want["sr_cast"] = 5 * rounds
+            want["sr_epilogue"] = 5 * rounds
         expect_launches(f"wire {label} kernel", n_k, sumsq=rounds,
                         scale=rounds, **want)
         expect_launches(f"wire {label} ref", n_r, sumsq=rounds, scale=rounds)
@@ -1855,7 +1999,7 @@ def phase_block_top_k(torch, ops, api, data, runtime, paper, num=60000,
         common = dict(sumsq=rounds, scale=rounds, block_topk=8 * rounds)
         expect_launches(f"block_top_k {label} kernel", n_k, ef_track=rounds,
                         ef_step=rounds,
-                        sr_cast=5 * rounds if plane else 0, **common)
+                        sr_epilogue=5 * rounds if plane else 0, **common)
         expect_launches(f"block_top_k {label} ref", n_r, **common)
         _falls(f"block_top_k porter-gc {label}", l_k)
         launches[label] = n_k
@@ -1946,10 +2090,17 @@ def main() -> int:
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
-    # PORTER-GC (sr_cast), all on the MLP
+    # PORTER-GC (sr_cast: 0, its rounding is the ef kernels' epilogue
+    # there), all on the MLP
     launches = dict(runs[("f32", "kernel")][3])
     launches["ef_gossip"] = choco["f32"]["ef_gossip"]
-    launches["sr_cast"] = runs[("bf16", "kernel")][3]["sr_cast"]
+    bf16_mlp = runs[("bf16", "kernel")][3]
+    launches["sr_cast"] = bf16_mlp["sr_cast"]
+
+    def variant(name):
+        row = table[(name, MAIN_PLANE)]
+        return {"ms": row["ms"], "bound_ms": row["bound_ms"],
+                "unfused_ms": row["unfused_ms"]}
     record = []
     for name, k in KERNELS.items():
         row = table[(k["variant"], MAIN_PLANE)]
@@ -1959,10 +2110,11 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
-            bf16_variant=({"ms": table[(name + "_bf16", MAIN_PLANE)]["ms"],
-                           "bound_ms": table[(name + "_bf16",
-                                              MAIN_PLANE)]["bound_ms"]}
-                          if name + "_bf16" in VARIANTS else None)))
+            **({"bf16_sr_variant": variant(name + "_bf16_sr")}
+               if name != "sr_cast" else
+               {"epilogue": {v: variant(v) for v in VARIANTS
+                             if VARIANTS[v].get("sr")},
+                "epilogue_roundings": bf16_mlp["sr_epilogue"]})))
     for name, k in WIRE_KERNELS.items():
         row = wire_table[(k["variant"], MAIN_PLANE)]
         path = "qsgd f32" if name.startswith("qsgd") else "top_k f32"

@@ -23,7 +23,9 @@ device).
 Mixed precision (``plane_dtype=bf16``): the EF buffers (q, m, v, g_prev)
 are bf16 while the master params ``x`` stay f32.  Every update accumulates
 in f32 and writes each bf16-bound result through the stochastic-rounding
-cast ``high16(bits(x) + (r & 0xFFFF))``, so the EF drift stays unbiased.
+cast ``high16(bits(x) + (r & 0xFFFF))``, so the EF drift stays unbiased:
+on the kernel path the fused ef kernel rounds in its epilogue
+(``ops.ef_*(sr_bits=)``), on the ref path ``_writeback`` rounds each leaf.
 The random words ``r`` are an operand: :meth:`CommRound.sr_draw` draws them
 from the round's generator, once per bf16-bound output, as one int32 plane
 in that output's flat layout, *before* the round's compressor draws (so the
@@ -200,20 +202,6 @@ class CommRound:
                           device=tree_leaves(t)[0].device) if need else None
             for t, need in zip(trees, needs))
 
-    def _plane_update(self, kfn, trees, sr_bits: SrBits):
-        """Fused 3-output kernel over planes, with the SR writeback when
-        ``sr_bits`` are given: the kernel then writes f32 and each
-        bf16-bound plane goes through ``ops.sr_cast`` before unpacking."""
-        if sr_bits is None:
-            return FL.plane_apply(kfn, trees, 3)
-
-        def kernel(*planes):
-            outs = kfn(*planes, out_dtype=_F32)
-            return tuple(o if bits is None else ops.sr_cast(o, bits)
-                         for o, bits in zip(outs, sr_bits))
-
-        return FL.plane_apply(kernel, trees, 3)
-
     # -- the shared front half: compress + mix ------------------------------
 
     def compress(self, gen, delta):
@@ -250,10 +238,9 @@ class CommRound:
         ``sr_bits``: from :meth:`sr_draw` or injected; None casts
         deterministically."""
         if self._use_kernel(q):
-            qo, mo, vo = self._plane_update(
-                lambda *p, out_dtype=None: ops.ef_track(
-                    *p, gamma, out_dtype=out_dtype),
-                (q, m, v, c, wc, g, g_prev), sr_bits)
+            qo, mo, vo = FL.plane_apply(
+                lambda *p: ops.ef_track(*p, gamma, sr_bits=sr_bits),
+                (q, m, v, c, wc, g, g_prev), 3)
             return vo, qo, mo
         if sr_bits is not None:
             q2 = tree_map(torch.add, _f32(q), _f32(c))
@@ -282,10 +269,9 @@ class CommRound:
         master params take an exact writeback; only the q / m surrogates
         round stochastically."""
         if self._use_kernel(q):
-            qo, mo, xo = self._plane_update(
-                lambda *p, out_dtype=None: ops.ef_step(
-                    *p, gamma, eta, out_dtype=out_dtype),
-                (q, m, x, c, wc, v), sr_bits)
+            qo, mo, xo = FL.plane_apply(
+                lambda *p: ops.ef_step(*p, gamma, eta, sr_bits=sr_bits),
+                (q, m, x, c, wc, v), 3)
             return xo, qo, mo
         if sr_bits is not None:
             q2 = tree_map(torch.add, _f32(q), _f32(c))
@@ -315,10 +301,9 @@ class CommRound:
             sr_bits = self.sr_draw(gen, (q, m, y))
         c, wc = self.exchange(gen, y, q, t)
         if self._use_kernel(q):
-            qo, mo, yo = self._plane_update(
-                lambda *p, out_dtype=None: ops.ef_gossip(
-                    *p, gamma, scale, out_dtype=out_dtype),
-                (q, m, y, c, wc), sr_bits)
+            qo, mo, yo = FL.plane_apply(
+                lambda *p: ops.ef_gossip(*p, gamma, scale, sr_bits=sr_bits),
+                (q, m, y, c, wc), 3)
             return yo, qo, mo
         if sr_bits is not None:
             q2 = tree_map(lambda a, b: a + scale * b, _f32(q), _f32(c))

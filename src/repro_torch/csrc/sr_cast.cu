@@ -16,7 +16,8 @@
 // one shift.  So it is one grid-stride pass with 16-byte accesses: a thread
 // takes 8 elements per iteration (two 16 B loads of f32, two of bits, one
 // 16 B store of bf16), with a scalar tail for what is left or unaligned.
-// Unsigned 32-bit arithmetic wraps mod 2^32 as the reference's uint32 does.
+// The rounding of one element, sr_one, lives in sr_round.cuh, which the ef
+// kernels (ef_update.cu) include for the same rounding as their epilogue.
 //
 // Interface: plain C, loaded with ctypes.  x, bits and out are device
 // addresses of contiguous buffers of n elements; the stream is the caller's
@@ -25,15 +26,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sr_round.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 constexpr int kVec = 8;
-
-__device__ __forceinline__ uint16_t sr_one(float x, uint32_t r) {
-  return (uint16_t)((__float_as_uint(x) + (r & 0xFFFFu)) >> 16);
-}
 
 __global__ void __launch_bounds__(kThreads)
 sr_kernel(const float* __restrict__ x, const uint32_t* __restrict__ bits,

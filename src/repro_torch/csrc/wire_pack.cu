@@ -51,9 +51,17 @@
 //     memory and stored with 16-byte writes.
 //   * qsgd_pack: one CTA of 256 threads per window, 8 consecutive elements
 //     a thread (two 16-byte loads); the sum of squares has a fixed order (8
-//     sequential per thread, then a shared-memory halving tree) that
-//     qsgd_sumsq in ref.py repeats; one thread builds one word from the
-//     fields in shared memory.
+//     sequential per thread, then a halving tree adding partial i + half
+//     onto partial i) that qsgd_sumsq in ref.py repeats.  The tree takes
+//     one barrier: its levels 128, 64 and 32 pair warp w with warps w + 4,
+//     w + 2 and w + 1 lane by lane, so after the partials are stored every
+//     warp reads the 8 of its lane (l + 32 j, conflict-free), adds them in
+//     the tree's order, then runs levels 16 ... 1 as shuffles; each warp
+//     holds the norm with no second barrier.  The fields go into words in
+//     registers where a thread owns whole words (epw = 32 / bits divides
+//     8: one word a thread at 7 levels, stored directly) or half a word
+//     (epw 16: a shuffle joins two threads' halves); only epw 10, 6, 5 and
+//     3 pass them through shared memory, behind a second barrier.
 //   * qsgd_unpack: one thread per element.
 //
 // Interface: plain C, loaded with ctypes.  Pointers are device addresses of
@@ -188,16 +196,22 @@ topk_unpack_kernel(const __nv_bfloat16* __restrict__ vals,
   for (int i = threadIdx.x; i < kBlock / 4; i += kThreads) dst[i] = src[i];
 }
 
+// EPW: elements a word where a thread builds its words in registers (8, 4
+// or 2: 8 / EPW whole words a thread; 16: half a word), 0 for any other
+// epw (through shared memory).
+template <int EPW>
 __global__ void __launch_bounds__(kThreads)
 qsgd_pack_kernel(const float* __restrict__ rows,
                  const float* __restrict__ noise,
                  uint32_t* __restrict__ words_out,
                  float* __restrict__ scale_out, int levels, int bits, int epw,
                  int nwords, float denom) {
+  static_assert(kThreads == 256 && kBlock == 8 * kThreads,
+                "8 elements a thread; the tree's first three levels pair "
+                "the 8 warps");
   __shared__ float part[kThreads];
-  __shared__ uint32_t field[kBlock];
   const int64_t w = blockIdx.x;
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, lane = t & 31;
   const float4* xv = reinterpret_cast<const float4*>(rows + w * kBlock) + 2 * t;
   const float4* uv =
       reinterpret_cast<const float4*>(noise + w * kBlock) + 2 * t;
@@ -210,28 +224,69 @@ qsgd_pack_kernel(const float* __restrict__ rows,
   for (int j = 1; j < 8; ++j) s = __fadd_rn(s, __fmul_rn(x[j], x[j]));
   part[t] = s;
   __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (t < half) part[t] = __fadd_rn(part[t], part[t + half]);
-    __syncthreads();
+  // levels 128, 64, 32 of the tree for lane l's column: p_j = part[l + 32j]
+  // -> ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)); then 16 ... 1
+  const float* p = part + lane;
+  float sum = __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[128]),
+                                  __fadd_rn(p[64], p[192])),
+                        __fadd_rn(__fadd_rn(p[32], p[160]),
+                                  __fadd_rn(p[96], p[224])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sum = __fadd_rn(sum, __shfl_down_sync(kFull, sum, off));
   }
+  sum = __shfl_sync(kFull, sum, 0);
   // 1e-30 as the reference rounds it: a double, then to f32
-  const float norm = __fadd_rn(__fsqrt_rn(part[0]), (float)1e-30);
+  const float norm = __fadd_rn(__fsqrt_rn(sum), (float)1e-30);
   const float lv = (float)levels;
+  uint32_t f[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float y = __fmul_rn(__fdiv_rn(fabsf(x[j]), norm), lv);
     const float lo = floorf(y);
     const float code = __fadd_rn(lo, u[j] < __fsub_rn(y, lo) ? 1.0f : 0.0f);
-    field[8 * t + j] = (uint32_t)code | ((x[j] < 0.0f ? 1u : 0u) << (bits - 1));
+    f[j] = (uint32_t)code | ((x[j] < 0.0f ? 1u : 0u) << (bits - 1));
   }
-  __syncthreads();
-  for (int i = t; i < nwords; i += kThreads) {
-    uint32_t word = 0;
-    for (int e = 0; e < epw; ++e) {
-      const int el = i * epw + e;
-      if (el < kBlock) word |= field[el] << (bits * e);
+  uint32_t* out = words_out + w * nwords;
+  if constexpr (EPW == 8 || EPW == 4 || EPW == 2) {
+    // words 8t / EPW ... of the window: the thread's own
+    constexpr int kPer = 8 / EPW;
+    uint32_t wd[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      wd[k] = 0u;
+#pragma unroll
+      for (int e = 0; e < EPW; ++e) wd[k] |= f[k * EPW + e] << (bits * e);
     }
-    words_out[w * nwords + i] = word;
+    if constexpr (kPer == 1) {
+      out[t] = wd[0];
+    } else if constexpr (kPer == 2) {
+      reinterpret_cast<uint2*>(out)[t] = make_uint2(wd[0], wd[1]);
+    } else {
+      reinterpret_cast<uint4*>(out)[t] =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+  } else if constexpr (EPW == 16) {
+    // word t / 2: the even thread's fields low, the odd thread's high
+    uint32_t half = 0u;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) half |= f[e] << (bits * e);
+    const uint32_t high = __shfl_down_sync(kFull, half, 1);
+    if ((t & 1) == 0) out[t >> 1] = half | (high << (bits * 8));
+  } else {
+    __shared__ __align__(16) uint32_t field[kBlock];
+    uint4* mine = reinterpret_cast<uint4*>(field) + 2 * t;
+    mine[0] = make_uint4(f[0], f[1], f[2], f[3]);
+    mine[1] = make_uint4(f[4], f[5], f[6], f[7]);
+    __syncthreads();
+    for (int i = t; i < nwords; i += kThreads) {
+      uint32_t word = 0;
+      for (int e = 0; e < epw; ++e) {
+        const int el = i * epw + e;
+        if (el < kBlock) word |= field[el] << (bits * e);
+      }
+      out[i] = word;
+    }
   }
   if (t == 0) scale_out[w] = __fdiv_rn(norm, denom);
 }
@@ -286,9 +341,32 @@ extern "C" int qsgd_pack(const void* rows, const void* noise, void* words,
   if (nb < 1 || levels < 1 || !qsgd_layout_ok(bits, epw, nwords)) {
     return (int)cudaErrorInvalidValue;
   }
-  qsgd_pack_kernel<<<(unsigned)nb, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)rows, (const float*)noise, (uint32_t*)words,
-      (float*)scale, levels, bits, epw, nwords, denom);
+  const float* x = (const float*)rows;
+  const float* u = (const float*)noise;
+  uint32_t* wd = (uint32_t*)words;
+  float* sc = (float*)scale;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (epw) {
+    case 8:
+      qsgd_pack_kernel<8><<<(unsigned)nb, kThreads, 0, s>>>(
+          x, u, wd, sc, levels, bits, epw, nwords, denom);
+      break;
+    case 4:
+      qsgd_pack_kernel<4><<<(unsigned)nb, kThreads, 0, s>>>(
+          x, u, wd, sc, levels, bits, epw, nwords, denom);
+      break;
+    case 2:
+      qsgd_pack_kernel<2><<<(unsigned)nb, kThreads, 0, s>>>(
+          x, u, wd, sc, levels, bits, epw, nwords, denom);
+      break;
+    case 16:
+      qsgd_pack_kernel<16><<<(unsigned)nb, kThreads, 0, s>>>(
+          x, u, wd, sc, levels, bits, epw, nwords, denom);
+      break;
+    default:
+      qsgd_pack_kernel<0><<<(unsigned)nb, kThreads, 0, s>>>(
+          x, u, wd, sc, levels, bits, epw, nwords, denom);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@ hand-written kernel or raises: there is no fallback.  Each launch adds one
 to its kernel's entry in :data:`LAUNCHES` (``sr_cast`` and ``sr_cast_leaf``
 both launch the ``sr_cast`` kernel), so a run can show that its main path
 went through the kernels (``chip_smoke.py`` zeroes the counts before the
-path and reads them after).
+path and reads them after).  ``LAUNCHES["sr_epilogue"]`` counts no launch:
+it counts the outputs an ef kernel rounded stochastically in its epilogue
+on the card (one per output given words).
 
 The wire codecs (``wire_topk_pack`` / ``wire_topk_unpack`` /
 ``wire_qsgd_pack`` / ``wire_qsgd_unpack``) take ``(R, PACK_BLOCK)`` windows
@@ -34,8 +36,14 @@ operand that requires grad raises.
 Operand types of the ef updates, as the comm-round engine issues them: all
 f32; ``ef_track`` with every operand bf16; ``ef_step`` / ``ef_gossip`` with
 bf16 EF operands beside an f32 ``x`` / ``y``.  ``out_dtype`` is None (each
-output in its state operand's dtype) or f32 (all three, for the
-stochastic-rounding writeback).
+output in its state operand's dtype) or f32 (all three).  ``sr_bits``
+(exclusive with ``out_dtype``) rounds the bf16 outputs stochastically: one
+contiguous int32 plane of the operands' shape for each bf16 state slot,
+None for the f32 one (the engine's two modes: words on all three outputs
+of an all-bf16 ``ef_track``, on q and m beside an f32 ``x`` / ``y``).  The
+result is bitwise the f32 outputs followed by ``sr_cast`` on each output
+given words; on the card that rounding is the ef kernel's epilogue, on the
+CPU it is that composite of the plain versions.
 """
 
 from __future__ import annotations
@@ -63,7 +71,8 @@ __all__ = ["LAUNCHES", "reset_launches", "ef_track", "ef_step", "ef_gossip",
 LAUNCHES = {"ef_track": 0, "ef_step": 0, "ef_gossip": 0, "sr_cast": 0,
             "sumsq": 0, "scale": 0, "scale_noise": 0, "block_topk": 0,
             "topk_pack": 0, "topk_unpack": 0, "qsgd_pack": 0,
-            "qsgd_unpack": 0, "rwkv6_chunk": 0, "ssd_chunk": 0}
+            "qsgd_unpack": 0, "rwkv6_chunk": 0, "ssd_chunk": 0,
+            "sr_epilogue": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 # (EF operands' dtype, slot-2 operand's dtype) each kernel takes
@@ -109,32 +118,79 @@ def _check_ef(name: str, tensors, out_dtype) -> str:
     return _check_layout(name, tensors)
 
 
-def ef_track(q, m, v, c, wc, g, gp, gamma: float, out_dtype=None):
+def _check_words(name: str, tensors, out_dtype, sr_bits):
+    """The words of the stochastic-rounding epilogue, checked: a 3-tuple
+    with an int32 plane like the operands exactly where the state slot
+    (0-2) is bf16, or None when ``sr_bits`` is None."""
+    if sr_bits is None:
+        return None
+    if out_dtype is not None:
+        raise TypeError(f"{name}: sr_bits and out_dtype are exclusive (the "
+                        f"words round the bf16 outputs)")
+    words = tuple(sr_bits)
+    if len(words) != 3:
+        raise ValueError(f"{name}: sr_bits takes one entry per output "
+                         f"(q, m, y), got {len(words)}")
+    if all(w is None for w in words):
+        raise ValueError(f"{name}: sr_bits gives no words")
+    for slot, (state, w) in enumerate(zip(tensors, words)):
+        if (w is not None) != (state.dtype == _BF16):
+            raise TypeError(
+                f"{name}: sr_bits takes words exactly for the bf16 state "
+                f"slots; slot {slot} is {state.dtype} and was given "
+                f"{'words' if w is not None else 'None'}")
+        if w is None:
+            continue
+        if w.dtype != torch.int32:
+            raise TypeError(f"{name}: sr_bits words must be int32, got "
+                            f"{w.dtype}")
+        if (w.shape != state.shape or w.device != state.device
+                or not w.is_contiguous()):
+            raise ValueError(
+                f"{name}: sr_bits words must be contiguous, of the "
+                f"operands' shape {tuple(state.shape)} on {state.device}; "
+                f"got {tuple(w.shape)} on {w.device}")
+    return words
+
+
+def _ef_update(name: str, operands, scalars, out_dtype, sr_bits):
+    kind = _check_ef(name, operands, out_dtype)
+    words = _check_words(name, operands, out_dtype, sr_bits)
+    if kind == "cpu":
+        outs = getattr(ref, f"{name}_ref")(
+            *operands, *scalars, out_dtype=out_dtype if words is None
+            else _F32)
+        if words is None:
+            return outs
+        return tuple(o if w is None else ref.sr_cast_ref(o, w)
+                     for o, w in zip(outs, words))
+    out = getattr(_ef, name)(*operands, *scalars, out_dtype is not None,
+                             words)
+    LAUNCHES[name] += 1
+    if words is not None:
+        LAUNCHES["sr_epilogue"] += sum(w is not None for w in words)
+    return out
+
+
+def ef_track(q, m, v, c, wc, g, gp, gamma: float, out_dtype=None,
+             sr_bits=None):
     """Fused Algorithm-1 lines 11-12: returns (q + c, m + wc, v')."""
-    if _check_ef("ef_track", (q, m, v, c, wc, g, gp), out_dtype) == "cpu":
-        return ref.ef_track_ref(q, m, v, c, wc, g, gp, gamma, out_dtype)
-    out = _ef.ef_track(q, m, v, c, wc, g, gp, gamma, out_dtype is not None)
-    LAUNCHES["ef_track"] += 1
-    return out
+    return _ef_update("ef_track", (q, m, v, c, wc, g, gp), (gamma,),
+                      out_dtype, sr_bits)
 
 
-def ef_step(q, m, x, c, wc, v, gamma: float, eta: float, out_dtype=None):
+def ef_step(q, m, x, c, wc, v, gamma: float, eta: float, out_dtype=None,
+            sr_bits=None):
     """Fused Algorithm-1 lines 13-14: returns (q + c, m + wc, x')."""
-    if _check_ef("ef_step", (q, m, x, c, wc, v), out_dtype) == "cpu":
-        return ref.ef_step_ref(q, m, x, c, wc, v, gamma, eta, out_dtype)
-    out = _ef.ef_step(q, m, x, c, wc, v, gamma, eta, out_dtype is not None)
-    LAUNCHES["ef_step"] += 1
-    return out
+    return _ef_update("ef_step", (q, m, x, c, wc, v), (gamma, eta),
+                      out_dtype, sr_bits)
 
 
 def ef_gossip(q, m, y, c, wc, gamma: float, scale: float = 1.0,
-              out_dtype=None):
+              out_dtype=None, sr_bits=None):
     """Fused CHOCO / SoteriaFL round: returns (q + s*c, m + s*wc, y')."""
-    if _check_ef("ef_gossip", (q, m, y, c, wc), out_dtype) == "cpu":
-        return ref.ef_gossip_ref(q, m, y, c, wc, gamma, scale, out_dtype)
-    out = _ef.ef_gossip(q, m, y, c, wc, gamma, scale, out_dtype is not None)
-    LAUNCHES["ef_gossip"] += 1
-    return out
+    return _ef_update("ef_gossip", (q, m, y, c, wc), (gamma, scale),
+                      out_dtype, sr_bits)
 
 
 def _sr_cast(name: str, x, bits):

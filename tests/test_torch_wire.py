@@ -38,6 +38,7 @@ from repro.kernels import ops as jops
 from repro_torch import convert
 from repro_torch.core import wire_formats as TWF
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 import radix_select_emulation as RSE
 
@@ -392,3 +393,141 @@ def test_kernel_topk_pack_emulation_equals_plain_and_reference(kind, k):
     _, keys = RSE.keys(rows)
     for key in keys:
         assert RSE.kth_key(key, k, 4) == np.sort(key)[::-1][k - 1]
+
+
+# ---------------------------------------------------------------------------
+# the qsgd_pack kernel's arithmetic (csrc/wire_pack.cu), emulated in numpy
+# ---------------------------------------------------------------------------
+
+QSGD_THREADS = 256
+QSGD_KINDS = ("gauss", "cauchy", "scales", "subnormal", "zeros")
+
+
+def _qsgd_rows(kind, rows=6, seed=0):
+    """f32 windows for the norm: Gaussian, Cauchy (heavy tails), each
+    element at its own scale from 1e-20 to 1e20, subnormal magnitudes or
+    squares, all zero (and one -0.0)."""
+    rng = np.random.default_rng(seed)
+    shape = (rows, TWF.PACK_BLOCK)
+    x = rng.standard_normal(shape)
+    if kind == "cauchy":
+        x = rng.standard_cauchy(shape)
+    elif kind == "scales":    # the last row's squares overflow to inf
+        x = x * 10.0 ** rng.uniform(-20, 16, shape)
+        x[-1] = x[-1] * 1e4
+    elif kind == "subnormal":   # subnormal values, and subnormal squares
+        x = x * np.where(rng.random(shape) < 0.5, 1e-40, 2e-20)
+    elif kind == "zeros":
+        x = np.zeros(shape)
+        x[0, 5] = -0.0
+    return x.astype(np.float32)
+
+
+def _emulate_qsgd_norm_sumsq(rows):
+    """The kernel's one-barrier sum of squares: each thread's 8 squares in
+    sequence, then every warp's lane l adds the 8 partials l + 32 j in the
+    halving tree's order of its levels 128, 64, 32, then the shuffles 16
+    ... 1 (a lane past the warp's end keeps its own value); lane 0's sum."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        sq = rows * rows
+        p = sq[:, 0::8].copy()
+        for j in range(1, 8):
+            p = p + sq[:, j::8]
+        assert p.shape[1] == QSGD_THREADS
+        c = [p[:, 32 * j:32 * j + 32] for j in range(8)]
+        s = (((c[0] + c[4]) + (c[2] + c[6]))
+             + ((c[1] + c[5]) + (c[3] + c[7])))
+        for off in (16, 8, 4, 2, 1):
+            down = np.concatenate([s[:, off:], s[:, 32 - off:]], axis=1)
+            s = s + down
+    return s[:, 0]
+
+
+def _qsgd_route(epw):
+    """Where the kernel joins a thread's 8 fields into words."""
+    if 8 % epw == 0:
+        return "registers"
+    return "pair shuffle" if epw == 16 else "shared"
+
+
+def _emulate_qsgd_pack(rows, noise, levels):
+    """The kernel: the one-barrier norm, each element's field, then the
+    words by the route its epw takes.  Returns (u32 words, f32 scales).
+    The square root is the plain version's, ``torch.sqrt``: on the card it
+    and the kernel's ``__fsqrt_rn`` are both correctly rounded, while
+    PyTorch's CPU one can sit an ulp off (45.664402 for 45.664406 at
+    2085.2378), which this emulation must not mistake for the kernel's."""
+    bits = TWF.qsgd_bits(levels)
+    epw = TWF.qsgd_elems_per_word(levels)
+    nwords = TWF.qsgd_words_per_window(levels)
+    root = torch.sqrt(torch.from_numpy(_emulate_qsgd_norm_sumsq(rows)))
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        norm = (root.numpy() + np.float32(1e-30))[:, None]
+        y = (np.abs(rows) / norm) * np.float32(levels)
+        lo = np.floor(y)
+        code = lo + (noise < (y - lo)).astype(np.float32)
+    f = code.astype(np.uint32) | ((rows < 0).astype(np.uint32)
+                                  << np.uint32(bits - 1))
+    nb = rows.shape[0]
+    shift = (np.uint32(bits) * np.arange(32, dtype=np.uint32))
+    route = _qsgd_route(epw)
+    if route == "registers":      # thread t's 8 / epw whole words
+        fe = f.reshape(nb, QSGD_THREADS, 8 // epw, epw)
+        words = np.bitwise_or.reduce(fe << shift[:epw], axis=3)
+        words = words.reshape(nb, nwords)
+    elif route == "pair shuffle":  # two threads' halves of word t / 2
+        half = np.bitwise_or.reduce(
+            f.reshape(nb, QSGD_THREADS, 8) << shift[:8], axis=2)
+        words = half[:, 0::2] | (half[:, 1::2] << np.uint32(bits * 8))
+    else:                         # word i from the fields in shared memory
+        pad = np.zeros((nb, nwords * epw), np.uint32)
+        pad[:, :TWF.PACK_BLOCK] = f
+        words = np.bitwise_or.reduce(
+            pad.reshape(nb, nwords, epw) << shift[:epw], axis=2)
+    denom = np.float32(TWF.qsgd_scale_denominator(levels))
+    return words.astype(np.uint32), (norm / denom).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", QSGD_KINDS)
+def test_qsgd_pack_one_barrier_norm_equals_qsgd_sumsq(kind):
+    """The pairing of the tree's first three levels across warps and the
+    shuffle levels give ``ref.qsgd_sumsq`` (the halving tree) bitwise."""
+    rows = _qsgd_rows(kind, seed=len(kind))
+    want = tref.qsgd_sumsq(torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(_bits(_emulate_qsgd_norm_sumsq(rows)),
+                                  _bits(want))
+
+
+def _qsgd_edge_rows(seed):
+    """Gaussian windows, then the edges: all zero, one nonzero, all
+    negative, all -0.0, subnormal magnitudes."""
+    rows = _qsgd_rows("gauss", rows=8, seed=seed)
+    rows[1] = 0.0
+    rows[2] = 0.0
+    rows[2, 1234] = -2.5
+    rows[3] = -np.abs(rows[3])
+    rows[4] = -0.0
+    rows[5] = rows[5] * np.float32(1e-40)
+    return rows
+
+
+@pytest.mark.parametrize("bits", range(2, 17))
+def test_qsgd_pack_word_routes_equal_plain(bits):
+    """Every field width (epw = 32 / bits dividing 8: words built in
+    registers; 16: two threads' halves joined by a shuffle; 10, 6, 5, 3:
+    shared fields) at the largest and the smallest levels of that width,
+    words and scales bitwise ``ref.qsgd_pack_ref``'s."""
+    for levels in sorted({2 ** (bits - 1) - 1, max(1, 2 ** (bits - 2))}):
+        assert TWF.qsgd_bits(levels) == bits
+        rows = _qsgd_edge_rows(seed=bits + levels)
+        noise = np.random.default_rng(levels).random(
+            rows.shape).astype(np.float32)
+        words, scale = _emulate_qsgd_pack(rows, noise, levels)
+        p_words, p_scale = tref.qsgd_pack_ref(torch.from_numpy(rows),
+                                              torch.from_numpy(noise), levels)
+        np.testing.assert_array_equal(words, _np(p_words).view(np.uint32))
+        np.testing.assert_array_equal(_bits(scale), _bits(p_scale.numpy()))
+    assert _qsgd_route(32 // bits) == {
+        2: "pair shuffle", 3: "shared", 4: "registers", 5: "shared",
+        6: "shared", 7: "registers", 8: "registers", 9: "shared",
+        10: "shared"}.get(bits, "registers")

@@ -1,7 +1,8 @@
-"""Device µs of the redesigned scan and top-k kernels, and optionally the
-two served models' prefills, for the port in a given source tree, on one
-card: the kernels at the shapes ``chip_smoke.py`` phases 5-8 time, each
-from CUDA events over inputs that exceed L2:
+"""Device µs of the redesigned kernels (the scans, the top-k selections,
+the bf16 EF updates with their stochastic rounding, ``qsgd_pack``), and
+optionally the two served models' prefills, for the port in a given source
+tree, on one card: the kernels at the shapes ``chip_smoke.py`` phases 2
+and 5-8 time, each from CUDA events over inputs that exceed L2:
 
 - ``ssd_chunk`` at 4 x 512 tokens, 112 heads x 64, state 64, bf16 and f32
   B / C, and at 2 x 4096 tokens;
@@ -9,17 +10,29 @@ from CUDA events over inputs that exceed L2:
   and at 2 x 4096 tokens;
 - ``block_topk`` on 250 and 8,192 windows of 2048, k = 102, f32 and bf16;
 - ``topk_pack`` on 280 (the MLP's codec rows) and 8,192 windows, k = 102;
+- the bf16 EF updates with their stochastic rounding (``sr``), on the
+  MLP's plane (573,440 elements) and on 2^24: each of ``ef_track`` (every
+  operand bf16, 3 outputs rounded), ``ef_step`` and ``ef_gossip`` (an f32
+  x / y, 2 rounded) as the tree's engine runs it (the rounding in the ef
+  kernel's epilogue where its ``ops.ef_*`` take ``sr_bits``, else f32
+  outputs and one ``sr_cast`` an output), and as those two steps in every
+  tree;
+- ``qsgd_pack`` on 280 and 8,192 windows at 7 and 16 levels, and on 280
+  windows at 1, 3, 127 and 32767 levels (field widths 2, 3, 8 and 16
+  bits);
 
 and with ``--prefill`` the zamba2-7b and rwkv6-7b prefills as
 ``launch.serve.generate`` times them (batch 4 x prompt 512, synchronized
 wall clock, median of 3 after a warm call; each model freed before the
-next is drawn).  ``--ptxas`` first compiles the tree's scan and top-k
-sources with ``-Xptxas -v`` and prints each kernel's registers and spills.
+next is drawn).  ``--ptxas`` first compiles the tree's scan, top-k, wire
+and EF sources with ``-Xptxas -v`` and prints each kernel's registers and
+spills.
 Each kernel cell also prints a SHA-256 digest of the outputs of its first
 input set; the inputs come from one seed in a fixed order, so two trees
 whose kernels compute bitwise alike print the same digests.
 
     python3 tools/kernel_ab.py [--src SRC] [--label LABEL] [--prefill] [--ptxas]
+                               [--only GROUP,...]
 
 SRC is the ``src`` directory of a checkout (default: this checkout's), so
 two commits can be compared on one card in one call: unpack the other
@@ -27,12 +40,15 @@ commit into a git-ignored directory (``git archive``) and run the script
 once per tree, in turns (A, B, B, A).  Each run imports ``repro_torch``
 from SRC, builds that tree's kernels into its own ``build/``, and prints
 one ``[kernel-ab]`` line per measurement and a JSON line of them all.
+``--only`` keeps some groups of cells: ssd, rwkv6, block_topk, topk_pack,
+sr, qsgd.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import statistics
 import subprocess
@@ -51,7 +67,21 @@ TOPK_CELLS = {"block_topk 250 f32": (250, "f32"),
               "block_topk 8192 f32": (8192, "f32")}
 PACK_CELLS = {"topk_pack 280": 280, "topk_pack 8192": 8192}
 TOPK_K = 102
-PTXAS_SOURCES = ("rwkv6_chunk", "ssd_chunk", "wire_pack", "block_topk")
+# the bf16 EF updates: (kernel, operands, scalars, rounded outputs,
+# slot 2 bf16), on the MLP's plane and on 2^24 elements
+SR_KERNELS = {"ef_track": (7, (0.0142897,), 3, True),
+              "ef_step": (6, (0.0142897, 0.05), 2, False),
+              "ef_gossip": (5, (0.0142897, 1.0), 2, False)}
+SR_PLANES = {"mlp": 70, "2^24": 2048}     # tiles of 8192
+QSGD_CELLS = {"qsgd_pack 280 L7": (280, 7), "qsgd_pack 8192 L7": (8192, 7),
+              "qsgd_pack 280 L16": (280, 16),
+              "qsgd_pack 8192 L16": (8192, 16),
+              "qsgd_pack 280 L1": (280, 1), "qsgd_pack 280 L3": (280, 3),
+              "qsgd_pack 280 L127": (280, 127),
+              "qsgd_pack 280 L32767": (280, 32767)}
+GROUPS = ("ssd", "rwkv6", "block_topk", "topk_pack", "sr", "qsgd")
+PTXAS_SOURCES = ("rwkv6_chunk", "ssd_chunk", "wire_pack", "block_topk",
+                 "ef_update")
 
 
 def _sets(cs, make, first_bytes):
@@ -90,6 +120,36 @@ def _ptxas(build, label):
                       f"{line.strip()}")
 
 
+def _sr_fns(torch, ops, kernel):
+    """(the tree's engine call, the two-step call, operand maker) of one
+    bf16 EF update with its stochastic rounding: operands, then the int32
+    words of the rounded outputs."""
+    n_in, scalars, n_sr, y_bf16 = SR_KERNELS[kernel]
+    fn = getattr(ops, kernel)
+    fused = "sr_bits" in inspect.signature(fn).parameters
+
+    def words(a):
+        return tuple(a[n_in:]) + (None,) * (3 - n_sr)
+
+    def two_step(*a):
+        outs = fn(*a[:n_in], *scalars, out_dtype=torch.float32)
+        return tuple(o if w is None else ops.sr_cast(o, w)
+                     for o, w in zip(outs, words(a)))
+
+    def engine(*a):
+        return fn(*a[:n_in], *scalars, sr_bits=words(a))
+
+    def make(gen, tiles):
+        shape = (tiles, 8192)
+        return ([torch.randn(shape, generator=gen, device="cuda").to(
+            torch.float32 if i == 2 and not y_bf16 else torch.bfloat16)
+            for i in range(n_in)]
+            + [torch.randint(-(2**31), 2**31 - 1, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+               for _ in range(n_sr)])
+    return (engine if fused else two_step), two_step, make, fused
+
+
 def _prefill(torch, serve, arch, sc, label):
     cfg, bundle, params = serve.load(arch, device="cuda", seed=0)
     tokens = serve.make_prompt(cfg, sc["batch"], sc["prompt"], "cuda", 1)
@@ -111,7 +171,11 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--only", default=",".join(GROUPS))
     args = ap.parse_args(argv)
+    groups = set(args.only.split(","))
+    if not groups <= set(GROUPS):
+        ap.error(f"--only takes groups of {GROUPS}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab.py needs a CUDA device; none is visible",
@@ -130,7 +194,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(12)
     us, digest = {}, {}
     with torch.inference_mode():
-        for name, (shape, bc) in SSD_CELLS.items():
+        for name, (shape, bc) in (SSD_CELLS.items() if "ssd" in groups
+                                  else ()):
             first = cs._ssd_inputs(torch, gen, shape, bc)
             moved = (sum(t.nbytes for t in first)       # + y and h_final
                      + first[0].nbytes + first[4].nbytes)
@@ -141,7 +206,8 @@ def main(argv=None) -> int:
             print(f"[kernel-ab] {args.label} {name} {shape}: {us[name]:.3f} "
                   f"us, outputs {digest[name]}")
             del sets, first
-        for name, (shape, rkv) in RWKV_CELLS.items():
+        for name, (shape, rkv) in (RWKV_CELLS.items() if "rwkv6" in groups
+                                   else ()):
             first = cs._rwkv6_inputs(torch, gen, shape, rkv)
             moved = (sum(t.nbytes for t in first)       # + o and s_final
                      + 4 * first[0].numel() + first[5].nbytes)
@@ -152,7 +218,8 @@ def main(argv=None) -> int:
             print(f"[kernel-ab] {args.label} {name} {shape}: {us[name]:.3f} "
                   f"us, outputs {digest[name]}")
             del sets, first
-        for name, (windows, dt) in TOPK_CELLS.items():
+        for name, (windows, dt) in (TOPK_CELLS.items()
+                                    if "block_topk" in groups else ()):
             dtype = torch.float32 if dt == "f32" else torch.bfloat16
 
             def make():
@@ -165,7 +232,8 @@ def main(argv=None) -> int:
             print(f"[kernel-ab] {args.label} {name} k={TOPK_K}: "
                   f"{us[name]:.3f} us, outputs {digest[name]}")
             del sets
-        for name, windows in PACK_CELLS.items():
+        for name, windows in (PACK_CELLS.items() if "topk_pack" in groups
+                              else ()):
             def make():
                 return [torch.randn(windows, cs.PACK_BLOCK, generator=gen,
                                     device="cuda"), TOPK_K]
@@ -175,6 +243,36 @@ def main(argv=None) -> int:
             digest[name] = _digest(torch, ops.wire_topk_pack(*sets[0]))
             print(f"[kernel-ab] {args.label} {name} k={TOPK_K}: "
                   f"{us[name]:.3f} us, outputs {digest[name]}")
+            del sets
+        for kernel in (SR_KERNELS if "sr" in groups else ()):
+            engine, two_step, make, fused = _sr_fns(torch, ops, kernel)
+            for plane, tiles in SR_PLANES.items():
+                first = make(gen, tiles)
+                sets = _sets(cs, lambda: make(gen, tiles),
+                             sum(t.nbytes for t in first))
+                sets[0] = first
+                for form, fn in (("sr", engine), ("sr two-step", two_step)):
+                    name = f"{kernel} {form} {plane}"
+                    us[name] = 1e3 * cs.device_time_ms(fn, sets, 20, 10,
+                                                       cover=True)
+                    digest[name] = _digest(torch, fn(*first))
+                    print(f"[kernel-ab] {args.label} {name}"
+                          f"{' (epilogue)' if fused and fn is engine else ''}"
+                          f": {us[name]:.3f} us, outputs {digest[name]}")
+                del sets, first
+        for name, (windows, levels) in (QSGD_CELLS.items()
+                                        if "qsgd" in groups else ()):
+            def make():
+                x = torch.randn(windows, cs.PACK_BLOCK, generator=gen,
+                                device="cuda")
+                return [x, torch.rand(x.shape, generator=gen, device="cuda"),
+                        levels]
+            sets = _sets(cs, make, 2 * windows * cs.PACK_BLOCK * 4)
+            us[name] = 1e3 * cs.device_time_ms(ops.wire_qsgd_pack, sets, 20,
+                                               10)
+            digest[name] = _digest(torch, ops.wire_qsgd_pack(*sets[0]))
+            print(f"[kernel-ab] {args.label} {name}: {us[name]:.3f} us, "
+                  f"outputs {digest[name]}")
             del sets
     prefill = {}
     if args.prefill:
