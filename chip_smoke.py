@@ -32,11 +32,13 @@ of the ``repro`` package.  Phases, each printing its own lines:
    ``topk_pack`` / ``topk_unpack`` / ``qsgd_pack`` / ``qsgd_unpack``
    against their plain versions, bitwise, at the MLP's and the logreg's
    codec rows and at 2^24 elements (``topk_pack`` also at k = 1 and 2048,
-   and on tie, sparse, zero, -0.0 and all-equal windows; the QSGD pair at
-   levels 1, 3, 7, 16, 127 and 32767, every way ``qsgd_pack`` builds its
-   words, and ``qsgd_pack`` on zero, one-nonzero, all-negative, -0.0 and
-   subnormal windows), timed beside their bound (QSGD at 7 and 16
-   levels); then
+   and on tie, sparse, zero, -0.0 and all-equal windows; ``topk_unpack``
+   also on repeated, order-dependent, out-of-window and decreasing
+   indices against the plain version on the CPU; the QSGD pair at levels
+   1, 3, 7, 15, 16, 127, 255 and 32767, one for each fields-a-word count,
+   so every route of both kernels runs, and ``qsgd_pack`` on zero,
+   one-nonzero, all-negative, -0.0 and subnormal windows), timed beside
+   their bound (QSGD at 7 and 16 levels); then
    PORTER-GC on the full-width MLP for 200 rounds on both backends with
    top-k 5 % in f32 and bf16 and QSGD (7 levels) in f32: kernel == ref
    bitwise on x, the launches per round, and the measured wire bytes equal
@@ -193,11 +195,13 @@ WIRE_ROWS = {"mlp": 10 * 28, "logreg": 10 * 2, "2^24": (1 << 24) // 2048}
 TOPK_K = {"0.05": 102, "0.25": 512}
 # topk_pack alone at the ends of k: the frac 1/2048 and the whole window
 TOPK_PACK_ENDS = {"1/2048": 1, "1": 2048}
-# QSGD levels: field widths 2, 3, 4, 6, 8 and 16 bits, so every way
-# qsgd_pack builds its words runs (words in registers at 7, 127 and 32767
-# levels, a shuffle joining two threads' halves at 1, shared fields at 3
-# and 16); the kernels are timed at QSGD_TIMED
-QSGD_LEVELS = (1, 3, 7, 16, 127, 32767)
+# QSGD levels: field widths 2, 3, 4, 5, 6, 8, 9 and 16 bits, one level for
+# each of the eight fields-a-word counts (epw 16, 10, 8, 6, 5, 4, 3, 2), so
+# every route of both QSGD kernels runs: qsgd_pack's words in registers at
+# 7, 127 and 32767 levels, a shuffle joining two threads' halves at 1,
+# shared fields at 3, 15, 16 and 255; qsgd_unpack's template instance of
+# each epw; the kernels are timed at QSGD_TIMED
+QSGD_LEVELS = (1, 3, 7, 15, 16, 127, 255, 32767)
 QSGD_TIMED = (7, 16)
 WIRE_KERNELS = {
     "topk_pack": dict(replaces="src/repro/kernels/wire_pack.py:79",
@@ -861,12 +865,50 @@ def _edge_rows(torch, gen, rows):
     return x
 
 
+def _unpack_edge_packets(torch, rows, k, seed=5):
+    """(bf16 values, int16 indices) of ``rows`` windows of k slots, on the
+    CPU, of kinds topk_pack never emits, in turn: strictly increasing
+    indices (the fast path), random indices with repeats, indices in [0,
+    16), 2^30, 1, -2^30 and 2^30, -2^30, 1 on two indices (0 and 1 in slot
+    order) among repeats, random u16 indices (most past the window, half
+    negative as int16), strictly increasing u16 indices (the fast path,
+    dropping those past 2047), decreasing indices, one index for all."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.empty(rows, k, dtype=torch.int64)
+    for w in range(rows):
+        kind = w % 8
+        if kind in (0, 6):
+            row = torch.randperm(PACK_BLOCK, generator=g)[:k].sort().values
+            idx[w] = row.flip(0) if kind == 6 else row
+        elif kind in (1, 3):   # 3: the triples' indices stay their own
+            idx[w] = torch.randint(16 * (kind == 3), PACK_BLOCK, (k,),
+                                   generator=g)
+        elif kind == 2:
+            idx[w] = torch.randint(0, 16, (k,), generator=g)
+        elif kind == 4:
+            idx[w] = torch.randint(0, 1 << 16, (k,), generator=g)
+        elif kind == 5:
+            idx[w] = torch.randperm(1 << 16, generator=g)[:k].sort().values
+        else:
+            idx[w] = torch.randint(0, PACK_BLOCK, (1,), generator=g)
+    vals = (torch.randn(rows, k, generator=g)
+            * 2.0 ** torch.randint(-8, 9, (rows, k), generator=g))
+    triple = torch.tensor([2.0 ** 30, 1.0, -2.0 ** 30, 2.0 ** 30,
+                           -2.0 ** 30, 1.0])
+    vals[3::8, :6] = triple
+    idx[3::8, :6] = torch.tensor([9, 9, 9, 4, 4, 4])
+    idx = torch.where(idx >= 1 << 15, idx - (1 << 16), idx)
+    return vals.to(torch.bfloat16), idx.to(torch.int16)
+
+
 def phase_wire_kernels(torch, ops, ref, reps=20, inner=10):
     """The four wire kernels against their plain versions, bitwise, at every
     codec size and parameter, timed cold / warm beside their bound (each
     input read once and each output written once, over HBM bandwidth; the
     operations at the f32 rate); QSGD at levels outside ``QSGD_TIMED`` is
-    checked only."""
+    checked only.  ``topk_unpack`` at the MLP's rows also takes the windows
+    of ``_unpack_edge_packets``, whose sums at the two order-dependent
+    triples must be the slot order's 0 and 1."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     table = {}
     for name, (kern, plain, make, lib, lib_label) in _wire_variants(
@@ -894,6 +936,23 @@ def phase_wire_kernels(torch, ops, ref, reps=20, inner=10):
                     equal = equal and all(
                         bit_equal(torch, a, b) for a, b in zip(
                             _as_tuple(kern(*edge)), _as_tuple(plain(*edge))))
+            if kernel_name == "topk_unpack" and size_name == "mlp":
+                # repeated, order-dependent, out-of-window and decreasing
+                # indices: against the plain version on the CPU (on the
+                # card its scatter_add sums repeats with atomics)
+                vals, idx = _unpack_edge_packets(torch, rows,
+                                                 first[0].shape[1])
+                edge = [vals.to(DEVICE), idx.to(DEVICE)]
+                got = kern(*edge).cpu()
+                want = plain(vals, idx)
+                edge_equal = bit_equal(torch, got, want)
+                triple = (float(want[3, 9]), float(want[3, 4]))
+                print(f"[wire-kernels] {name} edge windows rows={rows} "
+                      f"bitwise={edge_equal} sums at the triples {triple} "
+                      f"(slot order: (0.0, 1.0)) us_warm="
+                      f"{1e3 * device_time_ms(kern, [edge], reps, inner):.3f}")
+                equal = equal and edge_equal and triple == (0.0, 1.0)
+                del edge, got, want
             if kernel_name == "qsgd_pack":
                 # zero, one-nonzero, negative, -0.0 and subnormal windows
                 edge = [_qsgd_edge_rows(torch, gen, rows)] + first[1:]
@@ -2127,7 +2186,10 @@ def main() -> int:
             bound_by=row["bound_by"],
             library_ms=(row["library_ms"] if name == "topk_unpack"
                         else None),
-            nearest_ms=(row["library_ms"] if name == "topk_pack" else None)))
+            nearest_ms=(row["library_ms"] if name == "topk_pack" else None),
+            ms_logreg=wire_table[(k["variant"], "logreg")]["ms"],
+            ms_2p24=wire_table[(k["variant"], "2^24")]["ms"],
+            bound_ms_2p24=wire_table[(k["variant"], "2^24")]["bound_ms"]))
     row = rwkv_table["path"]
     record.append(dict(
         name="rwkv6_chunk", ok=row["ok"], route="cuda",

@@ -47,8 +47,16 @@
 //     On the MLP's 280 windows the select takes about half the time, the
 //     launch, loads and compaction a third, the bisection a tenth
 //     (PERF.md section 6).
-//   * topk_unpack: one CTA per window; the window is built in shared
-//     memory and stored with 16-byte writes.
+//   * topk_unpack: one CTA of 256 threads per window, at most 8 slots a
+//     thread; the slots' loads go out before the zero-fill (two 16-byte
+//     stores a thread) and its barrier, the window is built in shared
+//     memory and stored with 16-byte writes.  It takes any u16 index, as
+//     the reference's scatter-add does: one at or past 2048 is dropped,
+//     duplicates are summed in slot order.  The barrier is a
+//     __syncthreads_or of "an index is not above the previous slot's";
+//     only a window whose indices are not strictly increasing (never one
+//     topk_pack emits) takes the ordered path: each thread walks all k
+//     slots for its own 8 elements.
 //   * qsgd_pack: one CTA of 256 threads per window, 8 consecutive elements
 //     a thread (two 16-byte loads); the sum of squares has a fixed order (8
 //     sequential per thread, then a halving tree adding partial i + half
@@ -62,14 +70,23 @@
 //     8: one word a thread at 7 levels, stored directly) or half a word
 //     (epw 16: a shuffle joins two threads' halves); only epw 10, 6, 5 and
 //     3 pass them through shared memory, behind a second barrier.
-//   * qsgd_unpack: one thread per element.
+//   * qsgd_unpack: one CTA of 256 threads per window, no shared memory and
+//     no barrier; thread t decodes the runs 4t ... 4t + 3 and 1024 + 4t
+//     ... 1024 + 4t + 3 (a quarter word at epw 16, half a word at 8, a
+//     word at 4, a uint2 at 2, one or two words at 10, 6, 5 and 3), loads
+//     the window's scale once and stores float4 t and t + 256, so a warp's
+//     stores are coalesced 512-byte runs: 8t ... 8t + 7 a thread (two
+//     float4s 32 bytes apart) took 30.8 us to store 2^24 zeros on an
+//     H100 against 22.8 (tools/unpack_ablate.py's floors).  One template
+//     instance per epw, so every division by it is by a constant.
 //
 // Interface: plain C, loaded with ctypes.  Pointers are device addresses of
 // contiguous buffers (16-byte aligned where read or written as vectors);
 // the stream is the caller's cudaStream_t.  Each entry point returns
 // cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // arguments it does not take.  Indices are int16 on the PyTorch side (u16
-// bit patterns, all below 2048) and code words int32 (u32 bit patterns).
+// bit patterns; topk_pack emits them strictly increasing, below 2048) and
+// code words int32 (u32 bit patterns).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +99,7 @@ namespace {
 constexpr int kBlock = 2048;            // wire_formats.PACK_BLOCK
 constexpr int kIters = 24;              // wire_formats.N_BISECT_ITERS
 constexpr int kThreads = 256;
+constexpr int kSlots = kBlock / kThreads;   // topk_unpack's slots a thread
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kThreads == radix_select::kThreads, "one CTA a window");
 
@@ -179,21 +197,86 @@ topk_unpack_kernel(const __nv_bfloat16* __restrict__ vals,
                    const uint16_t* __restrict__ idx, float* __restrict__ out,
                    int k) {
   __shared__ __align__(16) float win[kBlock];
+  const int t = threadIdx.x;
   const int64_t w = blockIdx.x;
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) win[i] = 0.0f;
-  __syncthreads();
-  const __nv_bfloat16* v = vals + w * k;
   const uint16_t* ix = idx + w * k;
-  // packed indices are distinct, so no two threads write one slot; the
-  // add onto +0 is the reference's scatter-add (it turns -0 into +0)
-  for (int r = threadIdx.x; r < k; r += kThreads) {
-    const int j = __ldg(ix + r);
-    if (j < kBlock) win[j] = __fadd_rn(0.0f, __bfloat162float(v[r]));
+  const uint16_t* vb = reinterpret_cast<const uint16_t*>(vals) + w * k;
+  // the loads of the thread's slots t + 256 i first: their latency hides
+  // behind the zero-fill and the barrier; a slot past k reads as index
+  // kBlock (dropped).  Each slot's index is compared with the previous
+  // slot's (a shuffle from the lane below): strictly increasing indices
+  // are distinct.
+  uint32_t j[kSlots], v[kSlots], prev[kSlots];
+  const int lane = t & 31;
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int r = t + i * kThreads;
+    j[i] = kBlock;
+    v[i] = 0u;
+    prev[i] = 0u;
+    if (r < k) {
+      j[i] = __ldg(ix + r);
+      v[i] = __ldg(vb + r);
+      // slot r - 1 is the lane below's, or the warp below's last lane's
+      if (lane == 0 && r > 0) prev[i] = __ldg(ix + r - 1);
+    }
+  }
+  bool unordered = false;
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int r = t + i * kThreads;
+    const uint32_t below = __shfl_up_sync(kFull, j[i], 1);
+    if (lane > 0) prev[i] = below;
+    if (r > 0 && r < k) unordered |= prev[i] >= j[i];
+  }
+  float4* win4 = reinterpret_cast<float4*>(win);
+  float4* dst = reinterpret_cast<float4*>(out + w * kBlock);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  win4[t] = zero;
+  win4[t + kThreads] = zero;
+  if (!__syncthreads_or(unordered)) {
+    // distinct indices (every window topk_pack emits): no two slots write
+    // one element; the add onto +0 is the reference's scatter-add (it
+    // turns -0 into +0); an index at or past kBlock is dropped
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      if (j[i] < kBlock) {
+        win[j[i]] = __fadd_rn(0.0f, __uint_as_float(v[i] << 16));
+      }
+    }
+    __syncthreads();
+    dst[t] = win4[t];
+    dst[t + kThreads] = win4[t + kThreads];
+    return;
+  }
+  // a repeated or decreasing index somewhere in the window: the slots go
+  // to shared memory as (index << 16 | bf16 bits), and thread t walks all k
+  // in slot order, adding those for its elements 8t ... 8t + 7 onto +0, so
+  // duplicates sum in the plain version's order; slow, but no path of the
+  // port sends such a window
+  uint32_t* pair = reinterpret_cast<uint32_t*>(win);
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int r = t + i * kThreads;
+    if (r < k) pair[r] = (j[i] << 16) | v[i];
   }
   __syncthreads();
-  const float4* src = reinterpret_cast<const float4*>(win);
-  float4* dst = reinterpret_cast<float4*>(out + w * kBlock);
-  for (int i = threadIdx.x; i < kBlock / 4; i += kThreads) dst[i] = src[i];
+  // every sum starts at +0 and so is never -0: adding +0 to it is exact,
+  // which keeps the 8 sums in registers (a select, no indexed store)
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int r = 0; r < k; ++r) {
+    const uint32_t p = pair[r];
+    // index >> 3 is the owner: an index past kBlock has none
+    const bool mine = (p >> 19) == (uint32_t)t;
+    const uint32_t at = (p >> 16) & 7u;
+    const float x = __uint_as_float(p << 16);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      acc[e] = __fadd_rn(acc[e], mine && at == (uint32_t)e ? x : 0.0f);
+    }
+  }
+  dst[2 * t] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  dst[2 * t + 1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
 }
 
 // EPW: elements a word where a thread builds its words in registers (8, 4
@@ -291,22 +374,62 @@ qsgd_pack_kernel(const float* __restrict__ rows,
   if (t == 0) scale_out[w] = __fdiv_rn(norm, denom);
 }
 
+// EPW: fields a word, 32 / bits; every division by it is by a constant.
+// Thread t decodes and stores float4 t and t + 256 of its window, the runs
+// of elements 4t ... 4t + 3 and 1024 + 4t ... 1024 + 4t + 3, so each of a
+// warp's two stores is one coalesced 512-byte run.
+template <int EPW>
 __global__ void __launch_bounds__(kThreads)
 qsgd_unpack_kernel(const uint32_t* __restrict__ words,
                    const float* __restrict__ scale, float* __restrict__ out,
-                   int64_t n, int bits, int epw, int nwords) {
+                   int bits, int nwords) {
+  static_assert(kBlock == 8 * kThreads, "two runs of 4 elements a thread");
+  const int64_t w = blockIdx.x;
+  const int t = threadIdx.x;
+  const uint32_t* row = words + w * nwords;
+  const float sc = __ldg(scale + w);
+  uint32_t f[2][4];   // each run's fields shifted to bit 0, unmasked
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int e0 = 4 * t + (kBlock / 2) * g;   // the run's first element
+    if constexpr (EPW == 2) {          // words e0 / 2, e0 / 2 + 1: a uint2
+      const uint2 wd = __ldg(reinterpret_cast<const uint2*>(row + e0 / 2));
+      f[g][0] = wd.x;
+      f[g][1] = wd.x >> bits;
+      f[g][2] = wd.y;
+      f[g][3] = wd.y >> bits;
+    } else if constexpr (EPW % 4 == 0) {   // 16, 8, 4: within one word
+      const uint32_t wd = __ldg(row + e0 / EPW) >> (bits * (e0 % EPW));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[g][e] = wd >> (bits * e);
+    } else {   // 10, 6, 5, 3: the run straddles one or two words
+      const int first = e0 / EPW;
+      const int s = e0 - first * EPW;   // element e0's field in `first`
+      const uint32_t lo = __ldg(row + first);
+      const uint32_t hi = s + 3 >= EPW ? __ldg(row + first + 1) : 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = s + e;
+        f[g][e] = p < EPW ? lo >> (bits * p) : hi >> (bits * (p - EPW));
+      }
+    }
+  }
+  // the plain version's steps in its order: code, sign, (sgn * code) * scale
   const uint32_t field_mask = (1u << bits) - 1u;
   const uint32_t mag_mask = (1u << (bits - 1)) - 1u;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t w = i / kBlock;
-    const int el = (int)(i % kBlock);
-    const uint32_t word = __ldg(words + w * nwords + el / epw);
-    const uint32_t f = (word >> (bits * (el % epw))) & field_mask;
-    const float code = (float)(f & mag_mask);
-    const float sgn = __fsub_rn(1.0f, __fmul_rn(2.0f, (float)(f >> (bits - 1))));
-    out[i] = __fmul_rn(__fmul_rn(sgn, code), __ldg(scale + w));
+  float4* dst = reinterpret_cast<float4*>(out + w * kBlock);
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    float y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t fe = f[g][e] & field_mask;
+      const float code = (float)(fe & mag_mask);
+      const float sgn =
+          __fsub_rn(1.0f, __fmul_rn(2.0f, (float)(fe >> (bits - 1))));
+      y[e] = __fmul_rn(__fmul_rn(sgn, code), sc);
+    }
+    dst[t + kThreads * g] = make_float4(y[0], y[1], y[2], y[3]);
   }
 }
 
@@ -329,7 +452,9 @@ extern "C" int topk_pack(const void* rows, void* vals, void* idx, int64_t nb,
 
 extern "C" int topk_unpack(const void* vals, const void* idx, void* out,
                            int64_t nb, int k, void* stream) {
-  if (nb < 1 || k < 1 || k > kBlock) return (int)cudaErrorInvalidValue;
+  if (nb < 1 || nb > 0x7fffffff || k < 1 || k > kBlock) {
+    return (int)cudaErrorInvalidValue;
+  }
   topk_unpack_kernel<<<(unsigned)nb, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)vals, (const uint16_t*)idx, (float*)out, k);
   return (int)cudaGetLastError();
@@ -373,15 +498,46 @@ extern "C" int qsgd_pack(const void* rows, const void* noise, void* words,
 extern "C" int qsgd_unpack(const void* words, const void* scale, void* out,
                            int64_t nb, int bits, int epw, int nwords,
                            void* stream) {
-  if (nb < 1 || !qsgd_layout_ok(bits, epw, nwords)) {
+  if (nb < 1 || nb > 0x7fffffff || !qsgd_layout_ok(bits, epw, nwords)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t n = nb * kBlock;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  qsgd_unpack_kernel<<<(unsigned)blocks, kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)words, (const float*)scale, (float*)out, n, bits, epw,
-      nwords);
+  const uint32_t* wd = (const uint32_t*)words;
+  const float* sc = (const float*)scale;
+  float* y = (float*)out;
+  const unsigned grid = (unsigned)nb;   // one CTA a window
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (epw) {
+    case 16:
+      qsgd_unpack_kernel<16><<<grid, kThreads, 0, s>>>(
+          wd, sc, y, bits, nwords);
+      break;
+    case 10:
+      qsgd_unpack_kernel<10><<<grid, kThreads, 0, s>>>(
+          wd, sc, y, bits, nwords);
+      break;
+    case 8:
+      qsgd_unpack_kernel<8><<<grid, kThreads, 0, s>>>(
+          wd, sc, y, bits, nwords);
+      break;
+    case 6:
+      qsgd_unpack_kernel<6><<<grid, kThreads, 0, s>>>(
+          wd, sc, y, bits, nwords);
+      break;
+    case 5:
+      qsgd_unpack_kernel<5><<<grid, kThreads, 0, s>>>(
+          wd, sc, y, bits, nwords);
+      break;
+    case 4:
+      qsgd_unpack_kernel<4><<<grid, kThreads, 0, s>>>(
+          wd, sc, y, bits, nwords);
+      break;
+    case 3:
+      qsgd_unpack_kernel<3><<<grid, kThreads, 0, s>>>(
+          wd, sc, y, bits, nwords);
+      break;
+    default:
+      qsgd_unpack_kernel<2><<<grid, kThreads, 0, s>>>(
+          wd, sc, y, bits, nwords);
+  }
   return (int)cudaGetLastError();
 }

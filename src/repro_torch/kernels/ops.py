@@ -354,7 +354,9 @@ def wire_topk_pack(rows, k: int):
 
 def wire_topk_unpack(vals, idx):
     """Packed ``(R, k)`` values and indices -> dense f32 ``(R,
-    PACK_BLOCK)``."""
+    PACK_BLOCK)``, as the reference's scatter-add: an index is its u16 bit
+    pattern, one at or past ``PACK_BLOCK`` is dropped, and duplicates are
+    summed in slot order."""
     if vals.dim() != 2 or idx.shape != vals.shape:
         raise ValueError(f"wire_topk_unpack takes (R, k) values and indices, "
                          f"got {tuple(vals.shape)} and {tuple(idx.shape)}")

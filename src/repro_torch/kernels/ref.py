@@ -166,10 +166,17 @@ def topk_pack_ref(rows, k: int):
 
 def topk_unpack_ref(vals, idx):
     """``(bf16 (nb, k), int16 (nb, k)) -> (nb, PACK_BLOCK)`` f32: each value
-    added onto a zero window at its index (so -0 unpacks to +0)."""
-    out = torch.zeros(vals.shape[0], _layout().PACK_BLOCK, dtype=_F32,
+    added onto a zero window at its index (so -0 unpacks to +0), as the
+    reference's ``.at[].add``: an index is its u16 bit pattern, one at or
+    past ``PACK_BLOCK`` is dropped, and duplicates are summed (in slot
+    order on the CPU; the card's ``scatter_add`` adds them with atomics).
+    Dropped slots land in a spill column past the window."""
+    block = _layout().PACK_BLOCK
+    col = idx.long() & 0xFFFF
+    col = torch.where(col < block, col, block)
+    out = torch.zeros(vals.shape[0], block + 1, dtype=_F32,
                       device=vals.device)
-    return out.scatter_add(1, idx.long(), vals.to(_F32))
+    return out.scatter_add(1, col, vals.to(_F32))[:, :block].contiguous()
 
 
 def qsgd_sumsq(rows):

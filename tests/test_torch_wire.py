@@ -24,7 +24,11 @@ Tolerances, each with its reason:
 * the Pallas kernel in interpret mode: its qsgd scale within 1 ulp even on
   exact sums, because under jit XLA turns the division by the constant
   ``levels * (1 + omega)`` into a product with its reciprocal, which the
-  reference's own ``qsgd_pack_ref`` (and the port) do not.
+  reference's own ``qsgd_pack_ref`` (and the port) do not;
+* the Pallas ``topk_unpack`` on 512 slots over 16 indices: within (n - 1)
+  eps sum |v| of the slot-order sums, because its one-hot product is an
+  XLA dot, which adds the terms in blocks; on shorter windows, and the
+  order-dependent triple, it is bitwise.
 """
 
 import jax
@@ -156,6 +160,105 @@ def test_topk_codec_is_bitwise_the_reference(kind, d, frac):
     # and the port's unpack reads the reference's buffers
     np.testing.assert_array_equal(_bits(dense), _bits(tops.wire_topk_unpack(
         *convert.to_torch((j_vals, j_idx), "cpu")).numpy()))
+
+
+# -- topk_unpack on windows topk_pack never emits ---------------------------
+#
+# The reference's ``.at[].add`` (and the Pallas kernel's one-hot product)
+# reads each index as its u16 value, drops one at or past PACK_BLOCK and
+# sums duplicates in slot order.  The port's int16 indices are the same bit
+# patterns.  The CUDA kernel keeps a fast path for strictly increasing
+# indices and walks the slots in order otherwise; its choice and both paths
+# are emulated here.
+
+_TWO30 = 2.0 ** 30
+UNPACK_EDGE_KINDS = ("duplicates", "order", "out_of_window",
+                     "increasing_tail", "dense_repeats", "packed")
+
+
+def _unpack_edge_window(kind, seed=0):
+    """One or two windows of (f32 values exact in bf16, u16 indices):
+    duplicates with exact sums; 2^30, 1, -2^30 on one index (0 in slot
+    order, 1 in most other orders) and 2^30, -2^30, 1 on another (1);
+    indices 2048, 3000, 32768 and 65535 among duplicates; strictly
+    increasing indices with an out-of-window tail (the fast path drops
+    them); random values on 16 indices, 512 slots (sums that round); two
+    windows ``topk_pack`` emits."""
+    rng = np.random.default_rng(seed)
+    if kind == "duplicates":
+        vals = [[1, 2, 4, 8, -8, 3, 0.5, -0.0], [-0.0, -0.0, 7, 7, 1, 2, 3, 4]]
+        idx = [[5, 5, 5, 9, 9, 100, 2047, 2047], [0, 0, 3, 3, 3, 2, 1, 0]]
+    elif kind == "order":
+        vals = [[_TWO30, 1, -_TWO30, _TWO30, -_TWO30, 1, 0.25]]
+        idx = [[9, 9, 9, 4, 4, 4, 8]]
+    elif kind == "out_of_window":
+        vals = [[1, 2, 3, 4, 5, 6, 7, 8], [8, 7, 6, 5, 4, 3, 2, 1]]
+        idx = [[2048, 3000, 32768, 65535, 0, 2047, 7, 7],
+               [65535, 32768, 7, 2048, 7, 3000, 2047, 0]]
+    elif kind == "increasing_tail":
+        vals = [[1, -2, 3, -0.0, 5, 6, 7, 8]]
+        idx = [[0, 5, 2046, 2047, 2048, 3000, 32768, 65535]]
+    elif kind == "dense_repeats":
+        vals = rng.standard_normal((2, 512)) * 10.0 ** rng.integers(
+            -3, 4, (2, 512))
+        idx = rng.integers(0, 16, (2, 512))
+    else:
+        rows = _windows("gauss", 2 * 2048, seed=seed)
+        j_vals, j_idx = _topk_pack_ref(jnp.asarray(rows), 102)
+        return (np.array(j_vals.astype(jnp.float32)),
+                np.array(j_idx).astype(np.uint16))
+    vals = np.array(jnp.asarray(np.asarray(vals, np.float32),
+                                  jnp.bfloat16).astype(jnp.float32))
+    return vals, np.asarray(idx, np.uint16)
+
+
+def _emulate_topk_unpack(vals, idx):
+    """The CUDA kernel: a window whose indices rise strictly takes the fast
+    path (``0 + v`` stored at each index below PACK_BLOCK); any other walks
+    its slots in order, adding each onto its element's sum from +0.
+    Returns (f32 windows, which windows took the ordered path)."""
+    nb, k = vals.shape
+    out = np.zeros((nb, TWF.PACK_BLOCK), np.float32)
+    ordered = np.zeros(nb, bool)
+    for w in range(nb):
+        j = idx[w].astype(np.int64)
+        ordered[w] = bool(np.any(j[1:] <= j[:-1]))
+        for r in np.flatnonzero(j < TWF.PACK_BLOCK):
+            out[w, j[r]] = np.float32(out[w, j[r]] + vals[w, r])
+    return out, ordered
+
+
+@pytest.mark.parametrize("kind", UNPACK_EDGE_KINDS)
+def test_topk_unpack_sums_duplicates_and_drops_out_of_window(kind):
+    """``ops.wire_topk_unpack`` on the CPU is bitwise the reference's
+    ``topk_unpack_ref`` and the Pallas kernel (interpret mode) on any u16
+    index, and so is the emulated CUDA kernel, whose fast path only the
+    strictly increasing windows take."""
+    vals, idx = _unpack_edge_window(kind, seed=len(kind))
+    j_vals, j_idx = jnp.asarray(vals, jnp.bfloat16), jnp.asarray(idx)
+    want = np.asarray(_topk_unpack_ref(j_vals, j_idx))
+    got = tops.wire_topk_unpack(
+        torch.from_numpy(vals).to(torch.bfloat16),
+        torch.from_numpy(idx.view(np.int16))).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    pallas = np.asarray(jops.wire_topk_unpack(j_vals, j_idx, interpret=True))
+    if kind == "dense_repeats":
+        # the one-hot product (an XLA dot) adds 512 terms in blocks, not in
+        # slot order: within the error bound of a sum of n terms in any
+        # order, (n - 1) eps sum |v| (n <= 512)
+        mag = np.zeros_like(got, np.float64)
+        for w in range(vals.shape[0]):
+            np.add.at(mag[w], idx[w].astype(np.int64), np.abs(vals[w]))
+        eps = float(np.finfo(np.float32).eps)
+        assert np.all(np.abs(pallas - got) <= vals.shape[1] * eps * mag)
+    else:
+        np.testing.assert_array_equal(_bits(got), _bits(pallas))
+    emulated, ordered = _emulate_topk_unpack(vals, idx)
+    np.testing.assert_array_equal(_bits(emulated), _bits(got))
+    assert ordered.tolist() == [kind not in ("increasing_tail", "packed")
+                                ] * vals.shape[0]
+    if kind == "order":     # the sums in slot order: 0 at 9, 1 at 4
+        assert got[0, 9] == 0.0 and got[0, 4] == 1.0
 
 
 def _ref_uniforms(key, rows):
@@ -531,3 +634,96 @@ def test_qsgd_pack_word_routes_equal_plain(bits):
         2: "pair shuffle", 3: "shared", 4: "registers", 5: "shared",
         6: "shared", 7: "registers", 8: "registers", 9: "shared",
         10: "shared"}.get(bits, "registers")
+
+
+# -- the qsgd_unpack kernel's thread layout, emulated in numpy --------------
+#
+# One CTA a window; thread t decodes and stores float4 t and t + 256, the
+# runs of elements 4t ... 4t + 3 and 1024 + 4t ... 1024 + 4t + 3, from the
+# words each run lies in: a quarter of one word (epw 16), half a word (8),
+# one word (4), the uint2 of two words (2), or one or two scalar words (10,
+# 6, 5, 3).
+
+def _qsgd_unpack_reads(t, epw):
+    """Thread t's two runs: for each, the words it reads and, for each of
+    its 4 elements, (element, the word as an index into those, field)."""
+    runs = []
+    for e0 in (4 * t, TWF.PACK_BLOCK // 2 + 4 * t):
+        first = e0 // epw
+        s = e0 - first * epw
+        if epw == 2:
+            reads = [first, first + 1]
+        elif epw % 4 == 0:
+            reads = [first]
+        else:
+            reads = [first, first + 1] if s + 3 >= epw else [first]
+        runs.append((reads, [(e0 + e, (s + e) // epw, (s + e) % epw)
+                             for e in range(4)]))
+    return runs
+
+
+def _emulate_qsgd_unpack(words, scale, levels):
+    """The kernel on u32 ``words`` ``(nb, W)`` and f32 ``scale``
+    ``(nb, 1)``: each thread's reads and fields, then ``(sgn * code) *
+    scale`` in f32."""
+    bits = TWF.qsgd_bits(levels)
+    epw = TWF.qsgd_elems_per_word(levels)
+    field = np.zeros((words.shape[0], TWF.PACK_BLOCK), np.uint32)
+    stored = []
+    for t in range(QSGD_THREADS):
+        for reads, fields in _qsgd_unpack_reads(t, epw):
+            if epw == 2:         # one aligned uint2
+                assert reads[0] % 2 == 0
+            for el, i, pos in fields:
+                assert reads[i] * epw + pos == el < TWF.PACK_BLOCK
+                field[:, el] = words[:, reads[i]] >> np.uint32(bits * pos)
+                stored.append(el)
+    assert sorted(stored) == list(range(TWF.PACK_BLOCK))
+    field &= np.uint32(2 ** bits - 1)
+    code = (field & np.uint32(2 ** (bits - 1) - 1)).astype(np.float32)
+    sgn = np.float32(1.0) - np.float32(2.0) * (
+        field >> np.uint32(bits - 1)).astype(np.float32)
+    return (sgn * code) * scale
+
+
+def _unpack_words(levels, seed):
+    """u32 words of three windows: random fields with every bit above the
+    last field (and every padding field past element 2047) set, random
+    words over all 32 bits, all-ones words (codes above ``levels``); and
+    their f32 scales."""
+    bits = TWF.qsgd_bits(levels)
+    epw = TWF.qsgd_elems_per_word(levels)
+    nwords = TWF.qsgd_words_per_window(levels)
+    rng = np.random.default_rng(seed)
+    fields = rng.integers(0, 2 ** bits, (nwords, epw), dtype=np.uint64)
+    fields[-1, TWF.PACK_BLOCK - (nwords - 1) * epw:] = 2 ** bits - 1
+    shift = (bits * np.arange(epw)).astype(np.uint64)
+    high = np.uint64(0xFFFFFFFF) ^ np.uint64(2 ** (bits * epw) - 1)
+    set_high = (np.bitwise_or.reduce(fields << shift, axis=1) | high)
+    words = np.stack([set_high.astype(np.uint32),
+                      rng.integers(0, 2 ** 32, nwords, dtype=np.uint64
+                                   ).astype(np.uint32),
+                      np.full(nwords, 0xFFFFFFFF, np.uint32)])
+    scale = np.array([[0.0371], [1.0], [3.5e4]], np.float32)
+    return words, scale
+
+
+@pytest.mark.parametrize("bits", range(2, 17))
+def test_qsgd_unpack_thread_layout_equals_plain_and_reference(bits):
+    """Every field width at the largest and the smallest levels of that
+    width: the emulated kernel bitwise ``ref.qsgd_unpack_ref``, the
+    reference's ``qsgd_unpack_ref`` and the Pallas kernel (interpret
+    mode), on words whose unused high bits are set and on all-ones
+    words."""
+    for levels in sorted({2 ** (bits - 1) - 1, max(1, 2 ** (bits - 2))}):
+        assert TWF.qsgd_bits(levels) == bits
+        words, scale = _unpack_words(levels, seed=bits + levels)
+        got = _emulate_qsgd_unpack(words, scale, levels)
+        plain = tref.qsgd_unpack_ref(torch.from_numpy(words.view(np.int32)),
+                                     torch.from_numpy(scale), levels)
+        np.testing.assert_array_equal(_bits(got), _bits(plain.numpy()))
+        j_words, j_scale = jnp.asarray(words), jnp.asarray(scale)
+        np.testing.assert_array_equal(_bits(got), _bits(
+            JWF.qsgd_unpack_ref(j_words, j_scale, levels)))
+        np.testing.assert_array_equal(_bits(got), _bits(
+            jops.wire_qsgd_unpack(j_words, j_scale, levels, interpret=True)))

@@ -20,6 +20,11 @@ and 5-8 time, each from CUDA events over inputs that exceed L2:
 - ``qsgd_pack`` on 280 and 8,192 windows at 7 and 16 levels, and on 280
   windows at 1, 3, 127 and 32767 levels (field widths 2, 3, 8 and 16
   bits);
+- ``qsgd_unpack`` on 280 and 8,192 windows at one level of each of the
+  eight fields-a-word counts (1, 3, 7, 15, 16, 127, 255 and 32767 levels:
+  epw 16, 10, 8, 6, 5, 4, 3, 2), and ``topk_unpack`` on 280 and 8,192
+  windows at k = 102 and 512, each on the plain pack's buffers of
+  Gaussian windows (``unpack``);
 
 and with ``--prefill`` the zamba2-7b and rwkv6-7b prefills as
 ``launch.serve.generate`` times them (batch 4 x prompt 512, synchronized
@@ -41,7 +46,7 @@ once per tree, in turns (A, B, B, A).  Each run imports ``repro_torch``
 from SRC, builds that tree's kernels into its own ``build/``, and prints
 one ``[kernel-ab]`` line per measurement and a JSON line of them all.
 ``--only`` keeps some groups of cells: ssd, rwkv6, block_topk, topk_pack,
-sr, qsgd.
+sr, qsgd, unpack.
 """
 
 from __future__ import annotations
@@ -79,7 +84,10 @@ QSGD_CELLS = {"qsgd_pack 280 L7": (280, 7), "qsgd_pack 8192 L7": (8192, 7),
               "qsgd_pack 280 L1": (280, 1), "qsgd_pack 280 L3": (280, 3),
               "qsgd_pack 280 L127": (280, 127),
               "qsgd_pack 280 L32767": (280, 32767)}
-GROUPS = ("ssd", "rwkv6", "block_topk", "topk_pack", "sr", "qsgd")
+UNPACK_WINDOWS = (280, 8192)
+UNPACK_LEVELS = (1, 3, 7, 15, 16, 127, 255, 32767)
+UNPACK_K = (102, 512)
+GROUPS = ("ssd", "rwkv6", "block_topk", "topk_pack", "sr", "qsgd", "unpack")
 PTXAS_SOURCES = ("rwkv6_chunk", "ssd_chunk", "wire_pack", "block_topk",
                  "ef_update")
 
@@ -150,6 +158,28 @@ def _sr_fns(torch, ops, kernel):
     return (engine if fused else two_step), two_step, make, fused
 
 
+def _unpack_cells(torch, ops, ref, cs, gen):
+    """(name, wrapper, operand maker) of each unpack cell; the operands are
+    the plain pack's buffers of fresh Gaussian windows."""
+    def rows(windows):
+        return torch.randn(windows, cs.PACK_BLOCK, generator=gen,
+                           device="cuda")
+    for windows in UNPACK_WINDOWS:
+        for levels in UNPACK_LEVELS:
+            def make(windows=windows, levels=levels):
+                x = rows(windows)
+                return list(ref.qsgd_pack_ref(
+                    x, torch.rand(x.shape, generator=gen, device="cuda"),
+                    levels))
+            yield (f"qsgd_unpack {windows} L{levels}",
+                   lambda w, s, lv=levels: ops.wire_qsgd_unpack(w, s, lv),
+                   make)
+        for k in UNPACK_K:
+            def make(windows=windows, k=k):
+                return list(ref.topk_pack_ref(rows(windows), k))
+            yield f"topk_unpack {windows} k{k}", ops.wire_topk_unpack, make
+
+
 def _prefill(torch, serve, arch, sc, label):
     cfg, bundle, params = serve.load(arch, device="cuda", seed=0)
     tokens = serve.make_prompt(cfg, sc["batch"], sc["prompt"], "cuda", 1)
@@ -185,7 +215,7 @@ def main(argv=None) -> int:
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
     import repro_torch
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build, ops, ref
     print(f"[kernel-ab] {args.label}: repro_torch from "
           f"{Path(repro_torch.__file__).parent}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -274,6 +304,18 @@ def main(argv=None) -> int:
             print(f"[kernel-ab] {args.label} {name}: {us[name]:.3f} us, "
                   f"outputs {digest[name]}")
             del sets
+        for name, fn, make in (_unpack_cells(torch, ops, ref, cs, gen)
+                               if "unpack" in groups else ()):
+            first = make()
+            nbytes = (sum(t.nbytes for t in first)
+                      + first[0].shape[0] * cs.PACK_BLOCK * 4)
+            sets = _sets(cs, make, nbytes)
+            sets[0] = first
+            us[name] = 1e3 * cs.device_time_ms(fn, sets, 20, 10)
+            digest[name] = _digest(torch, fn(*first))
+            print(f"[kernel-ab] {args.label} {name}: {us[name]:.3f} us, "
+                  f"outputs {digest[name]}")
+            del sets, first
     prefill = {}
     if args.prefill:
         from repro_torch.launch import serve
