@@ -77,17 +77,24 @@ of the ``repro`` package.  Phases, each printing its own lines:
    (2 groups with the shared block and 1 trailing layer): decode after a
    512-token prefill held against ``forward`` over 576 tokens at 2e-3
    (``[zamba2]`` lines).
-8. the last four kernels: ``sumsq``, ``scale`` and ``scale_noise``
-   (``csrc/smooth_clip.cu``) against their plain versions, bitwise, in
-   f32 and bf16, at the MLP's agent plane (10 rows x 7 tiles), the
-   quickstart's (10 x 1), PORTER-DP's per-sample plane (80 x 7), the DP
-   perturbation's (1 x 63, factor 1) and 2^24 elements as 1 and 16 rows,
-   timed beside their bound, the PyTorch call for the same function
-   (``torch.linalg.vecdot``, ``torch.mul``) and the nearest one
-   (``[clip]`` lines); the row-stacked clip of a real MLP gradient against
-   the plain composition, and its perturbation against ``g + sigma * z``;
-   PORTER-GC and PORTER-DP rounds with the clip kernels against the same
-   rounds with the plain clip on the card, x bitwise;
+8. the clip kernels: the fused ``clip`` (``csrc/smooth_clip.cu``, one
+   launch through ``ops.clip_planes``, its route printed) against its plain
+   composition, bitwise with its partials and factors, at every clip plane
+   (the MLP's agent plane, 10 rows x 7 tiles; the quickstart's, 10 x 1;
+   PORTER-DP's per-sample plane, 80 x 7; the DP perturbation's, 1 x 63;
+   2^24 elements as 1 and 16 rows) in f32 and bf16 at tau 0.3, 1 and 4,
+   and in its noise form on the MLP's plane, timed beside its bound, the
+   wrapper calls it stands for (``sumsq`` + ``smooth_factors`` +
+   ``scale``) and the two kernels alone, and once captured in a CUDA graph
+   and replayed; then
+   the passes alone, ``sumsq``, ``scale`` and ``scale_noise``, against
+   their plain versions, bitwise, at the same planes, timed beside their
+   bound, the PyTorch call for the same function (``torch.linalg.vecdot``,
+   ``torch.mul``) and the nearest one (``[clip]`` lines); the row-stacked
+   clip of a real MLP gradient against the plain composition, and its
+   perturbation against ``g + sigma * z``; PORTER-GC and PORTER-DP rounds
+   with the clip kernels against the same rounds with the plain clip on
+   the card, x bitwise;
    ``block_topk`` (``csrc/block_topk.cu``) bitwise at the MLP's w1 windows
    (250 x 2048, k = 1, 102, 512, 2048), on tie, zero and -0.0 windows and
    at 2^24 elements, beside ``torch.topk`` + ``scatter``
@@ -96,9 +103,9 @@ of the ``repro`` package.  Phases, each printing its own lines:
    ``block_top_k`` compressor (5 %) for 200 rounds, f32 and bf16, kernel
    and ref backends, with the MLP phase's gates (``[block_top_k]``).  The
    clip runs outside the comm round, so every PORTER-GC, DSGD and CHOCO
-   round of the earlier phases also counts one ``sumsq`` and one
-   ``scale`` launch, on the ref backend too, and every DP round one
-   ``scale_noise``.
+   round of the earlier phases also counts one ``clip`` launch, on the ref
+   backend too, and every DP round one ``scale_noise``; no path launches
+   ``sumsq`` or ``scale``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -518,7 +525,9 @@ def profile_rounds(torch, runtime, algo, source, state, rounds, label):
         name in e.key for name in ("ef_kernel", "sr_kernel", "topk_pack_k",
                                    "topk_unpack_k", "qsgd_pack_k",
                                    "qsgd_unpack_k", "sumsq_kernel",
-                                   "scale_kernel", "block_topk_kernel"))]
+                                   "scale_kernel", "clip_kernel",
+                                   "clip_cluster_kernel",
+                                   "block_topk_kernel"))]
     print(f"[profile] {label}: {rounds} rounds, wall {wall_us / rounds:.1f} "
           f"us/round, device busy {busy_us / rounds:.1f} us/round "
           f"({100 * busy_us / wall_us:.2f} %), {launches / rounds:.1f} "
@@ -570,10 +579,10 @@ def phase_quickstart(torch, ops, api, data, runtime, average_params,
               f"launches {launches}")
         if not gn < 0.1:
             raise AssertionError(f"quickstart {label} gate failed: gn = {gn}")
-        # every round clips the agents' gradients once (sumsq + scale)
+        # every round clips the agents' gradients once (one fused clip)
         if label == "f32":
             expect_launches("quickstart f32", launches, ef_track=rounds,
-                            ef_step=rounds, sumsq=rounds, scale=rounds)
+                            ef_step=rounds, clip=rounds)
             profile_rounds(torch, runtime, algo, source, state, 20,
                            "quickstart")
         elif label == "bf16":
@@ -581,13 +590,13 @@ def phase_quickstart(torch, ops, api, data, runtime, average_params,
             # rounded in the ef kernels' epilogue: no sr_cast launch
             expect_launches("quickstart bf16", launches, ef_track=rounds,
                             ef_step=rounds, sr_epilogue=5 * rounds,
-                            sumsq=rounds, scale=rounds)
+                            clip=rounds)
         else:
             # each of the two exchanges a round packs and unpacks once
             expect_launches("quickstart packed_bits", launches,
                             ef_track=rounds, ef_step=rounds,
                             topk_pack=2 * rounds, topk_unpack=2 * rounds,
-                            sumsq=rounds, scale=rounds)
+                            clip=rounds)
     gap = abs(final["f32"] - final["bf16"])
     print(f"[quickstart] final loss f32 {final['f32']:.6f} bf16 "
           f"{final['bf16']:.6f}: gap {gap:.6f} (gate 0.02)")
@@ -664,7 +673,7 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
                 raise AssertionError(f"kernel and ref trajectories differ: "
                                      f"{diff}")
             expect_launches("mlp f32 kernel", n_k, ef_track=rounds,
-                            ef_step=rounds, sumsq=rounds, scale=rounds)
+                            ef_step=rounds, clip=rounds)
         else:
             # both backends read the same plane of SR words per output
             if not same:
@@ -672,10 +681,10 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
                                      f"differ: {diff}")
             expect_launches("mlp bf16 kernel", n_k, ef_track=rounds,
                             ef_step=rounds, sr_epilogue=5 * rounds,
-                            sumsq=rounds, scale=rounds)
+                            clip=rounds)
         # the clip sits outside the comm round: the ref backend clips
         # through the kernels too
-        expect_launches(f"mlp {label} ref", n_r, sumsq=rounds, scale=rounds)
+        expect_launches(f"mlp {label} ref", n_r, clip=rounds)
         _falls(f"mlp porter-gc {label}", l_k)
 
     s32, s16 = runs[("f32", "kernel")][0], runs[("bf16", "kernel")][0]
@@ -726,7 +735,7 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
     # one clip of all agents' per-sample gradients and one perturbation a
     # round
     expect_launches("porter-dp", dp_launches, ef_track=dp_rounds,
-                    ef_step=dp_rounds, sumsq=dp_rounds, scale=dp_rounds,
+                    ef_step=dp_rounds, clip=dp_rounds,
                     scale_noise=dp_rounds)
     profile_rounds(torch, runtime, algo, source, _init(algo, paper), 20,
                    "porter-dp")
@@ -753,8 +762,7 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
         # the two bf16-bound outputs (q, m) of each round are rounded in
         # ef_gossip's epilogue
         expect_launches(f"choco {label}", launches, ef_gossip=rounds,
-                        sr_epilogue=2 * rounds if plane else 0, sumsq=rounds,
-                        scale=rounds)
+                        sr_epilogue=2 * rounds if plane else 0, clip=rounds)
         _falls(f"choco {label}", losses)
     dp = dict(sigma_p=DP_SIGMA)
     for algo_name, plane, over in (("dsgd", None, {}),
@@ -773,7 +781,7 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
             raise AssertionError(f"{algo_name} loss is not finite")
         # each round clips once (dsgd: the agents' gradients; the DP ones:
         # every sample's) and the DP ones perturb once
-        expect_launches(algo_name, launches, sumsq=short, scale=short,
+        expect_launches(algo_name, launches, clip=short,
                         scale_noise=0 if algo_name == "dsgd" else short)
     return choco
 
@@ -1039,9 +1047,8 @@ def phase_wire(torch, ops, api, data, runtime, paper, num=60000, rounds=200):
                 unpack: 2 * rounds}
         if "bf16" in label:
             want["sr_epilogue"] = 5 * rounds
-        expect_launches(f"wire {label} kernel", n_k, sumsq=rounds,
-                        scale=rounds, **want)
-        expect_launches(f"wire {label} ref", n_r, sumsq=rounds, scale=rounds)
+        expect_launches(f"wire {label} kernel", n_k, clip=rounds, **want)
+        expect_launches(f"wire {label} ref", n_r, clip=rounds)
         launches[label] = n_k
         if comp == "top_k":
             _falls(f"wire porter-gc {label}", l_k)
@@ -1809,6 +1816,137 @@ def phase_clip_kernels(torch, ops, ref, reps=20, inner=10):
     return table
 
 
+# the fused clip: taus held bitwise on every plane, the plane the noise
+# form is held on, and the one a CUDA graph captures
+CLIP_TAUS = (0.3, 1.0, 4.0)
+CLIP_NOISE_PLANE = "mlp"
+CLIP_GRAPH_PLANE = "mlp"
+CLIP_REPLACES = ("src/repro/kernels/smooth_clip.py:41 (sumsq), "
+                 "src/repro/kernels/smooth_clip.py:69 (scale) and the jnp "
+                 "combine between them, src/repro/kernels/ops.py:59-61")
+# per element: sumsq's square and add, and the product of the scale
+CLIP_FUSED_OPS = 3
+
+
+def phase_clip_fused(torch, ops, ref, sc, reps=20, inner=10):
+    """The fused ``clip`` kernel (``ops.clip_planes``) against its plain
+    composition (``ref.clip_planes_ref``: ``clip_sumsq``,
+    ``smooth_factors``, ``clip_scale_ref``), bitwise with its partials and
+    factors, at every clip plane in f32 and bf16 and tau 0.3, 1 and 4, and
+    in its noise form on the MLP's plane; timed cold / warm beside its
+    bound (the function's bytes: the plane read once, the clip, the
+    partials and the factors written once), the composition of wrapper
+    calls it stands for (``sumsq`` + this tree's ``smooth_factors`` +
+    ``scale``, timed with ``cover``; the route as the parent ran it is
+    ``tools/kernel_ab.py --only clip``'s) and the two kernels alone.  Then
+    one ``clip_planes`` call captured in a CUDA graph and replayed, bitwise
+    the eager call.  Returns {(plane, dtype): row}."""
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    table = {}
+    for size, (rows, tiles) in CLIP_PLANES.items():
+        for dt in DTYPES:
+            def make():
+                p = (3 * torch.randn(rows * tiles, TILE, generator=gen,
+                                     device=DEVICE)).to(_dtype(torch, dt))
+                z = torch.randn(p.shape, generator=gen, device=DEVICE).to(
+                    p.dtype)
+                f = torch.rand(rows, generator=gen, device=DEVICE)
+                return [p, f, z]
+            first = make()
+            n_sets = -(-L2_FLUSH_BYTES // (2 * first[0].nbytes)) + 1
+            sets = [first] + [make() for _ in range(n_sets - 1)]
+            p, f, z = first
+            checks = [(tau, None) for tau in CLIP_TAUS]
+            if size == CLIP_NOISE_PLANE:
+                checks.append((1.0, z))
+            equal, errs = True, []
+            for tau, noise in checks:
+                got = ops.clip_planes(p, rows, tau, noise, DP_SIGMA)
+                want = ref.clip_planes_ref(p, rows, tau, noise, DP_SIGMA)
+                torch.cuda.synchronize()
+                same = [bit_equal(torch, g, w) for g, w in zip(got, want)]
+                equal = equal and all(same)
+                errs.append(float((got[0].float() - want[0].float())
+                                  .abs().max()))
+                if not all(same):
+                    raise AssertionError(
+                        f"fused clip differs from its plain composition at "
+                        f"{size} {dt} tau={tau} noise={noise is not None}: "
+                        f"(clip, partials, factors) bitwise {same}")
+            plan = sc.clip_plan(p, rows)
+            n = rows * tiles * TILE
+            moved = 2 * p.nbytes + 4 * rows * tiles + 4 * rows
+            t_bytes = moved / HBM_BYTES_PER_S
+            t_ops = CLIP_FUSED_OPS * n / F32_OPS_PER_S
+
+            def fused(p, f, z):
+                return ops.clip_planes(p, rows, 1.0)
+
+            def route(p, f, z):
+                return ops.clip_scale(p, ops.smooth_factors(
+                    ops.clip_sumsq(p), rows, 1.0))
+
+            def pair(p, f, z):
+                return ops.clip_sumsq(p), ops.clip_scale(p, f)
+
+            row = dict(elements=n, rows=rows, equal=equal,
+                       max_abs_err=max(errs), bytes=moved, plan=plan,
+                       ms=device_time_ms(fused, sets, reps, inner),
+                       ms_warm=device_time_ms(fused, sets[:1], reps, inner),
+                       route_ms=device_time_ms(route, sets, reps, inner,
+                                               cover=True),
+                       pair_ms=device_time_ms(pair, sets, reps, inner,
+                                              cover=True),
+                       plain_ms=device_time_ms(
+                           lambda p, f, z: ref.clip_planes_ref(p, rows, 1.0),
+                           sets, reps, inner),
+                       bound_ms=1e3 * max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       # the cooperative route reads the plane twice
+                       floor_ms=1e3 * (moved + p.nbytes) / HBM_BYTES_PER_S)
+            table[(size, dt)] = row
+            print(f"[clip] fused {size} rows={rows} tiles/row={tiles} {dt} "
+                  f"n={n} taus={list(CLIP_TAUS)}"
+                  f"{' +noise' if size == CLIP_NOISE_PLANE else ''} "
+                  f"bitwise (clip, partials, factors)={equal} "
+                  f"max_abs_err={row['max_abs_err']} route={plan['route']} "
+                  f"grid={plan['grid']} tiles/cta={plan['tiles_per_cta']} "
+                  f"bytes={moved} "
+                  f"us={1e3 * row['ms']:.3f} us_warm="
+                  f"{1e3 * row['ms_warm']:.3f} sumsq+smooth_factors+scale_us="
+                  f"{1e3 * row['route_ms']:.3f} sumsq+scale_us="
+                  f"{1e3 * row['pair_ms']:.3f} plain_us="
+                  f"{1e3 * row['plain_ms']:.3f} bound_us="
+                  f"{1e3 * row['bound_ms']:.3f} ({row['bound_by']}) "
+                  f"two_reads_us={1e3 * row['floor_ms']:.3f}")
+            del sets, first, p, f, z
+    # one clip in a CUDA graph: the cooperative launch captured and replayed
+    rows, tiles = CLIP_PLANES[CLIP_GRAPH_PLANE]
+    p = torch.randn(rows * tiles, TILE, generator=gen, device=DEVICE)
+    eager = ops.clip_planes(p, rows, 0.3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.clip_planes(p, rows, 0.3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.clip_planes(p, rows, 0.3)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = [bit_equal(torch, g, w) for g, w in zip(captured, eager)]
+    replay_ms = device_time_ms(graph.replay, [()], reps, inner)
+    print(f"[clip] graph {CLIP_GRAPH_PLANE} rows={rows} tiles/row={tiles} "
+          f"f32: one clip_planes captured in a CUDA graph and replayed, "
+          f"bitwise the eager call (clip, partials, factors)={same}, "
+          f"replay_us={1e3 * replay_ms:.3f}")
+    if not all(same):
+        raise AssertionError(f"the graph replay of clip_planes differs from "
+                             f"the eager call: {same}")
+    table["graph"] = dict(equal=True, ms=replay_ms)
+    return table
+
+
 def phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
                         clipping):
     """The row-stacked clip of one real MLP gradient (10 agents at full
@@ -1840,7 +1978,7 @@ def phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
               f"{tuple(planes.shape)}): bitwise equal to the plain "
               f"composition {same}; row norms "
               f"{[round(float(v), 6) for v in norms]}; launches {launches}")
-        expect_launches(f"clip gradient {dt}", launches, sumsq=1, scale=1)
+        expect_launches(f"clip gradient {dt}", launches, clip=1)
         if not same:
             raise AssertionError(f"row-stacked clip differs ({dt})")
     gen = torch.Generator(device=DEVICE).manual_seed(12)
@@ -1865,10 +2003,11 @@ def phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
 def phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper,
                           num=60000, rounds=50):
     """PORTER-GC and PORTER-DP on the full-width MLP (f32, kernel backend)
-    twice from one seed: with the clip through the kernels, then with
-    ``ops.clip_sumsq`` / ``ops.clip_scale`` swapped for their plain
-    versions on the same CUDA tensors.  x must agree bitwise, and the plain
-    run must launch no clip kernel."""
+    twice from one seed: with the clip through the kernels (the fused
+    ``clip``, and ``scale_noise`` for the DP perturbation), then with
+    ``ops.clip_planes``, ``ops.clip_sumsq`` and ``ops.clip_scale`` swapped
+    for their plain versions on the same CUDA tensors.  x must agree
+    bitwise, and the plain run must launch no clip kernel."""
     source, base, loss_fn = _mlp_problem(api, data, paper, num)
     for name, over in (("porter-gc", {}),
                        ("porter-dp", dict(algo="porter-dp",
@@ -1880,12 +2019,13 @@ def phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper,
                                _init(algo, paper), rounds, rounds // 2)
 
         s_k, l_k, ms_k, n_k = run()
-        saved = ops.clip_sumsq, ops.clip_scale
-        ops.clip_sumsq, ops.clip_scale = ref.clip_sumsq, ref.clip_scale_ref
+        saved = ops.clip_planes, ops.clip_sumsq, ops.clip_scale
+        ops.clip_planes, ops.clip_sumsq, ops.clip_scale = (
+            ref.clip_planes_ref, ref.clip_sumsq, ref.clip_scale_ref)
         try:
             s_p, l_p, ms_p, n_p = run()
         finally:
-            ops.clip_sumsq, ops.clip_scale = saved
+            ops.clip_planes, ops.clip_sumsq, ops.clip_scale = saved
         same = all(bit_equal(torch, s_k.x[k], s_p.x[k]) for k in s_k.x)
         diff = max(float((s_k.x[k] - s_p.x[k]).abs().max()) for k in s_k.x)
         print(f"[clip] {name} {rounds} rounds, clip kernels vs plain clip: "
@@ -1894,7 +2034,7 @@ def phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper,
               f"ms/round, launches {n_k} / {n_p}")
         dp = rounds if name == "porter-dp" else 0
         expect_launches(f"{name} clip kernels", n_k, ef_track=rounds,
-                        ef_step=rounds, sumsq=rounds, scale=rounds,
+                        ef_step=rounds, clip=rounds,
                         scale_noise=dp)
         expect_launches(f"{name} plain clip", n_p, ef_track=rounds,
                         ef_step=rounds)
@@ -1998,7 +2138,11 @@ def phase_launch_host_cost(torch, ops, calls=2000):
     tile = torch.randn(1, TILE, generator=gen, device=DEVICE)
     win = torch.randn(1, PACK_BLOCK, generator=gen, device=DEVICE)
     one = torch.ones(1, device=DEVICE)
-    fns = {"ops.clip_sumsq": lambda: ops.clip_sumsq(tile),
+    fns = {"ops.clip_planes": lambda: ops.clip_planes(tile, 1, 1.0),
+           "ops.clip_sumsq + smooth_factors + clip_scale":
+               lambda: ops.clip_scale(tile, ops.smooth_factors(
+                   ops.clip_sumsq(tile), 1, 1.0)),
+           "ops.clip_sumsq": lambda: ops.clip_sumsq(tile),
            "ops.clip_scale": lambda: ops.clip_scale(tile, one),
            "ops.block_topk k=102": lambda: ops.block_topk(win, 102),
            "torch.mul": lambda: torch.mul(tile, one),
@@ -2055,7 +2199,7 @@ def phase_block_top_k(torch, ops, api, data, runtime, paper, num=60000,
         if plane is not None and not same:
             raise AssertionError(f"block_top_k bf16 kernel and ref "
                                  f"trajectories differ: {diff}")
-        common = dict(sumsq=rounds, scale=rounds, block_topk=8 * rounds)
+        common = dict(clip=rounds, block_topk=8 * rounds)
         expect_launches(f"block_top_k {label} kernel", n_k, ef_track=rounds,
                         ef_step=rounds,
                         sr_epilogue=5 * rounds if plane else 0, **common)
@@ -2079,7 +2223,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api, data
     from repro_torch.core import average_params, clipping
-    from repro_torch.kernels import build, flatten, ops, ref
+    from repro_torch.kernels import build, flatten, ops, ref, smooth_clip
     from repro_torch.launch import runtime, serve
     from repro_torch.models import paper
     from repro_torch.tree import tree_leaves
@@ -2140,6 +2284,7 @@ def main() -> int:
 
     # phase 8: the clip kernels, block_topk, and the block_top_k path
     clip_table = phase_clip_kernels(torch, ops, ref)
+    fused_table = phase_clip_fused(torch, ops, ref, smooth_clip)
     grad = phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
                                clipping)
     phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper)
@@ -2235,6 +2380,23 @@ def main() -> int:
             bound_ms_dp_plane=clip_table[(name, "dp", "f32")]["bound_ms"],
             ms_2p24=clip_table[(name, "2^24 x1", "f32")]["ms"],
             bound_ms_2p24=clip_table[(name, "2^24 x1", "f32")]["bound_ms"]))
+    # the fused clip on PORTER-GC's agent plane (the f32 MLP run)
+    row = fused_table[(MAIN_PLANE, "f32")]
+    record.append(dict(
+        name="clip", ok=row["equal"], route="cuda",
+        source="src/repro_torch/csrc/smooth_clip.cu", replaces=CLIP_REPLACES,
+        launches=launches["clip"], max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None, plane=MAIN_PLANE,
+        ms_warm=row["ms_warm"], replaced_route_ms=row["route_ms"],
+        sumsq_scale_ms=row["pair_ms"], plan=row["plan"],
+        ms_bf16=fused_table[(MAIN_PLANE, "bf16")]["ms"],
+        bound_ms_bf16=fused_table[(MAIN_PLANE, "bf16")]["bound_ms"],
+        ms_dp_plane=fused_table[("dp", "f32")]["ms"],
+        bound_ms_dp_plane=fused_table[("dp", "f32")]["bound_ms"],
+        ms_2p24=fused_table[("2^24 x1", "f32")]["ms"],
+        bound_ms_2p24=fused_table[("2^24 x1", "f32")]["bound_ms"],
+        graph_replay_ms=fused_table["graph"]["ms"]))
     row = topk_table[("w1", "f32", 102)]
     record.append(dict(
         name="block_topk", ok=row["equal"], route="cuda",

@@ -13,8 +13,8 @@ The algorithms clip many trees at once: :func:`stacked_clip` takes a
 row-stacked tree (each leaf's leading axis one agent, or one sample) and
 clips each row by its own norm over all its leaves.  The smooth mode runs
 on the flat tile planes of :mod:`repro_torch.kernels.flatten` through the
-``sumsq`` and ``scale`` kernels (``kernels/ops.py``), one launch each for
-all rows; piecewise and none stay eager (the reference has no kernel for
+fused ``clip`` kernel (``kernels/ops.clip_planes``), one launch for all
+rows; piecewise and none stay eager (the reference has no kernel for
 them).  :func:`perturb` adds the DP noise ``g + sigma * z`` through the
 ``scale_noise`` kernel at factor 1.  Per-sample clipped mini-batch
 gradients come from :func:`clipped_grad_accumulate`, which takes the
@@ -31,7 +31,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from ..kernels import flatten as FL
-from ..kernels import ops
+from ..kernels import ops, ref
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["smooth_clip", "piecewise_clip", "tree_global_norm", "tree_clip",
@@ -60,8 +60,8 @@ def piecewise_clip(x: torch.Tensor, tau: float) -> torch.Tensor:
 
 def tree_global_norm(tree) -> torch.Tensor:
     """l2 norm of the concatenation of all leaves."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in tree_leaves(tree)))
+    return ref.sqrt_rn(sum(torch.sum(torch.square(leaf.to(torch.float32)))
+                           for leaf in tree_leaves(tree)))
 
 
 def clip_factor(norm: torch.Tensor, tau: float, mode: ClipMode) -> torch.Tensor:
@@ -84,15 +84,14 @@ def tree_clip(tree, tau: float, mode: ClipMode = "smooth"):
 def stacked_clip(tree, tau: float, mode: ClipMode = "smooth"):
     """Clip each row of a row-stacked tree by the norm of that row over
     all leaves: ``tree_clip`` of every row.  Smooth clipping packs the
-    rows into one flat plane, takes the per-tile sums of squares
-    (``ops.clip_sumsq``), combines them into one factor a row
-    (``ops.smooth_factors``) and scales (``ops.clip_scale``), all in
-    ``ops.clip_planes``; each leaf comes back in its own dtype."""
+    rows into one flat plane and clips it in ``ops.clip_planes`` (the
+    per-tile sums of squares, one factor a row, the scale: one launch on
+    the card); each leaf comes back in its own dtype."""
     if mode != "smooth":
         return vmap(lambda t: tree_clip(t, tau, mode))(tree)
     spec = FL.flat_spec(tree)
     return FL.from_planes(
-        ops.clip_planes(FL.to_planes(tree, spec), spec.rows, tau), spec)
+        ops.clip_planes(FL.to_planes(tree, spec), spec.rows, tau)[0], spec)
 
 
 def perturb(tree, noise, sigma: float):

@@ -1,46 +1,77 @@
-// Smooth clipping (paper Definition 2) for Hopper, in two passes over a
-// flat (tiles, 8192) plane:
+// Smooth clipping (paper Definition 2) for Hopper over a flat (tiles, 8192)
+// plane that stacks rows (agents, or samples) of tiles_per_row tiles:
 //
-//   sumsq        (_sumsq_kernel)        per-tile sum of squares -> (tiles,)
-//   scale        (_scale_kernel)        y = x * f_row
-//   scale_noise  (_scale_noise_kernel)  y = x * f_row + sigma * z
+//   clip         (clip_cluster_kernel,  y = x * f_row (+ sigma * z), with
+//                 clip_kernel)          f_row = tau / (tau + ||row||), in
+//                                       one launch
+//   sumsq        (sumsq_kernel)         per-tile sum of squares -> (tiles,)
+//   scale        (scale_kernel)         y = x * f_row
+//   scale_noise  (scale_kernel<noise>)  y = x * f_row + sigma * z
 //
-// Replace the Pallas TPU kernels of src/repro/kernels/smooth_clip.py.  The
-// wrapper (src/repro_torch/kernels/ops.py) combines a row's partials with
-// one sum, a square root and the correctly rounded quotient
-// f = tau / (tau + ||x||) between the passes, as the reference's wrapper
-// does with jnp.sum.  The plane may stack rows (agents, or samples): the
-// factor operand holds one f32 per row and broadcasts over the row's
-// tiles_per_row tiles, the Pallas kernel's scalar generalised to the rows
-// the port clips in one launch.  At f = 1 scale_noise is the DP
-// perturbation g + sigma * z, bit for bit.
+// Replace the Pallas TPU kernels of src/repro/kernels/smooth_clip.py
+// (sumsq :41, scale :69, scale with noise :77); clip replaces sumsq, the
+// jnp combine between the passes (src/repro/kernels/ops.py:59-61) and
+// scale together.  The Pallas kernel's scalar factor is generalised to one
+// f32 a row.  At f = 1 scale_noise is the DP perturbation g + sigma * z,
+// bit for bit.
 //
 // Each computes what the plain versions of src/repro_torch/kernels/ref.py
-// (clip_sumsq, clip_scale_ref) compute, bit for bit: every f32 step is a
-// round-to-nearest intrinsic, so nvcc contracts nothing into an FMA.  The
-// sum of squares has a fixed order: thread t of 1024 sums the squares of
-// elements 8t..8t+7 in sequence, then a halving tree adds partial i + half
-// onto partial i (shared memory down to 32 partials, then warp shuffles,
-// which add lane i + off onto lane i: the same pairs).
+// (clip_sumsq, smooth_factors, clip_scale_ref) compute, bit for bit: every
+// f32 step is a round-to-nearest intrinsic, so nvcc contracts nothing into
+// an FMA.  A tile's sum of squares has a fixed order: partial t of 1024
+// sums the squares of elements 8t..8t+7 in sequence, then a halving tree
+// adds partial i + half onto partial i (the last five levels by warp
+// shuffles, which add lane i + off onto lane i: the same pairs).  A row's
+// sum of its T partials: lane l of one warp adds partials l, l + 32, ...
+// in sequence, then the shuffle tree; then __fsqrt_rn, __fadd_rn(tau, .)
+// and __fdiv_rn(tau, .).
 //
-// What bounds them on an H100: memory bandwidth.  sumsq reads 4 B (f32)
-// or 2 B (bf16) per element and writes 4 B a tile; scale reads and writes
-// the element (8 B in f32), scale_noise also reads the noise (12 B).  A
-// thread moves 8 consecutive elements with 16-byte accesses (two of f32,
-// one of bf16); the arithmetic is one or three operations an element.
-// sumsq takes one CTA of 1024 threads a tile (its tree needs the whole
-// tile in one CTA); scale takes four CTAs of 256 threads a tile.
+// What bounds them on an H100.  At the training path's planes (the MLP's
+// 10 x 7 tiles, 2.3 MB in f32) the launch: sumsq and scale each take
+// ~3 us against bounds of 0.68 and 1.37, and the plain combine between
+// them five more launches.  clip is one launch, on one of two routes
+// chosen from the shape:
+//
+// - cluster (rows of at most 8 tiles: every plane of the training path):
+//   one CTA a tile and one thread block cluster a row.  A CTA loads its
+//   tile into registers, stages it in shared memory for the sum's layout,
+//   sums it, meets its row at the cluster's hardware barrier, reads the
+//   row's sums from its peers' shared memory, forms the factor and scales
+//   the tile from its registers: the plane is read once (8 B an element in
+//   f32), with no grid-wide barrier and no round trip through L2.
+// - cooperative (longer rows, such as 2^24 elements in one row): one
+//   persistent cooperative launch.  CTAs take contiguous runs of tiles and
+//   sum them, all CTAs meet at one grid-wide barrier
+//   (cooperative_groups::this_grid().sync()), each forms its rows' factors
+//   from the partials in L2 (every CTA the same bits, so no second
+//   barrier) and scales its tiles, reading them again (12 B an element).
+//   Keeping a CTA's tiles in shared memory between the passes (fetched by
+//   the Tensor Memory Accelerator's bulk copy) was built first and was no
+//   faster on the planes that fit, so it is not kept.
+//
+// A partial's 8 consecutive elements go to one thread (the sum's order
+// fixes that layout; from shared memory its two 16-byte halves are read in
+// an order that keeps the banks free of conflicts); the scale is
+// elementwise, so it reads and stores whole 16-byte vectors with
+// consecutive threads on consecutive addresses.  The sumsq / scale pair
+// stays for callers of the passes alone (sumsq: one CTA of 1024 threads a
+// tile; scale: four CTAs of 256 a tile).
 //
 // Interface: plain C, loaded with ctypes.  Pointers are device addresses of
 // contiguous, 16-byte aligned buffers; bf16 != 0 reads and writes bf16
 // planes (noise in the plane's dtype), else f32; factors and partials are
 // f32.  The stream is the caller's cudaStream_t.  Each entry point returns
 // cudaGetLastError() after its launch, or cudaErrorInvalidValue for
-// arguments it does not take.
+// arguments it does not take; clip's cooperative route returns
+// cudaErrorNotSupported where the card cannot launch cooperatively (and
+// an occupancy of 0 as an error), and it never falls back to the pair.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -156,6 +187,391 @@ int launch_scale(const void* x, const void* factor, int64_t tiles_per_row,
   return (int)cudaGetLastError();
 }
 
+// ---- clip: the fused kernel --------------------------------------------
+
+constexpr int kClipThreads = 512;           // two partials of 8 a thread
+constexpr int kClipWarps = kClipThreads / 32;
+constexpr int kHalf = kTile / 2;            // partial t + 512 starts here
+
+template <typename T>
+__host__ __device__ constexpr int tile_bytes() { return kTile * (int)sizeof(T); }
+
+__device__ __forceinline__ float sq8(const float v[kVec]) {
+  float s = __fmul_rn(v[0], v[0]);
+#pragma unroll
+  for (int j = 1; j < kVec; ++j) s = __fadd_rn(s, __fmul_rn(v[j], v[j]));
+  return s;
+}
+
+// elements 8u..8u+7 of a tile in shared memory.  In f32 they are the
+// 16-byte slots 2u and 2u + 1; the 8 threads of a quarter-warp read them
+// in the order that puts each read on its own banks, then swap back.
+__device__ __forceinline__ void load8_shared(const float* tile, int u,
+                                             float v[kVec]) {
+  const float4* q = reinterpret_cast<const float4*>(tile) + 2 * u;
+  const int sel = (u >> 2) & 1;
+  float4 a = q[sel], b = q[sel ^ 1];
+  if (sel) {
+    const float4 t = a;
+    a = b;
+    b = t;
+  }
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void unpack_bf16(uint4 a, float v[kVec]) {
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8_shared(const __nv_bfloat16* tile, int u,
+                                             float v[kVec]) {
+  unpack_bf16(reinterpret_cast<const uint4*>(tile)[u], v);
+}
+
+// y = x * f (+ sigma * z) on one 16-byte vector of the plane's dtype (the
+// first argument only picks the overload)
+template <bool kNoise>
+__device__ __forceinline__ uint4 scale16(float, uint4 x, uint4 z, float f,
+                                         float sigma) {
+  uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t n[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float y = __fmul_rn(__uint_as_float(w[i]), f);
+    if (kNoise) y = __fadd_rn(y, __fmul_rn(sigma, __uint_as_float(n[i])));
+    w[i] = __float_as_uint(y);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <bool kNoise>
+__device__ __forceinline__ uint4 scale16(__nv_bfloat16, uint4 x, uint4 z,
+                                         float f, float sigma) {
+  float v[kVec], n[kVec];
+  unpack_bf16(x, v);
+  if (kNoise) unpack_bf16(z, n);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    v[j] = __fmul_rn(v[j], f);
+    if (kNoise) v[j] = __fadd_rn(v[j], __fmul_rn(sigma, n[j]));
+  }
+  return make_uint4(bf16_bits(v[0]) | (bf16_bits(v[1]) << 16),
+                    bf16_bits(v[2]) | (bf16_bits(v[3]) << 16),
+                    bf16_bits(v[4]) | (bf16_bits(v[5]) << 16),
+                    bf16_bits(v[6]) | (bf16_bits(v[7]) << 16));
+}
+
+// The rest of a tile's tree in warp 0, from its 512 first-level partials
+// in shared memory: levels 256 ... 32 add partials of one lane (lane l
+// holds l + 32j), then the shuffles; lane 0 gets the tile's sum.
+__device__ __forceinline__ float tile_tree(const float* r, int lane) {
+  static_assert(kClipWarps == 16, "the tree below is written for 16");
+  float c[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) c[j] = r[lane + 32 * j];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) c[j] = __fadd_rn(c[j], c[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c[j] = __fadd_rn(c[j], c[j + 4]);
+  c[0] = __fadd_rn(c[0], c[2]);
+  c[1] = __fadd_rn(c[1], c[3]);
+  float p = __fadd_rn(c[0], c[1]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    p = __fadd_rn(p, __shfl_down_sync(kFull, p, off));
+  }
+  return p;
+}
+
+// A row's factor in one warp from its lanes' sums (lane l: partials l,
+// l + 32, ... in sequence from +0.0): the shuffle tree, then
+// tau / (tau + sqrt(sum)); lane 0 gets it.
+__device__ __forceinline__ float row_factor(float s, float tau) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s = __fadd_rn(s, __shfl_down_sync(kFull, s, off));
+  }
+  return __fdiv_rn(tau, __fadd_rn(tau, __fsqrt_rn(s)));
+}
+
+// Rows of more than kMaxCluster tiles: one persistent cooperative launch.
+// CTA b takes the tiles [t0, t1), per_cta of them (fewer in the last CTA),
+// sums them, meets every CTA at one grid-wide barrier, forms its rows'
+// factors from the partials in L2 and scales its tiles, reading them again.
+template <typename T, bool kNoise>
+__global__ void __launch_bounds__(kClipThreads, 2)
+clip_kernel(const T* __restrict__ x, const T* __restrict__ noise,
+            float sigma, float tau, T* __restrict__ out,
+            float* __restrict__ partials, float* __restrict__ factors,
+            int64_t tiles, int64_t tiles_per_row, int64_t per_cta) {
+  constexpr int kVecs = tile_bytes<T>() / 16;   // 16-byte vectors a tile
+  __shared__ float red[2 * kClipThreads];
+  __shared__ float fac[kClipWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t t0 = (int64_t)blockIdx.x * per_cta;
+  const int64_t t1 = min(t0 + per_cta, tiles);
+
+  // pass 1: every tile's partial, in the sumsq kernel's order
+  for (int64_t t = t0; t < t1; ++t) {
+    float a[kVec], b[kVec];
+    load8(x + t * kTile + kVec * tid, a);
+    load8(x + t * kTile + kHalf + kVec * tid, b);
+    // partials t and t + 512 of the tile's 1024, and the tree's first
+    // level; tiles alternate between two sets, so warp 0 may still read
+    // this set while the others write the next (the next barrier orders
+    // the one after)
+    float* r = red + ((t - t0) & 1) * kClipThreads;
+    r[tid] = __fadd_rn(sq8(a), sq8(b));
+    __syncthreads();
+    if (warp == 0) {
+      const float p = tile_tree(r, lane);
+      if (lane == 0) partials[t] = p;
+    }
+  }
+
+  cooperative_groups::this_grid().sync();
+
+  // pass 2: the factors of this CTA's rows, kClipWarps at a time (one a
+  // warp; every CTA forms the same bits, so no second barrier), then the
+  // scale of their tiles
+  const int64_t r0 = t0 / tiles_per_row, r1 = (t1 - 1) / tiles_per_row;
+  for (int64_t rg = r0; rg <= r1; rg += kClipWarps) {
+    const int64_t row = rg + warp;
+    if (row <= r1) {
+      // lane l: partials l, l + 32, ... in sequence (+0.0 past the row's
+      // end, exact on a sum of squares), then the shuffle tree
+      const float* p = partials + row * tiles_per_row;
+      float s = 0.0f;
+      for (int64_t base = lane; base < tiles_per_row; base += 32 * 8) {
+        float q[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int64_t at = base + 32 * j;
+          q[j] = at < tiles_per_row ? __ldcg(p + at) : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s = __fadd_rn(s, q[j]);
+      }
+      const float f = row_factor(s, tau);
+      if (lane == 0) {
+        fac[warp] = f;
+        const int64_t first = row * tiles_per_row;
+        if (t0 <= first && first < t1) factors[row] = f;
+      }
+    }
+    __syncthreads();
+    const int64_t lo = max(t0, rg * tiles_per_row);
+    const int64_t hi = min(t1, (rg + kClipWarps) * tiles_per_row);
+    for (int64_t t = lo; t < hi; ++t) {
+      const float f = fac[t / tiles_per_row - rg];
+      const uint4* src = reinterpret_cast<const uint4*>(x + t * kTile);
+      const uint4* zs = reinterpret_cast<const uint4*>(noise + t * kTile);
+      uint4* dst = reinterpret_cast<uint4*>(out + t * kTile);
+#pragma unroll
+      for (int m = 0; m < kVecs / kClipThreads; ++m) {
+        const int at = tid + m * kClipThreads;
+        const uint4 v = __ldg(src + at);
+        const uint4 z = kNoise ? __ldg(zs + at) : v;
+        dst[at] = scale16<kNoise>(T(), v, z, f, sigma);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Rows of at most kMaxCluster tiles: one CTA a tile, one thread block
+// cluster a row.  Each CTA loads its tile into registers (16-byte vectors
+// t, t + 512, ... a thread, coalesced), stages it in shared memory for the
+// sum's layout, sums it and leaves the sum in its shared memory, and meets
+// its row at the cluster's hardware barrier; warp 0 of each CTA reads the
+// row's sums from its peers' shared memory (lane l the sum of tile l, in
+// the row order above) and forms the factor, and the CTA scales the tile
+// from its registers.  No grid-wide barrier, no round trip through L2,
+// and no co-residency needed beyond the cluster.
+constexpr int kMaxCluster = 8;   // the portable cluster size
+
+template <typename T>
+constexpr size_t cluster_smem() {
+  return (size_t)tile_bytes<T>() + kClipThreads * 4 + 8;
+}
+
+template <typename T, bool kNoise>
+__global__ void __launch_bounds__(kClipThreads, 3)
+clip_cluster_kernel(const T* __restrict__ x, const T* __restrict__ noise,
+                    float sigma, float tau, T* __restrict__ out,
+                    float* __restrict__ partials,
+                    float* __restrict__ factors, int tiles_per_row) {
+  constexpr int kHeld = tile_bytes<T>() / 16 / kClipThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t t = blockIdx.x;
+  T* staged = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + tile_bytes<T>());
+  float* mine = red + kClipThreads;   // this tile's sum, read by the row
+  float* fac = mine + 1;
+  const uint4* src = reinterpret_cast<const uint4*>(x + t * kTile);
+  uint4 v[kHeld];
+#pragma unroll
+  for (int m = 0; m < kHeld; ++m) v[m] = __ldg(src + tid + m * kClipThreads);
+#pragma unroll
+  for (int m = 0; m < kHeld; ++m) {
+    reinterpret_cast<uint4*>(staged)[tid + m * kClipThreads] = v[m];
+  }
+  __syncthreads();
+  float a[kVec], b[kVec];
+  load8_shared(staged, tid, a);
+  load8_shared(staged + kHalf, tid, b);
+  red[tid] = __fadd_rn(sq8(a), sq8(b));
+  __syncthreads();
+  if (warp == 0) {
+    const float p = tile_tree(red, lane);
+    if (lane == 0) {
+      *mine = p;
+      partials[t] = p;
+    }
+  }
+  cooperative_groups::cluster_group row = cooperative_groups::this_cluster();
+  row.sync();
+  if (warp == 0) {
+    const float s = lane < tiles_per_row
+        ? __fadd_rn(0.0f, *row.map_shared_rank(mine, lane)) : 0.0f;
+    const float f = row_factor(s, tau);
+    if (lane == 0) {
+      *fac = f;
+      if (row.block_rank() == 0) factors[t / tiles_per_row] = f;
+    }
+  }
+  __syncthreads();
+  // done with the peers' shared memory: arrive now, wait before exiting
+  // (a CTA's shared memory must outlive its peers' reads)
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  const float f = *fac;
+  const uint4* zs = reinterpret_cast<const uint4*>(noise + t * kTile);
+  uint4* dst = reinterpret_cast<uint4*>(out + t * kTile);
+#pragma unroll
+  for (int m = 0; m < kHeld; ++m) {
+    const int at = tid + m * kClipThreads;
+    const uint4 z = kNoise ? __ldg(zs + at) : v[m];
+    dst[at] = scale16<kNoise>(T(), v[m], z, f, sigma);
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The launch shape of one clip: the route, the grid and the tiles a CTA.
+// Rows of at most kMaxCluster tiles take the cluster route (one CTA a
+// tile); longer ones the cooperative launch, at the occupancy's grid
+// capped at the tile count.
+struct ClipPlan {
+  int cluster;
+  int64_t grid, per_cta;
+};
+
+// How many of the cooperative kernel's CTAs fit on the device at once
+// (CTAs an SM times the SMs), asked once a device; an error where the card
+// cannot launch cooperatively or fits none.
+template <typename T, bool kNoise>
+cudaError_t clip_grid_most(int64_t* most) {
+  static std::mutex lock;
+  static int64_t cached[16] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 16) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> guard(lock);
+  if (cached[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                    dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, clip_kernel<T, kNoise>, kClipThreads, 0)) !=
+            cudaSuccess) {
+      return e;
+    }
+    if (!coop) return cudaErrorNotSupported;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cached[dev] = (int64_t)per_sm * sms;
+  }
+  *most = cached[dev];
+  return cudaSuccess;
+}
+
+template <typename T, bool kNoise>
+cudaError_t clip_plan_of(int64_t tiles, int64_t tiles_per_row,
+                         ClipPlan* plan) {
+  if (tiles_per_row <= kMaxCluster) {
+    *plan = {1, tiles, 1};
+    return cudaSuccess;
+  }
+  int64_t most = 0;
+  const cudaError_t e = clip_grid_most<T, kNoise>(&most);
+  if (e != cudaSuccess) return e;
+  const int64_t per_cta = (tiles + most - 1) / most;
+  *plan = {0, (tiles + per_cta - 1) / per_cta, per_cta};
+  return cudaSuccess;
+}
+
+template <typename T, bool kNoise>
+int launch_clip(const void* x, const void* noise, float sigma, float tau,
+                void* out, void* partials, void* factors, int64_t tiles,
+                int64_t tiles_per_row, cudaStream_t stream) {
+  ClipPlan plan;
+  cudaError_t e = clip_plan_of<T, kNoise>(tiles, tiles_per_row, &plan);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)plan.grid);
+  cfg.blockDim = dim3(kClipThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (plan.cluster) {
+    cfg.dynamicSmemBytes = cluster_smem<T>();
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)tiles_per_row;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    e = cudaLaunchKernelEx(&cfg, clip_cluster_kernel<T, kNoise>,
+                           (const T*)x, (const T*)noise, sigma, tau, (T*)out,
+                           (float*)partials, (float*)factors,
+                           (int)tiles_per_row);
+  } else {
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    e = cudaLaunchKernelEx(&cfg, clip_kernel<T, kNoise>, (const T*)x,
+                           (const T*)noise, sigma, tau, (T*)out,
+                           (float*)partials, (float*)factors, tiles,
+                           tiles_per_row, plan.per_cta);
+  }
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t clip_plan_dt(int noisy, int64_t tiles, int64_t tiles_per_row,
+                         ClipPlan* p) {
+  return noisy ? clip_plan_of<T, true>(tiles, tiles_per_row, p)
+               : clip_plan_of<T, false>(tiles, tiles_per_row, p);
+}
+
+template <typename T>
+int launch_clip_dt(const void* x, const void* noise, float sigma, float tau,
+                   void* out, void* partials, void* factors, int64_t tiles,
+                   int64_t tiles_per_row, cudaStream_t s) {
+  return noise == nullptr
+      ? launch_clip<T, false>(x, noise, sigma, tau, out, partials, factors,
+                              tiles, tiles_per_row, s)
+      : launch_clip<T, true>(x, noise, sigma, tau, out, partials, factors,
+                             tiles, tiles_per_row, s);
+}
+
 }  // namespace
 
 extern "C" int clip_sumsq(const void* x, int bf16, void* out, int64_t tiles,
@@ -188,4 +604,43 @@ extern "C" int clip_scale(const void* x, int bf16, const void* factor,
   }
   return launch_scale<float>(x, factor, tiles_per_row, noise, sigma, out,
                              tiles, s);
+}
+
+// The route clip_fused takes for a plane of `tiles` tiles, rows of
+// tiles_per_row: plan[0] 1 cluster / 0 cooperative, plan[1] the grid,
+// plan[2] the tiles a CTA.  Launches nothing.
+extern "C" int clip_plan(int bf16, int noisy, int64_t tiles,
+                         int64_t tiles_per_row, int64_t* plan) {
+  if (tiles < 1 || tiles > 0x7fffffff || tiles_per_row < 1 ||
+      tiles % tiles_per_row != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ClipPlan p;
+  const cudaError_t e =
+      bf16 ? clip_plan_dt<__nv_bfloat16>(noisy, tiles, tiles_per_row, &p)
+           : clip_plan_dt<float>(noisy, tiles, tiles_per_row, &p);
+  if (e != cudaSuccess) return (int)e;
+  plan[0] = p.cluster;
+  plan[1] = p.grid;
+  plan[2] = p.per_cta;
+  return 0;
+}
+
+// The smooth clip in one launch: out = x * f_row (+ sigma * noise where
+// noise != nullptr), with the partials (tiles,) and the factors
+// (tiles / tiles_per_row,) written on the way.
+extern "C" int clip_fused(const void* x, int bf16, const void* noise,
+                          float sigma, float tau, void* out, void* partials,
+                          void* factors, int64_t tiles,
+                          int64_t tiles_per_row, void* stream) {
+  if (tiles < 1 || tiles > 0x7fffffff || tiles_per_row < 1 ||
+      tiles % tiles_per_row != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_clip_dt<__nv_bfloat16>(x, noise, sigma, tau, out,
+                                              partials, factors, tiles,
+                                              tiles_per_row, s)
+              : launch_clip_dt<float>(x, noise, sigma, tau, out, partials,
+                                      factors, tiles, tiles_per_row, s);
 }

@@ -16,16 +16,20 @@ and the wire dtypes of :mod:`repro_torch.core.wire_formats`: bf16 values
 with int16 indices (top-k), int32 words with f32 scales (qsgd).  qsgd's
 U[0, 1) noise is an operand, drawn by the caller.
 
-The clip pair (``clip_sumsq`` / ``clip_scale``) runs Definition 2 over a
-flat ``(rows * tiles, TILE)`` plane of f32 or bf16 that stacks rows
-(agents, or samples): one partial sum of squares a tile, then
-:func:`smooth_factors` combines each row's partials into its factor
-``tau / (tau + ||row||)``, the same code for the kernel and the plain path
-(the reference's wrapper combines with ``jnp.sum``, ``ops.py:60``), then one
-scale a row (``+ sigma * z`` with a noise plane: the ``scale_noise``
-kernel); :func:`clip_planes` is that composition.  ``smooth_clip`` keeps
-the reference's contract: one norm over the whole array.  ``block_topk`` keeps exactly k per ``(R, 2048)`` window,
-ties to the lower index.
+The smooth clip runs Definition 2 over a flat ``(rows * tiles, TILE)``
+plane of f32 or bf16 that stacks rows (agents, or samples).
+:func:`clip_planes` is one launch of the fused ``clip`` kernel: one
+partial sum of squares a tile, each row's factor ``tau / (tau + ||row||)``
+from its partials in :func:`smooth_factors`' fixed order, then the scale
+(``+ sigma * z`` with a noise plane); a thread block cluster a row of at
+most 8 tiles, else one cooperative launch with a grid-wide barrier.  The
+reference's wrapper runs ``sumsq``, ``jnp.sum`` and ``scale``
+(``src/repro/kernels/ops.py:59-61``).  The two passes also stand alone:
+``clip_sumsq`` (the ``sumsq`` kernel) and ``clip_scale`` (``scale``, or
+``scale_noise`` with a noise plane: the DP perturbation at factor 1).
+``smooth_clip`` keeps the reference's contract: one norm over the whole
+array.  ``block_topk`` keeps exactly k per ``(R, 2048)`` window, ties to
+the lower index.
 
 ``rwkv6_scan`` is the RWKV6 chunked scan of the rwkv6 serving path, with
 the reference's contract (``src/repro/kernels/ops.py:230``); ``ssd_scan``
@@ -69,7 +73,8 @@ __all__ = ["LAUNCHES", "reset_launches", "ef_track", "ef_step", "ef_gossip",
            "rwkv6_scan", "ssd_scan"]
 
 LAUNCHES = {"ef_track": 0, "ef_step": 0, "ef_gossip": 0, "sr_cast": 0,
-            "sumsq": 0, "scale": 0, "scale_noise": 0, "block_topk": 0,
+            "sumsq": 0, "scale": 0, "scale_noise": 0, "clip": 0,
+            "block_topk": 0,
             "topk_pack": 0, "topk_unpack": 0, "qsgd_pack": 0,
             "qsgd_unpack": 0, "rwkv6_chunk": 0, "ssd_chunk": 0,
             "sr_epilogue": 0}
@@ -262,24 +267,29 @@ def clip_scale(planes, factor, noise=None, sigma: float = 0.0):
     return out
 
 
-def smooth_factors(partials, rows: int, tau: float):
-    """Each row's Definition-2 factor ``tau / (tau + ||row||)`` from its
-    tiles' partial sums of squares (``partials``: ``(rows * tiles,)``).
-    The dividend is a tensor: PyTorch computes ``float / tensor`` as
-    ``tensor.reciprocal() * float``, which is not the correctly rounded
-    quotient that XLA and the reference give."""
-    norm = torch.sqrt(partials.view(rows, -1).sum(1))
-    return torch.full_like(norm, tau) / (tau + norm)
+smooth_factors = ref.smooth_factors
 
 
 def clip_planes(planes, rows: int, tau: float, noise=None,
                 sigma: float = 0.0):
-    """Definition 2 over a ``(rows * tiles, TILE)`` plane, each logical row
-    by its own norm (plus ``sigma * noise``): :func:`clip_sumsq`, then
-    :func:`smooth_factors`, then :func:`clip_scale`.  The composition of
-    :func:`smooth_clip` and of ``core.clipping.stacked_clip``."""
-    return clip_scale(planes, smooth_factors(clip_sumsq(planes), rows, tau),
-                      noise, sigma)
+    """Definition 2 over a ``(rows * T, TILE)`` f32 or bf16 plane, each
+    logical row of T tiles by its own norm (plus ``sigma * noise``, a plane
+    like ``planes``): on the card one launch of the fused ``clip`` kernel
+    (per-tile sums, each row's factor, the scale), on the CPU its plain
+    composition ``ref.clip_planes_ref`` (:func:`clip_sumsq`'s order, then
+    :func:`smooth_factors`, then :func:`clip_scale`'s arithmetic), bit for
+    bit.  Returns (the clipped plane, the ``(rows * T,)`` partials, the
+    ``(rows,)`` factors)."""
+    operands = (planes,) if noise is None else (planes, noise)
+    kind = _check_plane("clip_planes", operands, TILE)
+    if rows < 1 or planes.shape[0] % rows:
+        raise ValueError(f"clip_planes takes a row count that divides the "
+                         f"plane's {planes.shape[0]} tiles, got {rows}")
+    if kind == "cpu":
+        return ref.clip_planes_ref(planes, rows, tau, noise, sigma)
+    out = _sc.clip(planes, rows, tau, noise, sigma)
+    LAUNCHES["clip"] += 1
+    return out
 
 
 def smooth_clip(x, tau: float, noise=None, sigma: float = 0.0):
@@ -294,7 +304,7 @@ def smooth_clip(x, tau: float, noise=None, sigma: float = 0.0):
     spec = FL.flat_spec(x, stacked=False)
     z = None if noise is None else FL.to_planes(noise, spec)
     return FL.from_planes(clip_planes(FL.to_planes(x, spec), 1, tau, z,
-                                      sigma), spec)
+                                      sigma)[0], spec)
 
 
 def block_topk(windows, k: int):

@@ -30,7 +30,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ef_track_ref", "ef_step_ref", "ef_gossip_ref", "sr_cast_ref",
-           "clip_sumsq", "clip_scale_ref", "smooth_clip_ref",
+           "sqrt_rn", "clip_sumsq", "clip_scale_ref", "smooth_factors",
+           "clip_planes_ref", "smooth_clip_ref",
            "block_topk_ref",
            "topk_pack_ref", "topk_unpack_ref", "qsgd_pack_ref",
            "qsgd_unpack_ref", "qsgd_sumsq", "rwkv6_chunk_ref",
@@ -92,6 +93,15 @@ def sr_cast_ref(x, bits):
     return (word >> 16).to(torch.int16).view(torch.bfloat16)
 
 
+def sqrt_rn(s):
+    """The correctly rounded f32 square root of an f32 tensor, as XLA and
+    the card's ``sqrtf`` / ``__fsqrt_rn`` give it: PyTorch's CPU
+    ``torch.sqrt`` of an f32 can sit an ulp low (``sqrt(267.0)``).  Taken
+    in f64 and rounded once to f32; 53 >= 2 * 24 + 2 bits make that double
+    rounding harmless for a square root."""
+    return torch.sqrt(s.double()).float()
+
+
 def clip_sumsq(planes):
     """Per-tile sum of squares of a ``(tiles, TILE)`` plane of any float
     dtype, in f32 and in the kernel's fixed order (:func:`qsgd_sumsq`'s,
@@ -110,6 +120,40 @@ def clip_scale_ref(planes, factor, noise=None, sigma: float = 0.0):
     if noise is not None:
         y = y + sigma * noise.to(_F32)
     return y.to(planes.dtype)
+
+
+def smooth_factors(partials, rows: int, tau: float):
+    """Each row's Definition-2 factor ``tau / (tau + ||row||)`` from its
+    tiles' partial sums of squares (``partials``: ``(rows * T,)`` f32),
+    in the fused kernel's fixed order: the row's T partials padded with
+    +0.0 to a multiple of 32, lane l of 32 adding partials l, l + 32,
+    l + 64, ... in sequence, then a halving tree over the lanes (lane
+    i + off onto lane i, off = 16 ... 1).  Sums of squares are >= +0, so
+    the pads are exact.  Then the correctly rounded square root,
+    ``RN(f32(tau) + norm)`` and the correctly rounded quotient (a tensor
+    dividend: PyTorch computes ``float / tensor`` as
+    ``tensor.reciprocal() * float``)."""
+    lanes = partials.view(rows, -1).to(_F32)
+    lanes = torch.nn.functional.pad(lanes, (0, -lanes.shape[1] % 32))
+    lanes = lanes.view(rows, -1, 32)
+    s = lanes[:, 0]
+    for j in range(1, lanes.shape[1]):
+        s = s + lanes[:, j]
+    for off in (16, 8, 4, 2, 1):
+        s = s[:, :off] + s[:, off:2 * off]
+    t = torch.full_like(s[:, 0], tau)
+    return t / (t + sqrt_rn(s[:, 0]))
+
+
+def clip_planes_ref(planes, rows: int, tau: float, noise=None,
+                    sigma: float = 0.0):
+    """The fused clip's plain composition over a ``(rows * T, TILE)``
+    plane: :func:`clip_sumsq`, :func:`smooth_factors`,
+    :func:`clip_scale_ref`.  Returns (the clipped plane in ``planes``'
+    dtype, the ``(rows * T,)`` partials, the ``(rows,)`` factors)."""
+    partials = clip_sumsq(planes)
+    factors = smooth_factors(partials, rows, tau)
+    return clip_scale_ref(planes, factors, noise, sigma), partials, factors
 
 
 def smooth_clip_ref(x, tau: float, noise=None, sigma: float = 0.0):
@@ -212,7 +256,7 @@ def qsgd_pack_ref(rows, noise, levels: int):
     epw = wf.qsgd_elems_per_word(levels)
     words = wf.qsgd_words_per_window(levels)
     rows = rows.to(_F32)
-    norm = torch.sqrt(qsgd_sumsq(rows)) + 1e-30
+    norm = sqrt_rn(qsgd_sumsq(rows)) + 1e-30
     y = rows.abs() / norm.unsqueeze(1) * float(levels)
     lo = torch.floor(y)
     code = (lo + (noise < (y - lo)).to(_F32)).to(torch.int64)

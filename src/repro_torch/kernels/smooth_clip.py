@@ -2,16 +2,17 @@
 
 Hand-written Hopper replacements of the Pallas kernels in
 ``src/repro/kernels/smooth_clip.py``, over a flat ``(tiles, 8192)`` plane
-of f32 or bf16:
+of f32 or bf16 whose logical rows hold ``tiles_per_row`` tiles each:
 
+    clip:         y = x * f_row (+ sigma * z), f_row = tau / (tau + ||row||),
+                  in one launch (partials and factors written on the way)
     sumsq:        per-tile sum of squares, in a fixed order -> (tiles,) f32
     scale:        y = x * f_row, one f32 factor per logical row
     scale_noise:  y = x * f_row + sigma * z
 
-These functions only allocate and launch: operand checks, the CPU dispatch,
-the combine of the partials into each row's factor and the launch counters
-live in :mod:`repro_torch.kernels.ops`.  The library is built and loaded on
-the first call, never at import.
+These functions only allocate and launch: operand checks, the CPU dispatch
+and the launch counters live in :mod:`repro_torch.kernels.ops`.  The
+library is built and loaded on the first call, never at import.
 """
 
 from __future__ import annotations
@@ -23,12 +24,15 @@ import torch
 
 from . import build
 
-__all__ = ["sumsq", "scale"]
+__all__ = ["clip", "clip_plan", "sumsq", "scale"]
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "clip_sumsq": [_P, _I, _P, _I64, _P],
     "clip_scale": [_P, _I, _P, _I64, _P, ctypes.c_float, _P, _I64, _P],
+    "clip_fused": [_P, _I, _P, ctypes.c_float, ctypes.c_float, _P, _P, _P,
+                   _I64, _I64, _P],
+    "clip_plan": [_I, _I, _I64, _I64, _P],
 }
 
 
@@ -48,6 +52,38 @@ def _launch(name: str, lead: torch.Tensor, *args) -> None:
         err = getattr(_lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def clip(planes, rows: int, tau: float, noise=None, sigma: float = 0.0):
+    """Launch the fused smooth clip of a contiguous ``(rows * T, TILE)``
+    plane (``+ sigma * noise``); returns (the clipped plane, the
+    ``(rows * T,)`` f32 partials, the ``(rows,)`` f32 factors)."""
+    tiles = planes.shape[0]
+    out = torch.empty_like(planes)
+    partials = torch.empty(tiles, dtype=torch.float32, device=planes.device)
+    factors = torch.empty(rows, dtype=torch.float32, device=planes.device)
+    _launch("clip_fused", planes, planes.data_ptr(),
+            int(planes.dtype == torch.bfloat16),
+            None if noise is None else noise.data_ptr(), float(sigma),
+            float(tau), out.data_ptr(), partials.data_ptr(),
+            factors.data_ptr(), tiles, tiles // rows)
+    return out, partials, factors
+
+
+def clip_plan(planes, rows: int, noisy: bool = False) -> dict:
+    """The route :func:`clip` takes on the card for ``planes`` of ``rows``
+    logical rows: ``cluster`` (a thread block cluster a row of at most 8
+    tiles) or ``cooperative`` (one cooperative launch with a grid-wide
+    barrier); the grid and the tiles a CTA.  Launches nothing."""
+    plan = (ctypes.c_int64 * 3)()
+    with torch.cuda.device(planes.device):
+        err = _lib().clip_plan(int(planes.dtype == torch.bfloat16),
+                               int(noisy), planes.shape[0],
+                               planes.shape[0] // rows, plan)
+    if err != 0:
+        raise RuntimeError(f"clip_plan failed with CUDA error {err}")
+    return {"route": ("cooperative", "cluster")[plan[0]], "grid": plan[1],
+            "tiles_per_cta": plan[2]}
 
 
 def sumsq(planes):

@@ -1,15 +1,17 @@
 """The clip and block-top-k kernels on the algorithms' paths, on the CPU.
 
 * The row-stacked clip (``core.clipping.stacked_clip``: every agent's or
-  every sample's gradient clipped by its own norm, in one ``clip_sumsq``
-  and one ``clip_scale`` call over a flat plane) against the reference's
+  every sample's gradient clipped by its own norm, in one ``clip_planes``
+  call over a flat plane) against the reference's
   ``vmap(tree_clip)``, and ``clipped_grad_accumulate`` over stacked and
   shared params against the reference's per-agent call under ``vmap``:
   atol 1e-6, the norms' sums being taken in other orders.
 * Which wrappers each algorithm's step reaches, counted by wrapping them
   with ``monkeypatch``: PORTER-GC, DSGD and CHOCO clip once a round
-  (``clip_sumsq`` + ``clip_scale``), the DP algorithms also perturb once
-  (``clip_scale`` with noise: the ``scale_noise`` kernel), BEER never;
+  (``clip_planes``: the fused ``clip`` kernel), the DP algorithms also
+  perturb once (``clip_scale`` with noise: the ``scale_noise`` kernel),
+  BEER never, and no step calls the passes ``clip_sumsq`` / ``clip_scale``
+  alone;
   ``block_top_k`` on the dense wire calls ``ops.block_topk`` once a
   compressed leaf, and on the packed wire not at all (the codec selects).
   On the card each call is one kernel launch (``chip_smoke.py`` counts
@@ -115,7 +117,8 @@ def test_clipped_grad_accumulate_over_agents_equals_reference(agents):
 
 
 def _count_calls(monkeypatch):
-    """Wrap the four kernel wrappers; returns the counter they fill."""
+    """Wrap the clip and block-top-k wrappers; returns the counter they
+    fill."""
     calls = collections.Counter()
 
     def counted(name, fn):
@@ -129,7 +132,7 @@ def _count_calls(monkeypatch):
             return fn(*args, **kw)
         return wrapper
 
-    for name in ("clip_sumsq", "clip_scale", "block_topk"):
+    for name in ("clip_planes", "clip_sumsq", "clip_scale", "block_topk"):
         monkeypatch.setattr(ops, name, counted(name, getattr(ops, name)))
     return calls
 
@@ -150,20 +153,20 @@ def _step_once(algo, **over):
     return state
 
 
-# per algorithm, the calls of one step: (clip_sumsq, clip_scale without
-# noise, clip_scale with noise)
-CLIP_CALLS = {"porter-gc": (1, 1, 0), "porter-dp": (1, 1, 1),
-              "dp-sgd": (1, 1, 1), "soteriafl": (1, 1, 1),
-              "dsgd": (1, 1, 0), "choco": (1, 1, 0), "beer": (0, 0, 0)}
+# per algorithm, the calls of one step: (clip_planes, clip_scale with
+# noise); clip_sumsq and clip_scale without noise are called by none
+CLIP_CALLS = {"porter-gc": (1, 0), "porter-dp": (1, 1), "dp-sgd": (1, 1),
+              "soteriafl": (1, 1), "dsgd": (1, 0), "choco": (1, 0),
+              "beer": (0, 0)}
 
 
 @pytest.mark.parametrize("algo", sorted(CLIP_CALLS))
 def test_each_step_clips_through_the_kernel_wrappers(monkeypatch, algo):
     calls = _count_calls(monkeypatch)
     _step_once(algo, **({"tau": None} if algo == "beer" else {}))
-    sumsq, scale, noisy = CLIP_CALLS[algo]
+    fused, noisy = CLIP_CALLS[algo]
     assert calls == collections.Counter(
-        {k: v for k, v in (("clip_sumsq", sumsq), ("clip_scale", scale),
+        {k: v for k, v in (("clip_planes", fused),
                            ("clip_scale+noise", noisy)) if v})
 
 

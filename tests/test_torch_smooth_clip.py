@@ -18,9 +18,15 @@ operations the CUDA kernels repeat bit for bit on the card
 * exact: ``clip_sumsq`` against its order written out in numpy, the clip
   factor at tau = 0.3 against the reference's (a correctly rounded f32
   quotient on both sides), ``clip_scale`` at factor 1 against the
-  perturbation ``g + sigma * z``.
+  perturbation ``g + sigma * z``; ``smooth_factors`` against the fused
+  kernel's order over a row's partials written out in numpy, and
+  ``clip_planes`` / ``stacked_clip`` against their plain composition;
+* exact against the reference, too: norms, clip factors and clips of
+  sums that are exact in any order (n ones, two nonzero values), whose
+  f32 square root PyTorch's CPU ``torch.sqrt`` can round an ulp low.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +39,7 @@ from repro_torch import convert
 from repro_torch.core import clipping as TC
 from repro_torch.kernels import flatten as TFL
 from repro_torch.kernels import ops, ref
+from torch.func import vmap
 
 torch.set_num_threads(1)
 
@@ -171,7 +178,160 @@ def test_clip_scale_takes_one_factor_a_row():
                             torch.zeros(4, TILE, dtype=torch.bfloat16)),
      "takes"),
     (lambda: ops.smooth_clip(torch.zeros(5), 1.0, torch.zeros(6)), "noise"),
+    (lambda: ops.clip_planes(torch.zeros(4, TILE), 3, 1.0), "divides"),
+    (lambda: ops.clip_planes(torch.zeros(4, TILE), 0, 1.0), "divides"),
+    (lambda: ops.clip_planes(torch.zeros(4, TILE), 2, 1.0,
+                             torch.zeros(4, TILE, dtype=torch.bfloat16)),
+     "takes"),
+    (lambda: ops.clip_planes(torch.zeros(4, 100), 2, 1.0), "rows"),
 ])
 def test_wrappers_refuse_what_the_kernels_do_not_take(call, match):
     with pytest.raises((ValueError, TypeError), match=match):
         call()
+
+
+# sums of squares whose f32 square root PyTorch's CPU ``torch.sqrt`` rounds
+# one ulp low (``sqrt(267.0)``); XLA's, the card's and ``ref.sqrt_rn`` are
+# correctly rounded
+MISROUNDED_SUMS = (267, 999, 1068, 1171, 1230, 1421, 1633)
+
+
+def _ones(n, width=2048):
+    """Rows of n ones (the second negative) in zeros: sums of squares n."""
+    x = np.zeros((2, width), np.float32)
+    x[0, :n] = 1.0
+    x[1, -n:] = -1.0
+    return x
+
+
+@pytest.mark.parametrize("n", MISROUNDED_SUMS)
+def test_misrounded_sums_clip_as_the_reference(n):
+    x = _ones(n)
+    tree = {"a": x[0, :1000], "b": x[0, 1000:]}
+    jt = jax.tree_util.tree_map(jnp.asarray, tree)
+    tt = convert.to_torch(tree, "cpu")
+    norm = TC.tree_global_norm(tt)
+    assert torch.sqrt(torch.tensor(float(n))) != norm   # the fault's input
+    np.testing.assert_array_equal(_f32(norm), _f32(JC.tree_global_norm(jt)))
+    for mode in ("smooth", "piecewise"):
+        got, want = TC.tree_clip(tt, 0.3, mode), JC.tree_clip(jt, 0.3, mode)
+        for k in tree:
+            np.testing.assert_array_equal(_f32(got[k]), _f32(want[k]))
+    # each row by its own norm, through clip_planes, against vmap(tree_clip)
+    rows = {"w": x}
+    got = TC.stacked_clip(convert.to_torch(rows, "cpu"), 0.3)
+    want = jax.vmap(lambda t: JC.tree_clip(t, 0.3))(
+        jax.tree_util.tree_map(jnp.asarray, rows))
+    np.testing.assert_array_equal(_f32(got["w"]), _f32(want["w"]))
+    # one norm over the array, against the Pallas kernel (interpret mode)
+    np.testing.assert_array_equal(
+        _f32(ops.smooth_clip(torch.from_numpy(x), 0.3)),
+        _f32(JO.smooth_clip(jnp.asarray(x), 0.3, interpret=True)))
+
+
+def test_two_value_sums_clip_as_the_reference():
+    """Rows with two nonzero values (a sum of two squares, the same in any
+    order): each row's norm and smooth-clip factor, and the clipped rows
+    where ``torch.sqrt`` misrounds, bitwise the reference's."""
+    rng = np.random.default_rng(21)
+    n = 20000
+    x = np.zeros((n, 6), np.float32)
+    x[:, 1] = rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)
+    x[:, 4] = rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)
+    tree = {"w": x}
+    jt = jax.tree_util.tree_map(jnp.asarray, tree)
+    tt = convert.to_torch(tree, "cpu")
+    j_norm = np.asarray(jax.vmap(JC.tree_global_norm)(jt))
+    t_norm = vmap(TC.tree_global_norm)(tt)
+    np.testing.assert_array_equal(t_norm.numpy(), j_norm)
+    sums = torch.from_numpy(x[:, 1] * x[:, 1] + x[:, 4] * x[:, 4])
+    bad = torch.nonzero(torch.sqrt(sums) != t_norm).flatten()
+    assert bad.numel() >= 20
+    np.testing.assert_array_equal(
+        ops.smooth_factors(sums, n, 0.3).numpy(),
+        np.asarray(JC.clip_factor(jnp.asarray(j_norm), 0.3, "smooth")))
+    rows = {"w": x[bad[:64].numpy()]}
+    got = TC.stacked_clip(convert.to_torch(rows, "cpu"), 0.3)
+    want = jax.vmap(lambda t: JC.tree_clip(t, 0.3))(
+        jax.tree_util.tree_map(jnp.asarray, rows))
+    np.testing.assert_array_equal(got["w"].numpy(), np.asarray(want["w"]))
+
+
+def _emulate_row_factors(partials, rows, tau):
+    """The fused kernel's factor of each row, in numpy f32: lane l of a
+    warp adds the row's partials l, l + 32, ... in sequence from +0.0, then
+    the shuffle tree (lane i takes lane i + off, off = 16 ... 1; a lane
+    past the warp's end gives its own value), then the correctly rounded
+    square root, tau + norm and tau / (tau + norm)."""
+    p = partials.reshape(rows, -1)
+    lanes = np.zeros((rows, 32), np.float32)
+    for lane in range(32):
+        for i in range(lane, p.shape[1], 32):
+            lanes[:, lane] = lanes[:, lane] + p[:, i]
+    for off in (16, 8, 4, 2, 1):
+        down = np.concatenate([lanes[:, off:], lanes[:, 32 - off:]], axis=1)
+        lanes = lanes + down
+    t = np.float32(tau)
+    return t / (t + np.sqrt(lanes[:, 0]))
+
+
+def _partials(rng, n):
+    """Sums of squares over a wide range, so the order of adds shows."""
+    return (rng.standard_normal(n) ** 2
+            * 10.0 ** rng.uniform(-4, 4, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("tiles", [1, 7, 31, 32, 33, 63, 128, 2048])
+def test_smooth_factors_take_the_fused_kernels_row_order(tiles):
+    rng = np.random.default_rng(tiles)
+    rows = 3
+    p = _partials(rng, rows * tiles)
+    p[:tiles // 2] = 0.0          # zero partials (all-zero tiles)
+    for tau in (0.3, 1.0, 4.0):
+        got = ops.smooth_factors(torch.from_numpy(p), rows, tau).numpy()
+        np.testing.assert_array_equal(
+            got.view(np.uint32),
+            _emulate_row_factors(p, rows, tau).view(np.uint32))
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clip", "clip+noise"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_clip_planes_is_the_plain_composition(dt, noisy):
+    """``clip_planes`` (the fused kernel's CPU path) returns the clip,
+    the partials and the factors of ``clip_sumsq``, the row order of
+    ``_emulate_row_factors`` and ``clip_scale``, bit for bit."""
+    rng = np.random.default_rng(31)
+    rows, tiles = 4, 3
+    x = torch.from_numpy((3 * rng.standard_normal((rows * tiles, TILE)))
+                         .astype(np.float32)).to(DTYPES[dt][1])
+    z = torch.from_numpy(rng.standard_normal((rows * tiles, TILE))
+                         .astype(np.float32)).to(DTYPES[dt][1])
+    z = z if noisy else None
+    out, partials, factors = ops.clip_planes(x, rows, 0.3, z, SIGMA)
+    want_p = ops.clip_sumsq(x)
+    want_f = _emulate_row_factors(want_p.numpy(), rows, 0.3)
+    want = ops.clip_scale(x, torch.from_numpy(want_f), z, SIGMA)
+    assert torch.equal(partials, want_p)
+    np.testing.assert_array_equal(factors.numpy().view(np.uint32),
+                                  want_f.view(np.uint32))
+    as_int = torch.int16 if dt == "bf16" else torch.int32
+    assert out.dtype == x.dtype
+    assert torch.equal(out.view(as_int), want.view(as_int))
+
+
+def test_stacked_clip_is_the_plain_composition():
+    """The row-stacked clip of a mixed tree: its flat plane through
+    ``clip_sumsq``, the fused kernel's row order and ``clip_scale``."""
+    rng = np.random.default_rng(32)
+    tree = {"w": torch.from_numpy(rng.standard_normal((5, 300, 40))
+                                  .astype(np.float32)),
+            "b": torch.from_numpy(rng.standard_normal((5, 7))
+                                  .astype(np.float32)).to(torch.bfloat16)}
+    got = TC.stacked_clip(tree, 0.3)
+    spec = TFL.flat_spec(tree)
+    planes = TFL.to_planes(tree, spec)
+    f = _emulate_row_factors(ops.clip_sumsq(planes).numpy(), spec.rows, 0.3)
+    want = TFL.from_planes(ops.clip_scale(planes, torch.from_numpy(f)), spec)
+    for k in tree:
+        assert got[k].dtype == tree[k].dtype
+        assert torch.equal(got[k], want[k])

@@ -556,16 +556,15 @@ def _qsgd_route(epw):
 def _emulate_qsgd_pack(rows, noise, levels):
     """The kernel: the one-barrier norm, each element's field, then the
     words by the route its epw takes.  Returns (u32 words, f32 scales).
-    The square root is the plain version's, ``torch.sqrt``: on the card it
-    and the kernel's ``__fsqrt_rn`` are both correctly rounded, while
-    PyTorch's CPU one can sit an ulp off (45.664402 for 45.664406 at
-    2085.2378), which this emulation must not mistake for the kernel's."""
+    The square root is correctly rounded, as the kernel's ``__fsqrt_rn``
+    and the plain version's ``ref.sqrt_rn`` are (numpy's f32 ``sqrt`` is;
+    PyTorch's CPU ``torch.sqrt`` can sit an ulp low)."""
     bits = TWF.qsgd_bits(levels)
     epw = TWF.qsgd_elems_per_word(levels)
     nwords = TWF.qsgd_words_per_window(levels)
-    root = torch.sqrt(torch.from_numpy(_emulate_qsgd_norm_sumsq(rows)))
+    root = np.sqrt(_emulate_qsgd_norm_sumsq(rows))
     with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
-        norm = (root.numpy() + np.float32(1e-30))[:, None]
+        norm = (root + np.float32(1e-30))[:, None]
         y = (np.abs(rows) / norm) * np.float32(levels)
         lo = np.floor(y)
         code = lo + (noise < (y - lo)).astype(np.float32)
@@ -727,3 +726,54 @@ def test_qsgd_unpack_thread_layout_equals_plain_and_reference(bits):
             JWF.qsgd_unpack_ref(j_words, j_scale, levels)))
         np.testing.assert_array_equal(_bits(got), _bits(
             jops.wire_qsgd_unpack(j_words, j_scale, levels, interpret=True)))
+
+
+# sums of squares whose f32 square root PyTorch's CPU ``torch.sqrt`` rounds
+# one ulp low; the reference's (and the card's) is correctly rounded
+MISROUNDED_SUMS = (267, 999, 1068, 1171, 1230, 1421, 1633)
+
+
+@pytest.mark.parametrize("n", MISROUNDED_SUMS)
+def test_qsgd_pack_on_a_misrounded_sum_is_the_reference(n):
+    """A window of n ones: its sum of squares is n in any order, so the
+    scale must be the reference's bit for bit (at 7 levels and at 16: at 7
+    the quotient hides the misrounded root of 999); the Pallas kernel
+    packs the same words, its scale within the 1 ulp of its reciprocal."""
+    rows = np.zeros((2, TWF.PACK_BLOCK), np.float32)
+    rows[0, :n] = 1.0
+    rows[1, -n:] = -1.0
+    key = jax.random.PRNGKey(0)
+    for levels in (7, 16):
+        words, scale = tops.wire_qsgd_pack(
+            torch.from_numpy(rows),
+            torch.from_numpy(_ref_uniforms(key, rows)), levels)
+        j_words, j_scale = JWF.qsgd_pack_ref(key, jnp.asarray(rows), levels)
+        np.testing.assert_array_equal(_np(words), np.asarray(j_words))
+        np.testing.assert_array_equal(_bits(scale.numpy()), _bits(j_scale))
+        p_words, p_scale = jops.wire_qsgd_pack(jnp.asarray(rows), key,
+                                               levels, interpret=True)
+        np.testing.assert_array_equal(_np(words), np.asarray(p_words))
+        assert _ulps(scale.numpy(), p_scale).max() <= 1
+
+
+def test_qsgd_pack_on_two_value_windows_is_the_reference():
+    """Windows with two nonzero values: a sum of two squares, the same in
+    any order, so words and scales are the reference's bit for bit; some of
+    these sums are ones ``torch.sqrt`` misrounds."""
+    rng = np.random.default_rng(17)
+    nb = 2800
+    rows = np.zeros((nb, TWF.PACK_BLOCK), np.float32)
+    cols = np.stack([rng.choice(TWF.PACK_BLOCK, 2, replace=False)
+                     for _ in range(nb)])
+    vals = (rng.standard_normal((nb, 2))
+            * 10.0 ** rng.uniform(-3, 3, (nb, 2))).astype(np.float32)
+    np.put_along_axis(rows, cols, vals, axis=1)
+    sums = tref.qsgd_sumsq(torch.from_numpy(rows))
+    assert int((torch.sqrt(sums) != tref.sqrt_rn(sums)).sum()) >= 5
+    key = jax.random.PRNGKey(3)
+    words, scale = tops.wire_qsgd_pack(
+        torch.from_numpy(rows), torch.from_numpy(_ref_uniforms(key, rows)),
+        7)
+    j_words, j_scale = JWF.qsgd_pack_ref(key, jnp.asarray(rows), 7)
+    np.testing.assert_array_equal(_np(words), np.asarray(j_words))
+    np.testing.assert_array_equal(_bits(scale.numpy()), _bits(j_scale))

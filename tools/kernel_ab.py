@@ -25,6 +25,12 @@ and 5-8 time, each from CUDA events over inputs that exceed L2:
   epw 16, 10, 8, 6, 5, 4, 3, 2), and ``topk_unpack`` on 280 and 8,192
   windows at k = 102 and 512, each on the plain pack's buffers of
   Gaussian windows (``unpack``);
+- the smooth clip of a row-stacked plane as the tree runs it
+  (``ops.clip_planes``, tau 1: one fused launch, or ``sumsq``, the eager
+  combine and ``scale``; several wrapper calls, so timed with ``cover``)
+  on the MLP's agent plane (10 rows x 7 tiles) in f32 and bf16, the
+  quickstart's (10 x 1), PORTER-DP's per-sample plane (80 x 7) and 2^24
+  elements (1 row) (``clip``);
 
 and with ``--prefill`` the zamba2-7b and rwkv6-7b prefills as
 ``launch.serve.generate`` times them (batch 4 x prompt 512, synchronized
@@ -46,7 +52,7 @@ once per tree, in turns (A, B, B, A).  Each run imports ``repro_torch``
 from SRC, builds that tree's kernels into its own ``build/``, and prints
 one ``[kernel-ab]`` line per measurement and a JSON line of them all.
 ``--only`` keeps some groups of cells: ssd, rwkv6, block_topk, topk_pack,
-sr, qsgd, unpack.
+sr, qsgd, unpack, clip.
 """
 
 from __future__ import annotations
@@ -87,7 +93,12 @@ QSGD_CELLS = {"qsgd_pack 280 L7": (280, 7), "qsgd_pack 8192 L7": (8192, 7),
 UNPACK_WINDOWS = (280, 8192)
 UNPACK_LEVELS = (1, 3, 7, 15, 16, 127, 255, 32767)
 UNPACK_K = (102, 512)
-GROUPS = ("ssd", "rwkv6", "block_topk", "topk_pack", "sr", "qsgd", "unpack")
+CLIP_CELLS = {"clip mlp f32": (10, 7, "f32"), "clip mlp bf16": (10, 7, "bf16"),
+              "clip quickstart f32": (10, 1, "f32"),
+              "clip dp f32": (80, 7, "f32"),
+              "clip 2^24 f32": (1, 2048, "f32")}
+GROUPS = ("ssd", "rwkv6", "block_topk", "topk_pack", "sr", "qsgd", "unpack",
+          "clip")
 PTXAS_SOURCES = ("rwkv6_chunk", "ssd_chunk", "wire_pack", "block_topk",
                  "ef_update")
 
@@ -316,6 +327,22 @@ def main(argv=None) -> int:
             print(f"[kernel-ab] {args.label} {name}: {us[name]:.3f} us, "
                   f"outputs {digest[name]}")
             del sets, first
+        for name, (rows, tiles, dt) in (CLIP_CELLS.items()
+                                        if "clip" in groups else ()):
+            dtype = torch.float32 if dt == "f32" else torch.bfloat16
+
+            def make():
+                return [(3 * torch.randn(rows * tiles, cs.TILE, generator=gen,
+                                         device="cuda")).to(dtype), rows,
+                        1.0]
+            sets = _sets(cs, make, 2 * rows * tiles * cs.TILE
+                         * (4 if dt == "f32" else 2))
+            us[name] = 1e3 * cs.device_time_ms(ops.clip_planes, sets, 20, 10,
+                                               cover=True)
+            digest[name] = _digest(torch, ops.clip_planes(*sets[0]))
+            print(f"[kernel-ab] {args.label} {name} ({rows} x {tiles} tiles): "
+                  f"{us[name]:.3f} us, outputs {digest[name]}")
+            del sets
     prefill = {}
     if args.prefill:
         from repro_torch.launch import serve
