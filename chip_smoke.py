@@ -90,11 +90,22 @@ of the ``repro`` package.  Phases, each printing its own lines:
    the passes alone, ``sumsq``, ``scale`` and ``scale_noise``, against
    their plain versions, bitwise, at the same planes, timed beside their
    bound, the PyTorch call for the same function (``torch.linalg.vecdot``,
-   ``torch.mul``) and the nearest one (``[clip]`` lines); the row-stacked
-   clip of a real MLP gradient against the plain composition, and its
-   perturbation against ``g + sigma * z``; PORTER-GC and PORTER-DP rounds
-   with the clip kernels against the same rounds with the plain clip on
-   the card, x bitwise;
+   ``torch.mul``) and the nearest one (``[clip]`` lines); ``mean_noise``
+   (the DP perturbation of the clipped samples' mean, one launch through
+   ``ops.dp_mean_noise``) against ``ref.dp_mean_noise_ref``, bitwise, on
+   the MLP's real per-sample plane (10 agents x 8 samples x 7 tiles, f32
+   and bf16) and on synthetic planes (1 and 10 groups, b = 1, 3, 8, 32,
+   -0.0 samples among them, f32 and bf16), timed beside its bound, the
+   PyTorch call for the same function in f32 (``torch.baddbmm``), the
+   eager route it replaced (``sum``, ``/ b``, the re-pack, ``ones``,
+   ``scale_noise``) and the whole DP route from the clipped plane to the
+   perturbed tree in this tree's form and the parent's
+   (``[mean_noise]`` lines); the row-stacked clip of a real MLP gradient
+   against the plain composition, its perturbation against ``g + sigma *
+   z``, and the DP gradient (``clipping.dp_gradient``) against the clip
+   and ``dp_mean_noise_ref`` on the same CUDA tensors; PORTER-GC and
+   PORTER-DP rounds with the clip kernels against the same rounds with the
+   plain clip and mean on the card, x bitwise;
    ``block_topk`` (``csrc/block_topk.cu``) bitwise at the MLP's w1 windows
    (250 x 2048, k = 1, 102, 512, 2048), on tie, zero and -0.0 windows and
    at 2^24 elements, beside ``torch.topk`` + ``scatter``
@@ -104,8 +115,8 @@ of the ``repro`` package.  Phases, each printing its own lines:
    and ref backends, with the MLP phase's gates (``[block_top_k]``).  The
    clip runs outside the comm round, so every PORTER-GC, DSGD and CHOCO
    round of the earlier phases also counts one ``clip`` launch, on the ref
-   backend too, and every DP round one ``scale_noise``; no path launches
-   ``sumsq`` or ``scale``.
+   backend too, and every DP round one ``mean_noise``; no path launches
+   ``sumsq``, ``scale`` or ``scale_noise``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -527,6 +538,7 @@ def profile_rounds(torch, runtime, algo, source, state, rounds, label):
                                    "qsgd_unpack_k", "sumsq_kernel",
                                    "scale_kernel", "clip_kernel",
                                    "clip_cluster_kernel",
+                                   "mean_noise_kernel",
                                    "block_topk_kernel"))]
     print(f"[profile] {label}: {rounds} rounds, wall {wall_us / rounds:.1f} "
           f"us/round, device busy {busy_us / rounds:.1f} us/round "
@@ -732,11 +744,11 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
           f"{losses[-1]:.6f}, {ms:.4f} ms/round, launches {dp_launches}")
     if not finite(losses):
         raise AssertionError("porter-dp loss is not finite")
-    # one clip of all agents' per-sample gradients and one perturbation a
-    # round
+    # one clip of all agents' per-sample gradients and one sample mean with
+    # its noise a round
     expect_launches("porter-dp", dp_launches, ef_track=dp_rounds,
                     ef_step=dp_rounds, clip=dp_rounds,
-                    scale_noise=dp_rounds)
+                    mean_noise=dp_rounds)
     profile_rounds(torch, runtime, algo, source, _init(algo, paper), 20,
                    "porter-dp")
     return runs, ms_per_round, dp_launches
@@ -780,9 +792,9 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
         if not finite(losses):
             raise AssertionError(f"{algo_name} loss is not finite")
         # each round clips once (dsgd: the agents' gradients; the DP ones:
-        # every sample's) and the DP ones perturb once
+        # every sample's) and the DP ones take the mean and noise once
         expect_launches(algo_name, launches, clip=short,
-                        scale_noise=0 if algo_name == "dsgd" else short)
+                        mean_noise=0 if algo_name == "dsgd" else short)
     return choco
 
 
@@ -1679,7 +1691,8 @@ def phase_zamba2_consistency(torch, ops, serve):
 # DSGD clip each round), the quickstart's (10 agents x 1 tile),
 # PORTER-DP's per-sample plane (10 agents x 8 samples), the DP
 # perturbation's (the MLP's 10-agent gradient as one row of 63 tiles, at
-# factor 1: ``clipping.perturb``), and 2^24 elements as 1 row and as 16.
+# factor 1: :func:`_perturb`, which the DP algorithms ran until
+# ``mean_noise`` took its place), and 2^24 elements as 1 row and as 16.
 CLIP_PLANES = {"mlp": (10, 7), "quickstart": (10, 1), "dp": (80, 7),
                "dp noise": (1, 63), "2^24 x1": (1, 2048),
                "2^24 x16": (16, 128)}
@@ -1947,13 +1960,220 @@ def phase_clip_fused(torch, ops, ref, sc, reps=20, inner=10):
     return table
 
 
+# mean_noise, the DP perturbation of the clipped samples' mean: the path's
+# plane is the MLP's real per-sample gradients (10 agents x 8 samples x 7
+# tiles), clipped; the synthetic planes are (groups, b) at the MLP's 7
+# tiles a row, one group (DP-SGD's single model) and ten (the agents)
+MEAN_GROUPS = (1, 10)
+MEAN_B = (1, 3, 8, 32)
+MEAN_TILES = 7
+# a kernel of the port alone: the reference takes the sample mean and adds
+# the noise in plain jnp (src/repro/core/clipping.py:101-104,
+# src/repro/core/porter.py:137-145, src/repro/core/baselines.py:65-74), so
+# no TPU kernel; it replaces the port's own eager route (a sum and a / b a
+# leaf, the re-pack, ones, scale_noise)
+MEAN_REPLACES = None
+MEAN_PATH = "mlp real"
+# per output element: b adds, the product with RN(1 / b), sigma * z and
+# the add; counted at the f32 rate beside b
+MEAN_EXTRA_OPS = 3
+
+
+def _perturb(torch, ops, flatten, tree, noise, sigma):
+    """``g + sigma * z`` leaf by leaf through ``scale_noise`` at factor 1,
+    the whole tree one row (the DP perturbation before ``mean_noise``)."""
+    spec = flatten.flat_spec(tree, stacked=False)
+    planes = flatten.to_planes(tree, spec)
+    one = torch.ones(1, dtype=torch.float32, device=planes.device)
+    return flatten.from_planes(ops.clip_scale(
+        planes, one, flatten.to_planes(noise, spec), sigma), spec)
+
+
+def _mean_noise_cells(torch, ops, gen, flatten, clipping, api, data, paper):
+    """{(cell, dtype): (groups, b, make)}, ``make()`` giving a fresh input
+    set [clipped plane, noise plane, clipped per-sample tree or None, noise
+    tree or None, the per-sample spec or None].  The real cells clip the
+    MLP's per-sample gradients of one minibatch (``ops.clip_planes``, tau
+    1) and copy that plane for each set; the synthetic ones draw Gaussian
+    samples with a tenth of them -0.0."""
+    source, base, loss_fn = _mlp_problem(api, data, paper, 60000)
+    params = paper.mlp_init(seed=0, device=DEVICE)
+    x = {k: v.unsqueeze(0).expand((10,) + tuple(v.shape)).clone()
+         for k, v in params.items()}
+    batch = source(torch.Generator(device=DEVICE).manual_seed(9), 0)
+    rows, losses = clipping.per_sample_grads(loss_fn, x, batch, "stacked")
+    groups, b = losses.shape
+    cells = {}
+    for dt in DTYPES:
+        tree = {k: v.to(_dtype(torch, dt)) for k, v in rows.items()}
+        spec = flatten.flat_spec(tree)
+        clipped = ops.clip_planes(flatten.to_planes(tree, spec), spec.rows,
+                                  1.0)[0]
+        mean = spec._replace(rows=groups, plane_dtype=torch.float32)
+
+        def make(clipped=clipped, spec=spec, mean=mean):
+            plane = clipped.clone()
+            ztree = {k: torch.randn((groups,) + shape, generator=gen,
+                                    device=DEVICE, dtype=dtype)
+                     for k, shape, dtype in zip(
+                         sorted(rows), spec.shapes, spec.dtypes)}
+            return [plane, flatten.to_planes(ztree, mean),
+                    flatten.from_planes(plane, spec), ztree, spec]
+        cells[(MEAN_PATH, dt)] = (groups, b, make)
+    for g in MEAN_GROUPS:
+        for b in MEAN_B:
+            for dt in DTYPES:
+                def make(g=g, b=b, dt=dt):
+                    p = torch.randn(g * b * MEAN_TILES, TILE, generator=gen,
+                                    device=DEVICE)
+                    p[torch.rand(p.shape, generator=gen, device=DEVICE)
+                      < 0.1] = -0.0
+                    z = torch.randn(g * MEAN_TILES, TILE, generator=gen,
+                                    device=DEVICE)
+                    return [p.to(_dtype(torch, dt)), z, None, None, None]
+                cells[(f"{g} x {b} x {MEAN_TILES}", dt)] = (g, b, make)
+    return cells
+
+
+def phase_mean_noise(torch, ops, ref, api, data, paper, flatten, clipping,
+                     reps=20, inner=10):
+    """``mean_noise`` (``ops.dp_mean_noise``) against its plain version
+    ``ref.dp_mean_noise_ref``, bitwise, with the noise and without it (the
+    mean alone), on the MLP's real clipped per-sample plane and on the
+    synthetic planes, f32 and bf16; timed cold
+    / warm beside its bound (the samples and the noise read once, the f32
+    mean written once), the plain version, the PyTorch call for the same
+    function where the samples are f32 (``torch.baddbmm(z, ones, x,
+    beta=sigma, alpha=1 / b)``: a batched product of a row of ones with
+    each group's samples) and the nearest PyTorch calls
+    (``torch.add(x.mean(1), z, alpha=sigma)``).  On the real planes also
+    the eager route it replaced, from the clipped per-sample tree to the
+    perturbed plane (a ``sum`` and a ``/ b`` a leaf, the re-pack of the
+    mean and of the noise, ``ones``, ``scale_noise``), and the whole DP
+    route from the clipped plane and the noise tree to the perturbed tree,
+    as this tree runs it (the noise packed, ``mean_noise``, the unpack)
+    and as the parent ran it (the unpack of the clipped plane, then that
+    eager route and its unpack); each several wrapper calls, so timed with
+    ``cover``.  Returns {(cell, dtype): row}."""
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    one = torch.ones(1, dtype=torch.float32, device=DEVICE)
+    table = {}
+    for (cell, dt), (groups, b, make) in _mean_noise_cells(
+            torch, ops, gen, flatten, clipping, api, data, paper).items():
+        first = make()
+        x, z = first[0], first[1]
+        moved = x.nbytes + 2 * z.nbytes
+        n_sets = -(-L2_FLUSH_BYTES // moved) + 1
+        sets = [first] + [make() for _ in range(n_sets - 1)]
+        got = ops.dp_mean_noise(x, groups, b, z, DP_SIGMA)
+        want = ref.dp_mean_noise_ref(x, groups, b, z, DP_SIGMA)
+        # the mean alone (no noise plane: clipped_grad_accumulate's form)
+        got_mean = ops.dp_mean_noise(x, groups, b)
+        want_mean = ref.dp_mean_noise_ref(x, groups, b)
+        torch.cuda.synchronize()
+        equal_mean = bit_equal(torch, got_mean, want_mean)
+        equal = bit_equal(torch, got, want) and equal_mean
+        err = max(float((got - want).abs().max()),
+                  float((got_mean - want_mean).abs().max()))
+
+        def kern(p, z, *rest):
+            return ops.dp_mean_noise(p, groups, b, z, DP_SIGMA)
+
+        def plain(p, z, *rest):
+            return ref.dp_mean_noise_ref(p, groups, b, z, DP_SIGMA)
+
+        def nearest(p, z, *rest):
+            mean = p.view(groups, b, -1).mean(1, dtype=torch.float32)
+            return torch.add(mean, z.view(groups, -1), alpha=DP_SIGMA)
+
+        ones = torch.ones(groups, 1, b, dtype=torch.float32, device=DEVICE)
+
+        def library(p, z, *rest):
+            return torch.baddbmm(z.view(groups, 1, -1), ones,
+                                 p.view(groups, b, -1), beta=DP_SIGMA,
+                                 alpha=1.0 / b)
+
+        out_n = z.numel()
+        t_bytes = moved / HBM_BYTES_PER_S
+        t_ops = (b + MEAN_EXTRA_OPS) * out_n / F32_OPS_PER_S
+        row = dict(groups=groups, b=b, tiles=x.shape[0] // (groups * b),
+                   equal=equal, max_abs_err=err, bytes=moved,
+                   ms=device_time_ms(kern, sets, reps, inner),
+                   ms_warm=device_time_ms(kern, sets[:1], reps, inner),
+                   plain_ms=device_time_ms(plain, sets, reps, inner),
+                   nearest_ms=device_time_ms(nearest, sets, reps, inner),
+                   library_ms=(device_time_ms(library, sets, reps, inner)
+                               if dt == "f32" else None),
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        routes = ""
+        if first[2] is not None:
+            spec = first[4]
+            mean = spec._replace(rows=groups, plane_dtype=torch.float32)
+
+            def leaf_means(ctree):
+                return {k: a.view((groups, b) + tuple(a.shape[1:])).sum(1)
+                        / b for k, a in ctree.items()}
+
+            def replaced(p, zp, ctree, ztree, spec):
+                m = leaf_means(ctree)
+                sp = flatten.flat_spec(m, stacked=False)
+                return ops.clip_scale(flatten.to_planes(m, sp), one,
+                                      flatten.to_planes(ztree, sp), DP_SIGMA)
+
+            def this_route(p, zp, ctree, ztree, spec):
+                return flatten.from_planes(ops.dp_mean_noise(
+                    p, groups, b, flatten.to_planes(ztree, mean), DP_SIGMA),
+                    mean)
+
+            def parent_route(p, zp, ctree, ztree, spec):
+                m = leaf_means(flatten.from_planes(p, spec))
+                return _perturb(torch, ops, flatten, m, ztree, DP_SIGMA)
+
+            row.update(
+                replaced_route_ms=device_time_ms(replaced, sets, reps, inner,
+                                                 cover=True),
+                route_ms=device_time_ms(this_route, sets, reps, inner,
+                                        cover=True),
+                parent_route_ms=device_time_ms(parent_route, sets, reps,
+                                               inner, cover=True))
+            routes = (f" replaced_route_us="
+                      f"{1e3 * row['replaced_route_ms']:.3f}"
+                      f" (sum, / b, re-pack, ones, scale_noise) dp_route_us="
+                      f"{1e3 * row['route_ms']:.3f} (noise pack, mean_noise, "
+                      f"unpack) parent_dp_route_us="
+                      f"{1e3 * row['parent_route_ms']:.3f} (unpack, sum, / b, "
+                      f"perturb)")
+        if row["library_ms"] is not None:
+            routes = (f" library_us={1e3 * row['library_ms']:.3f} "
+                      f"(torch.baddbmm)" + routes)
+        table[(cell, dt)] = row
+        print(f"[mean_noise] {cell} {dt} groups={groups} b={b} "
+              f"tiles/row={row['tiles']} sigma={DP_SIGMA} bitwise={equal} "
+              f"(mean alone bitwise={equal_mean}) "
+              f"max_abs_err={err} bytes={moved} us={1e3 * row['ms']:.3f} "
+              f"us_warm={1e3 * row['ms_warm']:.3f} plain_us="
+              f"{1e3 * row['plain_ms']:.3f} bound_us="
+              f"{1e3 * row['bound_ms']:.3f} ({row['bound_by']}) nearest_us="
+              f"{1e3 * row['nearest_ms']:.3f} (torch.add(x.mean(1), z, "
+              f"alpha=sigma), two calls)" + routes)
+        if not equal:
+            raise AssertionError(f"mean_noise differs from its plain version "
+                                 f"at {cell} {dt}: {err}")
+        del sets, first, x, z, got, want, got_mean, want_mean
+    return table
+
+
 def phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
                         clipping):
     """The row-stacked clip of one real MLP gradient (10 agents at full
     width, one minibatch) through the kernels, bitwise against the plain
-    composition on the same CUDA tensors, and its DP perturbation (the
-    whole tree as one row of 63 tiles, factor 1) bitwise against ``g +
-    sigma * z`` leaf by leaf; returns the gradient."""
+    composition on the same CUDA tensors, its DP perturbation (the whole
+    tree as one row of 63 tiles, factor 1) bitwise against ``g + sigma *
+    z`` leaf by leaf, and the DP gradient of the same minibatch
+    (``clipping.dp_gradient``: the per-sample clip, then ``mean_noise``)
+    bitwise against ``ref.clip_planes_ref`` then ``ref.dp_mean_noise_ref``;
+    returns the gradient."""
     from torch.func import grad_and_value, vmap
     source, base, loss_fn = _mlp_problem(api, data, paper, 60000)
     params = paper.mlp_init(seed=0, device=DEVICE)
@@ -1985,7 +2205,7 @@ def phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
     z = {k: torch.randn(v.shape, generator=gen, device=DEVICE)
          for k, v in g.items()}
     ops.reset_launches()
-    got = clipping.perturb(g, z, DP_SIGMA)
+    got = _perturb(torch, ops, flatten, g, z, DP_SIGMA)
     launches = dict(ops.LAUNCHES)
     want = {k: g[k] + DP_SIGMA * z[k] for k in g}
     torch.cuda.synchronize()
@@ -1997,6 +2217,31 @@ def phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
     expect_launches("clip perturbation", launches, scale_noise=1)
     if not same:
         raise AssertionError("DP perturbation differs from g + sigma * z")
+    # the DP gradient of PORTER-DP's round: every sample's gradient clipped,
+    # then each agent's mean and its noise, against the plain clip and
+    # mean on the same CUDA tensors
+    rows, losses = clipping.per_sample_grads(loss_fn, x, batch, "stacked")
+    groups, b = losses.shape
+    ops.reset_launches()
+    got, _ = clipping.dp_gradient(loss_fn, x, batch, 1.0, DP_SIGMA, noise=z,
+                                  agents="stacked")
+    launches = dict(ops.LAUNCHES)
+    spec = flatten.flat_spec(rows)
+    mean = spec._replace(rows=groups, plane_dtype=torch.float32)
+    clipped = ref.clip_planes_ref(flatten.to_planes(rows, spec), spec.rows,
+                                  1.0)[0]
+    want = flatten.from_planes(ref.dp_mean_noise_ref(
+        clipped, groups, b, flatten.to_planes(z, mean), DP_SIGMA), mean)
+    torch.cuda.synchronize()
+    same = all(bit_equal(torch, got[k], want[k]) for k in g)
+    print(f"[clip] DP gradient of the MLP ({groups} agents x {b} samples, "
+          f"per-sample plane {tuple(clipped.shape)}, sigma {DP_SIGMA}): "
+          f"bitwise equal to the plain clip, sample mean and noise {same}; "
+          f"launches {launches}")
+    expect_launches("clip dp gradient", launches, clip=1, mean_noise=1)
+    if not same:
+        raise AssertionError("DP gradient differs from the plain clip and "
+                             "dp_mean_noise_ref")
     return g
 
 
@@ -2004,10 +2249,11 @@ def phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper,
                           num=60000, rounds=50):
     """PORTER-GC and PORTER-DP on the full-width MLP (f32, kernel backend)
     twice from one seed: with the clip through the kernels (the fused
-    ``clip``, and ``scale_noise`` for the DP perturbation), then with
-    ``ops.clip_planes``, ``ops.clip_sumsq`` and ``ops.clip_scale`` swapped
-    for their plain versions on the same CUDA tensors.  x must agree
-    bitwise, and the plain run must launch no clip kernel."""
+    ``clip``, and ``mean_noise`` for the DP sample mean and noise), then
+    with ``ops.clip_planes``, ``ops.clip_sumsq``, ``ops.clip_scale`` and
+    ``ops.dp_mean_noise`` swapped for their plain versions on the same
+    CUDA tensors.  x must agree bitwise, and the plain run must launch no
+    clip kernel."""
     source, base, loss_fn = _mlp_problem(api, data, paper, num)
     for name, over in (("porter-gc", {}),
                        ("porter-dp", dict(algo="porter-dp",
@@ -2019,13 +2265,16 @@ def phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper,
                                _init(algo, paper), rounds, rounds // 2)
 
         s_k, l_k, ms_k, n_k = run()
-        saved = ops.clip_planes, ops.clip_sumsq, ops.clip_scale
-        ops.clip_planes, ops.clip_sumsq, ops.clip_scale = (
-            ref.clip_planes_ref, ref.clip_sumsq, ref.clip_scale_ref)
+        saved = (ops.clip_planes, ops.clip_sumsq, ops.clip_scale,
+                 ops.dp_mean_noise)
+        (ops.clip_planes, ops.clip_sumsq, ops.clip_scale,
+         ops.dp_mean_noise) = (ref.clip_planes_ref, ref.clip_sumsq,
+                               ref.clip_scale_ref, ref.dp_mean_noise_ref)
         try:
             s_p, l_p, ms_p, n_p = run()
         finally:
-            ops.clip_planes, ops.clip_sumsq, ops.clip_scale = saved
+            (ops.clip_planes, ops.clip_sumsq, ops.clip_scale,
+             ops.dp_mean_noise) = saved
         same = all(bit_equal(torch, s_k.x[k], s_p.x[k]) for k in s_k.x)
         diff = max(float((s_k.x[k] - s_p.x[k]).abs().max()) for k in s_k.x)
         print(f"[clip] {name} {rounds} rounds, clip kernels vs plain clip: "
@@ -2034,8 +2283,7 @@ def phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper,
               f"ms/round, launches {n_k} / {n_p}")
         dp = rounds if name == "porter-dp" else 0
         expect_launches(f"{name} clip kernels", n_k, ef_track=rounds,
-                        ef_step=rounds, clip=rounds,
-                        scale_noise=dp)
+                        ef_step=rounds, clip=rounds, mean_noise=dp)
         expect_launches(f"{name} plain clip", n_p, ef_track=rounds,
                         ef_step=rounds)
         if not same:
@@ -2142,6 +2390,8 @@ def phase_launch_host_cost(torch, ops, calls=2000):
            "ops.clip_sumsq + smooth_factors + clip_scale":
                lambda: ops.clip_scale(tile, ops.smooth_factors(
                    ops.clip_sumsq(tile), 1, 1.0)),
+           "ops.dp_mean_noise": lambda: ops.dp_mean_noise(
+               tile, 1, 1, tile, DP_SIGMA),
            "ops.clip_sumsq": lambda: ops.clip_sumsq(tile),
            "ops.clip_scale": lambda: ops.clip_scale(tile, one),
            "ops.block_topk k=102": lambda: ops.block_topk(win, 102),
@@ -2285,6 +2535,8 @@ def main() -> int:
     # phase 8: the clip kernels, block_topk, and the block_top_k path
     clip_table = phase_clip_kernels(torch, ops, ref)
     fused_table = phase_clip_fused(torch, ops, ref, smooth_clip)
+    mean_table = phase_mean_noise(torch, ops, ref, api, data, paper, flatten,
+                                  clipping)
     grad = phase_clip_gradient(torch, ops, ref, api, data, paper, flatten,
                                clipping)
     phase_clip_trajectory(torch, ops, ref, api, data, runtime, paper)
@@ -2361,7 +2613,8 @@ def main() -> int:
         ms_smoke=ssd_table["smoke"]["ms"],
         bound_ms_smoke=ssd_table["smoke"]["bound_ms"], **zamba_rates))
     # the clip kernels on PORTER-GC's agent plane (sumsq, scale: the f32
-    # MLP run) and on PORTER-DP's perturbation plane (scale_noise);
+    # MLP run) and on the perturbation plane of PORTER-DP's parent route
+    # (scale_noise: 0 launches on PORTER-DP, which runs mean_noise);
     # block_topk at w1's windows, k = 102, on the f32 block_top_k run
     for name, replaces in CLIP_KERNELS.items():
         plane = "dp noise" if name == "scale_noise" else "mlp"
@@ -2397,6 +2650,22 @@ def main() -> int:
         ms_2p24=fused_table[("2^24 x1", "f32")]["ms"],
         bound_ms_2p24=fused_table[("2^24 x1", "f32")]["bound_ms"],
         graph_replay_ms=fused_table["graph"]["ms"]))
+    # mean_noise on PORTER-DP's real clipped per-sample plane (the f32
+    # PORTER-DP run of the MLP phase)
+    row = mean_table[(MEAN_PATH, "f32")]
+    dp_sgd = mean_table[(f"1 x 8 x {MEAN_TILES}", "f32")]
+    record.append(dict(
+        name="mean_noise", ok=row["equal"], route="cuda",
+        source="src/repro_torch/csrc/smooth_clip.cu", replaces=MEAN_REPLACES,
+        launches=dp_launches["mean_noise"], max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        nearest_ms=row["nearest_ms"],
+        plane=f"{row['groups']} x {row['b']} x {row['tiles']}",
+        ms_warm=row["ms_warm"], replaced_route_ms=row["replaced_route_ms"],
+        route_ms=row["route_ms"], parent_route_ms=row["parent_route_ms"],
+        ms_bf16=mean_table[(MEAN_PATH, "bf16")]["ms"],
+        ms_one_group=dp_sgd["ms"], bound_ms_one_group=dp_sgd["bound_ms"]))
     row = topk_table[("w1", "f32", 102)]
     record.append(dict(
         name="block_topk", ok=row["equal"], route="cuda",

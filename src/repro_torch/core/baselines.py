@@ -15,7 +15,8 @@ All share the agent-stacked tree layout of :mod:`repro_torch.core.porter`.
 Randomness comes from the round's ``torch.Generator`` in a fixed order (DP
 noise, then the comm round's draws); the DP steps take ``noise=``, a tree
 of N(0, 1) draws shaped like the gradient, in place of their own draw (the
-parity tests inject the reference's).
+parity tests inject the reference's).  Every DP gradient is
+``clipping.dp_gradient``'s: one clip and one mean-plus-noise launch.
 
 Metrics: ``loss`` (mean agent loss), ``consensus_x`` (decentralized
 algorithms) and ``wire_bytes`` (model-level bytes per round), as device
@@ -61,15 +62,6 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
                       device=like.device)
 
 
-def _perturb(g, sigma_p: float, gen, noise):
-    """g + sigma_p * z, z ~ N(0, 1) from ``gen`` leaf by leaf (or given)."""
-    if noise is None:
-        noise = tree_map(lambda leaf: torch.randn(
-            leaf.shape, generator=gen, dtype=leaf.dtype,
-            device=leaf.device), g)
-    return clipping.perturb(g, noise, sigma_p)
-
-
 def _agent_grads(loss_fn, x, batch, tau, clip_mode):
     """Per-agent (losses, gradients), clipped by tau unless it is None."""
     g, losses = vmap(grad_and_value(loss_fn))(x, batch)
@@ -99,9 +91,9 @@ def dsgd_step(eta: float, gamma: float, loss_fn: LossFn, mixer: MixFn,
     """X^{t+1} = X + gamma X(W - I) - eta G   (uncompressed gossip)."""
     n = tree_leaves(state.x)[0].shape[0]
     if dp:
-        g, losses = clipping.clipped_grad_accumulate(
-            loss_fn, state.x, batch, tau, clip_mode, agents="stacked")
-        g = _perturb(g, sigma_p, gen, noise)
+        g, losses = clipping.dp_gradient(
+            loss_fn, state.x, batch, tau, sigma_p, gen=gen, noise=noise,
+            mode=clip_mode, agents="stacked")
     else:
         losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode)
     mixed = apply_mixer(mixer, state.x, state.step)
@@ -173,9 +165,8 @@ def dpsgd_step(eta: float, loss_fn: LossFn, state: DpSgdState, batch,
                gen: Optional[torch.Generator], tau: float = 1.0,
                clip_mode: str = "smooth", sigma_p: float = 0.0,
                noise: Any = None) -> Tuple[DpSgdState, Metrics]:
-    g, loss = clipping.clipped_grad_accumulate(loss_fn, state.x, batch, tau,
-                                               clip_mode)
-    g = _perturb(g, sigma_p, gen, noise)
+    g, loss = clipping.dp_gradient(loss_fn, state.x, batch, tau, sigma_p,
+                                   gen=gen, noise=noise, mode=clip_mode)
     x = tree_map(lambda x0, gg: x0 - eta * gg, state.x, g)
     # one dense gradient upload to the server per round, at each buffer's
     # own dtype width
@@ -219,9 +210,9 @@ def soteria_step(eta: float, alpha_shift: float, loss_fn: LossFn,
     h_bar + mean(c).  g_i is each client's per-sample-clipped, perturbed
     gradient at the server model (LDP)."""
     eng = resolve_engine(engine, None, compressor)
-    g, losses = clipping.clipped_grad_accumulate(
-        loss_fn, state.x, batch, tau, clip_mode, agents="shared")
-    g = _perturb(g, sigma_p, gen, noise)
+    g, losses = clipping.dp_gradient(
+        loss_fn, state.x, batch, tau, sigma_p, gen=gen, noise=noise,
+        mode=clip_mode, agents="shared")
     c, h = eng.shift(gen, g, state.h, scale=alpha_shift)
     c_bar = tree_map(lambda cc: torch.mean(cc, dim=0), c)
     g_tilde = tree_map(torch.add, state.h_bar, c_bar)

@@ -15,12 +15,18 @@ clips each row by its own norm over all its leaves.  The smooth mode runs
 on the flat tile planes of :mod:`repro_torch.kernels.flatten` through the
 fused ``clip`` kernel (``kernels/ops.clip_planes``), one launch for all
 rows; piecewise and none stay eager (the reference has no kernel for
-them).  :func:`perturb` adds the DP noise ``g + sigma * z`` through the
-``scale_noise`` kernel at factor 1.  Per-sample clipped mini-batch
-gradients come from :func:`clipped_grad_accumulate`, which takes the
-per-sample gradients with ``torch.func.vmap`` (the reference scans one
-sample at a time) and clips them all in one row-stacked call outside the
-vmap, where a kernel can launch.
+them).  Per-sample clipped mini-batch gradients take the per-sample
+gradients with ``torch.func.vmap`` (:func:`per_sample_grads`; the
+reference scans one sample at a time) and clip them all in one plane
+outside the vmap, where a kernel can launch; each group's sample mean,
+plus the DP noise when there is one, is formed from that plane in one
+``ops.dp_mean_noise`` call (the ``mean_noise`` kernel), with no tree
+between the clip and the mean (:func:`clip_mean_noise`).
+:func:`clipped_grad_accumulate` gives the mean alone, :func:`dp_gradient`
+the mean plus ``sigma * z``, the DP gradient.  Every sample mean, of the
+gradients and of the losses, is the reference's jitted one
+(``ref.sample_mean``: in sample order onto +0.0, then the product with
+``RN(1 / b)``), on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ from ..kernels import ops, ref
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["smooth_clip", "piecewise_clip", "tree_global_norm", "tree_clip",
-           "clip_factor", "stacked_clip", "perturb",
-           "clipped_grad_accumulate"]
+           "clip_factor", "stacked_clip", "clip_mean_noise",
+           "per_sample_grads", "clipped_grad_accumulate", "dp_gradient"]
 
 ClipMode = Literal["smooth", "piecewise", "none"]
 
@@ -94,34 +100,33 @@ def stacked_clip(tree, tau: float, mode: ClipMode = "smooth"):
         ops.clip_planes(FL.to_planes(tree, spec), spec.rows, tau)[0], spec)
 
 
-def perturb(tree, noise, sigma: float):
-    """``g + sigma * z`` leaf by leaf, through the ``scale_noise`` kernel
-    at factor 1 over the flat planes of ``tree`` and of ``noise`` (a tree
-    of its shape).  The factor is 1 everywhere, so the whole tree is one
-    row, agent axis or not."""
-    spec = FL.flat_spec(tree, stacked=False)
-    planes = FL.to_planes(tree, spec)
-    one = torch.ones(1, dtype=torch.float32, device=planes.device)
-    return FL.from_planes(
-        ops.clip_scale(planes, one, FL.to_planes(noise, spec), sigma), spec)
+def clip_mean_noise(rows, b: int, tau: float, sigma: float = 0.0,
+                    noise=None, mode: ClipMode = "smooth",
+                    stacked: bool = True):
+    """Clip each of the ``groups * b`` rows of a row-stacked tree (group
+    g's sample s is row ``g * b + s``) by its own norm, then give each
+    group's sample mean, plus ``sigma * noise`` when ``noise`` is given (a
+    tree shaped like the mean).  The mean has the leading group axis when
+    ``stacked``, else it is one group's without it.  The smooth mode clips
+    the rows' plane in ``ops.clip_planes`` and hands it straight to
+    ``ops.dp_mean_noise``; piecewise and none clip eagerly and pack the
+    rows for the same call.  Each leaf comes back in its own dtype."""
+    spec = FL.flat_spec(rows)
+    if mode == "smooth":
+        planes = ops.clip_planes(FL.to_planes(rows, spec), spec.rows, tau)[0]
+    else:
+        planes = FL.to_planes(stacked_clip(rows, tau, mode), spec)
+    groups = spec.rows // b
+    mean = spec._replace(rows=groups if stacked else 0,
+                         plane_dtype=torch.float32)
+    z = None if noise is None else FL.to_planes(noise, mean)
+    return FL.from_planes(ops.dp_mean_noise(planes, groups, b, z, sigma),
+                          mean)
 
 
-def clipped_grad_accumulate(loss_fn: Callable, params, batch, tau: float,
-                            mode: ClipMode = "smooth",
-                            agents: Optional[str] = None):
-    """Mean of per-sample clipped gradients: (1/b) sum_z Clip_tau(grad l(x; z)).
-
-    PORTER-DP line 6.  ``batch`` is a tree whose leaves have a leading
-    local-batch axis b (after the agent axis, when there is one); each
-    sample keeps a singleton batch dimension, as loss functions are written
-    for batched inputs.  ``agents``: None for one model (DP-SGD);
-    ``"stacked"`` when the params and the batch carry a leading agent axis
-    (PORTER-DP, DSGD); ``"shared"`` when only the batch does and every
-    agent differentiates the same params (SoteriaFL's clients).  The
-    per-sample gradients of all agents are clipped in one
-    :func:`stacked_clip` call.  Returns ``(mean_clipped_grad, mean_loss)``,
-    with a leading agent axis unless ``agents`` is None.
-    """
+def per_sample_grads(loss_fn: Callable, params, batch, agents: Optional[str]):
+    """Every sample's gradient and loss: (the row-stacked gradients, one
+    row a sample, agent-major; the losses, ``(b,)`` or ``(agents, b)``)."""
     if agents not in (None, "stacked", "shared"):
         raise ValueError(f"agents must be None, 'stacked' or 'shared', got "
                          f"{agents!r}")
@@ -136,11 +141,49 @@ def clipped_grad_accumulate(loss_fn: Callable, params, batch, tau: float,
     elif agents == "shared":
         per_sample = vmap(per_sample, in_dims=(None, 0))
     gs, losses = per_sample(params, batch)
-    lead = tuple(losses.shape)          # (b,) or (agents, b)
-    b = lead[-1]
-    rows = tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[len(lead):])),
-                    gs)
-    gs = tree_map(lambda a: a.reshape(lead + tuple(a.shape[1:])),
-                  stacked_clip(rows, tau, mode))
-    return (tree_map(lambda a: a.sum(len(lead) - 1) / b, gs),
-            losses.sum(-1) / b)
+    lead = losses.dim()
+    rows = tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[lead:])), gs)
+    return rows, losses
+
+
+def clipped_grad_accumulate(loss_fn: Callable, params, batch, tau: float,
+                            mode: ClipMode = "smooth",
+                            agents: Optional[str] = None):
+    """Mean of per-sample clipped gradients: (1/b) sum_z Clip_tau(grad l(x; z)).
+
+    PORTER-DP line 6 without its noise.  ``batch`` is a tree whose leaves
+    have a leading local-batch axis b (after the agent axis, when there is
+    one); each sample keeps a singleton batch dimension, as loss functions
+    are written for batched inputs.  ``agents``: None for one model
+    (DP-SGD); ``"stacked"`` when the params and the batch carry a leading
+    agent axis (PORTER-DP, DSGD); ``"shared"`` when only the batch does and
+    every agent differentiates the same params (SoteriaFL's clients).  The
+    per-sample gradients of all agents are clipped and averaged in
+    :func:`clip_mean_noise`.  Returns ``(mean_clipped_grad, mean_loss)``,
+    with a leading agent axis unless ``agents`` is None.
+    """
+    rows, losses = per_sample_grads(loss_fn, params, batch, agents)
+    g = clip_mean_noise(rows, losses.shape[-1], tau, mode=mode,
+                        stacked=agents is not None)
+    return g, ref.sample_mean(losses, losses.dim() - 1)
+
+
+def dp_gradient(loss_fn: Callable, params, batch, tau: float, sigma: float,
+                gen: Optional[torch.Generator] = None, noise=None,
+                mode: ClipMode = "smooth", agents: Optional[str] = None):
+    """The DP gradient of PORTER-DP line 6 and the DP baselines: the mean
+    of the per-sample clipped gradients plus ``sigma * z``, z ~ N(0, 1)
+    drawn from ``gen`` leaf by leaf in tree order, in each leaf's shape
+    and dtype (or given as ``noise``, a tree shaped like the mean).
+    ``batch`` and ``agents`` as in :func:`clipped_grad_accumulate`; the
+    clip, the mean and the noise run in :func:`clip_mean_noise`.  Returns
+    ``(perturbed_mean, mean_loss)``."""
+    rows, losses = per_sample_grads(loss_fn, params, batch, agents)
+    lead = tuple(losses.shape)
+    if noise is None:
+        noise = tree_map(lambda a: torch.randn(
+            lead[:-1] + tuple(a.shape[1:]), generator=gen, dtype=a.dtype,
+            device=a.device), rows)
+    g = clip_mean_noise(rows, lead[-1], tau, sigma, noise, mode,
+                        stacked=agents is not None)
+    return g, ref.sample_mean(losses, len(lead) - 1)

@@ -17,7 +17,8 @@ Lines 11-14 belong to the comm-round engine (:class:`CommRound`); this
 module owns the gradient oracle and the metrics.  Gradients come from
 ``torch.func.grad_and_value`` under ``torch.func.vmap`` over the agent axis;
 the clip and the DP noise run after the vmap, over all agents at once
-(:mod:`repro_torch.core.clipping`).
+(:mod:`repro_torch.core.clipping`; DP: ``clipping.dp_gradient``, one clip
+and one mean-plus-noise launch a round).
 Nothing is updated in place, so ``porter_init`` may alias buffers.
 """
 
@@ -101,14 +102,15 @@ def porter_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
                        m_x=m_x, m_v=zeros, step=0)
 
 
-def _gradients(cfg: PorterConfig, loss_fn: LossFn, x, batch):
-    """Per-agent losses and clipped gradients (lines 5-10, noise aside).
-    Every agent's (or every sample's) gradient is clipped in one
-    row-stacked call, outside the vmap."""
+def _gradients(cfg: PorterConfig, loss_fn: LossFn, x, batch, gen, noise):
+    """Per-agent losses and clipped (and, for DP, perturbed) gradients
+    (lines 5-10).  Every agent's (or every sample's) gradient is clipped in
+    one row-stacked call, outside the vmap."""
     if cfg.variant == "dp":
-        # Option I: clip each sample's gradient, then average
-        g, losses = clipping.clipped_grad_accumulate(
-            loss_fn, x, batch, cfg.tau, cfg.clip_mode, agents="stacked")
+        # Option I: clip each sample's gradient, average, perturb
+        g, losses = clipping.dp_gradient(
+            loss_fn, x, batch, cfg.tau, cfg.sigma_p, gen=gen, noise=noise,
+            mode=cfg.clip_mode, agents="stacked")
         return losses, g
     # Option II / BEER: one batch gradient, clipped after (or not at all)
     g, losses = vmap(grad_and_value(loss_fn))(x, batch)
@@ -145,13 +147,7 @@ def porter_step(
 
     # ---- stochastic gradients (local; lines 4-10) -------------------------
     if grad_override is None:
-        losses, g = _gradients(cfg, loss_fn, state.x, batch)
-        if cfg.variant == "dp":
-            if noise is None:
-                noise = tree_map(lambda leaf: torch.randn(
-                    leaf.shape, generator=gen, dtype=leaf.dtype,
-                    device=leaf.device), g)
-            g = clipping.perturb(g, noise, cfg.sigma_p)
+        losses, g = _gradients(cfg, loss_fn, state.x, batch, gen, noise)
     else:
         losses, g = grad_override
     g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)

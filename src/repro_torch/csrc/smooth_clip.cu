@@ -1,9 +1,11 @@
 // Smooth clipping (paper Definition 2) for Hopper over a flat (tiles, 8192)
-// plane that stacks rows (agents, or samples) of tiles_per_row tiles:
+// plane that stacks rows (agents, or samples) of tiles_per_row tiles, and
+// the DP perturbation of the clipped samples' mean:
 //
 //   clip         (clip_cluster_kernel,  y = x * f_row (+ sigma * z), with
 //                 clip_kernel)          f_row = tau / (tau + ||row||), in
 //                                       one launch
+//   mean_noise   (mean_noise_kernel)    y[g] = mean_s x[g, s] (+ sigma * z[g])
 //   sumsq        (sumsq_kernel)         per-tile sum of squares -> (tiles,)
 //   scale        (scale_kernel)         y = x * f_row
 //   scale_noise  (scale_kernel<noise>)  y = x * f_row + sigma * z
@@ -13,18 +15,26 @@
 // jnp combine between the passes (src/repro/kernels/ops.py:59-61) and
 // scale together.  The Pallas kernel's scalar factor is generalised to one
 // f32 a row.  At f = 1 scale_noise is the DP perturbation g + sigma * z,
-// bit for bit.
+// bit for bit.  mean_noise has no Pallas counterpart: the reference takes
+// the sample mean (clipped_grad_accumulate, src/repro/core/clipping.py:
+// 101-104) and adds the noise (src/repro/core/porter.py:137-145,
+// src/repro/core/baselines.py:65-74) in plain jnp.  It takes the clipped
+// per-sample plane and forms each group's sample mean, and the noise when
+// given, in one pass; every per-sample clipped mean of the port runs it.
 //
 // Each computes what the plain versions of src/repro_torch/kernels/ref.py
-// (clip_sumsq, smooth_factors, clip_scale_ref) compute, bit for bit: every
-// f32 step is a round-to-nearest intrinsic, so nvcc contracts nothing into
-// an FMA.  A tile's sum of squares has a fixed order: partial t of 1024
-// sums the squares of elements 8t..8t+7 in sequence, then a halving tree
-// adds partial i + half onto partial i (the last five levels by warp
-// shuffles, which add lane i + off onto lane i: the same pairs).  A row's
-// sum of its T partials: lane l of one warp adds partials l, l + 32, ...
-// in sequence, then the shuffle tree; then __fsqrt_rn, __fadd_rn(tau, .)
-// and __fdiv_rn(tau, .).
+// (clip_sumsq, smooth_factors, clip_scale_ref, dp_mean_noise_ref) compute,
+// bit for bit: every f32 step is a round-to-nearest intrinsic, so nvcc
+// contracts nothing into an FMA.  A tile's sum of squares has a fixed
+// order: partial t of 1024 sums the squares of elements 8t..8t+7 in
+// sequence, then a halving tree adds partial i + half onto partial i (the
+// last five levels by warp shuffles, which add lane i + off onto lane i:
+// the same pairs).  A row's sum of its T partials: lane l of one warp adds
+// partials l, l + 32, ... in sequence, then the shuffle tree; then
+// __fsqrt_rn, __fadd_rn(tau, .) and __fdiv_rn(tau, .).  mean_noise adds
+// the b samples of an element in sample order onto +0.0, multiplies by
+// RN(1 / b) (what XLA makes of the reference's jitted acc / b) and adds
+// RN(sigma * z).
 //
 // What bounds them on an H100.  At the training path's planes (the MLP's
 // 10 x 7 tiles, 2.3 MB in f32) the launch: sumsq and scale each take
@@ -49,17 +59,33 @@
 //   the Tensor Memory Accelerator's bulk copy) was built first and was no
 //   faster on the planes that fit, so it is not kept.
 //
+// mean_noise is a streaming reduction with no product: its bound is the
+// bytes, the b clipped samples read once and the noise and the mean
+// written once (22.9 MB at PORTER-DP's 10 agents x 8 samples x 7 tiles in
+// f32, 6.85 us), and at those planes the launch.  It replaces the eager
+// route between the clip and the perturbed gradient (the unpack of the
+// clipped plane, a sum and a division a leaf, the re-pack into a plane of
+// another layout, a ones factor, scale_noise: ~11 launches and ~39 MB).
+// A thread owns 8 consecutive elements of one output tile and issues the
+// loads of kMeanBatch samples (16-byte ld.global.nc vectors, consecutive
+// threads on consecutive addresses) and of z before its first add, so a
+// whole DP plane is in flight at once; b is a runtime argument, taken in
+// unrolled batches with the add order fixed.  The CTA is the largest of
+// 256, 128, 64, 32 threads that still gives every SM a CTA, so a single
+// model's gradient (DP-SGD: one group) fills the card too.
+//
 // A partial's 8 consecutive elements go to one thread (the sum's order
 // fixes that layout; from shared memory its two 16-byte halves are read in
 // an order that keeps the banks free of conflicts); the scale is
 // elementwise, so it reads and stores whole 16-byte vectors with
 // consecutive threads on consecutive addresses.  The sumsq / scale pair
-// stays for callers of the passes alone (sumsq: one CTA of 1024 threads a
-// tile; scale: four CTAs of 256 a tile).
+// and scale_noise stay for callers of the passes alone (sumsq: one CTA of
+// 1024 threads a tile; scale: four CTAs of 256 a tile).
 //
 // Interface: plain C, loaded with ctypes.  Pointers are device addresses of
 // contiguous, 16-byte aligned buffers; bf16 != 0 reads and writes bf16
-// planes (noise in the plane's dtype), else f32; factors and partials are
+// planes (noise in the plane's dtype; mean_noise reads bf16 samples and
+// takes f32 noise and writes f32), else f32; factors and partials are
 // f32.  The stream is the caller's cudaStream_t.  Each entry point returns
 // cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // arguments it does not take; clip's cooperative route returns
@@ -183,6 +209,94 @@ int launch_scale(const void* x, const void* factor, int64_t tiles_per_row,
     scale_kernel<T, true><<<(unsigned)blocks, kScaleThreads, 0, stream>>>(
         (const T*)x, (const float*)factor, (const T*)noise, sigma, (T*)out,
         tiles_per_row);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- mean_noise: the DP perturbation of the sample mean ----------------
+
+constexpr int kMeanBatch = 8;        // samples whose loads are in flight
+constexpr int kMeanThreads = 256;    // the largest CTA; halved to fill SMs
+constexpr int kTileVecs = kTile / kVec;   // 1024 vectors of 8 a tile
+
+// Vector v (8 elements) of the (groups * T, kTile) output: output tile
+// o = v / 1024 is tile t of group g (o = g * T + t), and sample s of the
+// group is input tile (g * b + s) * T + t.  out = RN(RN(sum_s x) * inv_b)
+// + RN(sigma * z), the sum in sample order from +0.0; without noise
+// (kNoise false) out = RN(RN(sum_s x) * inv_b), the mean alone.
+template <typename T, bool kNoise>
+__global__ void __launch_bounds__(kMeanThreads)
+mean_noise_kernel(const T* __restrict__ x, const float* __restrict__ noise,
+                  float inv_b, float sigma, float* __restrict__ out,
+                  int64_t tiles_per_row, int b) {
+  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t o = v / kTileVecs;
+  const int64_t e = (v % kTileVecs) * kVec;
+  const int64_t g = o / tiles_per_row, t = o % tiles_per_row;
+  const T* src = x + ((g * b) * tiles_per_row + t) * kTile + e;
+  const int64_t step = tiles_per_row * kTile;   // one sample further on
+  float z[kVec], acc[kVec];
+  if (kNoise) load8(noise + o * kTile + e, z);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
+  for (int s0 = 0; s0 < b; s0 += kMeanBatch) {
+    float xs[kMeanBatch][kVec];
+#pragma unroll
+    for (int i = 0; i < kMeanBatch; ++i) {
+      if (s0 + i < b) load8(src + i * step, xs[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kMeanBatch; ++i) {
+      if (s0 + i < b) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], xs[i][j]);
+      }
+    }
+    src += kMeanBatch * step;
+  }
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    acc[j] = kNoise ? __fadd_rn(__fmul_rn(acc[j], inv_b),
+                                __fmul_rn(sigma, z[j]))
+                    : __fmul_rn(acc[j], inv_b);
+  }
+  store8(out + o * kTile + e, acc);
+}
+
+// The CTA size for `vecs` vectors: the largest of 256, 128, 64, 32
+// threads that still gives every SM at least one CTA.
+cudaError_t mean_noise_threads(int64_t vecs, int* threads) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  int n = kMeanThreads;
+  while (n > 32 && vecs / n < sms) n /= 2;
+  *threads = n;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_mean_noise(const void* x, const void* noise, float sigma,
+                      void* out, int64_t groups, int64_t b,
+                      int64_t tiles_per_row, cudaStream_t stream) {
+  const int64_t vecs = groups * tiles_per_row * kTileVecs;
+  int threads = 0;
+  const cudaError_t e = mean_noise_threads(vecs, &threads);
+  if (e != cudaSuccess) return (int)e;
+  if (vecs / threads > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // RN(1 / b) in f32: the host's IEEE division, correctly rounded
+  const float inv_b = 1.0f / (float)b;
+  const unsigned blocks = (unsigned)(vecs / threads);
+  if (noise != nullptr) {
+    mean_noise_kernel<T, true><<<blocks, threads, 0, stream>>>(
+        (const T*)x, (const float*)noise, inv_b, sigma, (float*)out,
+        tiles_per_row, (int)b);
+  } else {
+    mean_noise_kernel<T, false><<<blocks, threads, 0, stream>>>(
+        (const T*)x, nullptr, inv_b, 0.0f, (float*)out, tiles_per_row,
+        (int)b);
   }
   return (int)cudaGetLastError();
 }
@@ -643,4 +757,24 @@ extern "C" int clip_fused(const void* x, int bf16, const void* noise,
                                               tiles_per_row, s)
               : launch_clip_dt<float>(x, noise, sigma, tau, out, partials,
                                       factors, tiles, tiles_per_row, s);
+}
+
+// The DP perturbation of the sample mean: x holds groups * b rows of
+// tiles_per_row tiles (group g's sample s is row g * b + s), noise and out
+// groups rows (f32); out[g] = mean_s x[g, s] + sigma * noise[g], or the
+// mean alone where noise is null.
+extern "C" int clip_mean_noise(const void* x, int bf16, const void* noise,
+                               float sigma, void* out, int64_t groups,
+                               int64_t b, int64_t tiles_per_row,
+                               void* stream) {
+  if (groups < 1 || b < 1 || tiles_per_row < 1 || groups > 0x7fffffff ||
+      b > 0x7fffffff || tiles_per_row > 0x7fffffff ||
+      groups * b > 0x7fffffff / tiles_per_row) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_mean_noise<__nv_bfloat16>(x, noise, sigma, out, groups,
+                                                 b, tiles_per_row, s)
+              : launch_mean_noise<float>(x, noise, sigma, out, groups, b,
+                                         tiles_per_row, s);
 }

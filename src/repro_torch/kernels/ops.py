@@ -27,6 +27,11 @@ reference's wrapper runs ``sumsq``, ``jnp.sum`` and ``scale``
 (``src/repro/kernels/ops.py:59-61``).  The two passes also stand alone:
 ``clip_sumsq`` (the ``sumsq`` kernel) and ``clip_scale`` (``scale``, or
 ``scale_noise`` with a noise plane: the DP perturbation at factor 1).
+``dp_mean_noise`` is the clipped samples' mean, and its DP perturbation,
+in one launch (``mean_noise``, a kernel of the port alone): each group's b
+samples added in order onto +0.0, times ``RN(1 / b)`` (the reference's
+jitted mean), plus ``sigma * z`` when a noise plane is given; every
+per-sample clipped mean runs it.
 ``smooth_clip`` keeps the reference's contract: one norm over the whole
 array.  ``block_topk`` keeps exactly k per ``(R, 2048)`` window, ties to
 the lower index.
@@ -68,12 +73,14 @@ from .flatten import TILE
 
 __all__ = ["LAUNCHES", "reset_launches", "ef_track", "ef_step", "ef_gossip",
            "sr_cast", "sr_cast_leaf", "clip_sumsq", "clip_scale",
-           "smooth_factors", "clip_planes", "smooth_clip", "block_topk",
+           "smooth_factors", "clip_planes", "dp_mean_noise", "smooth_clip",
+           "block_topk",
            "wire_topk_pack", "wire_topk_unpack", "wire_qsgd_pack", "wire_qsgd_unpack",
            "rwkv6_scan", "ssd_scan"]
 
 LAUNCHES = {"ef_track": 0, "ef_step": 0, "ef_gossip": 0, "sr_cast": 0,
             "sumsq": 0, "scale": 0, "scale_noise": 0, "clip": 0,
+            "mean_noise": 0,
             "block_topk": 0,
             "topk_pack": 0, "topk_unpack": 0, "qsgd_pack": 0,
             "qsgd_unpack": 0, "rwkv6_chunk": 0, "ssd_chunk": 0,
@@ -289,6 +296,36 @@ def clip_planes(planes, rows: int, tau: float, noise=None,
         return ref.clip_planes_ref(planes, rows, tau, noise, sigma)
     out = _sc.clip(planes, rows, tau, noise, sigma)
     LAUNCHES["clip"] += 1
+    return out
+
+
+def dp_mean_noise(planes, groups: int, b: int, noise=None,
+                  sigma: float = 0.0):
+    """Each group's sample mean, and its DP perturbation when ``noise`` is
+    given: ``planes`` is a ``(groups * b * T, TILE)`` f32 or bf16 plane of
+    clipped samples (group g's sample s is logical row ``g * b + s``, as
+    ``clip_planes`` leaves them), ``noise`` None or the f32 ``(groups * T,
+    TILE)`` plane of N(0, 1) draws.  Returns the f32 ``(groups * T, TILE)``
+    plane ``mean_s x[g, s] (+ sigma * z[g])``: on the card one launch of
+    the ``mean_noise`` kernel, on the CPU ``ref.dp_mean_noise_ref``, bit
+    for bit (the samples added in order onto +0.0, the product with ``RN(1
+    / b)``, then ``RN(sigma * z)`` added)."""
+    kind = _check_plane("dp_mean_noise", (planes,), TILE)
+    if groups < 1 or b < 1 or planes.shape[0] % (groups * b):
+        raise ValueError(f"dp_mean_noise takes {groups} groups of b = {b} "
+                         f"samples whose count divides the plane's "
+                         f"{planes.shape[0]} tiles")
+    if noise is not None:
+        _check_wire("dp_mean_noise", (noise,), (_F32,), (TILE,))
+        want = (planes.shape[0] // b, TILE)
+        if tuple(noise.shape) != want or noise.device != planes.device:
+            raise ValueError(f"dp_mean_noise takes a noise plane of shape "
+                             f"{want} on {planes.device}, got "
+                             f"{tuple(noise.shape)} on {noise.device}")
+    if kind == "cpu":
+        return ref.dp_mean_noise_ref(planes, groups, b, noise, sigma)
+    out = _sc.mean_noise(planes, groups, b, noise, sigma)
+    LAUNCHES["mean_noise"] += 1
     return out
 
 

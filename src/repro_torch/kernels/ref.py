@@ -12,7 +12,10 @@ random operand explicitly (qsgd's U[0, 1) ``noise``), and their layout from
 
 The clip pair (``clip_sumsq``, ``clip_scale_ref``) and ``smooth_clip_ref``
 copy Definition 2 of ``src/repro/kernels/smooth_clip.py`` and
-``src/repro/kernels/ref.py:10``; ``block_topk_ref`` is the exact-k window
+``src/repro/kernels/ref.py:10``; ``sample_mean`` and ``dp_mean_noise_ref``
+the mean of the clipped samples as the reference's jitted
+``clipped_grad_accumulate`` takes it (``src/repro/core/clipping.py:101-104``)
+and its DP perturbation; ``block_topk_ref`` is the exact-k window
 selection of ``src/repro/kernels/ref.py:20`` and of the reference's
 ``block_top_k`` compressor.
 
@@ -31,7 +34,8 @@ import torch
 
 __all__ = ["ef_track_ref", "ef_step_ref", "ef_gossip_ref", "sr_cast_ref",
            "sqrt_rn", "clip_sumsq", "clip_scale_ref", "smooth_factors",
-           "clip_planes_ref", "smooth_clip_ref",
+           "clip_planes_ref", "smooth_clip_ref", "sample_mean",
+           "dp_mean_noise_ref",
            "block_topk_ref",
            "topk_pack_ref", "topk_unpack_ref", "qsgd_pack_ref",
            "qsgd_unpack_ref", "qsgd_sumsq", "rwkv6_chunk_ref",
@@ -154,6 +158,35 @@ def clip_planes_ref(planes, rows: int, tau: float, noise=None,
     partials = clip_sumsq(planes)
     factors = smooth_factors(partials, rows, tau)
     return clip_scale_ref(planes, factors, noise, sigma), partials, factors
+
+
+def sample_mean(x, dim: int):
+    """The mean over axis ``dim`` as the reference's jitted
+    ``clipped_grad_accumulate`` takes it: the samples added in order onto
+    +0.0 in f32 (a -0.0 sum becomes +0.0), then the product with
+    ``RN(1 / b)``, which is what XLA makes of ``acc / b`` (eager JAX and
+    PyTorch's CPU divide, correctly rounded; PyTorch's CUDA divides by a
+    Python scalar through its reciprocal).  ``RN(1 / b)`` is the f32
+    quotient of two CPU tensors, correctly rounded.  Returns f32."""
+    b = x.shape[dim]
+    inv_b = torch.ones((), dtype=_F32) / torch.tensor(float(b), dtype=_F32)
+    acc = torch.zeros(x.select(dim, 0).shape, dtype=_F32, device=x.device)
+    for s in range(b):
+        acc = acc + x.select(dim, s).to(_F32)
+    return acc * inv_b.to(x.device)
+
+
+def dp_mean_noise_ref(planes, groups: int, b: int, noise=None,
+                      sigma: float = 0.0):
+    """Each group's sample mean over a ``(groups * b * T, TILE)`` plane of
+    clipped samples (group g's sample s is logical row ``g * b + s``, each
+    of T tiles): :func:`sample_mean` over the b samples, plus ``RN(sigma *
+    z)`` with the f32 ``(groups * T, TILE)`` ``noise`` when given, rounded
+    apart.  Returns the f32 ``(groups * T, TILE)`` plane."""
+    tiles = planes.shape[0] // (groups * b)
+    mean = sample_mean(planes.view(groups, b, tiles, planes.shape[1]), 1)
+    mean = mean.view(groups * tiles, planes.shape[1])
+    return mean if noise is None else mean + sigma * noise.to(_F32)
 
 
 def smooth_clip_ref(x, tau: float, noise=None, sigma: float = 0.0):

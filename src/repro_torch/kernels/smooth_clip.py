@@ -6,6 +6,9 @@ of f32 or bf16 whose logical rows hold ``tiles_per_row`` tiles each:
 
     clip:         y = x * f_row (+ sigma * z), f_row = tau / (tau + ||row||),
                   in one launch (partials and factors written on the way)
+    mean_noise:   y[g] = mean_s x[g, s] (+ sigma * z[g]), each group's
+                  sample mean (and its DP perturbation), f32 out; a kernel
+                  of the port alone (the reference adds the noise in jnp)
     sumsq:        per-tile sum of squares, in a fixed order -> (tiles,) f32
     scale:        y = x * f_row, one f32 factor per logical row
     scale_noise:  y = x * f_row + sigma * z
@@ -24,7 +27,7 @@ import torch
 
 from . import build
 
-__all__ = ["clip", "clip_plan", "sumsq", "scale"]
+__all__ = ["clip", "clip_plan", "mean_noise", "sumsq", "scale"]
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -33,6 +36,8 @@ _SIGNATURES = {
     "clip_fused": [_P, _I, _P, ctypes.c_float, ctypes.c_float, _P, _P, _P,
                    _I64, _I64, _P],
     "clip_plan": [_I, _I, _I64, _I64, _P],
+    "clip_mean_noise": [_P, _I, _P, ctypes.c_float, _P, _I64, _I64, _I64,
+                        _P],
 }
 
 
@@ -84,6 +89,20 @@ def clip_plan(planes, rows: int, noisy: bool = False) -> dict:
         raise RuntimeError(f"clip_plan failed with CUDA error {err}")
     return {"route": ("cooperative", "cluster")[plan[0]], "grid": plan[1],
             "tiles_per_cta": plan[2]}
+
+
+def mean_noise(planes, groups: int, b: int, noise=None, sigma: float = 0.0):
+    """Launch the sample mean of a contiguous ``(groups * b * T, TILE)``
+    plane of clipped samples (group g's sample s is logical row ``g * b +
+    s``), plus ``sigma`` times the f32 ``(groups * T, TILE)`` ``noise``
+    when given; returns the f32 ``(groups * T, TILE)`` plane."""
+    out = torch.empty((planes.shape[0] // b, planes.shape[1]),
+                      dtype=torch.float32, device=planes.device)
+    _launch("clip_mean_noise", planes, planes.data_ptr(),
+            int(planes.dtype == torch.bfloat16),
+            None if noise is None else noise.data_ptr(), float(sigma),
+            out.data_ptr(), groups, b, out.shape[0] // groups)
+    return out
 
 
 def sumsq(planes):

@@ -9,9 +9,10 @@
 * Which wrappers each algorithm's step reaches, counted by wrapping them
   with ``monkeypatch``: PORTER-GC, DSGD and CHOCO clip once a round
   (``clip_planes``: the fused ``clip`` kernel), the DP algorithms also
-  perturb once (``clip_scale`` with noise: the ``scale_noise`` kernel),
-  BEER never, and no step calls the passes ``clip_sumsq`` / ``clip_scale``
-  alone;
+  take the sample mean and the noise once (``dp_mean_noise``: the
+  ``mean_noise`` kernel), BEER never, and no step calls the passes
+  ``clip_sumsq`` / ``clip_scale`` alone (``clip_scale`` with noise, the
+  ``scale_noise`` kernel, was the DP perturbation before ``mean_noise``);
   ``block_top_k`` on the dense wire calls ``ops.block_topk`` once a
   compressed leaf, and on the packed wire not at all (the codec selects).
   On the card each call is one kernel launch (``chip_smoke.py`` counts
@@ -132,7 +133,8 @@ def _count_calls(monkeypatch):
             return fn(*args, **kw)
         return wrapper
 
-    for name in ("clip_planes", "clip_sumsq", "clip_scale", "block_topk"):
+    for name in ("clip_planes", "clip_sumsq", "clip_scale", "dp_mean_noise",
+                 "block_topk"):
         monkeypatch.setattr(ops, name, counted(name, getattr(ops, name)))
     return calls
 
@@ -153,8 +155,8 @@ def _step_once(algo, **over):
     return state
 
 
-# per algorithm, the calls of one step: (clip_planes, clip_scale with
-# noise); clip_sumsq and clip_scale without noise are called by none
+# per algorithm, the calls of one step: (clip_planes, dp_mean_noise);
+# clip_sumsq and clip_scale, with noise or without, are called by none
 CLIP_CALLS = {"porter-gc": (1, 0), "porter-dp": (1, 1), "dp-sgd": (1, 1),
               "soteriafl": (1, 1), "dsgd": (1, 0), "choco": (1, 0),
               "beer": (0, 0)}
@@ -164,10 +166,32 @@ CLIP_CALLS = {"porter-gc": (1, 0), "porter-dp": (1, 1), "dp-sgd": (1, 1),
 def test_each_step_clips_through_the_kernel_wrappers(monkeypatch, algo):
     calls = _count_calls(monkeypatch)
     _step_once(algo, **({"tau": None} if algo == "beer" else {}))
-    fused, noisy = CLIP_CALLS[algo]
+    fused, mean_noise = CLIP_CALLS[algo]
     assert calls == collections.Counter(
         {k: v for k, v in (("clip_planes", fused),
-                           ("clip_scale+noise", noisy)) if v})
+                           ("dp_mean_noise", mean_noise)) if v})
+    assert calls["clip_scale+noise"] == 0
+
+
+# the DP steps in each clip mode, and DSGD with DP: (clip_planes,
+# dp_mean_noise) a step; piecewise and none clip eagerly, then take the
+# same mean-and-noise call
+DP_CALLS = {("porter-dp", "smooth"): (1, 1),
+            ("porter-dp", "piecewise"): (0, 1), ("porter-dp", "none"): (0, 1),
+            ("dsgd-dp", "smooth"): (1, 1), ("dp-sgd", "piecewise"): (0, 1)}
+
+
+@pytest.mark.parametrize("algo,mode", sorted(DP_CALLS))
+def test_every_dp_step_takes_one_mean_noise_call(monkeypatch, algo, mode):
+    calls = _count_calls(monkeypatch)
+    if algo == "dsgd-dp":
+        _step_once("dsgd", dp=True, clip_mode=mode)
+    else:
+        _step_once(algo, clip_mode=mode)
+    fused, mean_noise = DP_CALLS[(algo, mode)]
+    assert calls == collections.Counter(
+        {k: v for k, v in (("clip_planes", fused),
+                           ("dp_mean_noise", mean_noise)) if v})
 
 
 def test_piecewise_clipping_stays_eager(monkeypatch):

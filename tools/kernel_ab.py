@@ -31,6 +31,13 @@ and 5-8 time, each from CUDA events over inputs that exceed L2:
   on the MLP's agent plane (10 rows x 7 tiles) in f32 and bf16, the
   quickstart's (10 x 1), PORTER-DP's per-sample plane (80 x 7) and 2^24
   elements (1 row) (``clip``);
+- the DP gradient route after the per-sample gradients, as the tree runs
+  it: the MLP's per-sample gradients (Gaussian, 10 agents x 8 samples as
+  PORTER-DP takes them, and one model x 8 samples as DP-SGD does) clipped,
+  averaged and perturbed (``clipping.clip_mean_noise``: the fused clip and
+  ``mean_noise``; or, where the tree has no such function, the fused clip,
+  its unpack, a sum and a division a leaf and ``clipping.perturb``); several
+  wrapper calls, so timed with ``cover`` (``dp``);
 
 and with ``--prefill`` the zamba2-7b and rwkv6-7b prefills as
 ``launch.serve.generate`` times them (batch 4 x prompt 512, synchronized
@@ -52,7 +59,7 @@ once per tree, in turns (A, B, B, A).  Each run imports ``repro_torch``
 from SRC, builds that tree's kernels into its own ``build/``, and prints
 one ``[kernel-ab]`` line per measurement and a JSON line of them all.
 ``--only`` keeps some groups of cells: ssd, rwkv6, block_topk, topk_pack,
-sr, qsgd, unpack, clip.
+sr, qsgd, unpack, clip, dp.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ import argparse
 import hashlib
 import inspect
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -97,8 +105,11 @@ CLIP_CELLS = {"clip mlp f32": (10, 7, "f32"), "clip mlp bf16": (10, 7, "bf16"),
               "clip quickstart f32": (10, 1, "f32"),
               "clip dp f32": (80, 7, "f32"),
               "clip 2^24 f32": (1, 2048, "f32")}
+# the DP route: (groups, samples a group); one group is a single model
+DP_CELLS = {"dp porter-dp f32": (10, 8), "dp dp-sgd f32": (1, 8)}
+DP_SIGMA = 0.01
 GROUPS = ("ssd", "rwkv6", "block_topk", "topk_pack", "sr", "qsgd", "unpack",
-          "clip")
+          "clip", "dp")
 PTXAS_SOURCES = ("rwkv6_chunk", "ssd_chunk", "wire_pack", "block_topk",
                  "ef_update")
 
@@ -189,6 +200,24 @@ def _unpack_cells(torch, ops, ref, cs, gen):
             def make(windows=windows, k=k):
                 return list(ref.topk_pack_ref(rows(windows), k))
             yield f"topk_unpack {windows} k{k}", ops.wire_topk_unpack, make
+
+
+def _dp_route(clipping):
+    """The tree's DP gradient route from the per-sample rows (group g's
+    sample s is row ``g * b + s``) and the noise tree to the perturbed
+    mean, tau 1."""
+    if hasattr(clipping, "clip_mean_noise"):
+        def fused(rows, b, stacked, noise):
+            return clipping.clip_mean_noise(rows, b, 1.0, DP_SIGMA, noise,
+                                            stacked=stacked)
+        return fused
+
+    def eager(rows, b, stacked, noise):
+        lead = (-1, b) if stacked else (b,)
+        mean = {k: a.reshape(lead + tuple(a.shape[1:])).sum(len(lead) - 1)
+                / b for k, a in clipping.stacked_clip(rows, 1.0).items()}
+        return clipping.perturb(mean, noise, DP_SIGMA)
+    return eager
 
 
 def _prefill(torch, serve, arch, sc, label):
@@ -342,6 +371,33 @@ def main(argv=None) -> int:
             digest[name] = _digest(torch, ops.clip_planes(*sets[0]))
             print(f"[kernel-ab] {args.label} {name} ({rows} x {tiles} tiles): "
                   f"{us[name]:.3f} us, outputs {digest[name]}")
+            del sets
+    if "dp" in groups:
+        from repro_torch.core import clipping
+        from repro_torch.models import paper
+        shapes = {k: tuple(v.shape) for k, v in
+                  paper.mlp_init(seed=0, device="cuda").items()}
+        route = _dp_route(clipping)
+        for name, (n, b) in DP_CELLS.items():
+            lead = (n,) if n > 1 else ()
+
+            def make():
+                return [{k: torch.randn((n * b,) + sh, generator=gen,
+                                        device="cuda")
+                         for k, sh in shapes.items()}, b, n > 1,
+                        {k: torch.randn(lead + sh, generator=gen,
+                                        device="cuda")
+                         for k, sh in shapes.items()}]
+            nbytes = 4 * sum(math.prod(sh) for sh in shapes.values()) * (
+                n * b + 2 * n)
+            sets = _sets(cs, make, nbytes)
+            us[name] = 1e3 * cs.device_time_ms(route, sets, 20, 10,
+                                               cover=True)
+            out = route(*sets[0])
+            digest[name] = _digest(torch, tuple(out[k] for k in sorted(out)))
+            print(f"[kernel-ab] {args.label} {name} ({n} x {b} samples, "
+                  f"{route.__name__} route): {us[name]:.3f} us, outputs "
+                  f"{digest[name]}")
             del sets
     prefill = {}
     if args.prefill:

@@ -1,4 +1,5 @@
-"""ms per round of PORTER-GC, PORTER-DP and CHOCO on the full-width MLP,
+"""ms per round of PORTER-GC, PORTER-DP, CHOCO and the DP baselines (DSGD
+with DP, DP-SGD, SoteriaFL) on the full-width MLP,
 for the port in a given source tree, on one card: what ``chip_smoke.py``
 phase 4 runs (Section 5.2, 10 agents, ER(0.8), top-k 5 %, batch 8; and
 PORTER-GC with the ``block_top_k`` compressor at 5 %; PORTER-GC and CHOCO
@@ -45,7 +46,10 @@ CONFIGS = {"porter-gc kernel": dict(comm_backend="kernel"),
                                          gossip_mode="packed",
                                          compressor="qsgd",
                                          compressor_kwargs={"levels": 7},
-                                         comm_backend="kernel")}
+                                         comm_backend="kernel"),
+           "dsgd-dp": dict(algo="dsgd", dp=True, sigma_p=0.01),
+           "dp-sgd": dict(algo="dp-sgd", sigma_p=0.01),
+           "soteriafl": dict(algo="soteriafl", sigma_p=0.01)}
 
 
 def _digest(torch, tree_leaves, state) -> str:
