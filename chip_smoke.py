@@ -117,6 +117,19 @@ of the ``repro`` package.  Phases, each printing its own lines:
    round of the earlier phases also counts one ``clip`` launch, on the ref
    backend too, and every DP round one ``mean_noise``; no path launches
    ``sumsq``, ``scale`` or ``scale_noise``.
+9. time-varying and directed schedules and the registry's last four
+   algorithms on the same MLP (``[extensions]`` lines): PORTER-GC for 200
+   rounds on the ``erdos_renyi`` (period 8), ``dropout`` and
+   ``straggler`` schedules, kernel vs ref backend (x within 1e-6 in f32,
+   bitwise in bf16), and a period-1 ``static`` schedule bitwise the
+   static graph's final state of phase 4; porter-adam in f32 and bf16
+   (f32 moments), clip21 (and at tau = inf bitwise porter-gc with a
+   piecewise clip at tau = inf), subgrad-comp with ``sign`` (200 rounds)
+   and ``low_rank`` (50); dp-csgp (sigma_p 0.01, 50 rounds) on a directed
+   ring with a skip and on a random digraph of period 8 in f32 and bf16
+   and over the packed wire, the push-sum weights summing to n and
+   positive, and bitwise PORTER-DP on the static ER(0.8) table; each
+   run's ms a round and launches, and three profiled windows.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -2463,6 +2476,210 @@ def phase_block_top_k(torch, ops, api, data, runtime, paper, num=60000,
     return launches
 
 
+# phase 9: the schedules, the directed schedules and the last four
+# algorithms of the registry, on the full-width MLP (PR 23).  Churn rounds
+# drop agents or links, and best-constant weights have no closed form on a
+# disconnected round, so the churn schedules take Metropolis weights.
+SCHEDULES = {"erdos_renyi": "erdos_renyi:period=8",
+             "dropout": "dropout:rate=0.2,period=8,weights=metropolis",
+             "straggler": "straggler:rate=0.3,period=8,weights=metropolis"}
+DIRECTED = {"ring_skips": "directed:ring_skips,skip=2",
+            "digraph": "directed:digraph,p=0.5,period=8"}
+SUBGRAD_GAMMA = 0.05     # sign and low_rank report rho 0: gamma is given
+
+
+def _state_tensors(tree_leaves, state):
+    """Every tensor of a state, nested states (``base``) included."""
+    return [leaf for leaf in tree_leaves(tuple(
+        getattr(state, f) for f in state._fields if f != "step"))]
+
+
+def _states_equal(torch, tree_leaves, a, b) -> bool:
+    la, lb = _state_tensors(tree_leaves, a), _state_tensors(tree_leaves, b)
+    return len(la) == len(lb) and all(bit_equal(torch, x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _x(state):
+    return state.base.x if hasattr(state, "base") else state.x
+
+
+def phase_extensions(torch, ops, api, data, runtime, paper, tree_leaves,
+                     static_runs, num=60000, rounds=200, short=50):
+    """The port's paths of this slice on the full-width MLP (784 -> 64 ->
+    10, 10 agents, ER(0.8), top-k 5 %), through ``api.build`` and
+    ``run_chunked``: PORTER-GC on three time-varying schedules, kernel vs
+    ref backend in f32 (x within 1e-6) and bf16 (bitwise), and a period-1
+    ``static`` schedule bitwise the static topology's run of phase 4
+    (``static_runs``); porter-adam (f32, bf16), clip21 (and at tau = inf
+    bitwise porter-gc with a piecewise clip at tau = inf), subgrad-comp
+    with ``sign`` and ``low_rank``; dp-csgp on a directed ring with a skip
+    and on a random digraph of period 8, f32 and bf16, and over the
+    packed wire, with the push-sum weights' mass and sign, and bitwise
+    porter-dp on the static ER(0.8) table.  Every path is counted from 0;
+    the ER schedule, porter-adam and dp-csgp on the digraph (f32) are
+    profiled once each.  Returns each run's ms a round."""
+    source, base, loss_fn = _mlp_problem(api, data, paper, num)
+    ms_rounds = {}
+
+    def run(label, spec, steps, w=None):
+        algo = _build(api, spec, loss_fn)
+        state = algo.init(paper.mlp_init(seed=0, device=DEVICE), w=w)
+        state, losses, ms, counts = run_counted(
+            torch, ops, runtime, algo, source, state, steps,
+            min(50, steps // 2))
+        ms_rounds[label] = ms
+        print(f"[extensions] {label} {steps} rounds: loss {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}, {ms:.4f} ms/round, launches {counts}")
+        if not finite(losses):
+            raise AssertionError(f"{label}: loss is not finite")
+        return algo, state, losses, counts
+
+    # PORTER-GC on the schedules, both backends, f32 and bf16 planes
+    for name, text in SCHEDULES.items():
+        for plane in (None, "bf16"):
+            tag = plane or "f32"
+            got = {}
+            for backend in ("kernel", "ref"):
+                got[backend] = run(
+                    f"porter-gc {name} {tag} {backend}",
+                    base.replace(topology_schedule=text,
+                                 comm_backend=backend, plane_dtype=plane),
+                    rounds)
+            (algo, s_k, l_k, n_k), (_, s_r, _, n_r) = (got["kernel"],
+                                                       got["ref"])
+            period = algo.schedule.period
+            same = all(bit_equal(torch, s_k.x[k], s_r.x[k]) for k in s_k.x)
+            diff = max(float((s_k.x[k] - s_r.x[k]).abs().max())
+                       for k in s_k.x)
+            print(f"[extensions] porter-gc {name} (period {period}) {tag} "
+                  f"kernel vs ref backend: x bitwise equal {same}, max |x "
+                  f"diff| {diff}")
+            if not (diff <= 1e-6 if plane is None else same):
+                raise AssertionError(f"{name} {tag}: kernel and ref "
+                                     f"trajectories differ: {diff}")
+            expect_launches(f"{name} {tag} kernel", n_k, ef_track=rounds,
+                            ef_step=rounds, clip=rounds,
+                            sr_epilogue=5 * rounds if plane else 0)
+            expect_launches(f"{name} {tag} ref", n_r, clip=rounds)
+            _falls(f"porter-gc {name} {tag}", l_k)
+            if name == "erdos_renyi" and plane is None:
+                profile_rounds(torch, runtime, algo, source,
+                               _init(algo, paper), 20,
+                               "porter-gc erdos_renyi schedule")
+    _, s_static, _, n_static = run(
+        "porter-gc static schedule f32 kernel",
+        base.replace(topology_schedule="static", comm_backend="kernel"),
+        rounds)
+    s_topo = static_runs[("f32", "kernel")][0]
+    same = _states_equal(torch, tree_leaves, s_static, s_topo)
+    print(f"[extensions] period-1 static schedule vs the static topology "
+          f"(phase 4): final state bitwise equal {same}")
+    if not same:
+        raise AssertionError("the static schedule's state is not the static "
+                             "topology's")
+    expect_launches("static schedule", n_static, ef_track=rounds,
+                    ef_step=rounds, clip=rounds)
+
+    # porter-adam: the step's f32 update beside bf16 EF planes enters the
+    # ef_step kernel as f32 operands, its q and m rounded by sr_cast
+    for plane in (None, "bf16"):
+        tag = plane or "f32"
+        algo, state, losses, counts = run(
+            f"porter-adam {tag}",
+            base.replace(algo="porter-adam", eta=0.002, plane_dtype=plane),
+            rounds)
+        if plane is None:
+            profile_rounds(torch, runtime, algo, source, _init(algo, paper),
+                           20, "porter-adam")
+        dtypes = {str(v.dtype) for tree in (state.m, state.s)
+                  for v in tree.values()}
+        print(f"[extensions] porter-adam {tag}: moments {sorted(dtypes)}, "
+              f"q_x {state.base.q_x['w1'].dtype}")
+        if dtypes != {"torch.float32"}:
+            raise AssertionError(f"porter-adam moments are {dtypes}")
+        expect_launches(f"porter-adam {tag}", counts, ef_track=rounds,
+                        ef_step=rounds, clip=rounds,
+                        sr_epilogue=3 * rounds if plane else 0,
+                        sr_cast=2 * rounds if plane else 0)
+        _falls(f"porter-adam {tag}", losses)
+
+    # clip21: the residual clip is eager (piecewise), the raw gradient
+    # unclipped, so no clip launch; at tau = inf bitwise porter-gc
+    _, _, losses, counts = run("clip21 tau 1", base.replace(algo="clip21"),
+                               rounds)
+    expect_launches("clip21", counts, ef_track=rounds, ef_step=rounds)
+    _falls("clip21", losses)
+    _, s_c21, _, _ = run("clip21 tau inf",
+                         base.replace(algo="clip21", tau=None), short)
+    _, s_gc, _, _ = run("porter-gc piecewise tau inf",
+                        base.replace(tau=float("inf"),
+                                     clip_mode="piecewise"), short)
+    same = _states_equal(torch, tree_leaves, s_c21.base, s_gc)
+    print(f"[extensions] clip21 at tau = inf vs porter-gc piecewise at tau "
+          f"= inf: final state bitwise equal {same}")
+    if not same:
+        raise AssertionError("clip21 at tau = inf is not porter-gc's")
+
+    # subgrad-comp: CHOCO's round (ef_gossip) with eta / sqrt(t + 1)
+    for comp, kw, steps in (("sign", {}, rounds),
+                            ("low_rank", {"rank": 2}, short)):
+        _, _, losses, counts = run(
+            f"subgrad-comp {comp}",
+            base.replace(algo="subgrad-comp", compressor=comp,
+                         compressor_kwargs=kw, gamma=SUBGRAD_GAMMA), steps)
+        expect_launches(f"subgrad-comp {comp}", counts, ef_gossip=steps,
+                        clip=steps)
+        if comp == "sign":
+            _falls("subgrad-comp sign", losses)
+
+    # dp-csgp on the directed schedules, f32 and bf16, and the packed wire
+    dp = base.replace(algo="dp-csgp", sigma_p=DP_SIGMA)
+    cases = [(name, text, plane, {}) for name, text in DIRECTED.items()
+             for plane in (None, "bf16")]
+    cases.append(("digraph", DIRECTED["digraph"], None,
+                  dict(wire="packed_bits", gossip_mode="packed")))
+    for name, text, plane, wire in cases:
+        tag = (plane or "f32") + (" packed_bits" if wire else "")
+        algo, state, _, counts = run(
+            f"dp-csgp {name} {tag}",
+            dp.replace(topology_schedule=text, plane_dtype=plane, **wire),
+            short)
+        xw = state.xw.double()
+        mass = float(xw.sum())
+        print(f"[extensions] dp-csgp {name} (period "
+              f"{algo.schedule.period}) {tag}: sum xw {mass!r}, xw in "
+              f"[{float(xw.min())!r}, {float(xw.max())!r}], weight planes "
+              f"{sorted({str(state.xw.dtype), str(state.q_w.dtype), str(state.m_w.dtype)})}")
+        if not (abs(mass - 10) <= 1e-5 and bool((xw > 0).all())):
+            raise AssertionError(f"dp-csgp {name} {tag}: weights {xw}")
+        if state.xw.dtype != torch.float32:
+            raise AssertionError("dp-csgp weight planes are not f32")
+        want = dict(ef_track=short, ef_step=short, clip=short,
+                    mean_noise=short, sr_epilogue=5 * short if plane else 0)
+        if wire:
+            want.update(topk_pack=2 * short, topk_unpack=2 * short)
+        expect_launches(f"dp-csgp {name} {tag}", counts, **want)
+        if name == "digraph" and plane is None and not wire:
+            profile_rounds(torch, runtime, algo, source, _init(algo, paper),
+                           20, "dp-csgp digraph")
+    algo, s_csgp, _, _ = run("dp-csgp static ER(0.8)", dp, short)
+    _, s_pdp, _, _ = run("porter-dp static ER(0.8), init(w=W)",
+                         base.replace(algo="porter-dp", sigma_p=DP_SIGMA),
+                         short, w=algo.topology.w)
+    same = _states_equal(
+        torch, tree_leaves, s_pdp,
+        type(s_pdp)(*[getattr(s_csgp, f) for f in s_pdp._fields]))
+    print(f"[extensions] dp-csgp vs porter-dp on the static ER(0.8) table: "
+          f"final state bitwise equal {same}, xw all 1 "
+          f"{bool((s_csgp.xw == 1).all())}")
+    if not (same and bool((s_csgp.xw == 1).all())):
+        raise AssertionError("dp-csgp on a doubly stochastic table is not "
+                             "porter-dp's")
+    print(f"[extensions] ms/round: {ms_rounds}")
+    return ms_rounds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2543,6 +2760,11 @@ def main() -> int:
     topk_table = phase_block_topk_kernel(torch, ops, ref, grad)
     phase_launch_host_cost(torch, ops)
     topk_launches = phase_block_top_k(torch, ops, api, data, runtime, paper)
+
+    # phase 9: schedules, directed schedules, the last four algorithms
+    t9 = time.perf_counter()
+    phase_extensions(torch, ops, api, data, runtime, paper, tree_leaves, runs)
+    print(f"[extensions] phase took {time.perf_counter() - t9:.1f} s")
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16

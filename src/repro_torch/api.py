@@ -17,16 +17,23 @@ comm-round engine and the consensus stepsize
     gamma = gamma_scale * (1 - alpha) * rho
 
 with ``alpha`` the topology's mixing rate and ``rho`` the compressor's
-contraction factor.  It targets ``torch.device("cuda")`` unless the caller
-passes ``device=``; nothing here probes for a card and moves to the CPU.
+contraction factor.  A ``topology_schedule`` string (the reference's
+grammar, :func:`resolve_schedule`) swaps the static graph for a
+time-varying :class:`TopologySchedule`: the mixer picks ``W_t`` by the
+state's step, and ``alpha`` is the schedule's per-round rate.  Directed
+(column-stochastic) schedules are for the push-sum algorithm (dp-csgp)
+only.  ``build`` targets ``torch.device("cuda")`` unless the caller passes
+``device=``; nothing here probes for a card and moves to the CPU.
 
-Registered here: ``porter-gc``, ``porter-dp``, ``beer``, and the paper's
-baselines ``dsgd``, ``choco``, ``dp-sgd`` and ``soteriafl``.
-``plane_dtype="bf16"`` keeps the EF buffers in bf16 (the master params stay
-f32).  ``wire="packed_bits"`` with ``gossip_mode="packed"`` gossips
-bit-packed buffers (:func:`resolve_wire_format`).  The spec keeps the
-reference's field names; a value this slice does not run raises and names
-the ROADMAP item that ports it.
+Registered here, all eleven of the reference's algorithms: ``porter-gc``,
+``porter-dp``, ``beer``, ``porter-adam``, the paper's baselines ``dsgd``,
+``choco``, ``dp-sgd`` and ``soteriafl``, and ``dp-csgp``, ``clip21`` and
+``subgrad-comp``.  ``plane_dtype="bf16"`` keeps the EF buffers in bf16 (the
+master params stay f32).  ``wire="packed_bits"`` with
+``gossip_mode="packed"`` gossips bit-packed buffers
+(:func:`resolve_wire_format`).  The spec keeps the reference's field
+names; ``fleet=True`` and ``remat_policy`` raise and name the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -38,32 +45,34 @@ from typing import Any, Mapping, Optional
 import torch
 
 from .core import baselines as BL
+from .core import mixing as MX
 from .core.beer import beer_config
+from .core.clip21 import Clip21State, clip21_init, clip21_step
 from .core.comm_round import CommRound
 from .core import wire_formats
 from .core.compression import Compressor, make_compressor
 from .core.gossip import make_mixer
-from .core.mixing import Topology, make_topology
+from .core.mixing import Topology, TopologySchedule, make_topology
 from .core.porter import PorterConfig, PorterState, porter_init, porter_step
+from .core.porter_adam import (PorterAdamState, porter_adam_init,
+                               porter_adam_step)
+from .core.push_sum import DpCsgpState, dp_csgp_init, dp_csgp_step
 from .core.registry import (Algorithm, AlgorithmInfo, algorithm_info,
                             get_factory, list_algorithms, register_algorithm)
+from .core.subgrad import SubgradState, subgrad_init, subgrad_step
 from .tree import tree_leaves, tree_map
 
 __all__ = ["ExperimentSpec", "build", "build_engine", "resolve_topology",
-           "resolve_compressor", "resolve_gamma", "resolve_plane_dtype",
-           "resolve_wire_format",
+           "resolve_schedule", "resolve_compressor", "resolve_gamma",
+           "resolve_plane_dtype", "resolve_wire_format",
            "Algorithm", "AlgorithmInfo", "algorithm_info", "list_algorithms"]
 
 # compressors whose knob is a kept-fraction (rho = frac)
 _FRAC_COMPRESSORS = ("top_k", "block_top_k", "random_k")
 
-# registered in the reference, ported by a later slice
-_LATER_ALGOS = {
-    "porter-adam": "ROADMAP queue 1 item 8",
-    "dp-csgp": "ROADMAP queue 1 item 8",
-    "clip21": "ROADMAP queue 1 item 8",
-    "subgrad-comp": "ROADMAP queue 1 item 8",
-}
+# the algorithms that de-bias column-stochastic (directed) mixing; build
+# refuses a directed schedule for every other one
+_PUSH_SUM_ALGOS = frozenset({"dp-csgp"})
 
 _PLANE_DTYPES = {"f32": torch.float32, "float32": torch.float32,
                  "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
@@ -75,8 +84,10 @@ class ExperimentSpec:
     with the reference's field names and defaults.
 
     ``gamma=None`` derives gamma_scale * (1 - alpha) * rho.  ``tau=None``
-    disables clipping for porter-gc (which is then BEER); porter-dp rejects
-    it.  ``comm_backend`` is 'auto' | 'kernel' | 'ref'.
+    disables clipping for porter-gc (which is then BEER); the DP
+    algorithms reject it.  ``topology_schedule``: None (the static graph)
+    or a schedule string, :func:`resolve_schedule`.  ``comm_backend`` is
+    'auto' | 'kernel' | 'ref'.
     """
 
     algo: str = "porter-gc"
@@ -102,6 +113,9 @@ class ExperimentSpec:
     clip_mode: str = "smooth"
     sigma_p: float = 0.0
     dp: bool = False                 # per-sample clip + noise oracle (dsgd)
+    b1: float = 0.9                  # porter-adam moments
+    b2: float = 0.999
+    adam_eps: float = 1e-8
     alpha_shift: float = 0.5         # soteriafl shift stepsize
     buffer_dtype: Any = torch.float32
     plane_dtype: Any = None
@@ -122,16 +136,12 @@ class Resolved:
     engine: Optional[CommRound]
     gamma: Optional[float]
     device: torch.device
+    schedule: Optional[TopologySchedule] = None
 
 
 def _check_slice(spec: ExperimentSpec) -> None:
     """Reject spec values whose code paths are not ported yet."""
-    if spec.algo in _LATER_ALGOS:
-        raise ValueError(f"algorithm {spec.algo!r} is not ported yet "
-                         f"({_LATER_ALGOS[spec.algo]})")
     later = [("fleet", spec.fleet, False, "ROADMAP queue 1 item 10"),
-             ("topology_schedule", spec.topology_schedule, None,
-              "ROADMAP queue 1 items 3-4"),
              ("remat_policy", spec.remat_policy, None,
               "ROADMAP queue 1 item 13")]
     for name, value, supported, item in later:
@@ -143,6 +153,140 @@ def resolve_topology(spec: ExperimentSpec) -> Topology:
     return make_topology(spec.topology, spec.n_agents,
                          weights=spec.topology_weights, p=spec.topology_p,
                          seed=spec.topology_seed)
+
+
+def _parse_schedule_kv(rest: str) -> Mapping[str, str]:
+    kv = {}
+    for item in filter(None, (s.strip() for s in rest.split(","))):
+        k, sep, v = item.partition("=")
+        if not sep:
+            raise ValueError(
+                f"bad schedule argument {item!r}: expected key=value "
+                "(e.g. 'dropout:rate=0.2,period=8')")
+        kv[k.strip()] = v.strip()
+    return kv
+
+
+def resolve_schedule(spec: ExperimentSpec,
+                     topology: Optional[Topology] = None
+                     ) -> Optional[TopologySchedule]:
+    """``spec.topology_schedule`` -> a :class:`TopologySchedule` or None.
+
+    The reference's grammar (``src/repro/api.py``)::
+
+        "static"                              period 1 around the topology
+        "rotate:ring+star+complete"           one graph kind a round
+        "rotate:ring/metropolis+ring/lazy"    per-round weight schemes
+        "rotate:ring+star,weights=lazy"       bare kinds + key=value knobs
+        "erdos_renyi:period=8,p=0.6"          a fresh connected ER a round
+        "dropout:rate=0.2,period=8"           agent churn
+        "straggler:rate=0.3,period=8"         per-link deadline misses
+        "directed:ring_skips,skip=2"          column-stochastic (push-sum):
+        "directed:digraph,p=0.5,period=8"     ring with chords, random
+        "directed:one_way,rate=0.2,period=8"  digraph, one-way link loss
+
+    Unset knobs default to the spec's topology fields (weights, p, seed,
+    and the base graph of the churn kinds); ``topology`` stands in for the
+    spec's graph in ``static``.
+    """
+    if spec.topology_schedule is None:
+        return None
+    text = spec.topology_schedule
+    kind, _, rest = text.partition(":")
+    kind = kind.strip()
+    if kind == "static":
+        if rest.strip():
+            raise ValueError(f"'static' schedule takes no arguments; got "
+                             f"{text!r}")
+        top = resolve_topology(spec) if topology is None else topology
+        return MX.static_schedule(top)
+    if kind == "directed":
+        return _resolve_directed_schedule(spec, text, rest)
+    allowed = {"rotate": {"kinds", "weights", "p", "seed"},
+               "erdos_renyi": {"p", "period", "weights", "seed"},
+               "dropout": {"rate", "period", "base", "weights", "p", "seed"},
+               "straggler": {"rate", "period", "base", "weights", "p",
+                             "seed"}}
+    if kind not in allowed:
+        raise ValueError(
+            f"unknown topology schedule kind {kind!r} in {text!r}; have "
+            "static, rotate, erdos_renyi, dropout, straggler, directed")
+    first, _, more = rest.partition(",")
+    if kind == "rotate" and rest and "=" not in first:
+        # the kinds list may lead bare: 'rotate:ring+star,weights=lazy'
+        kv = {"kinds": first.strip(), **_parse_schedule_kv(more)}
+    else:
+        kv = dict(_parse_schedule_kv(rest))
+    # typo'd keys go before a generator runs (the churn kinds draw up to
+    # 1000 windows)
+    unknown = set(kv) - allowed[kind]
+    if unknown:
+        raise ValueError(f"unknown {kind!r} schedule keys {sorted(unknown)} "
+                         f"in {text!r}; allowed: {sorted(allowed[kind])}")
+    if kind == "rotate":
+        kinds = [k for k in kv.pop("kinds", "").split("+") if k]
+        if not kinds:
+            raise ValueError("rotate schedule needs '+'-separated graph "
+                             "kinds, e.g. 'rotate:ring+star+complete'")
+        return MX.rotating_schedule(
+            kinds, spec.n_agents,
+            weights=kv.pop("weights", spec.topology_weights),
+            p=float(kv.pop("p", spec.topology_p)),
+            seed=int(kv.pop("seed", spec.topology_seed)))
+    if kind == "erdos_renyi":
+        return MX.erdos_renyi_schedule(
+            spec.n_agents, p=float(kv.pop("p", spec.topology_p)),
+            period=int(kv.pop("period", 8)),
+            weights=kv.pop("weights", spec.topology_weights),
+            seed=int(kv.pop("seed", spec.topology_seed)))
+    gen = (MX.dropout_schedule if kind == "dropout"
+           else MX.straggler_schedule)
+    return gen(
+        spec.n_agents, rate=float(kv.pop("rate", 0.2)),
+        period=int(kv.pop("period", 8)),
+        base=kv.pop("base", spec.topology),
+        weights=kv.pop("weights", spec.topology_weights),
+        p=float(kv.pop("p", spec.topology_p)),
+        seed=int(kv.pop("seed", spec.topology_seed)))
+
+
+def _resolve_directed_schedule(spec: ExperimentSpec, text: str,
+                               rest: str) -> TopologySchedule:
+    """'directed:<subkind>,key=value,...' -> a column-stochastic schedule:
+    ``ring_skips`` {skip}, ``digraph`` {p, period, seed}, ``one_way``
+    {rate, period, skip, seed}."""
+    first, _, more = rest.partition(",")
+    sub = first.strip()
+    if not sub or "=" in sub:
+        raise ValueError(
+            f"directed schedule needs a leading subkind in {text!r}, e.g. "
+            "'directed:ring_skips,skip=2'; have ring_skips, digraph, "
+            "one_way")
+    allowed = {"ring_skips": {"skip"},
+               "digraph": {"p", "period", "seed"},
+               "one_way": {"rate", "period", "skip", "seed"}}
+    if sub not in allowed:
+        raise ValueError(
+            f"unknown directed schedule subkind {sub!r} in {text!r}; have "
+            f"{sorted(allowed)}")
+    kv = dict(_parse_schedule_kv(more))
+    unknown = set(kv) - allowed[sub]
+    if unknown:
+        raise ValueError(f"unknown directed:{sub} schedule keys "
+                         f"{sorted(unknown)} in {text!r}; allowed: "
+                         f"{sorted(allowed[sub])}")
+    if sub == "ring_skips":
+        return MX.directed_ring_schedule(spec.n_agents,
+                                         skip=int(kv.pop("skip", 0)))
+    if sub == "digraph":
+        return MX.random_digraph_schedule(
+            spec.n_agents, p=float(kv.pop("p", spec.topology_p)),
+            period=int(kv.pop("period", 8)),
+            seed=int(kv.pop("seed", spec.topology_seed)))
+    return MX.directed_churn_schedule(
+        spec.n_agents, rate=float(kv.pop("rate", 0.2)),
+        period=int(kv.pop("period", 8)), skip=int(kv.pop("skip", 2)),
+        seed=int(kv.pop("seed", spec.topology_seed)))
 
 
 def resolve_compressor(spec: ExperimentSpec) -> Compressor:
@@ -169,14 +313,19 @@ def resolve_plane_dtype(spec_or_name) -> Optional[torch.dtype]:
 
 
 def resolve_gamma(spec: ExperimentSpec, topology: Topology,
-                  compressor: Compressor) -> float:
-    """The paper's consensus stepsize: gamma_scale * (1 - alpha) * rho."""
+                  compressor: Compressor,
+                  schedule: Optional[TopologySchedule] = None) -> float:
+    """The paper's consensus stepsize: gamma_scale * (1 - alpha) * rho,
+    with a schedule's per-round rate as alpha when there is one.  A derived
+    0 (``low_rank`` and ``sign`` report rho = 0) is refused: pass
+    ``gamma=``."""
     if spec.gamma is not None:
         return spec.gamma
-    gamma = spec.gamma_scale * (1.0 - topology.alpha) * compressor.rho
+    alpha = topology.alpha if schedule is None else schedule.alpha
+    gamma = spec.gamma_scale * (1.0 - alpha) * compressor.rho
     if gamma <= 0.0:
         raise ValueError(
-            f"derived gamma is 0 (alpha={topology.alpha:.4g}, "
+            f"derived gamma is 0 (alpha={alpha:.4g}, "
             f"rho={compressor.rho:.4g} for {compressor.name}); pass an "
             "explicit gamma= in the ExperimentSpec")
     return gamma
@@ -212,14 +361,18 @@ def resolve_wire_format(spec: ExperimentSpec):
 
 def build_engine(spec: ExperimentSpec, *,
                  topology: Optional[Topology] = None,
+                 schedule: Optional[TopologySchedule] = None,
                  compress_fn=None) -> CommRound:
     """Comm-round engine for ``spec``: compressor, mixer (dense, or the
-    packed codec executor under ``wire="packed_bits"``) and backend.
+    packed codec executor under ``wire="packed_bits"``; over the schedule's
+    table when the spec has one or ``schedule`` is given) and backend.
     ``compress_fn``: optional ``(gen, tree) -> tree`` compression override,
     refused beside a codec."""
     top = resolve_topology(spec) if topology is None else topology
+    sched = resolve_schedule(spec, top) if schedule is None else schedule
     return CommRound(compressor=resolve_compressor(spec),
-                     mixer=make_mixer(top, spec.gossip_mode, frac=spec.frac,
+                     mixer=make_mixer(sched if sched is not None else top,
+                                      spec.gossip_mode, frac=spec.frac,
                                       codec=resolve_wire_format(spec)),
                      compress_fn=compress_fn, backend=spec.comm_backend,
                      overlap=spec.overlap,
@@ -241,14 +394,25 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
     _check_slice(spec)
     device = torch.device("cuda") if device is None else torch.device(device)
     info = algorithm_info(spec.algo)
-    top, comp, mixer, engine, gamma = None, None, None, None, None
+    top, sched, comp, mixer, engine, gamma = (None,) * 6
     if info.decentralized:
         top = resolve_topology(spec) if topology is None else topology
+        sched = resolve_schedule(spec, top)
+        if (sched is not None and sched.is_directed
+                and spec.algo not in _PUSH_SUM_ALGOS):
+            raise ValueError(
+                f"{spec.algo} assumes doubly-stochastic mixing but "
+                f"{spec.topology_schedule!r} is column-stochastic "
+                "(directed): without push-sum de-biasing the iterates "
+                "drift toward the Perron vector -- use algo='dp-csgp' "
+                "for directed topologies")
     if info.decentralized and info.compressed:
-        engine = build_engine(spec, topology=top, compress_fn=compress_fn)
+        engine = build_engine(spec, topology=top, schedule=sched,
+                              compress_fn=compress_fn)
         comp, mixer = engine.compressor, engine.mixer
     elif info.decentralized:
-        mixer = make_mixer(top, spec.gossip_mode, frac=spec.frac)
+        mixer = make_mixer(sched if sched is not None else top,
+                           spec.gossip_mode, frac=spec.frac)
     elif info.compressed:
         # server/client: compression without gossip
         comp = resolve_compressor(spec)
@@ -256,10 +420,10 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
                            backend=spec.comm_backend,
                            plane_dtype=resolve_plane_dtype(spec))
     if info.decentralized:
-        gamma = (resolve_gamma(spec, top, comp) if info.compressed
+        gamma = (resolve_gamma(spec, top, comp, sched) if info.compressed
                  else (1.0 if spec.gamma is None else spec.gamma))
     r = Resolved(info=info, topology=top, compressor=comp, mixer=mixer,
-                 engine=engine, gamma=gamma, device=device)
+                 engine=engine, gamma=gamma, device=device, schedule=sched)
     return get_factory(spec.algo)(spec, loss_fn, r)
 
 
@@ -293,18 +457,24 @@ def _algorithm(spec, r: Resolved, *, state_cls, init, step,
                      state_cls=state_cls, init=init, step=step,
                      device=r.device, topology=r.topology,
                      compressor=r.compressor, mixer=r.mixer, engine=r.engine,
-                     gamma=r.gamma, config=config)
+                     gamma=r.gamma, config=config, schedule=r.schedule)
+
+
+def _grad_dtype(spec: ExperimentSpec):
+    """The stored gradient's dtype: under bf16 planes g_prev is a bf16
+    buffer, so the fresh gradient is cast to it and the state keeps its
+    dtypes."""
+    pdt = resolve_plane_dtype(spec)
+    return spec.buffer_dtype if pdt is None else pdt
 
 
 def _porter_family(spec: ExperimentSpec, loss_fn, r: Resolved,
-                   variant: str) -> Algorithm:
+                   variant: str, adam: bool = False) -> Algorithm:
     if variant == "gc" and spec.tau is None:
         # unclipped PORTER-GC is BEER (paper Section 4.3)
         variant = "beer"
-    # under bf16 planes the stored gradient g_prev is a bf16 buffer, so the
-    # fresh gradient is cast to it and the state keeps its dtypes
     pdt = resolve_plane_dtype(spec)
-    grad_dtype = spec.buffer_dtype if pdt is None else pdt
+    grad_dtype = _grad_dtype(spec)
     if variant == "beer":
         cfg = beer_config(spec.eta, r.gamma, clip_mode=spec.clip_mode,
                           grad_dtype=grad_dtype)
@@ -313,6 +483,14 @@ def _porter_family(spec: ExperimentSpec, loss_fn, r: Resolved,
         cfg = PorterConfig(eta=spec.eta, gamma=r.gamma, tau=tau,
                            variant=variant, clip_mode=spec.clip_mode,
                            sigma_p=spec.sigma_p, grad_dtype=grad_dtype)
+    if adam:
+        step = functools.partial(porter_adam_step, cfg, loss_fn, None, None,
+                                 engine=r.engine, b1=spec.b1, b2=spec.b2,
+                                 adam_eps=spec.adam_eps)
+        init = _bind_init(spec, r, functools.partial(porter_adam_init,
+                                                     plane_dtype=pdt))
+        return _algorithm(spec, r, state_cls=PorterAdamState, init=init,
+                          step=step, config=cfg)
     step = functools.partial(porter_step, cfg, loss_fn, None, None,
                              engine=r.engine)
     init = _bind_init(spec, r, functools.partial(
@@ -334,6 +512,11 @@ def _build_porter_dp(spec, loss_fn, r):
 @register_algorithm("beer", comm_rounds=2)
 def _build_beer(spec, loss_fn, r):
     return _porter_family(spec, loss_fn, r, "beer")
+
+
+@register_algorithm("porter-adam", comm_rounds=2)
+def _build_porter_adam(spec, loss_fn, r):
+    return _porter_family(spec, loss_fn, r, "gc", adam=True)
 
 
 @register_algorithm("dsgd", compressed=False, comm_rounds=1)
@@ -381,6 +564,52 @@ def _build_dpsgd(spec, loss_fn, r):
     # a single server replica: n_agents and w do not apply
     init = _bind_init(spec, r, lambda params, n, w: BL.dpsgd_init(params))
     return _algorithm(spec, r, state_cls=BL.DpSgdState, init=init, step=step)
+
+
+@register_algorithm("dp-csgp", dp=True, comm_rounds=2)
+def _build_dp_csgp(spec, loss_fn, r):
+    tau = _require_tau(spec)
+    cfg = PorterConfig(eta=spec.eta, gamma=r.gamma, tau=tau, variant="dp",
+                       clip_mode=spec.clip_mode, sigma_p=spec.sigma_p,
+                       grad_dtype=_grad_dtype(spec))
+    step = functools.partial(dp_csgp_step, cfg, loss_fn, None, None,
+                             engine=r.engine)
+    # the push-sum mirrors start from the round-0 matrix (m = W q has no
+    # row-sum shortcut for a column-stochastic W)
+    w0 = r.schedule.ws[0] if r.schedule is not None else r.topology.w
+    init = _bind_init(spec, r, functools.partial(
+        dp_csgp_init, w0=w0, buffer_dtype=spec.buffer_dtype,
+        plane_dtype=resolve_plane_dtype(spec)))
+    return _algorithm(spec, r, state_cls=DpCsgpState, init=init, step=step,
+                      config=cfg)
+
+
+@register_algorithm("clip21", comm_rounds=2)
+def _build_clip21(spec, loss_fn, r):
+    # the residual clip is always piecewise: the smooth factor never
+    # reaches 1, so the estimate could never lock onto the gradient
+    tau = float("inf") if spec.tau is None else spec.tau
+    cfg = PorterConfig(eta=spec.eta, gamma=r.gamma, tau=tau, variant="gc",
+                       clip_mode="piecewise", grad_dtype=_grad_dtype(spec))
+    step = functools.partial(clip21_step, cfg, loss_fn, None, None,
+                             engine=r.engine)
+    init = _bind_init(spec, r, functools.partial(
+        clip21_init, buffer_dtype=spec.buffer_dtype,
+        plane_dtype=resolve_plane_dtype(spec)))
+    return _algorithm(spec, r, state_cls=Clip21State, init=init, step=step,
+                      config=cfg)
+
+
+@register_algorithm("subgrad-comp", comm_rounds=1)
+def _build_subgrad(spec, loss_fn, r):
+    step = functools.partial(subgrad_step, spec.eta, r.gamma, loss_fn,
+                             None, None, engine=r.engine, tau=spec.tau,
+                             clip_mode=spec.clip_mode)
+    pdt = resolve_plane_dtype(spec)
+    init = _bind_init(
+        spec, r,
+        lambda params, n, w: subgrad_init(params, n, plane_dtype=pdt))
+    return _algorithm(spec, r, state_cls=SubgradState, init=init, step=step)
 
 
 @register_algorithm("soteriafl", dp=True, decentralized=False)

@@ -8,8 +8,10 @@ dicts of tensors, and back.
   of tensors (dicts, tuples, lists and NamedTuples keep their structure).
 * :func:`state_to_torch` / :func:`state_to_numpy` -- a state namedtuple of
   arrays <-> the port's state of the same name: ``PorterState``,
-  ``ChocoState``, ``DsgdState``, ``DpSgdState`` or ``SoteriaState`` (every
-  field a tree, then ``step``).
+  ``ChocoState``, ``DsgdState``, ``DpSgdState``, ``SoteriaState``,
+  ``SubgradState``, ``DpCsgpState`` (every field a tree or an array, then
+  ``step``), ``PorterAdamState`` or ``Clip21State`` (a ``PorterState``
+  ``base`` beside trees).
 
 * :func:`lm_params_to_torch` -- the reference's LM parameters (a tree of
   arrays, layer leaves stacked ``(n_layers, ...)``: ``layers`` for rwkv6,
@@ -43,7 +45,11 @@ import numpy as np
 import torch
 
 from .core import baselines as BL
+from .core.clip21 import Clip21State
 from .core.porter import PorterState
+from .core.porter_adam import PorterAdamState
+from .core.push_sum import DpCsgpState
+from .core.subgrad import SubgradState
 from .tree import tree_leaves, tree_map
 
 __all__ = ["to_torch", "to_numpy", "wire_to_numpy", "state_to_torch",
@@ -52,7 +58,8 @@ __all__ = ["to_torch", "to_numpy", "wire_to_numpy", "state_to_torch",
 
 _STATES = {cls.__name__: cls for cls in (
     PorterState, BL.ChocoState, BL.DsgdState, BL.DpSgdState,
-    BL.SoteriaState)}
+    BL.SoteriaState, SubgradState, DpCsgpState, PorterAdamState,
+    Clip21State)}
 
 
 _SIGNED = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
@@ -106,17 +113,34 @@ def _port_class(state):
 
 
 def state_to_torch(state, device=None):
-    """A state namedtuple of arrays -> the port's state of that name."""
+    """A state namedtuple of arrays -> the port's state of that name; a
+    nested state (``base``) converts as a state, ``step`` to an int."""
     cls = _port_class(state)
-    bufs = {f: to_torch(getattr(state, f), device) for f in cls._fields[:-1]}
-    return cls(**bufs, step=int(np.asarray(state.step)))
+
+    def field(name):
+        value = getattr(state, name)
+        if name == "step":
+            return int(np.asarray(value))
+        if type(value).__name__ in _STATES:
+            return state_to_torch(value, device)
+        return to_torch(value, device)
+
+    return cls(**{f: field(f) for f in cls._fields})
 
 
 def state_to_numpy(state):
     """The port's state -> the same class of numpy arrays (step as int32)."""
     cls = _port_class(state)
-    bufs = {f: to_numpy(getattr(state, f)) for f in cls._fields[:-1]}
-    return cls(**bufs, step=np.int32(state.step))
+
+    def field(name):
+        value = getattr(state, name)
+        if name == "step":
+            return np.int32(value)
+        if type(value).__name__ in _STATES:
+            return state_to_numpy(value)
+        return to_numpy(value)
+
+    return cls(**{f: field(f) for f in cls._fields})
 
 
 _CACHE_KEYS = ("S", "shift_c", "shift_t")

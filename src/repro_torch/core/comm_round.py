@@ -40,7 +40,19 @@ executor, to which :meth:`CommRound.exchange` hands the whole compress-and-
 mix step: the codec packs the increment, ``c`` is its unpacked round trip
 and ``wc = W @ c``.  Its qsgd noise is drawn from the round's generator
 after the SR words, where a compressor's draws would be, so the two
-backends stay bitwise comparable.  Push-sum waits (ROADMAP).
+backends stay bitwise comparable.
+
+Time-varying topologies: every round method takes the absolute round index
+``t`` (the state's step) and hands it to the mixer, which picks ``W_t``
+from its schedule table; the fused updates read ``wc = W_t @ c`` as data.
+
+Push-sum (directed, column-stochastic ``W_t``): :meth:`CommRound.exchange_ps`
+and :meth:`CommRound.step_ps` run the x-side round while carrying the
+``(n,)`` push-sum weight planes (``xw``, ``q_w``, ``m_w``) through the same
+exchange: the dense executor mixes the weight with the same ``W_t``, the
+codec executor ships it bit-cast in its buffers.  The weight increment is
+never compressed and the weight planes stay f32 under bf16 planes: the
+column mass ``1^T xw = n`` must hold exactly.
 """
 
 from __future__ import annotations
@@ -133,6 +145,24 @@ def _writeback(tree_f32, like, bits):
                     tree_f32, like, words)
 
 
+def _ef_step_planes(planes, gamma: float, eta: float, sr_bits: SrBits):
+    """``ops.ef_step`` over the planes of (q, m, x, c, wc, v).  The kernel
+    takes its EF operands in one dtype; an f32 direction ``v`` beside bf16
+    EF planes (porter-adam's preconditioned update, whose moments stay
+    f32) sends the EF operands in as f32 and rounds the bf16-bound outputs
+    with the same words through ``ops.sr_cast``: the epilogue's rounding,
+    on the same f32 values."""
+    q, m, x, c, wc, v = planes
+    if v.dtype == q.dtype:
+        return ops.ef_step(*planes, gamma, eta, sr_bits=sr_bits)
+    ef = [t.to(_F32) for t in (q, m, c, wc)]
+    outs = ops.ef_step(ef[0], ef[1], x, ef[2], ef[3], v, gamma, eta,
+                       out_dtype=_F32)
+    words = (None,) * 3 if sr_bits is None else sr_bits
+    return tuple(o if w is None else ops.sr_cast(o, w)
+                 for o, w in zip(outs, words))
+
+
 @dataclasses.dataclass(frozen=True)
 class CommRound:
     """One compressed communication round: compress -> accumulate -> update.
@@ -222,6 +252,28 @@ class CommRound:
         c = self.compress(gen, delta)
         return c, apply_mixer(self.mixer, c, t)
 
+    def exchange_ps(self, gen, y, q, yw, qw, t=None):
+        """:meth:`exchange` plus the (n,) push-sum weight plane ``yw``
+        against its surrogate ``qw``.  Returns ``(c, wc, cw, wcw)``: the
+        param round as :meth:`exchange`, ``cw = yw - qw`` (the weight
+        increment, never compressed) and ``wcw = W_t @ cw``."""
+        delta = _sub(y, q)
+        dw = yw - qw
+        if self._codec is not None:
+            return self.mixer.exchange_ps(gen, delta, dw, t)
+        push = getattr(self.mixer, "push", None)
+        if push is None:
+            raise ValueError(
+                "push-sum needs a mixer with weight-plane transport (the "
+                "dense or ring executor, or a codec executor built with "
+                "wire='packed_bits'); the plain packed all-gather mixer "
+                "ships (value, index) pairs only and has no slot for the "
+                "weight scalar -- use gossip='ring'/'dense' or a bit-packed "
+                "wire format for directed (column-stochastic) topologies")
+        c = self.compress(gen, delta)
+        wc, wcw = push(c, dw, t)
+        return c, wc, dw, wcw
+
     # -- fused state updates ------------------------------------------------
 
     def track(self, gen, v, q, m, g, g_prev, gamma: float, t=None):
@@ -270,7 +322,7 @@ class CommRound:
         round stochastically."""
         if self._use_kernel(q):
             qo, mo, xo = FL.plane_apply(
-                lambda *p: ops.ef_step(*p, gamma, eta, sr_bits=sr_bits),
+                lambda *p: _ef_step_planes(p, gamma, eta, sr_bits),
                 (q, m, x, c, wc, v), 3)
             return xo, qo, mo
         if sr_bits is not None:
@@ -287,6 +339,30 @@ class CommRound:
                       (x0 + gamma * (mm - qq) - eta * vv).to(x0.dtype),
                       x, m2, q2, v)
         return x2, q2, m2
+
+    def step_ps(self, gen, x, q, m, v, xw, qw, mw, gamma: float,
+                eta: float, t=None):
+        """Push-sum parameter step: :meth:`step` plus the weight recursion
+        ``qw += cw; mw += W_t cw; xw' = xw + gamma (mw - qw)``, which
+        composes to ``xw' = ((1 - gamma) I + gamma W_t) xw``.  Returns
+        (x', q', m', xw', qw', mw')."""
+        bits = self.sr_draw(gen, (q, m, x))
+        c, wc, cw, wcw = self.exchange_ps(gen, x, q, xw, qw, t)
+        return self.step_ps_update(c, wc, cw, wcw, x, q, m, v, xw, qw, mw,
+                                   gamma, eta, sr_bits=bits)
+
+    def step_ps_update(self, c, wc, cw, wcw, x, q, m, v, xw, qw, mw,
+                       gamma: float, eta: float, sr_bits: SrBits = None):
+        """The second half of :meth:`step_ps` (no communication): the
+        params as :meth:`step_update` (the ``ef_step`` kernel on the
+        kernel backend), the weight planes as three (n,) f32 AXPYs on
+        every backend, never rounded."""
+        x2, q2, m2 = self.step_update(c, wc, x, q, m, v, gamma, eta,
+                                      sr_bits=sr_bits)
+        qw2 = qw + cw
+        mw2 = mw + wcw
+        xw2 = (xw + gamma * (mw2 - qw2)).to(xw.dtype)
+        return x2, q2, m2, xw2, qw2, mw2
 
     def gossip_apply(self, gen, y, q, m, gamma: float, scale: float = 1.0,
                      t=None, sr_bits: SrBits = None):
@@ -327,7 +403,21 @@ class CommRound:
 
     # -- wire accounting ----------------------------------------------------
 
-    def wire_bytes(self, tree_or_d, n_agents: Optional[int] = None) -> float:
+    def _ps_weight_bytes(self, n_agents: int, measured: bool) -> float:
+        """Bytes the push-sum weight adds to a round: one exact f32 weight
+        an agent, 4 bytes (for a codec, measured: the words the codec's
+        last buffer takes, :func:`wire_formats.measured_weight_nbytes`),
+        times the agents whose buffers the mode ships ('ring': the live
+        neighbours; every other mode: all n)."""
+        per = (float(WF.measured_weight_nbytes(self._codec))
+               if self._codec is not None and measured else 4.0)
+        mode = getattr(self.mixer, "wire_mode", "dense")
+        if mode == "ring":
+            return (1.0 if n_agents == 2 else 2.0) * per
+        return float(n_agents) * per
+
+    def wire_bytes(self, tree_or_d, n_agents: Optional[int] = None,
+                   push_sum: bool = False) -> float:
         """Model-level bytes crossing agent links per round for one buffer.
 
         Accepts an agent-stacked tree (n and d inferred) or a per-agent
@@ -337,10 +427,12 @@ class CommRound:
         at the ``plane_dtype`` width (2 B for bf16).  A codec executor
         charges the buffers its codec actually packs (:meth:`_codec_bytes`,
         measured); :meth:`wire_bytes_model` is the layout arithmetic it is
-        checked against.
+        checked against.  ``push_sum=True`` accounts an :meth:`exchange_ps`
+        round: the weight's bytes (:meth:`_ps_weight_bytes`) on top.
         """
         if self._codec is not None:
-            return self._codec_bytes(tree_or_d, n_agents, measured=True)
+            return self._codec_bytes(tree_or_d, n_agents, measured=True,
+                                     push_sum=push_sum)
         tree = None
         if n_agents is None:
             tree = tree_or_d
@@ -351,26 +443,29 @@ class CommRound:
             d = int(tree_or_d)
         db = (4 if self.plane_dtype is None
               else torch.empty((), dtype=self.plane_dtype).element_size())
+        extra = (self._ps_weight_bytes(n_agents, measured=True)
+                 if push_sum else 0.0)
         mode = getattr(self.mixer, "wire_mode", "dense")
         if mode == "dense":
-            return n_agents * self.compressor.wire_bits(d) / 8.0
+            return n_agents * self.compressor.wire_bits(d) / 8.0 + extra
         if mode == "ring" or (mode == "packed" and tree is None):
             frac = getattr(self.mixer, "wire_frac", None)
             frac = self.compressor.rho if frac is None else frac
             return gossip_wire_bytes(mode, n_agents, d, frac=frac,
-                                     dtype_bytes=db)
+                                     dtype_bytes=db) + extra
         raise ValueError(f"wire accounting for gossip mode {mode!r} over a "
                          "tree is not ported yet (ROADMAP queue 1 item 12)")
 
-    def wire_bytes_model(self, tree_or_d,
-                         n_agents: Optional[int] = None) -> float:
+    def wire_bytes_model(self, tree_or_d, n_agents: Optional[int] = None,
+                         push_sum: bool = False) -> float:
         """The analytic byte model of the same round: for a codec executor
         the layout constants of its :class:`WireFormat` (windows times
-        payload plus overhead bytes), for every other mixer the accounting
-        of :meth:`wire_bytes` itself."""
+        payload plus overhead bytes, 4 for a push-sum weight), for every
+        other mixer the accounting of :meth:`wire_bytes` itself."""
         if self._codec is not None:
-            return self._codec_bytes(tree_or_d, n_agents, measured=False)
-        return self.wire_bytes(tree_or_d, n_agents)
+            return self._codec_bytes(tree_or_d, n_agents, measured=False,
+                                     push_sum=push_sum)
+        return self.wire_bytes(tree_or_d, n_agents, push_sum=push_sum)
 
     @staticmethod
     def _packed_windows(tree, n_agents: int) -> int:
@@ -380,13 +475,14 @@ class CommRound:
                    for leaf in tree_leaves(tree))
 
     def _codec_bytes(self, tree_or_d, n_agents: Optional[int],
-                     measured: bool) -> float:
+                     measured: bool, push_sum: bool = False) -> float:
         """Link bytes of one buffer's round under the codec executor.
 
         Windows are counted per leaf (:meth:`_packed_windows`); the bytes of
         a window come from the buffers the codec packs
         (:func:`wire_formats.measured_pack_nbytes`) or from its layout
-        constants (the model).  'packed' all-gathers every agent's buffers.
+        constants (the model).  'packed' all-gathers every agent's buffers,
+        with its push-sum weight words when ``push_sum``.
         """
         codec = self._codec
         if n_agents is None:
@@ -399,4 +495,8 @@ class CommRound:
         else:
             per_window = float(codec.payload_bytes_per_window
                                + codec.overhead_bytes_per_window)
-        return float(n_agents) * windows * per_window
+        per_agent = windows * per_window
+        if push_sum:
+            per_agent += (float(WF.measured_weight_nbytes(codec))
+                          if measured else 4.0)
+        return float(n_agents) * per_agent

@@ -4,8 +4,8 @@ A rho-compressor is a (possibly randomized, possibly biased) map C with
 E || C(x) - x ||^2 <= (1 - rho) ||x||^2.  Ported from
 ``src/repro/core/compression.py``: ``identity``, ``random_k`` (paper
 Example 1), ``top_k`` (paper Example 2), ``block_top_k`` (top-k inside each
-2048-element block) and ``qsgd`` (the scaled stochastic quantizer);
-``low_rank`` and ``sign`` wait (ROADMAP queue 1 item 2).  Under
+2048-element block), ``qsgd`` (the scaled stochastic quantizer), ``sign``
+(the l1-scaled sign) and ``low_rank`` (a PowerSGD-style projection).  Under
 ``wire="packed_bits"`` the codec of :mod:`repro_torch.core.wire_formats`
 stands in for ``fn``; the compressor still gives gamma its ``rho``.
 
@@ -27,7 +27,7 @@ from ..kernels import ops
 from .wire_formats import PACK_BLOCK
 
 __all__ = ["Compressor", "identity", "random_k", "top_k", "block_top_k",
-           "qsgd", "make_compressor"]
+           "qsgd", "low_rank", "sign", "make_compressor"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +54,8 @@ class Compressor:
         """Estimated bits on the wire for one compressed d-vector."""
         if self.name == "identity":
             return 32.0 * d
+        if self.name == "sign":
+            return 1.0 * d + 32.0   # one bit a coordinate + the f32 scale
         # sparse schemes: value + log2(d) index bits per kept element
         k = max(int(round(self.rho * d)), 1)
         return k * (self.bits_per_element + float(np.ceil(np.log2(max(d, 2)))))
@@ -161,16 +163,62 @@ def qsgd(levels: int = 16) -> Compressor:
                       bits_per_element=int(np.ceil(np.log2(levels + 1))) + 1)
 
 
+def low_rank(rank: int = 2, power_iters: int = 1) -> Compressor:
+    """PowerSGD-style rank-r compressor: each row is zero-padded and
+    reshaped to a near-square (m, n) matrix M, ``power_iters`` subspace
+    iterations from a Gaussian sketch give an orthonormal Q, and the row
+    becomes ``(M Q) Q^T``, in f32.  A projection contracts, so Definition 3
+    holds with a data-dependent rho; the registry reports 0, and a derived
+    gamma is then refused (pass ``gamma=``).
+
+    The sketch is the compressor's random draw: ``(rows, n, r)`` N(0, 1)
+    from ``gen``, or given as ``sketch=`` (the parity tests hand over the
+    reference's).  The projection does not depend on the signs of Q's
+    columns, so any QR factorization gives the same result."""
+
+    def fn(gen, rows, sketch=None):
+        d = rows.shape[-1]
+        m = int(np.ceil(np.sqrt(d)))
+        n = int(np.ceil(d / m))
+        r = min(rank, m, n)
+        flat = rows.reshape(-1, d).to(torch.float32)
+        mat = torch.nn.functional.pad(flat, (0, m * n - d)).reshape(-1, m, n)
+        if sketch is None:
+            sketch = torch.randn((mat.shape[0], n, r), generator=gen,
+                                 device=rows.device)
+        q = sketch.to(torch.float32).reshape(mat.shape[0], n, r)
+        for _ in range(power_iters):
+            p_ = torch.linalg.qr(mat @ q).Q
+            q = mat.transpose(-1, -2) @ p_
+        q_orth = torch.linalg.qr(q).Q
+        approx = (mat @ q_orth) @ q_orth.transpose(-1, -2)
+        return approx.reshape(-1, m * n)[:, :d].reshape(rows.shape).to(
+            rows.dtype)
+
+    return Compressor(f"low_rank({rank})", 0.0, fn)
+
+
+def sign() -> Compressor:
+    """l1-scaled sign compressor: C(x) = (||x||_1 / d) sign(x) per row, in
+    f32: one bit a coordinate plus one f32 scale on the wire.  Definition 3
+    holds with rho(x) = ||x||_1^2 / (d ||x||_2^2) >= 1 / d; the registry
+    reports 0, as for ``low_rank``."""
+
+    def fn(gen, rows):
+        del gen
+        flat = rows.to(torch.float32)
+        scale = torch.mean(torch.abs(flat), dim=-1, keepdim=True)
+        return (scale * torch.sign(flat)).to(rows.dtype)
+
+    return Compressor("sign", 0.0, fn, deterministic=True, bits_per_element=1)
+
+
 _REGISTRY = {"identity": identity, "random_k": random_k, "top_k": top_k,
-             "block_top_k": block_top_k, "qsgd": qsgd}
-_LATER = ("low_rank", "sign")
+             "block_top_k": block_top_k, "qsgd": qsgd, "low_rank": low_rank,
+             "sign": sign}
 
 
 def make_compressor(name: str, **kwargs) -> Compressor:
-    if name in _LATER:
-        raise ValueError(
-            f"compressor {name!r} is not ported yet (ROADMAP queue 1 item 2); "
-            f"this slice has {sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise ValueError(f"unknown compressor {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)

@@ -2,8 +2,7 @@
 
 PORTER communicates increments: every agent sends ``c_i = C(y_i - q_i)``,
 accumulates its surrogate ``q_i += c_i`` and its mixing mirror
-``m_i += sum_j w_ij c_j``.  Two executors (``src/repro/core/gossip.py``,
-static forms):
+``m_i += sum_j w_ij c_j``.  Two executors (``src/repro/core/gossip.py``):
 
 * dense: ``W @ c`` over the leading agent axis, one f32 matrix product per
   leaf (``make_dense_mixer``);
@@ -15,20 +14,32 @@ static forms):
   tensor, the all-gather is the identity, and each agent's buffers are
   packed once and unpacked once.
 
-Schedules (``W_t``), push-sum's ``.push``, the ring executors and the
-packed executor without a codec wait for later slices (ROADMAP queue 1
-items 3, 4, 8 and 12).
+Time-varying topologies: both executors take a static ``(n, n)`` matrix or
+a stacked ``(period, n, n)`` schedule table.  A table's mixer is tagged
+``time_varying`` and takes the absolute round index ``t`` (the state's
+step, a host ``int``): ``W_t`` is ``table[t % period]`` of an f32 copy of
+the table kept on each device it is used on, so picking it costs no copy
+from the host and no sync.
+
+Push-sum (directed, column-stochastic W): the dense executor's
+``mix.push(tree, wvec, t)`` also mixes the ``(n,)`` push-sum weight with
+the same ``W_t``; the codec executor's ``mix.exchange_ps(gen, tree, dw, t)``
+carries the exact f32 weight increment as bit-cast words appended to its
+last wire buffer (4 bytes an agent).  The weight is never compressed.
+
+The ring executors and the packed executor without a codec wait for a
+later slice (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..tree import tree_flatten, tree_map
-from .mixing import Topology
+from .mixing import Topology, TopologySchedule
 from .wire_formats import PACK_BLOCK, WireFormat, to_windows, topk_keep
 
 __all__ = ["MixFn", "PACK_BLOCK", "apply_mixer", "make_dense_mixer",
@@ -54,36 +65,57 @@ def _mix_leaf(w: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return out.reshape(leaf.shape).to(leaf.dtype)
 
 
-def _static_w(w, what: str):
-    """For a static (n, n) matrix ``w``: a function giving its f32 copy on a
-    device, made there on first use (building a mixer touches no device)."""
+def _table_on(w, what: str):
+    """For a static (n, n) matrix or a (period, n, n) schedule table ``w``:
+    a function ``(device, t) -> W_t``, the f32 (n, n) matrix of round ``t``
+    on ``device``.  The f32 table is made on a device at its first use
+    there and kept (building a mixer touches no device); a schedule's
+    ``W_t`` is ``table[t % period]``, indexed with the host int ``t``."""
     w_np = np.asarray(w, dtype=np.float64)
-    if w_np.ndim != 2:
-        raise ValueError(
-            f"the {what} takes a static (n, n) matrix, got shape "
-            f"{w_np.shape}; (period, n, n) schedules come with a later slice "
-            "(ROADMAP queue 1 item 3)")
+    if w_np.ndim not in (2, 3):
+        raise ValueError(f"mixing matrix must be (n, n) or (period, n, n); "
+                         f"got shape {w_np.shape}")
+    time_varying = w_np.ndim == 3
     on_device: Dict[torch.device, torch.Tensor] = {}
 
-    def w_on(device: torch.device) -> torch.Tensor:
-        w_dev = on_device.get(device)
-        if w_dev is None:
-            w_dev = on_device[device] = torch.as_tensor(
+    def w_at(device: torch.device, t=None) -> torch.Tensor:
+        table = on_device.get(device)
+        if table is None:
+            table = on_device[device] = torch.as_tensor(
                 w_np, dtype=torch.float32).to(device)
-        return w_dev
+        if not time_varying:
+            return table
+        if t is None:
+            raise ValueError(f"the time-varying {what} needs the round "
+                             "index (pass t=state.step)")
+        return table[t % table.shape[0]]
 
-    return w_on
+    w_at.time_varying = time_varying
+    return w_at
 
 
 def make_dense_mixer(w) -> MixFn:
-    """``tree -> W @ tree`` over the agent axis, in f32."""
-    w_on = _static_w(w, "dense mixer")
+    """``tree -> W_t @ tree`` over the agent axis, in f32.
+
+    ``w``: a static (n, n) matrix, or a (period, n, n) schedule table,
+    whose mixer takes the round index ``t``.  ``mix.push(tree, wvec, t)``
+    returns ``(W_t @ tree, W_t @ wvec)`` for the (n,) push-sum weight: the
+    reference concatenates the weight as one more column of the first
+    leaf's product; here it takes its own (n, n) @ (n,) product, so the
+    params are bitwise the plain call's on every device.
+    """
+    w_at = _table_on(w, "dense mixer")
 
     def mix(tree, t=None):
-        del t  # static
-        return tree_map(lambda leaf: _mix_leaf(w_on(leaf.device), leaf), tree)
+        return tree_map(lambda leaf: _mix_leaf(w_at(leaf.device, t), leaf),
+                        tree)
 
-    mix.time_varying = False
+    def push(tree, wvec, t=None):
+        w_t = w_at(wvec.device, t)
+        return mix(tree, t), (w_t @ wvec.to(torch.float32)).to(wvec.dtype)
+
+    mix.push = push
+    mix.time_varying = w_at.time_varying
     return mix
 
 
@@ -94,6 +126,29 @@ def _codec_mix_error(*a, **k):
         "does this -- instead of mixing a pre-compressed tree")
 
 
+def _append_weight(bufs, dw):
+    """The exact f32 weight increments ``dw`` (n,) bit-cast into words of
+    the last buffer's dtype and appended to its flattened payload: ->
+    (the buffers to ship, the last buffer's shape)."""
+    last = bufs[-1]
+    if last.element_size() not in (2, 4):
+        raise ValueError(f"cannot bit-cast an f32 push-sum weight into "
+                         f"{last.dtype} wire words")
+    words = dw.to(torch.float32).contiguous().view(last.dtype)
+    return (tuple(bufs[:-1]) + (torch.cat([last.reshape(-1), words]),),
+            last.shape)
+
+
+def _split_weight(bufs, last_shape, n: int):
+    """Inverse of :func:`_append_weight`: -> (the buffers, the f32 weight
+    increments)."""
+    last = bufs[-1]
+    nw = n * 4 // last.element_size()
+    body, words = last[:last.numel() - nw], last[last.numel() - nw:]
+    return (tuple(bufs[:-1]) + (body.reshape(last_shape),),
+            words.view(torch.float32))
+
+
 def make_packed_codec_mixer(w, codec: WireFormat) -> MixFn:
     """Gossip over bit-packed buffers, all agents on one card.
 
@@ -102,21 +157,29 @@ def make_packed_codec_mixer(w, codec: WireFormat) -> MixFn:
     reference's ``_pack_local`` pads each leaf; all leaves' windows stack
     into one ``(R, PACK_BLOCK)`` f32 row matrix (leaf by leaf in tree order,
     agent by agent within a leaf), which is packed once and unpacked once.
-    ``c`` is the unpacked increment in each leaf's dtype; ``wc = W @ c`` is
-    the f32 product of the unpacked rows, then cast, as the reference's
-    receive side sums f32 unpacked buffers.  A qsgd codec draws its U[0, 1)
-    noise for all R rows from ``gen`` in one call; ``noise=`` injects it
-    (the parity tests hand over the reference's uniforms).
+    ``c`` is the unpacked increment in each leaf's dtype; ``wc = W_t @ c``
+    is the f32 product of the unpacked rows, then cast, as the reference's
+    receive side sums f32 unpacked buffers.  ``w`` is a static (n, n)
+    matrix or a (period, n, n) schedule table (then ``t`` is required).
+    A qsgd codec draws its U[0, 1) noise for all R rows from ``gen`` in one
+    call; ``noise=`` injects it (the parity tests hand over the
+    reference's uniforms).
+
+    ``mix.exchange_ps(gen, delta, dw, t=None, noise=None) -> (c, wc, cw,
+    wcw)``: the same exchange, with the (n,) f32 push-sum weight increments
+    ``dw`` bit-cast into the last buffer (4 bytes an agent, as the
+    reference appends each agent's weight to its own last buffer); ``cw``
+    is what came off the wire, bitwise ``dw``, and ``wcw = W_t @ cw``.
+
     ``mix.shipped_nbytes`` holds the nbytes of the buffers the last
-    exchange packed: all agents' buffers, what the all-gather ships.
+    exchange shipped: all agents' buffers, what the all-gather ships.
     """
-    w_on = _static_w(w, "packed codec mixer")
+    w_at = _table_on(w, "packed codec mixer")
 
     def mix(*a, **k):
         _codec_mix_error()
 
-    def exchange(gen, tree, t=None, noise=None):
-        del t  # static
+    def _exchange(gen, tree, t, noise, dw):
         leaves, treedef = tree_flatten(tree)
         n = leaves[0].shape[0]
         windows = [to_windows(leaf.reshape(n, -1).to(torch.float32))
@@ -125,46 +188,64 @@ def make_packed_codec_mixer(w, codec: WireFormat) -> MixFn:
         if noise is None and not codec.deterministic:
             noise = torch.rand(rows.shape, generator=gen, device=rows.device)
         bufs = codec.pack(rows, noise)
-        mix.shipped_nbytes = sum(b.numel() * b.element_size()
-                                            for b in bufs)
+        if dw is not None:
+            bufs, last_shape = _append_weight(bufs, dw)
+        mix.shipped_nbytes = sum(b.numel() * b.element_size() for b in bufs)
+        if dw is not None:
+            bufs, cw = _split_weight(bufs, last_shape, n)
         c_rows = codec.unpack(*bufs)
-        w_dev = w_on(rows.device)
+        w_t = w_at(rows.device, t)
         cs, wcs, start = [], [], 0
         for leaf, win in zip(leaves, windows):
             c_leaf = c_rows[start:start + win.shape[0]].reshape(n, -1)
             c_leaf = c_leaf[:, :leaf[0].numel()]
             start += win.shape[0]
             cs.append(c_leaf.reshape(leaf.shape).to(leaf.dtype))
-            wcs.append((w_dev @ c_leaf).reshape(leaf.shape).to(leaf.dtype))
-        return treedef.unflatten(cs), treedef.unflatten(wcs)
+            wcs.append((w_t @ c_leaf).reshape(leaf.shape).to(leaf.dtype))
+        out = treedef.unflatten(cs), treedef.unflatten(wcs)
+        if dw is None:
+            return out
+        return out + (cw.to(dw.dtype), (w_t @ cw).to(dw.dtype))
+
+    def exchange(gen, tree, t=None, noise=None):
+        return _exchange(gen, tree, t, noise, None)
+
+    def exchange_ps(gen, tree, dw, t=None, noise=None):
+        return _exchange(gen, tree, t, noise, dw)
 
     mix.exchange = exchange
-    mix.time_varying = False
+    mix.exchange_ps = exchange_ps
+    mix.time_varying = w_at.time_varying
     mix.wire_codec = codec
     mix.shipped_nbytes = 0
     return mix
 
 
-def make_mixer(topology: Topology, mode: str = "dense",
-               frac: Optional[float] = None,
+def make_mixer(topology: Union[Topology, TopologySchedule],
+               mode: str = "dense", frac: Optional[float] = None,
                codec: Optional[WireFormat] = None) -> MixFn:
-    """The gossip executor for ``topology``, tagged with its ``wire_mode``
-    (and ``wire_frac``) so the comm-round engine accounts its bytes.
+    """The gossip executor for a static :class:`Topology` or a
+    :class:`TopologySchedule` (whose ``(period, n, n)`` table the mixer
+    indexes with the round), tagged with its ``wire_mode`` (and
+    ``wire_frac``) so the comm-round engine accounts its bytes, and with
+    ``schedule`` (None for a static topology).
 
     ``codec``: a :class:`WireFormat`; with ``mode="packed"`` the executor
     is the packed codec mixer (drive it through ``mix.exchange``).  Dense
     gossip has no codec form.  The ring executors and the packed executor
     without a codec are not ported yet.
     """
+    schedule = topology if isinstance(topology, TopologySchedule) else None
+    w = schedule.ws if schedule is not None else topology.w
     if mode == "dense":
         if codec is not None:
             raise ValueError(
                 "dense gossip ships the dense emulation by definition; "
                 "bit-packed wire formats need gossip mode 'ring' or "
                 "'packed'")
-        mix = make_dense_mixer(topology.w)
+        mix = make_dense_mixer(w)
     elif mode == "packed" and codec is not None:
-        mix = make_packed_codec_mixer(topology.w, codec)
+        mix = make_packed_codec_mixer(w, codec)
     elif mode in ("ring", "packed"):
         raise ValueError(
             f"gossip mode {mode!r} is not ported yet"
@@ -175,6 +256,7 @@ def make_mixer(topology: Topology, mode: str = "dense",
         raise ValueError(f"unknown gossip mode {mode!r}")
     mix.wire_mode = mode
     mix.wire_frac = frac
+    mix.schedule = schedule
     return mix
 
 

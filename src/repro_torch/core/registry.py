@@ -45,7 +45,8 @@ class Algorithm:
 
     ``init``/``step`` are what a training loop needs; ``device`` is where ``init``
     puts the state and where the runtime makes each round's generators.
-    The other fields expose what :func:`repro_torch.api.build` resolved.
+    The other fields expose what :func:`repro_torch.api.build` resolved
+    (``schedule``: the time-varying topology, None for a static one).
     """
 
     name: str
@@ -61,6 +62,7 @@ class Algorithm:
     engine: Optional[Any] = None
     gamma: Optional[float] = None
     config: Optional[Any] = None
+    schedule: Optional[Any] = None
 
 
 # name -> (info, factory(spec, loss_fn, resolved) -> Algorithm)

@@ -46,7 +46,8 @@ __all__ = ["PACK_BLOCK", "N_BISECT_ITERS", "TOPK_VALUE_DTYPE",
            "qsgd_window_omega", "qsgd_scale_denominator", "topk_pack_ref",
            "topk_unpack_ref", "qsgd_pack_ref", "qsgd_unpack_ref",
            "make_wire_format", "measured_pack_nbytes",
-           "codec_collective_bytes", "to_windows", "from_windows"]
+           "measured_weight_nbytes", "codec_collective_bytes",
+           "to_windows", "from_windows"]
 
 # the selection and packing window (16 x 128 lanes on the reference's TPU)
 PACK_BLOCK = 2048
@@ -227,6 +228,21 @@ def measured_pack_nbytes(fmt: WireFormat, d: int) -> int:
     rows = torch.zeros(fmt.windows(d), PACK_BLOCK)
     bufs = fmt.pack(rows, None if fmt.deterministic else torch.zeros_like(rows))
     return sum(b.numel() * b.element_size() for b in bufs)
+
+
+@functools.lru_cache(maxsize=None)
+def measured_weight_nbytes(fmt: WireFormat) -> int:
+    """nbytes one push-sum weight adds to an agent's buffers: the codec
+    executor bit-casts the exact f32 weight into words of the last
+    buffer's dtype (measured by packing one window, as
+    :func:`measured_pack_nbytes` does)."""
+    rows = torch.zeros(1, PACK_BLOCK)
+    bufs = fmt.pack(rows, None if fmt.deterministic else torch.zeros_like(rows))
+    itemsize = bufs[-1].element_size()
+    if itemsize not in (2, 4):
+        raise ValueError(f"no push-sum weight word layout for a "
+                         f"{itemsize}-byte wire buffer dtype")
+    return (4 // itemsize) * itemsize
 
 
 def codec_collective_bytes(fmt: WireFormat, mode: str, n_agents: int,

@@ -142,8 +142,23 @@ def test_compressor_contract_and_wire_bits_equal_reference(name, kw):
 
 @pytest.mark.parametrize("name", ["low_rank", "sign"])
 def test_compressors_of_later_slices_raise(name):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        TCMP.make_compressor(name)
+    """``low_rank`` and ``sign`` are ported now: they report the
+    reference's rho (0), flags and wire bits, and a derived gamma with
+    them is refused as the reference refuses it."""
+    ref, got = JCMP.make_compressor(name), TCMP.make_compressor(name)
+    assert (got.name, got.rho, got.deterministic, got.bits_per_element) == (
+        ref.name, ref.rho, ref.deterministic, ref.bits_per_element)
+    for d in (1, 10, 124, 50890):
+        assert got.wire_bits(d) == ref.wire_bits(d)
+    from repro_torch import api as tapi
+    import repro.api as japi
+    kw = dict(algo="subgrad-comp", n_agents=N, compressor=name)
+    with pytest.raises(ValueError) as want:
+        japi.build(japi.ExperimentSpec(**kw), lambda p, b: 0.0)
+    with pytest.raises(ValueError) as port:
+        tapi.build(tapi.ExperimentSpec(**kw), lambda p, b: 0.0,
+                   device="cpu")
+    assert str(port.value) == str(want.value)
 
 
 @pytest.mark.parametrize("frac", [0.05, 0.3])
@@ -297,8 +312,13 @@ def test_dense_mixer_equals_reference():
     tree = _stacked(11, n=10)
     _assert_tree(TG.make_dense_mixer(top.w)(_t(tree)),
                  JG.make_dense_mixer(ref_top.w)(_j(tree)), atol=1e-6)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        TG.make_dense_mixer(np.stack([top.w, top.w]))
+    # a (period, n, n) table mixes with W_{t mod period}
+    table = np.stack([top.w, np.eye(10)])
+    mix = TG.make_dense_mixer(table)
+    assert mix.time_varying
+    for t in range(3):
+        _assert_tree(mix(_t(tree), t),
+                     JG.make_dense_mixer(table)(_j(tree), t), atol=1e-6)
     with pytest.raises(ValueError, match="ROADMAP"):
         TG.make_mixer(top, "ring")
 

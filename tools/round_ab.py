@@ -4,7 +4,9 @@ for the port in a given source tree, on one card: what ``chip_smoke.py``
 phase 4 runs (Section 5.2, 10 agents, ER(0.8), top-k 5 %, batch 8; and
 PORTER-GC with the ``block_top_k`` compressor at 5 %; PORTER-GC and CHOCO
 with bf16 EF planes; PORTER-GC over the bit-packed wire with QSGD at 7
-levels, the path of ``qsgd_pack``), timed the same way (host wall clock from the end of
+levels, the path of ``qsgd_pack``; and phase 9's PORTER-GC on a static
+and an ``erdos_renyi`` schedule, porter-adam and dp-csgp on a random
+digraph), timed the same way (host wall clock from the end of
 the first 50-round chunk to the end of the last, each chunk ended by a
 synchronize).  Each configuration also prints a SHA-256 digest of its final
 state (every buffer, after the last repeat; each repeat starts from the
@@ -47,6 +49,16 @@ CONFIGS = {"porter-gc kernel": dict(comm_backend="kernel"),
                                          compressor="qsgd",
                                          compressor_kwargs={"levels": 7},
                                          comm_backend="kernel"),
+           "porter-gc static schedule kernel": dict(
+               topology_schedule="static", comm_backend="kernel"),
+           "porter-gc erdos_renyi schedule kernel": dict(
+               topology_schedule="erdos_renyi:period=8",
+               comm_backend="kernel"),
+           "porter-adam kernel": dict(algo="porter-adam", eta=0.002,
+                                      comm_backend="kernel"),
+           "dp-csgp digraph kernel": dict(
+               algo="dp-csgp", sigma_p=0.01, comm_backend="kernel",
+               topology_schedule="directed:digraph,p=0.5,period=8"),
            "dsgd-dp": dict(algo="dsgd", dp=True, sigma_p=0.01),
            "dp-sgd": dict(algo="dp-sgd", sigma_p=0.01),
            "soteriafl": dict(algo="soteriafl", sigma_p=0.01)}
