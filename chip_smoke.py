@@ -130,6 +130,22 @@ of the ``repro`` package.  Phases, each printing its own lines:
    and over the packed wire, the push-sum weights summing to n and
    positive, and bitwise PORTER-DP on the static ER(0.8) table; each
    run's ms a round and launches, and three profiled windows.
+10. fleet-scale agents and checkpoints (``[fleet]``, ``[checkpoint]``
+   lines): the n = 4096 rung of ``benchmarks/fleet_ablation.py`` (Section
+   5.1's logreg on Dirichlet(0.3) shards of 16, batch 4, the exponential
+   graph above the dense gate: the COO mixer) through ``run_chunked`` at
+   chunk 8, clip21 and PORTER-GC for 40 rounds and PORTER-DP for 16 (its
+   per-sample plane 16,384 rows): ms a round, the kernels' launches a
+   round, the COO mixer's kernels and µs an apply, the EF plane bytes (one
+   8,192-element tile an agent for 124 parameters), the loss falling
+   (finite for PORTER-DP); the COO apply on the card twice bitwise, against
+   the CPU's (1e-6, bitwise printed) and against ``densify(t) @ x`` on a
+   4-round ER schedule (1e-5), push included; n = 256 (the gate) fleet vs
+   per-device engine, final state bitwise; save at round 4 of 8 on
+   ``rotate:ring+complete+star`` (mid-period), restore into a fresh build,
+   continue: bitwise the uninterrupted run, for PORTER-GC on the MLP in f32
+   and bf16 planes and clip21 on the n = 4096 fleet, the MLP's checkpoint
+   also restored bitwise into a CPU-built state; bytes and seconds.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -2489,9 +2505,11 @@ SUBGRAD_GAMMA = 0.05     # sign and low_rank report rho 0: gamma is given
 
 
 def _state_tensors(tree_leaves, state):
-    """Every tensor of a state, nested states (``base``) included."""
+    """Every tensor of a state, nested states (``base``) included, not
+    their int round counters."""
     return [leaf for leaf in tree_leaves(tuple(
-        getattr(state, f) for f in state._fields if f != "step"))]
+        getattr(state, f) for f in state._fields if f != "step"))
+        if not isinstance(leaf, int)]
 
 
 def _states_equal(torch, tree_leaves, a, b) -> bool:
@@ -2680,6 +2698,438 @@ def phase_extensions(torch, ops, api, data, runtime, paper, tree_leaves,
     return ms_rounds
 
 
+# phase 10: fleet-scale agents (the n = 4096 rung of
+# benchmarks/fleet_ablation.py) and checkpoint / resume
+FLEET_N = 4096
+FLEET_SHARD, FLEET_BATCH, FLEET_CHUNK = 16, 4, 8
+FLEET_ROUNDS = {"clip21": 40, "porter-gc": 40, "porter-dp": 16}
+FLEET_BELOW = 256          # the dense gate: the fleet is the dense mixer
+FLEET_BELOW_ROUNDS = 20
+CKPT_SCHEDULE = "rotate:ring+complete+star"      # period 3
+CKPT_ROUNDS, CKPT_AT = 8, 4                      # 4 % 3 = 1: mid-period
+
+
+def _fleet_problem(api, data, n):
+    """Section 5.1's logreg on Dirichlet(0.3) shards of 16 samples an
+    agent, batch 4 (``benchmarks/fleet_ablation.py``), and its spec."""
+    x, y = data.a9a_like(n * FLEET_SHARD, 123, seed=0)
+    source = data.dirichlet_source(x, y, n_agents=n, batch=FLEET_BATCH,
+                                   alpha=0.3, seed=0, device=DEVICE)
+    spec = api.ExperimentSpec(algo="clip21", n_agents=n,
+                              topology="exponential",
+                              topology_weights="metropolis",
+                              compressor="top_k", frac=0.05, eta=0.05,
+                              tau=1.0, fleet=True)
+    return source, spec
+
+
+def _logreg_params(torch):
+    return {"w": torch.zeros(123, device=DEVICE),
+            "b": torch.zeros((), device=DEVICE)}
+
+
+def _mixer_cost(torch, mixer, tree, t):
+    """(kernel launches an apply, aten ops an apply, device µs an apply,
+    host µs an apply) of ``mixer`` on ``tree``.  The launches are the CUDA
+    kernels that ``torch.profiler`` records between the start and the end
+    of one marked apply, inside a window that holds two applies before it
+    and two after it (a window of one apply in this script has recorded
+    fewer kernels than the apply launched); None where it records none.
+    The ops are the aten calls that are not views, counted under a
+    dispatch mode."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    args = (tree, t) if mixer.time_varying else (tree,)
+    mixer(*args)
+    torch.cuda.synchronize()
+    with Count() as count:
+        mixer(*args)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            mixer(*args)
+        torch.cuda.synchronize()
+        with record_function("counted_apply"):
+            mixer(*args)
+            torch.cuda.synchronize()
+        for _ in range(2):
+            mixer(*args)
+        torch.cuda.synchronize()
+    events = prof.events()
+    mark = next(e.time_range for e in events if e.name == "counted_apply"
+                and e.device_type != DeviceType.CUDA)
+    launches = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                   and e.name != "counted_apply"
+                   and mark.start <= e.time_range.start < mark.end) or None
+    device_us = 1e3 * device_time_ms(lambda: mixer(*args), [()], reps=10,
+                                     inner=10, cover=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        mixer(*args)
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / 20
+    return launches, count.ops, device_us, host_us
+
+
+# the fleet path's kernel wrappers and their plain versions, swapped in for
+# a second run of each fleet case (f32 planes: no rounding words)
+FLEET_PLAIN = ("ef_track", "ef_step", "clip_planes", "dp_mean_noise")
+
+
+def _plain_fleet_ops(ref):
+    def ef(plain):
+        def call(*a, out_dtype=None, sr_bits=None):
+            if sr_bits is not None:
+                raise ValueError("the fleet runs f32 planes")
+            return plain(*a, out_dtype=out_dtype)
+        return call
+    return {"ef_track": ef(ref.ef_track_ref), "ef_step": ef(ref.ef_step_ref),
+            "clip_planes": ref.clip_planes_ref,
+            "dp_mean_noise": ref.dp_mean_noise_ref}
+
+
+# the ef variants of the fleet path: f32 planes, and bf16 planes with the
+# rounding in the epilogue (``plane_dtype="bf16"``)
+FLEET_EF_VARIANTS = ("ef_track", "ef_step", "ef_track_bf16_sr",
+                     "ef_step_bf16_sr")
+
+
+def phase_fleet_kernels(torch, ops, ref, sc):
+    """Each kernel of the fleet path against its plain version, bitwise, at
+    the n = 4096 fleet's planes: ``ef_track`` and ``ef_step`` on the 4,096
+    x 1-tile agent plane (f32, and bf16 with the epilogue rounding), the
+    fused ``clip`` on the agent plane and on PORTER-DP's 16,384 x 1-tile
+    per-sample plane (f32 and bf16, tau 0.3, 1 and 4, and tau 1 with
+    noise; its route, grid and tiles a CTA printed), and ``mean_noise`` at
+    4,096 groups x 4 samples x 1 tile (f32 and bf16, with the noise and
+    without)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    n = FLEET_N * TILE
+    for name in FLEET_EF_VARIANTS:
+        kern, plain, make, _, _ = _variant_fns(torch, ops, ref, name)
+        args = make(gen, n)
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        same = all(bit_equal(torch, g, w) for g, w in zip(got, want))
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        print(f"[fleet] kernel {name} {FLEET_N} x 1 tile: bitwise the plain "
+              f"version {same}, max_abs_err {err}")
+        if not same:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"the fleet plane ({err})")
+        del args, got, want
+    for rows in (FLEET_N, FLEET_N * FLEET_BATCH):
+        for dt in DTYPES:
+            p = (3 * torch.randn(rows, TILE, generator=gen, device=DEVICE)
+                 ).to(_dtype(torch, dt))
+            z = torch.randn(p.shape, generator=gen, device=DEVICE).to(p.dtype)
+            same = []
+            for tau, noise in [(tau, None) for tau in CLIP_TAUS] + [(1.0, z)]:
+                got = ops.clip_planes(p, rows, tau, noise, DP_SIGMA)
+                want = ref.clip_planes_ref(p, rows, tau, noise, DP_SIGMA)
+                torch.cuda.synchronize()
+                same.append(all(bit_equal(torch, g, w)
+                                for g, w in zip(got, want)))
+            plan = sc.clip_plan(p, rows)
+            print(f"[fleet] kernel clip {rows} x 1 tile {dt}: route "
+                  f"{plan['route']} grid {plan['grid']} tiles/cta "
+                  f"{plan['tiles_per_cta']}; (clip, partials, factors) "
+                  f"bitwise the plain version at taus {list(CLIP_TAUS)} and "
+                  f"1 + noise: {same}")
+            if not all(same):
+                raise AssertionError(f"clip differs from its plain version "
+                                     f"at {rows} x 1 tile {dt}: {same}")
+            del p, z, got, want
+    for dt in DTYPES:
+        p = torch.randn(FLEET_N * FLEET_BATCH, TILE, generator=gen,
+                        device=DEVICE)
+        p[torch.rand(p.shape, generator=gen, device=DEVICE) < 0.1] = -0.0
+        p = p.to(_dtype(torch, dt))
+        z = torch.randn(FLEET_N, TILE, generator=gen, device=DEVICE)
+        same = []
+        for extra in ((z, DP_SIGMA), ()):
+            got = ops.dp_mean_noise(p, FLEET_N, FLEET_BATCH, *extra)
+            want = ref.dp_mean_noise_ref(p, FLEET_N, FLEET_BATCH, *extra)
+            torch.cuda.synchronize()
+            same.append(bit_equal(torch, got, want))
+        print(f"[fleet] kernel mean_noise {FLEET_N} x {FLEET_BATCH} x 1 tile "
+              f"{dt}: bitwise the plain version with the noise and without "
+              f"{same}")
+        if not all(same):
+            raise AssertionError(f"mean_noise differs from its plain version "
+                                 f"at {FLEET_N} x {FLEET_BATCH} x 1 {dt}")
+        del p, z, got, want
+
+
+def phase_fleet_runs(torch, ops, ref, api, data, runtime, flatten,
+                     tree_leaves):
+    """clip21 and PORTER-GC (40 rounds) and PORTER-DP (16) on the n = 4096
+    fleet, through ``run_chunked`` at chunk 8: ms a round, the kernels'
+    launches a round and their bounds, the COO mixer's launches and time,
+    the EF plane bytes, the loss, and a profiled window.  Each run is
+    repeated from the same start with the path's kernel wrappers
+    (``FLEET_PLAIN``) swapped for their plain versions on the same CUDA
+    tensors: the final state must be bitwise the kernels' and the plain
+    run must launch no kernel."""
+    source, spec = _fleet_problem(api, data, FLEET_N)
+    for name, rounds in FLEET_ROUNDS.items():
+        t0 = time.perf_counter()
+        algo = api.build(spec.replace(
+            algo=name, sigma_p=DP_SIGMA if name == "porter-dp" else 0.0),
+            logreg_loss, device=DEVICE)
+        build_s = time.perf_counter() - t0
+        state = algo.init(_logreg_params(torch))
+        state, losses, ms, counts = run_counted(
+            torch, ops, runtime, algo, source, state, rounds, FLEET_CHUNK)
+        x = state.base.x if hasattr(state, "base") else state.x
+        plane = flatten.flat_spec(x).plane_shape
+        plane_bytes = plane[0] * plane[1] * 4
+        useful = sum(v[0].numel() for v in x.values()) * FLEET_N * 4
+        per_round = {k: v / rounds for k, v in counts.items() if v}
+        mix_launches, mix_ops, dev_us, host_us = _mixer_cost(
+            torch, algo.mixer, {"w": x["w"].clone(), "b": x["b"].clone()},
+            rounds)
+        applies = algo.info.comm_rounds
+        print(f"[fleet] {name} n={FLEET_N} ({type(algo.topology).__name__} "
+              f"{algo.topology.kind}, nnz {algo.topology.nnz}, alpha "
+              f"{algo.topology.alpha:.6f}, gamma {algo.gamma:.6g}, build "
+              f"{build_s:.2f} s) {rounds} rounds chunk {FLEET_CHUNK}: loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}, {ms:.4f} ms/round, "
+              f"launches a round {per_round}")
+        print(f"[fleet] {name}: COO mixer {mix_launches} kernel launches "
+              f"an apply (the profiler, one marked apply; {mix_ops} aten "
+              f"ops) x {applies} applies a round = "
+              f"{mix_launches and mix_launches * applies} a round; "
+              f"{dev_us:.1f} us device, {host_us:.1f} us host an apply "
+              f"({100 * applies * host_us / (1e3 * ms):.1f} % of the "
+              f"round's wall on the host); EF plane {plane[0]} x {plane[1]} "
+              f"f32 = {plane_bytes} B a plane, {useful} B of parameters "
+              f"({100 * (1 - useful / plane_bytes):.2f} % padding)")
+        if not finite(losses):
+            raise AssertionError(f"fleet {name}: loss is not finite")
+        want = dict(ef_track=rounds, ef_step=rounds)
+        if name != "clip21":
+            want["clip"] = rounds
+        if name == "porter-dp":
+            want["mean_noise"] = rounds
+            print(f"[fleet] porter-dp: per-sample clip plane "
+                  f"{plane[0] * FLEET_BATCH} rows")
+        else:
+            _falls(f"fleet {name}", losses, window=8)
+        expect_launches(f"fleet {name}", counts, **want)
+        saved = {k: getattr(ops, k) for k in FLEET_PLAIN}
+        for k, fn in _plain_fleet_ops(ref).items():
+            setattr(ops, k, fn)
+        try:
+            plain_state, plain_losses, plain_ms, plain_counts = run_counted(
+                torch, ops, runtime, algo, source,
+                algo.init(_logreg_params(torch)), rounds, FLEET_CHUNK)
+        finally:
+            for k, fn in saved.items():
+                setattr(ops, k, fn)
+        same = _states_equal(torch, tree_leaves, state, plain_state)
+        print(f"[fleet] {name}: the same {rounds} rounds with "
+              f"{', '.join(FLEET_PLAIN)} swapped for their plain versions: "
+              f"final state bitwise the kernels' {same}, loss "
+              f"{plain_losses[-1]:.6f}, {plain_ms:.4f} ms/round, launches "
+              f"{ {k: v for k, v in plain_counts.items() if v} or 'none'}")
+        expect_launches(f"fleet {name} plain", plain_counts)
+        if not same:
+            raise AssertionError(f"fleet {name}: the kernels' final state "
+                                 f"differs from the plain versions'")
+        del plain_state
+        # each kernel's bound at these planes: its operands read once and
+        # its outputs written once (f32), over HBM bandwidth
+        # (PORTER-DP clips the per-sample plane, FLEET_BATCH agent planes)
+        per_sample = FLEET_BATCH if name == "porter-dp" else 1
+        planes = {"ef_track": 7 + 3, "ef_step": 6 + 3,
+                  "clip": 2 * per_sample, "mean_noise": FLEET_BATCH + 1 + 1}
+        print(f"[fleet] {name}: bounds at these planes (bytes over "
+              f"{HBM_BYTES_PER_S:.3g} B/s): " + ", ".join(
+                  f"{k} {1e6 * v * plane_bytes / HBM_BYTES_PER_S:.1f} us"
+                  for k, v in planes.items() if k in want))
+        profile_rounds(torch, runtime, algo, source, state, 8,
+                       f"fleet {name} n={FLEET_N}")
+
+
+def phase_fleet_coo(torch, fleet):
+    """The COO apply on the card: deterministic (two applies bitwise),
+    against the port's CPU apply (1e-6; bitwise printed), against
+    ``densify(t) @ x`` on a 4-round ER schedule (1e-5), push included."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    tree = {"w": torch.randn(FLEET_N, 123, generator=gen, device=DEVICE),
+            "b": torch.randn(FLEET_N, generator=gen, device=DEVICE)}
+    wvec = torch.rand(FLEET_N, generator=gen, device=DEVICE) + 0.5
+    cpu_tree = {k: v.cpu() for k, v in tree.items()}
+    t0 = time.perf_counter()
+    sched = fleet.fleet_er_schedule(FLEET_N, period=4)
+    print(f"[fleet] fleet_er_schedule({FLEET_N}, period=4): nnz a round "
+          f"{sched.rows.shape[1]} padded, real {sched.round_nnz}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cases = [("exponential", fleet.fleet_topology("exponential", FLEET_N),
+              (None,)), ("er schedule", sched, range(sched.period + 1))]
+    for label, obj, rounds in cases:
+        mix = fleet.make_fleet_mixer(obj)
+        for t in rounds:
+            args = () if t is None else (t,)
+            a, b = mix(tree, *args), mix(tree, *args)
+            pa, pw = mix.push(tree, wvec, *args)
+            same = all(bit_equal(torch, a[k], b[k]) for k in a)
+            cpu = mix(cpu_tree, *args)
+            _, cpu_w = mix.push(cpu_tree, wvec.cpu(), *args)
+            diff = max(float((a[k].cpu() - cpu[k]).abs().max()) for k in a)
+            cpu_bitwise = all(bit_equal(torch, a[k].cpu(), cpu[k])
+                              for k in a) and bit_equal(
+                torch, pw.cpu(), cpu_w)
+            w_t = torch.as_tensor(obj.densify() if t is None
+                                  else obj.densify(t % obj.period),
+                                  device=DEVICE)
+            dense = max(float((a[k].double() - (w_t @ v.double().reshape(
+                FLEET_N, -1)).reshape(v.shape)).abs().max())
+                for k, v in tree.items())
+            dense_w = float((pw.double() - w_t @ wvec.double()).abs().max())
+            print(f"[fleet] COO apply {label} t={t}: two applies bitwise "
+                  f"{same}; card vs CPU max |diff| {diff!r}, bitwise "
+                  f"{cpu_bitwise}; vs densify(t) @ x in f64 max |diff| "
+                  f"{dense!r}, push weight {dense_w!r}; push params bitwise "
+                  f"the mix {all(bit_equal(torch, pa[k], a[k]) for k in a)}")
+            if not (same and diff <= 1e-6 and dense <= 1e-5
+                    and dense_w <= 1e-5):
+                raise AssertionError(f"COO apply {label} t={t} failed")
+
+
+def phase_fleet_below_gate(torch, ops, api, data, runtime, tree_leaves):
+    """n = 256 (the gate) on the exponential graph: the fleet run's final
+    state bitwise the per-device engine's, on the card."""
+    source, spec = _fleet_problem(api, data, FLEET_BELOW)
+    spec = spec.replace(algo="porter-gc")
+    states = {}
+    for fleet_on in (False, True):
+        algo = api.build(spec.replace(fleet=fleet_on), logreg_loss,
+                         device=DEVICE)
+        state, losses, ms, counts = run_counted(
+            torch, ops, runtime, algo, source, algo.init(
+                _logreg_params(torch)), FLEET_BELOW_ROUNDS, 10)
+        states[fleet_on] = state
+        print(f"[fleet] n={FLEET_BELOW} fleet={fleet_on} porter-gc "
+              f"{FLEET_BELOW_ROUNDS} rounds: mixer "
+              f"{getattr(getattr(algo.mixer, 'budget', None), 'executor', 'dense')}, "
+              f"loss {losses[0]:.6f} -> {losses[-1]:.6f}, {ms:.4f} ms/round,"
+              f" launches {counts}")
+    same = _states_equal(torch, tree_leaves, states[True], states[False])
+    print(f"[fleet] n={FLEET_BELOW}: fleet vs per-device final state bitwise "
+          f"{same}")
+    if not same:
+        raise AssertionError("the fleet below the gate is not the per-device "
+                             "engine's")
+
+
+def _resume_args(spec):
+    """The training driver's arguments that a resume checks."""
+    import argparse
+    return argparse.Namespace(topology_schedule=spec.topology_schedule,
+                              plane_dtype=spec.plane_dtype, tau=spec.tau,
+                              steps=CKPT_ROUNDS, epsilon=0.1, delta=1e-3,
+                              local_samples=4096)
+
+
+def phase_checkpoint(torch, api, data, runtime, paper, tree_leaves,
+                     checkpoint, train):
+    """Save at round 4 of 8 (mid-period of a period-3 schedule), restore
+    into a fresh build, continue: bitwise the uninterrupted run.  PORTER-GC
+    on the full-width MLP in f32 and bf16 planes on
+    ``rotate:ring+complete+star``, and clip21 on the n = 4096 fleet (the
+    COO path).  The MLP's card checkpoint also restores bitwise into a
+    CPU-built state.  Bytes written, save and restore seconds."""
+    import shutil
+    mlp_source, mlp_base, mlp_loss = _mlp_problem(api, data, paper, 60000)
+    fleet_source, fleet_spec = _fleet_problem(api, data, FLEET_N)
+    cases = [
+        ("porter-gc mlp f32", mlp_base.replace(
+            topology_schedule=CKPT_SCHEDULE), mlp_loss, mlp_source,
+         lambda: paper.mlp_init(seed=0, device=DEVICE)),
+        ("porter-gc mlp bf16", mlp_base.replace(
+            topology_schedule=CKPT_SCHEDULE, plane_dtype="bf16"), mlp_loss,
+         mlp_source, lambda: paper.mlp_init(seed=0, device=DEVICE)),
+        (f"clip21 fleet n={FLEET_N}", fleet_spec, logreg_loss, fleet_source,
+         lambda: _logreg_params(torch)),
+    ]
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    try:
+        for case in cases:
+            shutil.rmtree(root, ignore_errors=True)
+            _resume_case(torch, api, runtime, paper, tree_leaves,
+                         checkpoint, train, root, *case)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _resume_case(torch, api, runtime, paper, tree_leaves, checkpoint, train,
+                 root, label, spec, loss_fn, source, params):
+    """One case of :func:`phase_checkpoint`, its checkpoint under
+    ``root``."""
+    algo = api.build(spec, loss_fn, device=DEVICE)
+    full, _ = runtime.run_chunked(algo, source, algo.init(params()), 0,
+                                  CKPT_ROUNDS, chunk=CKPT_AT)
+    half, _ = runtime.run_chunked(algo, source, algo.init(params()), 0,
+                                  CKPT_AT, chunk=CKPT_AT)
+    args = _resume_args(spec)
+    extra = train.ckpt_extra(algo.info, args, spec.sigma_p, 0, 0, CKPT_AT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = Path(checkpoint.save_state(str(root), half, step=CKPT_AT,
+                                      extra=extra))
+    save_s = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in path.iterdir())
+    algo2 = api.build(spec, loss_fn, device=DEVICE)
+    like = algo2.init(params())
+    man = checkpoint.read_manifest(str(root))
+    train.check_resume(args, man["step"], man["extra"]["rounds_executed"],
+                       man["extra"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = checkpoint.restore_state(str(root), like=like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    resumed, _ = runtime.run_chunked(algo2, source, restored, 0, CKPT_ROUNDS,
+                                     chunk=CKPT_AT, start=CKPT_AT)
+    step = restored.base.step if hasattr(restored, "base") else restored.step
+    same = _states_equal(torch, tree_leaves, resumed, full)
+    devices = {t.device.type for t in _state_tensors(tree_leaves, restored)}
+    print(f"[checkpoint] {label}: saved at round {CKPT_AT} of "
+          f"{CKPT_ROUNDS} ({spec.topology_schedule or 'static'}), "
+          f"{nbytes} B in {len(list(path.iterdir()))} files, save "
+          f"{save_s:.4f} s, restore {restore_s:.4f} s, restored step "
+          f"{step!r} ({type(step).__name__}) on {sorted(devices)}; "
+          f"resumed final state bitwise the uninterrupted run {same}")
+    if not (same and type(step) is int and step == CKPT_AT
+            and devices == {torch.device(DEVICE).type}):
+        raise AssertionError(f"checkpoint {label}: resume failed")
+    if label == "porter-gc mlp f32":
+        cpu_algo = api.build(spec, loss_fn, device="cpu")
+        cpu_state = checkpoint.restore_state(str(root), like=cpu_algo.init(
+            paper.mlp_init(seed=0, device="cpu")))
+        same_cpu = all(bit_equal(torch, a.cpu(), b) for a, b in zip(
+            _state_tensors(tree_leaves, half),
+            _state_tensors(tree_leaves, cpu_state)))
+        print(f"[checkpoint] {label}: the card's checkpoint restored "
+              f"into a CPU-built state bitwise {same_cpu}")
+        if not same_cpu:
+            raise AssertionError("the card's checkpoint does not restore "
+                                 "bitwise on the CPU")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2689,9 +3139,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api, data
-    from repro_torch.core import average_params, clipping
+    from repro_torch.core import average_params, clipping, fleet
     from repro_torch.kernels import build, flatten, ops, ref, smooth_clip
-    from repro_torch.launch import runtime, serve
+    from repro_torch.launch import checkpoint, runtime, serve, train
     from repro_torch.models import paper
     from repro_torch.tree import tree_leaves
 
@@ -2765,6 +3215,17 @@ def main() -> int:
     t9 = time.perf_counter()
     phase_extensions(torch, ops, api, data, runtime, paper, tree_leaves, runs)
     print(f"[extensions] phase took {time.perf_counter() - t9:.1f} s")
+
+    # phase 10: fleet-scale agents, and checkpoint / resume
+    t10 = time.perf_counter()
+    phase_fleet_kernels(torch, ops, ref, smooth_clip)
+    phase_fleet_runs(torch, ops, ref, api, data, runtime, flatten,
+                     tree_leaves)
+    phase_fleet_coo(torch, fleet)
+    phase_fleet_below_gate(torch, ops, api, data, runtime, tree_leaves)
+    phase_checkpoint(torch, api, data, runtime, paper, tree_leaves,
+                     checkpoint, train)
+    print(f"[fleet] phase took {time.perf_counter() - t10:.1f} s")
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16

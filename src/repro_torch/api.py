@@ -25,6 +25,14 @@ state's step, and ``alpha`` is the schedule's per-round rate.  Directed
 only.  ``build`` targets ``torch.device("cuda")`` unless the caller passes
 ``device=``; nothing here probes for a card and moves to the CPU.
 
+Fleet mode (``ExperimentSpec(fleet=True)``): the agent axis is a
+simulated fleet of n = 1k-100k agents on one card, mixed by
+:func:`repro_torch.core.fleet.make_fleet_mixer`: the dense mixer at
+``n <= FLEET_DENSE_GATE`` (bitwise the per-device engine) and the sparse
+COO slots above it, where the topology and schedule builders also switch
+to the sparse fleet generators (:func:`resolve_fleet_topology`,
+:func:`resolve_fleet_schedule`).
+
 Registered here, all eleven of the reference's algorithms: ``porter-gc``,
 ``porter-dp``, ``beer``, ``porter-adam``, the paper's baselines ``dsgd``,
 ``choco``, ``dp-sgd`` and ``soteriafl``, and ``dp-csgp``, ``clip21`` and
@@ -32,15 +40,14 @@ Registered here, all eleven of the reference's algorithms: ``porter-gc``,
 master params stay f32).  ``wire="packed_bits"`` with
 ``gossip_mode="packed"`` gossips bit-packed buffers
 (:func:`resolve_wire_format`).  The spec keeps the reference's field
-names; ``fleet=True`` and ``remat_policy`` raise and name the ROADMAP item
-that ports them.
+names; ``remat_policy`` raises and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Union
 
 import torch
 
@@ -51,6 +58,9 @@ from .core.clip21 import Clip21State, clip21_init, clip21_step
 from .core.comm_round import CommRound
 from .core import wire_formats
 from .core.compression import Compressor, make_compressor
+from .core.fleet import (FLEET_DENSE_GATE, FleetSchedule, FleetTopology,
+                         fleet_er_schedule, fleet_rotating_schedule,
+                         fleet_topology, make_fleet_mixer)
 from .core.gossip import make_mixer
 from .core.mixing import Topology, TopologySchedule, make_topology
 from .core.porter import PorterConfig, PorterState, porter_init, porter_step
@@ -63,7 +73,8 @@ from .core.subgrad import SubgradState, subgrad_init, subgrad_step
 from .tree import tree_leaves, tree_map
 
 __all__ = ["ExperimentSpec", "build", "build_engine", "resolve_topology",
-           "resolve_schedule", "resolve_compressor", "resolve_gamma",
+           "resolve_schedule", "resolve_fleet_topology",
+           "resolve_fleet_schedule", "resolve_compressor", "resolve_gamma",
            "resolve_plane_dtype", "resolve_wire_format",
            "Algorithm", "AlgorithmInfo", "algorithm_info", "list_algorithms"]
 
@@ -130,23 +141,21 @@ class Resolved:
     """What :func:`build` constructed from a spec (the factory context)."""
 
     info: AlgorithmInfo
-    topology: Optional[Topology]      # None for server/client algorithms
+    # None for server/client algorithms; a FleetTopology above the gate
+    topology: Optional[Union[Topology, FleetTopology]]
     compressor: Optional[Compressor]  # None for uncompressed ones
     mixer: Any
     engine: Optional[CommRound]
     gamma: Optional[float]
     device: torch.device
-    schedule: Optional[TopologySchedule] = None
+    schedule: Optional[Union[TopologySchedule, FleetSchedule]] = None
 
 
 def _check_slice(spec: ExperimentSpec) -> None:
     """Reject spec values whose code paths are not ported yet."""
-    later = [("fleet", spec.fleet, False, "ROADMAP queue 1 item 10"),
-             ("remat_policy", spec.remat_policy, None,
-              "ROADMAP queue 1 item 13")]
-    for name, value, supported, item in later:
-        if value != supported:
-            raise ValueError(f"{name}={value!r} is not ported yet ({item})")
+    if spec.remat_policy is not None:
+        raise ValueError(f"remat_policy={spec.remat_policy!r} is not ported "
+                         "yet (ROADMAP queue 1 item 13)")
 
 
 def resolve_topology(spec: ExperimentSpec) -> Topology:
@@ -289,6 +298,92 @@ def _resolve_directed_schedule(spec: ExperimentSpec, text: str,
         seed=int(kv.pop("seed", spec.topology_seed)))
 
 
+def _check_fleet_spec(spec: ExperimentSpec, algo: Optional[str] = None):
+    """Reject spec combinations the fleet executor cannot honour."""
+    if spec.gossip_mode != "dense":
+        raise ValueError(
+            f"fleet mode applies mixing as one vectorized dense/COO sweep "
+            f"over the whole fleet axis; gossip_mode={spec.gossip_mode!r} "
+            "is a per-device wire executor -- use gossip_mode='dense'")
+    if spec.wire != "dense":
+        raise ValueError(
+            f"fleet mode ships no per-link packed buffers (the simulated "
+            f"fleet axis is device-local); wire={spec.wire!r} -- use "
+            "wire='dense'")
+    if algo in _PUSH_SUM_ALGOS and spec.n_agents > FLEET_DENSE_GATE:
+        raise ValueError(
+            f"{algo} initializes its push-sum mirrors from the dense "
+            f"round-0 mixing table; fleet mode supports it only at "
+            f"n_agents <= {FLEET_DENSE_GATE} (got {spec.n_agents})")
+
+
+def resolve_fleet_topology(spec: ExperimentSpec
+                           ) -> Union[Topology, FleetTopology]:
+    """Fleet topology: the dense resolution at ``n <= FLEET_DENSE_GATE``
+    (bitwise the per-device engine), the sparse COO builders of
+    :mod:`repro_torch.core.fleet` above it (``make_topology``'s O(n^2)
+    weight loops and dense eigensolves do not survive n = 100k)."""
+    if spec.n_agents <= FLEET_DENSE_GATE:
+        return resolve_topology(spec)
+    return fleet_topology(spec.topology, spec.n_agents,
+                          weights=spec.topology_weights, p=spec.topology_p,
+                          seed=spec.topology_seed)
+
+
+def resolve_fleet_schedule(spec: ExperimentSpec, topology=None
+                           ) -> Optional[Union[TopologySchedule,
+                                               FleetSchedule]]:
+    """Fleet analogue of :func:`resolve_schedule`: the dense resolution
+    below the gate, the sparse generators ('rotate:...', 'erdos_renyi:...')
+    above it.  Directed (column-stochastic) schedules never take the fleet
+    path."""
+    if spec.topology_schedule is None:
+        return None
+    if spec.n_agents <= FLEET_DENSE_GATE:
+        top = topology if isinstance(topology, Topology) else None
+        sched = resolve_schedule(spec, top)
+        if sched is not None and sched.is_directed:
+            raise ValueError(
+                "fleet mode mixes with doubly-stochastic tables only; "
+                f"{spec.topology_schedule!r} is column-stochastic (push-sum "
+                "runs per-device, fleet=False)")
+        return sched
+    text = spec.topology_schedule
+    kind, _, rest = text.partition(":")
+    kind = kind.strip()
+    if kind == "rotate":
+        first, _, more = rest.partition(",")
+        if "=" not in first:
+            kv = {"kinds": first.strip(), **_parse_schedule_kv(more)}
+        else:
+            kv = dict(_parse_schedule_kv(rest))
+        kinds = [k for k in kv.pop("kinds", "").split("+") if k]
+        if not kinds:
+            raise ValueError("rotate schedule needs '+'-separated graph "
+                             "kinds, e.g. 'rotate:ring+exponential'")
+        sched = fleet_rotating_schedule(
+            kinds, spec.n_agents,
+            weights=kv.pop("weights", spec.topology_weights),
+            seed=int(kv.pop("seed", spec.topology_seed)))
+    elif kind == "erdos_renyi":
+        kv = dict(_parse_schedule_kv(rest))
+        degree = kv.pop("degree", None)
+        sched = fleet_er_schedule(
+            spec.n_agents, period=int(kv.pop("period", 4)),
+            degree=None if degree is None else int(degree),
+            weights=kv.pop("weights", spec.topology_weights),
+            seed=int(kv.pop("seed", spec.topology_seed)))
+    else:
+        raise ValueError(
+            f"fleet mode at n_agents={spec.n_agents} > {FLEET_DENSE_GATE} "
+            f"supports the sparse generators 'rotate:...' and "
+            f"'erdos_renyi:...'; got {text!r}")
+    if kv:
+        raise ValueError(f"unknown fleet {kind!r} schedule keys "
+                         f"{sorted(kv)} in {text!r}")
+    return sched
+
+
 def resolve_compressor(spec: ExperimentSpec) -> Compressor:
     kwargs = dict(spec.compressor_kwargs)
     if spec.compressor in _FRAC_COMPRESSORS:
@@ -312,11 +407,14 @@ def resolve_plane_dtype(spec_or_name) -> Optional[torch.dtype]:
     return val
 
 
-def resolve_gamma(spec: ExperimentSpec, topology: Topology,
+def resolve_gamma(spec: ExperimentSpec,
+                  topology: Union[Topology, FleetTopology],
                   compressor: Compressor,
-                  schedule: Optional[TopologySchedule] = None) -> float:
+                  schedule: Optional[Union[TopologySchedule,
+                                           FleetSchedule]] = None) -> float:
     """The paper's consensus stepsize: gamma_scale * (1 - alpha) * rho,
-    with a schedule's per-round rate as alpha when there is one.  A derived
+    with a schedule's per-round rate as alpha when there is one (a fleet
+    topology's or schedule's alpha above the gate).  A derived
     0 (``low_rank`` and ``sign`` report rho = 0) is refused: pass
     ``gamma=``."""
     if spec.gamma is not None:
@@ -360,34 +458,43 @@ def resolve_wire_format(spec: ExperimentSpec):
 
 
 def build_engine(spec: ExperimentSpec, *,
-                 topology: Optional[Topology] = None,
-                 schedule: Optional[TopologySchedule] = None,
+                 topology: Optional[Union[Topology, FleetTopology]] = None,
+                 schedule: Optional[Union[TopologySchedule,
+                                          FleetSchedule]] = None,
                  compress_fn=None) -> CommRound:
-    """Comm-round engine for ``spec``: compressor, mixer (dense, or the
-    packed codec executor under ``wire="packed_bits"``; over the schedule's
-    table when the spec has one or ``schedule`` is given) and backend.
-    ``compress_fn``: optional ``(gen, tree) -> tree`` compression override,
-    refused beside a codec."""
-    top = resolve_topology(spec) if topology is None else topology
-    sched = resolve_schedule(spec, top) if schedule is None else schedule
-    return CommRound(compressor=resolve_compressor(spec),
-                     mixer=make_mixer(sched if sched is not None else top,
-                                      spec.gossip_mode, frac=spec.frac,
-                                      codec=resolve_wire_format(spec)),
+    """Comm-round engine for ``spec``: compressor, mixer (dense, the packed
+    codec executor under ``wire="packed_bits"``, or the fleet mixer under
+    ``fleet=True``; over the schedule's table when the spec has one or
+    ``schedule`` is given) and backend.  ``compress_fn``: optional
+    ``(gen, tree) -> tree`` compression override, refused beside a codec."""
+    if spec.fleet:
+        _check_fleet_spec(spec)
+        top = resolve_fleet_topology(spec) if topology is None else topology
+        sched = (resolve_fleet_schedule(spec, top) if schedule is None
+                 else schedule)
+        mixer = make_fleet_mixer(sched if sched is not None else top)
+    else:
+        top = resolve_topology(spec) if topology is None else topology
+        sched = resolve_schedule(spec, top) if schedule is None else schedule
+        mixer = make_mixer(sched if sched is not None else top,
+                           spec.gossip_mode, frac=spec.frac,
+                           codec=resolve_wire_format(spec))
+    return CommRound(compressor=resolve_compressor(spec), mixer=mixer,
                      compress_fn=compress_fn, backend=spec.comm_backend,
                      overlap=spec.overlap,
                      plane_dtype=resolve_plane_dtype(spec))
 
 
 def build(spec: ExperimentSpec, loss_fn, *, device=None,
-          topology: Optional[Topology] = None,
+          topology: Optional[Union[Topology, FleetTopology]] = None,
           compress_fn=None) -> Algorithm:
     """Resolve ``spec`` into a ready-to-train :class:`Algorithm`.
 
     loss_fn: ``(params, batch) -> scalar loss`` for one agent, in torch ops
       that ``torch.func`` can differentiate and vmap.
     device: where the state lives; ``torch.device("cuda")`` unless given.
-    topology: pre-built Topology override.
+    topology: pre-built Topology (or, under ``fleet=True``, FleetTopology)
+      override.
     compress_fn: optional ``(gen, tree) -> tree`` compression override for
       the decentralized compressed algorithms (not under a codec).
     """
@@ -396,8 +503,14 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
     info = algorithm_info(spec.algo)
     top, sched, comp, mixer, engine, gamma = (None,) * 6
     if info.decentralized:
-        top = resolve_topology(spec) if topology is None else topology
-        sched = resolve_schedule(spec, top)
+        if spec.fleet:
+            _check_fleet_spec(spec, algo=spec.algo)
+            top = (resolve_fleet_topology(spec) if topology is None
+                   else topology)
+            sched = resolve_fleet_schedule(spec, top)
+        else:
+            top = resolve_topology(spec) if topology is None else topology
+            sched = resolve_schedule(spec, top)
         if (sched is not None and sched.is_directed
                 and spec.algo not in _PUSH_SUM_ALGOS):
             raise ValueError(
@@ -411,8 +524,11 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
                               compress_fn=compress_fn)
         comp, mixer = engine.compressor, engine.mixer
     elif info.decentralized:
-        mixer = make_mixer(sched if sched is not None else top,
-                           spec.gossip_mode, frac=spec.frac)
+        if spec.fleet:
+            mixer = make_fleet_mixer(sched if sched is not None else top)
+        else:
+            mixer = make_mixer(sched if sched is not None else top,
+                               spec.gossip_mode, frac=spec.frac)
     elif info.compressed:
         # server/client: compression without gossip
         comp = resolve_compressor(spec)

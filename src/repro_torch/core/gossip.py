@@ -33,6 +33,7 @@ later slice (ROADMAP queue 1 item 12).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -42,10 +43,30 @@ from ..tree import tree_flatten, tree_map
 from .mixing import Topology, TopologySchedule
 from .wire_formats import PACK_BLOCK, WireFormat, to_windows, topk_keep
 
-__all__ = ["MixFn", "PACK_BLOCK", "apply_mixer", "make_dense_mixer",
-           "make_packed_codec_mixer", "make_mixer", "gossip_wire_bytes"]
+__all__ = ["MixFn", "GossipBudget", "PACK_BLOCK", "apply_mixer",
+           "make_dense_mixer", "make_packed_codec_mixer", "make_mixer",
+           "gossip_wire_bytes"]
 
 MixFn = Callable[..., object]
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipBudget:
+    """Declared collective budget of one gossip executor (the reference's
+    ``repro.core.gossip.GossipBudget``).
+
+    ``per_leaf`` maps a collective category to the most such ops the
+    executor may issue per gossiped leaf and comm round; a category
+    absent from it is forbidden.  ``spmd_dependent`` marks executors whose
+    collectives a partitioner chooses.  Only the fleet mixer carries one
+    so far (no per-leaf collectives); the other executors get theirs with
+    the collective census (ROADMAP queue 1 item 14).
+    """
+
+    executor: str
+    per_leaf: "dict[str, int]" = dataclasses.field(default_factory=dict)
+    spmd_dependent: bool = False
+    note: str = ""
 
 
 def apply_mixer(mixer: MixFn, tree, t=None):

@@ -55,7 +55,7 @@ def test_registry_holds_the_slice():
         tapi.algorithm_info("no-such-algo")
 
 
-@pytest.mark.parametrize("over", [dict(fleet=True),
+@pytest.mark.parametrize("over", [dict(fleet=True, remat_policy="full"),
                                   dict(topology_schedule="static",
                                        gossip_mode="ring"),
                                   dict(remat_policy="full"),
