@@ -146,6 +146,21 @@ of the ``repro`` package.  Phases, each printing its own lines:
    continue: bitwise the uninterrupted run, for PORTER-GC on the MLP in f32
    and bf16 planes and clip21 on the n = 4096 fleet, the MLP's checkpoint
    also restored bitwise into a CPU-built state; bytes and seconds.
+11. the last eight architectures (``[decoder]`` lines): the smoke configs
+   of tinyllama-1.1b, chatglm3-6b, h2o-danube-3-4b, minicpm3-4b (MLA),
+   paligemma-3b (VLM), seamless-m4t-medium (encoder-decoder), grok-1-314b
+   and arctic-480b (MoE) in f32 on the card, decode after prefill against
+   ``forward`` at 2e-3 (window None, capacity factor 4: the reference
+   oracle's settings), and the danube one decoding past its 32 window;
+   then each at full width (grok-1 at 4 of 64 layers, arctic at 1 of 35:
+   what the card holds while drawing), its drawn parameter count checked,
+   serving batch 4 x prompt 512 and 32 greedy decode steps through
+   ``launch.serve`` (prefill and decode tokens/s, peak memory, ids in
+   range, no kernel launched: these families run no Pallas kernel in the
+   reference either), one decode step and one prefill of minicpm3-4b and
+   grok-1 profiled; then in f32 at a few layers (minicpm3, chatglm3,
+   paligemma at 4, seamless at 4 + 4, grok-1 at 1) decode after a
+   512-position prefill against ``forward`` at 2e-3.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -154,6 +169,7 @@ the last is the kernels' JSON record; the last line is the device record.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -1268,8 +1284,10 @@ def phase_rwkv6_kernel(torch, ops, ref, reps=10, inner=5):
 
 def _profile_call(torch, label, fn, tag="rwkv6", kernel="rwkv6_chunk"):
     """Print the device time of one call of ``fn`` by kernel name, and the
-    scans' (``kernel``'s) share of it, under ``torch.profiler`` (which
-    itself slows the host side)."""
+    scans' (``kernel``'s; None: no scan on the path) share of it, under
+    ``torch.profiler`` (which itself slows the host side).  Returns the
+    wall and device-busy µs and the kernel launches, or None when the
+    profiler recorded no CUDA kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1285,14 +1303,14 @@ def _profile_call(torch, label, fn, tag="rwkv6", kernel="rwkv6_chunk"):
     if not kernels or busy <= 0:
         print(f"[{tag}] profile of {label}: device time not measured (the "
               "profiler recorded no CUDA kernels)")
-        return
-    scans = [e for e in kernels if kernel in e.key]
+        return None
+    scans = [e for e in kernels if kernel and kernel in e.key]
     scan_us = sum(e.self_device_time_total for e in scans)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     kinds = {}
     for e in kernels:
         name = e.key.lower()
-        kind = ("scans" if kernel in e.key else
+        kind = ("scans" if kernel and kernel in e.key else
                 "dense products" if any(w in name for w in
                                         ("nvjet", "gemm", "cutlass")) else
                 "elementwise" if "elementwise" in name else
@@ -1300,17 +1318,20 @@ def _profile_call(torch, label, fn, tag="rwkv6", kernel="rwkv6_chunk"):
                 "softmax" if "softmax" in name else "other")
         us, n = kinds.get(kind, (0.0, 0))
         kinds[kind] = (us + e.self_device_time_total, n + e.count)
+    n_launch = sum(e.count for e in kernels)
+    scan_text = (f"the {kernel} scans {scan_us:.1f} us x"
+                 f"{sum(e.count for e in scans)} = "
+                 f"{100 * scan_us / busy:.2f} % of device time; "
+                 if kernel else "")
     print(f"[{tag}] profile of {label}: wall {wall_us:.1f} us under the "
           f"profiler, device busy {busy:.1f} us ({100 * busy / wall_us:.2f} "
-          f"%), {sum(e.count for e in kernels)} kernel launches; the "
-          f"{kernel} scans {scan_us:.1f} us x"
-          f"{sum(e.count for e in scans)} = {100 * scan_us / busy:.2f} % of "
-          "device time; top: " + "; ".join(
+          f"%), {n_launch} kernel launches; {scan_text}top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total:.1f} us x{e.count}"
               for e in top))
     print(f"[{tag}] profile of {label} by kind: " + "; ".join(
         f"{k} {us:.1f} us x{n} ({100 * us / busy:.2f} %)" for k, (us, n) in
         sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    return {"wall_us": wall_us, "busy_us": busy, "launches": n_launch}
 
 
 def phase_rwkv6_serve(torch, ops, serve, tree_leaves):
@@ -3130,6 +3151,224 @@ def _resume_case(torch, api, runtime, paper, tree_leaves, checkpoint, train,
                                  "bitwise on the CPU")
 
 
+# phase 11: the last eight architectures.  Each served at full
+# width through ``serve.load`` / ``make_batch`` / ``generate`` at the depth
+# listed here (None: the config's own) with the parameter count the
+# reference's ``jax.eval_shape`` of its ``init`` gives at that depth.  The
+# two MoE models are cut to the depth whose draw fits the card: one expert
+# stack is drawn in f32 and cast at once (``serve.load``), so the draw
+# peaks near the bf16 model plus one f32 stack and its bf16 copy (grok-1 at
+# 4 layers ~67 GB, arctic at 1 ~46 GB; arctic at 2 would need ~89 GB).
+DECODER_SERVE = dict(batch=4, prompt=512, gen=32)
+DECODER_ARCHS = {
+    "tinyllama-1.1b": (None, 1_100_048_384),
+    "chatglm3-6b": (None, 6_243_584_000),
+    "h2o-danube-3-4b": (None, 3_961_839_360),
+    "minicpm3-4b": (None, 4_073_875_968),
+    "paligemma-3b": (None, 2_511_022_080),
+    "seamless-m4t-medium": (None, 615_849_984),
+    "grok-1-314b": (4, 20_485_232_640),
+    "arctic-480b": (1, 13_840_569_344),
+}
+# the serve runs whose one decode step is profiled (host-bound figures)
+DECODER_PROFILED = ("minicpm3-4b", "grok-1-314b")
+# decode after prefill against forward in f32, the reference oracle's
+# settings (window None, capacity_factor 4.0) and tolerance: the smoke
+# configs (prefill 48 positions, 16 decode steps), then at full width a
+# few layers (seamless: encoder and decoder) over 512 + 8
+DECODER_SMOKE = dict(batch=4, prompt=48, extra=16, tol=2e-3)
+DECODER_CONSIST = {"minicpm3-4b": 4, "chatglm3-6b": 4, "paligemma-3b": 4,
+                   "seamless-m4t-medium": 4, "grok-1-314b": 1}
+DECODER_CONSIST_LEN = dict(prompt=512, extra=8, tol=2e-3)
+# the danube smoke config (window 32) with its window: prefill 40, decode 8
+DANUBE_WINDOW = dict(prompt=40, extra=8, tol=2e-3)
+
+
+def _decode_against_forward(torch, serve, bundle, params, batch, p, total,
+                            tol):
+    """Prefill the first ``p`` positions of ``batch`` (``total`` in all; a
+    VLM's patches among them, an encoder-decoder's frames beside), decode
+    the rest one token at a time, and hold each step's logits against
+    ``forward`` over all of them.  Returns (max |diff| per step, ok,
+    max |logits|)."""
+    n_pre = batch["patches"].shape[1] if "patches" in batch else 0
+    with torch.inference_mode():
+        full = bundle.forward(params, batch)
+        pre = dict(batch, tokens=batch["tokens"][:, :p - n_pre])
+        _, cache = bundle.prefill(params, pre)
+        cache = serve.grow_cache(cache, total - p)
+        diffs, ok = [], True
+        for i in range(p, total):
+            tok = batch["tokens"][:, i - n_pre:i - n_pre + 1]
+            logits, cache = bundle.decode_step(params, cache, tok, i)
+            diffs.append(float((logits - full[:, i]).abs().max()))
+            ok = ok and torch.allclose(logits, full[:, i], rtol=tol,
+                                       atol=tol)
+        top = float(full.abs().max())
+    return diffs, ok, top
+
+
+def _oracle_bundle(cfg, models):
+    """The bundle of ``cfg`` with the reference oracle's settings: no
+    window, capacity factor 4 (no token dropped in prefill or decode)."""
+    return models.build_model(dataclasses.replace(
+        cfg, window=None, capacity_factor=4.0), device=DEVICE)
+
+
+def phase_decoder_smoke(torch, ops, serve, models):
+    """The eight smoke configs on the card in f32, the reference oracle's
+    settings: decode after prefill against ``forward``; then the danube
+    smoke config with its 32 window, decoding past it."""
+    c = DECODER_SMOKE
+    p, total = c["prompt"], c["prompt"] + c["extra"]
+    bad = []
+    ops.reset_launches()
+    for arch in DECODER_ARCHS:
+        cfg, _, params = serve.load(arch, smoke=True, device=DEVICE, seed=8,
+                                    dtype=torch.float32)
+        bundle = _oracle_bundle(cfg, models)
+        batch = serve.make_batch(cfg, c["batch"], total, DEVICE, seed=9)
+        diffs, ok, top = _decode_against_forward(torch, serve, bundle,
+                                                 params, batch, p, total,
+                                                 c["tol"])
+        print(f"[decoder] smoke {cfg.name} f32 (window None, capacity 4): "
+              f"prefill {p} then decode {p + 1}..{total} against forward: "
+              f"max |diff| {max(diffs)} (tolerance {c['tol']}), |logits| up "
+              f"to {top}")
+        if not ok:
+            bad.append((cfg.name, diffs))
+    c = DANUBE_WINDOW
+    p, total = c["prompt"], c["prompt"] + c["extra"]
+    cfg, bundle, params = serve.load("h2o-danube-3-4b", smoke=True,
+                                     device=DEVICE, seed=8,
+                                     dtype=torch.float32)
+    batch = serve.make_batch(cfg, DECODER_SMOKE["batch"], total, DEVICE,
+                             seed=10)
+    diffs, ok, top = _decode_against_forward(torch, serve, bundle, params,
+                                             batch, p, total, c["tol"])
+    print(f"[decoder] smoke {cfg.name} f32 window {cfg.window}: prefill {p} "
+          f"then decode {p + 1}..{total} (past the window) against the "
+          f"windowed forward: max |diff| {max(diffs)} (tolerance "
+          f"{c['tol']}), |logits| up to {top}")
+    if not ok:
+        bad.append((cfg.name + " window", diffs))
+    expect_launches("decoder smoke", dict(ops.LAUNCHES))
+    if bad:
+        raise AssertionError(f"decoder smoke: decode differs from forward: "
+                             f"{bad}")
+
+
+def phase_decoder_serve(torch, ops, serve, tree_leaves):
+    """The eight architectures at full width (the MoE models at reduced
+    depth), random parameters drawn on the card: serve batch 4 x prompt
+    512 and 32 greedy decode steps each through ``launch.serve``, one
+    model at a time.  Returns {arch: figures}."""
+    sc = DECODER_SERVE
+    b, s, g = sc["batch"], sc["prompt"], sc["gen"]
+    rates = {}
+    for arch, (depth, want) in DECODER_ARCHS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, bundle, params = serve.load(arch, device=DEVICE, seed=0,
+                                         n_layers=depth)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        n_bytes = sum(t.nbytes for t in tree_leaves(params))
+        layers = (f"{cfg.n_enc_layers} + {cfg.n_layers}"
+                  if cfg.family == "encdec" else f"{cfg.n_layers}")
+        print(f"[decoder] {cfg.name} ({cfg.family}{', MLA' if cfg.mla else ''}"
+              f"): {layers} layers{' (cut)' if depth else ''}, d "
+              f"{cfg.d_model}, vocab {cfg.vocab}: {n_params} parameters "
+              f"(expected {want}) drawn on {DEVICE} in {load_s:.2f} s, "
+              f"{n_bytes} B resident, peak {load_peak} B while drawing")
+        if n_params != want:
+            raise AssertionError(f"{arch} has {n_params} parameters, "
+                                 f"expected {want}")
+        torch.cuda.empty_cache()
+        batch = serve.make_batch(cfg, b, s, DEVICE, seed=1)
+        serve.generate(bundle, params, batch, 2)       # warm: library set-up
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        out = serve.generate(bundle, params, batch, g)
+        launches = dict(ops.LAUNCHES)
+        ids = out["ids"]
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (out["prefill_logits"], out["logits"]))
+        in_range = bool(((ids >= 0) & (ids < cfg.vocab)).all())
+        peak = torch.cuda.max_memory_allocated()
+        fig = {"params": n_params, "resident_bytes": n_bytes,
+               "load_peak_bytes": load_peak, "peak_bytes": peak,
+               "prefill_tok_s": b * s / out["prefill_s"],
+               "decode_tok_s": b * g / out["decode_s"],
+               "decode_ms_step": 1e3 * out["decode_s"] / g}
+        print(f"[decoder] {cfg.name} serve batch={b} prompt={s} gen={g}: "
+              f"prefill {out['prefill_s']:.4f} s = "
+              f"{fig['prefill_tok_s']:.1f} tok/s, decode "
+              f"{out['decode_s']:.4f} s = {fig['decode_tok_s']:.1f} tok/s "
+              f"({fig['decode_ms_step']:.3f} ms/step), ids "
+              f"{tuple(ids.shape)} in range {in_range}, logits finite "
+              f"{finite}, peak memory {peak} B, sample ids "
+              f"{ids[0, :8].tolist()}")
+        expect_launches(f"{arch} serve", launches)
+        if not (finite and in_range and tuple(ids.shape) == (b, g + 1)):
+            raise AssertionError(f"{arch} serve: finite {finite}, ids in "
+                                 f"range {in_range}, ids {tuple(ids.shape)}")
+        if arch in DECODER_PROFILED:
+            with torch.inference_mode():
+                # one more step at the grown cache's last slot (in place)
+                prof = _profile_call(
+                    torch, f"one {cfg.name} decode step",
+                    lambda: bundle.decode_step(params, out["cache"],
+                                               ids[:, -1:], s + g - 1),
+                    "decoder", None)
+                prof_pre = _profile_call(
+                    torch, f"one {cfg.name} prefill",
+                    lambda: bundle.prefill(params, batch), "decoder", None)
+            fig["decode_profile"], fig["prefill_profile"] = prof, prof_pre
+        rates[arch] = fig
+        del params, bundle, out
+    torch.cuda.empty_cache()
+    return rates
+
+
+def phase_decoder_consistency(torch, ops, serve, models):
+    """At full width in f32, a few layers, the reference oracle's
+    settings: decode after a 512-position prefill against ``forward``."""
+    c = DECODER_CONSIST_LEN
+    p, total = c["prompt"], c["prompt"] + c["extra"]
+    bad = []
+    ops.reset_launches()
+    for arch, depth in DECODER_CONSIST.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, _, params = serve.load(arch, device=DEVICE, seed=2,
+                                    dtype=torch.float32, n_layers=depth,
+                                    n_enc_layers=depth)
+        bundle = _oracle_bundle(cfg, models)
+        batch = serve.make_batch(cfg, DECODER_SERVE["batch"], total, DEVICE,
+                                 seed=3)
+        diffs, ok, top = _decode_against_forward(torch, serve, bundle,
+                                                 params, batch, p, total,
+                                                 c["tol"])
+        print(f"[decoder] consistency {cfg.name} f32 at {depth} layers "
+              f"(window None, capacity 4): prefill {p} then decode "
+              f"{p + 1}..{total} against forward: max |diff| first step "
+              f"{diffs[0]}, all steps {max(diffs)} (tolerance {c['tol']}); "
+              f"|logits| up to {top}; peak memory "
+              f"{torch.cuda.max_memory_allocated()} B")
+        if not ok:
+            bad.append((arch, diffs))
+        del params, bundle
+    torch.cuda.empty_cache()
+    expect_launches("decoder consistency", dict(ops.LAUNCHES))
+    if bad:
+        raise AssertionError(f"decoder consistency: decode differs from "
+                             f"forward: {bad}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3141,6 +3380,7 @@ def main() -> int:
     from repro_torch import api, data
     from repro_torch.core import average_params, clipping, fleet
     from repro_torch.kernels import build, flatten, ops, ref, smooth_clip
+    from repro_torch import models
     from repro_torch.launch import checkpoint, runtime, serve, train
     from repro_torch.models import paper
     from repro_torch.tree import tree_leaves
@@ -3226,6 +3466,14 @@ def main() -> int:
     phase_checkpoint(torch, api, data, runtime, paper, tree_leaves,
                      checkpoint, train)
     print(f"[fleet] phase took {time.perf_counter() - t10:.1f} s")
+
+    # phase 11: the last eight architectures served, and their consistency
+    t11 = time.perf_counter()
+    phase_decoder_smoke(torch, ops, serve, models)
+    decoder_rates = phase_decoder_serve(torch, ops, serve, tree_leaves)
+    phase_decoder_consistency(torch, ops, serve, models)
+    print(f"[decoder] phase took {time.perf_counter() - t11:.1f} s")
+    print("[decoder] figures " + json.dumps(decoder_rates))
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16

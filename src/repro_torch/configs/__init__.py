@@ -2,9 +2,9 @@
 paper's experiment protocols (``paper_logreg``, ``paper_mnist``).
 
 ``get_config("rwkv6-7b")`` / ``get_smoke("rwkv6-7b")``; arch ids use hyphens
-(CLI style), module files use underscores.  The port has the rwkv6-7b and
-zamba2-7b configs; the other arches of the reference are listed and raise
-until their family is ported (ROADMAP queue 1 item 13).
+(CLI style), module files use underscores.  All ten architectures of the
+reference, each ``CONFIG`` and ``SMOKE`` field-equal to its own (the
+dtype a ``torch.dtype``).
 """
 from importlib import import_module
 
@@ -16,17 +16,21 @@ ARCHS = [
 
 _MODULES = {
     "rwkv6-7b": "rwkv6_7b",
+    "minicpm3-4b": "minicpm3_4b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "chatglm3-6b": "chatglm3_6b",
+    "grok-1-314b": "grok_1_314b",
+    "arctic-480b": "arctic_480b",
+    "paligemma-3b": "paligemma_3b",
     "zamba2-7b": "zamba2_7b",
 }
 
 
 def _module(arch: str):
-    if arch not in ARCHS:
-        raise ValueError(f"unknown arch {arch!r}; have {ARCHS}")
     if arch not in _MODULES:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP queue 1 item 13); the port "
-            f"has {sorted(_MODULES)}")
+        raise ValueError(f"unknown arch {arch!r}; have {ARCHS}")
     return import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

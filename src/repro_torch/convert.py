@@ -14,14 +14,19 @@ dicts of tensors, and back.
   ``base`` beside trees).
 
 * :func:`lm_params_to_torch` -- the reference's LM parameters (a tree of
-  arrays, layer leaves stacked ``(n_layers, ...)``: ``layers`` for rwkv6,
-  ``mamba`` beside the unstacked ``shared_attn`` for the hybrid) -> the
-  port's.
+  arrays, layer leaves stacked ``(n_layers, ...)``: ``layers`` for rwkv6
+  and the decoder families (their MoE expert stacks ``(n_layers, E, ...)``,
+  a VLM's unstacked ``projector`` beside), ``mamba`` beside the unstacked
+  ``shared_attn`` for the hybrid, ``enc_layers`` and ``dec_layers`` (each
+  over its own depth) beside the ``adapter`` for the encoder-decoder) ->
+  the port's.
 * :func:`cache_to_torch` / :func:`cache_to_numpy` -- a serving cache both
   ways: rwkv6's recurrent state (``S``, ``shift_t``, ``shift_c``, each
-  stacked over layers) or the hybrid's ``{"mamba": {"h", "conv"}, "attn":
-  {"k", "v"}}`` (mamba leaves stacked over layers, attention over groups;
-  a windowed attention cache adds ``positions``).
+  stacked over layers); the hybrid's ``{"mamba": {"h", "conv"}, "attn":
+  {"k", "v"}}`` (mamba leaves stacked over layers, attention over groups);
+  a decoder's ``{"k", "v"}`` or MLA's ``{"ckv", "krope"}`` (stacked over
+  layers); the encoder-decoder's ``{"self": {"k", "v"}, "cross": {"k",
+  "v"}}``.  A windowed attention cache adds ``positions``.
 
 bf16: numpy has no bfloat16 of its own.  ``np.asarray`` of a JAX bf16
 array is an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
@@ -143,43 +148,64 @@ def state_to_numpy(state):
     return cls(**{f: field(f) for f in cls._fields})
 
 
-_CACHE_KEYS = ("S", "shift_c", "shift_t")
-_HYBRID_KEYS = {"mamba": (("conv", "h"),),
-                "attn": (("k", "v"), ("k", "positions", "v"))}
+_RWKV_KEYS = ("S", "shift_c", "shift_t")
+_ATTN_KEYS = (("k", "v"), ("k", "positions", "v"))
+_DECODER_KEYS = _ATTN_KEYS + (("ckv", "krope"),)
+# the nested caches: each part's allowed key sets
+_NESTED_KEYS = {"hybrid": {"mamba": (("conv", "h"),), "attn": _ATTN_KEYS},
+                "encdec": {"self": _ATTN_KEYS, "cross": (("k", "v"),)}}
+# the stacked subtrees of each layout of LM parameters, and the depth
+# argument of :func:`lm_params_to_torch` each is stacked over
+_STACKS = ((("dec_layers", "n_layers"), ("enc_layers", "n_enc_layers")),
+           (("layers", "n_layers"),), (("mamba", "n_layers"),))
 
 
-def lm_params_to_torch(params, n_layers: int, device=None):
+def lm_params_to_torch(params, n_layers: int, device=None,
+                       n_enc_layers: int = None):
     """The reference's LM parameters (``bundle.init(key)[0]``: ``embed``,
     ``final_norm``, optionally ``head``, and the stacked layers: ``layers``
-    (rwkv6) or ``mamba`` beside an unstacked ``shared_attn`` (hybrid), every
-    stacked leaf over ``n_layers``) -> the same tree of tensors on
-    ``device`` (cuda unless given)."""
-    stacked = "layers" if "layers" in params else "mamba"
-    missing = {"embed", "final_norm", stacked} - set(params)
+    (rwkv6, dense, moe, vlm; the vlm's ``projector`` beside), ``mamba``
+    beside an unstacked ``shared_attn`` (hybrid), or ``enc_layers`` and
+    ``dec_layers`` beside the ``adapter`` (encdec); ``dec_layers`` and the
+    others stacked over ``n_layers``, ``enc_layers`` over ``n_enc_layers``
+    (``n_layers`` unless given)) -> the same tree of tensors on ``device``
+    (cuda unless given)."""
+    depth = {"n_layers": n_layers,
+             "n_enc_layers": n_layers if n_enc_layers is None
+             else n_enc_layers}
+    stacks = next((st for st in _STACKS if st[0][0] in params), _STACKS[1])
+    missing = ({"embed", "final_norm"} | {k for k, _ in stacks}) - set(params)
     if missing:
         raise ValueError(f"not an LM parameter tree: no {sorted(missing)}")
     out = to_torch(params, device)
-    bad = [tuple(t.shape) for t in tree_leaves(out[stacked])
-           if t.dim() == 0 or t.shape[0] != n_layers]
-    if bad:
-        raise ValueError(f"layer leaves must be stacked over {n_layers} "
-                         f"layers; got leaves of shapes {bad}")
+    for key, arg in stacks:
+        bad = [tuple(t.shape) for t in tree_leaves(out[key])
+               if t.dim() == 0 or t.shape[0] != depth[arg]]
+        if bad:
+            raise ValueError(f"{key} leaves must be stacked over "
+                             f"{depth[arg]} layers; got leaves of shapes "
+                             f"{bad}")
     return out
 
 
 def _check_cache(cache):
-    if sorted(cache) == list(_CACHE_KEYS):
+    keys = tuple(sorted(cache))
+    if keys == _RWKV_KEYS or keys in _DECODER_KEYS:
         return
-    if (sorted(cache) == sorted(_HYBRID_KEYS) and all(
-            tuple(sorted(cache[k])) in keys
-            for k, keys in _HYBRID_KEYS.items())):
-        return
-    raise ValueError(f"an rwkv6 cache has the keys {_CACHE_KEYS}, a hybrid "
-                     f"one {_HYBRID_KEYS}; got the keys {sorted(cache)}")
+    for parts in _NESTED_KEYS.values():
+        if keys == tuple(sorted(parts)) and all(
+                isinstance(cache[k], dict)
+                and tuple(sorted(cache[k])) in allowed
+                for k, allowed in parts.items()):
+            return
+    raise ValueError(f"a serving cache has the keys {_RWKV_KEYS} (rwkv6), "
+                     f"one of {_DECODER_KEYS} (a decoder), or the parts "
+                     f"{_NESTED_KEYS} (hybrid, encdec); got the keys "
+                     f"{sorted(cache)}")
 
 
 def cache_to_torch(cache, device=None):
-    """The reference's serving cache (rwkv6 or hybrid) -> the port's, on
+    """The reference's serving cache (any family's) -> the port's, on
     ``device`` (cuda unless given), in the reference's dtypes (bf16
     attention caches as bf16)."""
     _check_cache(cache)

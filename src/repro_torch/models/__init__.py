@@ -1,5 +1,6 @@
-"""Model zoo: the rwkv6 and hybrid (zamba2) families (``blocks``,
-``model``) and the paper's Section-5.2 MLP (``paper``)."""
+"""Model zoo: every family of the reference -- the dense, MLA, MoE and VLM
+decoders, rwkv6, the hybrid (zamba2) and the encoder-decoder (``blocks``,
+``model``) -- and the paper's Section-5.2 MLP (``paper``)."""
 from .blocks import ModelConfig
 from .model import ModelBundle, build_model
 from .paper import mlp_init, mlp_loss

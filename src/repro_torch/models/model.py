@@ -1,26 +1,35 @@
-"""Model assembly and the ModelBundle API (``src/repro/models/model.py``);
-the port builds the ``rwkv6`` and ``hybrid`` (zamba2) families.
+"""Model assembly and the ModelBundle API (``src/repro/models/model.py``),
+for every family: the dense / MoE / VLM decoder, rwkv6, the hybrid
+(zamba2) and the encoder-decoder (seamless).
 
 A ModelBundle packages what a launcher needs:
 
-    init(generator)            -> params   (drawn on the generator's device)
+    init(generator, leaf=None) -> params   (drawn on the generator's device)
     forward(params, batch)     -> logits   (B, S, V)
     loss(params, batch)        -> raises: LM training is a later slice
     prefill(params, batch)     -> (last-token logits (B, 1, V), cache)
-    init_cache(batch, ...)     -> cache (recurrent state, attention caches)
+    init_cache(batch, ...)     -> an empty cache of the family's format
     decode_step(params, cache, tokens, pos) -> (logits (B, V), cache)
 
-``decode_step`` uses up its ``cache`` argument: the hybrid's attention
-caches are written in place (one new slot a step, not a copy of the whole
-cache) and the same tensors come back in the returned cache, so keep only
-the returned one.  The reference returns an updated copy instead.
+``decode_step`` uses up its ``cache`` argument: the attention caches (and
+MLA's latent) are written in place (one new slot a step, not a copy of the
+whole cache) and the same tensors come back in the returned cache, so keep
+only the returned one.  The reference returns an updated copy instead.
 
 Parameters are nested dicts of tensors whose layer leaves are stacked
 ``(n_layers, ...)``, as in the reference; the layers run in a Python loop
-over that axis.  ``batch`` is ``{"tokens": (B, S) int64}``.  The
-reference's sharding specs are dropped (one card), so ``init`` returns the
-parameters alone.  Call the bundle's functions under
-``torch.inference_mode()``: the chunked scans have no backward yet.
+over that axis.  ``init``'s ``leaf`` is the hook of a
+:class:`repro_torch.nn.module.Hooked` draw.  Batches, as in the reference:
+
+    dense / moe / rwkv6 / hybrid : {"tokens": (B, S)}
+    vlm    : {"tokens": (B, S - n_prefix), "patches": (B, n_prefix, F)}
+    encdec : {"frames": (B, S_enc, F), "tokens": (B, S_dec)}
+
+The modality frontends are stubs, as in the reference: ``patches`` and
+``frames`` arrive as precomputed embeddings.  The reference's sharding
+specs are dropped (one card), so ``init`` returns the parameters alone.
+Call the bundle's functions under ``torch.inference_mode()``: the chunked
+scans have no backward yet.
 """
 
 from __future__ import annotations
@@ -31,7 +40,8 @@ from typing import Callable
 import torch
 
 from ..nn import ssm as S
-from ..nn.module import dense, embedding, init_dense, init_embedding
+from ..nn.module import (Hooked, dense, embedding, init_dense,
+                         init_embedding)
 from ..tree import tree_map
 from . import blocks as B
 from .blocks import ModelConfig
@@ -77,7 +87,110 @@ def _layer(layers, i: int):
 
 
 def _stack(states):
-    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+    """A list of per-layer dicts (or dicts of dicts) stacked leafwise."""
+    return {k: (_stack([st[k] for st in states])
+                if isinstance(states[0][k], dict) else
+                torch.stack([st[k] for st in states])) for k in states[0]}
+
+
+def _at(tree, i: int):
+    """Layer ``i``'s views of a stacked cache (writes reach the stack)."""
+    return {k: _at(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _repeat(one, n: int):
+    """A one-layer cache repeated into a stack of ``n``."""
+    return {k: _repeat(v, n) if isinstance(v, dict) else
+            v.expand((n,) + v.shape).contiguous() for k, v in one.items()}
+
+
+def _no_loss(family: str):
+    def loss(params, batch):
+        raise NotImplementedError(
+            "the LM loss and training are not ported yet (ROADMAP queue 1 "
+            f"item 13); the port serves the {family} family: prefill and "
+            "decode")
+    return loss
+
+
+def _cache_dev(default, device):
+    return default if device is None else torch.device(device)
+
+
+# ===========================================================================
+# dense / moe decoder (also the vlm text stack)
+# ===========================================================================
+
+def _build_decoder(cfg: ModelConfig, cache_device) -> ModelBundle:
+    _, norm = B._norm_fns(cfg)
+    is_vlm = cfg.family == "vlm"
+    mode = "prefix" if is_vlm else "causal"
+
+    def init(generator: torch.Generator):
+        p = _init_common(cfg, generator)
+        p["layers"] = B.init_decoder_layer(generator, cfg,
+                                           lead=(cfg.n_layers,))
+        if is_vlm:
+            p["projector"] = init_dense(generator, cfg.frontend_dim,
+                                        cfg.d_model)
+        return p
+
+    def _embed_inputs(params, batch):
+        """The input embeddings (the VLM's projected patches first) and
+        the prefix length."""
+        x = embedding(params["embed"], batch["tokens"], cfg.dtype)
+        if not is_vlm:
+            return x, 0
+        patches = dense(params["projector"], batch["patches"].to(cfg.dtype))
+        return torch.cat([patches, x], dim=1), cfg.n_prefix
+
+    def _run_layers(params, x, prefix_len, collect, window):
+        """Returns (x, the stacked caches or None, the summed MoE loss)."""
+        pos = _positions(*x.shape[:2], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        caches = []
+        for i in range(cfg.n_layers):
+            x, cache, a = B.decoder_layer_seq(
+                _layer(params["layers"], i), cfg, x, pos, mode, prefix_len,
+                collect_cache=collect, cache_dtype=cfg.dtype, window=window)
+            aux = aux + a
+            caches.append(cache)
+        return x, (_stack(caches) if collect else None), aux
+
+    def forward(params, batch):
+        x, prefix_len = _embed_inputs(params, batch)
+        x, _, _ = _run_layers(params, x, prefix_len, False, "cfg")
+        return _logits(cfg, params, norm(params["final_norm"], x))
+
+    def prefill(params, batch, window="cfg"):
+        x, prefix_len = _embed_inputs(params, batch)
+        x, caches, _ = _run_layers(params, x, prefix_len, True, window)
+        x = norm(params["final_norm"], x[:, -1:])
+        return _logits(cfg, params, x), caches
+
+    def init_cache(batch, cache_len, dtype=torch.bfloat16, window="cfg",
+                   device=None):
+        """Zero caches ``(n_layers, ...)`` of ``cache_len`` positions: the
+        MLA latent, or GQA keys and values (a ring of the window's size
+        where the window is shorter)."""
+        one = B.init_decoder_cache(cfg, batch, cache_len, dtype, window,
+                                   _cache_dev(cache_device, device))
+        return _repeat(one, cfg.n_layers)
+
+    def decode_step(params, cache, tokens, pos, window="cfg"):
+        """Uses up ``cache``: its tensors are written in place and come
+        back as the returned cache."""
+        x = embedding(params["embed"], tokens, cfg.dtype)   # (B,1,D)
+        for i in range(cfg.n_layers):
+            x, _ = B.decoder_layer_decode(_layer(params["layers"], i), cfg,
+                                          x, _at(cache, i), pos,
+                                          window=window)
+        x = norm(params["final_norm"], x)
+        return _logits(cfg, params, x)[:, 0], cache
+
+    return ModelBundle(cfg, init, forward, _no_loss(cfg.family), prefill,
+                       init_cache, decode_step)
 
 
 # ===========================================================================
@@ -96,15 +209,14 @@ def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
         new_states = []
         for i in range(cfg.n_layers):
             x, st = apply(_layer(params["layers"], i), cfg, x,
-                          {k: v[i] for k, v in states.items()})
+                          _at(states, i))
             new_states.append(st)
         return x, _stack(new_states)
 
     def init_cache(batch, device=None):
-        dev = cache_device if device is None else torch.device(device)
-        one = S.init_rwkv6_state(batch, cfg.rwkv_cfg(), device=dev)
-        return {k: v.expand((cfg.n_layers,) + v.shape).contiguous()
-                for k, v in one.items()}
+        one = S.init_rwkv6_state(batch, cfg.rwkv_cfg(),
+                                 device=_cache_dev(cache_device, device))
+        return _repeat(one, cfg.n_layers)
 
     def forward(params, batch):
         tokens = batch["tokens"]
@@ -113,11 +225,6 @@ def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
         x, _ = _run(params, x, states, B.rwkv_layer_seq)
         x = norm(params["final_norm"], x)
         return _logits(cfg, params, x)
-
-    def loss(params, batch):
-        raise NotImplementedError(
-            "the LM loss and training are not ported yet (ROADMAP queue 1 "
-            "item 13); the port serves rwkv6: prefill and decode")
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -134,8 +241,8 @@ def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
         x = norm(params["final_norm"], x)
         return _logits(cfg, params, x)[:, 0], new_states
 
-    return ModelBundle(cfg, init, forward, loss, prefill, init_cache,
-                       decode_step)
+    return ModelBundle(cfg, init, forward, _no_loss(cfg.family), prefill,
+                       init_cache, decode_step)
 
 
 # ===========================================================================
@@ -157,7 +264,7 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
         p["shared_attn"] = B.init_decoder_layer(generator, acfg)
         return p
 
-    def _run(params, x, mamba_states, positions, attn_ctx):
+    def _run(params, x, mamba_states, positions, attn_ctx, window="cfg"):
         """attn_ctx: None (fresh forward), "collect" (prefill: gather the
         shared block's caches), or the stacked caches (decode: one token;
         each group's cache is updated in place).  Returns (x, the stacked
@@ -168,38 +275,36 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
         states, caches = [], []
         for i in range(cfg.n_layers):
             x, st = apply(_layer(params["mamba"], i), cfg, x,
-                          {k: v[i] for k, v in mamba_states.items()})
+                          _at(mamba_states, i))
             states.append(st)
             if (i + 1) % g:
                 continue
             if decode:
                 gi = (i + 1) // g - 1
                 x, _ = B.decoder_layer_decode(
-                    shared, acfg, x, {k: v[gi] for k, v in attn_ctx.items()},
-                    positions)
+                    shared, acfg, x, _at(attn_ctx, gi), positions,
+                    window=window)
             else:
                 x, cache, _ = B.decoder_layer_seq(
                     shared, acfg, x, positions,
                     collect_cache=attn_ctx == "collect",
-                    cache_dtype=cfg.dtype)
+                    cache_dtype=cfg.dtype, window=window)
                 caches.append(cache)
         return x, _stack(states), caches
 
     def _mamba_cache(batch, device):
         one = S.init_mamba2_state(batch, cfg.mamba_cfg(), device=device)
-        return {k: v.expand((cfg.n_layers,) + v.shape).contiguous()
-                for k, v in one.items()}
+        return _repeat(one, cfg.n_layers)
 
     def init_cache(batch, cache_len, dtype=torch.bfloat16, window="cfg",
                    device=None):
         """Zero mamba states ``(n_layers, ...)`` and attention caches
         ``(n_groups, ...)`` of ``cache_len`` positions (a ring of the
         window's size where the window is shorter)."""
-        dev = cache_device if device is None else torch.device(device)
+        dev = _cache_dev(cache_device, device)
         one = B.init_decoder_cache(acfg, batch, cache_len, dtype, window, dev)
-        attn = {k: v.expand((n_groups,) + v.shape).contiguous()
-                for k, v in one.items()}
-        return {"mamba": _mamba_cache(batch, dev), "attn": attn}
+        return {"mamba": _mamba_cache(batch, dev),
+                "attn": _repeat(one, n_groups)}
 
     def forward(params, batch):
         tokens = batch["tokens"]
@@ -210,64 +315,152 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
         x = norm(params["final_norm"], x)
         return _logits(cfg, params, x)
 
-    def loss(params, batch):
-        raise NotImplementedError(
-            "the LM loss and training are not ported yet (ROADMAP queue 1 "
-            "item 13); the port serves hybrid models: prefill and decode")
-
-    def prefill(params, batch):
+    def prefill(params, batch, window="cfg"):
         tokens = batch["tokens"]
         x = embedding(params["embed"], tokens, cfg.dtype)
         pos = _positions(*tokens.shape[:2], device=tokens.device)
         x, states, caches = _run(params, x, _mamba_cache(tokens.shape[0],
                                                          tokens.device),
-                                 pos, "collect")
+                                 pos, "collect", window)
         x = norm(params["final_norm"], x[:, -1:])
         return _logits(cfg, params, x), {"mamba": states,
                                          "attn": _stack(caches)}
 
-    def decode_step(params, cache, tokens, pos):
+    def decode_step(params, cache, tokens, pos, window="cfg"):
         """Uses up ``cache``: its attention tensors are written in place and
         come back in the returned cache."""
         x = embedding(params["embed"], tokens, cfg.dtype)
-        x, states, _ = _run(params, x, cache["mamba"], pos, cache["attn"])
+        x, states, _ = _run(params, x, cache["mamba"], pos, cache["attn"],
+                            window)
         x = norm(params["final_norm"], x)
         return _logits(cfg, params, x)[:, 0], {"mamba": states,
                                                "attn": cache["attn"]}
 
-    return ModelBundle(cfg, init, forward, loss, prefill, init_cache,
-                       decode_step)
+    return ModelBundle(cfg, init, forward, _no_loss(cfg.family), prefill,
+                       init_cache, decode_step)
+
+
+# ===========================================================================
+# Encoder-decoder (seamless-m4t): audio frames -> encoder; text decoder with
+# cross-attention.
+# ===========================================================================
+
+def _build_encdec(cfg: ModelConfig, cache_device) -> ModelBundle:
+    _, norm = B._norm_fns(cfg)
+
+    def init(generator: torch.Generator):
+        p = _init_common(cfg, generator)
+        p["adapter"] = init_dense(generator, cfg.frontend_dim, cfg.d_model)
+        p["enc_layers"] = B.init_encoder_layer(generator, cfg,
+                                               lead=(cfg.n_enc_layers,))
+        p["dec_layers"] = B.init_xattn_decoder_layer(generator, cfg,
+                                                     lead=(cfg.n_layers,))
+        return p
+
+    def _encode(params, frames):
+        x = dense(params["adapter"], frames.to(cfg.dtype))
+        pos = _positions(*x.shape[:2], device=x.device)
+        for i in range(cfg.n_enc_layers):
+            x = B.encoder_layer_seq(_layer(params["enc_layers"], i), cfg, x,
+                                    pos)
+        return x
+
+    def _decode_seq(params, tokens, enc_out, collect):
+        x = embedding(params["embed"], tokens, cfg.dtype)
+        pos = _positions(*tokens.shape[:2], device=tokens.device)
+        caches = []
+        for i in range(cfg.n_layers):
+            x, cache = B.xattn_decoder_layer_seq(
+                _layer(params["dec_layers"], i), cfg, x, pos, enc_out,
+                collect_cache=collect, cache_dtype=cfg.dtype)
+            caches.append(cache)
+        return x, (_stack(caches) if collect else None)
+
+    def forward(params, batch):
+        enc_out = _encode(params, batch["frames"])
+        x, _ = _decode_seq(params, batch["tokens"], enc_out, False)
+        return _logits(cfg, params, norm(params["final_norm"], x))
+
+    def prefill(params, batch):
+        enc_out = _encode(params, batch["frames"])
+        x, caches = _decode_seq(params, batch["tokens"], enc_out, True)
+        x = norm(params["final_norm"], x[:, -1:])
+        return _logits(cfg, params, x), caches
+
+    def init_cache(batch, cache_len, dtype=torch.bfloat16, enc_len=None,
+                   device=None):
+        """Zero ``{"self", "cross"}`` caches ``(n_layers, ...)``: the self
+        cache of ``cache_len`` positions, the cross one of ``enc_len``
+        (``cache_len`` unless given)."""
+        one = B.init_xattn_cache(cfg, batch, cache_len, enc_len or cache_len,
+                                 dtype, _cache_dev(cache_device, device))
+        return _repeat(one, cfg.n_layers)
+
+    def decode_step(params, cache, tokens, pos):
+        """Uses up ``cache``: its self-attention tensors are written in
+        place and come back in the returned cache."""
+        x = embedding(params["embed"], tokens, cfg.dtype)
+        for i in range(cfg.n_layers):
+            x, _ = B.xattn_decoder_layer_decode(
+                _layer(params["dec_layers"], i), cfg, x, _at(cache, i), pos)
+        x = norm(params["final_norm"], x)
+        return _logits(cfg, params, x)[:, 0], cache
+
+    return ModelBundle(cfg, init, forward, _no_loss(cfg.family), prefill,
+                       init_cache, decode_step)
 
 
 # ===========================================================================
 
 _BUNDLES = {
+    "dense": _build_decoder,
+    "moe": _build_decoder,
+    "vlm": _build_decoder,
     "rwkv6": _build_rwkv,
     "hybrid": _build_hybrid,
+    "encdec": _build_encdec,
 }
+
+
+def _hooked(init):
+    """``init(generator, leaf=None)``: the family's draw, each leaf through
+    ``leaf`` when given (:class:`repro_torch.nn.module.Hooked`)."""
+    def hooked(generator: torch.Generator, leaf=None):
+        return init(generator if leaf is None else Hooked(generator, leaf))
+    return hooked
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
     """The bundle of ``cfg``; ``device`` (cuda unless given) is where
     ``init_cache`` puts a cache when it is not told otherwise."""
-    if cfg.family not in B.FAMILIES:
-        raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family not in _BUNDLES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP queue 1 "
-            f"item 13); the port builds {sorted(_BUNDLES)}")
+        raise ValueError(f"unknown family {cfg.family!r}")
     device = torch.device("cuda") if device is None else torch.device(device)
-    return _BUNDLES[cfg.family](cfg, device)
+    bundle = _BUNDLES[cfg.family](cfg, device)
+    return dataclasses.replace(bundle, init=_hooked(bundle.init))
 
 
 # per family, the leaves the reference reads only through
 # ``.astype(cfg.dtype)``, by their path: every dense ``w`` (and ``b``:
-# ``dense`` casts both); rwkv6's token-shift lerps ``mu`` / ``mu_c``; the
-# mamba conv's ``conv_w`` / ``conv_b`` (``_causal_conv`` casts both to the
-# activations' dtype).  The embedding table (``embedding`` casts the
-# gathered rows, ``_logits`` the table) and an untied head are cast for
-# every family.
+# ``dense`` casts both) but the MoE router's, which reads f32 activations;
+# the expert stacks (``.astype(buf.dtype)``); rwkv6's token-shift lerps
+# ``mu`` / ``mu_c``; the mamba conv's ``conv_w`` / ``conv_b``
+# (``_causal_conv`` casts both to the activations' dtype).  The embedding
+# table (``embedding`` casts the gathered rows, ``_logits`` the table) and
+# an untied head are cast for every family.
+_GQA = ("wq", "wk", "wv", "wo")
+_MLA = ("wdq", "wuq", "wdkv", "wuk", "wuv", "wo")
+_FFN = ("w_in", "w_gate", "w_out", "dense_mlp")
+_DECODER = {"layers": {"attn": _GQA + _MLA, "ffn": _FFN},
+            "projector": ("w", "b")}
 _CAST = {
+    "dense": _DECODER,
+    "moe": _DECODER,
+    "vlm": _DECODER,
+    "encdec": {"adapter": ("w", "b"),
+               "enc_layers": {"attn": _GQA, "ffn": _FFN},
+               "dec_layers": {"self_attn": _GQA, "cross_attn": _GQA,
+                              "ffn": _FFN}},
     "rwkv6": {"layers": {"blk": ("wr", "wk", "wv", "wg", "wo", "w_lora_a",
                                  "w_lora_b", "ck", "cr", "cv", "mu",
                                  "mu_c")}},
@@ -281,7 +474,8 @@ def _cast_named(tree, spec, dt):
     out = dict(tree)
     if isinstance(spec, dict):
         for key, sub in spec.items():
-            out[key] = _cast_named(tree[key], sub, dt)
+            if key in tree:
+                out[key] = _cast_named(tree[key], sub, dt)
         return out
     for name in spec:
         if name in out:
@@ -291,14 +485,15 @@ def _cast_named(tree, spec, dt):
 
 def cast_for_serving(cfg: ModelConfig, params):
     """A copy of ``params`` whose read-as-``cfg.dtype`` leaves are stored in
-    ``cfg.dtype`` (:data:`_CAST`: the dense weights, rwkv6's lerps, the
-    mamba conv, the embedding table and an untied head's weight).  Every
-    use of those leaves casts them to ``cfg.dtype`` first, and a cast of a
-    cast is the same cast, so the model's outputs are bitwise those of the
-    f32 parameters; decode then reads half the bytes and skips one cast per
-    use.  The leaves read in f32 (rwkv6's ``w0`` / ``u``, mamba's
-    ``a_log`` / ``dt_bias`` / ``d_skip``, the norms) stay f32.  The result
-    shares the untouched leaves with ``params``.
+    ``cfg.dtype`` (:data:`_CAST`: the dense weights, the expert stacks,
+    rwkv6's lerps, the mamba conv, the embedding table and an untied
+    head's weight).  Every use of those leaves casts them to ``cfg.dtype``
+    first, and a cast of a cast is the same cast, so the model's outputs
+    are bitwise those of the f32 parameters; decode then reads half the
+    bytes and skips one cast per use.  The leaves read in f32 (the MoE
+    router, rwkv6's ``w0`` / ``u``, mamba's ``a_log`` / ``dt_bias`` /
+    ``d_skip``, the norms, MLA's ``q_norm`` / ``kv_norm`` among them) stay
+    f32.  The result shares the untouched leaves with ``params``.
     """
     dt = cfg.dtype
     out = _cast_named(params, _CAST[cfg.family], dt)

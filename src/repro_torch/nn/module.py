@@ -11,26 +11,48 @@ reference's parameters across with :mod:`repro_torch.convert`.
 
 The reference's sharding specs (``Px``, ``P``) are dropped: the port runs
 on one card.
+
+An init given a :class:`Hooked` generator in place of a
+``torch.Generator`` routes every draw of :func:`param` through ``hook(draw,
+shape, dtype)``: ``draw()`` makes the leaf as :func:`param` would, and the
+hook returns what stands in its place (a copy in another dtype, or a meta
+tensor when only the tree's shapes are wanted).  ``launch.serve.load``
+casts each leaf for serving as soon as it is drawn, so that a model's
+whole f32 parameters never exist at once.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-__all__ = ["param", "init_dense", "dense", "init_embedding", "embedding",
-           "init_rmsnorm", "rmsnorm", "init_layernorm", "layernorm",
+__all__ = ["Hooked", "param", "init_dense", "dense", "init_embedding",
+           "embedding", "init_rmsnorm", "rmsnorm", "init_layernorm", "layernorm",
            "rope_freqs", "apply_rope"]
 
 _F32 = torch.float32
 
 
-def param(gen: torch.Generator, shape: Sequence[int], scale: float = 1.0,
-          dtype=_F32, mode: str = "normal") -> torch.Tensor:
+class Hooked(NamedTuple):
+    """A generator whose :func:`param` draws go through ``hook`` (the
+    module docstring says how)."""
+    generator: torch.Generator
+    hook: Callable
+
+
+def param(gen, shape: Sequence[int], scale: float = 1.0, dtype=_F32,
+          mode: str = "normal") -> torch.Tensor:
     """``scale * N(0, 1)``, ``scale * U(-1, 1)``, zeros or ones, drawn on
-    ``gen``'s device."""
+    the generator's device (a :class:`Hooked` one through its hook)."""
     shape = tuple(shape)
+    if isinstance(gen, Hooked):
+        return gen.hook(lambda: _draw(gen.generator, shape, scale, dtype,
+                                      mode), shape, dtype)
+    return _draw(gen, shape, scale, dtype, mode)
+
+
+def _draw(gen, shape, scale, dtype, mode):
     dev = gen.device
     if mode == "normal":
         return torch.randn(shape, generator=gen, dtype=dtype,

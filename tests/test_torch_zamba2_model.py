@@ -369,11 +369,21 @@ def test_configs_are_the_reference_values():
 
 
 def test_moe_and_mla_decoder_layers_raise_naming_the_roadmap():
+    """The decoder layer's MLA and MoE branches, which raised until the
+    decoder slice, now build; the hybrid's shared block stays GQA + MLP
+    whatever the config says; the bundle's loss still raises naming the
+    roadmap."""
     cfg = get_smoke(ARCH)
     gen = torch.Generator().manual_seed(0)
-    for over in (dict(mla=True), dict(n_experts=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TB.init_decoder_layer(gen, dataclasses.replace(cfg, **over))
+    mla = TB.init_decoder_layer(gen, dataclasses.replace(cfg, mla=True))
+    assert sorted(mla["attn"]) == ["kv_norm", "q_norm", "wdkv", "wdq", "wo",
+                                   "wuk", "wuq", "wuv"]
+    moe = TB.init_decoder_layer(gen, dataclasses.replace(cfg, n_experts=4))
+    assert tuple(moe["ffn"]["w_in"].shape) == (4, 128, 256)
+    shared = build_model(dataclasses.replace(cfg, mla=True, n_experts=4),
+                         device="cpu").init(gen)["shared_attn"]
+    assert sorted(shared["attn"]) == ["wk", "wo", "wq", "wv"]
+    assert sorted(shared["ffn"]) == ["w_gate", "w_in", "w_out"]
     bundle = build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bundle.loss({}, {})
