@@ -162,6 +162,32 @@ of the ``repro`` package.  Phases, each printing its own lines:
    paligemma at 4, seamless at 4 + 4, grok-1 at 1) decode after a
    512-position prefill against ``forward`` at 2e-3.
 
+12. LM training (``[lm-train]`` lines): tinyllama-1.1b at its published
+   width, 2 of its 22 layers (219,162,624 parameters an agent), 4 agents
+   on a ring, PORTER-GC with ``top_k`` 5 %, tau 1, eta 3e-2, batch 4 x 64
+   tokens, bf16 EF planes (an f32 round does not fit in 80 GB), through
+   ``launch.steps.build_train_step``: 20 rounds in chunks of 10 after a
+   warm chunk, each round's old state donated (ms a round, one
+   ``ef_track``, ``ef_step`` and ``clip`` a round and five epilogue
+   roundings, the peak memory), one round with each of those
+   kernels held bitwise against its plain version on the round's own
+   planes (4 rows x 26,754 tiles; the clip on the cooperative route), a
+   profiled window (the device's busy share), one round on the kernel
+   backend against the ref backend (top_k 1.0, x within 1e-6); the three
+   kernels timed at that plane beside their plain versions and bounds (the
+   ef kernels in f32 and with the bf16 epilogue);
+   ``build_train_step``'s default ``block_top_k`` for 2 rounds
+   (``block_topk`` bitwise on every leaf of a round, timed on the
+   embedding leaf); every architecture's smoke config trained for 5
+   rounds by ``launch.train.main`` (no scan kernel launched: the loss runs
+   the scans' plain chunked forms), its f32 loss and gradient on the card
+   within 1e-4 of the CPU's, and the scan wrappers refusing operands under
+   ``torch.func``; one full-width gradient with ``remat_policy`` "full"
+   and "dots" against none (1e-6, each call's peak and its rise over the
+   resident parameters); PORTER-DP on tinyllama's smoke config (one
+   ``mean_noise`` a round), and every other registered algorithm and the
+   fleet through ``main`` for 2 rounds.
+
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
 the last is the kernels' JSON record; the last line is the device record.
@@ -517,8 +543,10 @@ def phase_kernels(torch, ops, ref):
     return table
 
 
-def run_timed(torch, run_chunked, algo, source, state, seed, steps, chunk):
-    """Run ``steps`` rounds; returns (state, per-round losses, ms/round).
+def run_timed(torch, run_chunked, algo, source, state, seed, steps, chunk,
+              **kw):
+    """Run ``steps`` rounds (``kw`` to ``run_chunked``); returns (state,
+    per-round losses, ms/round).
 
     ms/round is the steady state: host wall time from the end of the first
     chunk to the end of the last, each chunk ended by a synchronize, so
@@ -533,7 +561,7 @@ def run_timed(torch, run_chunked, algo, source, state, seed, steps, chunk):
 
     torch.cuda.synchronize()
     state, _ = run_chunked(algo, source, state, seed, steps, chunk=chunk,
-                           on_chunk=keep)
+                           on_chunk=keep, **kw)
     (r0, w0), (r1, w1) = stamps[0], stamps[-1]
     return state, torch.cat(losses).tolist(), 1e3 * (w1 - w0) / (r1 - r0)
 
@@ -1313,6 +1341,7 @@ def _profile_call(torch, label, fn, tag="rwkv6", kernel="rwkv6_chunk"):
         kind = ("scans" if kernel and kernel in e.key else
                 "dense products" if any(w in name for w in
                                         ("nvjet", "gemm", "cutlass")) else
+                "sorts" if any(w in name for w in ("sort", "radix")) else
                 "elementwise" if "elementwise" in name else
                 "reductions" if "reduce" in name else
                 "softmax" if "softmax" in name else "other")
@@ -3369,6 +3398,562 @@ def phase_decoder_consistency(torch, ops, serve, models):
                              f"forward: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training
+# ---------------------------------------------------------------------------
+
+# the full-width training cell: tinyllama-1.1b at its published width
+# (src/repro/configs/tinyllama_1_1b.py: d 2048, 32 heads / 4 KV heads, d_ff
+# 5632 SwiGLU, vocab 32000, untied head), depth cut to 2 of 22 layers: 4
+# agents' seven PorterState trees and a round's planes must fit in 80 GB
+LM_ARCH = "tinyllama-1.1b"
+LM_LAYERS = 2
+LM_PARAMS = 219_162_624          # 131.1 M embed + head, 44.0 M a layer
+LM_RUN = dict(agents=4, batch=4, seq=64, frac=0.05, eta=3e-2, tau=1.0,
+              chunk=10, rounds=20, profiled=5, block_rounds=2)
+# the EF planes of the cell: bf16 (x f32 3.51 GB + six bf16 trees 10.5
+# GB), since the f32 cell does not fit: on an H100 80GB its round runs
+# out of memory in ef_step's outputs at 68.6 GiB allocated, each old
+# state donated or not
+LM_PLANE_DTYPE = "bf16"
+LM_PEAK_LIMIT = 76e9
+# the plain versions run over this many tiles (or windows) at a time
+# beside the kernels' whole-plane calls: the ef kernels and block_topk are
+# elementwise / windowwise, so the slices give the plain result bit for bit
+LM_SLICE = 2048
+LM_BACKEND_TOL = 1e-6            # kernel vs ref backend, x, f32 (the MLP's)
+LM_SMOKE = dict(steps=5, chunk=5, seq=64, grad_tol=1e-4)
+LM_REMAT_TOL = 1e-6
+LM_TIMED = {"ef_track": "src/repro/kernels/ef_update.py:69",
+            "ef_step": "src/repro/kernels/ef_update.py:96"}
+
+
+def _lm_cfg(configs):
+    return dataclasses.replace(configs.get_config(LM_ARCH),
+                               n_layers=LM_LAYERS)
+
+
+class _LmChecks:
+    """For one round, ``ops.ef_track``, ``ops.ef_step``, ``ops.clip_planes``
+    and ``ops.block_topk`` wrapped: each call runs the kernel on the
+    round's own planes, then the plain version on the same CUDA operands
+    (the ef kernels and ``block_topk`` slice by slice, ``clip`` whole), and
+    records whether every output is bitwise the plain one."""
+
+    NAMES = ("ef_track", "ef_step", "clip_planes", "block_topk")
+
+    def __init__(self, torch, ops, ref):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.saved = {k: getattr(ops, k) for k in self.NAMES}
+        self.calls = []
+
+    def __enter__(self):
+        for name in self.NAMES:
+            setattr(self.ops, name, getattr(self, "_" + name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+    def _slices(self, n):
+        return [(lo, min(lo + LM_SLICE, n)) for lo in range(0, n, LM_SLICE)]
+
+    def _ef(self, name, n_planes, *a, out_dtype=None, sr_bits=None):
+        torch, ref = self.torch, self.ref
+        outs = self.saved[name](*a, out_dtype=out_dtype, sr_bits=sr_bits)
+        planes, scalars = a[:n_planes], a[n_planes:]
+        plain = getattr(ref, name + "_ref")
+        equal = True
+        for lo, hi in self._slices(planes[0].shape[0]):
+            part = [p[lo:hi] for p in planes]
+            if sr_bits is None:
+                want = plain(*part, *scalars, out_dtype=out_dtype)
+            else:
+                f32 = plain(*part, *scalars, out_dtype=torch.float32)
+                want = tuple(o if w is None else ref.sr_cast_ref(o, w[lo:hi])
+                             for o, w in zip(f32, sr_bits))
+            equal = equal and all(bit_equal(torch, o[lo:hi], w)
+                                  for o, w in zip(outs, want))
+        self.calls.append((name, tuple(planes[0].shape),
+                           str(planes[0].dtype), equal))
+        return outs
+
+    def _ef_track(self, *a, **kw):
+        return self._ef("ef_track", 7, *a, **kw)
+
+    def _ef_step(self, *a, **kw):
+        return self._ef("ef_step", 6, *a, **kw)
+
+    def _clip_planes(self, planes, rows, tau, noise=None, sigma=0.0):
+        out = self.saved["clip_planes"](planes, rows, tau, noise, sigma)
+        want = self.ref.clip_planes_ref(planes, rows, tau, noise, sigma)
+        equal = all(bit_equal(self.torch, o, w) for o, w in zip(out, want))
+        del want
+        self.calls.append(("clip", tuple(planes.shape), str(planes.dtype),
+                           equal))
+        return out
+
+    def _block_topk(self, windows, k):
+        out = self.saved["block_topk"](windows, k)
+        equal = all(bit_equal(self.torch, out[lo:hi],
+                              self.ref.block_topk_ref(windows[lo:hi], k))
+                    for lo, hi in self._slices(windows.shape[0]))
+        self.calls.append(("block_topk", tuple(windows.shape),
+                           str(windows.dtype), equal))
+        return out
+
+    def report(self, label):
+        for name, shape, dt, equal in self.calls:
+            print(f"[lm-train] {label}: {name} on the round's {dt} plane "
+                  f"{shape} bitwise its plain version: {equal}")
+        bad = [c for c in self.calls if not c[3]]
+        if not self.calls or bad:
+            raise AssertionError(f"{label}: kernels differ from their plain "
+                                 f"versions on the LM planes: {bad}")
+        return {name: sum(1 for c in self.calls if c[0] == name)
+                for name in {c[0] for c in self.calls}}
+
+
+def _lm_round_launches(plane_dtype, rounds):
+    """A PORTER-GC round's kernels: one clip, one ef_track, one ef_step
+    (with bf16 planes five stochastic roundings in their epilogues)."""
+    want = dict(ef_track=rounds, ef_step=rounds, clip=rounds)
+    if plane_dtype == "bf16":
+        want["sr_epilogue"] = 5 * rounds
+    return want
+
+
+def phase_lm_cell(torch, ops, ref, runtime, steps, data, configs,
+                  tree_leaves):
+    """(a) PORTER-GC on the full-width tinyllama cell: launches a round,
+    ms a round, the peak memory, the device's busy share, the ef and clip
+    kernels bitwise their plain versions on a round's own planes, and one
+    round on the kernel backend against one on the ref backend.  Returns
+    a dict of the figures."""
+    c = LM_RUN
+    cfg = _lm_cfg(configs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = steps.build_train_step(
+        cfg, c["agents"], compressor_name="top_k", frac=c["frac"],
+        eta=c["eta"], tau=c["tau"], plane_dtype=LM_PLANE_DTYPE,
+        device=DEVICE)
+    state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+    n_params = sum(leaf[0].numel() for leaf in tree_leaves(state.x))
+    ef_bytes = sum(leaf.nbytes for f in state[:7] for leaf in tree_leaves(f))
+    print(f"[lm-train] {cfg.name} {cfg.n_layers} of 22 layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab}: {n_params} parameters an agent "
+          f"(expected {LM_PARAMS}), {c['agents']} agents, planes "
+          f"{LM_PLANE_DTYPE or 'f32'}, state {ef_bytes} B, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n_params != LM_PARAMS:
+        raise AssertionError(f"lm-train: {n_params} parameters, expected "
+                             f"{LM_PARAMS}")
+    source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                               device=DEVICE)
+    algo = setup.algorithm
+    # one warm chunk, then the counted and timed rounds; each round's old
+    # state is donated (three f32 or bf16 states would not fit beside a
+    # round's planes)
+    warm = []
+    state, _ = runtime.run_chunked(
+        algo, source, state, 0, c["chunk"], chunk=c["chunk"], donate=True,
+        on_chunk=lambda t0, t1, st, m: warm.extend(m["loss"].tolist()))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, losses, ms = run_timed(torch, runtime.run_chunked, algo, source,
+                                  state, 0, c["rounds"], c["chunk"],
+                                  donate=True)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm-train] porter-gc top_k {c['frac']} {c['rounds']} rounds in "
+          f"chunks of {c['chunk']} after a warm chunk: loss {losses[0]:.6f} "
+          f"-> {losses[-1]:.6f}, {ms:.3f} ms/round, launches {launches}, "
+          f"peak memory {peak} B ({peak / 1e9:.2f} GB)")
+    if not finite(warm + losses):
+        raise AssertionError(f"lm-train: non-finite losses {losses}")
+    expect_launches("lm-train", launches,
+                    **_lm_round_launches(LM_PLANE_DTYPE, c["rounds"]))
+    if peak > LM_PEAK_LIMIT:
+        raise AssertionError(f"lm-train: peak {peak} B passes "
+                             f"{LM_PEAK_LIMIT:.0f} B; set LM_PLANE_DTYPE "
+                             "to 'bf16'")
+    # the round's own planes: each kernel bitwise its plain version
+    gen_b = torch.Generator(device=DEVICE).manual_seed(21)
+    with _LmChecks(torch, ops, ref) as checks:
+        state, _ = algo.step(state, source(gen_b, 0),
+                             torch.Generator(device=DEVICE).manual_seed(22))
+    checked = checks.report("lm-train porter-gc")
+    # one round on each backend from the same state and batch, frac 1.0
+    batch = source(gen_b, 1)
+    xs = {}
+    for backend in ("kernel", "ref"):
+        other = steps.build_train_step(
+            cfg, c["agents"], compressor_name="top_k", frac=1.0,
+            eta=c["eta"], tau=c["tau"], plane_dtype=LM_PLANE_DTYPE,
+            comm_backend=backend, device=DEVICE)
+        ops.reset_launches()
+        new, _ = other.step(state, batch,
+                            torch.Generator(device=DEVICE).manual_seed(23))
+        torch.cuda.synchronize()
+        print(f"[lm-train] one round on the {backend} backend (top_k 1.0): "
+              f"launches {dict(ops.LAUNCHES)}")
+        xs[backend] = new.x
+        del new
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(xs["kernel"]), tree_leaves(xs["ref"])))
+    same = all(bit_equal(torch, a, b) for a, b in
+               zip(tree_leaves(xs["kernel"]), tree_leaves(xs["ref"])))
+    print(f"[lm-train] kernel vs ref backend, one round: x bitwise equal "
+          f"{same}, max |x diff| {diff} (tolerance {LM_BACKEND_TOL})")
+    if not diff <= LM_BACKEND_TOL:
+        raise AssertionError(f"lm-train: kernel and ref rounds differ: "
+                             f"{diff}")
+    del xs, batch
+    # the device's busy share over a few rounds (the state is donated)
+    box = [state]
+    del state
+    prof = _profile_call(torch, f"{c['profiled']} porter-gc rounds",
+                         lambda: runtime.run_chunked(
+                             algo, source, box.pop(), 0, c["profiled"],
+                             chunk=c["profiled"], donate=True),
+                         tag="lm-train", kernel=None)
+    del algo, setup
+    torch.cuda.empty_cache()
+    return {"ms_round": ms, "launches": launches, "peak_bytes": peak,
+            "checked": checked, "profile": prof, "params": n_params}
+
+
+def phase_lm_kernel_times(torch, ops, ref, sc, reps=5, inner=3):
+    """``ef_track`` and ``ef_step`` (f32 and the bf16 epilogue variants;
+    the cell's is ``table[name]``) and ``clip`` at the LM cell's agent
+    plane (4 rows x its tiles), on fresh random planes: bitwise against
+    the plain version, the kernel's time, the plain version's and the
+    bound.  Operands this large miss the L2 on every call."""
+    rows, tiles = LM_RUN["agents"], -(-LM_PARAMS // TILE)
+    n = rows * tiles * TILE
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    table = {}
+    cell = "bf16_sr" if LM_PLANE_DTYPE == "bf16" else "f32"
+    for name in LM_TIMED:
+        for planes, variant in (("f32", name),
+                                ("bf16_sr", name + "_bf16_sr")):
+            kern, plain, make, _, _ = _variant_fns(torch, ops, ref, variant)
+            args = make(gen, n)
+            equal = all(bit_equal(torch, a, b)
+                        for a, b in zip(kern(*args), plain(*args)))
+            ms = device_time_ms(kern, [args], reps, inner)
+            plain_ms = device_time_ms(plain, [args], 2, 1)
+            b_ms, by = bound_ms(variant, n)
+            table[f"{name} {planes}"] = dict(
+                variant=variant, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, equal=equal, plane=f"{rows} x {tiles} tiles")
+            print(f"[lm-train] {variant} at the LM plane {rows} x {tiles} "
+                  f"tiles ({n} elements): bitwise={equal} us={1e3 * ms:.1f} "
+                  f"plain_us={1e3 * plain_ms:.1f} bound_us={1e3 * b_ms:.1f} "
+                  f"({by}: {VARIANTS[variant]['bytes'] * n} B at 3.35 "
+                  f"TB/s), {100 * b_ms / ms:.1f} % of the bound")
+            if not equal:
+                raise AssertionError(f"lm-train: {variant} differs from its "
+                                     "plain version at the LM plane")
+            del args
+            torch.cuda.empty_cache()
+        table[name] = table[f"{name} {cell}"]
+    plane = 3 * torch.randn(rows * tiles, TILE, generator=gen, device=DEVICE)
+    out, want = ops.clip_planes(plane, rows, 1.0), ref.clip_planes_ref(
+        plane, rows, 1.0)
+    equal = all(bit_equal(torch, a, b) for a, b in zip(out, want))
+    del out, want
+    ms = device_time_ms(lambda p: ops.clip_planes(p, rows, 1.0), [[plane]],
+                        reps, inner)
+    plain_ms = device_time_ms(lambda p: ref.clip_planes_ref(p, rows, 1.0),
+                              [[plane]], 2, 1)
+    moved = 2 * plane.nbytes + 4 * rows * tiles + 4 * rows
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = CLIP_FUSED_OPS * n / F32_OPS_PER_S
+    b_ms = 1e3 * max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    table["clip"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by, equal=equal,
+                         plane=f"{rows} x {tiles} tiles f32")
+    plan = sc.clip_plan(plane, rows)
+    table["clip"]["plan"] = plan
+    print(f"[lm-train] clip at the LM gradient plane {rows} x {tiles} tiles "
+          f"f32 ({plan}): "
+          f"bitwise={equal} us={1e3 * ms:.1f} plain_us={1e3 * plain_ms:.1f} "
+          f"bound_us={1e3 * b_ms:.1f} ({by}: {moved} B), "
+          f"{100 * b_ms / ms:.1f} % of the bound")
+    if not equal:
+        raise AssertionError("lm-train: clip differs from its plain version "
+                             "at the LM plane")
+    del plane
+    torch.cuda.empty_cache()
+    return table
+
+
+def phase_lm_block_top_k(torch, ops, ref, runtime, steps, data, configs,
+                         tree_leaves, reps=5, inner=3):
+    """``build_train_step``'s own default, ``block_top_k`` 5 %, on the cell
+    for ``block_rounds`` rounds: ``block_topk`` (one launch a compressed
+    leaf) bitwise its plain version on every leaf of the first round, and
+    timed on the largest real leaf (the embedding table's exchange)."""
+    c = LM_RUN
+    cfg = _lm_cfg(configs)
+    setup = steps.build_train_step(cfg, c["agents"],
+                                   plane_dtype=LM_PLANE_DTYPE, device=DEVICE)
+    spec = setup.algorithm.spec
+    state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+    source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                               device=DEVICE)
+    n_leaves = len(tree_leaves(state.x))
+    gen_b = torch.Generator(device=DEVICE).manual_seed(25)
+    with _LmChecks(torch, ops, ref) as checks:
+        state, m = setup.step(state, source(gen_b, 0),
+                              torch.Generator(device=DEVICE).manual_seed(26))
+    checked = checks.report("lm-train block_top_k")
+    ops.reset_launches()
+    losses = []
+    for t in range(1, c["block_rounds"]):
+        state, m = setup.step(state, source(gen_b, t),
+                              torch.Generator(device=DEVICE).manual_seed(t))
+        losses.append(float(m["loss"]))
+    launches = dict(ops.LAUNCHES)
+    rounds = c["block_rounds"] - 1
+    print(f"[lm-train] build_train_step defaults ({spec.compressor} "
+          f"{spec.frac}, eta {spec.eta}) {c['block_rounds']} rounds: losses "
+          f"{losses}, launches a round after the checked one {launches}")
+    expect_launches("lm-train block_top_k", launches,
+                    block_topk=2 * n_leaves * rounds,
+                    **_lm_round_launches(LM_PLANE_DTYPE, rounds))
+    if not finite(losses):
+        raise AssertionError(f"lm-train block_top_k: losses {losses}")
+    # the embedding table's exchange: every agent's 65.5 M entries as
+    # windows of 2048
+    emb = state.x["embed"]["table"]
+    windows = emb.reshape(-1, PACK_BLOCK).contiguous()
+    k = max(int(round(spec.frac * PACK_BLOCK)), 1)
+    del state
+    torch.cuda.empty_cache()
+    equal = bit_equal(torch, ops.block_topk(windows, k),
+                      ref.block_topk_ref(windows, k))
+    ms = device_time_ms(ops.block_topk, [[windows, k]], reps, inner)
+    plain_ms = device_time_ms(ref.block_topk_ref, [[windows, k]], 2, 1)
+    n = windows.numel()
+    t_bytes = 2 * windows.nbytes / HBM_BYTES_PER_S
+    t_ops = TOPK_OPS * n / F32_OPS_PER_S
+    b_ms = 1e3 * max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[lm-train] block_topk on the embedding leaf ({windows.shape[0]} "
+          f"windows, k={k}, {windows.dtype}): bitwise={equal} us="
+          f"{1e3 * ms:.1f} plain_us={1e3 * plain_ms:.1f} bound_us="
+          f"{1e3 * b_ms:.1f} ({by}), {100 * b_ms / ms:.1f} % of the bound")
+    if not equal:
+        raise AssertionError("lm-train: block_topk differs from its plain "
+                             "version on the embedding leaf")
+    del windows, emb
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                equal=equal, launches_round=2 * n_leaves, checked=checked,
+                plane=f"embed {n // PACK_BLOCK} windows")
+
+
+def phase_lm_smoke(torch, ops, train, configs, models, data, tree_leaves):
+    """(b) every architecture's smoke config trains on the card through
+    ``launch.train.main``, its scans' kernels not launched; each one's f32
+    loss and gradient on the card within LM_SMOKE's tolerance of the CPU's
+    from the same parameters and batch; the scan wrappers refuse operands
+    under ``torch.func``.  (d) PORTER-DP on tinyllama's smoke config, and
+    every other registered algorithm and the fleet for 2 rounds."""
+    from torch.func import grad, grad_and_value, vmap
+    from repro_torch.tree import tree_map
+    s = LM_SMOKE
+    for arch in configs.ARCHS:
+        ops.reset_launches()
+        rc = train.main(["--arch", arch, "--smoke", "--steps",
+                         str(s["steps"]), "--chunk", str(s["chunk"]),
+                         "--log-every", str(s["steps"])])
+        launches = dict(ops.LAUNCHES)
+        print(f"[lm-train] main --arch {arch} --smoke: exit {rc}, launches "
+              f"{launches}")
+        if rc != 0:
+            raise AssertionError(f"lm-train: main --arch {arch} exited {rc}")
+        expect_launches(f"lm-train main {arch}", launches,
+                        **_lm_round_launches(None, s["steps"]))
+        cfg = dataclasses.replace(configs.get_smoke(arch),
+                                  dtype=torch.float32)
+        cpu = models.build_model(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        batch = {k: v[0] for k, v in data.batch_source(
+            cfg, 1, 2, s["seq"], device="cpu")(
+                torch.Generator().manual_seed(1), 0).items()}
+        g_cpu, l_cpu = grad_and_value(cpu.loss)(params, batch)
+        card = models.build_model(cfg, device=DEVICE)
+        ops.reset_launches()
+        g_dev, l_dev = grad_and_value(card.loss)(
+            tree_map(lambda t: t.to(DEVICE), params),
+            tree_map(lambda t: t.to(DEVICE), batch))
+        torch.cuda.synchronize()
+        expect_launches(f"lm-train {arch} loss on the card",
+                        dict(ops.LAUNCHES))
+        a = torch.cat([t.flatten().cpu() for t in tree_leaves(g_dev)])
+        b = torch.cat([t.flatten() for t in tree_leaves(g_cpu)])
+        g_err = float(torch.linalg.vector_norm(a - b)
+                      / torch.linalg.vector_norm(b))
+        l_err = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+        leaf = max(float(torch.linalg.vector_norm(x.cpu() - y)
+                         / max(float(torch.linalg.vector_norm(y)), 1e-30))
+                   for x, y in zip(tree_leaves(g_dev), tree_leaves(g_cpu)))
+        print(f"[lm-train] {cfg.name} f32 loss and gradient, card vs CPU: "
+              f"loss {float(l_dev):.7f} vs {float(l_cpu):.7f} (rel "
+              f"{l_err:.3g}), gradient normwise {g_err:.3g}, worst leaf "
+              f"{leaf:.3g} (tolerance {s['grad_tol']})")
+        if not (l_err <= s["grad_tol"] and g_err <= s["grad_tol"]):
+            raise AssertionError(f"lm-train: {arch} card vs CPU loss "
+                                 f"{l_err}, gradient {g_err}")
+    # the scan kernels refuse operands under grad and vmap
+    b_, s_, h_, n_ = 1, 16, 2, 16
+    r = torch.randn(b_, s_, h_, n_, device=DEVICE)
+    logw = torch.full_like(r, -0.5)
+    u = torch.zeros(h_, n_, device=DEVICE)
+    s0 = torch.zeros(b_, h_, n_, n_, device=DEVICE)
+    for label, fn in (
+            ("grad", lambda: grad(lambda t: ops.rwkv6_scan(
+                t, r, r, logw, u, s0)[0].sum())(r)),
+            ("vmap", lambda: vmap(lambda t: ops.rwkv6_scan(
+                t[None], r, r, logw, u, s0)[0])(r)),
+            ("ssd grad", lambda: grad(lambda t: ops.ssd_scan(
+                t, torch.zeros(1, 64, 4, device=DEVICE),
+                torch.zeros(1, 64, 4, device=DEVICE),
+                torch.zeros(1, 64, 2, device=DEVICE),
+                torch.zeros(1, 2, 8, 4, device=DEVICE))[0].sum())(
+                    torch.zeros(1, 64, 2, 8, device=DEVICE)))):
+        try:
+            fn()
+        except RuntimeError as err:
+            if "plain chunked form" not in str(err):
+                raise
+            print(f"[lm-train] the scan wrapper refuses operands under "
+                  f"{label}: {str(err)[:90]}...")
+        else:
+            raise AssertionError(f"lm-train: a scan kernel ran under "
+                                 f"{label}")
+    # (d) PORTER-DP at the smoke size: one mean_noise a round
+    ops.reset_launches()
+    rc = train.main(["--smoke", "--algo", "porter-dp", "--steps",
+                     str(s["steps"]), "--chunk", str(s["chunk"]),
+                     "--log-every", "1"])
+    launches = dict(ops.LAUNCHES)
+    print(f"[lm-train] main --algo porter-dp --smoke: exit {rc}, launches "
+          f"{launches}")
+    if rc != 0:
+        raise AssertionError(f"lm-train: porter-dp main exited {rc}")
+    expect_launches("lm-train porter-dp", launches,
+                    mean_noise=s["steps"],
+                    **_lm_round_launches(None, s["steps"]))
+    # every other registered algorithm, and the fleet, through main with
+    # each round's old state donated: exit 0 by main's own gate
+    from repro_torch import api
+    runs = [["--algo", a] for a in api.list_algorithms()
+            if a not in ("porter-gc", "porter-dp")]
+    for extra in runs + [["--fleet"]]:
+        ops.reset_launches()
+        rc = train.main(["--smoke", "--steps", "2", "--chunk", "2",
+                         "--log-every", "1"] + extra)
+        print(f"[lm-train] main {' '.join(extra)} --smoke: exit {rc}, "
+              f"launches { {k: v for k, v in ops.LAUNCHES.items() if v} }")
+        if rc != 0:
+            raise AssertionError(f"lm-train: main {extra} exited {rc}")
+
+
+def phase_lm_remat(torch, ops, steps, data, configs, tree_leaves):
+    """(c) One full-width gradient of the cell's 4 agents with
+    ``remat_policy`` "full" and "dots" against the gradient without:
+    within LM_REMAT_TOL normwise (bitwise printed), each with its peak
+    memory.  The gradient without remat waits on the host, so that every
+    call's peak stands on the same resident parameters and batch; each
+    peak is printed with its rise over them."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.core import remat
+    from repro_torch.tree import tree_map
+    c = LM_RUN
+    cfg = _lm_cfg(configs)
+    setup = steps.build_train_step(cfg, c["agents"], device=DEVICE)
+    p = setup.bundle.init(torch.Generator(device=DEVICE).manual_seed(0))
+    x = tree_map(lambda t: t.unsqueeze(0).expand(
+        (c["agents"],) + tuple(t.shape)).clone(), p)
+    del p
+    batch = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                              device=DEVICE)(
+        torch.Generator(device=DEVICE).manual_seed(27), 0)
+    peaks, rises = {}, {}
+    base = base_losses = None
+    for policy in (None, "full", "dots"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        remat.DOTS_REPLAYS.clear()
+        fn = remat.apply_remat(setup.bundle.loss, policy)
+        g, losses = vmap(grad_and_value(fn))(x, batch)
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated()
+        rises[policy] = peaks[policy] - resident
+        if policy is None:
+            base = [t.cpu() for t in tree_leaves(g)]
+            base_losses = losses
+            print(f"[lm-train] remat none: peak {peaks[None]} B, "
+                  f"{rises[None]} B over the resident {resident} B")
+            del g
+            continue
+        num = den = 0.0
+        same = bit_equal(torch, losses, base_losses)
+        for u, v_host in zip(tree_leaves(g), base):
+            v = v_host.to(DEVICE)
+            num += float(torch.sum((u - v).double() ** 2))
+            den += float(torch.sum(v.double() ** 2))
+            same = same and bit_equal(torch, u, v)
+            del v
+        num, den = math.sqrt(num), math.sqrt(den)
+        print(f"[lm-train] remat {policy}: gradient normwise {num / den:.3g} "
+              f"from no remat, bitwise {same}, peak {peaks[policy]} B, "
+              f"{rises[policy]} B over the resident {resident} B (none "
+              f"{rises[None]} B), dense products replayed "
+              f"{dict(remat.DOTS_REPLAYS)}")
+        if not num <= LM_REMAT_TOL * den:
+            raise AssertionError(f"lm-train: remat {policy} gradient differs: "
+                                 f"{num / den}")
+        if policy == "dots" and (not remat.DOTS_REPLAYS["replayed"]
+                                 or remat.DOTS_REPLAYS["computed"]):
+            raise AssertionError(f"lm-train: remat dots replayed "
+                                 f"{dict(remat.DOTS_REPLAYS)}")
+        del g
+    del base, x, batch
+    torch.cuda.empty_cache()
+    return {"peak": peaks, "rise": rises}
+
+
+def lm_record(name, lm, lm_times):
+    """A kernel's LM-plane figures (phase 12) for its record: the cell's
+    variant, its µs, plain µs and bound at the LM plane (both plane dtypes
+    for the ef kernels), and its launches a round."""
+    row = lm_times[name]
+    launches_round = (row["launches_round"] if name == "block_topk"
+                      else lm["launches"][name] // LM_RUN["rounds"])
+    extra = {}
+    if name in LM_TIMED:
+        extra["lm_variant"] = row["variant"]
+        for planes in ("f32", "bf16_sr"):
+            other = lm_times[f"{name} {planes}"]
+            extra[f"ms_lm_{planes}"] = other["ms"]
+            extra[f"bound_ms_lm_{planes}"] = other["bound_ms"]
+    return {**extra, "lm_plane": row["plane"], "ms_lm": row["ms"],
+            "plain_ms_lm": row["plain_ms"], "bound_ms_lm": row["bound_ms"],
+            "bound_by_lm": row["bound_by"],
+            "launches_lm_round": launches_round}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3377,11 +3962,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import api, data
+    from repro_torch import api, configs, data
     from repro_torch.core import average_params, clipping, fleet
     from repro_torch.kernels import build, flatten, ops, ref, smooth_clip
     from repro_torch import models
-    from repro_torch.launch import checkpoint, runtime, serve, train
+    from repro_torch.launch import checkpoint, runtime, serve, steps, train
     from repro_torch.models import paper
     from repro_torch.tree import tree_leaves
 
@@ -3475,6 +4060,23 @@ def main() -> int:
     print(f"[decoder] phase took {time.perf_counter() - t11:.1f} s")
     print("[decoder] figures " + json.dumps(decoder_rates))
 
+    # phase 12: LM training: the full-width cell, its kernels at the LM's
+    # planes, every family's smoke config, remat and PORTER-DP
+    t12 = time.perf_counter()
+    lm = phase_lm_cell(torch, ops, ref, runtime, steps, data, configs,
+                       tree_leaves)
+    lm_times = phase_lm_kernel_times(torch, ops, ref, smooth_clip)
+    lm_times["block_topk"] = phase_lm_block_top_k(
+        torch, ops, ref, runtime, steps, data, configs, tree_leaves)
+    phase_lm_smoke(torch, ops, train, configs, models, data, tree_leaves)
+    lm["remat_peaks"] = phase_lm_remat(torch, ops, steps, data, configs,
+                                       tree_leaves)
+    print(f"[lm-train] phase took {time.perf_counter() - t12:.1f} s")
+    print("[lm-train] figures " + json.dumps(
+        {k: v for k, v in lm.items() if k != "profile"}
+        | {"profile": lm["profile"], "kernels": lm_times}, default=str))
+
+
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
     # PORTER-GC (sr_cast: 0, its rounding is the ef kernels' epilogue
@@ -3497,6 +4099,7 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
+            **(lm_record(name, lm, lm_times) if name in LM_TIMED else {}),
             **({"bf16_sr_variant": variant(name + "_bf16_sr")}
                if name != "sr_cast" else
                {"epilogue": {v: variant(v) for v in VARIANTS
@@ -3580,7 +4183,8 @@ def main() -> int:
         bound_ms_dp_plane=fused_table[("dp", "f32")]["bound_ms"],
         ms_2p24=fused_table[("2^24 x1", "f32")]["ms"],
         bound_ms_2p24=fused_table[("2^24 x1", "f32")]["bound_ms"],
-        graph_replay_ms=fused_table["graph"]["ms"]))
+        graph_replay_ms=fused_table["graph"]["ms"],
+        **lm_record("clip", lm, lm_times)))
     # mean_noise on PORTER-DP's real clipped per-sample plane (the f32
     # PORTER-DP run of the MLP phase)
     row = mean_table[(MEAN_PATH, "f32")]
@@ -3608,7 +4212,8 @@ def main() -> int:
         nearest_ms=row["nearest_ms"],
         ms_bf16=topk_table[("w1", "bf16", 102)]["ms"],
         ms_2p24=topk_table[("2^24", "f32", 102)]["ms"],
-        bound_ms_2p24=topk_table[("2^24", "f32", 102)]["bound_ms"]))
+        bound_ms_2p24=topk_table[("2^24", "f32", 102)]["bound_ms"],
+        **lm_record("block_topk", lm, lm_times)))
     print(f"[time] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)   # again here: a long log keeps only its end

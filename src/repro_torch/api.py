@@ -40,7 +40,8 @@ Registered here, all eleven of the reference's algorithms: ``porter-gc``,
 master params stay f32).  ``wire="packed_bits"`` with
 ``gossip_mode="packed"`` gossips bit-packed buffers
 (:func:`resolve_wire_format`).  The spec keeps the reference's field
-names; ``remat_policy`` raises and names the ROADMAP item that ports it.
+names.  ``remat_policy`` (None, ``"full"``, ``"dots"``) wraps the loss once
+in ``build`` for every algorithm (:mod:`repro_torch.core.remat`).
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from .core.porter import PorterConfig, PorterState, porter_init, porter_step
 from .core.porter_adam import (PorterAdamState, porter_adam_init,
                                porter_adam_step)
 from .core.push_sum import DpCsgpState, dp_csgp_init, dp_csgp_step
+from .core.remat import apply_remat
 from .core.registry import (Algorithm, AlgorithmInfo, algorithm_info,
                             get_factory, list_algorithms, register_algorithm)
 from .core.subgrad import SubgradState, subgrad_init, subgrad_step
@@ -76,7 +78,13 @@ __all__ = ["ExperimentSpec", "build", "build_engine", "resolve_topology",
            "resolve_schedule", "resolve_fleet_topology",
            "resolve_fleet_schedule", "resolve_compressor", "resolve_gamma",
            "resolve_plane_dtype", "resolve_wire_format",
-           "Algorithm", "AlgorithmInfo", "algorithm_info", "list_algorithms"]
+           "VARIANT_TO_ALGO", "Algorithm", "AlgorithmInfo", "algorithm_info",
+           "list_algorithms"]
+
+# the launchers' --variant spelling -> the registry name (the reference's
+# mapping)
+VARIANT_TO_ALGO = {"gc": "porter-gc", "dp": "porter-dp", "beer": "beer",
+                   "csgp": "dp-csgp"}
 
 # compressors whose knob is a kept-fraction (rho = frac)
 _FRAC_COMPRESSORS = ("top_k", "block_top_k", "random_k")
@@ -149,13 +157,6 @@ class Resolved:
     gamma: Optional[float]
     device: torch.device
     schedule: Optional[Union[TopologySchedule, FleetSchedule]] = None
-
-
-def _check_slice(spec: ExperimentSpec) -> None:
-    """Reject spec values whose code paths are not ported yet."""
-    if spec.remat_policy is not None:
-        raise ValueError(f"remat_policy={spec.remat_policy!r} is not ported "
-                         "yet (ROADMAP queue 1 item 13)")
 
 
 def resolve_topology(spec: ExperimentSpec) -> Topology:
@@ -491,16 +492,17 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
     """Resolve ``spec`` into a ready-to-train :class:`Algorithm`.
 
     loss_fn: ``(params, batch) -> scalar loss`` for one agent, in torch ops
-      that ``torch.func`` can differentiate and vmap.
+      that ``torch.func`` can differentiate and vmap; wrapped per
+      ``spec.remat_policy``.
     device: where the state lives; ``torch.device("cuda")`` unless given.
     topology: pre-built Topology (or, under ``fleet=True``, FleetTopology)
       override.
     compress_fn: optional ``(gen, tree) -> tree`` compression override for
       the decentralized compressed algorithms (not under a codec).
     """
-    _check_slice(spec)
     device = torch.device("cuda") if device is None else torch.device(device)
     info = algorithm_info(spec.algo)
+    loss_fn = apply_remat(loss_fn, spec.remat_policy)
     top, sched, comp, mixer, engine, gamma = (None,) * 6
     if info.decentralized:
         if spec.fleet:

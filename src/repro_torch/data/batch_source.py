@@ -1,5 +1,9 @@
 """Batch sources on the device: ``(gen, step) -> batch``.
 
+:func:`batch_source` synthesises the model zoo's agent-stacked LM batches
+(``src/repro/data/batch_source.py``): token ids, and a VLM's ``patches`` or
+an encoder-decoder's ``frames``.
+
 :func:`minibatch_source` draws iid uniform per-agent minibatches from an
 agent-sharded dataset held on the device (paper Section 5 line 4: "Draw the
 local mini-batch of size b uniformly at random").  The indices come from
@@ -16,7 +20,48 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["minibatch_source", "dirichlet_partition", "dirichlet_source"]
+from .synthetic import token_batch
+
+__all__ = ["batch_source", "minibatch_source", "dirichlet_partition",
+           "dirichlet_source"]
+
+
+def batch_source(cfg, n_agents: int, batch: int, seq: int, device=None):
+    """The family's synthetic LM batches on ``device`` (cuda unless given),
+    the layout ``bundle.loss`` takes with a leading agent axis:
+
+        dense / moe / rwkv6 / hybrid : tokens (n, b, seq) int32
+        vlm    : tokens (n, b, seq - n_prefix), patches (n, b, n_prefix, F)
+        encdec : frames (n, b, seq, F), tokens (n, b, seq)
+
+    ``patches`` and ``frames`` are N(0, 1) f32.  The draws come from the
+    round's generator in the order listed; ``step`` is unused (the stream
+    is iid in the generator).
+    """
+    device = torch.device("cuda") if device is None else torch.device(device)
+
+    def tokens(gen, s):
+        return token_batch(gen, n_agents, batch, s, cfg.vocab, device)
+
+    def normal(gen, s):
+        return torch.randn((n_agents, batch, s, cfg.frontend_dim),
+                           generator=gen, device=device)
+
+    if cfg.family == "vlm":
+        def source(gen, step):
+            del step
+            ids = tokens(gen, seq - cfg.n_prefix)
+            return {"tokens": ids, "patches": normal(gen, cfg.n_prefix)}
+    elif cfg.family == "encdec":
+        def source(gen, step):
+            del step
+            frames = normal(gen, seq)
+            return {"frames": frames, "tokens": tokens(gen, seq)}
+    else:
+        def source(gen, step):
+            del step
+            return {"tokens": tokens(gen, seq)}
+    return source
 
 
 def minibatch_source(xs, ys, batch: int, device=None):

@@ -7,6 +7,11 @@ Same generators, same seeds, bit-identical arrays:
 * ``mnist_like`` -- 10-class 784-dim images with class-dependent smooth means
                     (paper Section 5.2).
 * ``shard_to_agents`` -- shuffle and split evenly across agents.
+
+and :func:`token_batch`, the LM's synthetic token ids, drawn on the device
+from a ``torch.Generator`` (the reference draws them with ``jax.random``,
+whose streams PyTorch cannot reproduce: the parity tests inject the
+reference's draws).
 """
 
 from __future__ import annotations
@@ -14,8 +19,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["a9a_like", "mnist_like", "shard_to_agents"]
+__all__ = ["a9a_like", "mnist_like", "shard_to_agents", "token_batch"]
 
 
 def a9a_like(num: int = 32561, dim: int = 123, seed: int = 0,
@@ -61,3 +67,13 @@ def shard_to_agents(x: np.ndarray, y: np.ndarray, n_agents: int,
     xs = x[keep].reshape(n_agents, m, *x.shape[1:])
     ys = y[keep].reshape(n_agents, m, *y.shape[1:])
     return xs, ys
+
+
+def token_batch(gen: torch.Generator, n_agents: int, batch: int, seq: int,
+                vocab: int, device=None) -> torch.Tensor:
+    """Synthetic LM tokens: ``(n_agents, batch, seq)`` int32 ids uniform in
+    ``[0, vocab)``, drawn from ``gen`` on ``device`` (the generator's
+    unless given)."""
+    device = gen.device if device is None else torch.device(device)
+    return torch.randint(0, vocab, (n_agents, batch, seq), generator=gen,
+                         dtype=torch.int32, device=device)

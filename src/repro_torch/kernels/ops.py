@@ -441,6 +441,14 @@ def wire_qsgd_unpack(words, scale, levels: int):
     return out
 
 
+def _needs_grad(operands) -> bool:
+    """True when an operand needs grad or is wrapped by a ``torch.func``
+    transform (under ``grad`` or ``vmap`` a tensor's ``requires_grad`` may
+    be False, and its ``data_ptr`` is not the batched data's)."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return any(t.requires_grad or wrapped(t) for t in operands)
+
+
 def rwkv6_scan(r, k, v, logw, u, s0):
     """RWKV6 chunked linear-attention scan.
 
@@ -473,10 +481,12 @@ def rwkv6_scan(r, k, v, logw, u, s0):
         return ref.rwkv6_chunk_ref(r, k, v, logw, u, s0)
     if kind != "cuda":
         raise ValueError(f"rwkv6_scan runs on cpu or cuda tensors, got {kind}")
-    if any(t.requires_grad for t in operands):
-        raise RuntimeError("rwkv6_scan has no backward yet (LM training, "
-                           "ROADMAP queue 1 item 13); call it under "
-                           "torch.inference_mode()")
+    if _needs_grad(operands):
+        raise RuntimeError("rwkv6_scan's kernel has no backward: train "
+                           "through the plain chunked form "
+                           "(ref.rwkv6_chunk_ref, plain_scan=True in the "
+                           "model), as the reference trains through its jnp "
+                           "chunked form")
     if (len({r.dtype, k.dtype, v.dtype}) != 1
             or r.dtype not in (_F32, _BF16) or logw.dtype != _F32
             or s0.dtype != _F32):
@@ -529,10 +539,11 @@ def ssd_scan(xh, bmat, cmat, dla, h0):
         return ref.ssd_chunk_ref(xh, bmat, cmat, dla, h0)
     if kind != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda tensors, got {kind}")
-    if any(t.requires_grad for t in operands):
-        raise RuntimeError("ssd_scan has no backward yet (LM training, "
-                           "ROADMAP queue 1 item 13); call it under "
-                           "torch.inference_mode()")
+    if _needs_grad(operands):
+        raise RuntimeError("ssd_scan's kernel has no backward: train through "
+                           "the plain chunked form (ref.ssd_chunk_ref, "
+                           "plain_scan=True in the model), as the reference "
+                           "trains through its jnp chunked form")
     if (bmat.dtype != cmat.dtype or bmat.dtype not in (_F32, _BF16)
             or any(t.dtype != _F32 for t in (xh, dla, h0))):
         raise TypeError(f"ssd_scan takes f32 xh, dla and h0 and bmat, cmat "

@@ -217,9 +217,10 @@ def init_rwkv_layer(gen: torch.Generator, cfg: ModelConfig, lead=()):
             "blk": S.init_rwkv6_block(gen, cfg.rwkv_cfg(), lead=lead)}
 
 
-def rwkv_layer_seq(p, cfg: ModelConfig, x, state=None):
+def rwkv_layer_seq(p, cfg: ModelConfig, x, state=None, plain_scan=False):
     _, norm = _norm_fns(cfg)
-    y, st = S.rwkv6_block(p["blk"], cfg.rwkv_cfg(), norm(p["ln"], x), state)
+    y, st = S.rwkv6_block(p["blk"], cfg.rwkv_cfg(), norm(p["ln"], x), state,
+                          plain_scan=plain_scan)
     return y, st
 
 
@@ -238,9 +239,10 @@ def init_mamba_layer(gen: torch.Generator, cfg: ModelConfig, lead=()):
             "blk": S.init_mamba2_block(gen, cfg.mamba_cfg(), lead=lead)}
 
 
-def mamba_layer_seq(p, cfg: ModelConfig, x, state=None):
+def mamba_layer_seq(p, cfg: ModelConfig, x, state=None, plain_scan=False):
     _, norm = _norm_fns(cfg)
-    y, st = S.mamba2_block(p["blk"], cfg.mamba_cfg(), norm(p["ln"], x), state)
+    y, st = S.mamba2_block(p["blk"], cfg.mamba_cfg(), norm(p["ln"], x), state,
+                           plain_scan=plain_scan)
     return x + y, st
 
 

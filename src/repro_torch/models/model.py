@@ -6,7 +6,7 @@ A ModelBundle packages what a launcher needs:
 
     init(generator, leaf=None) -> params   (drawn on the generator's device)
     forward(params, batch)     -> logits   (B, S, V)
-    loss(params, batch)        -> raises: LM training is a later slice
+    loss(params, batch)        -> scalar   (next-token cross-entropy)
     prefill(params, batch)     -> (last-token logits (B, 1, V), cache)
     init_cache(batch, ...)     -> an empty cache of the family's format
     decode_step(params, cache, tokens, pos) -> (logits (B, V), cache)
@@ -28,20 +28,28 @@ over that axis.  ``init``'s ``leaf`` is the hook of a
 The modality frontends are stubs, as in the reference: ``patches`` and
 ``frames`` arrive as precomputed embeddings.  The reference's sharding
 specs are dropped (one card), so ``init`` returns the parameters alone.
-Call the bundle's functions under ``torch.inference_mode()``: the chunked
-scans have no backward yet.
+
+``loss`` is the reference's: the mean next-token cross-entropy of
+``forward``'s logits (a decoder's plus ``0.01 * aux / n_layers``, the MoE
+load-balance term; a VLM scores only its text positions).  It runs the
+scans of rwkv6 and the hybrid in their plain chunked form (``plain_scan``),
+which ``torch.func`` differentiates, as the reference trains through its
+jnp chunked scans; ``forward`` and ``prefill`` keep the kernels.  Call
+``forward``, ``prefill`` and ``decode_step`` under
+``torch.inference_mode()``: the scan kernels have no backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 
 from ..nn import ssm as S
-from ..nn.module import (Hooked, dense, embedding, init_dense,
-                         init_embedding)
+from ..nn.module import (Hooked, cross_entropy_loss, dense, embedding,
+                         init_dense, init_embedding)
 from ..tree import tree_map
 from . import blocks as B
 from .blocks import ModelConfig
@@ -105,13 +113,9 @@ def _repeat(one, n: int):
             v.expand((n,) + v.shape).contiguous() for k, v in one.items()}
 
 
-def _no_loss(family: str):
-    def loss(params, batch):
-        raise NotImplementedError(
-            "the LM loss and training are not ported yet (ROADMAP queue 1 "
-            f"item 13); the port serves the {family} family: prefill and "
-            "decode")
-    return loss
+def _lm_loss(logits, tokens):
+    """The next-token loss: position t's logits score token t + 1."""
+    return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
 
 
 def _cache_dev(default, device):
@@ -163,6 +167,16 @@ def _build_decoder(cfg: ModelConfig, cache_device) -> ModelBundle:
         x, _, _ = _run_layers(params, x, prefix_len, False, "cfg")
         return _logits(cfg, params, norm(params["final_norm"], x))
 
+    def loss(params, batch):
+        x, prefix_len = _embed_inputs(params, batch)
+        x, _, aux = _run_layers(params, x, prefix_len, False, "cfg")
+        x = norm(params["final_norm"], x)
+        if is_vlm:   # only the text positions predict
+            x = x[:, cfg.n_prefix:]
+        logits = _logits(cfg, params, x)
+        return (_lm_loss(logits, batch["tokens"])
+                + 0.01 * aux / max(cfg.n_layers, 1))
+
     def prefill(params, batch, window="cfg"):
         x, prefix_len = _embed_inputs(params, batch)
         x, caches, _ = _run_layers(params, x, prefix_len, True, window)
@@ -189,8 +203,8 @@ def _build_decoder(cfg: ModelConfig, cache_device) -> ModelBundle:
         x = norm(params["final_norm"], x)
         return _logits(cfg, params, x)[:, 0], cache
 
-    return ModelBundle(cfg, init, forward, _no_loss(cfg.family), prefill,
-                       init_cache, decode_step)
+    return ModelBundle(cfg, init, forward, loss, prefill, init_cache,
+                       decode_step)
 
 
 # ===========================================================================
@@ -213,18 +227,25 @@ def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
             new_states.append(st)
         return x, _stack(new_states)
 
+    def _forward(params, batch, plain_scan):
+        tokens = batch["tokens"]
+        x = embedding(params["embed"], tokens, cfg.dtype)
+        states = init_cache(tokens.shape[0], device=tokens.device)
+        x, _ = _run(params, x, states, functools.partial(
+            B.rwkv_layer_seq, plain_scan=plain_scan))
+        x = norm(params["final_norm"], x)
+        return _logits(cfg, params, x)
+
     def init_cache(batch, device=None):
         one = S.init_rwkv6_state(batch, cfg.rwkv_cfg(),
                                  device=_cache_dev(cache_device, device))
         return _repeat(one, cfg.n_layers)
 
     def forward(params, batch):
-        tokens = batch["tokens"]
-        x = embedding(params["embed"], tokens, cfg.dtype)
-        states = init_cache(tokens.shape[0], device=tokens.device)
-        x, _ = _run(params, x, states, B.rwkv_layer_seq)
-        x = norm(params["final_norm"], x)
-        return _logits(cfg, params, x)
+        return _forward(params, batch, False)
+
+    def loss(params, batch):
+        return _lm_loss(_forward(params, batch, True), batch["tokens"])
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -241,8 +262,8 @@ def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
         x = norm(params["final_norm"], x)
         return _logits(cfg, params, x)[:, 0], new_states
 
-    return ModelBundle(cfg, init, forward, _no_loss(cfg.family), prefill,
-                       init_cache, decode_step)
+    return ModelBundle(cfg, init, forward, loss, prefill, init_cache,
+                       decode_step)
 
 
 # ===========================================================================
@@ -264,13 +285,15 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
         p["shared_attn"] = B.init_decoder_layer(generator, acfg)
         return p
 
-    def _run(params, x, mamba_states, positions, attn_ctx, window="cfg"):
+    def _run(params, x, mamba_states, positions, attn_ctx, window="cfg",
+             plain_scan=False):
         """attn_ctx: None (fresh forward), "collect" (prefill: gather the
         shared block's caches), or the stacked caches (decode: one token;
         each group's cache is updated in place).  Returns (x, the stacked
         mamba states, the collected caches)."""
         decode = isinstance(attn_ctx, dict)
-        apply = B.mamba_layer_decode if decode else B.mamba_layer_seq
+        apply = (B.mamba_layer_decode if decode else
+                 functools.partial(B.mamba_layer_seq, plain_scan=plain_scan))
         shared = params["shared_attn"]
         states, caches = [], []
         for i in range(cfg.n_layers):
@@ -306,14 +329,21 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
         return {"mamba": _mamba_cache(batch, dev),
                 "attn": _repeat(one, n_groups)}
 
-    def forward(params, batch):
+    def _forward(params, batch, plain_scan):
         tokens = batch["tokens"]
         x = embedding(params["embed"], tokens, cfg.dtype)
         pos = _positions(*tokens.shape[:2], device=tokens.device)
         x, _, _ = _run(params, x, _mamba_cache(tokens.shape[0],
-                                               tokens.device), pos, None)
+                                               tokens.device), pos, None,
+                       plain_scan=plain_scan)
         x = norm(params["final_norm"], x)
         return _logits(cfg, params, x)
+
+    def forward(params, batch):
+        return _forward(params, batch, False)
+
+    def loss(params, batch):
+        return _lm_loss(_forward(params, batch, True), batch["tokens"])
 
     def prefill(params, batch, window="cfg"):
         tokens = batch["tokens"]
@@ -336,8 +366,8 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
         return _logits(cfg, params, x)[:, 0], {"mamba": states,
                                                "attn": cache["attn"]}
 
-    return ModelBundle(cfg, init, forward, _no_loss(cfg.family), prefill,
-                       init_cache, decode_step)
+    return ModelBundle(cfg, init, forward, loss, prefill, init_cache,
+                       decode_step)
 
 
 # ===========================================================================
@@ -381,6 +411,9 @@ def _build_encdec(cfg: ModelConfig, cache_device) -> ModelBundle:
         x, _ = _decode_seq(params, batch["tokens"], enc_out, False)
         return _logits(cfg, params, norm(params["final_norm"], x))
 
+    def loss(params, batch):
+        return _lm_loss(forward(params, batch), batch["tokens"])
+
     def prefill(params, batch):
         enc_out = _encode(params, batch["frames"])
         x, caches = _decode_seq(params, batch["tokens"], enc_out, True)
@@ -406,8 +439,8 @@ def _build_encdec(cfg: ModelConfig, cache_device) -> ModelBundle:
         x = norm(params["final_norm"], x)
         return _logits(cfg, params, x)[:, 0], cache
 
-    return ModelBundle(cfg, init, forward, _no_loss(cfg.family), prefill,
-                       init_cache, decode_step)
+    return ModelBundle(cfg, init, forward, loss, prefill, init_cache,
+                       decode_step)
 
 
 # ===========================================================================

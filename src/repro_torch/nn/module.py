@@ -28,8 +28,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 __all__ = ["Hooked", "param", "init_dense", "dense", "init_embedding",
-           "embedding", "init_rmsnorm", "rmsnorm", "init_layernorm", "layernorm",
-           "rope_freqs", "apply_rope"]
+           "embedding", "init_rmsnorm", "rmsnorm", "init_layernorm",
+           "layernorm", "rope_freqs", "apply_rope", "cross_entropy_loss"]
 
 _F32 = torch.float32
 
@@ -144,3 +144,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rotary_dim: int,
     if rotary_dim < hd:
         out = torch.cat([out, rest], dim=-1)
     return out
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-level cross-entropy in f32 without a one-hot (a vocab may be
+    257k): the logsumexp minus the gold logit, taken with ``gather``; the
+    mean over the tokens, or over ``mask``'s with ``max(sum(mask), 1)``
+    as the divisor."""
+    logits = logits.to(_F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(_F32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -11,8 +11,11 @@ is thrown away, one batched product per expert weight over the (E, C, d)
 buffers, and the gate-weighted sum of each token's k outputs.  The
 Switch-style load-balance loss comes back beside the output; arctic adds a
 dense MLP in parallel (``dense_residual``).  The kept slots are unique, so
-the one scatter into the buffers (``index_copy_``) writes each at most
-once; the overflow row may take many writes, in any order.  The
+the one scatter into the buffers (``scatter``) writes each at most
+once; the overflow row may take many writes, in any order.  The scatter
+and the expert one-hots (a comparison with ``arange(E)``) are functional,
+so ``torch.func.vmap`` batches the layer under ``grad`` without a
+per-sample loop.  The
 reference's sharding specs are dropped (one card).
 """
 
@@ -121,14 +124,17 @@ def moe(p, cfg: MoeConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
 
     # capacity slots: the count of earlier choices of the same expert
     flat_expert = gate_idx.reshape(-1)                          # (T*k,)
-    onehot = torch.nn.functional.one_hot(flat_expert, e)        # (T*k, E)
+    # a comparison, not one_hot: one_hot checks its range on the data,
+    # which torch.func.vmap refuses
+    experts = torch.arange(e, dtype=flat_expert.dtype, device=x.device)
+    onehot = (flat_expert[:, None] == experts).to(flat_expert.dtype)
     slot = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
     keep = slot < cap
     dest = torch.where(keep, flat_expert * cap + slot, e * cap)
 
     # dispatch: one scatter into (E*C + 1, d), the last row the overflow
-    buf = xt.new_zeros((e * cap + 1, d)).index_copy_(
-        0, dest, xt.repeat_interleave(k, dim=0))
+    buf = xt.new_zeros((e * cap + 1, d)).scatter(
+        0, dest[:, None].expand(-1, d), xt.repeat_interleave(k, dim=0))
     buf = buf[: e * cap].reshape(e, cap, d)
 
     # expert compute, batched over E
@@ -147,8 +153,7 @@ def moe(p, cfg: MoeConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
 
     # Switch load-balance aux loss
     me = probs.mean(dim=0)                                       # (E,)
-    ce = torch.nn.functional.one_hot(gate_idx[:, 0], e).to(
-        torch.float32).mean(dim=0)
+    ce = (gate_idx[:, :1] == experts).to(torch.float32).mean(dim=0)
     aux = e * torch.sum(me * ce)
 
     if "dense_mlp" in p:

@@ -6,8 +6,12 @@ scan: ``kernels.ops.rwkv6_scan`` (chunk :data:`RWKV_CHUNK`, the
 hand-written ``rwkv6_chunk`` kernel on the card) or ``kernels.ops.ssd_scan``
 (chunk :data:`SSD_CHUNK`, the ``ssd_chunk`` kernel); any other length, and
 every decode step, runs the exact per-token recurrence, as the reference
-does.  RWKV6's log w is clamped to [LOGW_MIN, LOGW_MAX] so that the chunk's
-cumulative log-decay stays within f32's exp range (|la| <= 80 at chunk 16);
+does.  ``plain_scan=True`` takes the chunked scan's plain PyTorch form
+(``kernels.ref.rwkv6_chunk_ref`` / ``ssd_chunk_ref``) on any device: the
+training loss passes it, since the kernels have no backward and the
+reference trains through its jnp chunked forms.  RWKV6's log w is clamped
+to [LOGW_MIN, LOGW_MAX] so that the chunk's cumulative log-decay stays
+within f32's exp range (|la| <= 80 at chunk 16);
 Mamba2's decay is a scalar per step and head, so its chunk needs no clamp.
 
 RWKV6 recurrence (head dim N):
@@ -124,11 +128,12 @@ def init_rwkv6_state(batch: int, cfg: Rwkv6Config, dtype=_F32, device=None):
 
 
 def rwkv6_block(p, cfg: Rwkv6Config, x, state: Optional[Dict] = None,
-                chunked: bool = True):
+                chunked: bool = True, plain_scan: bool = False):
     """Full time-mix + channel-mix over a sequence.  x: (B,S,D).
 
     Returns (y, final_state).  The chunked scan runs when ``chunked`` and S
-    is a multiple of RWKV_CHUNK (and above 1); otherwise the recurrence.
+    is a multiple of RWKV_CHUNK (and above 1), through the kernel's wrapper
+    or, under ``plain_scan``, its plain form; otherwise the recurrence.
     """
     b, s, d = x.shape
     if state is None:
@@ -137,7 +142,8 @@ def rwkv6_block(p, cfg: Rwkv6Config, x, state: Optional[Dict] = None,
     r, k, v, logw, g = _rwkv_rkvwg(p, cfg, x, prev)
     u = p["u"]
     if chunked and s % RWKV_CHUNK == 0 and s > 1:
-        o, s_fin = ops.rwkv6_scan(r, k, v, logw, u, state["S"])
+        chunk_scan = ref.rwkv6_chunk_ref if plain_scan else ops.rwkv6_scan
+        o, s_fin = chunk_scan(r, k, v, logw, u, state["S"])
     else:
         o, s_fin = rwkv_scan_ref(r, k, v, logw, u, state["S"])
     o = o.reshape(b, s, d).to(x.dtype)
@@ -202,13 +208,16 @@ def init_mamba2_block(gen: torch.Generator, cfg: Mamba2Config, lead=()):
     }
 
 
-def _ssd_chunk_scan(xh, bmat, cmat, dla, h0):
+def _ssd_chunk_scan(xh, bmat, cmat, dla, h0, plain_scan: bool = False):
     """The exact chunked SSD (``repro.nn.ssm._ssd_chunk_scan``): the
-    ``ssd_chunk`` kernel on the card, its plain version on the CPU.
+    ``ssd_chunk`` kernel on the card, its plain version on the CPU, or the
+    plain version on any device under ``plain_scan``.
 
     xh: (B,S,H,P) dt-scaled inputs; bmat/cmat: (B,S,N); dla: (B,S,H)
     *per-step* log-decay (log a_t); h0: (B,H,P,N).  Returns (y, h_final).
     """
+    if plain_scan:
+        return ref.ssd_chunk_ref(xh, bmat, cmat, dla, h0)
     return ops.ssd_scan(xh, bmat, cmat, dla, h0)
 
 
@@ -236,9 +245,10 @@ def _causal_conv(seq, w, b, conv_state):
 
 
 def mamba2_block(p, cfg: Mamba2Config, x, state: Optional[Dict] = None,
-                 chunked: bool = True):
+                 chunked: bool = True, plain_scan: bool = False):
     """x: (B,S,D) -> (y, new_state).  The chunked scan runs when
-    ``chunked`` and S is a multiple of SSD_CHUNK (and above 1); otherwise
+    ``chunked`` and S is a multiple of SSD_CHUNK (and above 1), through the
+    kernel's wrapper or, under ``plain_scan``, its plain form; otherwise
     the recurrence."""
     b, s, d = x.shape
     di, n, h, pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
@@ -259,7 +269,8 @@ def mamba2_block(p, cfg: Mamba2Config, x, state: Optional[Dict] = None,
     dla = dt * a[None, None, :]                                # per-step log a
     xh = xin.to(_F32) * dt[..., None]
     if chunked and s % SSD_CHUNK == 0 and s > 1:
-        y, h_fin = _ssd_chunk_scan(xh, bmat, cmat, dla, state["h"])
+        y, h_fin = _ssd_chunk_scan(xh, bmat, cmat, dla, state["h"],
+                                   plain_scan)
     else:
         y, h_fin = ssd_scan_ref(xh, bmat, cmat, dla, state["h"])
     y = y + xin.to(_F32) * p["d_skip"].to(_F32)[None, None, :, None]

@@ -55,10 +55,11 @@ def test_registry_holds_the_slice():
         tapi.algorithm_info("no-such-algo")
 
 
-@pytest.mark.parametrize("over", [dict(fleet=True, remat_policy="full"),
+@pytest.mark.parametrize("over", [dict(gossip_mode="packed",
+                                       topology="complete"),
                                   dict(topology_schedule="static",
                                        gossip_mode="ring"),
-                                  dict(remat_policy="full"),
+                                  dict(gossip_mode="ring", plane_dtype="bf16"),
                                   dict(gossip_mode="ring"),
                                   dict(gossip_mode="packed"),
                                   dict(gossip_mode="ring",

@@ -13,6 +13,7 @@ gate of ``tests/test_torch_zamba2_model.py``).
 
 import dataclasses
 import pathlib
+import re
 import runpy
 import sys
 
@@ -171,6 +172,19 @@ def test_serve_main_smoke_on_cpu(arch, capsys):
     ids = eval(out.split("[sample ids]")[1].strip().splitlines()[0])
     assert len(ids) == 5 and all(0 <= i < 512 for i in ids)
     assert set(tops.LAUNCHES.values()) == {0}   # no kernel on these paths
+
+
+def test_serve_main_default_arch_is_the_reference(capsys):
+    """With no ``--arch`` both serve entry points take tinyllama-1.1b
+    (ROADMAP queue 3 item 19: the port's default was rwkv6-7b)."""
+    from repro.launch import serve as jserve
+
+    prefill = re.compile(r"^\[prefill\] (\S+) batch=", re.M)
+    assert jserve.main(["--smoke", "--gen", "2"]) == 0
+    want = prefill.search(capsys.readouterr().out).group(1)
+    assert serve.main(["--smoke", "--gen", "2", "--device", "cpu"]) == 0
+    got = prefill.search(capsys.readouterr().out).group(1)
+    assert got == want == cfg_of("tinyllama-1.1b").name
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "minicpm3-4b"])

@@ -35,6 +35,7 @@ from repro.models import build_model as jbuild_model
 from repro.nn import ssm as JS
 from repro_torch import convert
 from repro_torch.configs import ARCHS, get_config, get_smoke
+from repro_torch.data import batch_source
 from repro_torch.launch import serve
 from repro_torch.models import blocks as TB
 from repro_torch.models import build_model
@@ -287,9 +288,9 @@ def test_configs_are_the_reference_values():
 
 def test_unported_parts_raise_naming_the_roadmap():
     """Every architecture builds since the decoder and encoder-decoder
-    slice (the MLA and MoE accessors, the dense family); what still raises
-    is each family's LM loss, naming ROADMAP queue 1 item 13, and an
-    unknown arch or family."""
+    slice (the MLA and MoE accessors, the dense family), and every
+    family's LM loss runs since the LM training slice (ROADMAP queue 1
+    item 13): what still raises is an unknown arch or family."""
     cfg = get_smoke(ARCH)
     assert cfg.mla_cfg().kv_lora_rank == 256 and cfg.moe_cfg().top_k == 2
     assert get_config("tinyllama-1.1b").family == "dense"
@@ -298,10 +299,14 @@ def test_unported_parts_raise_naming_the_roadmap():
     with pytest.raises(ValueError, match="unknown family"):
         build_model(dataclasses.replace(cfg, family="mystery"), device="cpu")
     for arch in ARCHS:
-        bundle = build_model(get_smoke(arch), device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 13"):
-            bundle.loss({}, {})
+        smoke = get_smoke(arch)
+        bundle = build_model(smoke, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        batch = batch_source(smoke, 1, 2, 32, device="cpu")(gen, 0)
+        loss = bundle.loss(bundle.init(gen), {k: v[0]
+                                              for k, v in batch.items()})
+        assert loss.dtype == torch.float32 and loss.dim() == 0
+        assert bool(torch.isfinite(loss)), arch
 
 
 def test_serve_smoke_on_cpu(capsys):

@@ -371,8 +371,9 @@ def test_configs_are_the_reference_values():
 def test_moe_and_mla_decoder_layers_raise_naming_the_roadmap():
     """The decoder layer's MLA and MoE branches, which raised until the
     decoder slice, now build; the hybrid's shared block stays GQA + MLP
-    whatever the config says; the bundle's loss still raises naming the
-    roadmap."""
+    whatever the config says; the bundle's loss, which raised naming the
+    roadmap until the LM training slice, gives the next-token loss of
+    ``forward``'s logits."""
     cfg = get_smoke(ARCH)
     gen = torch.Generator().manual_seed(0)
     mla = TB.init_decoder_layer(gen, dataclasses.replace(cfg, mla=True))
@@ -385,5 +386,12 @@ def test_moe_and_mla_decoder_layers_raise_naming_the_roadmap():
     assert sorted(shared["attn"]) == ["wk", "wo", "wq", "wv"]
     assert sorted(shared["ffn"]) == ["w_gate", "w_in", "w_out"]
     bundle = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bundle.loss({}, {})
+    params = bundle.init(gen)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    with torch.no_grad():
+        logits = bundle.forward(params, {"tokens": tokens})
+        want = torch.nn.functional.cross_entropy(
+            logits[:, :-1].reshape(-1, cfg.vocab).float(),
+            tokens[:, 1:].reshape(-1))
+        got = bundle.loss(params, {"tokens": tokens})
+    assert torch.allclose(got, want, rtol=1e-5)
