@@ -188,6 +188,35 @@ of the ``repro`` package.  Phases, each printing its own lines:
    ``mean_noise`` a round), and every other registered algorithm and the
    fleet through ``main`` for 2 rounds.
 
+13. PORTER-DP at LM size (``[lm-dp]`` lines): phase 12's full-width cell
+   with ``build_train_step(variant="dp")``, sigma_p from
+   ``launch.train.resolve_privacy`` at ``main``'s defaults (epsilon 0.1,
+   delta 1e-3, 4,096 local samples, the cell's rounds): the per-sample
+   gradients in chunks of c = 1 sample (the 4 x 26,754-tile per-sample
+   plane is 3.51 GB), 10 rounds in chunks of 5 after a warm chunk, each
+   old state donated (ms a round, b / c ``clip`` and ``mean_noise``
+   launches a round, one ``ef_track`` and ``ef_step``, the peak memory
+   under 76 GB), a profiled window, every ``clip`` and ``mean_noise`` call
+   of a round (and its ef kernels) bitwise its plain version on the
+   round's own planes, one DP gradient with c = 1 and c = 2 from the same
+   state, batch and noise (bitwise, each call's rise in memory), the DP
+   gradient of tinyllama's smoke config on the card within 1e-4 of the
+   CPU's, ``mean_noise`` timed at the DP plane with and without its
+   running sum beside its bound, and
+   ``examples/private_decentralized_lm_torch.py --steps 20``.
+14. The ring and plain packed gossip executors (``[gossip-executors]``
+   lines): PORTER-GC on the Section-5.2 MLP with 10 agents on a ring
+   (Metropolis) for 200 rounds on both backends with ``gossip_mode``
+   "ring" (f32, bf16), "packed" (top-k 5 %), "ring" with
+   ``packed_bits`` (top-k f32 and bf16, QSGD 7 levels f32) and "ring" on
+   ``rotate:ring/metropolis+ring/lazy``, and dp-csgp's push-sum weight
+   through the ring's ``push``; each executor's exchange of one round's
+   increment within 1e-6 of the dense mixer's ``W @ c`` in f32, the ring
+   codec's wire kernels bitwise their plain versions on the round's own
+   windows (one pack and one unpack an exchange), measured wire bytes
+   equal to the model, ms a round beside the dense executor's; then 5
+   rounds of phase 12's LM cell with ``gossip_mode="ring"`` beside dense.
+
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
 the last is the kernels' JSON record; the last line is the device record.
@@ -198,6 +227,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3441,6 +3471,7 @@ class _LmChecks:
     records whether every output is bitwise the plain one."""
 
     NAMES = ("ef_track", "ef_step", "clip_planes", "block_topk")
+    TAG = "lm-train"
 
     def __init__(self, torch, ops, ref):
         self.torch, self.ops, self.ref = torch, ops, ref
@@ -3505,8 +3536,8 @@ class _LmChecks:
 
     def report(self, label):
         for name, shape, dt, equal in self.calls:
-            print(f"[lm-train] {label}: {name} on the round's {dt} plane "
-                  f"{shape} bitwise its plain version: {equal}")
+            print(f"[{self.TAG}] {label}: {name} on the round's {dt} "
+                  f"plane {shape} bitwise its plain version: {equal}")
         bad = [c for c in self.calls if not c[3]]
         if not self.calls or bad:
             raise AssertionError(f"{label}: kernels differ from their plain "
@@ -3934,6 +3965,574 @@ def phase_lm_remat(torch, ops, steps, data, configs, tree_leaves):
     return {"peak": peaks, "rise": rises}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: PORTER-DP at LM size
+# ---------------------------------------------------------------------------
+
+# the full-width cell of phase 12 (LM_RUN: 4 agents, batch 4 x 64), under
+# PORTER-DP: sigma_p from resolve_privacy at launch.train.main's defaults
+LM_DP = dict(warm=2, rounds=10, chunk=5, profiled=5, example_steps=20,
+             epsilon=0.1, delta=1e-3, local_samples=4096, smoke_tol=1e-4,
+             smoke_batch=4)
+LM_DP_CHUNK = 1                  # 4 x 26,754 tiles x 8,192 x 4 B = 3.51 GB
+
+
+def _lm_dp_sigma(train, api):
+    """sigma_p of ``main``'s fresh DP run over the cell's rounds."""
+    import argparse
+    d = LM_DP
+    rounds = d["warm"] + d["rounds"] + 1 + d["profiled"]
+    args = argparse.Namespace(tau=LM_RUN["tau"], steps=rounds,
+                              local_samples=d["local_samples"],
+                              epsilon=d["epsilon"], delta=d["delta"])
+    sigma_p, _, _ = train.resolve_privacy(api.algorithm_info("porter-dp"),
+                                          args, 0, {})
+    return sigma_p
+
+
+class _DpChecks(_LmChecks):
+    """``_LmChecks`` plus ``ops.dp_mean_noise``: each call on the round's
+    own plane (its running sum, noise and finish flag) against
+    ``ref.dp_mean_noise_ref`` on the same CUDA operands."""
+
+    NAMES = _LmChecks.NAMES + ("dp_mean_noise",)
+    TAG = "lm-dp"
+
+    def _dp_mean_noise(self, planes, groups, b, noise=None, sigma=0.0,
+                       acc=None, finish=True, b_total=None):
+        out = self.saved["dp_mean_noise"](planes, groups, b, noise, sigma,
+                                          acc=acc, finish=finish,
+                                          b_total=b_total)
+        want = self.ref.dp_mean_noise_ref(planes, groups, b, noise, sigma,
+                                          acc, finish, b_total)
+        equal = bit_equal(self.torch, out, want)
+        del want
+        self.calls.append((f"mean_noise (acc {acc is not None}, finish "
+                           f"{finish})", tuple(planes.shape),
+                           str(planes.dtype), equal))
+        return out
+
+    def report(self, label):
+        counts = super().report(label)
+        return {"clip": counts.get("clip", 0),
+                "mean_noise": sum(v for k, v in counts.items()
+                                  if k.startswith("mean_noise")),
+                "ef_track": counts.get("ef_track", 0),
+                "ef_step": counts.get("ef_step", 0)}
+
+
+def phase_lm_dp(torch, ops, ref, runtime, steps, data, configs, models,
+                train, api, clipping, tree_leaves):
+    """PORTER-DP on the full-width cell: launches, ms a round, peak memory,
+    the busy share, the kernels bitwise on a round's own planes, c = 1
+    against c = 2, the smoke config card vs CPU, and the example."""
+    from repro_torch.tree import tree_map
+    c, d = LM_RUN, LM_DP
+    cfg = _lm_cfg(configs)
+    t0 = time.perf_counter()
+    sigma_p = _lm_dp_sigma(train, api)
+    torch.cuda.empty_cache()
+    setup = steps.build_train_step(
+        cfg, c["agents"], variant="dp", compressor_name="top_k",
+        frac=c["frac"], eta=c["eta"], tau=c["tau"], sigma_p=sigma_p,
+        plane_dtype=LM_PLANE_DTYPE, device=DEVICE)
+    state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+    n_params = sum(leaf[0].numel() for leaf in tree_leaves(state.x))
+    tiles = -(-n_params // TILE)
+    chunk = clipping.sample_chunk(c["agents"], tiles, c["batch"])
+    per_round = -(-c["batch"] // chunk)
+    plane = c["agents"] * chunk * tiles * TILE * 4
+    print(f"[lm-dp] {cfg.name} {cfg.n_layers} of 22 layers: {n_params} "
+          f"parameters an agent, {c['agents']} agents, batch {c['batch']} x "
+          f"{c['seq']}, sigma_p {sigma_p!r}, per-sample chunk c = {chunk} "
+          f"(a chunk's plane {c['agents']} x {chunk} x {tiles} tiles = "
+          f"{plane} B, budget {clipping.SAMPLE_PLANE_BYTES} B), "
+          f"{per_round} clip + {per_round} mean_noise a round, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n_params != LM_PARAMS or chunk != LM_DP_CHUNK:
+        raise AssertionError(f"lm-dp: {n_params} parameters, chunk {chunk}")
+    source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                               device=DEVICE)
+    algo = setup.algorithm
+    warm = []
+    state, _ = runtime.run_chunked(
+        algo, source, state, 0, d["warm"], chunk=d["warm"], donate=True,
+        on_chunk=lambda t0, t1, st, m: warm.extend(m["loss"].tolist()))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, losses, ms = run_timed(torch, runtime.run_chunked, algo, source,
+                                  state, 0, d["rounds"], d["chunk"],
+                                  donate=True)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm-dp] porter-dp {d['rounds']} rounds in chunks of "
+          f"{d['chunk']} after a warm chunk: loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}, {ms:.3f} ms/round, launches {launches}, peak "
+          f"memory {peak} B ({peak / 1e9:.2f} GB, limit "
+          f"{LM_PEAK_LIMIT / 1e9:.0f} GB)")
+    if not finite(warm + losses):
+        raise AssertionError(f"lm-dp: non-finite losses {losses}")
+    want = _lm_round_launches(LM_PLANE_DTYPE, d["rounds"])
+    want.update(clip=per_round * d["rounds"],
+                mean_noise=per_round * d["rounds"])
+    expect_launches("lm-dp", launches, **want)
+    if peak > LM_PEAK_LIMIT:
+        raise AssertionError(f"lm-dp: peak {peak} B passes {LM_PEAK_LIMIT}")
+    # every clip and mean_noise call of one round on its own planes
+    gen_b = torch.Generator(device=DEVICE).manual_seed(31)
+    with _DpChecks(torch, ops, ref) as checks:
+        state, _ = algo.step(state, source(gen_b, 0),
+                             torch.Generator(device=DEVICE).manual_seed(32))
+    checked = checks.report("lm-dp porter-dp")
+    if checked != {"clip": per_round, "mean_noise": per_round,
+                   "ef_track": 1, "ef_step": 1}:
+        raise AssertionError(f"lm-dp: a round's checked calls {checked}")
+    # one DP gradient from the same state, batch and noise, c = 1 and 2
+    batch = source(gen_b, 1)
+    gen_z = torch.Generator(device=DEVICE).manual_seed(33)
+    noise = tree_map(lambda leaf: torch.randn(
+        leaf.shape, generator=gen_z, device=DEVICE), state.x)
+    grads, rises = {}, {}
+    for cc in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        grads[cc], _ = clipping.dp_gradient(
+            setup.bundle.loss, state.x, batch, c["tau"], sigma_p,
+            noise=noise, agents="stacked", sample_chunk=cc)
+        torch.cuda.synchronize()
+        rises[cc] = torch.cuda.max_memory_allocated() - base
+        print(f"[lm-dp] DP gradient with c = {cc}: launches "
+              f"{ {k: v for k, v in ops.LAUNCHES.items() if v} }, peak "
+              f"rise {rises[cc]} B ({rises[cc] / 1e9:.2f} GB) over "
+              f"{base} B resident")
+    same = all(bit_equal(torch, a, b) for a, b in
+               zip(tree_leaves(grads[1]), tree_leaves(grads[2])))
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(grads[1]), tree_leaves(grads[2])))
+    print(f"[lm-dp] DP gradient c = 1 vs c = 2: bitwise equal {same}, max "
+          f"|diff| {diff}")
+    if not same:
+        raise AssertionError(f"lm-dp: c = 1 and c = 2 differ: {diff}")
+    del grads, noise, batch
+    # the busy share over a few rounds (the state is donated)
+    box = [state]
+    del state
+    prof = _profile_call(torch, f"{d['profiled']} porter-dp rounds",
+                         lambda: runtime.run_chunked(
+                             algo, source, box.pop(), 0, d["profiled"],
+                             chunk=d["profiled"], donate=True),
+                         tag="lm-dp", kernel=None)
+    del algo, setup, source
+    torch.cuda.empty_cache()
+    smoke = _lm_dp_smoke(torch, ops, configs, models, data, clipping,
+                         tree_leaves, sigma_p)
+    example = _lm_dp_example(torch)
+    return {"ms_round": ms, "launches": launches, "peak_bytes": peak,
+            "chunk": chunk, "per_round": per_round, "sigma_p": sigma_p,
+            "clip_round": launches["clip"] // d["rounds"],
+            "mean_noise_round": launches["mean_noise"] // d["rounds"],
+            "checked": checked, "rise_c1": rises[1], "rise_c2": rises[2],
+            "profile": prof, "smoke_err": smoke, "example_s": example}
+
+
+def _lm_dp_smoke(torch, ops, configs, models, data, clipping, tree_leaves,
+                 sigma_p):
+    """tinyllama's smoke config, 4 agents: the DP gradient on the card
+    within LM_DP's smoke tolerance of the CPU's, normwise; one clip and
+    one mean_noise (its plane takes the whole batch)."""
+    from repro_torch.tree import tree_map
+    d = LM_DP
+    cfg = dataclasses.replace(configs.get_smoke(LM_ARCH),
+                              dtype=torch.float32)
+    cpu = models.build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(2)
+    x = tree_map(lambda t: t.unsqueeze(0).expand(
+        (LM_RUN["agents"],) + tuple(t.shape))
+        + 1e-2 * torch.randn((LM_RUN["agents"],) + tuple(t.shape),
+                             generator=gen), params)
+    batch = data.batch_source(cfg, LM_RUN["agents"], d["smoke_batch"],
+                              LM_SMOKE["seq"], device="cpu")(
+        torch.Generator().manual_seed(1), 0)
+    noise = tree_map(lambda t: torch.randn(t.shape, generator=gen), x)
+    g_cpu, l_cpu = clipping.dp_gradient(cpu.loss, x, batch, LM_RUN["tau"],
+                                        sigma_p, noise=noise,
+                                        agents="stacked")
+    card = models.build_model(cfg, device=DEVICE)
+    on = (lambda tree: tree_map(lambda t: t.to(DEVICE), tree))
+    ops.reset_launches()
+    g_dev, l_dev = clipping.dp_gradient(card.loss, on(x), on(batch),
+                                        LM_RUN["tau"], sigma_p,
+                                        noise=on(noise), agents="stacked")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    a = torch.cat([t.flatten().cpu() for t in tree_leaves(g_dev)])
+    b = torch.cat([t.flatten() for t in tree_leaves(g_cpu)])
+    err = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    l_err = float((l_dev.cpu() - l_cpu).abs().max())
+    print(f"[lm-dp] {cfg.name} smoke DP gradient, 4 agents x batch "
+          f"{d['smoke_batch']}: card vs CPU normwise {err:.3g}, losses "
+          f"max |diff| {l_err:.3g} (tolerance {d['smoke_tol']}), launches "
+          f"{launches}")
+    if not (err <= d["smoke_tol"] and l_err <= d["smoke_tol"]):
+        raise AssertionError(f"lm-dp: smoke DP gradient card vs CPU {err}")
+    expect_launches("lm-dp smoke", dict(ops.LAUNCHES), clip=1, mean_noise=1)
+    return err
+
+
+def _lm_dp_example(torch):
+    """``examples/private_decentralized_lm_torch.py --steps N`` on the card
+    in a process of its own (it finds the kernels already built)."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "examples" /
+                             "private_decentralized_lm_torch.py"),
+         "--steps", str(LM_DP["example_steps"])], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    lines = [line for line in run.stdout.splitlines() if line.strip()]
+    for line in lines[:1] + lines[-2:]:
+        print(f"[lm-dp] example: {line}")
+    print(f"[lm-dp] examples/private_decentralized_lm_torch.py --steps "
+          f"{LM_DP['example_steps']}: exit {run.returncode} in {took:.1f} s")
+    if run.returncode != 0:
+        raise AssertionError(f"lm-dp: the example exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    return took
+
+
+# mean_noise at the DP plane: (name, running sum in, finish, noise), each
+# on the 4 x 26,754-tile plane of c = 1 sample an agent: the three roles a
+# round at c = 1 launches (the one-shot role, b = b_total, runs on the MLP's
+# and the fleet's planes, timed in phases 4 and 10)
+LM_DP_MEAN = (("first chunk", False, False, False),
+              ("middle chunk", True, False, False),
+              ("last chunk", True, True, True))
+
+
+def phase_lm_dp_kernels(torch, ops, ref, reps=5, inner=3):
+    """``mean_noise`` at the LM's DP plane (4 groups x 1 sample x 26,754
+    tiles, f32) in each of its chunk roles: bitwise against the plain
+    version, its time, the plain version's and the bound (the plane read
+    once, the running sum and the noise read once, the out plane written
+    once).  The first chunk's function is one ``torch.add(x, 0.0)`` (+0.0
+    plus each sample) and the middle chunk's one ``torch.add(acc, x)``:
+    each is timed beside it and must be bitwise the kernel's output."""
+    rows, tiles = LM_RUN["agents"], -(-LM_PARAMS // TILE)
+    gen = torch.Generator(device=DEVICE).manual_seed(34)
+    shape = (rows * tiles, TILE)
+    x = torch.randn(shape, generator=gen, device=DEVICE)
+    acc = torch.randn(shape, generator=gen, device=DEVICE)
+    z = torch.randn(shape, generator=gen, device=DEVICE)
+    sigma, table = 0.05, {}
+    for name, with_acc, finish, noisy in LM_DP_MEAN:
+        args = (x, rows, 1, z if noisy else None, sigma)
+        kw = dict(acc=acc if with_acc else None, finish=finish, b_total=4)
+        out = ops.dp_mean_noise(*args, **kw)
+        equal = bit_equal(torch, out, ref.dp_mean_noise_ref(
+            *args, kw["acc"], finish, 4))
+        del out
+        ms = device_time_ms(lambda: ops.dp_mean_noise(*args, **kw), [[]],
+                            reps, inner)
+        plain_ms = device_time_ms(lambda: ref.dp_mean_noise_ref(
+            *args, kw["acc"], finish, 4), [[]], 2, 1)
+        moved = x.nbytes * (2 + int(with_acc) + int(noisy))
+        b_ms = 1e3 * moved / HBM_BYTES_PER_S
+        lib_call = {"first chunk": lambda: torch.add(x, 0.0),
+                    "middle chunk": lambda: torch.add(acc, x)}.get(name)
+        library = None
+        if lib_call is not None:
+            if not bit_equal(torch, ops.dp_mean_noise(*args, **kw),
+                             lib_call()):
+                raise AssertionError(f"lm-dp: mean_noise {name} differs "
+                                     "from its one library call")
+            library = device_time_ms(lib_call, [[]], reps, inner)
+        table[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by="bytes", equal=equal, library_ms=library,
+                           plane=f"{rows} x 1 x {tiles} tiles f32")
+        print(f"[lm-dp] mean_noise {name} (running sum in {with_acc}, "
+              f"finish {finish}, noise {noisy}) at {rows} x 1 x {tiles} "
+              f"tiles: bitwise={equal} us={1e3 * ms:.1f} plain_us="
+              f"{1e3 * plain_ms:.1f} bound_us={1e3 * b_ms:.1f} (bytes: "
+              f"{moved} B at 3.35 TB/s), {100 * b_ms / ms:.1f} % of the "
+              "bound" + ("" if library is None else
+                         f", one torch.add (bitwise the kernel's) "
+                         f"{1e3 * library:.1f} us"))
+        if not equal:
+            raise AssertionError(f"lm-dp: mean_noise {name} differs from "
+                                 "its plain version")
+    del x, acc, z
+    torch.cuda.empty_cache()
+    return table
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the ring and plain packed gossip executors
+# ---------------------------------------------------------------------------
+
+GOSSIP_ROUNDS = 200
+GOSSIP_SCHEDULE = "rotate:ring/metropolis+ring/lazy"
+GOSSIP_RUNS = {
+    "dense f32": dict(),
+    "ring f32": dict(gossip_mode="ring"),
+    "ring bf16": dict(gossip_mode="ring", plane_dtype="bf16"),
+    "packed top_k f32": dict(gossip_mode="packed"),
+    "ring packed_bits top_k f32": dict(gossip_mode="ring",
+                                       wire="packed_bits"),
+    "ring packed_bits top_k bf16": dict(gossip_mode="ring",
+                                        wire="packed_bits",
+                                        plane_dtype="bf16"),
+    "ring packed_bits qsgd f32": dict(gossip_mode="ring", wire="packed_bits",
+                                      compressor="qsgd",
+                                      compressor_kwargs={"levels": 7}),
+    "ring schedule f32": dict(gossip_mode="ring",
+                              topology_schedule=GOSSIP_SCHEDULE),
+}
+GOSSIP_TOL = 1e-6                # an exchange's W @ c against the dense one
+WIRE_CHECKS = {"wire_topk_pack": "topk_pack_ref",
+               "wire_topk_unpack": "topk_unpack_ref",
+               "wire_qsgd_pack": "qsgd_pack_ref",
+               "wire_qsgd_unpack": "qsgd_unpack_ref"}
+
+
+class _WireChecks:
+    """The four wire wrappers of ``ops`` wrapped while a codec is built
+    and run: each call runs the kernel on the path's own windows, then the
+    plain version on the same operands, and records whether every output
+    is bitwise the plain one."""
+
+    def __init__(self, torch, ops, ref):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.saved = {k: getattr(ops, k) for k in WIRE_CHECKS}
+        self.calls = []
+
+    def __enter__(self):
+        for name, plain in WIRE_CHECKS.items():
+            setattr(self.ops, name, self._wrap(name, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+    def _wrap(self, name, plain):
+        def call(*a):
+            out = self.saved[name](*a)
+            want = getattr(self.ref, plain)(*a)
+            equal = all(bit_equal(self.torch, o, w) for o, w in
+                        zip(_as_tuple(out), _as_tuple(want)))
+            self.calls.append((name[5:], tuple(a[0].shape), equal))
+            return out
+        return call
+
+
+def _exchange_against_dense(torch, algo, state, tree_leaves, label):
+    """One exchange of the round's increment ``v - 0`` through the engine
+    (a per-window top-k of it for the plain packed executor, which is
+    exact on such increments), against the dense mixer's f32 ``W_t @ c``
+    on the same ``c``; returns the largest |difference|."""
+    from repro_torch.core.compression import block_top_k
+    from repro_torch.core.gossip import apply_mixer, make_dense_mixer
+    from repro_torch.tree import tree_map
+    eng, mixer = algo.engine, algo.mixer
+    y = state.v
+    zero = tree_map(torch.zeros_like, y)
+    t = state.step
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    if getattr(mixer, "wire_codec", None) is not None:
+        c, wc = eng.exchange(gen, y, zero, t)
+    else:
+        if mixer.wire_mode == "packed":
+            c = tree_map(lambda v: block_top_k(algo.spec.frac)(
+                None, v.reshape(v.shape[0], -1)).reshape(v.shape), y)
+        else:
+            c = eng.compress(gen, y)
+        wc = apply_mixer(mixer, c, t)
+    dense = make_dense_mixer(algo.topology.w if mixer.schedule is None
+                             else mixer.schedule.ws)
+    want = apply_mixer(dense, tree_map(lambda a: a.to(torch.float32), c), t)
+    return (max(float((a.to(torch.float32) - b).abs().max())
+                for a, b in zip(tree_leaves(wc), tree_leaves(want))),
+            max(float(b.abs().max()) for b in tree_leaves(want)))
+
+
+def phase_gossip_executors(torch, ops, ref, api, data, runtime, paper,
+                           tree_leaves, num=60000):
+    """PORTER-GC on the ring MLP through each executor, both backends, and
+    dp-csgp's weight through the ring push: kernel vs ref, launches, the
+    exchange against the dense mixer, the wire kernels on the path's
+    windows, wire bytes, ms a round."""
+    source, base, loss_fn = _mlp_problem(api, data, paper, num)
+    base = base.replace(topology="ring", topology_weights="metropolis")
+    rounds = GOSSIP_ROUNDS
+    ms_rounds, report = {}, {}
+    for label, over in GOSSIP_RUNS.items():
+        spec = base.replace(**over)
+        runs = {}
+        for backend in ("kernel", "ref"):
+            algo = _build(api, spec.replace(comm_backend=backend), loss_fn)
+            runs[backend] = (algo,) + run_counted(
+                torch, ops, runtime, algo, source, _init(algo, paper),
+                rounds, 50)
+            ms_rounds[f"{label} {backend}"] = runs[backend][3]
+        (algo, s_k, l_k, ms, n_k), (_, s_r, _, _, n_r) = (runs["kernel"],
+                                                         runs["ref"])
+        print(f"[gossip-executors] porter-gc {label} (mixer "
+              f"{algo.mixer.wire_mode}, codec "
+              f"{getattr(getattr(algo.mixer, 'wire_codec', None), 'name', None)}) "
+              f"{rounds} rounds: loss {l_k[0]:.6f} -> {l_k[-1]:.6f}, "
+              f"{ms:.4f} ms/round kernel, {runs['ref'][3]:.4f} ref, "
+              f"launches {n_k}")
+        if not finite(l_k):
+            raise AssertionError(f"gossip {label}: non-finite losses")
+        diff = max(float((s_k.x[k] - s_r.x[k]).abs().max()) for k in s_k.x)
+        same = all(bit_equal(torch, s_k.x[k], s_r.x[k]) for k in s_k.x)
+        print(f"[gossip-executors] {label} kernel vs ref backend: x bitwise "
+              f"equal {same}, max |x diff| {diff}")
+        bf16 = "bf16" in label
+        if not (same if bf16 or "packed_bits" in label else diff <= 1e-6):
+            raise AssertionError(f"gossip {label}: kernel and ref differ "
+                                 f"{diff}")
+        want = dict(ef_track=rounds, ef_step=rounds, clip=rounds)
+        if bf16:
+            want["sr_epilogue"] = 5 * rounds
+        if "packed_bits" in label:
+            pack = "qsgd" if "qsgd" in label else "topk"
+            want.update({f"{pack}_pack": 2 * rounds,
+                         f"{pack}_unpack": 2 * rounds})
+        expect_launches(f"gossip {label} kernel", n_k, **want)
+        expect_launches(f"gossip {label} ref", n_r, clip=rounds)
+        if "qsgd" not in label:
+            _falls(f"gossip porter-gc {label}", l_k)
+        eng = algo.engine
+        measured, model = eng.wire_bytes(s_k.x), eng.wire_bytes_model(s_k.x)
+        shipped = (getattr(algo.mixer, "shipped_nbytes", None)
+                   if label != "dense f32" else measured)
+        err, scale = _exchange_against_dense(torch, algo, s_k, tree_leaves,
+                                             label)
+        tol = 2.0 ** -7 * scale if bf16 else GOSSIP_TOL
+        print(f"[gossip-executors] {label}: one exchange vs the dense "
+              f"mixer's W @ c max |diff| {err} (tolerance {tol}"
+              f"{': one bf16 unit of max |W c|' if bf16 else ''}); bytes "
+              f"of one buffer's exchange: measured {measured}, model "
+              f"{model}, shipped in the last exchange of the run "
+              f"{shipped}")
+        if not err <= tol:
+            raise AssertionError(f"gossip {label}: exchange vs dense {err}")
+        if not measured == model == shipped:
+            raise AssertionError(f"gossip {label}: bytes {measured} / "
+                                 f"{model} / {shipped}")
+        report[label] = dict(ms=ms, ms_ref=runs["ref"][3], err=err,
+                             bytes=measured, launches=n_k)
+        if "packed_bits" in label:
+            # one round with the wire kernels held on its own windows
+            with _WireChecks(torch, ops, ref) as checks:
+                algo = _build(api, spec.replace(comm_backend="kernel"),
+                              loss_fn)
+                # the codec's byte measurement packs zeros once on the CPU
+                algo.engine.wire_bytes(s_k.x)
+                checks.calls.clear()
+                batch = source(torch.Generator(device=DEVICE).manual_seed(42),
+                               0)
+                algo.step(s_k, batch,
+                          torch.Generator(device=DEVICE).manual_seed(43))
+            names = [c[0] for c in checks.calls]
+            print(f"[gossip-executors] {label} one round's wire kernels on "
+                  f"its own windows: " + "; ".join(
+                      f"{n} {shape} bitwise {eq}"
+                      for n, shape, eq in checks.calls))
+            if (not all(c[2] for c in checks.calls)
+                    or names != [f"{pack}_pack", f"{pack}_unpack"] * 2):
+                raise AssertionError(f"gossip {label}: wire kernels "
+                                     f"{checks.calls}")
+    # dp-csgp's push-sum weight through the ring's push
+    spec = base.replace(algo="dp-csgp", sigma_p=DP_SIGMA, gossip_mode="ring")
+    dense_spec = base.replace(algo="dp-csgp", sigma_p=DP_SIGMA)
+    short = 50
+    states = {}
+    for name, sp in (("ring", spec), ("dense", dense_spec)):
+        algo = _build(api, sp.replace(comm_backend="kernel"), loss_fn)
+        states[name], losses, ms, counts = run_counted(
+            torch, ops, runtime, algo, source, _init(algo, paper), short, 25)
+        ms_rounds[f"dp-csgp {name}"] = ms
+        print(f"[gossip-executors] dp-csgp {name} {short} rounds: loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}, {ms:.4f} ms/round, "
+              f"launches {counts}")
+        expect_launches(f"gossip dp-csgp {name}", counts, ef_track=short,
+                        ef_step=short, clip=short, mean_noise=short)
+        if not finite(losses):
+            raise AssertionError(f"gossip dp-csgp {name}: losses")
+        if name == "ring":
+            eng = algo.engine
+            measured = eng.wire_bytes(states[name].x, push_sum=True)
+            model = eng.wire_bytes_model(states[name].x, push_sum=True)
+            shipped = algo.mixer.shipped_nbytes
+    s_ring, s_dense = states["ring"], states["dense"]
+    xw = s_ring.xw.double()
+    diff = max(float((s_ring.x[k] - s_dense.x[k]).abs().max())
+               for k in s_ring.x)
+    wdiff = float((s_ring.xw - s_dense.xw).abs().max())
+    print(f"[gossip-executors] dp-csgp ring push vs dense push: max |x "
+          f"diff| {diff}, max |xw diff| {wdiff}, sum xw {float(xw.sum())!r}; "
+          f"bytes with the weight: measured {measured}, model {model}, "
+          f"shipped {shipped}")
+    if not (abs(float(xw.sum()) - 10) <= 1e-5 and wdiff <= 1e-6
+            and measured == model == shipped):
+        raise AssertionError(f"gossip dp-csgp ring: xw {xw}, bytes "
+                             f"{measured} / {model} / {shipped}")
+    print(f"[gossip-executors] ms/round: {ms_rounds}")
+    algo = _build(api, base.replace(gossip_mode="ring"), loss_fn)
+    profile_rounds(torch, runtime, algo, source, _init(algo, paper), 20,
+                   "ring f32 kernel")
+    return {"runs": report, "ms_rounds": ms_rounds}
+
+
+def phase_lm_ring(torch, ops, runtime, steps, data, configs, tree_leaves):
+    """Phase 12's LM cell for ``profiled`` rounds with ``gossip_mode``
+    "ring" beside "dense", in turns: ms a round and the busy share."""
+    c = LM_RUN
+    cfg = _lm_cfg(configs)
+    out = {}
+    for mode in ("dense", "ring", "ring", "dense"):
+        torch.cuda.empty_cache()
+        setup = steps.build_train_step(
+            cfg, c["agents"], compressor_name="top_k", frac=c["frac"],
+            eta=c["eta"], tau=c["tau"], plane_dtype=LM_PLANE_DTYPE,
+            gossip_mode=mode, device=DEVICE)
+        state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+        source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                                   device=DEVICE)
+        state, _ = runtime.run_chunked(setup.algorithm, source, state, 0, 1,
+                                       chunk=1, donate=True)
+        ops.reset_launches()
+        state, losses, ms = run_timed(torch, runtime.run_chunked,
+                                      setup.algorithm, source, state, 0,
+                                      c["profiled"], 1, donate=True)
+        out.setdefault(mode, []).append(ms)
+        print(f"[gossip-executors] LM cell ({cfg.name}, {cfg.n_layers} "
+              f"layers, {c['agents']} agents, bf16 planes) gossip {mode}: "
+              f"{c['profiled']} rounds, {ms:.3f} ms/round, loss "
+              f"{losses[-1]:.6f}, launches {dict(ops.LAUNCHES)}")
+        if not finite(losses):
+            raise AssertionError(f"gossip LM {mode}: losses")
+        if mode == "ring" and len(out["ring"]) == 1:
+            box = [state]
+            del state
+            out["profile"] = _profile_call(
+                torch, f"{c['profiled']} porter-gc rounds, ring gossip",
+                lambda: runtime.run_chunked(setup.algorithm, source,
+                                            box.pop(), 0, c["profiled"],
+                                            chunk=c["profiled"], donate=True),
+                tag="gossip-executors", kernel=None)
+        else:
+            del state
+        del setup, source
+    return out
+
+
 def lm_record(name, lm, lm_times):
     """A kernel's LM-plane figures (phase 12) for its record: the cell's
     variant, its µs, plain µs and bound at the LM plane (both plane dtypes
@@ -4076,6 +4675,31 @@ def main() -> int:
         {k: v for k, v in lm.items() if k != "profile"}
         | {"profile": lm["profile"], "kernels": lm_times}, default=str))
 
+    # phase 13: PORTER-DP at LM size, its kernels at the DP plane, the
+    # example
+    t13 = time.perf_counter()
+    lm_dp = phase_lm_dp(torch, ops, ref, runtime, steps, data, configs,
+                        models, train, api, clipping, tree_leaves)
+    lm_dp_times = phase_lm_dp_kernels(torch, ops, ref)
+    clip_lm = lm_times["clip"]
+    print(f"[lm-dp] clip at the DP plane ({LM_RUN['agents']} x "
+          f"{LM_DP_CHUNK} x {-(-LM_PARAMS // TILE)} tiles: phase 12's "
+          f"4 x 26,754-tile plane): us={1e3 * clip_lm['ms']:.1f} "
+          f"bound_us={1e3 * clip_lm['bound_ms']:.1f}, "
+          f"{lm_dp['clip_round']} launches a DP round (measured)")
+    print(f"[lm-dp] phase took {time.perf_counter() - t13:.1f} s")
+    print("[lm-dp] figures " + json.dumps(
+        lm_dp | {"kernels": lm_dp_times}, default=str))
+
+    # phase 14: the ring and plain packed gossip executors
+    t14 = time.perf_counter()
+    gossip = phase_gossip_executors(torch, ops, ref, api, data, runtime,
+                                    paper, tree_leaves)
+    gossip["lm"] = phase_lm_ring(torch, ops, runtime, steps, data, configs,
+                                 tree_leaves)
+    print(f"[gossip-executors] phase took {time.perf_counter() - t14:.1f} s")
+    print("[gossip-executors] figures " + json.dumps(gossip, default=str))
+
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
@@ -4118,6 +4742,8 @@ def main() -> int:
             library_ms=(row["library_ms"] if name == "topk_unpack"
                         else None),
             nearest_ms=(row["library_ms"] if name == "topk_pack" else None),
+            launches_ring_codec=gossip["runs"][
+                f"ring packed_bits {path}"]["launches"][name],
             ms_logreg=wire_table[(k["variant"], "logreg")]["ms"],
             ms_2p24=wire_table[(k["variant"], "2^24")]["ms"],
             bound_ms_2p24=wire_table[(k["variant"], "2^24")]["bound_ms"]))
@@ -4184,6 +4810,7 @@ def main() -> int:
         ms_2p24=fused_table[("2^24 x1", "f32")]["ms"],
         bound_ms_2p24=fused_table[("2^24 x1", "f32")]["bound_ms"],
         graph_replay_ms=fused_table["graph"]["ms"],
+        launches_lm_dp_round=lm_dp["clip_round"],
         **lm_record("clip", lm, lm_times)))
     # mean_noise on PORTER-DP's real clipped per-sample plane (the f32
     # PORTER-DP run of the MLP phase)
@@ -4200,7 +4827,12 @@ def main() -> int:
         ms_warm=row["ms_warm"], replaced_route_ms=row["replaced_route_ms"],
         route_ms=row["route_ms"], parent_route_ms=row["parent_route_ms"],
         ms_bf16=mean_table[(MEAN_PATH, "bf16")]["ms"],
-        ms_one_group=dp_sgd["ms"], bound_ms_one_group=dp_sgd["bound_ms"]))
+        ms_one_group=dp_sgd["ms"], bound_ms_one_group=dp_sgd["bound_ms"],
+        launches_lm_dp_round=lm_dp["mean_noise_round"],
+        lm_dp_plane=lm_dp_times["last chunk"]["plane"],
+        **{f"{k}_lm_dp_{role.replace(' ', '_')}": row[k]
+           for role, row in lm_dp_times.items()
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}))
     row = topk_table[("w1", "f32", 102)]
     record.append(dict(
         name="block_topk", ok=row["equal"], route="cuda",

@@ -37,9 +37,10 @@ Registered here, all eleven of the reference's algorithms: ``porter-gc``,
 ``porter-dp``, ``beer``, ``porter-adam``, the paper's baselines ``dsgd``,
 ``choco``, ``dp-sgd`` and ``soteriafl``, and ``dp-csgp``, ``clip21`` and
 ``subgrad-comp``.  ``plane_dtype="bf16"`` keeps the EF buffers in bf16 (the
-master params stay f32).  ``wire="packed_bits"`` with
-``gossip_mode="packed"`` gossips bit-packed buffers
-(:func:`resolve_wire_format`).  The spec keeps the reference's field
+master params stay f32).  ``gossip_mode`` "ring" (a ring band, or a
+schedule of them) or "packed" (top-k pairs) picks the reference's other
+executors, every agent on one card; with ``wire="packed_bits"`` either
+gossips bit-packed buffers (:func:`resolve_wire_format`).  The spec keeps the reference's field
 names.  ``remat_policy`` (None, ``"full"``, ``"dots"``) wraps the loss once
 in ``build`` for every algorithm (:mod:`repro_torch.core.remat`).
 """
@@ -463,9 +464,10 @@ def build_engine(spec: ExperimentSpec, *,
                  schedule: Optional[Union[TopologySchedule,
                                           FleetSchedule]] = None,
                  compress_fn=None) -> CommRound:
-    """Comm-round engine for ``spec``: compressor, mixer (dense, the packed
-    codec executor under ``wire="packed_bits"``, or the fleet mixer under
-    ``fleet=True``; over the schedule's table when the spec has one or
+    """Comm-round engine for ``spec``: compressor, mixer (dense, ring or
+    packed by ``gossip_mode``, their codec executors under
+    ``wire="packed_bits"``, or the fleet mixer under ``fleet=True``; over
+    the schedule's table when the spec has one or
     ``schedule`` is given) and backend.  ``compress_fn``: optional
     ``(gen, tree) -> tree`` compression override, refused beside a codec."""
     if spec.fleet:

@@ -16,7 +16,8 @@ Randomness comes from the round's ``torch.Generator`` in a fixed order (DP
 noise, then the comm round's draws); the DP steps take ``noise=``, a tree
 of N(0, 1) draws shaped like the gradient, in place of their own draw (the
 parity tests inject the reference's).  Every DP gradient is
-``clipping.dp_gradient``'s: one clip and one mean-plus-noise launch.
+``clipping.dp_gradient``'s: one clip and one mean-plus-noise launch a
+chunk of samples.
 
 Metrics: ``loss`` (mean agent loss), ``consensus_x`` (decentralized
 algorithms) and ``wire_bytes`` (model-level bytes per round), as device

@@ -15,18 +15,29 @@ clips each row by its own norm over all its leaves.  The smooth mode runs
 on the flat tile planes of :mod:`repro_torch.kernels.flatten` through the
 fused ``clip`` kernel (``kernels/ops.clip_planes``), one launch for all
 rows; piecewise and none stay eager (the reference has no kernel for
-them).  Per-sample clipped mini-batch gradients take the per-sample
-gradients with ``torch.func.vmap`` (:func:`per_sample_grads`; the
-reference scans one sample at a time) and clip them all in one plane
-outside the vmap, where a kernel can launch; each group's sample mean,
-plus the DP noise when there is one, is formed from that plane in one
-``ops.dp_mean_noise`` call (the ``mean_noise`` kernel), with no tree
-between the clip and the mean (:func:`clip_mean_noise`).
-:func:`clipped_grad_accumulate` gives the mean alone, :func:`dp_gradient`
-the mean plus ``sigma * z``, the DP gradient.  Every sample mean, of the
-gradients and of the losses, is the reference's jitted one
-(``ref.sample_mean``: in sample order onto +0.0, then the product with
-``RN(1 / b)``), on the CPU and on the card alike.
+them).
+
+Per-sample clipped mini-batch gradients (:func:`clipped_grad_accumulate`,
+the mean alone; :func:`dp_gradient`, the mean plus ``sigma * z``, the DP
+gradient) take the local batch in chunks of c samples.  The reference
+scans one sample at a time, so its peak is one sample's gradient an agent
+plus one f32 accumulator.  Here each chunk takes the gradients of its c
+samples for every agent with ``torch.func.vmap``
+(:func:`per_sample_grads`), packs them into one ``(n * c * T, TILE)``
+plane, clips it in one launch outside the vmap, where a kernel can
+launch, and adds it onto the running sum in one ``ops.dp_mean_noise``
+call (the ``mean_noise`` kernel); the last chunk's call multiplies by
+``RN(1 / b)`` and adds the noise, drawn once in the mean's shape before
+it.  The samples are added in the same order onto the same +0.0 as in
+one call over the whole batch, so the chunked mean is bitwise the
+unchunked one wherever each sample's gradient is the same bits in a vmap
+of c samples as of b (the products take one agent's rows only: see
+:func:`per_sample_grads`).  :func:`sample_chunk` picks c from the bytes
+of the per-sample plane (:data:`SAMPLE_PLANE_BYTES`): every chunk's plane
+is one budget's worth or less, or one sample's when that alone is more.
+Every sample mean, of the gradients and of the losses, is the reference's
+jitted one (``ref.sample_mean``: in sample order onto +0.0, then the
+product with ``RN(1 / b)``), on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -41,10 +52,19 @@ from ..kernels import ops, ref
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["smooth_clip", "piecewise_clip", "tree_global_norm", "tree_clip",
-           "clip_factor", "stacked_clip", "clip_mean_noise",
-           "per_sample_grads", "clipped_grad_accumulate", "dp_gradient"]
+           "clip_factor", "stacked_clip",
+           "SAMPLE_PLANE_BYTES", "sample_chunk", "per_sample_grads",
+           "clipped_grad_accumulate", "dp_gradient"]
 
 ClipMode = Literal["smooth", "piecewise", "none"]
+
+# The per-sample plane of one chunk of samples, n * c * T * TILE elements,
+# stays within this many bytes (or holds one sample when that is more).
+# In f32, 4 * 26,754 * 8,192 * 4 B = 3.51 GB a sample for tinyllama-1.1b's
+# full width at 2 of 22 layers over 4 agents: c = 1.  PORTER-DP on the
+# Section-5.2 MLP, 10 agents * 7 tiles * 8 samples, is 18.4 MB, and on the
+# fleet, 4,096 agents * 1 tile * 4 samples, 537 MB: c = b, one chunk.
+SAMPLE_PLANE_BYTES = 4 << 30
 
 
 def _quotient(tau: float, den: torch.Tensor) -> torch.Tensor:
@@ -100,55 +120,132 @@ def stacked_clip(tree, tau: float, mode: ClipMode = "smooth"):
         ops.clip_planes(FL.to_planes(tree, spec), spec.rows, tau)[0], spec)
 
 
-def clip_mean_noise(rows, b: int, tau: float, sigma: float = 0.0,
-                    noise=None, mode: ClipMode = "smooth",
-                    stacked: bool = True):
-    """Clip each of the ``groups * b`` rows of a row-stacked tree (group
-    g's sample s is row ``g * b + s``) by its own norm, then give each
-    group's sample mean, plus ``sigma * noise`` when ``noise`` is given (a
-    tree shaped like the mean).  The mean has the leading group axis when
-    ``stacked``, else it is one group's without it.  The smooth mode clips
-    the rows' plane in ``ops.clip_planes`` and hands it straight to
-    ``ops.dp_mean_noise``; piecewise and none clip eagerly and pack the
-    rows for the same call.  Each leaf comes back in its own dtype."""
+def _clipped_plane(rows, tau: float, mode: ClipMode):
+    """Each row of a row-stacked tree clipped by its own norm, in the rows'
+    plane: the smooth mode through ``ops.clip_planes``, piecewise and none
+    eagerly, then packed.  Returns (the plane, its layout)."""
     spec = FL.flat_spec(rows)
     if mode == "smooth":
-        planes = ops.clip_planes(FL.to_planes(rows, spec), spec.rows, tau)[0]
-    else:
-        planes = FL.to_planes(stacked_clip(rows, tau, mode), spec)
+        return ops.clip_planes(FL.to_planes(rows, spec), spec.rows,
+                               tau)[0], spec
+    return FL.to_planes(stacked_clip(rows, tau, mode), spec), spec
+
+
+def _add_chunk(planes, spec, b: int, stacked: bool, sigma: float = 0.0,
+               noise=None, acc=None, finish: bool = True, b_total=None):
+    """Add each group's b clipped rows of ``planes`` (group g's sample s is
+    row ``g * b + s`` of ``spec``) onto the f32 running sum ``acc`` (or
+    +0.0) in one ``ops.dp_mean_noise`` call; with ``finish``, the sum times
+    ``RN(1 / b_total)`` plus ``sigma`` times ``noise(mean_spec, device)``
+    (a tree shaped like the mean) when ``noise`` is given.  Returns (the
+    f32 plane, the mean's layout: with the leading group axis when
+    ``stacked``)."""
     groups = spec.rows // b
     mean = spec._replace(rows=groups if stacked else 0,
                          plane_dtype=torch.float32)
-    z = None if noise is None else FL.to_planes(noise, mean)
-    return FL.from_planes(ops.dp_mean_noise(planes, groups, b, z, sigma),
-                          mean)
+    z = (None if noise is None
+         else FL.to_planes(noise(mean, planes.device), mean))
+    return ops.dp_mean_noise(planes, groups, b, z, sigma, acc=acc,
+                             finish=finish, b_total=b_total), mean
+
+
+def sample_chunk(groups: int, tiles: int, b: int, itemsize: int = 4,
+                 budget: Optional[int] = None) -> int:
+    """The samples a chunk takes: the largest c <= b whose per-sample
+    plane, ``groups * c * tiles * TILE * itemsize`` bytes, stays within
+    ``budget`` (:data:`SAMPLE_PLANE_BYTES` when None), and at least 1."""
+    budget = SAMPLE_PLANE_BYTES if budget is None else budget
+    one = groups * tiles * FL.TILE * itemsize
+    return max(1, min(b, budget // one))
+
+
+def _sample_axis(agents: Optional[str]) -> int:
+    if agents not in (None, "stacked", "shared"):
+        raise ValueError(f"agents must be None, 'stacked' or 'shared', got "
+                         f"{agents!r}")
+    return 0 if agents is None else 1
 
 
 def per_sample_grads(loss_fn: Callable, params, batch, agents: Optional[str]):
     """Every sample's gradient and loss: (the row-stacked gradients, one
-    row a sample, agent-major; the losses, ``(b,)`` or ``(agents, b)``)."""
-    if agents not in (None, "stacked", "shared"):
-        raise ValueError(f"agents must be None, 'stacked' or 'shared', got "
-                         f"{agents!r}")
+    row a sample, agent-major; the losses, ``(b,)`` or ``(agents, b)``).
+
+    ``"shared"`` params are expanded along the agent axis (a view) and
+    differentiated as ``"stacked"`` ones: every agent's products then take
+    its own rows only, never one product over all agents' rows, whose row
+    count (and with it a BLAS's summation order) would change with the
+    number of samples."""
+    _sample_axis(agents)
 
     def one(p, sample):
         sample = tree_map(lambda a: a.unsqueeze(0), sample)
         return grad_and_value(loss_fn)(p, sample)
 
     per_sample = vmap(one, in_dims=(None, 0))
-    if agents == "stacked":
+    if agents == "shared":
+        n = tree_leaves(batch)[0].shape[0]
+        params = tree_map(lambda a: a.unsqueeze(0).expand(
+            (n,) + tuple(a.shape)), params)
+    if agents is not None:
         per_sample = vmap(per_sample)
-    elif agents == "shared":
-        per_sample = vmap(per_sample, in_dims=(None, 0))
     gs, losses = per_sample(params, batch)
     lead = losses.dim()
     rows = tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[lead:])), gs)
     return rows, losses
 
 
+def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
+                  mode: ClipMode, agents: Optional[str], sigma: float,
+                  gen: Optional[torch.Generator], noise, dp: bool,
+                  chunk: Optional[int]):
+    """The per-sample clipped mean over the local batch in chunks of
+    ``chunk`` samples (:func:`sample_chunk`'s when None), plus ``sigma *
+    z`` when ``dp``: z is ``noise`` (a tree shaped like the mean) or drawn
+    from ``gen`` leaf by leaf in tree order before the last chunk's mean.
+    Returns ``(mean, mean_loss)``."""
+    axis = _sample_axis(agents)
+    b = tree_leaves(batch)[0].shape[axis]
+    if chunk is None:
+        p = tree_leaves(params)
+        per_row = sum(leaf.numel() for leaf in p) // (
+            p[0].shape[0] if agents == "stacked" else 1)
+        groups = 1 if agents is None else tree_leaves(batch)[0].shape[0]
+        chunk = sample_chunk(groups, -(-per_row // FL.TILE), b,
+                             FL.derived_plane_dtype(params).itemsize)
+    if chunk < 1:
+        raise ValueError(f"sample_chunk must be at least 1, got {chunk}")
+
+    def z_of(mean, device):
+        """``noise``, or z ~ N(0, 1) from ``gen`` leaf by leaf in tree
+        order, in the mean's shape and each leaf's dtype."""
+        if noise is not None:
+            return noise
+        lead = (mean.rows,) if mean.rows else ()
+        return mean.treedef.unflatten([
+            torch.randn(lead + shape, generator=gen, dtype=dt, device=device)
+            for shape, dt in zip(mean.shapes, mean.dtypes)])
+
+    acc, losses = None, []
+    for lo in range(0, b, chunk):
+        size = min(chunk, b - lo)
+        part = tree_map(lambda a: a.narrow(axis, lo, size), batch)
+        rows, loss = per_sample_grads(loss_fn, params, part, agents)
+        losses.append(loss)
+        planes, spec = _clipped_plane(rows, tau, mode)
+        del rows        # before the sum, and the next chunk's gradients
+        finish = lo + size == b
+        acc, mean = _add_chunk(planes, spec, size, agents is not None, sigma,
+                               z_of if finish and dp else None, acc, finish,
+                               b)
+        del planes
+    losses = losses[0] if len(losses) == 1 else torch.cat(losses, -1)
+    return FL.from_planes(acc, mean), ref.sample_mean(losses, losses.dim() - 1)
+
+
 def clipped_grad_accumulate(loss_fn: Callable, params, batch, tau: float,
                             mode: ClipMode = "smooth",
-                            agents: Optional[str] = None):
+                            agents: Optional[str] = None,
+                            sample_chunk: Optional[int] = None):
     """Mean of per-sample clipped gradients: (1/b) sum_z Clip_tau(grad l(x; z)).
 
     PORTER-DP line 6 without its noise.  ``batch`` is a tree whose leaves
@@ -158,32 +255,26 @@ def clipped_grad_accumulate(loss_fn: Callable, params, batch, tau: float,
     (DP-SGD); ``"stacked"`` when the params and the batch carry a leading
     agent axis (PORTER-DP, DSGD); ``"shared"`` when only the batch does and
     every agent differentiates the same params (SoteriaFL's clients).  The
-    per-sample gradients of all agents are clipped and averaged in
-    :func:`clip_mean_noise`.  Returns ``(mean_clipped_grad, mean_loss)``,
-    with a leading agent axis unless ``agents`` is None.
+    samples go in chunks of ``sample_chunk`` (:func:`sample_chunk`'s from
+    the plane's bytes when None), each chunk's per-sample gradients of all
+    agents clipped in one plane and added onto the running sum.  Returns
+    ``(mean_clipped_grad, mean_loss)``, with a leading agent axis unless
+    ``agents`` is None.
     """
-    rows, losses = per_sample_grads(loss_fn, params, batch, agents)
-    g = clip_mean_noise(rows, losses.shape[-1], tau, mode=mode,
-                        stacked=agents is not None)
-    return g, ref.sample_mean(losses, losses.dim() - 1)
+    return _chunked_mean(loss_fn, params, batch, tau, mode, agents, 0.0,
+                         None, None, False, sample_chunk)
 
 
 def dp_gradient(loss_fn: Callable, params, batch, tau: float, sigma: float,
                 gen: Optional[torch.Generator] = None, noise=None,
-                mode: ClipMode = "smooth", agents: Optional[str] = None):
+                mode: ClipMode = "smooth", agents: Optional[str] = None,
+                sample_chunk: Optional[int] = None):
     """The DP gradient of PORTER-DP line 6 and the DP baselines: the mean
     of the per-sample clipped gradients plus ``sigma * z``, z ~ N(0, 1)
     drawn from ``gen`` leaf by leaf in tree order, in each leaf's shape
     and dtype (or given as ``noise``, a tree shaped like the mean).
-    ``batch`` and ``agents`` as in :func:`clipped_grad_accumulate`; the
-    clip, the mean and the noise run in :func:`clip_mean_noise`.  Returns
-    ``(perturbed_mean, mean_loss)``."""
-    rows, losses = per_sample_grads(loss_fn, params, batch, agents)
-    lead = tuple(losses.shape)
-    if noise is None:
-        noise = tree_map(lambda a: torch.randn(
-            lead[:-1] + tuple(a.shape[1:]), generator=gen, dtype=a.dtype,
-            device=a.device), rows)
-    g = clip_mean_noise(rows, lead[-1], tau, sigma, noise, mode,
-                        stacked=agents is not None)
-    return g, ref.sample_mean(losses, len(lead) - 1)
+    ``batch``, ``agents`` and ``sample_chunk`` as in
+    :func:`clipped_grad_accumulate`; the noise is drawn once, before the
+    last chunk's mean.  Returns ``(perturbed_mean, mean_loss)``."""
+    return _chunked_mean(loss_fn, params, batch, tau, mode, agents, sigma,
+                         gen, noise, True, sample_chunk)

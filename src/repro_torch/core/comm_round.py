@@ -35,12 +35,13 @@ they stay bitwise equal under bf16 too.  All-f32 buffers draw nothing, so
 f32 runs keep their generator streams.  The parity tests inject the
 reference's bits through ``sr_bits=``.
 
-Gossip: the dense executor, or (``wire="packed_bits"``) the packed codec
-executor, to which :meth:`CommRound.exchange` hands the whole compress-and-
-mix step: the codec packs the increment, ``c`` is its unpacked round trip
-and ``wc = W @ c``.  Its qsgd noise is drawn from the round's generator
-after the SR words, where a compressor's draws would be, so the two
-backends stay bitwise comparable.
+Gossip: the dense, ring or plain packed executor, or (``wire=
+"packed_bits"``) the ring or packed codec executor, to which
+:meth:`CommRound.exchange` hands the whole compress-and-mix step: the codec
+packs the increment, ``c`` is its unpacked round trip and ``wc = W @ c``.
+Its qsgd noise is drawn from the round's generator after the SR words,
+where a compressor's draws would be, so the two backends stay bitwise
+comparable.
 
 Time-varying topologies: every round method takes the absolute round index
 ``t`` (the state's step) and hands it to the mixer, which picks ``W_t``
@@ -448,13 +449,14 @@ class CommRound:
         mode = getattr(self.mixer, "wire_mode", "dense")
         if mode == "dense":
             return n_agents * self.compressor.wire_bits(d) / 8.0 + extra
-        if mode == "ring" or (mode == "packed" and tree is None):
-            frac = getattr(self.mixer, "wire_frac", None)
-            frac = self.compressor.rho if frac is None else frac
-            return gossip_wire_bytes(mode, n_agents, d, frac=frac,
-                                     dtype_bytes=db) + extra
-        raise ValueError(f"wire accounting for gossip mode {mode!r} over a "
-                         "tree is not ported yet (ROADMAP queue 1 item 12)")
+        frac = getattr(self.mixer, "wire_frac", None)
+        frac = self.compressor.rho if frac is None else frac
+        if mode == "packed" and tree is not None:
+            k_b = max(int(round(frac * WF.PACK_BLOCK)), 1)
+            windows = self._packed_windows(tree, n_agents)
+            return float(n_agents) * windows * k_b * (db + 4.0) + extra
+        return gossip_wire_bytes(mode, n_agents, d, frac=frac,
+                                 dtype_bytes=db) + extra
 
     def wire_bytes_model(self, tree_or_d, n_agents: Optional[int] = None,
                          push_sum: bool = False) -> float:
@@ -469,8 +471,11 @@ class CommRound:
 
     @staticmethod
     def _packed_windows(tree, n_agents: int) -> int:
-        """PACK_BLOCK windows the packed codec executor pads for ``tree``:
-        each leaf pads separately, so windows are summed per leaf."""
+        """PACK_BLOCK windows the packed executors pad for ``tree``: each
+        leaf pads separately, so windows are summed per leaf.  The
+        reference also counts a model-sharded leaf's windows per shard; a
+        leaf is never sharded on one card (per-shard planes: ROADMAP queue
+        1 item 12(b))."""
         return sum(-(-(leaf.numel() // n_agents) // WF.PACK_BLOCK)
                    for leaf in tree_leaves(tree))
 
@@ -481,8 +486,10 @@ class CommRound:
         Windows are counted per leaf (:meth:`_packed_windows`); the bytes of
         a window come from the buffers the codec packs
         (:func:`wire_formats.measured_pack_nbytes`) or from its layout
-        constants (the model).  'packed' all-gathers every agent's buffers,
-        with its push-sum weight words when ``push_sum``.
+        constants (the model).  'ring' ships each agent's buffers to its
+        live neighbours (one shift at n = 2, else two); 'packed' all-gathers
+        every agent's buffers.  Both carry the push-sum weight words when
+        ``push_sum``.
         """
         codec = self._codec
         if n_agents is None:
@@ -499,4 +506,6 @@ class CommRound:
         if push_sum:
             per_agent += (float(WF.measured_weight_nbytes(codec))
                           if measured else 4.0)
+        if getattr(self.mixer, "wire_mode", "packed") == "ring":
+            return (1.0 if n_agents == 2 else 2.0) * per_agent
         return float(n_agents) * per_agent

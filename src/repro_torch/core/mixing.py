@@ -373,6 +373,15 @@ def union_connected(adjs, directed: bool = False) -> bool:
     return search(cols, rows) and search(rows, cols)
 
 
+def _w_is_banded_ring(w: np.ndarray) -> bool:
+    """True when ``w`` couples each node only to itself and its two ring
+    neighbours."""
+    off = w.copy()
+    np.fill_diagonal(off, 0.0)
+    allowed = ring_graph(w.shape[0]) > 0
+    return bool(np.all((np.abs(off) < 1e-12) | allowed))
+
+
 @dataclasses.dataclass(frozen=True)
 class Topology:
     """A communication graph with its mixing matrix and spectral summary."""
@@ -386,6 +395,11 @@ class Topology:
     @property
     def spectral_gap(self) -> float:
         return 1.0 - self.alpha
+
+    def is_banded_ring(self) -> bool:
+        """True when W only couples ring neighbours (the ring executor's
+        shifts then carry the whole mix)."""
+        return _w_is_banded_ring(self.w)
 
 
 def make_topology(kind: GraphKind, n: int, weights: WeightKind = "metropolis",
@@ -454,6 +468,12 @@ class TopologySchedule:
     def window_union(self) -> np.ndarray:
         """Binary adjacency of the union graph over one period."""
         return (self.adjacencies.sum(axis=0) > 0).astype(np.float64)
+
+    def is_banded_ring(self) -> bool:
+        """True when every round's W only couples ring neighbours (the ring
+        executor then keeps its shifts and picks the band weights by the
+        round)."""
+        return all(_w_is_banded_ring(w) for w in self.ws)
 
     def at(self, t: int) -> np.ndarray:
         """W_t (numpy) for round ``t``."""

@@ -18,7 +18,8 @@ module owns the gradient oracle and the metrics.  Gradients come from
 ``torch.func.grad_and_value`` under ``torch.func.vmap`` over the agent axis;
 the clip and the DP noise run after the vmap, over all agents at once
 (:mod:`repro_torch.core.clipping`; DP: ``clipping.dp_gradient``, one clip
-and one mean-plus-noise launch a round).
+and one mean-plus-noise launch a chunk of samples, one chunk a round
+unless the per-sample plane passes its budget).
 Nothing is updated in place, so ``porter_init`` may alias buffers.
 """
 

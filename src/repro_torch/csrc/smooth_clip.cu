@@ -34,7 +34,11 @@
 // __fsqrt_rn, __fadd_rn(tau, .) and __fdiv_rn(tau, .).  mean_noise adds
 // the b samples of an element in sample order onto +0.0, multiplies by
 // RN(1 / b) (what XLA makes of the reference's jitted acc / b) and adds
-// RN(sigma * z).
+// RN(sigma * z).  A batch taken in chunks of samples (the port's per-sample
+// gradients at LM size) runs it once a chunk: each chunk adds onto the
+// running sum the last one wrote, and only the last multiplies by
+// RN(1 / b) of the whole batch and adds the noise, so the chunked mean is
+// the same additions in the same order as the one-shot mean, bit for bit.
 //
 // What bounds them on an H100.  At the training path's planes (the MLP's
 // 10 x 7 tiles, 2.3 MB in f32) the launch: sumsq and scale each take
@@ -221,44 +225,61 @@ constexpr int kTileVecs = kTile / kVec;   // 1024 vectors of 8 a tile
 
 // Vector v (8 elements) of the (groups * T, kTile) output: output tile
 // o = v / 1024 is tile t of group g (o = g * T + t), and sample s of the
-// group is input tile (g * b + s) * T + t.  out = RN(RN(sum_s x) * inv_b)
-// + RN(sigma * z), the sum in sample order from +0.0; without noise
-// (kNoise false) out = RN(RN(sum_s x) * inv_b), the mean alone.
-template <typename T, bool kNoise>
+// group is input tile (g * b + s) * T + t.  The sum runs in sample order
+// from acc[o] where acc is given (a running sum over earlier chunks of
+// samples), else from +0.0.  kOut picks what is written: kSum the raw sum
+// (a chunk that is not the last), kMean RN(RN(sum) * inv_b), kMeanNoise
+// RN(RN(sum) * inv_b) + RN(sigma * z); inv_b is RN(1 / b_total), b_total
+// every sample of the batch, not the chunk's b.  kBatch samples' loads
+// are issued before their adds (kMeanBatch, or 1 for a one-sample chunk,
+// whose kernel then keeps no registers for the other seven and fits more
+// CTAs on an SM); the adds run in sample order either way.
+constexpr int kSum = 0, kMean = 1, kMeanNoise = 2;
+
+template <typename T, int kOut, int kBatch>
 __global__ void __launch_bounds__(kMeanThreads)
 mean_noise_kernel(const T* __restrict__ x, const float* __restrict__ noise,
-                  float inv_b, float sigma, float* __restrict__ out,
-                  int64_t tiles_per_row, int b) {
+                  const float* __restrict__ acc_in, float inv_b, float sigma,
+                  float* __restrict__ out, int64_t tiles_per_row, int b) {
   const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t o = v / kTileVecs;
   const int64_t e = (v % kTileVecs) * kVec;
-  const int64_t g = o / tiles_per_row, t = o % tiles_per_row;
-  const T* src = x + ((g * b) * tiles_per_row + t) * kTile + e;
+  // groups * b * tiles_per_row < 2^31 (the launcher checks it), so the
+  // tile's group and place divide in 32 bits, not in a 64-bit routine
+  const uint32_t g = (uint32_t)o / (uint32_t)tiles_per_row;
+  const uint32_t t = (uint32_t)o - g * (uint32_t)tiles_per_row;
+  const T* src = x + ((int64_t)g * b * tiles_per_row + t) * kTile + e;
   const int64_t step = tiles_per_row * kTile;   // one sample further on
   float z[kVec], acc[kVec];
-  if (kNoise) load8(noise + o * kTile + e, z);
+  if (kOut == kMeanNoise) load8(noise + o * kTile + e, z);
+  if (acc_in != nullptr) {
+    load8(acc_in + o * kTile + e, acc);
+  } else {
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
-  for (int s0 = 0; s0 < b; s0 += kMeanBatch) {
-    float xs[kMeanBatch][kVec];
+    for (int j = 0; j < kVec; ++j) acc[j] = 0.0f;
+  }
+  for (int s0 = 0; s0 < b; s0 += kBatch) {
+    float xs[kBatch][kVec];
 #pragma unroll
-    for (int i = 0; i < kMeanBatch; ++i) {
+    for (int i = 0; i < kBatch; ++i) {
       if (s0 + i < b) load8(src + i * step, xs[i]);
     }
 #pragma unroll
-    for (int i = 0; i < kMeanBatch; ++i) {
+    for (int i = 0; i < kBatch; ++i) {
       if (s0 + i < b) {
 #pragma unroll
         for (int j = 0; j < kVec; ++j) acc[j] = __fadd_rn(acc[j], xs[i][j]);
       }
     }
-    src += kMeanBatch * step;
+    src += kBatch * step;
   }
+  if (kOut != kSum) {
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    acc[j] = kNoise ? __fadd_rn(__fmul_rn(acc[j], inv_b),
-                                __fmul_rn(sigma, z[j]))
-                    : __fmul_rn(acc[j], inv_b);
+    for (int j = 0; j < kVec; ++j) {
+      acc[j] = kOut == kMeanNoise ? __fadd_rn(__fmul_rn(acc[j], inv_b),
+                                              __fmul_rn(sigma, z[j]))
+                                  : __fmul_rn(acc[j], inv_b);
+    }
   }
   store8(out + o * kTile + e, acc);
 }
@@ -277,26 +298,48 @@ cudaError_t mean_noise_threads(int64_t vecs, int* threads) {
   return cudaSuccess;
 }
 
+template <typename T, int kOut>
+void launch_mean_noise_out(unsigned blocks, int threads, cudaStream_t stream,
+                           const T* x, const float* noise,
+                           const float* acc_in, float inv_b, float sigma,
+                           float* out, int64_t tiles_per_row, int b) {
+  if (b == 1) {
+    mean_noise_kernel<T, kOut, 1><<<blocks, threads, 0, stream>>>(
+        x, noise, acc_in, inv_b, sigma, out, tiles_per_row, b);
+  } else {
+    mean_noise_kernel<T, kOut, kMeanBatch><<<blocks, threads, 0, stream>>>(
+        x, noise, acc_in, inv_b, sigma, out, tiles_per_row, b);
+  }
+}
+
 template <typename T>
-int launch_mean_noise(const void* x, const void* noise, float sigma,
-                      void* out, int64_t groups, int64_t b,
-                      int64_t tiles_per_row, cudaStream_t stream) {
+int launch_mean_noise(const void* x, const void* noise, const void* acc,
+                      int finish, float sigma, void* out, int64_t groups,
+                      int64_t b, int64_t b_total, int64_t tiles_per_row,
+                      cudaStream_t stream) {
   const int64_t vecs = groups * tiles_per_row * kTileVecs;
   int threads = 0;
   const cudaError_t e = mean_noise_threads(vecs, &threads);
   if (e != cudaSuccess) return (int)e;
   if (vecs / threads > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  // RN(1 / b) in f32: the host's IEEE division, correctly rounded
-  const float inv_b = 1.0f / (float)b;
+  // RN(1 / b_total) in f32: the host's IEEE division, correctly rounded
+  const float inv_b = 1.0f / (float)b_total;
   const unsigned blocks = (unsigned)(vecs / threads);
-  if (noise != nullptr) {
-    mean_noise_kernel<T, true><<<blocks, threads, 0, stream>>>(
-        (const T*)x, (const float*)noise, inv_b, sigma, (float*)out,
-        tiles_per_row, (int)b);
+  const T* xs = (const T*)x;
+  const float* acc_in = (const float*)acc;
+  if (!finish) {
+    launch_mean_noise_out<T, kSum>(blocks, threads, stream, xs, nullptr,
+                                   acc_in, inv_b, 0.0f, (float*)out,
+                                   tiles_per_row, (int)b);
+  } else if (noise != nullptr) {
+    launch_mean_noise_out<T, kMeanNoise>(blocks, threads, stream, xs,
+                                         (const float*)noise, acc_in, inv_b,
+                                         sigma, (float*)out, tiles_per_row,
+                                         (int)b);
   } else {
-    mean_noise_kernel<T, false><<<blocks, threads, 0, stream>>>(
-        (const T*)x, nullptr, inv_b, 0.0f, (float*)out, tiles_per_row,
-        (int)b);
+    launch_mean_noise_out<T, kMean>(blocks, threads, stream, xs, nullptr,
+                                    acc_in, inv_b, 0.0f, (float*)out,
+                                    tiles_per_row, (int)b);
   }
   return (int)cudaGetLastError();
 }
@@ -760,21 +803,29 @@ extern "C" int clip_fused(const void* x, int bf16, const void* noise,
 }
 
 // The DP perturbation of the sample mean: x holds groups * b rows of
-// tiles_per_row tiles (group g's sample s is row g * b + s), noise and out
-// groups rows (f32); out[g] = mean_s x[g, s] + sigma * noise[g], or the
-// mean alone where noise is null.
+// tiles_per_row tiles (group g's sample s is row g * b + s), noise, acc
+// and out groups rows (f32).  The sum over the b samples starts from acc
+// where acc is not null (the running sum of earlier chunks), else from
+// +0.0.  finish == 0 writes that sum; else out[g] = sum * RN(1 / b_total)
+// + sigma * noise[g], or the mean alone where noise is null.  noise goes
+// with finish only.
 extern "C" int clip_mean_noise(const void* x, int bf16, const void* noise,
-                               float sigma, void* out, int64_t groups,
-                               int64_t b, int64_t tiles_per_row,
+                               const void* acc, int finish, float sigma,
+                               void* out, int64_t groups, int64_t b,
+                               int64_t b_total, int64_t tiles_per_row,
                                void* stream) {
-  if (groups < 1 || b < 1 || tiles_per_row < 1 || groups > 0x7fffffff ||
-      b > 0x7fffffff || tiles_per_row > 0x7fffffff ||
-      groups * b > 0x7fffffff / tiles_per_row) {
+  if (groups < 1 || b < 1 || b_total < b || tiles_per_row < 1 ||
+      groups > 0x7fffffff || b_total > 0x7fffffff ||
+      tiles_per_row > 0x7fffffff ||
+      groups * b > 0x7fffffff / tiles_per_row ||
+      (noise != nullptr && !finish)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch_mean_noise<__nv_bfloat16>(x, noise, sigma, out, groups,
-                                                 b, tiles_per_row, s)
-              : launch_mean_noise<float>(x, noise, sigma, out, groups, b,
-                                         tiles_per_row, s);
+  return bf16 ? launch_mean_noise<__nv_bfloat16>(x, noise, acc, finish, sigma,
+                                                 out, groups, b, b_total,
+                                                 tiles_per_row, s)
+              : launch_mean_noise<float>(x, noise, acc, finish, sigma, out,
+                                         groups, b, b_total, tiles_per_row,
+                                         s);
 }

@@ -300,7 +300,8 @@ def clip_planes(planes, rows: int, tau: float, noise=None,
 
 
 def dp_mean_noise(planes, groups: int, b: int, noise=None,
-                  sigma: float = 0.0):
+                  sigma: float = 0.0, acc=None, finish: bool = True,
+                  b_total=None):
     """Each group's sample mean, and its DP perturbation when ``noise`` is
     given: ``planes`` is a ``(groups * b * T, TILE)`` f32 or bf16 plane of
     clipped samples (group g's sample s is logical row ``g * b + s``, as
@@ -309,22 +310,40 @@ def dp_mean_noise(planes, groups: int, b: int, noise=None,
     plane ``mean_s x[g, s] (+ sigma * z[g])``: on the card one launch of
     the ``mean_noise`` kernel, on the CPU ``ref.dp_mean_noise_ref``, bit
     for bit (the samples added in order onto +0.0, the product with ``RN(1
-    / b)``, then ``RN(sigma * z)`` added)."""
+    / b)``, then ``RN(sigma * z)`` added).
+
+    A batch taken in chunks of samples calls it once a chunk: ``acc`` is
+    the f32 running sum of the earlier chunks (a plane of the output's
+    shape; the sum starts there, not at +0.0), ``finish=False`` returns
+    the raw running sum (no product, no noise), and the last chunk's call
+    (``finish=True``) multiplies by ``RN(1 / b_total)``, ``b_total`` the
+    whole batch (b when None), and adds the noise: bitwise the one-shot
+    call over the whole batch."""
     kind = _check_plane("dp_mean_noise", (planes,), TILE)
-    if groups < 1 or b < 1 or planes.shape[0] % (groups * b):
+    b_total = b if b_total is None else b_total
+    if (groups < 1 or b < 1 or b_total < b
+            or planes.shape[0] % (groups * b)):
         raise ValueError(f"dp_mean_noise takes {groups} groups of b = {b} "
-                         f"samples whose count divides the plane's "
-                         f"{planes.shape[0]} tiles")
-    if noise is not None:
-        _check_wire("dp_mean_noise", (noise,), (_F32,), (TILE,))
-        want = (planes.shape[0] // b, TILE)
-        if tuple(noise.shape) != want or noise.device != planes.device:
-            raise ValueError(f"dp_mean_noise takes a noise plane of shape "
-                             f"{want} on {planes.device}, got "
-                             f"{tuple(noise.shape)} on {noise.device}")
+                         f"samples (of b_total = {b_total} >= b) whose count "
+                         f"divides the plane's {planes.shape[0]} tiles")
+    want = (planes.shape[0] // b, TILE)
+    for what, plane in (("noise", noise), ("acc", acc)):
+        if plane is None:
+            continue
+        _check_wire("dp_mean_noise", (plane,), (_F32,), (TILE,))
+        if tuple(plane.shape) != want or plane.device != planes.device:
+            raise ValueError(f"dp_mean_noise takes a{'n' * (what == 'acc')} "
+                             f"{what} plane of shape {want} on "
+                             f"{planes.device}, got {tuple(plane.shape)} on "
+                             f"{plane.device}")
+    if noise is not None and not finish:
+        raise ValueError("dp_mean_noise adds the noise on the last chunk "
+                         "only (finish=True)")
     if kind == "cpu":
-        return ref.dp_mean_noise_ref(planes, groups, b, noise, sigma)
-    out = _sc.mean_noise(planes, groups, b, noise, sigma)
+        return ref.dp_mean_noise_ref(planes, groups, b, noise, sigma, acc,
+                                     finish, b_total)
+    out = _sc.mean_noise(planes, groups, b, noise, sigma, acc, finish,
+                         b_total)
     LAUNCHES["mean_noise"] += 1
     return out
 

@@ -160,6 +160,22 @@ def clip_planes_ref(planes, rows: int, tau: float, noise=None,
     return clip_scale_ref(planes, factors, noise, sigma), partials, factors
 
 
+def _inv(b: int):
+    """``RN(1 / b)`` in f32: the quotient of two CPU tensors, correctly
+    rounded."""
+    return torch.ones((), dtype=_F32) / torch.tensor(float(b), dtype=_F32)
+
+
+def _sample_sum(x, dim: int, acc=None):
+    """The samples along ``dim`` added in order in f32 onto ``acc`` (a
+    running sum of earlier samples), or onto +0.0."""
+    if acc is None:
+        acc = torch.zeros(x.select(dim, 0).shape, dtype=_F32, device=x.device)
+    for s in range(x.shape[dim]):
+        acc = acc + x.select(dim, s).to(_F32)
+    return acc
+
+
 def sample_mean(x, dim: int):
     """The mean over axis ``dim`` as the reference's jitted
     ``clipped_grad_accumulate`` takes it: the samples added in order onto
@@ -168,24 +184,29 @@ def sample_mean(x, dim: int):
     PyTorch's CPU divide, correctly rounded; PyTorch's CUDA divides by a
     Python scalar through its reciprocal).  ``RN(1 / b)`` is the f32
     quotient of two CPU tensors, correctly rounded.  Returns f32."""
-    b = x.shape[dim]
-    inv_b = torch.ones((), dtype=_F32) / torch.tensor(float(b), dtype=_F32)
-    acc = torch.zeros(x.select(dim, 0).shape, dtype=_F32, device=x.device)
-    for s in range(b):
-        acc = acc + x.select(dim, s).to(_F32)
-    return acc * inv_b.to(x.device)
+    return _sample_sum(x, dim) * _inv(x.shape[dim]).to(x.device)
 
 
 def dp_mean_noise_ref(planes, groups: int, b: int, noise=None,
-                      sigma: float = 0.0):
+                      sigma: float = 0.0, acc=None, finish: bool = True,
+                      b_total=None):
     """Each group's sample mean over a ``(groups * b * T, TILE)`` plane of
     clipped samples (group g's sample s is logical row ``g * b + s``, each
     of T tiles): :func:`sample_mean` over the b samples, plus ``RN(sigma *
     z)`` with the f32 ``(groups * T, TILE)`` ``noise`` when given, rounded
-    apart.  Returns the f32 ``(groups * T, TILE)`` plane."""
+    apart.  Over chunks of a batch: the sum starts from the f32 running sum
+    ``acc`` when given, ``finish=False`` returns the raw sum, and the last
+    chunk multiplies by ``RN(1 / b_total)`` (``b_total``: b when None).
+    Returns the f32 ``(groups * T, TILE)`` plane."""
     tiles = planes.shape[0] // (groups * b)
-    mean = sample_mean(planes.view(groups, b, tiles, planes.shape[1]), 1)
-    mean = mean.view(groups * tiles, planes.shape[1])
+    width = planes.shape[1]
+    if acc is not None:
+        acc = acc.view(groups, tiles, width)
+    total = _sample_sum(planes.view(groups, b, tiles, width), 1, acc)
+    total = total.view(groups * tiles, width)
+    if not finish:
+        return total
+    mean = total * _inv(b if b_total is None else b_total).to(planes.device)
     return mean if noise is None else mean + sigma * noise.to(_F32)
 
 

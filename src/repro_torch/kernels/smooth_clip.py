@@ -8,7 +8,9 @@ of f32 or bf16 whose logical rows hold ``tiles_per_row`` tiles each:
                   in one launch (partials and factors written on the way)
     mean_noise:   y[g] = mean_s x[g, s] (+ sigma * z[g]), each group's
                   sample mean (and its DP perturbation), f32 out; a kernel
-                  of the port alone (the reference adds the noise in jnp)
+                  of the port alone (the reference adds the noise in jnp);
+                  over chunks of samples, the running sum of the earlier
+                  chunks in and the raw sum out until the last chunk
     sumsq:        per-tile sum of squares, in a fixed order -> (tiles,) f32
     scale:        y = x * f_row, one f32 factor per logical row
     scale_noise:  y = x * f_row + sigma * z
@@ -36,8 +38,8 @@ _SIGNATURES = {
     "clip_fused": [_P, _I, _P, ctypes.c_float, ctypes.c_float, _P, _P, _P,
                    _I64, _I64, _P],
     "clip_plan": [_I, _I, _I64, _I64, _P],
-    "clip_mean_noise": [_P, _I, _P, ctypes.c_float, _P, _I64, _I64, _I64,
-                        _P],
+    "clip_mean_noise": [_P, _I, _P, _P, _I, ctypes.c_float, _P, _I64,
+                        _I64, _I64, _I64, _P],
 }
 
 
@@ -91,17 +93,23 @@ def clip_plan(planes, rows: int, noisy: bool = False) -> dict:
             "tiles_per_cta": plan[2]}
 
 
-def mean_noise(planes, groups: int, b: int, noise=None, sigma: float = 0.0):
+def mean_noise(planes, groups: int, b: int, noise=None, sigma: float = 0.0,
+               acc=None, finish: bool = True, b_total=None):
     """Launch the sample mean of a contiguous ``(groups * b * T, TILE)``
     plane of clipped samples (group g's sample s is logical row ``g * b +
     s``), plus ``sigma`` times the f32 ``(groups * T, TILE)`` ``noise``
-    when given; returns the f32 ``(groups * T, TILE)`` plane."""
+    when given; the sum starts from the f32 running sum ``acc`` (a plane
+    of the output's shape) when given, and ``finish=False`` returns that
+    sum without the product with ``RN(1 / b_total)`` (``b_total``: b when
+    None).  Returns the f32 ``(groups * T, TILE)`` plane."""
     out = torch.empty((planes.shape[0] // b, planes.shape[1]),
                       dtype=torch.float32, device=planes.device)
     _launch("clip_mean_noise", planes, planes.data_ptr(),
             int(planes.dtype == torch.bfloat16),
-            None if noise is None else noise.data_ptr(), float(sigma),
-            out.data_ptr(), groups, b, out.shape[0] // groups)
+            None if noise is None else noise.data_ptr(),
+            None if acc is None else acc.data_ptr(), int(finish),
+            float(sigma), out.data_ptr(), groups, b,
+            b if b_total is None else b_total, out.shape[0] // groups)
     return out
 
 

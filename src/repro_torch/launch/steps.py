@@ -16,7 +16,9 @@ eta 1e-3, f32 EF planes unless ``plane_dtype`` says bf16, and
 
 The reference's mesh, shardings, shard-local compressor and its prefill and
 serve steps belong to the multi-device executors and the launch tooling
-(ROADMAP queue 1 items 12 and 14); here every agent lives on one device.
+(ROADMAP queue 1 items 12(b) and 14); here every agent lives on one
+device, and the ring and packed gossip executors hold them all in one
+tensor.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ def build_train_step(
     remat_policy: Optional[str] = None,
     comm_backend: str = "auto",
     fleet: bool = False,
+    gossip_mode: str = "dense",
     device=None,
 ) -> TrainSetup:
     """The train step of ``cfg`` over ``n_agents`` agents on ``device``
@@ -80,7 +83,9 @@ def build_train_step(
     'auto' runs the ef kernels on the card; ``plane_dtype`` 'bf16' keeps
     the six EF planes in bf16 beside f32 master parameters;
     ``remat_policy`` None, 'full' or 'dots' (:mod:`repro_torch.core.remat`);
-    ``fleet`` mixes all agents on one axis (:mod:`repro_torch.core.fleet`).
+    ``fleet`` mixes all agents on one axis (:mod:`repro_torch.core.fleet`);
+    ``gossip_mode`` 'dense', 'ring' or 'packed' picks the gossip executor
+    (:func:`repro_torch.core.gossip.make_mixer`), as the reference's knob.
     """
     device = torch.device("cuda") if device is None else torch.device(device)
     bundle = build_model(cfg, device=device)
@@ -90,7 +95,7 @@ def build_train_step(
         topology_weights="metropolis", topology_schedule=topology_schedule,
         compressor=compressor_name, frac=frac, comm_backend=comm_backend,
         eta=eta, tau=tau, sigma_p=sigma_p, plane_dtype=plane_dtype,
-        remat_policy=remat_policy, fleet=fleet)
+        remat_policy=remat_policy, fleet=fleet, gossip_mode=gossip_mode)
     algo = api.build(spec, bundle.loss, device=device)
     return TrainSetup(cfg=cfg, bundle=bundle, algorithm=algo,
                       n_agents=n_agents, porter_cfg=algo.config,

@@ -139,9 +139,22 @@ def test_codec_mixer_refuses_a_plain_mix_and_dense_gossip():
         mix(convert.to_torch(_tree(2), "cpu"))
     with pytest.raises(ValueError, match="dense gossip ships the dense"):
         TG.make_mixer(top, "dense", codec=codec)
+    # the ring and plain packed executors build on one card; an unknown
+    # mode, and any executor but the dense one in fleet mode, still raise
     for mode in ("ring", "packed"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            TG.make_mixer(top, mode)
+        mix = TG.make_mixer(top, mode, frac=0.25)
+        assert mix.wire_mode == mode and getattr(mix, "wire_codec",
+                                                 None) is None
+    with pytest.raises(ValueError, match="unknown gossip mode"):
+        TG.make_mixer(top, "star")
+    for mode in ("ring", "packed"):
+        with pytest.raises(ValueError, match="fleet mode") as got:
+            tapi.build(tapi.ExperimentSpec(fleet=True, gossip_mode=mode),
+                       lambda p, b: torch.sum(p["w"]), device="cpu")
+        with pytest.raises(ValueError) as want:
+            japi.build(japi.ExperimentSpec(fleet=True, gossip_mode=mode),
+                       lambda p, b: 0.0)
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

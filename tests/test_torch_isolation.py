@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and no script of ``tools/``, imports JAX, the JAX package or ``ml_dtypes``, and its
+``chip_smoke.py``, no script of ``tools/`` and no port example
+(``examples/*_torch.py``) imports JAX, the JAX package or ``ml_dtypes``, and its
 entry points (``api.build``, ``models.build_model``, ``launch.serve``)
 target the card unless the caller asks for the CPU."""
 
@@ -25,7 +26,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "tools").glob("*.py")))
+            + sorted((ROOT / "tools").glob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path):

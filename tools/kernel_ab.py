@@ -34,8 +34,10 @@ and 5-8 time, each from CUDA events over inputs that exceed L2:
 - the DP gradient route after the per-sample gradients, as the tree runs
   it: the MLP's per-sample gradients (Gaussian, 10 agents x 8 samples as
   PORTER-DP takes them, and one model x 8 samples as DP-SGD does) clipped,
-  averaged and perturbed (``clipping.clip_mean_noise``: the fused clip and
-  ``mean_noise``; or, where the tree has no such function, the fused clip,
+  averaged and perturbed (one chunk of ``clipping._add_chunk`` over
+  ``clipping._clipped_plane``, or ``clipping.clip_mean_noise`` in a tree
+  that has it: the fused clip and ``mean_noise``; or, where the tree has
+  neither, the fused clip,
   its unpack, a sum and a division a leaf and ``clipping.perturb``); several
   wrapper calls, so timed with ``cover`` (``dp``);
 
@@ -206,6 +208,13 @@ def _dp_route(clipping):
     """The tree's DP gradient route from the per-sample rows (group g's
     sample s is row ``g * b + s``) and the noise tree to the perturbed
     mean, tau 1."""
+    if hasattr(clipping, "_add_chunk"):
+        def chunk(rows, b, stacked, noise):
+            out, mean = clipping._add_chunk(
+                *clipping._clipped_plane(rows, 1.0, "smooth"), b, stacked,
+                DP_SIGMA, lambda *_: noise)
+            return clipping.FL.from_planes(out, mean)
+        return chunk
     if hasattr(clipping, "clip_mean_noise"):
         def fused(rows, b, stacked, noise):
             return clipping.clip_mean_noise(rows, b, 1.0, DP_SIGMA, noise,

@@ -51,7 +51,7 @@ CELLS = {"porter-dp f32": (10, 8, 7, "f32"), "porter-dp bf16": (10, 8, 7,
 BATCH = "constexpr int kMeanBatch = 8;"
 THREADS = "constexpr int kMeanThreads = 256;"
 BOUNDS = "__global__ void __launch_bounds__(kMeanThreads)\nmean_noise_kernel"
-LOOP = "for (int s0 = 0; s0 < b; s0 += kMeanBatch)"
+LOOP = "for (int s0 = 0; s0 < b; s0 += kBatch)"
 VARIANTS = {"full": (),
             "batch 4": ((BATCH, BATCH.replace("8", "4")),),
             "3 CTAs/SM": ((BOUNDS, BOUNDS.replace("(kMeanThreads)",
@@ -62,9 +62,10 @@ VARIANTS = {"full": (),
                                        "(kMeanThreads, 4)"))),
             "128 threads": ((THREADS, THREADS.replace("256", "128")),),
             "no samples": ((LOOP, LOOP.replace("s0 < b", "s0 < 0")),)}
-SIGNATURE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
-             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_void_p]
+# x, bf16, noise, acc, finish, sigma, out, groups, b, b_total, tiles, stream
+SIGNATURE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
 
 
 def _build(build, csrc: Path, label: str):
@@ -147,8 +148,9 @@ def main(argv=None) -> int:
         def call(lib):
             def run(x, z, out):
                 err = lib.clip_mean_noise(x.data_ptr(), int(dt == "bf16"),
-                                          z.data_ptr(), SIGMA, out.data_ptr(),
-                                          groups, b, tiles, stream)
+                                          z.data_ptr(), None, 1, SIGMA,
+                                          out.data_ptr(), groups, b, b, tiles,
+                                          stream)
                 if err:
                     raise RuntimeError(f"clip_mean_noise failed: {err}")
             return run

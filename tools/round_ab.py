@@ -1,5 +1,5 @@
 """ms per round of PORTER-GC, PORTER-DP, CHOCO and the DP baselines (DSGD
-with DP, DP-SGD, SoteriaFL) on the full-width MLP,
+with DP, DP-SGD, SoteriaFL in f32 and with bf16 planes) on the full-width MLP,
 for the port in a given source tree, on one card: what ``chip_smoke.py``
 phase 4 runs (Section 5.2, 10 agents, ER(0.8), top-k 5 %, batch 8; and
 PORTER-GC with the ``block_top_k`` compressor at 5 %; PORTER-GC and CHOCO
@@ -61,7 +61,9 @@ CONFIGS = {"porter-gc kernel": dict(comm_backend="kernel"),
                topology_schedule="directed:digraph,p=0.5,period=8"),
            "dsgd-dp": dict(algo="dsgd", dp=True, sigma_p=0.01),
            "dp-sgd": dict(algo="dp-sgd", sigma_p=0.01),
-           "soteriafl": dict(algo="soteriafl", sigma_p=0.01)}
+           "soteriafl": dict(algo="soteriafl", sigma_p=0.01),
+           "soteriafl bf16": dict(algo="soteriafl", sigma_p=0.01,
+                                  plane_dtype="bf16")}
 
 
 def _digest(torch, tree_leaves, state) -> str:
