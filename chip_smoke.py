@@ -216,6 +216,27 @@ of the ``repro`` package.  Phases, each printing its own lines:
    windows (one pack and one unpack an exchange), measured wire bytes
    equal to the model, ms a round beside the dense executor's; then 5
    rounds of phase 12's LM cell with ``gossip_mode="ring"`` beside dense.
+15. Agents as processes (``[agents]`` lines): one ``launch.mesh``
+   spawn of 10 ranks on the card (gloo, staged through pinned host
+   buffers), one agent a rank, for the quickstart's PORTER-GC on the dense
+   executor (its ``gn < 0.1``), PORTER-GC on the ring MLP over the ring,
+   plain packed, ring codec and packed codec top-k executors in f32 and
+   bf16, PORTER-DP and CHOCO-SGD on the ring, and dp-csgp through the ring
+   codec's and (on ``directed:ring_skips,skip=2``) the packed codec's
+   ``exchange_ps``; each run against the same run on one card: one
+   exchange of each kind teacher-forced bitwise the one-card executor's
+   rows, the free run's x after round 40 within ``AGENTS_TOL`` (and a
+   run with a planted fault, one agent's x update dropped for a round,
+   outside it), each rank's bytes
+   measured = model = shipped, its collectives within the executor's
+   budget, its kernel launches a round as one card's per agent, ms a
+   round and the transport's share; then phase 12's LM cell with its 4
+   agents as ranks: the first round forced with the one-card cell's
+   gradient against its x at 1e-6 (bitwise), the free first round within
+   ``AGENTS_LM["free_tol"]`` (a rank's x left unchanged by the round
+   outside it), 5 plain packed and 2 ring rounds (ms a round, the
+   transport's share), the ranks' peaks summed within 76 GB.  A rank
+   that fails or hangs fails the phase.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -574,9 +595,10 @@ def phase_kernels(torch, ops, ref):
 
 
 def run_timed(torch, run_chunked, algo, source, state, seed, steps, chunk,
-              **kw):
+              on_chunk=None, **kw):
     """Run ``steps`` rounds (``kw`` to ``run_chunked``); returns (state,
-    per-round losses, ms/round).
+    per-round losses, ms/round).  ``on_chunk(t0, t1, state, metrics)``, if
+    given, also fires at every chunk boundary.
 
     ms/round is the steady state: host wall time from the end of the first
     chunk to the end of the last, each chunk ended by a synchronize, so
@@ -588,6 +610,8 @@ def run_timed(torch, run_chunked, algo, source, state, seed, steps, chunk,
         losses.append(metrics["loss"])
         torch.cuda.synchronize()
         stamps.append((t1, time.perf_counter()))
+        if on_chunk is not None:
+            on_chunk(t0, t1, st, metrics)
 
     torch.cuda.synchronize()
     state, _ = run_chunked(algo, source, state, seed, steps, chunk=chunk,
@@ -597,12 +621,12 @@ def run_timed(torch, run_chunked, algo, source, state, seed, steps, chunk,
 
 
 def run_counted(torch, ops, runtime, algo, source, state, steps, chunk,
-                seed=0):
+                seed=0, on_chunk=None):
     """``run_timed`` with every launch count set to 0 just before and read
     just after; returns (state, losses, ms/round, launches)."""
     ops.reset_launches()
     state, losses, ms = run_timed(torch, runtime.run_chunked, algo, source,
-                                  state, seed, steps, chunk)
+                                  state, seed, steps, chunk, on_chunk)
     return state, losses, ms, dict(ops.LAUNCHES)
 
 
@@ -4533,6 +4557,568 @@ def phase_lm_ring(torch, ops, runtime, steps, data, configs, tree_leaves):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: agents as processes
+# ---------------------------------------------------------------------------
+
+AGENTS_RANKS = 10                # the MLP's agents, one a process
+# rounds: phase 14's 200 (50 under DP) for the f32 ring, the packed codec
+# and the DP runs; 10 ranks time-sharing the card run 50-125 ms a round on
+# an H100 80GB HBM3, so the other runs take 40 (the quickstart 100, where
+# its gn is 0.04) to keep the phase under four minutes
+AGENTS_TIMEOUT_S = 300           # a spawn joins its ranks within this
+# free-run x, processes against one card, read after round
+# AGENTS_GATE_ROUND of every run: each rank's gradient over one agent is
+# not bitwise the card's over ten (other cuBLAS products), top-k turns
+# ulps into other picks, and under bf16 planes an ulp can move a
+# stochastic rounding by a bf16 unit (2^-7 relative).  The gap grows with
+# the rounds: after 200 it is as large as a planted fault's (1.5e-2 and
+# 4.7e-2 against 4.4e-2 on an H100 80GB HBM3), so the gate reads round 40
+# and the end of a run is reported.  Each limit lies between the sound
+# runs' largest reading at round 40 and a planted fault's (AGENTS_FAULT)
+# on an H100 80GB HBM3 (PERF.md, PR 28).
+AGENTS_GATE_ROUND = 40
+AGENTS_TOL = {"f32": 1e-3, "bf16": 2e-3}
+# the planted fault: at round AGENTS_GATE_ROUND // 2 the agent ``rank``
+# keeps its x (its update dropped); one run of each plane dtype, whose
+# reading at AGENTS_GATE_ROUND the gate must fail
+AGENTS_FAULT = dict(rank=3, runs=("porter-gc ring f32",
+                                  "porter-gc ring bf16"))
+AGENTS_CHUNK = 20                # divides AGENTS_GATE_ROUND
+TRANSPORT_NOTE = {"cuda": "gloo, staged through pinned host buffers",
+                  "cpu": "gloo"}
+# label -> (problem, spec overrides, rounds); the MLP runs on the
+# Metropolis ring (the ring executors need a ring band), the quickstart on
+# its ER(0.8) graph.  dp-csgp's ring_skips,skip=2 is not a ring band, so it
+# runs through the packed codec's exchange_ps; the ring codec's carries the
+# weight on the static ring (a one-way ring ships one shift, and the byte
+# model, the reference's, charges two for every ring of n > 2).
+AGENTS_RUNS = {
+    "quickstart porter-gc dense f32": ("logreg", {}, 100),
+    "porter-gc ring f32": ("mlp", dict(gossip_mode="ring"), 200),
+    "porter-gc ring bf16": ("mlp", dict(gossip_mode="ring",
+                                        plane_dtype="bf16"), 40),
+    "porter-gc packed f32": ("mlp", dict(gossip_mode="packed"), 40),
+    "porter-gc packed bf16": ("mlp", dict(gossip_mode="packed",
+                                          plane_dtype="bf16"), 40),
+    "porter-gc ring codec top_k f32": (
+        "mlp", dict(gossip_mode="ring", wire="packed_bits"), 40),
+    "porter-gc ring codec top_k bf16": (
+        "mlp", dict(gossip_mode="ring", wire="packed_bits",
+                    plane_dtype="bf16"), 40),
+    "porter-gc packed codec top_k f32": (
+        "mlp", dict(gossip_mode="packed", wire="packed_bits"), 200),
+    "porter-gc packed codec top_k bf16": (
+        "mlp", dict(gossip_mode="packed", wire="packed_bits",
+                    plane_dtype="bf16"), 40),
+    "porter-dp ring f32": ("mlp", dict(algo="porter-dp", gossip_mode="ring",
+                                       sigma_p=DP_SIGMA), 50),
+    "choco ring f32": ("mlp", dict(algo="choco", gossip_mode="ring"), 40),
+    "dp-csgp ring codec f32": (
+        "mlp", dict(algo="dp-csgp", gossip_mode="ring", wire="packed_bits",
+                    sigma_p=DP_SIGMA), 50),
+    "dp-csgp packed codec directed:ring_skips,skip=2 f32": (
+        "mlp", dict(algo="dp-csgp", gossip_mode="packed", wire="packed_bits",
+                    sigma_p=DP_SIGMA,
+                    topology_schedule="directed:ring_skips,skip=2"), 50),
+}
+# tol: the first round forced with the one-card gradient (every other
+# operand the round's own, so bitwise); free_tol: the free first round,
+# whose gradient a rank takes over one agent of the bf16 model against the
+# card's four, products rounding to bf16 in another order; it lies between
+# the sound reading and that of a rank whose x the round left unchanged,
+# on an H100 80GB HBM3 (PERF.md, PR 28)
+AGENTS_LM = dict(ranks=4, packed=5, ring=2, tol=1e-6, free_tol=2e-5)
+# the run whose rank-0 launches give each kernel's per-rank count
+AGENTS_LAUNCH_RUNS = {name: "porter-gc ring codec top_k f32" for name in
+                      ("ef_track", "ef_step", "clip", "topk_pack",
+                       "topk_unpack")}
+AGENTS_LAUNCH_RUNS.update(mean_noise="porter-dp ring f32",
+                          ef_gossip="choco ring f32")
+
+
+_AGENTS_DATA = {}
+
+
+def _agents_data(data, problem, num=60000):
+    """The problem's dataset, made once a process."""
+    if problem not in _AGENTS_DATA:
+        _AGENTS_DATA[problem] = (data.a9a_like(num=20000, dim=123, seed=0)
+                                 if problem == "logreg"
+                                 else data.mnist_like(num=num, seed=0))
+    return _AGENTS_DATA[problem]
+
+
+def _agents_spec(api, data, paper, problem, over):
+    """The run's spec, batch source arrays, loss and initial params: the
+    quickstart's logistic regression or phase 14's ring MLP."""
+    x, y = _agents_data(data, problem)
+    if problem == "logreg":
+        spec = api.ExperimentSpec(
+            algo="porter-gc", n_agents=AGENTS_RANKS, topology="erdos_renyi",
+            topology_weights="best_constant", topology_p=0.8,
+            topology_seed=1, compressor="top_k", frac=0.05, eta=0.05,
+            tau=1.0)
+        return spec, (x, y), logreg_loss, lambda torch, dev: {
+            "w": torch.zeros(123, device=dev),
+            "b": torch.zeros((), device=dev)}
+    spec = api.ExperimentSpec(
+        algo="porter-gc", n_agents=AGENTS_RANKS, topology="ring",
+        topology_weights="metropolis", compressor="top_k", frac=0.05,
+        eta=0.2, tau=1.0).replace(**over)
+    return spec, (x, y), paper.mlp_loss(), lambda torch, dev: \
+        paper.mlp_init(seed=0, device=dev)
+
+
+def _agents_launches(spec, rounds):
+    """Per rank, the run's launches: as one card's, per agent a process --
+    one clip (and under DP one mean_noise), one ef_track and one ef_step
+    (CHOCO: one ef_gossip) a round, five epilogue roundings under bf16
+    planes, and a codec's pack and unpack once an exchange."""
+    want = {"clip": rounds}
+    if spec.algo == "choco":
+        want["ef_gossip"] = rounds
+    else:
+        want.update(ef_track=rounds, ef_step=rounds)
+    if spec.algo in ("porter-dp", "dp-csgp"):
+        want["mean_noise"] = rounds
+    if spec.plane_dtype == "bf16":
+        want["sr_epilogue"] = 5 * rounds
+    if spec.wire == "packed_bits":
+        exchanges = 1 if spec.algo == "choco" else 2
+        want.update(topk_pack=exchanges * rounds,
+                    topk_unpack=exchanges * rounds)
+    return want
+
+
+def _teacher_forced_exchange(torch, algo, group, state):
+    """One exchange of each kind the run's executor offers (mix or codec
+    exchange, push or exchange_ps), on seeded inputs of the round's shapes
+    and dtype: the executor across processes on this rank's row against
+    the one-card executor on all agents, on the card.  -> bitwise."""
+    from repro_torch.core import gossip as G
+    from repro_torch.tree import tree_leaves, tree_map
+    mixer, n, dev = algo.mixer, group.n_agents, group.device
+    codec = getattr(mixer, "wire_codec", None)
+    one = G.make_mixer(mixer.schedule if mixer.schedule is not None
+                       else algo.topology, mixer.wire_mode,
+                       frac=mixer.wire_frac, codec=codec)
+    q = state.q if hasattr(state, "q") else state.q_x
+    gen = torch.Generator().manual_seed(17)
+    full = tree_map(lambda leaf: torch.randn(
+        (n,) + tuple(leaf.shape[1:]), generator=gen).to(dev, leaf.dtype), q)
+    dw = torch.rand(n, generator=gen).to(dev)
+    rows = tree_map(group.rows, full)
+    t = state.step
+    pairs = []
+    if codec is not None:
+        for ps in (False, True):
+            g1 = torch.Generator(device=dev).manual_seed(5)
+            g2 = torch.Generator(device=dev).manual_seed(5)
+            want = (one.exchange_ps(g1, full, dw, t) if ps
+                    else one.exchange(g1, full, t))
+            got = (mixer.exchange_ps(g2, rows, group.rows(dw), t) if ps
+                   else mixer.exchange(g2, rows, t))
+            pairs.append((want, got))
+    else:
+        pairs.append((G.apply_mixer(one, full, t),
+                      G.apply_mixer(mixer, rows, t)))
+        if hasattr(mixer, "push"):
+            pairs.append((one.push(full, dw, t),
+                          mixer.push(rows, group.rows(dw), t)))
+    ok = True
+    for want, got in pairs:
+        for a, b in zip(tree_leaves(want), tree_leaves(got)):
+            ok = ok and bit_equal(torch, group.rows(a), b)
+    return ok
+
+
+def _keep_gate_x(kept):
+    """An ``on_chunk`` callback that keeps a copy of x (this process's
+    rows) after round AGENTS_GATE_ROUND in ``kept["x"]``."""
+    def on_chunk(t0, t1, st, metrics):
+        if t1 == AGENTS_GATE_ROUND:
+            kept["x"] = {name: leaf.clone() for name, leaf in st.x.items()}
+    return on_chunk
+
+
+def _agents_fault_run(runtime, algo, source, state, group):
+    """The run to AGENTS_GATE_ROUND with AGENTS_FAULT planted: rounds
+    ``[0, k)``, round ``k`` (k = AGENTS_GATE_ROUND // 2), after which the
+    agent ``AGENTS_FAULT["rank"]`` takes back its x from before the round,
+    then the rest."""
+    rounds = AGENTS_GATE_ROUND
+    k = rounds // 2
+    state, _ = runtime.run_chunked(algo, source, state, 0, k, chunk=k)
+    before = {name: leaf.clone() for name, leaf in state.x.items()}
+    state, _ = runtime.run_chunked(algo, source, state, 0, k + 1, chunk=1,
+                                   start=k)
+    if group.index == AGENTS_FAULT["rank"]:
+        state = state._replace(x=before)
+    state, _ = runtime.run_chunked(algo, source, state, 0, rounds,
+                                   chunk=AGENTS_CHUNK, start=k + 1)
+    return state
+
+
+def agents_mlp_rank(group, labels):
+    """One rank of phase 15's MLP spawn: every run of ``labels`` with this
+    rank's agent, then its checks.  -> {label: report}; rank 0's reports
+    carry the gathered final x (on the CPU)."""
+    import torch
+    from repro_torch import api, data
+    from repro_torch.kernels import ops
+    from repro_torch.launch import runtime
+    from repro_torch.models import paper
+    from repro_torch.tree import tree_leaves
+    out = {}
+    for label in labels:
+        problem, over, rounds = AGENTS_RUNS[label]
+        spec, (x, y), loss_fn, params = _agents_spec(api, data, paper,
+                                                     problem, over)
+        xs, ys = data.shard_to_agents(x, y, AGENTS_RANKS)
+        source = data.minibatch_source(xs, ys, batch=8, device=group.device,
+                                       group=group)
+        algo = api.build(spec, loss_fn, group=group)
+        state = algo.init(params(torch, group.device))
+        group.census.clear()
+        group.transport_s.clear()
+        chunk = min(AGENTS_CHUNK, rounds // 2)
+        kept = {}
+        state, losses, ms, launches = run_counted(
+            torch, ops, runtime, algo, source, state, rounds, chunk,
+            on_chunk=_keep_gate_x(kept))
+        census = dict(group.census)
+        transport_ms = {k: 1e3 * v / rounds
+                        for k, v in group.transport_s.items()}
+        eng, budget = algo.engine, algo.mixer.budget
+        ps = spec.algo == "dp-csgp"
+        exchanges = algo.info.comm_rounds * rounds
+        leaves = len(tree_leaves(state.x))
+        gossip = {k: v for k, v in census.items() if k != "all-reduce"}
+        within = all(k in budget.per_leaf
+                     and v <= budget.per_leaf[k] * leaves * exchanges
+                     for k, v in gossip.items())
+        shipped = algo.mixer.shipped_nbytes
+        measured = eng.wire_bytes(state.x, push_sum=ps)
+        model = eng.wire_bytes_model(state.x, push_sum=ps)
+        if spec.gossip_mode == "dense":
+            # the engine charges dense gossip the compressor's payload; the
+            # executor ships every agent's dense increment, gossip_wire_bytes'
+            # dense model (no push-sum run takes the dense executor here)
+            from repro_torch.core.gossip import gossip_wire_bytes
+            model = measured = gossip_wire_bytes(
+                "dense", group.n_agents,
+                sum(leaf[0].numel() for leaf in tree_leaves(state.x)),
+                dtype_bytes=2 if spec.plane_dtype == "bf16" else 4)
+        exchange_ok = _teacher_forced_exchange(torch, algo, group, state)
+        full = runtime.gather_state(state, group)
+        gate_x = runtime.gather_state(kept["x"], group)
+        fault = None
+        if label in AGENTS_FAULT["runs"]:
+            fault = runtime.gather_state(_agents_fault_run(
+                runtime, algo, source, algo.init(params(torch, group.device)),
+                group), group).x
+        out[label] = dict(
+            losses=losses, ms=ms, launches=launches, census=census,
+            gossip_per_exchange={k: v / exchanges for k, v in gossip.items()},
+            budget=budget.per_leaf, leaves=leaves, within_budget=within,
+            bytes=(measured, model, shipped), exchange_bitwise=exchange_ok,
+            transport_ms=transport_ms,
+            x=({k: v.cpu() for k, v in full.x.items()}
+               if group.index == 0 else None),
+            gate_x=({k: v.cpu() for k, v in gate_x.items()}
+                    if group.index == 0 else None),
+            fault_x=({k: v.cpu() for k, v in fault.items()}
+                     if group.index == 0 and fault is not None else None))
+        if group.index == 0:
+            print(f"[agents] rank 0 finished {label}: {rounds} rounds, "
+                  f"{ms:.3f} ms/round", flush=True)
+    return out
+
+
+def phase_agents_mlp(torch, ops, api, data, runtime, paper, mesh,
+                     tree_leaves):
+    """Phase 15 (a): the MLP and the quickstart with each of the 10 agents
+    a process on the card (gloo, staged through host buffers), one spawn
+    for every run, against the same runs on one card."""
+    labels = list(AGENTS_RUNS)
+    one_card = {}
+    for label in labels:
+        problem, over, rounds = AGENTS_RUNS[label]
+        spec, (x, y), loss_fn, params = _agents_spec(api, data, paper,
+                                                     problem, over)
+        xs, ys = data.shard_to_agents(x, y, AGENTS_RANKS)
+        source = data.minibatch_source(xs, ys, batch=8, device=DEVICE)
+        algo = _build(api, spec, loss_fn)
+        kept = {}
+        state, losses, ms, launches = run_counted(
+            torch, ops, runtime, algo, source, algo.init(params(torch,
+                                                                DEVICE)),
+            rounds, min(AGENTS_CHUNK, rounds // 2),
+            on_chunk=_keep_gate_x(kept))
+        one_card[label] = (state, kept["x"], losses, ms, spec, loss_fn,
+                           (xs, ys))
+    t0 = time.perf_counter()
+    ranks = mesh.spawn_agents(agents_mlp_rank, AGENTS_RANKS, (labels,),
+                              device=DEVICE, timeout_s=AGENTS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    print(f"[agents] MLP spawn: {AGENTS_RANKS} ranks on one {DEVICE} "
+          f"device ({TRANSPORT_NOTE[DEVICE]}), "
+          f"{len(labels)} runs, {wall:.1f} s from spawn to join")
+    report = {}
+    for label in labels:
+        (state, gate_x, losses, ms_one, spec, loss_fn,
+         (xs, ys)) = one_card[label]
+        reps = [r[label] for r in ranks]
+        rep0 = reps[0]
+        rounds = AGENTS_RUNS[label][2]
+        diff = max(float((state.x[k].cpu() - rep0["x"][k]).abs().max())
+                   for k in state.x)
+        same = all(bit_equal(torch, state.x[k].cpu(), rep0["x"][k])
+                   for k in state.x)
+        gate = max(float((gate_x[k].cpu() - rep0["gate_x"][k]).abs().max())
+                   for k in gate_x)
+        tol = AGENTS_TOL["bf16" if spec.plane_dtype == "bf16" else "f32"]
+        fault = None
+        if rep0["fault_x"] is not None:
+            fault = max(float((gate_x[k].cpu() - rep0["fault_x"][k])
+                              .abs().max()) for k in gate_x)
+            print(f"[agents] {label}: planted fault (agent "
+                  f"{AGENTS_FAULT['rank']} keeps its x at round "
+                  f"{AGENTS_GATE_ROUND // 2}): x max |diff| {fault} from one "
+                  f"card after round {AGENTS_GATE_ROUND} (tolerance {tol})")
+        print(f"[agents] {label}: {rounds} rounds, {rep0['ms']:.4f} "
+              f"ms/round on {AGENTS_RANKS} processes (transport on rank 0, "
+              f"ms a round: "
+              f"{ {k: round(v, 3) for k, v in rep0['transport_ms'].items()} }"
+              f") against "
+              f"{ms_one:.4f} on one card; loss {rep0['losses'][0]:.6f} -> "
+              f"{rep0['losses'][-1]:.6f} (one card {losses[-1]:.6f}); x max "
+              f"|diff| after round {AGENTS_GATE_ROUND} {gate} (tolerance "
+              f"{tol}), at the end {diff} (bitwise {same}); exchange "
+              f"teacher-forced bitwise "
+              f"{all(r['exchange_bitwise'] for r in reps)}; bytes "
+              f"measured / model / shipped {rep0['bytes']}; collectives "
+              f"an exchange {rep0['gossip_per_exchange']} against the "
+              f"budget {rep0['budget']} x {rep0['leaves']} leaves; rank-0 "
+              f"launches {rep0['launches']}")
+        if not finite(rep0["losses"]):
+            raise AssertionError(f"agents {label}: non-finite losses")
+        if not all(r["exchange_bitwise"] for r in reps):
+            raise AssertionError(f"agents {label}: an exchange differs from "
+                                 "the one-card executor's")
+        if not gate <= tol:
+            raise AssertionError(f"agents {label}: x {gate} from one card "
+                                 f"after round {AGENTS_GATE_ROUND}")
+        if fault is not None and not fault > tol:
+            raise AssertionError(f"agents {label}: the planted fault reads "
+                                 f"{fault}, within the tolerance {tol}")
+        for r in reps:
+            measured, model, shipped = r["bytes"]
+            if not measured == model == shipped:
+                raise AssertionError(f"agents {label}: bytes {r['bytes']}")
+            if not r["within_budget"]:
+                raise AssertionError(f"agents {label}: collectives "
+                                     f"{r['census']} over the budget")
+            expect_launches(f"agents {label} rank", r["launches"],
+                            **_agents_launches(spec, rounds))
+        if AGENTS_RUNS[label][0] == "logreg":
+            from repro_torch.core import average_params
+            full = (torch.as_tensor(xs.reshape(-1, 123), device=DEVICE),
+                    torch.as_tensor(ys.reshape(-1), device=DEVICE))
+            avg = average_params({k: v.to(DEVICE) for k, v in
+                                  rep0["x"].items()})
+            gn = grad_norm(logreg_loss, avg, full)
+            print(f"[agents] {label}: gn at x-bar {gn:.6f} (gate 0.1)")
+            if not gn < 0.1:
+                raise AssertionError(f"agents quickstart gate: gn = {gn}")
+        report[label] = dict(ms=rep0["ms"], ms_one_card=ms_one,
+                             transport_ms=rep0["transport_ms"], x_diff=diff,
+                             bitwise=same, launches=rep0["launches"],
+                             rounds=rounds, bytes=rep0["bytes"][0],
+                             gate_x_diff=gate, fault_x_diff=fault)
+    return report
+
+
+def _lm_rounds(torch, runtime, algo, source, state, start, rounds, group):
+    """``rounds`` rounds from ``start`` in one chunk, donated: -> (state,
+    losses, ms a round, each transport category's share of the wall)."""
+    losses = []
+    torch.cuda.synchronize()
+    group.transport_s.clear()
+    t0 = time.perf_counter()
+    state, _ = runtime.run_chunked(
+        algo, source, state, 0, start + rounds, chunk=rounds,
+        start=start, donate=True,
+        on_chunk=lambda t0_, t1_, st, m: losses.extend(m["loss"].tolist()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, losses, 1e3 * wall / rounds, {
+        k: v / wall for k, v in group.transport_s.items()}
+
+
+def _lm_max_diff(torch, tree, rows, dev, tree_leaves):
+    return max(float((leaf[0].float() - w.to(dev).float()).abs().max())
+               for leaf, w in zip(tree_leaves(tree), rows))
+
+
+def agents_lm_rank(group, ref_dir):
+    """One rank of phase 15's LM spawn: the full-width tinyllama cell with
+    this rank's agent.  On the plain packed executor, the first round
+    forced with the one-card cell's gradient (``grad_override``: every
+    other operand is the round's own), then from a fresh init the free
+    first round, each held against the one-card cell's x, then
+    AGENTS_LM["packed"] rounds; on the ring, the first round and
+    AGENTS_LM["ring"] more."""
+    import torch
+    from repro_torch import configs, data
+    from repro_torch.kernels import ops
+    from repro_torch.launch import runtime, steps
+    from repro_torch.tree import tree_flatten, tree_leaves
+    c, dev = LM_RUN, group.device
+    cfg = _lm_cfg(configs)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for mode in ("packed", "ring"):
+        setup = steps.build_train_step(
+            cfg, c["agents"], compressor_name="top_k", frac=c["frac"],
+            eta=c["eta"], tau=c["tau"], plane_dtype=LM_PLANE_DTYPE,
+            gossip_mode=mode, group=group)
+        source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                                   device=dev, group=group)
+        init = lambda: setup.init_state(
+            torch.Generator(device=dev).manual_seed(0))
+        rep = {}
+        if mode == "packed":
+            want = torch.load(f"{ref_dir}/agent{group.index}.pt")
+            state = init()
+            treedef = tree_flatten(state.x)[1]
+            g = treedef.unflatten([w.unsqueeze(0).to(dev)
+                                   for w in want["g"]])
+            gen_batch, gen_step = runtime.round_generators(0, 0, dev)
+            forced, _ = setup.step(state, source(gen_batch, 0), gen_step,
+                                   grad_override=(torch.zeros(1, device=dev),
+                                                  g))
+            del state, g
+            rep["forced_x_diff"] = _lm_max_diff(torch, forced.x, want["x"],
+                                                dev, tree_leaves)
+            rep["forced_bitwise"] = all(
+                bit_equal(torch, leaf[0], w.to(dev))
+                for leaf, w in zip(tree_leaves(forced.x), want["x"]))
+            del forced
+        state = init()
+        if mode == "packed":
+            # the planted fault: the gate's reading had the round left
+            # this rank's x unchanged
+            rep["fault_x_diff"] = _lm_max_diff(torch, state.x, want["x"],
+                                               dev, tree_leaves)
+        ops.reset_launches()
+        state, first, ms_first, _ = _lm_rounds(
+            torch, runtime, setup.algorithm, source, state, 0, 1, group)
+        rep.update(first_loss=first[0], first_ms=ms_first,
+                   launches_first=dict(ops.LAUNCHES))
+        if mode == "packed":
+            rep["x_diff"] = _lm_max_diff(torch, state.x, want["x"], dev,
+                                         tree_leaves)
+            del want
+        state, losses, ms, share = _lm_rounds(
+            torch, runtime, setup.algorithm, source, state, 1,
+            AGENTS_LM[mode], group)
+        rep.update(losses=losses, ms=ms, transport_share=share)
+        out[mode] = rep
+        del state, setup, source
+        torch.cuda.empty_cache()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_agents_lm(torch, ops, runtime, steps, data, configs, mesh,
+                    tree_leaves):
+    """Phase 15 (b): phase 12's full-width tinyllama cell with each of its
+    4 agents a process on the card: the one-card cell's first round kept
+    as the reference, then the ranks."""
+    import shutil
+    c = LM_RUN
+    cfg = _lm_cfg(configs)
+    ref_dir = ROOT / "build" / "agents_lm"
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    setup = steps.build_train_step(
+        cfg, c["agents"], compressor_name="top_k", frac=c["frac"],
+        eta=c["eta"], tau=c["tau"], plane_dtype=LM_PLANE_DTYPE,
+        gossip_mode="packed", device=DEVICE)
+    state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+    source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                               device=DEVICE)
+    state, _ = runtime.run_chunked(setup.algorithm, source, state, 0, 1,
+                                   chunk=1, donate=True)
+    # each agent's row of x after the round and of the round's clipped
+    # gradient (g_prev, in the planes' dtype)
+    for i in range(c["agents"]):
+        torch.save({"x": [leaf[i].cpu() for leaf in tree_leaves(state.x)],
+                    "g": [leaf[i].cpu() for leaf in
+                          tree_leaves(state.g_prev)]},
+                   ref_dir / f"agent{i}.pt")
+    del state, setup, source
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        # four allocators on one card: expandable segments keep each
+        # rank's freed blocks from pinning memory the others need
+        ranks = mesh.spawn_agents(
+            agents_lm_rank, AGENTS_LM["ranks"], (str(ref_dir),),
+            device=DEVICE, timeout_s=AGENTS_TIMEOUT_S,
+            env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    peaks = [r["peak"] for r in ranks]
+    forced = max(r["packed"]["forced_x_diff"] for r in ranks)
+    x_diff = max(r["packed"]["x_diff"] for r in ranks)
+    fault = min(r["packed"]["fault_x_diff"] for r in ranks)
+    print(f"[agents] LM cell ({cfg.name}, {cfg.n_layers} layers, "
+          f"{c['agents']} agents a process, bf16 planes): spawn to join "
+          f"{wall:.1f} s; per-rank peak {peaks} B, sum {sum(peaks)} B "
+          f"(gate {LM_PEAK_LIMIT:.0f}); first round forced with the "
+          f"one-card gradient: x max |diff| {forced} (bitwise "
+          f"{all(r['packed']['forced_bitwise'] for r in ranks)}, gate "
+          f"{AGENTS_LM['tol']}); the free first round {x_diff} (gate "
+          f"{AGENTS_LM['free_tol']}: a rank's gradient over one agent is "
+          "not bitwise the one-card one over four); a rank whose x the "
+          f"round left unchanged would read at least {fault}")
+    out = {"peaks": peaks, "forced_x_diff": forced, "x_diff": x_diff,
+           "fault_x_diff": fault, "wall_s": wall}
+    for mode in ("packed", "ring"):
+        r0 = ranks[0][mode]
+        share = {k: round(v, 4) for k, v in r0["transport_share"].items()}
+        print(f"[agents] LM cell gossip {mode}: {len(r0['losses'])} rounds "
+              f"after the first, {r0['ms']:.1f} ms/round on rank 0 "
+              f"({', '.join(f'{r[mode]['ms']:.1f}' for r in ranks)} on the "
+              f"ranks), the transport's share by category {share} (sum "
+              f"{sum(share.values()):.4f}); first round "
+              f"{r0['first_ms']:.1f} ms; losses {r0['losses']}; "
+              f"first-round launches {r0['launches_first']}")
+        if not finite([r0["first_loss"]] + r0["losses"]):
+            raise AssertionError(f"agents LM {mode}: losses")
+        expect_launches(f"agents LM {mode} first round",
+                        r0["launches_first"],
+                        **_lm_round_launches(LM_PLANE_DTYPE, 1))
+        out[mode] = dict(ms=r0["ms"], transport_share=r0["transport_share"],
+                         losses=r0["losses"])
+    if not sum(peaks) <= LM_PEAK_LIMIT:
+        raise AssertionError(f"agents LM: peaks {sum(peaks)}")
+    if not forced <= AGENTS_LM["tol"]:
+        raise AssertionError(f"agents LM: forced round x {forced} from one "
+                             "card")
+    if not x_diff <= AGENTS_LM["free_tol"]:
+        raise AssertionError(f"agents LM: free round x {x_diff} from one "
+                             "card")
+    if not fault > AGENTS_LM["free_tol"]:
+        raise AssertionError(f"agents LM: an unchanged x reads {fault}, "
+                             "within the free round's tolerance")
+    return out
+
+
 def lm_record(name, lm, lm_times):
     """A kernel's LM-plane figures (phase 12) for its record: the cell's
     variant, its µs, plain µs and bound at the LM plane (both plane dtypes
@@ -4565,7 +5151,8 @@ def main() -> int:
     from repro_torch.core import average_params, clipping, fleet
     from repro_torch.kernels import build, flatten, ops, ref, smooth_clip
     from repro_torch import models
-    from repro_torch.launch import checkpoint, runtime, serve, steps, train
+    from repro_torch.launch import (checkpoint, mesh, runtime, serve, steps,
+                                    train)
     from repro_torch.models import paper
     from repro_torch.tree import tree_leaves
 
@@ -4699,6 +5286,16 @@ def main() -> int:
                                  tree_leaves)
     print(f"[gossip-executors] phase took {time.perf_counter() - t14:.1f} s")
     print("[gossip-executors] figures " + json.dumps(gossip, default=str))
+
+    # phase 15: agents as processes (the MLP's 10 and the LM cell's 4
+    # ranks on the card)
+    t15 = time.perf_counter()
+    agents = phase_agents_mlp(torch, ops, api, data, runtime, paper, mesh,
+                              tree_leaves)
+    agents["lm"] = phase_agents_lm(torch, ops, runtime, steps, data,
+                                   configs, mesh, tree_leaves)
+    print(f"[agents] phase took {time.perf_counter() - t15:.1f} s")
+    print("[agents] figures " + json.dumps(agents, default=str))
 
 
     # each kernel's launches on the path that carries its timed variant:
@@ -4846,6 +5443,13 @@ def main() -> int:
         ms_2p24=topk_table[("2^24", "f32", 102)]["ms"],
         bound_ms_2p24=topk_table[("2^24", "f32", 102)]["bound_ms"],
         **lm_record("block_topk", lm, lm_times)))
+    # phase 15: each kernel's launches a round on one rank (one agent)
+    for rec in record:
+        label = AGENTS_LAUNCH_RUNS.get(rec["name"])
+        if label is not None:
+            run = agents[label]
+            rec["launches_agents_rank_round"] = (
+                run["launches"][rec["name"]] / run["rounds"])
     print(f"[time] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)   # again here: a long log keeps only its end

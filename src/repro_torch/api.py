@@ -40,8 +40,11 @@ Registered here, all eleven of the reference's algorithms: ``porter-gc``,
 master params stay f32).  ``gossip_mode`` "ring" (a ring band, or a
 schedule of them) or "packed" (top-k pairs) picks the reference's other
 executors, every agent on one card; with ``wire="packed_bits"`` either
-gossips bit-packed buffers (:func:`resolve_wire_format`).  The spec keeps the reference's field
-names.  ``remat_policy`` (None, ``"full"``, ``"dots"``) wraps the loss once
+gossips bit-packed buffers (:func:`resolve_wire_format`).  ``build(...,
+group=)`` puts each agent in a process of a
+:class:`repro_torch.launch.mesh.AgentGroup` (the reference's ``mesh=``):
+the executors ship buffers across the group's ranks.  The spec keeps the
+reference's field names.  ``remat_policy`` (None, ``"full"``, ``"dots"``) wraps the loss once
 in ``build`` for every algorithm (:mod:`repro_torch.core.remat`).
 """
 
@@ -158,6 +161,7 @@ class Resolved:
     gamma: Optional[float]
     device: torch.device
     schedule: Optional[Union[TopologySchedule, FleetSchedule]] = None
+    group: Any = None
 
 
 def resolve_topology(spec: ExperimentSpec) -> Topology:
@@ -459,17 +463,41 @@ def resolve_wire_format(spec: ExperimentSpec):
                                          use_kernel=use_kernel)
 
 
+def _check_group(spec: ExperimentSpec, group) -> None:
+    """Refuse what the agents-as-processes executors do not run yet."""
+    if group is None:
+        return
+    info = algorithm_info(spec.algo)
+    if not info.decentralized:
+        raise ValueError(
+            f"{spec.algo} is a server algorithm: it pools or averages every "
+            "client's upload on one server and has no gossip to run across "
+            "processes (ROADMAP queue 1 item 12(c)); build it without "
+            "group=")
+    if spec.fleet:
+        raise ValueError(
+            "fleet mode holds the whole fleet axis on one card; the fleet "
+            "axis over processes is ROADMAP queue 1 item 12(c) -- build it "
+            "without group=")
+    if spec.n_agents != group.n_agents:
+        raise ValueError(f"spec.n_agents={spec.n_agents} but the group has "
+                         f"{group.n_agents} ranks: one agent a rank")
+
+
 def build_engine(spec: ExperimentSpec, *,
                  topology: Optional[Union[Topology, FleetTopology]] = None,
                  schedule: Optional[Union[TopologySchedule,
                                           FleetSchedule]] = None,
-                 compress_fn=None) -> CommRound:
+                 compress_fn=None, group=None) -> CommRound:
     """Comm-round engine for ``spec``: compressor, mixer (dense, ring or
     packed by ``gossip_mode``, their codec executors under
     ``wire="packed_bits"``, or the fleet mixer under ``fleet=True``; over
     the schedule's table when the spec has one or
     ``schedule`` is given) and backend.  ``compress_fn``: optional
-    ``(gen, tree) -> tree`` compression override, refused beside a codec."""
+    ``(gen, tree) -> tree`` compression override, refused beside a codec.
+    ``group``: an agent group (:mod:`repro_torch.launch.mesh`), one agent a
+    rank: the executors across processes."""
+    _check_group(spec, group)
     if spec.fleet:
         _check_fleet_spec(spec)
         top = resolve_fleet_topology(spec) if topology is None else topology
@@ -481,7 +509,7 @@ def build_engine(spec: ExperimentSpec, *,
         sched = resolve_schedule(spec, top) if schedule is None else schedule
         mixer = make_mixer(sched if sched is not None else top,
                            spec.gossip_mode, frac=spec.frac,
-                           codec=resolve_wire_format(spec))
+                           codec=resolve_wire_format(spec), group=group)
     return CommRound(compressor=resolve_compressor(spec), mixer=mixer,
                      compress_fn=compress_fn, backend=spec.comm_backend,
                      overlap=spec.overlap,
@@ -490,19 +518,29 @@ def build_engine(spec: ExperimentSpec, *,
 
 def build(spec: ExperimentSpec, loss_fn, *, device=None,
           topology: Optional[Union[Topology, FleetTopology]] = None,
-          compress_fn=None) -> Algorithm:
+          compress_fn=None, group=None) -> Algorithm:
     """Resolve ``spec`` into a ready-to-train :class:`Algorithm`.
 
     loss_fn: ``(params, batch) -> scalar loss`` for one agent, in torch ops
       that ``torch.func`` can differentiate and vmap; wrapped per
       ``spec.remat_policy``.
-    device: where the state lives; ``torch.device("cuda")`` unless given.
+    device: where the state lives; ``torch.device("cuda")`` unless given
+      (under a group, the group's device).
     topology: pre-built Topology (or, under ``fleet=True``, FleetTopology)
       override.
     compress_fn: optional ``(gen, tree) -> tree`` compression override for
       the decentralized compressed algorithms (not under a codec).
+    group: an :class:`repro_torch.launch.mesh.AgentGroup`, one agent a
+      process (the reference's ``mesh=``): the gossip runs across the
+      group's ranks, ``init(params)`` returns this rank's agent row, and
+      ``step`` takes this rank's batch row and its round's generator (the
+      same seed on every rank) and reports metrics over all agents.  The
+      server algorithms (dp-sgd, soteriafl) and fleet mode refuse it.
     """
-    device = torch.device("cuda") if device is None else torch.device(device)
+    _check_group(spec, group)
+    if device is None:
+        device = "cuda" if group is None else group.device
+    device = torch.device(device)
     info = algorithm_info(spec.algo)
     loss_fn = apply_remat(loss_fn, spec.remat_policy)
     top, sched, comp, mixer, engine, gamma = (None,) * 6
@@ -525,14 +563,14 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
                 "for directed topologies")
     if info.decentralized and info.compressed:
         engine = build_engine(spec, topology=top, schedule=sched,
-                              compress_fn=compress_fn)
+                              compress_fn=compress_fn, group=group)
         comp, mixer = engine.compressor, engine.mixer
     elif info.decentralized:
         if spec.fleet:
             mixer = make_fleet_mixer(sched if sched is not None else top)
         else:
             mixer = make_mixer(sched if sched is not None else top,
-                               spec.gossip_mode, frac=spec.frac)
+                               spec.gossip_mode, frac=spec.frac, group=group)
     elif info.compressed:
         # server/client: compression without gossip
         comp = resolve_compressor(spec)
@@ -543,7 +581,8 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
         gamma = (resolve_gamma(spec, top, comp, sched) if info.compressed
                  else (1.0 if spec.gamma is None else spec.gamma))
     r = Resolved(info=info, topology=top, compressor=comp, mixer=mixer,
-                 engine=engine, gamma=gamma, device=device, schedule=sched)
+                 engine=engine, gamma=gamma, device=device, schedule=sched,
+                 group=group)
     return get_factory(spec.algo)(spec, loss_fn, r)
 
 
@@ -560,15 +599,31 @@ def _require_tau(spec: ExperimentSpec) -> float:
 def _bind_init(spec: ExperimentSpec, r: Resolved, init_fn):
     """Uniform ``init(params, n_agents=None, w=None)``: the params go to the
     build's device first.  ``w`` passes through as given: every init
-    broadcasts one replica, so W X^0 = X^0 needs no mix."""
+    broadcasts one replica, so W X^0 = X^0 needs no mix.  Under an agent
+    group the state holds this rank's row: ``n_agents`` (if given, all
+    agents) becomes 1 and the init functions that mix by ``w`` take the
+    group (:func:`_grouped`)."""
 
     def init(params, n_agents: Optional[int] = None, w=None):
         n = spec.n_agents if n_agents is None else n_agents
+        if r.group is not None:
+            if n != r.group.n_agents:
+                raise ValueError(f"init for {n} agents under a group of "
+                                 f"{r.group.n_agents} ranks")
+            n = 1
         on_device = tree_map(
             lambda p: torch.as_tensor(p).to(r.device), params)
         return init_fn(on_device, n, w)
 
     return init
+
+
+def _grouped(init_fn, r: Resolved, **kw):
+    """``init_fn`` with ``kw`` bound, and the build's group when there is
+    one (the inits that mix replicas by ``w`` keep the rank's row)."""
+    if r.group is not None:
+        kw["group"] = r.group
+    return functools.partial(init_fn, **kw)
 
 
 def _algorithm(spec, r: Resolved, *, state_cls, init, step,
@@ -577,7 +632,8 @@ def _algorithm(spec, r: Resolved, *, state_cls, init, step,
                      state_cls=state_cls, init=init, step=step,
                      device=r.device, topology=r.topology,
                      compressor=r.compressor, mixer=r.mixer, engine=r.engine,
-                     gamma=r.gamma, config=config, schedule=r.schedule)
+                     gamma=r.gamma, config=config, schedule=r.schedule,
+                     group=r.group)
 
 
 def _grad_dtype(spec: ExperimentSpec):
@@ -607,14 +663,14 @@ def _porter_family(spec: ExperimentSpec, loss_fn, r: Resolved,
         step = functools.partial(porter_adam_step, cfg, loss_fn, None, None,
                                  engine=r.engine, b1=spec.b1, b2=spec.b2,
                                  adam_eps=spec.adam_eps)
-        init = _bind_init(spec, r, functools.partial(porter_adam_init,
-                                                     plane_dtype=pdt))
+        init = _bind_init(spec, r, _grouped(porter_adam_init, r,
+                                            plane_dtype=pdt))
         return _algorithm(spec, r, state_cls=PorterAdamState, init=init,
                           step=step, config=cfg)
     step = functools.partial(porter_step, cfg, loss_fn, None, None,
                              engine=r.engine)
-    init = _bind_init(spec, r, functools.partial(
-        porter_init, buffer_dtype=spec.buffer_dtype, plane_dtype=pdt))
+    init = _bind_init(spec, r, _grouped(
+        porter_init, r, buffer_dtype=spec.buffer_dtype, plane_dtype=pdt))
     return _algorithm(spec, r, state_cls=PorterState, init=init, step=step,
                       config=cfg)
 
@@ -697,8 +753,8 @@ def _build_dp_csgp(spec, loss_fn, r):
     # the push-sum mirrors start from the round-0 matrix (m = W q has no
     # row-sum shortcut for a column-stochastic W)
     w0 = r.schedule.ws[0] if r.schedule is not None else r.topology.w
-    init = _bind_init(spec, r, functools.partial(
-        dp_csgp_init, w0=w0, buffer_dtype=spec.buffer_dtype,
+    init = _bind_init(spec, r, _grouped(
+        dp_csgp_init, r, w0=w0, buffer_dtype=spec.buffer_dtype,
         plane_dtype=resolve_plane_dtype(spec)))
     return _algorithm(spec, r, state_cls=DpCsgpState, init=init, step=step,
                       config=cfg)
@@ -713,8 +769,8 @@ def _build_clip21(spec, loss_fn, r):
                        clip_mode="piecewise", grad_dtype=_grad_dtype(spec))
     step = functools.partial(clip21_step, cfg, loss_fn, None, None,
                              engine=r.engine)
-    init = _bind_init(spec, r, functools.partial(
-        clip21_init, buffer_dtype=spec.buffer_dtype,
+    init = _bind_init(spec, r, _grouped(
+        clip21_init, r, buffer_dtype=spec.buffer_dtype,
         plane_dtype=resolve_plane_dtype(spec)))
     return _algorithm(spec, r, state_cls=Clip21State, init=init, step=step,
                       config=cfg)

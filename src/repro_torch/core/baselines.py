@@ -36,7 +36,7 @@ from . import clipping
 from .comm_round import CommRound, resolve_engine
 from .compression import Compressor
 from .gossip import MixFn, apply_mixer, gossip_wire_bytes
-from .porter import LossFn, consensus_error
+from .porter import LossFn, agent_metrics, replicas
 
 __all__ = [
     "DsgdState", "dsgd_init", "dsgd_step",
@@ -46,11 +46,6 @@ __all__ = [
 ]
 
 Metrics = Dict[str, torch.Tensor]
-
-
-def _stack(params, n: int):
-    return tree_map(lambda p: p.unsqueeze(0).expand((n,) + tuple(p.shape))
-                    .clone(), params)
 
 
 def _param_count(tree, n_agents: int) -> int:
@@ -81,7 +76,7 @@ class DsgdState(NamedTuple):
 
 
 def dsgd_init(params, n_agents: int) -> DsgdState:
-    return DsgdState(x=_stack(params, n_agents), step=0)
+    return DsgdState(x=replicas(params, n_agents), step=0)
 
 
 def dsgd_step(eta: float, gamma: float, loss_fn: LossFn, mixer: MixFn,
@@ -90,11 +85,13 @@ def dsgd_step(eta: float, gamma: float, loss_fn: LossFn, mixer: MixFn,
               sigma_p: float = 0.0, dp: bool = False, noise: Any = None
               ) -> Tuple[DsgdState, Metrics]:
     """X^{t+1} = X + gamma X(W - I) - eta G   (uncompressed gossip)."""
-    n = tree_leaves(state.x)[0].shape[0]
+    rows = tree_leaves(state.x)[0].shape[0]
+    group = getattr(mixer, "group", None)
+    n = rows if group is None else group.n_agents
     if dp:
         g, losses = clipping.dp_gradient(
             loss_fn, state.x, batch, tau, sigma_p, gen=gen, noise=noise,
-            mode=clip_mode, agents="stacked")
+            mode=clip_mode, agents="stacked", group=group)
     else:
         losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode)
     mixed = apply_mixer(mixer, state.x, state.step)
@@ -103,10 +100,10 @@ def dsgd_step(eta: float, gamma: float, loss_fn: LossFn, mixer: MixFn,
     # uncompressed gossip of the full parameter buffer every round
     frac = getattr(mixer, "wire_frac", None)
     wire = gossip_wire_bytes(getattr(mixer, "wire_mode", "dense"), n,
-                             _param_count(state.x, n),
+                             _param_count(state.x, rows),
                              frac=1.0 if frac is None else frac)
     return DsgdState(x=x, step=state.step + 1), {
-        "loss": torch.mean(losses), "consensus_x": consensus_error(x),
+        **agent_metrics(losses, [("consensus_x", x)], group=group),
         "wire_bytes": _scalar(wire, losses)}
 
 
@@ -124,7 +121,7 @@ class ChocoState(NamedTuple):
 def choco_init(params, n_agents: int, plane_dtype=None) -> ChocoState:
     """``plane_dtype``: storage dtype of the surrogate / mirror buffers
     (bf16 halves them); the params ``x`` keep their own dtype."""
-    x = _stack(params, n_agents)
+    x = replicas(params, n_agents)
     dt = torch.float32 if plane_dtype is None else plane_dtype
     zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=dt,
                                               device=leaf.device), x)
@@ -144,7 +141,7 @@ def choco_step(eta: float, gamma: float, loss_fn: LossFn,
     x, q, m = eng.gossip_apply(gen, x_half, state.q, state.m, gamma,
                                t=state.step)
     return ChocoState(x=x, q=q, m=m, step=state.step + 1), {
-        "loss": torch.mean(losses), "consensus_x": consensus_error(x),
+        **agent_metrics(losses, [("consensus_x", x)], group=eng.group),
         "wire_bytes": _scalar(eng.wire_bytes(state.x), losses)}
 
 

@@ -21,7 +21,6 @@ bitwise porter-gc's with a piecewise clip at ``tau = inf``.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -29,11 +28,11 @@ import torch
 from ..kernels import ref
 from ..tree import tree_leaves, tree_map
 from . import clipping
-from .comm_round import CommRound
+from .comm_round import CommRound, resolve_engine
 from .compression import Compressor
 from .gossip import MixFn
-from .porter import (PorterConfig, PorterState, _gradients, porter_init,
-                     porter_step)
+from .porter import (PorterConfig, PorterState, _gradients, agent_metrics,
+                     porter_init, porter_step)
 
 __all__ = ["Clip21State", "clip21_update", "clip21_init", "clip21_step"]
 
@@ -68,11 +67,11 @@ def clip21_update(g_est: Any, g_raw: Any, tau: float) -> Any:
 
 def clip21_init(params: Any, n_agents: int, w=None,
                 buffer_dtype: Any = torch.float32,
-                plane_dtype: Any = None) -> Clip21State:
+                plane_dtype: Any = None, group=None) -> Clip21State:
     """hat g = 0 (the first round clips the whole gradient); PORTER's
     buffers start as porter-gc's."""
     base = porter_init(params, n_agents, w=w, buffer_dtype=buffer_dtype,
-                       plane_dtype=plane_dtype)
+                       plane_dtype=plane_dtype, group=group)
     g_est = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=torch.float32,
                                               device=leaf.device), base.x)
     return Clip21State(base=base, g_est=g_est)
@@ -91,7 +90,6 @@ def clip21_step(
     """One Clip21 round: the unclipped gradients, the EF-clipped estimate,
     PORTER's comm rounds.  ``cfg.tau`` is the residual's threshold; the
     round draws from ``gen`` as porter-gc's does."""
-    n = tree_leaves(state.base.x)[0].shape[0]
     raw_cfg = dataclasses.replace(cfg, variant="beer")
     losses, g_raw = _gradients(raw_cfg, loss_fn, state.base.x, batch, gen,
                                None)
@@ -100,6 +98,7 @@ def clip21_step(
                                 batch, gen, engine=engine,
                                 grad_override=(losses, g_est))
     resid = tree_map(lambda a, b: a - b, g_raw, g_est)
-    metrics["clip_residual"] = (clipping.tree_global_norm(resid)
-                                / math.sqrt(n))
+    metrics.update(agent_metrics(
+        norms=[("clip_residual", resid)],
+        group=resolve_engine(engine, mixer, compressor).group))
     return Clip21State(base=base, g_est=g_est), metrics

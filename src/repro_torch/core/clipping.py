@@ -49,6 +49,7 @@ from torch.func import grad_and_value, vmap
 
 from ..kernels import flatten as FL
 from ..kernels import ops, ref
+from .agents import local_rows
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["smooth_clip", "piecewise_clip", "tree_global_norm", "tree_clip",
@@ -197,7 +198,7 @@ def per_sample_grads(loss_fn: Callable, params, batch, agents: Optional[str]):
 def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
                   mode: ClipMode, agents: Optional[str], sigma: float,
                   gen: Optional[torch.Generator], noise, dp: bool,
-                  chunk: Optional[int]):
+                  chunk: Optional[int], group=None):
     """The per-sample clipped mean over the local batch in chunks of
     ``chunk`` samples (:func:`sample_chunk`'s when None), plus ``sigma *
     z`` when ``dp``: z is ``noise`` (a tree shaped like the mean) or drawn
@@ -217,12 +218,15 @@ def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
 
     def z_of(mean, device):
         """``noise``, or z ~ N(0, 1) from ``gen`` leaf by leaf in tree
-        order, in the mean's shape and each leaf's dtype."""
+        order, in the mean's shape and each leaf's dtype; under an agent
+        ``group`` this rank's rows of the one-card draw (or of ``noise``,
+        given at the one-card shape)."""
         if noise is not None:
-            return noise
+            return noise if group is None else tree_map(group.rows, noise)
         lead = (mean.rows,) if mean.rows else ()
         return mean.treedef.unflatten([
-            torch.randn(lead + shape, generator=gen, dtype=dt, device=device)
+            local_rows(group, lead + shape, lambda full, dt=dt: torch.randn(
+                full, generator=gen, dtype=dt, device=device))
             for shape, dt in zip(mean.shapes, mean.dtypes)])
 
     acc, losses = None, []
@@ -268,13 +272,15 @@ def clipped_grad_accumulate(loss_fn: Callable, params, batch, tau: float,
 def dp_gradient(loss_fn: Callable, params, batch, tau: float, sigma: float,
                 gen: Optional[torch.Generator] = None, noise=None,
                 mode: ClipMode = "smooth", agents: Optional[str] = None,
-                sample_chunk: Optional[int] = None):
+                sample_chunk: Optional[int] = None, group=None):
     """The DP gradient of PORTER-DP line 6 and the DP baselines: the mean
     of the per-sample clipped gradients plus ``sigma * z``, z ~ N(0, 1)
     drawn from ``gen`` leaf by leaf in tree order, in each leaf's shape
     and dtype (or given as ``noise``, a tree shaped like the mean).
     ``batch``, ``agents`` and ``sample_chunk`` as in
     :func:`clipped_grad_accumulate`; the noise is drawn once, before the
-    last chunk's mean.  Returns ``(perturbed_mean, mean_loss)``."""
+    last chunk's mean.  ``group``: an agent group, the params and batch
+    this rank's agent row (``agents="stacked"``); z is then this rank's
+    rows of the one-card draw.  Returns ``(perturbed_mean, mean_loss)``."""
     return _chunked_mean(loss_fn, params, batch, tau, mode, agents, sigma,
-                         gen, noise, True, sample_chunk)
+                         gen, noise, True, sample_chunk, group)

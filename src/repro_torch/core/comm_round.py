@@ -47,6 +47,13 @@ Time-varying topologies: every round method takes the absolute round index
 ``t`` (the state's step) and hands it to the mixer, which picks ``W_t``
 from its schedule table; the fused updates read ``wc = W_t @ c`` as data.
 
+Agents as processes: with a mixer built over an agent group
+(``make_mixer(..., group=)``), every buffer is the rank's ``(1, ...)``
+agent row.  The engine's draws (the SR words, a random compressor's)
+draw the one-card shape from the round's generator and keep the rank's
+rows (:func:`repro_torch.core.agents.local_rows`), and its wire accounting
+counts all ``group.n_agents`` agents, so both are the one-card run's.
+
 Push-sum (directed, column-stochastic ``W_t``): :meth:`CommRound.exchange_ps`
 and :meth:`CommRound.step_ps` run the x-side round while carrying the
 ``(n,)`` push-sum weight planes (``xw``, ``q_w``, ``m_w``) through the same
@@ -65,6 +72,7 @@ import torch
 
 from ..kernels import flatten as FL
 from ..kernels import ops, ref
+from .agents import local_rows
 from ..tree import tree_leaves, tree_map
 from .compression import Compressor
 from . import wire_formats as WF
@@ -91,12 +99,15 @@ def resolve_backend(backend: str, device) -> str:
     return backend
 
 
-def compress_stacked(comp: Compressor, gen: Optional[torch.Generator], tree):
+def compress_stacked(comp: Compressor, gen: Optional[torch.Generator], tree,
+                     group=None):
     """Compress each agent's row of every leaf independently (every agent
     compresses its own increment, per leaf).  Leaves draw from ``gen`` in
-    tree order."""
+    tree order; under an agent ``group`` a random compressor draws the
+    one-card shape and keeps this rank's rows."""
+    kw = {} if group is None or comp.deterministic else {"group": group}
     return tree_map(
-        lambda leaf: comp(gen, leaf.reshape(leaf.shape[0], -1))
+        lambda leaf: comp(gen, leaf.reshape(leaf.shape[0], -1), **kw)
         .reshape(leaf.shape), tree)
 
 
@@ -208,6 +219,20 @@ class CommRound:
     def _codec(self):
         return getattr(self.mixer, "wire_codec", None)
 
+    @property
+    def group(self):
+        """The mixer's agent group (one agent a rank), or None: every agent
+        on one card."""
+        return getattr(self.mixer, "group", None)
+
+    def _agents(self, leaves) -> Tuple[int, int]:
+        """``(n_agents, rows)`` of agent-stacked ``leaves``: all agents, and
+        the rows held here (every one on one card, this rank's one under a
+        group)."""
+        rows = leaves[0].shape[0]
+        group = self.group
+        return (rows if group is None else group.n_agents), rows
+
     def _use_kernel(self, tree) -> bool:
         device = tree_leaves(tree)[0].device
         return resolve_backend(self.backend, device) == "kernel"
@@ -227,11 +252,15 @@ class CommRound:
         needs = [_bf16(t) for t in trees]
         if not any(needs):
             return None
-        return tuple(
-            torch.randint(0, 1 << 16, FL.flat_spec(t).plane_shape,
-                          generator=gen, dtype=torch.int32,
-                          device=tree_leaves(t)[0].device) if need else None
-            for t, need in zip(trees, needs))
+
+        def draw(t):
+            device = tree_leaves(t)[0].device
+            return local_rows(
+                self.group, FL.flat_spec(t).plane_shape,
+                lambda shape: torch.randint(0, 1 << 16, shape, generator=gen,
+                                            dtype=torch.int32, device=device))
+        return tuple(draw(t) if need else None
+                     for t, need in zip(trees, needs))
 
     # -- the shared front half: compress + mix ------------------------------
 
@@ -239,7 +268,7 @@ class CommRound:
         """c = C(delta), per agent row of every leaf."""
         if self.compress_fn is not None:
             return self.compress_fn(gen, delta)
-        return compress_stacked(self.compressor, gen, delta)
+        return compress_stacked(self.compressor, gen, delta, self.group)
 
     def exchange(self, gen, y, q, t=None) -> Tuple[Any, Any]:
         """Returns ``(c, wc)``: ``c = C(y - q)`` and ``wc = W @ c``.  The
@@ -438,8 +467,8 @@ class CommRound:
         if n_agents is None:
             tree = tree_or_d
             leaves = tree_leaves(tree)
-            n_agents = leaves[0].shape[0]
-            d = sum(leaf.numel() // n_agents for leaf in leaves)
+            n_agents, rows = self._agents(leaves)
+            d = sum(leaf.numel() // rows for leaf in leaves)
         else:
             d = int(tree_or_d)
         db = (4 if self.plane_dtype is None
@@ -453,7 +482,7 @@ class CommRound:
         frac = self.compressor.rho if frac is None else frac
         if mode == "packed" and tree is not None:
             k_b = max(int(round(frac * WF.PACK_BLOCK)), 1)
-            windows = self._packed_windows(tree, n_agents)
+            windows = self._packed_windows(tree)
             return float(n_agents) * windows * k_b * (db + 4.0) + extra
         return gossip_wire_bytes(mode, n_agents, d, frac=frac,
                                  dtype_bytes=db) + extra
@@ -470,13 +499,13 @@ class CommRound:
         return self.wire_bytes(tree_or_d, n_agents, push_sum=push_sum)
 
     @staticmethod
-    def _packed_windows(tree, n_agents: int) -> int:
-        """PACK_BLOCK windows the packed executors pad for ``tree``: each
-        leaf pads separately, so windows are summed per leaf.  The
-        reference also counts a model-sharded leaf's windows per shard; a
-        leaf is never sharded on one card (per-shard planes: ROADMAP queue
-        1 item 12(b))."""
-        return sum(-(-(leaf.numel() // n_agents) // WF.PACK_BLOCK)
+    def _packed_windows(tree) -> int:
+        """PACK_BLOCK windows the packed executors pad for one agent's row
+        of ``tree``: each leaf pads separately, so windows are summed per
+        leaf.  The reference also counts a model-sharded leaf's windows per
+        shard; the port shards no leaf over a model axis (model-sharded
+        leaves: ROADMAP queue 1 item 12(c))."""
+        return sum(-(-(leaf.numel() // leaf.shape[0]) // WF.PACK_BLOCK)
                    for leaf in tree_leaves(tree))
 
     def _codec_bytes(self, tree_or_d, n_agents: Optional[int],
@@ -493,8 +522,8 @@ class CommRound:
         """
         codec = self._codec
         if n_agents is None:
-            n_agents = tree_leaves(tree_or_d)[0].shape[0]
-            windows = self._packed_windows(tree_or_d, n_agents)
+            n_agents = self._agents(tree_leaves(tree_or_d))[0]
+            windows = self._packed_windows(tree_or_d)
         else:
             windows = codec.windows(int(tree_or_d))
         if measured:

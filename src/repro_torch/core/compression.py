@@ -12,7 +12,10 @@ stands in for ``fn``; the compressor still gives gamma its ``rho``.
 A compressor here works on *rows*: ``fn(gen, rows)`` compresses each row
 of a ``(n, d)`` tensor independently, which is how the comm-round engine
 applies it to one agent-stacked leaf at a time (every agent compresses its
-own increment).  Randomness comes from an explicit ``torch.Generator``.
+own increment).  Randomness comes from an explicit ``torch.Generator``; a
+random compressor also takes ``group=`` (an agent group, one agent a rank:
+the rows are this rank's, and it draws the one-card shape and keeps their
+rows, :func:`repro_torch.core.agents.local_rows`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from .agents import local_rows
 from .wire_formats import PACK_BLOCK
 
 __all__ = ["Compressor", "identity", "random_k", "top_k", "block_top_k",
@@ -61,6 +65,15 @@ class Compressor:
         return k * (self.bits_per_element + float(np.ceil(np.log2(max(d, 2)))))
 
 
+def _operand(group, given, shape, draw):
+    """A random operand of a compressor: ``given`` (injected, at the
+    one-card shape) or drawn, under an agent ``group`` this rank's rows
+    of either."""
+    if given is None:
+        return local_rows(group, shape, draw)
+    return given if group is None else group.rows(given, shape[0])
+
+
 def _identity(gen, rows):
     del gen
     return rows
@@ -75,10 +88,9 @@ def random_k(frac: float) -> Compressor:
     rescale).  ``mask=`` injects the keep-mask in place of the generator's
     draw (the parity tests hand over the reference's Bernoulli mask)."""
 
-    def fn(gen, rows, mask=None):
-        if mask is None:
-            mask = torch.rand(rows.shape, generator=gen,
-                              device=rows.device) < frac
+    def fn(gen, rows, mask=None, group=None):
+        mask = _operand(group, mask, rows.shape, lambda shape: torch.rand(
+            shape, generator=gen, device=rows.device) < frac)
         return torch.where(mask, rows, torch.zeros_like(rows))
 
     return Compressor(f"random_k({frac})", float(frac), fn)
@@ -143,10 +155,10 @@ def qsgd(levels: int = 16) -> Compressor:
     rounding in place of the generator's (the parity tests hand over the
     reference's uniforms)."""
 
-    def fn(gen, rows, noise=None):
+    def fn(gen, rows, noise=None, group=None):
         d = rows.shape[-1]
-        if noise is None:
-            noise = torch.rand(rows.shape, generator=gen, device=rows.device)
+        noise = _operand(group, noise, rows.shape, lambda shape: torch.rand(
+            shape, generator=gen, device=rows.device))
         norm = torch.linalg.vector_norm(rows, dim=-1, keepdim=True) + 1e-30
         y = rows.abs() / norm * levels
         lo = torch.floor(y)
@@ -176,16 +188,16 @@ def low_rank(rank: int = 2, power_iters: int = 1) -> Compressor:
     reference's).  The projection does not depend on the signs of Q's
     columns, so any QR factorization gives the same result."""
 
-    def fn(gen, rows, sketch=None):
+    def fn(gen, rows, sketch=None, group=None):
         d = rows.shape[-1]
         m = int(np.ceil(np.sqrt(d)))
         n = int(np.ceil(d / m))
         r = min(rank, m, n)
         flat = rows.reshape(-1, d).to(torch.float32)
         mat = torch.nn.functional.pad(flat, (0, m * n - d)).reshape(-1, m, n)
-        if sketch is None:
-            sketch = torch.randn((mat.shape[0], n, r), generator=gen,
-                                 device=rows.device)
+        sketch = _operand(group, sketch, (mat.shape[0], n, r),
+                          lambda shape: torch.randn(shape, generator=gen,
+                                                    device=rows.device))
         q = sketch.to(torch.float32).reshape(mat.shape[0], n, r)
         for _ in range(power_iters):
             p_ = torch.linalg.qr(mat @ q).Q

@@ -1,4 +1,5 @@
-"""Gossip (neighbor mixing) over agent-stacked trees on one card.
+"""Gossip (neighbor mixing) over agent-stacked trees: every agent on one
+card, or one agent a process.
 
 PORTER communicates increments: every agent sends ``c_i = C(y_i - q_i)``,
 accumulates its surrogate ``q_i += c_i`` and its mixing mirror
@@ -20,13 +21,30 @@ accumulates its surrogate ``q_i += c_i`` and its mixing mirror
 
 The reference runs the ring, packed and codec executors as ``shard_map``
 programs with one agent per device: ``ppermute`` shifts for the ring, an
-all-gather for packed.  On one card all agents sit in one tensor: a shift
-is a roll along the agent axis (the "prev" copy rolled by +1, agent i - 1
+all-gather for packed.  Each executor exists here in two forms.
+
+*One card* (the five above): all agents sit in one tensor, a shift is a
+roll along the agent axis (the "prev" copy rolled by +1, agent i - 1
 arriving at i; "next" by -1), the all-gather is the identity, and a codec
-packs every agent's windows once and unpacks them once.  Each executor's
-``shipped_nbytes`` holds the bytes of its last call's buffers, as the
-reference's wire accounting counts them (the ring's for one agent, to its
-live neighbours; packed's for all agents).
+packs every agent's windows once and unpacks them once.
+
+*Across processes* (``make_mixer(..., group=)``, one agent a rank of a
+:class:`repro_torch.launch.mesh.AgentGroup`; ``make_dense_process_mixer``
+and its siblings): every tensor is the rank's ``(1, ...)`` block; the
+ring shifts all leaves to each live neighbour in one point-to-point
+exchange, the packed executors and the dense one all-gather, the codecs
+pack the rank's windows once and unpack its own and the received buffers
+in one call.  Each rank computes what the one-card executor computes for
+its agent, in the same order, so its rows are bitwise the one-card
+executor's (the dense and packed-codec products are the whole ``W_t @ c``
+on the gathered rows, a matrix product's rounding depending on its row
+count).  On the ``(pod, data)`` grid the ring sends straight to the
+global neighbour, which is what the reference's seam patch computes.
+
+Each executor's ``shipped_nbytes`` holds the bytes of its last call's
+buffers, as the reference's wire accounting counts them (the ring's for
+one agent, to its live neighbours; packed's and dense's for all agents),
+and ``budget`` its :class:`GossipBudget`.
 
 Time-varying topologies: every executor takes a static ``(n, n)`` matrix
 or a stacked ``(period, n, n)`` schedule table.  A table's mixer is tagged
@@ -37,16 +55,18 @@ so picking it costs no copy from the host and no sync.
 
 Push-sum (directed, column-stochastic W): the dense and ring executors'
 ``mix.push(tree, wvec, t)`` also mixes the ``(n,)`` push-sum weight with
-the same ``W_t``; the codec executors' ``mix.exchange_ps(gen, tree, dw,
-t)`` carries the exact f32 weight increment as bit-cast words appended to
-its last wire buffer (4 bytes an agent).  The weight is never compressed.
-The plain packed executor ships (value, index) pairs only and has no
-``push``, as in the reference.
+the same ``W_t`` (across processes in the same messages as the leaves);
+the codec executors' ``mix.exchange_ps(gen, tree, dw, t)`` carries the
+exact f32 weight increment as bit-cast words appended to its last wire
+buffer (4 bytes an agent).  The weight is never compressed.  The plain
+packed executor ships (value, index) pairs only and has no ``push``, as
+in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -58,8 +78,11 @@ from .wire_formats import PACK_BLOCK, WireFormat, to_windows, topk_keep
 
 __all__ = ["MixFn", "GossipBudget", "PACK_BLOCK", "apply_mixer",
            "make_dense_mixer", "make_ring_mixer", "make_packed_mixer",
-           "make_ring_codec_mixer", "make_packed_codec_mixer", "make_mixer",
-           "gossip_wire_bytes"]
+           "make_ring_codec_mixer", "make_packed_codec_mixer",
+           "make_dense_process_mixer", "make_ring_process_mixer",
+           "make_packed_process_mixer", "make_ring_codec_process_mixer",
+           "make_packed_codec_process_mixer", "make_mixer",
+           "reference_budget", "gossip_wire_bytes"]
 
 MixFn = Callable[..., object]
 
@@ -69,21 +92,50 @@ class GossipBudget:
     """Declared collective budget of one gossip executor (the reference's
     ``repro.core.gossip.GossipBudget``).
 
-    ``per_leaf`` maps a collective category to the most such ops the
-    executor may issue per gossiped leaf and comm round; a category
-    absent from it is forbidden.  ``spmd_dependent`` marks executors whose
-    collectives a partitioner chooses.  Only the fleet mixer carries one
-    (no per-leaf collectives).  The other executors issue no collective on
-    one card either (the ring's shifts are rolls, the packed all-gather is
-    the identity); their budgets come with the processes that ship
-    buffers (ROADMAP queue 1 item 12(b)) and the collective census that
-    checks them (item 14).
+    ``per_leaf`` maps a collective category (``collective-permute``,
+    ``all-gather``) to the most such ops the executor may issue per
+    gossiped leaf and exchange; a category absent from it is forbidden.
+    ``spmd_dependent`` marks executors whose collectives a partitioner
+    chooses.  Every executor of :func:`make_mixer` carries the reference's
+    budget (``mix.budget``).  On one card they issue none; across
+    processes the rank's :class:`~repro_torch.launch.mesh.AgentGroup`
+    counts what they issue (``group.census``), and the tests hold the count
+    to the budget.  The model-sharded leaves whose per-shard collectives
+    the reference also budgets are ROADMAP queue 1 item 12(c); the static
+    census over every executor is item 14.
     """
 
     executor: str
     per_leaf: "dict[str, int]" = dataclasses.field(default_factory=dict)
     spmd_dependent: bool = False
     note: str = ""
+
+
+# wire buffers a codec's pack returns (top-k and qsgd alike: payload and
+# indices or scales); the reference ships each through its own collective
+WIRE_BUFFERS = 2
+
+
+def reference_budget(executor: str, live: int = 0, axes: int = 1,
+                     note: str = "") -> GossipBudget:
+    """The reference's budget of ``executor`` (``src/repro/core/gossip.py``
+    ``:211``, ``:431``, ``:547``, ``:852``, ``:1003``): the dense einsum's
+    collectives are its partitioner's; a ring issues a shift a live band
+    and agent axis (a codec's, each of its buffers); the packed
+    executors an all-gather each for values and indices, or a codec's
+    buffers."""
+    if executor == "dense":
+        return GossipBudget("dense", {}, spmd_dependent=True, note=note or
+                            "einsum over the agent axis; unmeshed it emits "
+                            "zero collectives")
+    per_leaf = {
+        "ring": lambda: {"collective-permute": live * axes},
+        "ring_codec": lambda: {"collective-permute":
+                               live * axes * WIRE_BUFFERS},
+        "packed": lambda: {"all-gather": 2},
+        "packed_codec": lambda: {"all-gather": WIRE_BUFFERS},
+    }[executor]()
+    return GossipBudget(executor, per_leaf, note=note)
 
 
 def apply_mixer(mixer: MixFn, tree, t=None):
@@ -154,6 +206,7 @@ def make_dense_mixer(w) -> MixFn:
 
     mix.push = push
     mix.time_varying = w_at.time_varying
+    mix.budget = reference_budget("dense")
     return mix
 
 
@@ -223,18 +276,26 @@ def _ring_bands(w, what: str):
     return bands_at, use_prev, use_next
 
 
-def _ring_sum(x, bands, use_prev: bool, use_next: bool):
-    """``b_self x + b_prev roll(x, +1) + b_next roll(x, -1)`` over the
-    leading agent axis, accumulated in that order in ``bands``' dtype (x
-    converted to it) with the dead bands left out."""
+def _ring_sum(x, bands, prev=None, nxt=None):
+    """``b_self x + b_prev prev + b_next nxt``, accumulated in that order in
+    ``bands``' dtype (every term converted to it), a dead band (None) left
+    out.  ``prev`` is the copy of agent i - 1 arriving at i, ``nxt`` that of
+    agent i + 1: a roll of the stacked agents on one card, a received
+    neighbour across processes."""
     dt = bands[0].dtype
-    x = x if x.dtype == dt else x.to(dt)
-    out = bands[0] * x
-    if use_prev:
-        out = out + bands[1] * x.roll(1, 0)    # agent i - 1 arrives at i
-    if use_next:
-        out = out + bands[2] * x.roll(-1, 0)
+    out = bands[0] * (x if x.dtype == dt else x.to(dt))
+    if prev is not None:
+        out = out + bands[1] * (prev if prev.dtype == dt else prev.to(dt))
+    if nxt is not None:
+        out = out + bands[2] * (nxt if nxt.dtype == dt else nxt.to(dt))
     return out
+
+
+def _rolled_sum(x, bands, use_prev: bool, use_next: bool):
+    """:func:`_ring_sum` over the leading agent axis of one card: agent i -
+    1 arrives at i by a roll of +1, agent i + 1 by a roll of -1."""
+    return _ring_sum(x, bands, x.roll(1, 0) if use_prev else None,
+                     x.roll(-1, 0) if use_next else None)
 
 
 def make_ring_mixer(w) -> MixFn:
@@ -262,7 +323,7 @@ def make_ring_mixer(w) -> MixFn:
         def leaf_mix(leaf):
             bands = bands_at(leaf.device, torch.float32 if f32 else
                              leaf.dtype, t)
-            return _ring_sum(leaf, bands, use_prev, use_next).to(leaf.dtype)
+            return _rolled_sum(leaf, bands, use_prev, use_next).to(leaf.dtype)
         out = tree_map(leaf_mix, tree)
         leaves = tree_flatten(tree)[0]
         mix.shipped_nbytes = live * sum(
@@ -274,7 +335,7 @@ def make_ring_mixer(w) -> MixFn:
 
     def push(tree, wvec, t=None):
         bands = bands_at(wvec.device, torch.float32, t)
-        w_m = _ring_sum(wvec, bands, use_prev, use_next).to(wvec.dtype)
+        w_m = _rolled_sum(wvec, bands, use_prev, use_next).to(wvec.dtype)
         out = _mix(tree, t, True)
         mix.shipped_nbytes += live * 4          # the exact f32 weight
         return out, w_m
@@ -282,7 +343,35 @@ def make_ring_mixer(w) -> MixFn:
     mix.push = push
     mix.time_varying = bands_at.time_varying
     mix.shipped_nbytes = 0
+    mix.budget = reference_budget("ring", live)
     return mix
+
+
+def _topk_pairs(leaf, k_b: int):
+    """Every agent row's top-k (value, int32 index) pairs of each
+    PACK_BLOCK window: ``(rows, nb, k_b)`` each, ties to the lower index
+    (a stable descending sort)."""
+    rows = to_windows(leaf.reshape(leaf.shape[0], -1))     # (r, nb, block)
+    idx = torch.sort(rows.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :k_b]
+    return torch.gather(rows, -1, idx), idx.to(torch.int32)
+
+
+def _scatter_pairs(leaf, vals, idx, w_rows):
+    """The receivers' windows: for every receiver row r of ``w_rows`` (r,
+    n), the f32 scatter-add of every sender j's pairs ``(vals[j],
+    idx[j])`` times ``w_rows[r, j]``, senders in order onto +0.0, cut to
+    the leaf's length and cast to its dtype (``leaf``: the receivers'
+    rows)."""
+    r, nb, k_b = w_rows.shape[0], vals.shape[1], vals.shape[2]
+    weighted = vals.to(torch.float32)
+    out = torch.zeros((r, nb, PACK_BLOCK), dtype=torch.float32,
+                      device=vals.device)
+    for j in range(vals.shape[0]):
+        out.scatter_add_(-1, idx[j].long().expand_as(out[..., :k_b]),
+                         w_rows[:, j, None, None] * weighted[j])
+    out = out.reshape(r, -1)[:, :leaf[0].numel()]
+    return out.reshape(leaf.shape).to(leaf.dtype)
 
 
 def make_packed_mixer(w, frac: float) -> MixFn:
@@ -304,20 +393,9 @@ def make_packed_mixer(w, frac: float) -> MixFn:
     k_b = max(int(round(frac * PACK_BLOCK)), 1)
 
     def leaf_mix(leaf, w_t):
-        n = leaf.shape[0]
-        rows = to_windows(leaf.reshape(n, -1))             # (n, nb, block)
-        idx = torch.sort(rows.abs(), dim=-1, descending=True,
-                         stable=True).indices[..., :k_b]
-        vals = torch.gather(rows, -1, idx)
-        idx = idx.to(torch.int32)                # the wire's index words
+        vals, idx = _topk_pairs(leaf, k_b)
         shipped = vals.numel() * vals.element_size() + idx.numel() * 4
-        weighted = vals.to(torch.float32)
-        out = torch.zeros(rows.shape, dtype=torch.float32, device=rows.device)
-        for j in range(n):
-            out.scatter_add_(-1, idx[j].long().expand_as(out[..., :k_b]),
-                             w_t[:, j, None, None] * weighted[j])
-        out = out.reshape(n, -1)[:, :leaf[0].numel()]
-        return out.reshape(leaf.shape).to(leaf.dtype), shipped
+        return _scatter_pairs(leaf, vals, idx, w_t), shipped
 
     def mix(tree, t=None):
         leaves, treedef = tree_flatten(tree)
@@ -328,6 +406,7 @@ def make_packed_mixer(w, frac: float) -> MixFn:
 
     mix.time_varying = w_at.time_varying
     mix.shipped_nbytes = 0
+    mix.budget = reference_budget("packed")
     return mix
 
 
@@ -362,7 +441,7 @@ def _split_weight(bufs, last_shape, n: int):
 
 
 def _codec_mixer(codec: WireFormat, mix_rows, time_varying: bool,
-                 shipped) -> MixFn:
+                 shipped, budget: GossipBudget) -> MixFn:
     """A codec executor, all agents on one card: ``mix.exchange(gen,
     delta, t=None, noise=None) -> (c, wc)`` and ``mix.exchange_ps(gen,
     delta, dw, t=None, noise=None) -> (c, wc, cw, wcw)``.
@@ -426,6 +505,7 @@ def _codec_mixer(codec: WireFormat, mix_rows, time_varying: bool,
     mix.time_varying = time_varying
     mix.wire_codec = codec
     mix.shipped_nbytes = 0
+    mix.budget = budget
     return mix
 
 
@@ -438,7 +518,8 @@ def make_packed_codec_mixer(w, codec: WireFormat) -> MixFn:
     all-gather ships."""
     w_at = _table_on(w, "packed codec mixer")
     return _codec_mixer(codec, lambda c, t: w_at(c.device, t) @ c,
-                        w_at.time_varying, lambda nbytes, n: nbytes)
+                        w_at.time_varying, lambda nbytes, n: nbytes,
+                        reference_budget("packed_codec"))
 
 
 def make_ring_codec_mixer(w, codec: WireFormat) -> MixFn:
@@ -457,14 +538,315 @@ def make_ring_codec_mixer(w, codec: WireFormat) -> MixFn:
     bands_at, use_prev, use_next = _ring_bands(w, "ring codec mixer")
     live = int(use_prev) + int(use_next)
     return _codec_mixer(
-        codec, lambda c, t: _ring_sum(c, bands_at(c.device, torch.float32, t),
-                                      use_prev, use_next),
-        bands_at.time_varying, lambda nbytes, n: live * nbytes // n)
+        codec, lambda c, t: _rolled_sum(c, bands_at(c.device, torch.float32,
+                                                    t), use_prev, use_next),
+        bands_at.time_varying, lambda nbytes, n: live * nbytes // n,
+        reference_budget("ring_codec", live))
+
+
+# ---------------------------------------------------------------------------
+# Across processes: one agent a rank, each executor over an AgentGroup
+# (repro_torch.launch.mesh), its tensors this rank's (1, ...) blocks
+# ---------------------------------------------------------------------------
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _check_block(leaves) -> None:
+    bad = [tuple(leaf.shape) for leaf in leaves
+           if leaf.dim() < 1 or leaf.shape[0] != 1]
+    if bad:
+        raise ValueError("an executor across processes takes this rank's "
+                         f"(1, ...) block of every leaf; got shapes {bad}")
+
+
+def make_dense_process_mixer(w, group) -> MixFn:
+    """The dense executor with one agent a rank: every leaf is
+    all-gathered (all of a call's leaves in one all-gather) and the rank
+    keeps its row of the whole ``W_t @ C``.  The whole product, not the row
+    alone: a matrix product's rounding may depend on its row count, and the
+    row of the whole product is bitwise the one-card executor's.
+    ``mix.push`` gathers the (1,) push-sum weight in the same message.
+    ``mix.shipped_nbytes``: every agent's leaves, what the all-gather
+    ships."""
+    w_at = _table_on(w, "dense mixer")
+    n = group.n_agents
+
+    def gather(leaves):
+        _check_block(leaves)
+        full = group.all_gather(leaves)
+        mix.shipped_nbytes = n * _nbytes(leaves)
+        return [f.reshape((n,) + tuple(leaf.shape[1:]))
+                for f, leaf in zip(full, leaves)]
+
+    def mix(tree, t=None):
+        leaves, treedef = tree_flatten(tree)
+        w_t = w_at(leaves[0].device, t)
+        return treedef.unflatten([group.rows(_mix_leaf(w_t, f))
+                                  for f in gather(leaves)])
+
+    def push(tree, wvec, t=None):
+        leaves, treedef = tree_flatten(tree)
+        *full, full_w = gather(leaves + [wvec])
+        w_t = w_at(wvec.device, t)
+        w_m = (w_t @ full_w.to(torch.float32)).to(wvec.dtype)
+        return (treedef.unflatten([group.rows(_mix_leaf(w_t, f))
+                                   for f in full]), group.rows(w_m))
+
+    mix.push = push
+    mix.time_varying = w_at.time_varying
+    mix.shipped_nbytes = 0
+    mix.budget = GossipBudget(
+        "dense", {"all-gather": 1},
+        note="the reference's partitioner chooses its collectives; here "
+        "one all-gather of every leaf")
+    return mix
+
+
+def make_ring_process_mixer(w, group) -> MixFn:
+    """Banded-W gossip with one agent a rank: a shift of all leaves to each
+    live neighbour (one point-to-point exchange a band), then ``w_self c_i
+    + w_prev c_{i-1} + w_next c_{i+1}`` as :func:`make_ring_mixer` adds it,
+    band weights and dtypes alike.  On a ``(pod, data)`` grid the shifts go
+    straight to the global ring neighbour, which is what the reference's
+    seam patch computes with two shifts.  ``mix.push`` ships the (1,) f32
+    push-sum weight in the same messages.  ``mix.shipped_nbytes``: the
+    bytes this rank sent in the last call."""
+    bands_at, use_prev, use_next = _ring_bands(w, "ring mixer")
+    live = int(use_prev) + int(use_next)
+
+    def neighbours(tensors):
+        _check_block(tensors)
+        none = [None] * len(tensors)
+        prev = group.shift(tensors, +1) if use_prev else none
+        nxt = group.shift(tensors, -1) if use_next else none
+        mix.shipped_nbytes = live * _nbytes(tensors)
+        return prev, nxt
+
+    def mixed(leaves, prev, nxt, t, f32: bool):
+        return [_ring_sum(leaf, bands_at(leaf.device, torch.float32 if f32
+                                         else leaf.dtype, t), p, q)
+                .to(leaf.dtype) for leaf, p, q in zip(leaves, prev, nxt)]
+
+    def mix(tree, t=None):
+        leaves, treedef = tree_flatten(tree)
+        prev, nxt = neighbours(leaves)
+        return treedef.unflatten(mixed(leaves, prev, nxt, t, False))
+
+    def push(tree, wvec, t=None):
+        leaves, treedef = tree_flatten(tree)
+        prev, nxt = neighbours(leaves + [wvec])
+        bands = bands_at(wvec.device, torch.float32, t)
+        w_m = _ring_sum(wvec, bands, prev[-1], nxt[-1]).to(wvec.dtype)
+        return (treedef.unflatten(mixed(leaves, prev[:-1], nxt[:-1], t,
+                                        True)), w_m)
+
+    mix.push = push
+    mix.time_varying = bands_at.time_varying
+    mix.shipped_nbytes = 0
+    mix.budget = reference_budget(
+        "ring", live, axes=len(group.axes), note="the reference shifts "
+        "once a band and axis, here once a band, all leaves and the "
+        "push-sum weight in one message")
+    return mix
+
+
+def make_packed_process_mixer(w, frac: float, group) -> MixFn:
+    """W @ c over top-k (value, int32 index) pairs with one agent a rank:
+    the rank's pairs of every leaf (as :func:`make_packed_mixer` keeps
+    them) go out in one all-gather, and the rank scatter-adds every
+    sender's pairs times its row of ``W_t``, senders in order.
+    ``mix.shipped_nbytes``: every agent's pairs, what the all-gather
+    ships."""
+    w_at = _table_on(w, "packed mixer")
+    k_b = max(int(round(frac * PACK_BLOCK)), 1)
+    n = group.n_agents
+
+    def mix(tree, t=None):
+        leaves, treedef = tree_flatten(tree)
+        _check_block(leaves)
+        pairs = [p for leaf in leaves for p in _topk_pairs(leaf, k_b)]
+        full = group.all_gather(pairs)
+        mix.shipped_nbytes = n * _nbytes(pairs)
+        w_row = group.rows(w_at(leaves[0].device, t))          # (1, n)
+        return treedef.unflatten([
+            _scatter_pairs(leaf, full[2 * i][:, 0], full[2 * i + 1][:, 0],
+                           w_row) for i, leaf in enumerate(leaves)])
+
+    mix.time_varying = w_at.time_varying
+    mix.shipped_nbytes = 0
+    mix.budget = reference_budget(
+        "packed", note="the (values, indices) of every leaf in one "
+        "all-gather")
+    return mix
+
+
+def _rank_windows(full, group, nbs):
+    """This rank's rows of a one-card codec row matrix ``full`` (leaf by
+    leaf, every agent's ``nbs[l]`` windows inside leaf l)."""
+    n, i = group.n_agents, group.index
+    parts, off = [], 0
+    for nb in nbs:
+        parts.append(full[off + i * nb:off + (i + 1) * nb])
+        off += n * nb
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _pack_rank(codec: WireFormat, group, gen, leaves, noise):
+    """Pack this rank's windows of every leaf once: -> (buffers, windows a
+    leaf).  A qsgd codec draws the one-card noise of all agents' windows
+    from ``gen`` (or takes it injected, at that global shape) and keeps
+    this rank's rows."""
+    _check_block(leaves)
+    windows = [to_windows(leaf.reshape(1, -1).to(torch.float32))
+               .reshape(-1, PACK_BLOCK) for leaf in leaves]
+    rows = torch.cat(windows) if len(windows) > 1 else windows[0]
+    nbs = [win.shape[0] for win in windows]
+    if not codec.deterministic:
+        if noise is None:
+            noise = torch.rand((group.n_agents * rows.shape[0], PACK_BLOCK),
+                               generator=gen, device=rows.device)
+        noise = _rank_windows(noise, group, nbs)
+    return codec.pack(rows, noise), nbs
+
+
+def _unpack_sets(codec: WireFormat, sets):
+    """Unpack several agents' buffer sets in one call: -> each set's
+    ``(R, PACK_BLOCK)`` f32 rows.  Every window unpacks on its own."""
+    if len(sets) == 1:
+        return [codec.unpack(*sets[0])]
+    bufs = [torch.cat(parts) for parts in zip(*sets)]
+    return list(codec.unpack(*bufs).chunk(len(sets)))
+
+
+def make_ring_codec_process_mixer(w, codec: WireFormat, group) -> MixFn:
+    """Banded-W gossip over bit-packed buffers with one agent a rank: the
+    rank packs its windows once, ships the buffers to each live neighbour
+    (one exchange a band), unpacks its own and the received ones in one
+    call, and adds ``b_self c + b_prev c_prev + b_next c_next`` in f32 as
+    :func:`make_ring_codec_mixer` does.  ``exchange_ps`` appends the (1,)
+    f32 weight increment to the last buffer.  ``mix.shipped_nbytes``: the
+    bytes this rank sent in the last exchange."""
+    bands_at, use_prev, use_next = _ring_bands(w, "ring codec mixer")
+    live = int(use_prev) + int(use_next)
+
+    def mix(*a, **k):
+        _codec_mix_error()
+
+    def _exchange(gen, tree, t, noise, dw):
+        leaves, treedef = tree_flatten(tree)
+        bufs, nbs = _pack_rank(codec, group, gen, leaves, noise)
+        if dw is not None:
+            bufs, last_shape = _append_weight(bufs, dw)
+        sets = [bufs]
+        if use_prev:
+            sets.append(group.shift(bufs, +1))   # agent i - 1's buffers
+        if use_next:
+            sets.append(group.shift(bufs, -1))
+        mix.shipped_nbytes = live * _nbytes(bufs)
+        if dw is not None:
+            sets, ws = zip(*(_split_weight(b, last_shape, 1) for b in sets))
+        rows = _unpack_sets(codec, sets)
+        bands = bands_at(rows[0].device, torch.float32, t)
+
+        def ring(parts):
+            return _ring_sum(parts[0], bands,
+                             parts[1] if use_prev else None,
+                             parts[-1] if use_next else None)
+
+        cs, wcs, start = [], [], 0
+        for leaf, nb in zip(leaves, nbs):
+            parts = [r[start:start + nb].reshape(1, -1)[:, :leaf[0].numel()]
+                     for r in rows]
+            start += nb
+            cs.append(parts[0].reshape(leaf.shape).to(leaf.dtype))
+            wcs.append(ring(parts).reshape(leaf.shape).to(leaf.dtype))
+        out = treedef.unflatten(cs), treedef.unflatten(wcs)
+        if dw is None:
+            return out
+        return out + (ws[0].to(dw.dtype), ring(ws).to(dw.dtype))
+
+    mix.exchange = lambda gen, tree, t=None, noise=None: _exchange(
+        gen, tree, t, noise, None)
+    mix.exchange_ps = lambda gen, tree, dw, t=None, noise=None: _exchange(
+        gen, tree, t, noise, dw)
+    mix.time_varying = bands_at.time_varying
+    mix.wire_codec = codec
+    mix.shipped_nbytes = 0
+    mix.budget = reference_budget(
+        "ring_codec", live, len(group.axes), note="every buffer of "
+        "a band in one message, the weight words in the last buffer")
+    return mix
+
+
+def make_packed_codec_process_mixer(w, codec: WireFormat, group) -> MixFn:
+    """All-gather gossip over bit-packed buffers with one agent a rank: the
+    rank packs its windows once and all-gathers the buffers (the weight
+    words appended to the last one by ``exchange_ps``); every agent's
+    windows unpack in one call and go back into the one-card row order,
+    and the rank keeps its row of the whole ``W_t @ c``, as
+    :func:`make_dense_process_mixer` does and for the same reason.
+    ``mix.shipped_nbytes``: every agent's buffers, what the all-gather
+    ships."""
+    w_at = _table_on(w, "packed codec mixer")
+    n = group.n_agents
+
+    def mix(*a, **k):
+        _codec_mix_error()
+
+    def _exchange(gen, tree, t, noise, dw):
+        leaves, treedef = tree_flatten(tree)
+        bufs, nbs = _pack_rank(codec, group, gen, leaves, noise)
+        if dw is not None:
+            bufs, last_shape = _append_weight(bufs, dw)
+        full = group.all_gather(bufs)                    # each (n, ...)
+        mix.shipped_nbytes = n * _nbytes(bufs)
+        if dw is not None:
+            last = full[-1]
+            nw = last.shape[1] - math.prod(last_shape)
+            words = last[:, last.shape[1] - nw:].contiguous()
+            cw = words.view(torch.float32).reshape(n)
+            full = full[:-1] + [last[:, :last.shape[1] - nw]
+                                .reshape((n,) + tuple(last_shape))]
+        flat = [b.reshape((-1,) + tuple(b.shape[2:])) for b in full]
+        unpacked = codec.unpack(*flat).reshape(n, -1, PACK_BLOCK)
+        parts, off = [], 0
+        for nb in nbs:                      # the one-card row order
+            parts.append(unpacked[:, off:off + nb].reshape(-1, PACK_BLOCK))
+            off += nb
+        c_rows = torch.cat(parts) if len(parts) > 1 else parts[0].contiguous()
+        w_t = w_at(c_rows.device, t)
+        cs, wcs, start = [], [], 0
+        for leaf, nb in zip(leaves, nbs):
+            c_leaf = c_rows[start:start + n * nb].reshape(n, -1)
+            c_leaf = c_leaf[:, :leaf[0].numel()]
+            start += n * nb
+            cs.append(group.rows(c_leaf).reshape(leaf.shape).to(leaf.dtype))
+            wcs.append(group.rows(w_t @ c_leaf).reshape(leaf.shape)
+                       .to(leaf.dtype))
+        out = treedef.unflatten(cs), treedef.unflatten(wcs)
+        if dw is None:
+            return out
+        return out + (group.rows(cw).to(dw.dtype),
+                      group.rows(w_t @ cw).to(dw.dtype))
+
+    mix.exchange = lambda gen, tree, t=None, noise=None: _exchange(
+        gen, tree, t, noise, None)
+    mix.exchange_ps = lambda gen, tree, dw, t=None, noise=None: _exchange(
+        gen, tree, t, noise, dw)
+    mix.time_varying = w_at.time_varying
+    mix.wire_codec = codec
+    mix.shipped_nbytes = 0
+    mix.budget = reference_budget(
+        "packed_codec", note="every buffer in one all-gather, "
+        "the weight words in the last buffer")
+    return mix
 
 
 def make_mixer(topology: Union[Topology, TopologySchedule],
                mode: str = "dense", frac: Optional[float] = None,
-               codec: Optional[WireFormat] = None) -> MixFn:
+               codec: Optional[WireFormat] = None, group=None) -> MixFn:
     """The gossip executor for a static :class:`Topology` or a
     :class:`TopologySchedule` (whose ``(period, n, n)`` table the mixer
     indexes with the round), tagged with its ``wire_mode`` (and
@@ -477,18 +859,27 @@ def make_mixer(topology: Union[Topology, TopologySchedule],
     :class:`WireFormat`; with it "ring" and "packed" become the codec
     executors (:func:`make_ring_codec_mixer`,
     :func:`make_packed_codec_mixer`; drive them through ``mix.exchange``).
-    Dense gossip has no codec form.  Every agent sits on one card, so no
-    mesh is needed.
+    Dense gossip has no codec form.  ``group``: None, every agent on one
+    card; or a :class:`repro_torch.launch.mesh.AgentGroup`, one agent a
+    rank, which picks the executors across processes
+    (:func:`make_dense_process_mixer` and its siblings; the reference
+    dispatches on ``mesh``).  Every executor carries the reference's
+    ``budget``; ``mix.group`` and ``mix.n_agents`` name the agents.
     """
     schedule = topology if isinstance(topology, TopologySchedule) else None
     w = schedule.ws if schedule is not None else topology.w
+    n = np.asarray(w).shape[-1]
+    if group is not None and group.n_agents != n:
+        raise ValueError(f"the topology has {n} agents, the group "
+                         f"{group.n_agents} ranks: one agent a rank")
+    proc = group is not None
     if mode == "dense":
         if codec is not None:
             raise ValueError(
                 "dense gossip ships the dense emulation by definition; "
                 "bit-packed wire formats need gossip mode 'ring' or "
                 "'packed'")
-        mix = make_dense_mixer(w)
+        mix = make_dense_process_mixer(w, group) if proc else make_dense_mixer(w)
     elif mode == "ring":
         if schedule is not None and not schedule.is_banded_ring():
             raise ValueError(
@@ -496,20 +887,28 @@ def make_mixer(topology: Union[Topology, TopologySchedule],
                 "circulant ring bands; the ring wire format only supports "
                 "weight-varying ring schedules -- use dense or packed "
                 "gossip for churn/resampling schedules")
-        mix = (make_ring_mixer(w) if codec is None
-               else make_ring_codec_mixer(w, codec))
+        if codec is None:
+            mix = (make_ring_process_mixer(w, group) if proc
+                   else make_ring_mixer(w))
+        else:
+            mix = (make_ring_codec_process_mixer(w, codec, group) if proc
+                   else make_ring_codec_mixer(w, codec))
     elif mode == "packed":
         if codec is not None:
-            mix = make_packed_codec_mixer(w, codec)
+            mix = (make_packed_codec_process_mixer(w, codec, group) if proc
+                   else make_packed_codec_mixer(w, codec))
         elif frac is None:
             raise ValueError("packed gossip needs a top-k fraction")
         else:
-            mix = make_packed_mixer(w, frac)
+            mix = (make_packed_process_mixer(w, frac, group) if proc
+                   else make_packed_mixer(w, frac))
     else:
         raise ValueError(f"unknown gossip mode {mode!r}")
     mix.wire_mode = mode
     mix.wire_frac = frac
     mix.schedule = schedule
+    mix.group = group
+    mix.n_agents = n
     return mix
 
 

@@ -33,14 +33,15 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
-from ..tree import tree_leaves, tree_map
+from ..kernels import ref
+from ..tree import tree_flatten, tree_leaves, tree_map
 from . import clipping
 from .comm_round import CommRound, resolve_engine
 from .compression import Compressor
 from .gossip import MixFn, make_dense_mixer
 
 __all__ = ["PorterConfig", "PorterState", "porter_init", "porter_step",
-           "average_params", "consensus_error"]
+           "average_params", "consensus_error", "agent_metrics"]
 
 LossFn = Callable[[Any, Any], torch.Tensor]  # (params, batch) -> scalar
 
@@ -78,23 +79,39 @@ class PorterState(NamedTuple):
     step: int  # absolute round index (W_t selector once schedules land)
 
 
+def replicas(params: Any, n_agents: int):
+    """``n_agents`` stacked copies of one replica (X = x0 1^T)."""
+    return tree_map(lambda p: p.unsqueeze(0).expand(
+        (n_agents,) + tuple(p.shape)).clone(), params)
+
+
+def mixed_replicas(params: Any, w, group=None):
+    """``W X`` for X = x0 1^T: the mirror a column-stochastic W needs at
+    init; under an agent ``group`` this rank's row of the one-card
+    product (all n replicas are made for it, once)."""
+    n = np.asarray(w).shape[-1]
+    out = make_dense_mixer(w)(replicas(params, n))
+    return out if group is None else tree_map(group.rows, out)
+
+
 def porter_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
                 buffer_dtype: Any = torch.float32,
-                plane_dtype: Any = None) -> PorterState:
+                plane_dtype: Any = None, group=None) -> PorterState:
     """Initialize from one replica on its device: X^0 = x0 1^T (line 2).
 
     ``plane_dtype``: storage dtype of the six EF buffers (q_x, q_v, m_x,
     m_v, v, g_prev); bf16 halves the resident state while the master
     params ``x`` keep their own dtype.  None keeps the f32 layout:
-    surrogates in x's dtype, zeros in ``buffer_dtype``.
+    surrogates in x's dtype, zeros in ``buffer_dtype``.  ``group``: an
+    agent group, one agent a rank: the state holds this rank's row
+    (``n_agents`` is then 1; ``w`` mixes all n replicas).
     """
-    x = tree_map(lambda p: p.unsqueeze(0).expand((n_agents,) + tuple(p.shape))
-                 .clone(), params)
+    x = replicas(params, n_agents)
     zero_dtype = buffer_dtype if plane_dtype is None else plane_dtype
     zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=zero_dtype,
                                               device=leaf.device), x)
     # all agents are equal and rows of W sum to 1, so W X0 = X0
-    m_x = x if w is None else make_dense_mixer(w)(x)
+    m_x = x if w is None else mixed_replicas(params, w, group)
     q_x = x
     if plane_dtype is not None:
         q_x = tree_map(lambda leaf: leaf.to(plane_dtype), x)
@@ -103,7 +120,8 @@ def porter_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
                        m_x=m_x, m_v=zeros, step=0)
 
 
-def _gradients(cfg: PorterConfig, loss_fn: LossFn, x, batch, gen, noise):
+def _gradients(cfg: PorterConfig, loss_fn: LossFn, x, batch, gen, noise,
+               group=None):
     """Per-agent losses and clipped (and, for DP, perturbed) gradients
     (lines 5-10).  Every agent's (or every sample's) gradient is clipped in
     one row-stacked call, outside the vmap."""
@@ -111,7 +129,7 @@ def _gradients(cfg: PorterConfig, loss_fn: LossFn, x, batch, gen, noise):
         # Option I: clip each sample's gradient, average, perturb
         g, losses = clipping.dp_gradient(
             loss_fn, x, batch, cfg.tau, cfg.sigma_p, gen=gen, noise=noise,
-            mode=cfg.clip_mode, agents="stacked")
+            mode=cfg.clip_mode, agents="stacked", group=group)
         return losses, g
     # Option II / BEER: one batch gradient, clipped after (or not at all)
     g, losses = vmap(grad_and_value(loss_fn))(x, batch)
@@ -144,11 +162,12 @@ def porter_step(
     reference's draws here).
     """
     eng = resolve_engine(engine, mixer, compressor)
-    n = tree_leaves(state.x)[0].shape[0]
+    group = eng.group
 
     # ---- stochastic gradients (local; lines 4-10) -------------------------
     if grad_override is None:
-        losses, g = _gradients(cfg, loss_fn, state.x, batch, gen, noise)
+        losses, g = _gradients(cfg, loss_fn, state.x, batch, gen, noise,
+                               group)
     else:
         losses, g = grad_override
     g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)
@@ -178,10 +197,8 @@ def porter_step(
                             m_x=m_x, m_v=m_v, step=state.step + 1)
     device = losses.device
     metrics = {
-        "loss": torch.mean(losses),
-        "consensus_x": consensus_error(x),
-        "consensus_v": consensus_error(v),
-        "v_norm": clipping.tree_global_norm(v) / math.sqrt(n),
+        **agent_metrics(losses, [("consensus_x", x), ("consensus_v", v)],
+                        [("v_norm", v)], group),
         # two compressed streams (Q_x and Q_v) per round; a fill, not a copy
         # from the host, so the step never waits on the device
         "wire_bytes": torch.full((), 2.0 * eng.wire_bytes(state.x),
@@ -190,13 +207,99 @@ def porter_step(
     return new_state, metrics
 
 
-def average_params(x_stacked):
+# Cross-agent reductions.  Under an agent group (one agent a rank) each
+# reduces over the group, so every rank reports the value of the whole
+# agent axis: the loss mean bitwise the one-card one (the per-agent losses
+# cross exactly), the sums over agents up to their order.  ``step``
+# functions take their metrics from ``agent_metrics``: two all-reduces a
+# round, whatever the metrics.
+
+
+def average_params(x_stacked, group=None):
     """x-bar: the average replica (the paper's evaluation point)."""
-    return tree_map(lambda leaf: torch.mean(leaf, dim=0), x_stacked)
+    if group is None:
+        return tree_map(lambda leaf: torch.mean(leaf, dim=0), x_stacked)
+    return tree_map(lambda bar, leaf: bar.to(leaf.dtype),
+                    _agent_bar(x_stacked, group), x_stacked)
 
 
-def consensus_error(tree) -> torch.Tensor:
-    """|| Y - y_bar 1^T ||_F^2 across all leaves."""
+def _agent_bar(tree, group):
+    """Every f32 leaf's mean over all agents, from one all-reduce of this
+    rank's rows."""
+    leaves = [leaf.to(torch.float32) for leaf in tree_leaves(tree)]
+    total = group.all_reduce_sum(torch.cat([leaf.reshape(-1)
+                                            for leaf in leaves]))
+    bars, off = [], 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        bars.append(total[off:off + size].reshape(leaf.shape[1:])
+                    / group.n_agents)
+        off += size
+    return tree_flatten(tree)[1].unflatten(bars)
+
+
+def agent_metrics(losses: Optional[torch.Tensor] = None, consensus=(),
+                  norms=(), group=None) -> Dict[str, torch.Tensor]:
+    """A round's cross-agent metrics: ``loss`` (the mean of the per-agent
+    ``losses``, when given), each ``(name, tree)`` of ``consensus`` as
+    :func:`consensus_error` and each of ``norms`` as ``||Y||_F / sqrt(n)``,
+    in that order.
+
+    Under a group they take two all-reduces: one of every consensus
+    tree's rows, every rank's loss in its own slot of an ``(n,)`` vector
+    (``v + 0`` is exact, so the mean is the one-card ``torch.mean``) and
+    every norm's sum of squares; then one of the deviations from the
+    means.
+    """
+    out = {}
+    if group is None:
+        if losses is not None:
+            out["loss"] = torch.mean(losses)
+        for name, tree in consensus:
+            out[name] = consensus_error(tree)
+        for name, tree in norms:
+            n = tree_leaves(tree)[0].shape[0]
+            out[name] = clipping.tree_global_norm(tree) / math.sqrt(n)
+        return out
+    n = group.n_agents
+    rows = [[leaf.to(torch.float32) for leaf in tree_leaves(tree)]
+            for _, tree in consensus]
+    parts = [leaf.reshape(-1) for leaves in rows for leaf in leaves]
+    if losses is not None:
+        slots = torch.zeros(n, dtype=losses.dtype, device=losses.device)
+        slots[group.index] = losses.reshape(())
+        parts.append(slots.to(torch.float32))
+    for _, tree in norms:
+        parts.append(sum(torch.sum(torch.square(leaf.to(torch.float32)))
+                         for leaf in tree_leaves(tree)).reshape(1))
+    total = group.all_reduce_sum(torch.cat(parts))
+    devs, off = [], 0
+    for leaves in rows:
+        dev = 0.0
+        for leaf in leaves:
+            size = leaf[0].numel()
+            bar = total[off:off + size].reshape(leaf.shape[1:]) / n
+            dev = dev + torch.sum(torch.square(leaf - bar))
+            off += size
+        devs.append(dev.reshape(1))
+    if losses is not None:
+        out["loss"] = torch.mean(total[off:off + n].to(losses.dtype))
+        off += n
+    if devs:
+        dev_total = group.all_reduce_sum(torch.cat(devs))
+        for i, (name, _) in enumerate(consensus):
+            out[name] = dev_total[i]
+    for name, _ in norms:
+        out[name] = ref.sqrt_rn(total[off]) / math.sqrt(n)
+        off += 1
+    return out
+
+
+def consensus_error(tree, group=None) -> torch.Tensor:
+    """|| Y - y_bar 1^T ||_F^2 across all leaves (all agents')."""
+    if group is not None:
+        return agent_metrics(consensus=[("c", tree)], group=group)["c"]
+
     def leaf_err(leaf):
         lf = leaf.to(torch.float32)
         return torch.sum(torch.square(lf - lf.mean(dim=0, keepdim=True)))

@@ -32,7 +32,7 @@ from .comm_round import CommRound, resolve_engine
 from .compression import Compressor
 from .gossip import MixFn
 from .porter import (LossFn, PorterConfig, PorterState, _gradients,
-                     consensus_error, porter_init)
+                     agent_metrics, porter_init)
 
 __all__ = ["PorterAdamState", "porter_adam_init", "porter_adam_step"]
 
@@ -44,8 +44,9 @@ class PorterAdamState(NamedTuple):
 
 
 def porter_adam_init(params, n_agents: int, w=None,
-                     plane_dtype=None) -> PorterAdamState:
-    base = porter_init(params, n_agents, w=w, plane_dtype=plane_dtype)
+                     plane_dtype=None, group=None) -> PorterAdamState:
+    base = porter_init(params, n_agents, w=w, plane_dtype=plane_dtype,
+                       group=group)
     zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=torch.float32,
                                               device=leaf.device), base.v)
     return PorterAdamState(base=base, m=zeros, s=zeros)
@@ -82,7 +83,8 @@ def porter_adam_step(
     for the DP draws as there."""
     st = state.base
     eng = resolve_engine(engine, mixer, compressor)
-    losses, g = _gradients(cfg, loss_fn, st.x, batch, gen, noise)
+    group = eng.group
+    losses, g = _gradients(cfg, loss_fn, st.x, batch, gen, noise, group)
     g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)
 
     if eng.overlap:
@@ -117,9 +119,8 @@ def porter_adam_step(
     base = PorterState(x=x, v=v, q_x=q_x, q_v=q_v, g_prev=g, m_x=m_x,
                        m_v=m_v, step=st.step + 1)
     metrics = {
-        "loss": torch.mean(losses),
-        "consensus_x": consensus_error(x),
-        "consensus_v": consensus_error(v),
+        **agent_metrics(losses, [("consensus_x", x), ("consensus_v", v)],
+                        group=group),
         "wire_bytes": torch.full((), 2.0 * eng.wire_bytes(st.x),
                                  dtype=torch.float32, device=losses.device),
     }

@@ -23,18 +23,17 @@ stays exactly 1, ``x / 1`` is ``x``, and the round is bitwise PORTER-DP's
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..tree import tree_leaves, tree_map
-from . import clipping
 from .comm_round import CommRound, resolve_engine
 from .compression import Compressor
-from .gossip import MixFn, make_dense_mixer
-from .porter import LossFn, PorterConfig, _gradients, consensus_error
+from .gossip import MixFn
+from .porter import (LossFn, PorterConfig, _gradients, agent_metrics,
+                     mixed_replicas, replicas)
 
 __all__ = ["DpCsgpState", "dp_csgp_init", "dp_csgp_step", "debias"]
 
@@ -68,15 +67,15 @@ def debias(x, xw):
 def dp_csgp_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
                  w0: Optional[np.ndarray] = None,
                  buffer_dtype: Any = torch.float32,
-                 plane_dtype: Any = None) -> DpCsgpState:
+                 plane_dtype: Any = None, group=None) -> DpCsgpState:
     """X^0 = x0 1^T, weights 1.  The mirrors are made with the round-0
     matrix (``w`` if given, else ``w0``: the facade passes the schedule's
     first table or the topology's W): ``m_x = W x``, ``m_w = W 1``, since a
     column-stochastic W has no row-sum shortcut.  With neither, ``m_x = x``
     and ``m_w = 1``.  The param EF buffers take ``plane_dtype``; the weight
-    planes stay f32."""
-    x = tree_map(lambda p: p.unsqueeze(0).expand((n_agents,) + tuple(p.shape))
-                 .clone(), params)
+    planes stay f32.  ``group``: an agent group, one agent a rank: the
+    state holds this rank's row (``n_agents`` 1)."""
+    x = replicas(params, n_agents)
     device = tree_leaves(x)[0].device
     zero_dtype = buffer_dtype if plane_dtype is None else plane_dtype
     zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=zero_dtype,
@@ -89,8 +88,10 @@ def dp_csgp_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
         weff = np.asarray(weff, np.float64)
         if weff.ndim == 3:
             weff = weff[0]
-        m_x = make_dense_mixer(weff)(x)
+        m_x = mixed_replicas(params, weff, group)
         m_w = torch.as_tensor(weff.sum(axis=1), dtype=torch.float32).to(device)
+        if group is not None:
+            m_w = group.rows(m_w)
     q_x = x
     if plane_dtype is not None:
         q_x = tree_map(lambda leaf: leaf.to(plane_dtype), x)
@@ -116,9 +117,9 @@ def dp_csgp_step(
     the x stream.  ``gen`` is drawn from in ``porter_step``'s order;
     ``noise`` stands in for the DP draws."""
     eng = resolve_engine(engine, mixer, compressor)
-    n = tree_leaves(state.x)[0].shape[0]
+    group = eng.group
     z = debias(state.x, state.xw)
-    losses, g = _gradients(cfg, loss_fn, z, batch, gen, noise)
+    losses, g = _gradients(cfg, loss_fn, z, batch, gen, noise, group)
     g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)
 
     if eng.overlap:
@@ -146,12 +147,11 @@ def dp_csgp_step(
                             step=state.step + 1)
     wire = eng.wire_bytes(state.x) + eng.wire_bytes(state.x, push_sum=True)
     metrics = {
-        "loss": torch.mean(losses),
-        # on the de-biased estimates: x drifting toward the Perron vector
-        # is push-sum at work, not disagreement
-        "consensus_x": consensus_error(debias(x, xw)),
-        "consensus_v": consensus_error(v),
-        "v_norm": clipping.tree_global_norm(v) / math.sqrt(n),
+        # consensus on the de-biased estimates: x drifting toward the
+        # Perron vector is push-sum at work, not disagreement
+        **agent_metrics(losses, [("consensus_x", debias(x, xw)),
+                                 ("consensus_v", v)], [("v_norm", v)],
+                        group),
         "wire_bytes": torch.full((), wire, dtype=torch.float32,
                                  device=losses.device),
     }

@@ -46,7 +46,9 @@ class Algorithm:
     ``init``/``step`` are what a training loop needs; ``device`` is where ``init``
     puts the state and where the runtime makes each round's generators.
     The other fields expose what :func:`repro_torch.api.build` resolved
-    (``schedule``: the time-varying topology, None for a static one).
+    (``schedule``: the time-varying topology, None for a static one;
+    ``group``: the agent group when every agent is a process, whose
+    ``init`` and ``step`` then hold this rank's agent row).
     """
 
     name: str
@@ -63,6 +65,7 @@ class Algorithm:
     gamma: Optional[float] = None
     config: Optional[Any] = None
     schedule: Optional[Any] = None
+    group: Optional[Any] = None
 
 
 # name -> (info, factory(spec, loss_fn, resolved) -> Algorithm)

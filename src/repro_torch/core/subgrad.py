@@ -23,11 +23,11 @@ import numpy as np
 import torch
 
 from ..tree import tree_map
-from .baselines import _agent_grads, _scalar, _stack
+from .baselines import _agent_grads, _scalar
 from .comm_round import CommRound, resolve_engine
 from .compression import Compressor
 from .gossip import MixFn
-from .porter import consensus_error
+from .porter import agent_metrics, replicas
 
 __all__ = ["SubgradState", "subgrad_init", "subgrad_step"]
 
@@ -42,7 +42,7 @@ class SubgradState(NamedTuple):
 def subgrad_init(params, n_agents: int, plane_dtype=None) -> SubgradState:
     """CHOCO's layout: ``plane_dtype`` is the storage dtype of the
     surrogate and mirror (bf16 halves them)."""
-    x = _stack(params, n_agents)
+    x = replicas(params, n_agents)
     dt = torch.float32 if plane_dtype is None else plane_dtype
     zeros = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=dt,
                                               device=leaf.device), x)
@@ -69,5 +69,5 @@ def subgrad_step(eta: float, gamma: float, loss_fn,
     x, q, m = eng.gossip_apply(gen, x_half, state.q, state.m, gamma,
                                t=state.step)
     return SubgradState(x=x, q=q, m=m, step=state.step + 1), {
-        "loss": torch.mean(losses), "consensus_x": consensus_error(x),
+        **agent_metrics(losses, [("consensus_x", x)], group=eng.group),
         "wire_bytes": _scalar(eng.wire_bytes(state.x), losses)}

@@ -20,13 +20,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.agents import local_rows
 from .synthetic import token_batch
 
 __all__ = ["batch_source", "minibatch_source", "dirichlet_partition",
            "dirichlet_source"]
 
 
-def batch_source(cfg, n_agents: int, batch: int, seq: int, device=None):
+def batch_source(cfg, n_agents: int, batch: int, seq: int, device=None,
+                 group=None):
     """The family's synthetic LM batches on ``device`` (cuda unless given),
     the layout ``bundle.loss`` takes with a leading agent axis:
 
@@ -36,16 +38,19 @@ def batch_source(cfg, n_agents: int, batch: int, seq: int, device=None):
 
     ``patches`` and ``frames`` are N(0, 1) f32.  The draws come from the
     round's generator in the order listed; ``step`` is unused (the stream
-    is iid in the generator).
+    is iid in the generator).  Under an agent ``group`` (``n_agents`` all
+    agents) each draw is the one-card one and the batch this rank's row.
     """
     device = torch.device("cuda") if device is None else torch.device(device)
+    rows = n_agents if group is None else 1
 
     def tokens(gen, s):
-        return token_batch(gen, n_agents, batch, s, cfg.vocab, device)
+        return token_batch(gen, n_agents, batch, s, cfg.vocab, device, group)
 
     def normal(gen, s):
-        return torch.randn((n_agents, batch, s, cfg.frontend_dim),
-                           generator=gen, device=device)
+        return local_rows(group, (rows, batch, s, cfg.frontend_dim),
+                          lambda full: torch.randn(full, generator=gen,
+                                                   device=device))
 
     if cfg.family == "vlm":
         def source(gen, step):
@@ -64,24 +69,30 @@ def batch_source(cfg, n_agents: int, batch: int, seq: int, device=None):
     return source
 
 
-def minibatch_source(xs, ys, batch: int, device=None):
+def minibatch_source(xs, ys, batch: int, device=None, group=None):
     """Uniform iid per-agent minibatches from an agent-sharded dataset.
 
     xs / ys: ``(n_agents, m, ...)`` arrays (e.g. from
     :func:`repro_torch.data.shard_to_agents`), moved to ``device`` (cuda
     unless given) once here.  Each call gathers ``(n_agents, batch, ...)``
-    feature and label stacks.
+    feature and label stacks.  Under an agent ``group`` only this rank's
+    shard moves to the device, and each call draws every agent's indices
+    (the one-card draw) and gathers this rank's ``(1, batch, ...)``.
     """
     device = torch.device("cuda") if device is None else torch.device(device)
+    if group is not None:
+        xs, ys = xs[group.index:group.index + 1], ys[group.index:
+                                                      group.index + 1]
     xs = torch.as_tensor(xs).to(device)
     ys = torch.as_tensor(ys).to(device)
-    n_agents, m = xs.shape[0], xs.shape[1]
-    rows = torch.arange(n_agents, device=device)[:, None]
+    m = xs.shape[1]
+    rows = torch.arange(xs.shape[0], device=device)[:, None]
 
     def source(gen, step):
         del step  # iid in the generator
-        idx = torch.randint(0, m, (n_agents, batch), generator=gen,
-                            device=device)
+        idx = local_rows(group, (xs.shape[0], batch), lambda full:
+                         torch.randint(0, m, full, generator=gen,
+                                       device=device))
         return xs[rows, idx], ys[rows, idx]
 
     return source
@@ -129,10 +140,10 @@ def dirichlet_partition(xs, ys, n_agents: int, alpha: float = 0.3,
 
 
 def dirichlet_source(xs, ys, n_agents: int, batch: int, alpha: float = 0.3,
-                     shard: int = 0, seed: int = 0, device=None):
+                     shard: int = 0, seed: int = 0, device=None, group=None):
     """:func:`dirichlet_partition` composed with :func:`minibatch_source`
     on ``device`` (cuda unless given): per-agent non-iid shards, minibatches
-    drawn on the device."""
+    drawn on the device (this rank's under an agent ``group``)."""
     sx, sy = dirichlet_partition(xs, ys, n_agents, alpha=alpha, shard=shard,
                                  seed=seed)
-    return minibatch_source(sx, sy, batch, device=device)
+    return minibatch_source(sx, sy, batch, device=device, group=group)

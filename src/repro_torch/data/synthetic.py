@@ -21,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..core.agents import local_rows
+
 __all__ = ["a9a_like", "mnist_like", "shard_to_agents", "token_batch"]
 
 
@@ -70,10 +72,12 @@ def shard_to_agents(x: np.ndarray, y: np.ndarray, n_agents: int,
 
 
 def token_batch(gen: torch.Generator, n_agents: int, batch: int, seq: int,
-                vocab: int, device=None) -> torch.Tensor:
+                vocab: int, device=None, group=None) -> torch.Tensor:
     """Synthetic LM tokens: ``(n_agents, batch, seq)`` int32 ids uniform in
     ``[0, vocab)``, drawn from ``gen`` on ``device`` (the generator's
-    unless given)."""
+    unless given).  Under an agent ``group`` (``n_agents`` all agents) the
+    rank's ``(1, batch, seq)`` rows of that draw."""
     device = gen.device if device is None else torch.device(device)
-    return torch.randint(0, vocab, (n_agents, batch, seq), generator=gen,
-                         dtype=torch.int32, device=device)
+    shape = (n_agents if group is None else 1, batch, seq)
+    return local_rows(group, shape, lambda full: torch.randint(
+        0, vocab, full, generator=gen, dtype=torch.int32, device=device))

@@ -16,6 +16,13 @@ base seed and the absolute round index, so the trajectory does not depend
 on the chunking and a resumed run continues the stream instead of
 replaying earlier rounds' DP noise.
 
+Agents as processes: with an algorithm built under an agent group
+(:func:`repro_torch.api.build` ``group=``), every rank runs this same loop
+with the same seed.  Its generators are the one-card run's, its batch
+source draws the one-card batch and keeps the rank's row, its step reduces
+the metrics over the group, so every rank's metrics are the whole run's.
+:func:`gather_state` assembles the one-card state from the ranks' rows.
+
 Donation (``donate=True``, the reference's ``donate_argnums``): each
 round's old state gives its memory back as soon as the step has returned
 the new one.  Without it a round keeps three states alive, the chunk's
@@ -36,10 +43,10 @@ from typing import Any, Callable, Optional, Protocol, Tuple
 import numpy as np
 import torch
 
-from ..tree import tree_leaves
+from ..tree import tree_flatten, tree_leaves
 
 __all__ = ["BatchSource", "ChunkRunner", "round_generators", "make_runner",
-           "run_chunked"]
+           "run_chunked", "gather_state"]
 
 
 class BatchSource(Protocol):
@@ -135,3 +142,17 @@ def run_chunked(algo, source: BatchSource, state, seed: int, steps: int, *,
                                              metrics) is False:
             break
     return state, seed
+
+
+def gather_state(state, group):
+    """The one-card state from every rank's agent row: each tensor of
+    ``state`` (this rank's ``(1, ...)`` rows) all-gathered along its agent
+    axis in one collective, on every rank; the round counter and other
+    non-tensors as they are."""
+    leaves, treedef = tree_flatten(state)
+    idx = [i for i, leaf in enumerate(leaves)
+           if isinstance(leaf, torch.Tensor)]
+    full = group.all_gather([leaves[i] for i in idx])
+    for i, f in zip(idx, full):
+        leaves[i] = f.reshape((group.n_agents,) + tuple(leaves[i].shape[1:]))
+    return treedef.unflatten(leaves)

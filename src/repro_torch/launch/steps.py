@@ -1,5 +1,5 @@
-"""The LM train step on one card (``src/repro/launch/steps.py``'s
-``TrainSetup`` and ``build_train_step``).
+"""The LM train step (``src/repro/launch/steps.py``'s ``TrainSetup`` and
+``build_train_step``), all agents on one card or one agent a process.
 
 ``build_train_step(cfg, n_agents, ...)`` builds the model bundle of ``cfg``
 and, through :func:`repro_torch.api.build`, the registered algorithm over
@@ -14,11 +14,12 @@ eta 1e-3, f32 EF planes unless ``plane_dtype`` says bf16, and
     state = setup.init_state(torch.Generator("cuda").manual_seed(0))
     state, metrics = setup.step(state, batch, gen)
 
-The reference's mesh, shardings, shard-local compressor and its prefill and
-serve steps belong to the multi-device executors and the launch tooling
-(ROADMAP queue 1 items 12(b) and 14); here every agent lives on one
-device, and the ring and packed gossip executors hold them all in one
-tensor.
+With ``group=`` (an :class:`repro_torch.launch.mesh.AgentGroup`, the
+reference's agent axes of its mesh) every agent is a process: the rank's
+state and batch are its agent's row and the gossip executors ship its
+buffers across the group.  The reference's model axis (tensor-parallel
+leaves, its shardings and shard-local compressor) is ROADMAP queue 1 item
+12(c); its prefill and serve steps and the launch tooling item 14.
 """
 
 from __future__ import annotations
@@ -74,9 +75,10 @@ def build_train_step(
     fleet: bool = False,
     gossip_mode: str = "dense",
     device=None,
+    group=None,
 ) -> TrainSetup:
     """The train step of ``cfg`` over ``n_agents`` agents on ``device``
-    (cuda unless given).
+    (cuda unless given; the group's device under ``group``).
 
     variant: a key of the reference's ``VARIANT_TO_ALGO`` ('gc', 'dp',
     'beer', 'csgp'), or a registered algorithm's name.  ``comm_backend``
@@ -86,8 +88,13 @@ def build_train_step(
     ``fleet`` mixes all agents on one axis (:mod:`repro_torch.core.fleet`);
     ``gossip_mode`` 'dense', 'ring' or 'packed' picks the gossip executor
     (:func:`repro_torch.core.gossip.make_mixer`), as the reference's knob.
+    ``group``: one agent a rank (``n_agents`` ranks); ``init_state`` then
+    returns this rank's row, and a batch source built with the same group
+    (``data.batch_source(..., group=)``) feeds its step.
     """
-    device = torch.device("cuda") if device is None else torch.device(device)
+    if device is None:
+        device = "cuda" if group is None else group.device
+    device = torch.device(device)
     bundle = build_model(cfg, device=device)
     algo_name = api.VARIANT_TO_ALGO.get(variant, variant)
     spec = api.ExperimentSpec(
@@ -96,7 +103,7 @@ def build_train_step(
         compressor=compressor_name, frac=frac, comm_backend=comm_backend,
         eta=eta, tau=tau, sigma_p=sigma_p, plane_dtype=plane_dtype,
         remat_policy=remat_policy, fleet=fleet, gossip_mode=gossip_mode)
-    algo = api.build(spec, bundle.loss, device=device)
+    algo = api.build(spec, bundle.loss, device=device, group=group)
     return TrainSetup(cfg=cfg, bundle=bundle, algorithm=algo,
                       n_agents=n_agents, porter_cfg=algo.config,
                       device=device)

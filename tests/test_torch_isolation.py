@@ -170,3 +170,62 @@ def test_hybrid_bundle_targets_cuda_unless_asked():
     cache = build_model(cfg, device="cpu").init_cache(1, 8)
     assert {t.device.type for part in cache.values()
             for t in part.values()} == {"cpu"}
+
+
+@pytest.mark.parametrize("path", [PORT / "launch" / "mesh.py",
+                                  PORT / "core" / "agents.py",
+                                  ROOT / "tests" / "torch_dist_worker.py"],
+                         ids=["launch/mesh.py", "core/agents.py",
+                              "tests/torch_dist_worker.py"])
+def test_agents_as_processes_modules_are_checked(path):
+    """The process group module and the rank programs of the process tests
+    (imported by name in every spawned rank) import no JAX, no ``repro``
+    and no test file."""
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN)
+    assert not any(r.startswith("test_") for r in roots)
+    if path.parent == PORT / "launch":
+        assert path in _port_files()
+
+
+def _launch_imports(path):
+    """The ``launch`` modules ``path`` imports, relatively or by name."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            if (node.level == 2 and mod.split(".")[0] == "launch") or \
+                    mod.startswith("repro_torch.launch"):
+                yield mod
+        elif isinstance(node, ast.Import):
+            for alias in node.names:
+                if alias.name.startswith("repro_torch.launch"):
+                    yield alias.name
+
+
+@pytest.mark.parametrize(
+    "path", sorted((PORT / "core").glob("*.py"))
+    + sorted((PORT / "data").glob("*.py")),
+    ids=lambda p: str(p.relative_to(PORT)))
+def test_core_and_data_do_not_import_the_launch_layer(path):
+    """The algorithms and the data sources sit below the launch layer (the
+    process group, the round loop, the drivers): an agent group reaches
+    them as an argument, its row arithmetic lives in ``core/agents``."""
+    assert not list(_launch_imports(path))
+
+
+def test_a_spawned_rank_imports_no_jax():
+    """A rank of ``spawn_agents`` running the tests' worker module: neither
+    JAX nor the reference is among its modules."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from repro_torch.launch import mesh\n"
+        "import torch_dist_worker as W\n"
+        "print(mesh.spawn_agents(W.loaded_roots, 2, device='cpu',"
+        " threads=1, timeout_s=120))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert "[[], []]" in out.stdout, out.stdout
