@@ -5119,6 +5119,696 @@ def phase_agents_lm(torch, ops, runtime, steps, data, configs, mesh,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the model axis (tensor-parallel dense decoders on a (data,
+# model) grid of processes)
+# ---------------------------------------------------------------------------
+
+# the tinyllama smoke config (f32 parameters) on a (data 2, model 2) grid
+TP_SMOKE = dict(agents=2, model=2, batch=2, seq=16, eta=3e-2, frac=0.05,
+                tau=1.0, tol=1e-5, forced_tol=1e-6)
+# label -> build_train_step overrides: the ring on the dense wire with the
+# shard-local block_top_k (its one-card twin: the per-shard compressor
+# over the ring mixer), the packed codec top-k (twin: the codec's per-
+# shard round trip over the dense W @ c)
+TP_RUNS = {
+    "ring block_top_k local f32": dict(gossip_mode="ring",
+                                       compressor_name="block_top_k",
+                                       local_compress=True),
+    "ring block_top_k local bf16": dict(gossip_mode="ring",
+                                        compressor_name="block_top_k",
+                                        local_compress=True,
+                                        plane_dtype="bf16"),
+    "packed codec top_k f32": dict(gossip_mode="packed", wire="packed_bits",
+                                   compressor_name="top_k"),
+    "packed codec top_k bf16": dict(gossip_mode="packed",
+                                    wire="packed_bits",
+                                    compressor_name="top_k",
+                                    plane_dtype="bf16"),
+}
+# the free run: x read after TP_GATE_ROUND against one card's; the
+# planted fault (agent 1's model rank 1 keeps its x shard at round
+# TP_GATE_ROUND // 2) must read beyond the limit.  Each limit lies between
+# the sound runs' largest reading and the fault's on an H100 80GB HBM3
+# (f32 3.14e-6 / 1.5e-3, bf16 5.45e-6 / 1.52e-3; PERF.md, PR 29)
+TP_ROUNDS = 20
+TP_GATE_ROUND = 10
+TP_FREE_TOL = {"f32": 1e-4, "bf16": 1e-4}
+TP_TIMEOUT_S = 300
+# the full-width cell (phase 12's) with its 4 agents on 2 model ranks each.
+# Each rank draws the one-card SR words of all agents (3.27 GiB a bf16
+# tree) and keeps its block, so 8 ranks' caching allocators holding their
+# freed draws would fill the card (measured on one H100: out of memory at
+# 75.85 GiB in use): each rank's allocator is capped at ``mem_fraction``
+# of the card and frees its cache when it reaches the cap.
+# tol: the first round forced with the one-card gradient; loss_tol and
+# grad_tol: the free first round's loss (relative) and clipped gradient
+# (each leaf's largest |diff| over its largest magnitude) against one
+# card's, where the row-parallel products sum their bf16 partials in
+# another order.  Each limit lies between the sound reading and a planted
+# fault's (a missing forward / backward all-reduce) on an H100 80GB HBM3:
+# loss 1.65e-5 / 6.05e-2, gradient 1.95e-2 / 1.43 (PERF.md, PR 29)
+TP_LM = dict(model=2, gc=3, dp=1, tol=1e-6, loss_tol=1e-3, grad_tol=0.1,
+             mem_fraction=0.115)
+# the run whose rank-0 launches give each kernel's count a round on the
+# model axis (sr_cast: its roundings in the ef kernels' epilogue)
+MODEL_AXIS_LAUNCH_RUNS = {name: "ring block_top_k local f32" for name in
+                          ("ef_track", "ef_step", "sumsq", "scale", "clip",
+                           "block_topk", "mean_noise")}
+MODEL_AXIS_LAUNCH_RUNS.update(sr_cast="ring block_top_k local bf16",
+                              topk_pack="packed codec top_k f32",
+                              topk_unpack="packed codec top_k f32")
+
+
+def _tp_shard(torch, tree, specs, group, agent_axis: bool):
+    """This rank's block of a one-card tree (its agent's row first when
+    ``agent_axis``)."""
+    from repro_torch.core.agents import model_shard
+    from repro_torch.tree import tree_map
+    off = 1 if agent_axis else 0
+    return tree_map(lambda a, s: model_shard(
+        group.rows(a) if agent_axis else a,
+        None if s.model_dim is None else s.model_dim + off,
+        group.model_index, group.model_size).contiguous(), tree, specs)
+
+
+def _tp_one_card(steps, cfg, n, specs, model, over, device, **kw):
+    """The one-card twin of a model-axis run: the per-shard compressor
+    applied to every agent's whole leaves."""
+    from repro_torch import api
+    from repro_torch.core import wire_formats as WF
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.gossip import make_codec_compress
+    over = dict(over)
+    comp = over.pop("compressor_name")
+    local = over.pop("local_compress", False)
+    if over.get("wire") == "packed_bits":
+        base = make_codec_compress(WF.make_wire_format(comp, frac=kw["frac"]))
+        over.update(gossip_mode="dense", wire="dense")
+    else:
+        assert local
+        base = steps.make_shard_local_compress(make_compressor(
+            comp, frac=kw["frac"]))
+    setup = steps.build_train_step(cfg, n, compressor_name=comp,
+                                   device=device, **over, **kw)
+    return dataclasses.replace(setup, algorithm=api.build(
+        setup.algorithm.spec, setup.bundle.loss, device=device,
+        compress_fn=steps.shard_local_on_one_card(base, specs, model)))
+
+
+def _tp_replicated_bitwise(torch, group, tree, specs, tree_leaves):
+    reps = [leaf for leaf, s in zip(tree_leaves(tree), tree_leaves(specs))
+            if s.model_dim is None]
+    full = group.all_gather([leaf.contiguous().view(torch.uint8)
+                             for leaf in reps], axis="model")
+    return all(torch.equal(f[0], f[m]) for f in full
+               for m in range(1, f.shape[0]))
+
+
+class _TpChecks(_LmChecks):
+    """``_LmChecks`` plus the cross-shard clip's ``ops.clip_sumsq`` and
+    ``ops.clip_scale``, the DP path's ``ops.dp_mean_noise`` and the codec's
+    ``ops.wire_topk_pack`` / ``wire_topk_unpack``: each call on the rank's
+    own shard operands against its plain version on the same CUDA operands
+    (sumsq, scale and mean_noise slice by slice of tiles, as the ef
+    kernels: per tile or elementwise, so bit for bit the whole call)."""
+
+    NAMES = _LmChecks.NAMES + ("clip_sumsq", "clip_scale", "dp_mean_noise",
+                               "wire_topk_pack", "wire_topk_unpack")
+    TAG = "model-axis"
+
+    def _record(self, name, planes, equal):
+        self.calls.append((name, tuple(planes.shape), str(planes.dtype),
+                           equal))
+
+    def _clip_sumsq(self, planes):
+        out = self.saved["clip_sumsq"](planes)
+        self._record("sumsq", planes, all(
+            bit_equal(self.torch, out[lo:hi],
+                      self.ref.clip_sumsq(planes[lo:hi]))
+            for lo, hi in self._slices(planes.shape[0])))
+        return out
+
+    def _clip_scale(self, planes, factor, noise=None, sigma=0.0):
+        out = self.saved["clip_scale"](planes, factor, noise, sigma)
+        per_tile = factor.repeat_interleave(planes.shape[0]
+                                            // factor.shape[0])
+        self._record("scale", planes, all(
+            bit_equal(self.torch, out[lo:hi], self.ref.clip_scale_ref(
+                planes[lo:hi], per_tile[lo:hi],
+                None if noise is None else noise[lo:hi], sigma))
+            for lo, hi in self._slices(planes.shape[0])))
+        return out
+
+    def _dp_mean_noise(self, planes, groups, b, noise=None, sigma=0.0,
+                       acc=None, finish=True, b_total=None):
+        out = self.saved["dp_mean_noise"](planes, groups, b, noise, sigma,
+                                          acc=acc, finish=finish,
+                                          b_total=b_total)
+        tiles, width = planes.shape[0] // (groups * b), planes.shape[1]
+
+        def cut(t, lo, hi, lead):
+            return (None if t is None else
+                    t.view(*lead, tiles, width)[..., lo:hi, :]
+                    .reshape(-1, width))
+        self._record("mean_noise", planes, all(
+            bit_equal(self.torch, cut(out, lo, hi, (groups,)),
+                      self.ref.dp_mean_noise_ref(
+                          cut(planes, lo, hi, (groups, b)), groups, b,
+                          cut(noise, lo, hi, (groups,)), sigma,
+                          cut(acc, lo, hi, (groups,)), finish, b_total))
+            for lo, hi in self._slices(tiles)))
+        return out
+
+    def _plain(self, name, out, want, shape, dt):
+        equal = all(bit_equal(self.torch, o, w) for o, w in
+                    zip(_as_tuple(out), _as_tuple(want)))
+        self.calls.append((name, shape, dt, equal))
+        return out
+
+    def _wire_topk_pack(self, rows, k):
+        return self._plain("topk_pack", self.saved["wire_topk_pack"](rows, k),
+                           self.ref.topk_pack_ref(rows, k),
+                           tuple(rows.shape), str(rows.dtype))
+
+    def _wire_topk_unpack(self, vals, idx):
+        return self._plain(
+            "topk_unpack", self.saved["wire_topk_unpack"](vals, idx),
+            self.ref.topk_unpack_ref(vals, idx), tuple(vals.shape),
+            str(vals.dtype))
+
+    def tally(self):
+        """-> (calls by kernel, the calls that differ from their plain
+        versions), without a line a call."""
+        return ({name: sum(1 for c in self.calls if c[0] == name)
+                 for name in {c[0] for c in self.calls}},
+                [c for c in self.calls if not c[3]])
+
+
+def _tp_launches(over, rounds, n_leaves):
+    """A rank's launches over ``rounds`` PORTER-GC rounds on a model axis:
+    the cross-shard clip's sumsq and scale (no fused clip), one ef_track
+    and one ef_step, five epilogue roundings under bf16 planes, and the
+    compressor's or codec's kernels for two exchanges."""
+    want = dict(sumsq=rounds, scale=rounds, clip=0, ef_track=rounds,
+                ef_step=rounds)
+    if over.get("plane_dtype") == "bf16":
+        want["sr_epilogue"] = 5 * rounds
+    if over.get("wire") == "packed_bits":
+        want.update(topk_pack=2 * rounds, topk_unpack=2 * rounds)
+    elif over["compressor_name"] == "block_top_k":
+        want["block_topk"] = 2 * n_leaves * rounds
+    return want
+
+
+def tp_smoke_rank(group, ref_dir):
+    """One rank of phase 16's smoke spawn: the tensor-parallel gradient
+    against the one-card one, then every run of TP_RUNS: the first round
+    forced with the one-card clipped gradient, the free run with its
+    launches and its x at the gate round, the planted fault, and one round
+    under ``_TpChecks``."""
+    import torch
+    from repro_torch import configs, data
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import runtime, steps
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import leaf_specs
+    from repro_torch.tree import tree_leaves, tree_map
+    from torch.func import grad_and_value, vmap
+    c, dev = TP_SMOKE, group.device
+    cfg = dataclasses.replace(configs.get_smoke(LM_ARCH),
+                              dtype=torch.float32)
+    specs = leaf_specs(build_model(cfg, device=dev))
+    want = torch.load(f"{ref_dir}/smoke.pt")
+    out = {}
+    # the gradient
+    tp = build_model(cfg, device=dev, group=group)
+    params = tp.init(torch.Generator(device=dev).manual_seed(0))
+    batch = {"tokens": want["tokens"].to(dev)[None]}
+    g, loss = vmap(grad_and_value(tp.loss))(
+        tree_map(lambda a: a[None], params), batch)
+    g_want = _tp_shard(torch, want["grad"], specs, group, False)
+    out["grad"] = dict(
+        loss_diff=abs(float(loss[0]) - want["loss"]),
+        grad_rel=max(float((a[0].cpu() - b).abs().max())
+                     / float(b.abs().max())
+                     for a, b in zip(tree_leaves(g), tree_leaves(g_want))))
+    del tp, params, g
+    for label, over in TP_RUNS.items():
+        rep = {}
+        w = want["runs"][label]
+
+        def build():
+            return steps.build_train_step(
+                cfg, c["agents"], eta=c["eta"], tau=c["tau"],
+                frac=c["frac"], group=group, **over)
+        setup = build()
+        source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                                   device=dev, group=group)
+        init = lambda: setup.init_state(  # noqa: E731
+            torch.Generator(device=dev).manual_seed(0))
+        # the first round forced with the one-card clipped gradient
+        state = init()
+        gb, gs = runtime.round_generators(0, 0, dev)
+        forced, _ = setup.step(
+            state, source(gb, 0), gs,
+            grad_override=(torch.zeros(1, device=dev), tree_map(
+                lambda a: a.to(dev), _tp_shard(torch, w["g"], specs, group,
+                                               True))))
+        x1 = _tp_shard(torch, w["x1"], specs, group, True)
+        rep["forced_x_diff"] = max(
+            float((a.cpu().float() - b.float()).abs().max())
+            for a, b in zip(tree_leaves(forced.x), tree_leaves(x1)))
+        rep["forced_bitwise"] = all(
+            bit_equal(torch, a.cpu(), b)
+            for a, b in zip(tree_leaves(forced.x), tree_leaves(x1)))
+        del forced
+        # the free run
+        kept = {}
+        state, losses, ms, launches = run_counted(
+            torch, ops, runtime, setup.algorithm, source, init(), TP_ROUNDS,
+            TP_GATE_ROUND // 2, on_chunk=lambda t0, t1, st, m: kept.update(
+                x=tree_map(lambda a: a.clone(), st.x))
+            if t1 == TP_GATE_ROUND else None)
+        xg = _tp_shard(torch, w["x_gate"], specs, group, True)
+        rep.update(losses=losses, ms=ms, launches=launches,
+                   want_launches=_tp_launches(over, TP_ROUNDS,
+                                              len(tree_leaves(state.x))),
+                   gate_x_diff=max(
+                       float((a.cpu().float() - b.float()).abs().max())
+                       for a, b in zip(tree_leaves(kept["x"]),
+                                       tree_leaves(xg))),
+                   replicated=all(_tp_replicated_bitwise(
+                       torch, group, getattr(state, f), specs, tree_leaves)
+                       for f in ("x", "v", "q_x", "m_x", "g_prev")))
+        # the planted fault: agent 1's model rank 1 keeps its x shard at
+        # round TP_GATE_ROUND // 2
+        k = TP_GATE_ROUND // 2
+        st, _ = runtime.run_chunked(setup.algorithm, source, init(), 0, k,
+                                    chunk=k)
+        before = st.x
+        st, _ = runtime.run_chunked(setup.algorithm, source, st, 0, k + 1,
+                                    chunk=1, start=k)
+        if group.index == 1 and group.model_index == 1:
+            st = st._replace(x=before)
+        st, _ = runtime.run_chunked(setup.algorithm, source, st, 0,
+                                    TP_GATE_ROUND, chunk=TP_GATE_ROUND - k - 1,
+                                    start=k + 1)
+        rep["fault_x_diff"] = max(
+            float((a.cpu().float() - b.float()).abs().max())
+            for a, b in zip(tree_leaves(st.x), tree_leaves(xg)))
+        # one more round of the free run, every kernel call checked (the
+        # codec binds its kernels when it is built)
+        with _TpChecks(torch, ops, ref) as checks:
+            build().step(state, source(gb, 1), gs)
+        rep["checked"] = checks.report(f"rank {group.rank} {label}")
+        out[label] = rep
+    return out
+
+
+def phase_model_axis_smoke(torch, ops, runtime, steps, data, configs, mesh,
+                           models):
+    """Phase 16 (a): the smoke config's one-card references, then the
+    (data 2, model 2) spawn and its gates."""
+    import shutil
+    from repro_torch.nn.module import leaf_specs
+    from repro_torch.tree import tree_leaves, tree_map
+    from torch.func import grad_and_value
+    c = TP_SMOKE
+    cfg = dataclasses.replace(configs.get_smoke(LM_ARCH),
+                              dtype=torch.float32)
+    bundle = models.build_model(cfg, device=DEVICE)
+    specs = leaf_specs(bundle)
+    params = bundle.init(torch.Generator(device=DEVICE).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (c["batch"], c["seq"]),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    g, loss = grad_and_value(bundle.loss)(params,
+                                          {"tokens": tokens.to(DEVICE)})
+    ref_data = {"tokens": tokens, "loss": float(loss),
+                "grad": tree_map(lambda a: a.cpu(), g), "runs": {}}
+    for label, over in TP_RUNS.items():
+        setup = _tp_one_card(steps, cfg, c["agents"], specs, c["model"],
+                             over, DEVICE, eta=c["eta"], tau=c["tau"],
+                             frac=c["frac"])
+        source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                                   device=DEVICE)
+        state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+        state, _ = runtime.run_chunked(setup.algorithm, source, state, 0, 1,
+                                       chunk=1)
+        run = {"x1": tree_map(lambda a: a.cpu(), state.x),
+               "g": tree_map(lambda a: a.cpu(), state.g_prev)}
+        state, _ = runtime.run_chunked(setup.algorithm, source, state, 0,
+                                       TP_GATE_ROUND, chunk=TP_GATE_ROUND - 1,
+                                       start=1)
+        run["x_gate"] = tree_map(lambda a: a.cpu(), state.x)
+        ref_data["runs"][label] = run
+    ref_dir = ROOT / "build" / "model_axis"
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(ref_data, ref_dir / "smoke.pt")
+    try:
+        t0 = time.perf_counter()
+        ranks = mesh.spawn_agents(tp_smoke_rank, c["agents"] * c["model"],
+                                  (str(ref_dir),), model=c["model"],
+                                  device=DEVICE, timeout_s=TP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    grad = {k: max(r["grad"][k] for r in ranks)
+            for k in ("loss_diff", "grad_rel")}
+    print(f"[model-axis] smoke ({cfg.name} f32) on a (data {c['agents']}, "
+          f"model {c['model']}) grid of {len(ranks)} ranks on one "
+          f"{DEVICE} device ({TRANSPORT_NOTE[DEVICE]}), spawn to join "
+          f"{wall:.1f} s; the tensor-parallel loss |diff| "
+          f"{grad['loss_diff']} from one card, every leaf's gradient within "
+          f"{grad['grad_rel']} of its max magnitude (gates {c['tol']})")
+    if not (grad["loss_diff"] <= c["tol"] * abs(ref_data["loss"])
+            and grad["grad_rel"] <= c["tol"]):
+        raise AssertionError(f"model-axis: gradient {grad}")
+    report = {"grad": grad, "wall_s": wall}
+    for label, over in TP_RUNS.items():
+        reps = [r[label] for r in ranks]
+        tol = TP_FREE_TOL["bf16" if over.get("plane_dtype") else "f32"]
+        forced = max(r["forced_x_diff"] for r in reps)
+        gate = max(r["gate_x_diff"] for r in reps)
+        fault = max(r["fault_x_diff"] for r in reps)
+        r0 = reps[0]
+        print(f"[model-axis] {label}: first round forced with the one-card "
+              f"clipped gradient: x max |diff| {forced} from the one-card "
+              f"round with the per-shard compressor (bitwise "
+              f"{all(r['forced_bitwise'] for r in reps)}, gate "
+              f"{c['forced_tol']}); free run x after round {TP_GATE_ROUND} "
+              f"{gate} (gate {tol}), the planted fault {fault}; "
+              f"{r0['ms']:.3f} ms/round on rank 0; loss "
+              f"{r0['losses'][0]:.6f} -> {r0['losses'][-1]:.6f}; replicated "
+              f"leaves bitwise across model ranks "
+              f"{all(r['replicated'] for r in reps)}; rank-0 launches over "
+              f"{TP_ROUNDS} rounds {r0['launches']}; kernels checked on a "
+              f"round's shard operands {r0['checked']}")
+        if not finite(r0["losses"]):
+            raise AssertionError(f"model-axis {label}: losses")
+        if not forced <= c["forced_tol"]:
+            raise AssertionError(f"model-axis {label}: forced x {forced}")
+        if not gate <= tol < fault:
+            raise AssertionError(f"model-axis {label}: free x {gate}, fault "
+                                 f"{fault}, tolerance {tol}")
+        if not all(r["replicated"] for r in reps):
+            raise AssertionError(f"model-axis {label}: replicated leaves "
+                                 "differ across model ranks")
+        for r in reps:
+            expect_launches(f"model-axis {label} rank", r["launches"],
+                            **r["want_launches"])
+        report[label] = dict(forced_x_diff=forced, gate_x_diff=gate,
+                             fault_x_diff=fault, ms=r0["ms"],
+                             launches=r0["launches"], rounds=TP_ROUNDS,
+                             checked=r0["checked"])
+    return report
+
+
+def _tp_lm_rounds(torch, runtime, algo, source, state, start, rounds,
+                  group):
+    """``rounds`` rounds from ``start``, donated: -> (state, losses, ms a
+    round, the agent axis's and the model axis's transport shares)."""
+    losses = []
+    torch.cuda.synchronize()
+    group.transport_s.clear()
+    group.model_transport_s.clear()
+    t0 = time.perf_counter()
+    state, _ = runtime.run_chunked(
+        algo, source, state, 0, start + rounds, chunk=rounds, start=start,
+        donate=True,
+        on_chunk=lambda t0_, t1_, st, m: losses.extend(m["loss"].tolist()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, losses, 1e3 * wall / rounds, (
+        {k: v / wall for k, v in group.transport_s.items()},
+        {k: v / wall for k, v in group.model_transport_s.items()})
+
+
+def _tp_rel(torch, got, want, tree_leaves):
+    """Every leaf's largest |difference| over the leaf's largest magnitude,
+    the largest of these (``want`` on the host)."""
+    return max(float((a.reshape(b.shape).float() - b.to(a.device).float())
+                     .abs().max()) / float(b.abs().max())
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def tp_lm_rank(group, ref_dir, sigma_p):
+    """One rank of phase 16's LM spawn: the full-width cell, its agent's
+    replica split over TP_LM["model"] ranks.  PORTER-GC (bf16 planes,
+    ring, shard-local block_top_k): the first round forced with the
+    one-card clipped gradient against the one-card round with the
+    per-shard compressor; the clipped gradient at the first round's x and
+    batch, sound and with each planted fault; then from a fresh init
+    1 + TP_LM["gc"] rounds (the first's loss and gradient against one
+    card's), PORTER-DP 1 + TP_LM["dp"], and for each one more round under
+    ``_TpChecks``."""
+    import torch
+    from repro_torch import configs, data
+    from repro_torch.core import clipping
+    from repro_torch.core.porter import agent_metrics
+    from repro_torch.kernels import flatten, ops, ref
+    from repro_torch.launch import runtime, steps
+    from repro_torch.models import build_model
+    from repro_torch.nn import tensor_parallel as TP
+    from repro_torch.nn.module import leaf_specs
+    from repro_torch.tree import tree_leaves, tree_map
+    from torch.func import grad_and_value, vmap
+    c, dev = LM_RUN, group.device
+    cfg = _lm_cfg(configs)
+    specs = leaf_specs(build_model(cfg, device=dev))
+    torch.cuda.set_per_process_memory_fraction(TP_LM["mem_fraction"], dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    kw = dict(compressor_name="block_top_k", frac=c["frac"], eta=c["eta"],
+              tau=c["tau"], plane_dtype=LM_PLANE_DTYPE, gossip_mode="ring",
+              group=group, local_compress=True)
+    setup = steps.build_train_step(cfg, c["agents"], **kw)
+    source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                               device=dev, group=group)
+    init = lambda: setup.init_state(  # noqa: E731
+        torch.Generator(device=dev).manual_seed(0))
+    want = torch.load(f"{ref_dir}/agent{group.index}.pt")
+    g = _tp_shard(torch, want["g"], specs, group, False)
+    state = init()
+    gb, gs = runtime.round_generators(0, 0, dev)
+    forced, _ = setup.step(state, source(gb, 0), gs, grad_override=(
+        torch.zeros(1, device=dev), tree_map(lambda a: a[None].to(dev), g)))
+    del state
+    x1 = _tp_shard(torch, want["x"], specs, group, False)
+    out["forced_x_diff"] = max(
+        float((a[0].float() - b.to(dev).float()).abs().max())
+        for a, b in zip(tree_leaves(forced.x), tree_leaves(x1)))
+    out["forced_bitwise"] = all(bit_equal(torch, a[0], b.to(dev)) for a, b
+                                in zip(tree_leaves(forced.x),
+                                       tree_leaves(x1)))
+    del forced, want, x1
+    # the first round's clipped gradient by hand, sound and with a planted
+    # fault: the copy's backward all-reduce skipped (the gradient), the
+    # reduce's forward all-reduce skipped (the loss)
+    params = init().x
+    batch0 = source(runtime.round_generators(0, 0, dev)[0], 0)
+
+    def clipped():
+        g_, losses = vmap(grad_and_value(setup.bundle.loss))(params, batch0)
+        g_ = tree_map(lambda a: a.to(setup.porter_cfg.grad_dtype),
+                      clipping.stacked_clip(g_, c["tau"],
+                                            setup.porter_cfg.clip_mode,
+                                            setup.algorithm.engine.sharded))
+        return (float(agent_metrics(losses, group=group)["loss"]),
+                _tp_rel(torch, g_, g, tree_leaves))
+    out["hand_loss"], out["hand_grad_rel"] = clipped()
+    for name, fn, patch in (
+            ("grad", TP._Copy, ("backward", lambda ctx, g_: (g_, None))),
+            ("loss", TP._Reduce, ("forward", lambda x, grp: x.clone()))):
+        saved = getattr(fn, patch[0])
+        setattr(fn, patch[0], staticmethod(patch[1]))
+        try:
+            out[f"fault_{name}"] = clipped()
+        finally:
+            setattr(fn, patch[0], saved)
+    del params, batch0
+    torch.cuda.empty_cache()
+    # a DP round's chunks of samples on this rank's plane
+    local = sum(math.prod(s.shape) // (1 if s.model_dim is None
+                                       else group.model_size)
+                for s in tree_leaves(specs))
+    c_dp = clipping.sample_chunk(1, -(-local // flatten.TILE), c["batch"])
+    out["dp_chunks"] = -(-c["batch"] // c_dp)
+    for variant, rounds in (("gc", TP_LM["gc"]), ("dp", TP_LM["dp"])):
+        if variant == "dp":
+            setup = steps.build_train_step(cfg, c["agents"], variant="dp",
+                                           sigma_p=sigma_p, **kw)
+        state = init()
+        ops.reset_launches()
+        state, first, ms_first, _ = _tp_lm_rounds(
+            torch, runtime, setup.algorithm, source, state, 0, 1, group)
+        launches = dict(ops.LAUNCHES)
+        rep = dict(first_loss=first[0], first_ms=ms_first,
+                   launches_first=launches)
+        if variant == "gc":
+            rep["first_grad_rel"] = _tp_rel(torch, state.g_prev, g,
+                                            tree_leaves)
+        state, losses, ms, shares = _tp_lm_rounds(
+            torch, runtime, setup.algorithm, source, state, 1, rounds, group)
+        # one more round, every kernel call held against its plain version
+        # on the rank's own operands
+        with _TpChecks(torch, ops, ref) as checks:
+            state, _ = runtime.run_chunked(
+                setup.algorithm, source, state, 0, rounds + 2, chunk=1,
+                start=rounds + 1, donate=True)
+        rep["checked"], rep["checked_bad"] = checks.tally()
+        del checks
+        rep.update(losses=losses, ms=ms, agent_share=shares[0],
+                   model_share=shares[1], replicated=all(
+                       _tp_replicated_bitwise(torch, group, getattr(state, f),
+                                              specs, tree_leaves)
+                       for f in ("x", "v", "q_x", "m_x", "g_prev")))
+        out[variant] = rep
+        del state
+        torch.cuda.empty_cache()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["reserved"] = torch.cuda.max_memory_reserved()
+    return out
+
+
+def phase_model_axis_lm(torch, ops, runtime, steps, data, configs, mesh,
+                        models, train, api):
+    """Phase 16 (b): phase 12's full-width cell with its 4 agents each
+    split over TP_LM["model"] ranks: the one-card round with the per-shard
+    compressor kept as the reference, then the 8 ranks."""
+    import shutil
+    from repro_torch.nn.module import leaf_specs
+    from repro_torch.tree import tree_leaves, tree_map
+    c = LM_RUN
+    cfg = _lm_cfg(configs)
+    specs = leaf_specs(models.build_model(cfg, device=DEVICE))
+    ref_dir = ROOT / "build" / "model_axis_lm"
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    over = dict(compressor_name="block_top_k", local_compress=True,
+                gossip_mode="ring", plane_dtype=LM_PLANE_DTYPE)
+    setup = _tp_one_card(steps, cfg, c["agents"], specs, TP_LM["model"],
+                         over, DEVICE, eta=c["eta"], tau=c["tau"],
+                         frac=c["frac"])
+    state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+    source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                               device=DEVICE)
+    first = []
+    state, _ = runtime.run_chunked(
+        setup.algorithm, source, state, 0, 1, chunk=1, donate=True,
+        on_chunk=lambda t0, t1, st, m: first.append(float(m["loss"][0])))
+    for i in range(c["agents"]):
+        torch.save({"x": tree_map(lambda a: a[i].cpu(), state.x),
+                    "g": tree_map(lambda a: a[i].cpu(), state.g_prev)},
+                   ref_dir / f"agent{i}.pt")
+    del state, setup, source
+    torch.cuda.empty_cache()
+    sigma_p = _lm_dp_sigma(train, api)
+    ranks_n = c["agents"] * TP_LM["model"]
+    try:
+        t0 = time.perf_counter()
+        ranks = mesh.spawn_agents(
+            tp_lm_rank, ranks_n, (str(ref_dir), sigma_p),
+            model=TP_LM["model"], device=DEVICE, timeout_s=TP_TIMEOUT_S,
+            env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    peaks = [r["peak"] for r in ranks]
+    forced = max(r["forced_x_diff"] for r in ranks)
+    # the free first round's loss (relative) and clipped gradient (each
+    # leaf's largest |diff| over its largest magnitude) against one card's,
+    # the hand-made gradient's beside them, and each planted fault's
+    loss_rel = max(abs(r["gc"]["first_loss"] - first[0]) / abs(first[0])
+                   for r in ranks)
+    grad_rel = max(r["gc"]["first_grad_rel"] for r in ranks)
+    hand = (max(abs(r["hand_loss"] - first[0]) / abs(first[0])
+                for r in ranks), max(r["hand_grad_rel"] for r in ranks))
+    fault_loss = max(abs(r["fault_loss"][0] - first[0]) / abs(first[0])
+                     for r in ranks)
+    fault_grad = max(r["fault_grad"][1] for r in ranks)
+    print(f"[model-axis] LM cell ({cfg.name}, {cfg.n_layers} layers, "
+          f"{c['agents']} agents x model {TP_LM['model']} = {ranks_n} ranks, "
+          f"bf16 planes, ring, shard-local block_top_k): spawn to join "
+          f"{wall:.1f} s; per-rank peak {peaks} B, sum {sum(peaks)} B "
+          f"(gate {LM_PEAK_LIMIT:.0f}; reserved at most "
+          f"{[r['reserved'] for r in ranks]} B, a rank's allocator capped "
+          f"at {TP_LM['mem_fraction']} of the card); first round forced "
+          f"with the one-card clipped gradient: x max |diff| {forced} from "
+          f"the "
+          f"one-card round with the per-shard compressor (bitwise "
+          f"{all(r['forced_bitwise'] for r in ranks)}, gate {TP_LM['tol']})")
+    print(f"[model-axis] LM cell free first round against one card: loss "
+          f"{first[0]}, relative |diff| {loss_rel} (gate "
+          f"{TP_LM['loss_tol']}; a missing forward all-reduce "
+          f"{fault_loss}); clipped gradient, each leaf's max |diff| over "
+          f"its max magnitude {grad_rel} (gate {TP_LM['grad_tol']}; a "
+          f"missing backward all-reduce {fault_grad}); the same gradient by "
+          f"hand: loss {hand[0]}, gradient {hand[1]}")
+    out = {"peaks": peaks, "forced_x_diff": forced, "wall_s": wall,
+           "first_loss_rel": loss_rel, "first_grad_rel": grad_rel,
+           "fault_loss_rel": fault_loss, "fault_grad_rel": fault_grad}
+    for variant in ("gc", "dp"):
+        r0 = ranks[0][variant]
+        agent = {k: round(v, 4) for k, v in r0["agent_share"].items()}
+        model = {k: round(v, 4) for k, v in r0["model_share"].items()}
+        print(f"[model-axis] LM cell porter-{variant}: "
+              f"{len(r0['losses'])} rounds after the first, "
+              f"{r0['ms']:.1f} ms/round on rank 0 "
+              f"({', '.join(f'{r[variant]['ms']:.1f}' for r in ranks)} on "
+              f"the ranks); transport share, agent axis {agent}, model axis "
+              f"{model}; first round {r0['first_ms']:.1f} ms; losses "
+              f"{[r0['first_loss']] + r0['losses']}; first-round launches "
+              f"{r0['launches_first']}; replicated leaves bitwise across "
+              f"model ranks {all(r[variant]['replicated'] for r in ranks)}; "
+              f"one more round's kernel calls held against their plain "
+              f"versions on rank 0's shard operands {r0['checked']} "
+              f"({sum(sum(r[variant]['checked'].values()) for r in ranks)} "
+              f"calls on the {ranks_n} ranks, differing "
+              f"{[r[variant]['checked_bad'] for r in ranks]})")
+        if not finite([r0["first_loss"]] + r0["losses"]):
+            raise AssertionError(f"model-axis LM {variant}: losses")
+        if not all(r[variant]["replicated"] for r in ranks):
+            raise AssertionError(f"model-axis LM {variant}: replicated "
+                                 "leaves differ across model ranks")
+        chunks = ranks[0]["dp_chunks"] if variant == "dp" else 1
+        want = dict(sumsq=chunks, scale=chunks, clip=0, ef_track=1,
+                    ef_step=1, sr_epilogue=5,
+                    block_topk=2 * len(tree_leaves(specs)))
+        if variant == "dp":
+            want["mean_noise"] = chunks
+        for r in ranks:
+            expect_launches(f"model-axis LM {variant} rank",
+                            r[variant]["launches_first"], **want)
+            checked = {k: v for k, v in want.items()
+                       if k not in ("clip", "sr_epilogue")}
+            if (r[variant]["checked_bad"]
+                    or r[variant]["checked"] != checked):
+                raise AssertionError(
+                    f"model-axis LM {variant}: kernel calls against their "
+                    f"plain versions {r[variant]['checked']} (want "
+                    f"{checked}), differing {r[variant]['checked_bad']}")
+        out[variant] = dict(ms=r0["ms"], agent_share=r0["agent_share"],
+                            model_share=r0["model_share"],
+                            losses=r0["losses"],
+                            launches_round=r0["launches_first"])
+    if not sum(peaks) <= LM_PEAK_LIMIT:
+        raise AssertionError(f"model-axis LM: peaks {sum(peaks)}")
+    if not forced <= TP_LM["tol"]:
+        raise AssertionError(f"model-axis LM: forced round x {forced}")
+    if not (loss_rel <= TP_LM["loss_tol"] and grad_rel <= TP_LM["grad_tol"]
+            and hand[0] <= TP_LM["loss_tol"]
+            and hand[1] <= TP_LM["grad_tol"]):
+        raise AssertionError(f"model-axis LM: free first round loss "
+                             f"{loss_rel} / {hand[0]}, gradient {grad_rel} / "
+                             f"{hand[1]} against one card")
+    if fault_loss <= TP_LM["loss_tol"] or fault_grad <= TP_LM["grad_tol"]:
+        raise AssertionError(f"model-axis LM: a planted fault passes: loss "
+                             f"{fault_loss}, gradient {fault_grad}")
+    return out
+
+
 def lm_record(name, lm, lm_times):
     """A kernel's LM-plane figures (phase 12) for its record: the cell's
     variant, its µs, plain µs and bound at the LM plane (both plane dtypes
@@ -5174,23 +5864,32 @@ def main() -> int:
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
 
     # phase 2: kernels against their plain versions
+    t_phase = time.perf_counter()
     table = phase_kernels(torch, ops, ref)
 
+    print(f"[time] phase 2 took {time.perf_counter() - t_phase:.1f} s")
     # phase 3: Section-5.1 quickstart through the port's entry points
+    t_phase = time.perf_counter()
     phase_quickstart(torch, ops, api, data, runtime, average_params)
 
+    print(f"[time] phase 3 took {time.perf_counter() - t_phase:.1f} s")
     # phase 4: Section-5.2 MLP at full width (the main paths' launches)
+    t_phase = time.perf_counter()
     runs, ms_per_round, dp_launches = phase_mlp(
         torch, ops, api, data, runtime, paper, tree_leaves)
     print("[mlp] median ms/round: " + ", ".join(
         f"{b} {statistics.median(v):.4f}" for b, v in ms_per_round.items()))
     choco = phase_baselines(torch, ops, api, data, runtime, paper)
 
+    print(f"[time] phase 4 took {time.perf_counter() - t_phase:.1f} s")
     # phase 5: the bit-packed wire, its kernels and its path
+    t_phase = time.perf_counter()
     wire_table = phase_wire_kernels(torch, ops, ref)
     wire_launches = phase_wire(torch, ops, api, data, runtime, paper)
 
+    print(f"[time] phase 5 took {time.perf_counter() - t_phase:.1f} s")
     # phase 6: the rwkv6 serving path, its kernel and its consistency
+    t_phase = time.perf_counter()
     rwkv_table = phase_rwkv6_kernel(torch, ops, ref)
     rwkv_launches, rwkv_rates = phase_rwkv6_serve(torch, ops, serve,
                                                   tree_leaves)
@@ -5198,7 +5897,9 @@ def main() -> int:
     phase_rwkv6_consistency(torch, ops, serve)
     torch.cuda.empty_cache()
 
+    print(f"[time] phase 6 took {time.perf_counter() - t_phase:.1f} s")
     # phase 7: the zamba2 serving path, its kernel and its consistency
+    t_phase = time.perf_counter()
     print(f"[zamba2] device memory before the phase: "
           f"{torch.cuda.memory_allocated()} B allocated, "
           f"{torch.cuda.memory_reserved()} B reserved")
@@ -5210,7 +5911,9 @@ def main() -> int:
     phase_zamba2_consistency(torch, ops, serve)
     torch.cuda.empty_cache()
 
+    print(f"[time] phase 7 took {time.perf_counter() - t_phase:.1f} s")
     # phase 8: the clip kernels, block_topk, and the block_top_k path
+    t_phase = time.perf_counter()
     clip_table = phase_clip_kernels(torch, ops, ref)
     fused_table = phase_clip_fused(torch, ops, ref, smooth_clip)
     mean_table = phase_mean_noise(torch, ops, ref, api, data, paper, flatten,
@@ -5222,7 +5925,9 @@ def main() -> int:
     phase_launch_host_cost(torch, ops)
     topk_launches = phase_block_top_k(torch, ops, api, data, runtime, paper)
 
+    print(f"[time] phase 8 took {time.perf_counter() - t_phase:.1f} s")
     # phase 9: schedules, directed schedules, the last four algorithms
+    t_phase = time.perf_counter()
     t9 = time.perf_counter()
     phase_extensions(torch, ops, api, data, runtime, paper, tree_leaves, runs)
     print(f"[extensions] phase took {time.perf_counter() - t9:.1f} s")
@@ -5296,6 +6001,17 @@ def main() -> int:
                                    configs, mesh, tree_leaves)
     print(f"[agents] phase took {time.perf_counter() - t15:.1f} s")
     print("[agents] figures " + json.dumps(agents, default=str))
+
+    # phase 16: the model axis (the smoke config's 2 x 2 and the LM cell's
+    # 4 x 2 ranks on the card, each agent's replica tensor-parallel)
+    t16 = time.perf_counter()
+    model_axis = phase_model_axis_smoke(torch, ops, runtime, steps, data,
+                                        configs, mesh, models)
+    model_axis["lm"] = phase_model_axis_lm(torch, ops, runtime, steps, data,
+                                           configs, mesh, models, train,
+                                           api)
+    print(f"[model-axis] phase took {time.perf_counter() - t16:.1f} s")
+    print("[model-axis] figures " + json.dumps(model_axis, default=str))
 
 
     # each kernel's launches on the path that carries its timed variant:
@@ -5450,6 +6166,19 @@ def main() -> int:
             run = agents[label]
             rec["launches_agents_rank_round"] = (
                 run["launches"][rec["name"]] / run["rounds"])
+    # phase 16: each kernel's launches a round on one rank of the model
+    # axis (the smoke grid) and on the LM cell's ranks (PORTER-GC, DP)
+    for rec in record:
+        label = MODEL_AXIS_LAUNCH_RUNS.get(rec["name"])
+        if label is not None:
+            run, key = model_axis[label], rec["name"]
+            if key == "sr_cast":
+                key = "sr_epilogue"
+            rec["launches_model_rank_round"] = (
+                run["launches"].get(key, 0) / run["rounds"])
+            for variant in ("gc", "dp"):
+                rec[f"launches_model_lm_{variant}_round"] = (
+                    model_axis["lm"][variant]["launches_round"].get(key, 0))
     print(f"[time] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)   # again here: a long log keeps only its end

@@ -43,7 +43,12 @@ executors, every agent on one card; with ``wire="packed_bits"`` either
 gossips bit-packed buffers (:func:`resolve_wire_format`).  ``build(...,
 group=)`` puts each agent in a process of a
 :class:`repro_torch.launch.mesh.AgentGroup` (the reference's ``mesh=``):
-the executors ship buffers across the group's ranks.  The spec keeps the
+the executors ship buffers across the group's ranks.  On a grid with a
+model axis (``group.model_size > 1``) ``build(..., group=, leaf_specs=)``
+takes the leaves' specs (the agent axes first, as the reference's
+``leaf_specs=``): the engine runs on per-shard planes, the clip across
+shards and the metrics over the whole replica; the PORTER family (porter-
+gc, porter-dp, beer) runs there.  The spec keeps the
 reference's field names.  ``remat_policy`` (None, ``"full"``, ``"dots"``) wraps the loss once
 in ``build`` for every algorithm (:mod:`repro_torch.core.remat`).
 """
@@ -61,6 +66,7 @@ from .core import mixing as MX
 from .core.beer import beer_config
 from .core.clip21 import Clip21State, clip21_init, clip21_step
 from .core.comm_round import CommRound
+from .kernels import flatten as FL
 from .core import wire_formats
 from .core.compression import Compressor, make_compressor
 from .core.fleet import (FLEET_DENSE_GATE, FleetSchedule, FleetTopology,
@@ -482,13 +488,45 @@ def _check_group(spec: ExperimentSpec, group) -> None:
     if spec.n_agents != group.n_agents:
         raise ValueError(f"spec.n_agents={spec.n_agents} but the group has "
                          f"{group.n_agents} ranks: one agent a rank")
+    if getattr(group, "model_size", 1) > 1:
+        if spec.algo not in _MODEL_AXIS_ALGOS:
+            raise ValueError(
+                f"{spec.algo} on a model axis is not ported (the PORTER "
+                f"family {_MODEL_AXIS_ALGOS} runs there): ROADMAP queue 1 "
+                "item 12(c)")
+        if spec.remat_policy is not None:
+            raise ValueError("remat_policy on a model axis is not ported: "
+                             "ROADMAP queue 1 item 12(c)")
+        if spec.wire == "packed_bits" and spec.compressor == "qsgd":
+            raise ValueError(
+                "a randomized wire codec (qsgd) on a model axis would draw "
+                "per shard; only deterministic codecs (top_k, block_top_k) "
+                "run per shard, as the reference's shard-local compressor")
+
+
+# the algorithms that run on a grid with a model axis
+_MODEL_AXIS_ALGOS = ("porter-gc", "porter-dp", "beer")
+
+
+def _sharded(group, leaf_specs) -> Optional[FL.ShardedFlatSpec]:
+    """The per-shard layout of a grid with a model axis, else None."""
+    if group is None or getattr(group, "model_size", 1) == 1:
+        return None
+    if leaf_specs is None:
+        raise ValueError(
+            "a model axis needs the leaves' specs: build(..., leaf_specs="
+            "prepend_axis_specs(leaf_specs(bundle), group.axes))")
+    if not FL.specs_have_model_axes(leaf_specs, group.axes):
+        return None
+    return FL.sharded_spec(group, leaf_specs)
 
 
 def build_engine(spec: ExperimentSpec, *,
                  topology: Optional[Union[Topology, FleetTopology]] = None,
                  schedule: Optional[Union[TopologySchedule,
                                           FleetSchedule]] = None,
-                 compress_fn=None, group=None) -> CommRound:
+                 compress_fn=None, group=None,
+                 leaf_specs=None) -> CommRound:
     """Comm-round engine for ``spec``: compressor, mixer (dense, ring or
     packed by ``gossip_mode``, their codec executors under
     ``wire="packed_bits"``, or the fleet mixer under ``fleet=True``; over
@@ -496,7 +534,8 @@ def build_engine(spec: ExperimentSpec, *,
     ``schedule`` is given) and backend.  ``compress_fn``: optional
     ``(gen, tree) -> tree`` compression override, refused beside a codec.
     ``group``: an agent group (:mod:`repro_torch.launch.mesh`), one agent a
-    rank: the executors across processes."""
+    rank: the executors across processes; with a model axis ``leaf_specs``
+    (the agent axes first) give the per-shard layout."""
     _check_group(spec, group)
     if spec.fleet:
         _check_fleet_spec(spec)
@@ -513,12 +552,13 @@ def build_engine(spec: ExperimentSpec, *,
     return CommRound(compressor=resolve_compressor(spec), mixer=mixer,
                      compress_fn=compress_fn, backend=spec.comm_backend,
                      overlap=spec.overlap,
-                     plane_dtype=resolve_plane_dtype(spec))
+                     plane_dtype=resolve_plane_dtype(spec),
+                     sharded=_sharded(group, leaf_specs))
 
 
 def build(spec: ExperimentSpec, loss_fn, *, device=None,
           topology: Optional[Union[Topology, FleetTopology]] = None,
-          compress_fn=None, group=None) -> Algorithm:
+          compress_fn=None, group=None, leaf_specs=None) -> Algorithm:
     """Resolve ``spec`` into a ready-to-train :class:`Algorithm`.
 
     loss_fn: ``(params, batch) -> scalar loss`` for one agent, in torch ops
@@ -536,6 +576,10 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
       ``step`` takes this rank's batch row and its round's generator (the
       same seed on every rank) and reports metrics over all agents.  The
       server algorithms (dp-sgd, soteriafl) and fleet mode refuse it.
+    leaf_specs: the parameters' specs with the agent axes first (a tree of
+      :class:`repro_torch.nn.module.Spec`), needed on a grid with a model
+      axis: ``loss_fn`` is then the tensor-parallel loss of this rank's
+      shard and ``init(params)`` takes this rank's shard of one replica.
     """
     _check_group(spec, group)
     if device is None:
@@ -563,7 +607,8 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
                 "for directed topologies")
     if info.decentralized and info.compressed:
         engine = build_engine(spec, topology=top, schedule=sched,
-                              compress_fn=compress_fn, group=group)
+                              compress_fn=compress_fn, group=group,
+                              leaf_specs=leaf_specs)
         comp, mixer = engine.compressor, engine.mixer
     elif info.decentralized:
         if spec.fleet:

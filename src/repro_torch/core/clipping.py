@@ -38,6 +38,18 @@ is one budget's worth or less, or one sample's when that alone is more.
 Every sample mean, of the gradients and of the losses, is the reference's
 jitted one (``ref.sample_mean``: in sample order onto +0.0, then the
 product with ``RN(1 / b)``), on the CPU and on the card alike.
+
+The cross-shard clip (``sharded``, a :class:`repro_torch.kernels.flatten.
+ShardedFlatSpec`: an agent's replica split over the model axis): Definition
+2's norm is the whole agent's (or sample's) gradient's, and a rank's plane
+holds its shards only.  So the clip is ``ops.clip_sumsq`` (the ``sumsq``
+kernel) over the rank's plane, with the replicated leaves counted on model
+rank 0 only (zeroed for the pass elsewhere, then restored); each row's
+partials summed in the fused kernel's fixed order (``ref.row_sumsq``); one
+all-reduce of the ``(rows,)`` sums over ``'model'``; the factors
+(``ref.sumsq_factors``); and ``ops.clip_scale`` (the ``scale`` kernel).
+The DP path takes it for every chunk's per-sample rows, then
+``mean_noise`` on the rank's shard with its slice of the one-card noise.
 """
 
 from __future__ import annotations
@@ -49,7 +61,7 @@ from torch.func import grad_and_value, vmap
 
 from ..kernels import flatten as FL
 from ..kernels import ops, ref
-from .agents import local_rows
+from .agents import local_rows, model_shard
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["smooth_clip", "piecewise_clip", "tree_global_norm", "tree_clip",
@@ -108,27 +120,67 @@ def tree_clip(tree, tau: float, mode: ClipMode = "smooth"):
     return tree_map(lambda leaf: (leaf * c).to(leaf.dtype), tree)
 
 
-def stacked_clip(tree, tau: float, mode: ClipMode = "smooth"):
+def cross_shard_clip(planes, spec: FL.FlatSpec, tau: float, sharded):
+    """Definition 2 over a rank's ``(rows * T, TILE)`` plane of model
+    shards (layout ``spec``), each row by the norm of its whole replica:
+    ``sumsq`` with the replicated leaves counted on model rank 0 only, the
+    rows' sums in a fixed order, one all-reduce over ``'model'``, the
+    factors, ``scale``.  Returns (the clipped plane, the ``(rows,)``
+    factors)."""
+    group = sharded.group
+    hidden = []
+    if group.model_index != 0:
+        view = planes.view(max(spec.rows, 1), spec.padded)
+        for (lo, hi), dim in zip(FL.leaf_ranges(spec), sharded.dims()):
+            if dim is None:
+                hidden.append((lo, hi, view[:, lo:hi].clone()))
+                view[:, lo:hi] = 0
+    partials = ops.clip_sumsq(planes)
+    for lo, hi, kept in hidden:
+        view[:, lo:hi] = kept
+    rows = max(spec.rows, 1)
+    sums = group.all_reduce_sum(ref.row_sumsq(partials, rows), axis="model")
+    factors = ref.sumsq_factors(sums, tau)
+    return ops.clip_scale(planes, factors), factors
+
+
+def _smooth_plane(planes, spec: FL.FlatSpec, tau: float, sharded):
+    if sharded is None:
+        return ops.clip_planes(planes, max(spec.rows, 1), tau)[0]
+    return cross_shard_clip(planes, spec, tau, sharded)[0]
+
+
+def _refuse_eager_modes(mode: ClipMode, sharded) -> None:
+    if sharded is not None:
+        raise ValueError(f"clip mode {mode!r} under a model axis: only the "
+                         "smooth clip runs across shards")
+
+
+def stacked_clip(tree, tau: float, mode: ClipMode = "smooth", sharded=None):
     """Clip each row of a row-stacked tree by the norm of that row over
     all leaves: ``tree_clip`` of every row.  Smooth clipping packs the
     rows into one flat plane and clips it in ``ops.clip_planes`` (the
     per-tile sums of squares, one factor a row, the scale: one launch on
-    the card); each leaf comes back in its own dtype."""
+    the card), or across model shards in :func:`cross_shard_clip` under
+    ``sharded``; each leaf comes back in its own dtype."""
     if mode != "smooth":
+        _refuse_eager_modes(mode, sharded)
         return vmap(lambda t: tree_clip(t, tau, mode))(tree)
     spec = FL.flat_spec(tree)
     return FL.from_planes(
-        ops.clip_planes(FL.to_planes(tree, spec), spec.rows, tau)[0], spec)
+        _smooth_plane(FL.to_planes(tree, spec), spec, tau, sharded), spec)
 
 
-def _clipped_plane(rows, tau: float, mode: ClipMode):
+def _clipped_plane(rows, tau: float, mode: ClipMode, sharded=None):
     """Each row of a row-stacked tree clipped by its own norm, in the rows'
-    plane: the smooth mode through ``ops.clip_planes``, piecewise and none
-    eagerly, then packed.  Returns (the plane, its layout)."""
+    plane: the smooth mode through ``ops.clip_planes`` (or
+    :func:`cross_shard_clip`), piecewise and none eagerly, then packed.
+    Returns (the plane, its layout)."""
     spec = FL.flat_spec(rows)
     if mode == "smooth":
-        return ops.clip_planes(FL.to_planes(rows, spec), spec.rows,
-                               tau)[0], spec
+        return _smooth_plane(FL.to_planes(rows, spec), spec, tau,
+                             sharded), spec
+    _refuse_eager_modes(mode, sharded)
     return FL.to_planes(stacked_clip(rows, tau, mode), spec), spec
 
 
@@ -198,7 +250,7 @@ def per_sample_grads(loss_fn: Callable, params, batch, agents: Optional[str]):
 def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
                   mode: ClipMode, agents: Optional[str], sigma: float,
                   gen: Optional[torch.Generator], noise, dp: bool,
-                  chunk: Optional[int], group=None):
+                  chunk: Optional[int], group=None, sharded=None):
     """The per-sample clipped mean over the local batch in chunks of
     ``chunk`` samples (:func:`sample_chunk`'s when None), plus ``sigma *
     z`` when ``dp``: z is ``noise`` (a tree shaped like the mean) or drawn
@@ -221,13 +273,20 @@ def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
         order, in the mean's shape and each leaf's dtype; under an agent
         ``group`` this rank's rows of the one-card draw (or of ``noise``,
         given at the one-card shape)."""
+        dims = ([None] * len(mean.shapes) if sharded is None
+                else sharded.dims())
         if noise is not None:
-            return noise if group is None else tree_map(group.rows, noise)
+            if group is None:
+                return noise
+            return tree_map(lambda z, d: model_shard(
+                group.rows(z), d, getattr(group, "model_index", 0),
+                getattr(group, "model_size", 1)), noise,
+                mean.treedef.unflatten(dims))
         lead = (mean.rows,) if mean.rows else ()
         return mean.treedef.unflatten([
             local_rows(group, lead + shape, lambda full, dt=dt: torch.randn(
-                full, generator=gen, dtype=dt, device=device))
-            for shape, dt in zip(mean.shapes, mean.dtypes)])
+                full, generator=gen, dtype=dt, device=device), dim)
+            for shape, dt, dim in zip(mean.shapes, mean.dtypes, dims)])
 
     acc, losses = None, []
     for lo in range(0, b, chunk):
@@ -235,7 +294,7 @@ def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
         part = tree_map(lambda a: a.narrow(axis, lo, size), batch)
         rows, loss = per_sample_grads(loss_fn, params, part, agents)
         losses.append(loss)
-        planes, spec = _clipped_plane(rows, tau, mode)
+        planes, spec = _clipped_plane(rows, tau, mode, sharded)
         del rows        # before the sum, and the next chunk's gradients
         finish = lo + size == b
         acc, mean = _add_chunk(planes, spec, size, agents is not None, sigma,
@@ -272,7 +331,8 @@ def clipped_grad_accumulate(loss_fn: Callable, params, batch, tau: float,
 def dp_gradient(loss_fn: Callable, params, batch, tau: float, sigma: float,
                 gen: Optional[torch.Generator] = None, noise=None,
                 mode: ClipMode = "smooth", agents: Optional[str] = None,
-                sample_chunk: Optional[int] = None, group=None):
+                sample_chunk: Optional[int] = None, group=None,
+                sharded=None):
     """The DP gradient of PORTER-DP line 6 and the DP baselines: the mean
     of the per-sample clipped gradients plus ``sigma * z``, z ~ N(0, 1)
     drawn from ``gen`` leaf by leaf in tree order, in each leaf's shape
@@ -281,6 +341,9 @@ def dp_gradient(loss_fn: Callable, params, batch, tau: float, sigma: float,
     :func:`clipped_grad_accumulate`; the noise is drawn once, before the
     last chunk's mean.  ``group``: an agent group, the params and batch
     this rank's agent row (``agents="stacked"``); z is then this rank's
-    rows of the one-card draw.  Returns ``(perturbed_mean, mean_loss)``."""
+    rows of the one-card draw.  ``sharded``: the model axis's layout; each
+    chunk is clipped across shards (:func:`cross_shard_clip`) and z is the
+    rank's block of the one-card draw (or of ``noise``).  Returns
+    ``(perturbed_mean, mean_loss)``."""
     return _chunked_mean(loss_fn, params, batch, tau, mode, agents, sigma,
-                         gen, noise, True, sample_chunk, group)
+                         gen, noise, True, sample_chunk, group, sharded)

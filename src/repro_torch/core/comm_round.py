@@ -54,6 +54,19 @@ draw the one-card shape from the round's generator and keep the rank's
 rows (:func:`repro_torch.core.agents.local_rows`), and its wire accounting
 counts all ``group.n_agents`` agents, so both are the one-card run's.
 
+The model axis (``sharded``, a :class:`repro_torch.kernels.flatten.
+ShardedFlatSpec`): every buffer is the rank's block, its agent row of its
+shard of every leaf, and the engine runs on per-shard planes.  The SR
+words are drawn at the one-card plane's shape and the rank keeps its
+block (:meth:`ShardedFlatSpec.block`), so the per-shard ef updates are the
+one-card ones element for element.  Without a ``compress_fn`` the
+compressor sees each whole leaf, as XLA's all-gather gives the reference:
+the leaves are all-gathered over ``'model'`` (one collective), compressed
+and sliced back; ``launch.steps``' shard-local ``compress_fn`` compresses
+each shard instead.  The wire accounting counts the whole replica, and
+the packed windows per (leaf x model shard), a replicated leaf once
+(``src/repro/core/comm_round.py:568-605``).
+
 Push-sum (directed, column-stochastic ``W_t``): :meth:`CommRound.exchange_ps`
 and :meth:`CommRound.step_ps` run the x-side round while carrying the
 ``(n,)`` push-sum weight planes (``xw``, ``q_w``, ``m_w``) through the same
@@ -72,8 +85,8 @@ import torch
 
 from ..kernels import flatten as FL
 from ..kernels import ops, ref
-from .agents import local_rows
-from ..tree import tree_leaves, tree_map
+from .agents import local_rows, model_shard
+from ..tree import tree_flatten, tree_leaves, tree_map
 from .compression import Compressor
 from . import wire_formats as WF
 from .gossip import MixFn, apply_mixer, gossip_wire_bytes
@@ -192,6 +205,7 @@ class CommRound:
       or bf16.  The actual plane dtype is derived per buffer tree, so f32
       params keep f32 planes beside bf16 EF buffers; this field drives the
       wire-byte width of the ring and packed byte models.
+    sharded: the per-shard layout on a grid with a model axis, or None.
     """
 
     compressor: Compressor
@@ -200,6 +214,7 @@ class CommRound:
     backend: str = "auto"
     overlap: bool = False
     plane_dtype: Any = None
+    sharded: Optional[FL.ShardedFlatSpec] = None
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
@@ -253,22 +268,49 @@ class CommRound:
         if not any(needs):
             return None
 
+        def words(shape, device):
+            return torch.randint(0, 1 << 16, shape, generator=gen,
+                                 dtype=torch.int32, device=device)
+
         def draw(t):
             device = tree_leaves(t)[0].device
-            return local_rows(
-                self.group, FL.flat_spec(t).plane_shape,
-                lambda shape: torch.randint(0, 1 << 16, shape, generator=gen,
-                                            dtype=torch.int32, device=device))
+            local = FL.flat_spec(t)
+            if self.sharded is not None:
+                full = words(self.sharded.global_layout(local).plane_shape,
+                             device)
+                return self.sharded.block(full, local)
+            return local_rows(self.group, local.plane_shape,
+                              lambda shape: words(shape, device))
         return tuple(draw(t) if need else None
                      for t, need in zip(trees, needs))
 
     # -- the shared front half: compress + mix ------------------------------
 
     def compress(self, gen, delta):
-        """c = C(delta), per agent row of every leaf."""
+        """c = C(delta), per agent row of every leaf (under ``sharded``
+        without a ``compress_fn``: of every whole leaf)."""
         if self.compress_fn is not None:
             return self.compress_fn(gen, delta)
+        if self.sharded is not None:
+            return self._compress_whole(gen, delta)
         return compress_stacked(self.compressor, gen, delta, self.group)
+
+    def _compress_whole(self, gen, delta):
+        """The compressor over each whole leaf of a model-sharded tree: the
+        sharded leaves all-gathered over ``'model'`` in one collective,
+        every leaf compressed as on one card, this rank's shard kept."""
+        group, dims = self.sharded.group, self.sharded.dims()
+        leaves, treedef = tree_flatten(delta)
+        idx = [i for i, d in enumerate(dims) if d is not None]
+        full = list(leaves)
+        for i, g in zip(idx, group.all_gather([leaves[i] for i in idx],
+                                              axis="model")):
+            full[i] = torch.cat(list(g.unbind(0)), dim=dims[i])
+        comp = compress_stacked(self.compressor, gen,
+                                treedef.unflatten(full), self.group)
+        return treedef.unflatten([
+            model_shard(c, d, group.model_index, group.model_size).contiguous()
+            for c, d in zip(tree_leaves(comp), dims)])
 
     def exchange(self, gen, y, q, t=None) -> Tuple[Any, Any]:
         """Returns ``(c, wc)``: ``c = C(y - q)`` and ``wc = W @ c``.  The
@@ -468,7 +510,8 @@ class CommRound:
             tree = tree_or_d
             leaves = tree_leaves(tree)
             n_agents, rows = self._agents(leaves)
-            d = sum(leaf.numel() // rows for leaf in leaves)
+            d = sum(leaf.numel() // rows * m
+                    for leaf, m in zip(leaves, self._shards(leaves)))
         else:
             d = int(tree_or_d)
         db = (4 if self.plane_dtype is None
@@ -498,15 +541,23 @@ class CommRound:
                                      push_sum=push_sum)
         return self.wire_bytes(tree_or_d, n_agents, push_sum=push_sum)
 
-    @staticmethod
-    def _packed_windows(tree) -> int:
+    def _shards(self, leaves):
+        """Each leaf's model shards: M for a sharded leaf under
+        ``sharded``, else 1."""
+        if self.sharded is None:
+            return [1] * len(leaves)
+        m = self.sharded.group.model_size
+        return [1 if d is None else m for d in self.sharded.dims()]
+
+    def _packed_windows(self, tree) -> int:
         """PACK_BLOCK windows the packed executors pad for one agent's row
-        of ``tree``: each leaf pads separately, so windows are summed per
-        leaf.  The reference also counts a model-sharded leaf's windows per
-        shard; the port shards no leaf over a model axis (model-sharded
-        leaves: ROADMAP queue 1 item 12(c))."""
-        return sum(-(-(leaf.numel() // leaf.shape[0]) // WF.PACK_BLOCK)
-                   for leaf in tree_leaves(tree))
+        of ``tree``: each leaf pads separately, and under ``sharded`` each
+        model shard of a leaf (a replicated leaf once), so windows are
+        summed per (leaf x model shard), as the reference counts them
+        (``src/repro/core/comm_round.py:568-605``)."""
+        leaves = tree_leaves(tree)
+        return sum(m * -(-(leaf.numel() // leaf.shape[0]) // WF.PACK_BLOCK)
+                   for leaf, m in zip(leaves, self._shards(leaves)))
 
     def _codec_bytes(self, tree_or_d, n_agents: Optional[int],
                      measured: bool, push_sum: bool = False) -> float:

@@ -82,7 +82,7 @@ __all__ = ["MixFn", "GossipBudget", "PACK_BLOCK", "apply_mixer",
            "make_dense_process_mixer", "make_ring_process_mixer",
            "make_packed_process_mixer", "make_ring_codec_process_mixer",
            "make_packed_codec_process_mixer", "make_mixer",
-           "reference_budget", "gossip_wire_bytes"]
+           "reference_budget", "gossip_wire_bytes", "make_codec_compress"]
 
 MixFn = Callable[..., object]
 
@@ -100,8 +100,11 @@ class GossipBudget:
     budget (``mix.budget``).  On one card they issue none; across
     processes the rank's :class:`~repro_torch.launch.mesh.AgentGroup`
     counts what they issue (``group.census``), and the tests hold the count
-    to the budget.  The model-sharded leaves whose per-shard collectives
-    the reference also budgets are ROADMAP queue 1 item 12(c); the static
+    to the budget.  On a grid with a model axis each executor runs on the
+    rank's shards among the ranks of its model index, so the budget holds
+    per shard and the model axis's collectives (the tensor-parallel
+    forward's, the clip's) count apart (``group.model_census``).  The
+    fleet axis over processes is ROADMAP queue 1 item 12(c); the static
     census over every executor is item 14.
     """
 
@@ -925,3 +928,27 @@ def gossip_wire_bytes(mode: str, n_agents: int, d_params: int,
         nb = -(-int(d_params) // PACK_BLOCK)          # windows after padding
         return float(n_agents) * nb * topk_keep(frac) * (dtype_bytes + 4)
     raise ValueError(mode)
+
+
+def make_codec_compress(codec: WireFormat):
+    """A deterministic codec's round trip as a compressor ``(gen, tree) ->
+    tree``: every leaf flattened per agent, padded to its own PACK_BLOCK
+    windows, packed and unpacked, trimmed and cast back -- the ``c`` a
+    codec executor applies, without the gossip (so that a dense mixer
+    beside it gives the codec executor's ``W c``)."""
+    if not codec.deterministic:
+        raise ValueError("make_codec_compress takes a deterministic codec")
+
+    def compress(gen, tree):
+        del gen
+        leaves, treedef = tree_flatten(tree)
+        out = []
+        for leaf in leaves:
+            n = leaf.shape[0]
+            rows = to_windows(leaf.reshape(n, -1).to(torch.float32))
+            c = codec.unpack(*codec.pack(rows.reshape(-1, PACK_BLOCK), None))
+            c = c.reshape(n, -1)[:, :leaf[0].numel()]
+            out.append(c.reshape(leaf.shape).to(leaf.dtype))
+        return treedef.unflatten(out)
+
+    return compress

@@ -121,20 +121,22 @@ def porter_init(params: Any, n_agents: int, w: Optional[np.ndarray] = None,
 
 
 def _gradients(cfg: PorterConfig, loss_fn: LossFn, x, batch, gen, noise,
-               group=None):
+               group=None, sharded=None):
     """Per-agent losses and clipped (and, for DP, perturbed) gradients
     (lines 5-10).  Every agent's (or every sample's) gradient is clipped in
-    one row-stacked call, outside the vmap."""
+    one row-stacked call, outside the vmap; across model shards under
+    ``sharded`` (the engine's layout on a model axis)."""
     if cfg.variant == "dp":
         # Option I: clip each sample's gradient, average, perturb
         g, losses = clipping.dp_gradient(
             loss_fn, x, batch, cfg.tau, cfg.sigma_p, gen=gen, noise=noise,
-            mode=cfg.clip_mode, agents="stacked", group=group)
+            mode=cfg.clip_mode, agents="stacked", group=group,
+            sharded=sharded)
         return losses, g
     # Option II / BEER: one batch gradient, clipped after (or not at all)
     g, losses = vmap(grad_and_value(loss_fn))(x, batch)
     if cfg.variant == "gc":
-        g = clipping.stacked_clip(g, cfg.tau, cfg.clip_mode)
+        g = clipping.stacked_clip(g, cfg.tau, cfg.clip_mode, sharded)
     return losses, g
 
 
@@ -167,7 +169,7 @@ def porter_step(
     # ---- stochastic gradients (local; lines 4-10) -------------------------
     if grad_override is None:
         losses, g = _gradients(cfg, loss_fn, state.x, batch, gen, noise,
-                               group)
+                               group, eng.sharded)
     else:
         losses, g = grad_override
     g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)
@@ -198,7 +200,7 @@ def porter_step(
     device = losses.device
     metrics = {
         **agent_metrics(losses, [("consensus_x", x), ("consensus_v", v)],
-                        [("v_norm", v)], group),
+                        [("v_norm", v)], group, eng.sharded),
         # two compressed streams (Q_x and Q_v) per round; a fill, not a copy
         # from the host, so the step never waits on the device
         "wire_bytes": torch.full((), 2.0 * eng.wire_bytes(state.x),
@@ -212,7 +214,8 @@ def porter_step(
 # agent axis: the loss mean bitwise the one-card one (the per-agent losses
 # cross exactly), the sums over agents up to their order.  ``step``
 # functions take their metrics from ``agent_metrics``: two all-reduces a
-# round, whatever the metrics.
+# round, whatever the metrics; on a model axis a third, of the sums over
+# the shards (each replicated leaf counted once).
 
 
 def average_params(x_stacked, group=None):
@@ -239,7 +242,8 @@ def _agent_bar(tree, group):
 
 
 def agent_metrics(losses: Optional[torch.Tensor] = None, consensus=(),
-                  norms=(), group=None) -> Dict[str, torch.Tensor]:
+                  norms=(), group=None, sharded=None
+                  ) -> Dict[str, torch.Tensor]:
     """A round's cross-agent metrics: ``loss`` (the mean of the per-agent
     ``losses``, when given), each ``(name, tree)`` of ``consensus`` as
     :func:`consensus_error` and each of ``norms`` as ``||Y||_F / sqrt(n)``,
@@ -249,7 +253,10 @@ def agent_metrics(losses: Optional[torch.Tensor] = None, consensus=(),
     tree's rows, every rank's loss in its own slot of an ``(n,)`` vector
     (``v + 0`` is exact, so the mean is the one-card ``torch.mean``) and
     every norm's sum of squares; then one of the deviations from the
-    means.
+    means.  Under ``sharded`` (a model axis) the rank's trees are its
+    shards, the replicated leaves counted on model rank 0 only, and a
+    third all-reduce, over ``'model'``, sums the deviations and the norms'
+    sums over the shards, so every rank reports the whole replica's value.
     """
     out = {}
     if group is None:
@@ -262,16 +269,22 @@ def agent_metrics(losses: Optional[torch.Tensor] = None, consensus=(),
             out[name] = clipping.tree_global_norm(tree) / math.sqrt(n)
         return out
     n = group.n_agents
-    rows = [[leaf.to(torch.float32) for leaf in tree_leaves(tree)]
-            for _, tree in consensus]
+    keep = None if sharded is None else sharded.counted()
+
+    def kept(tree):
+        leaves = tree_leaves(tree)
+        return [leaf.to(torch.float32) for i, leaf in enumerate(leaves)
+                if keep is None or keep[i]]
+
+    rows = [kept(tree) for _, tree in consensus]
     parts = [leaf.reshape(-1) for leaves in rows for leaf in leaves]
     if losses is not None:
         slots = torch.zeros(n, dtype=losses.dtype, device=losses.device)
         slots[group.index] = losses.reshape(())
         parts.append(slots.to(torch.float32))
     for _, tree in norms:
-        parts.append(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                         for leaf in tree_leaves(tree)).reshape(1))
+        parts.append(sum(torch.sum(torch.square(leaf))
+                         for leaf in kept(tree)).reshape(1))
     total = group.all_reduce_sum(torch.cat(parts))
     devs, off = [], 0
     for leaves in rows:
@@ -285,13 +298,17 @@ def agent_metrics(losses: Optional[torch.Tensor] = None, consensus=(),
     if losses is not None:
         out["loss"] = torch.mean(total[off:off + n].to(losses.dtype))
         off += n
-    if devs:
-        dev_total = group.all_reduce_sum(torch.cat(devs))
-        for i, (name, _) in enumerate(consensus):
-            out[name] = dev_total[i]
-    for name, _ in norms:
-        out[name] = ref.sqrt_rn(total[off]) / math.sqrt(n)
-        off += 1
+    dev_total = group.all_reduce_sum(torch.cat(devs)) if devs else total[:0]
+    norm_sums = total[off:off + len(norms)]
+    if sharded is not None:
+        # the sums over the agents, summed over the model shards too
+        whole = group.all_reduce_sum(torch.cat([dev_total, norm_sums]),
+                                     axis="model")
+        dev_total, norm_sums = whole[:len(devs)], whole[len(devs):]
+    for i, (name, _) in enumerate(consensus):
+        out[name] = dev_total[i]
+    for j, (name, _) in enumerate(norms):
+        out[name] = ref.sqrt_rn(norm_sums[j]) / math.sqrt(n)
     return out
 
 

@@ -137,6 +137,12 @@ def smooth_factors(partials, rows: int, tau: float):
     ``RN(f32(tau) + norm)`` and the correctly rounded quotient (a tensor
     dividend: PyTorch computes ``float / tensor`` as
     ``tensor.reciprocal() * float``)."""
+    return sumsq_factors(row_sumsq(partials, rows), tau)
+
+
+def row_sumsq(partials, rows: int):
+    """Each row's sum of squares from its tiles' partials, in
+    :func:`smooth_factors`' fixed order -> ``(rows,)`` f32."""
     lanes = partials.view(rows, -1).to(_F32)
     lanes = torch.nn.functional.pad(lanes, (0, -lanes.shape[1] % 32))
     lanes = lanes.view(rows, -1, 32)
@@ -145,8 +151,14 @@ def smooth_factors(partials, rows: int, tau: float):
         s = s + lanes[:, j]
     for off in (16, 8, 4, 2, 1):
         s = s[:, :off] + s[:, off:2 * off]
-    t = torch.full_like(s[:, 0], tau)
-    return t / (t + sqrt_rn(s[:, 0]))
+    return s[:, 0]
+
+
+def sumsq_factors(s, tau: float):
+    """Definition 2's factor ``tau / (tau + sqrt(s))`` from a sum of
+    squares, as :func:`smooth_factors` finishes it."""
+    t = torch.full_like(s, tau)
+    return t / (t + sqrt_rn(s))
 
 
 def clip_planes_ref(planes, rows: int, tau: float, noise=None,

@@ -28,6 +28,19 @@ The backend follows a rule (:func:`transport_for`), never a fallback:
 staged through pinned host buffers when ranks share a card (NCCL refuses
 two ranks on one device).  ``backend="nccl"`` on a shared card raises.
 
+The model axis: on a ``("data", "model")`` or ``("pod", "data", "model")``
+grid an agent's replica is split over ``M = model_size`` ranks (its
+tensor-parallel shards, :mod:`repro_torch.nn.tensor_parallel`), ranks
+agent-major: ``rank = agent * M + model_index``.  ``shift``,
+``all_gather`` and ``all_reduce_sum`` then act along the agent axes among
+the ranks of one model index (each of them a process group of its own),
+as the reference's agent-axis collectives inside ``shard_map`` do; with
+``axis="model"`` ``all_gather`` and ``all_reduce_sum`` act among the ``M``
+ranks of one agent.  The census and the transport seconds count each
+axis apart (``model_census`` and ``model_transport_s`` for the model
+axis).  With ``M = 1`` the grid is the
+agent grid alone: the world is the agent group and nothing else is made.
+
 A group comes from torchrun's environment (:meth:`AgentGroup.from_env`) or
 from :func:`spawn_agents`, which starts ``world`` processes that meet
 through a ``file://`` store, runs ``fn(group, *args)`` in each and joins
@@ -59,6 +72,7 @@ from ..core.agents import agent_rows
 __all__ = ["AGENT_AXES", "AgentGroup", "transport_for", "spawn_agents"]
 
 AGENT_AXES = (("data",), ("pod", "data"))
+MODEL_AXIS = "model"
 
 
 def transport_for(device: torch.device, local_world: int,
@@ -96,14 +110,20 @@ def _byte_view(t: torch.Tensor) -> torch.Tensor:
 class AgentGroup:
     """One process's view of the agent grid.
 
-    ``index``: this agent's place on the grid, ``pod * data_size + data``
-    (the process group's rank).  ``sizes``: the grid's extent along each of
-    ``axes`` (``("data",)`` or ``("pod", "data")``).  ``census`` counts the
-    collectives this process issued by category, ``sent_nbytes`` the bytes
-    it put on the wire (a shift's message, a gather's contribution), and
-    ``transport_s`` the host seconds spent inside the transport's calls by
-    category (staging copies included; on gloo each call returns with its
-    data in place).
+    ``index``: this agent's place on the grid, ``pod * data_size + data``.
+    ``sizes``: the grid's extent along each of ``axes``.  ``axes`` may be
+    given with a trailing ``"model"`` (``("data", "model")``, ``("pod",
+    "data", "model")``): its extent becomes ``model_size`` and ``axes`` /
+    ``sizes`` keep the agent axes (``("data",)`` or ``("pod", "data")``).
+    ``model_index``: this rank's shard of its agent's replica; the
+    process group's rank is ``index * model_size + model_index``.
+    ``census`` counts the collectives this process issued along the agent
+    axes by category, ``sent_nbytes`` the bytes it put on the wire there
+    (a shift's message, a gather's contribution), and ``transport_s`` the
+    host seconds spent inside the transport's calls by category (staging
+    copies included; on gloo each call returns with its data in place);
+    ``model_census`` and ``model_transport_s`` the same along the model
+    axis.
     """
 
     index: int
@@ -112,42 +132,71 @@ class AgentGroup:
     device: torch.device
     backend: str
     staged: bool
+    model_size: int = 1
+    model_index: int = 0
     census: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     sent_nbytes: int = 0
     transport_s: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    model_census: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    model_transport_s: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
     _pinned: Dict[tuple, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
+    # process groups: the agent axes among this model index's ranks (None:
+    # the world, M = 1) and this agent's M ranks (None when M = 1)
+    _agent_pg: Any = dataclasses.field(default=None, repr=False)
+    _model_pg: Any = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
-        if tuple(self.axes) not in AGENT_AXES:
-            raise ValueError(f"agent axes must be one of {AGENT_AXES}; got "
+        axes, sizes = tuple(self.axes), tuple(self.sizes)
+        if len(sizes) != len(axes):
+            raise ValueError(f"grid sizes {sizes} do not match axes {axes}")
+        if axes and axes[-1] == MODEL_AXIS:
+            if self.model_size not in (1, sizes[-1]):
+                raise ValueError(f"model_size {self.model_size} but the "
+                                 f"grid's model axis is {sizes[-1]}")
+            self.model_size = int(sizes[-1])
+            axes, sizes = axes[:-1], sizes[:-1]
+        if axes not in AGENT_AXES:
+            raise ValueError(f"agent axes must be one of {AGENT_AXES} (with "
+                             f"an optional trailing 'model'); got "
                              f"{self.axes}")
-        if len(self.sizes) != len(self.axes):
-            raise ValueError(f"grid sizes {self.sizes} do not match axes "
-                             f"{self.axes}")
-        self.axes, self.sizes = tuple(self.axes), tuple(self.sizes)
+        if self.model_size < 1 or not 0 <= self.model_index < self.model_size:
+            raise ValueError(f"model index {self.model_index} outside a "
+                             f"model axis of {self.model_size}")
+        self.axes, self.sizes = axes, sizes
         self.device = torch.device(self.device)
 
     @classmethod
     def from_env(cls, grid: Optional[Sequence[int]] = None, device=None,
-                 backend: Optional[str] = None,
-                 timeout_s: float = 600.0) -> "AgentGroup":
+                 backend: Optional[str] = None, timeout_s: float = 600.0,
+                 model: int = 1) -> "AgentGroup":
         """The group of a ``torchrun`` launch (``env://``: ``RANK``,
         ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
         ``MASTER_PORT``).  ``grid``: ``(pod, data)`` sizes, or None for one
-        ``data`` axis over the world.  ``device``: "cuda" (the default) or
-        "cpu"."""
+        ``data`` axis over the world's agents.  ``model``: the model axis
+        (ranks an agent).  ``device``: "cuda" (the default) or "cpu"."""
         rank = int(os.environ["RANK"])
         world = int(os.environ["WORLD_SIZE"])
         local_rank = int(os.environ.get("LOCAL_RANK", rank))
         local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         return _join(rank, world, local_rank, local_world, grid,
                      "cuda" if device is None else device, backend,
-                     "env://", timeout_s)
+                     "env://", timeout_s, model)
 
     # -- the grid ------------------------------------------------------------
+
+    @property
+    def rank(self) -> int:
+        """This process's rank: agent-major, ``index * model_size +
+        model_index``."""
+        return self.index * self.model_size + self.model_index
+
+    def _rank_of(self, agent: int) -> int:
+        return agent * self.model_size + self.model_index
 
     @property
     def n_agents(self) -> int:
@@ -239,8 +288,8 @@ class AgentGroup:
         msg, meta = self._pack(tensors, "send")
         recv = (self._host("recv", msg.numel()) if self.staged
                 else torch.empty_like(msg))
-        dst = self.neighbour(direction, axis)
-        src = self.neighbour(-direction, axis)
+        dst = self._rank_of(self.neighbour(direction, axis))
+        src = self._rank_of(self.neighbour(-direction, axis))
         reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, msg, dst),
                                        dist.P2POp(dist.irecv, recv, src)])
         for req in reqs:
@@ -251,50 +300,68 @@ class AgentGroup:
         self.transport_s["collective-permute"] += time.perf_counter() - t0
         return out
 
-    def all_gather(self, tensors: Sequence[torch.Tensor]
-                   ) -> List[torch.Tensor]:
-        """Every agent's ``tensors``, each stacked on a new leading axis of
-        ``n_agents`` in agent order, in one all-gather."""
+    def _axis(self, axis: Optional[str]):
+        """(process group, members, tag prefix, census, seconds) of the
+        agent axes (``axis`` None) or of the model axis."""
+        if axis is None:
+            return (self._agent_pg, self.n_agents, "", self.census,
+                    self.transport_s)
+        if axis != MODEL_AXIS:
+            raise ValueError(f"collectives run along the agent axes (None) "
+                             f"or {MODEL_AXIS!r}; got {axis!r}")
+        if self.model_size == 1:
+            raise ValueError("this grid has no model axis (model_size 1)")
+        return (self._model_pg, self.model_size, "m-", self.model_census,
+                self.model_transport_s)
+
+    def all_gather(self, tensors: Sequence[torch.Tensor],
+                   axis: Optional[str] = None) -> List[torch.Tensor]:
+        """Every agent's ``tensors`` (``axis="model"``: every model
+        shard's of this agent), each stacked on a new leading axis in grid
+        order, in one all-gather."""
         t0 = time.perf_counter()
-        msg, meta = self._pack(tensors, "send")
-        n = self.n_agents
+        pg, n, tag, census, seconds = self._axis(axis)
+        msg, meta = self._pack(tensors, tag + "send")
         if self.staged:
-            out = self._host("gather", n * msg.numel()).view(n, -1)
-            dist.all_gather(list(out.unbind(0)), msg)
+            out = self._host(tag + "gather", n * msg.numel()).view(n, -1)
+            dist.all_gather(list(out.unbind(0)), msg, group=pg)
             out = out.to(self.device)
         elif self.backend == "nccl":
             out = torch.empty((n, msg.numel()), dtype=torch.uint8,
                               device=msg.device)
-            dist.all_gather_into_tensor(out, msg)
+            dist.all_gather_into_tensor(out, msg, group=pg)
         else:
             out = torch.empty((n, msg.numel()), dtype=torch.uint8,
                               device=msg.device)
-            dist.all_gather(list(out.unbind(0)), msg)
-        self.census["all-gather"] += 1
-        self.sent_nbytes += msg.numel()
+            dist.all_gather(list(out.unbind(0)), msg, group=pg)
+        census["all-gather"] += 1
+        if axis is None:
+            self.sent_nbytes += msg.numel()
         res, off = [], 0
         for dtype, shape, nbytes in meta:
             res.append(out[:, off:off + nbytes].contiguous().view(dtype)
                        .reshape((n,) + shape))
             off += nbytes
-        self.transport_s["all-gather"] += time.perf_counter() - t0
+        seconds["all-gather"] += time.perf_counter() - t0
         return res
 
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over every agent (f32 or f64), on ``x``'s
-        device."""
+    def all_reduce_sum(self, x: torch.Tensor,
+                       axis: Optional[str] = None) -> torch.Tensor:
+        """The sum of ``x`` over every agent (``axis="model"``: over this
+        agent's model shards), f32 or f64, on ``x``'s device."""
         t0 = time.perf_counter()
+        pg, _, tag, census, seconds = self._axis(axis)
         if self.staged:
-            host = self._host("reduce", x.numel() * x.element_size())
+            host = self._host(tag + "reduce", x.numel() * x.element_size())
             host = host.view(x.dtype).view(x.shape)
             host.copy_(x.detach())
-            dist.all_reduce(host)
+            dist.all_reduce(host, group=pg)
             out = host.to(x.device)
         else:
             out = x.detach().clone()
-            dist.all_reduce(out)
-        self.census["all-reduce"] += 1
-        self.transport_s["all-reduce"] += time.perf_counter() - t0
+            dist.all_reduce(out, group=pg)
+        census["all-reduce"] += 1
+        seconds["all-reduce"] += time.perf_counter() - t0
         return out
 
 
@@ -304,7 +371,7 @@ class AgentGroup:
 
 def _join(rank: int, world: int, local_rank: int, local_world: int,
           grid, device, backend, init_method: str,
-          timeout_s: float) -> AgentGroup:
+          timeout_s: float, model: int = 1) -> AgentGroup:
     device = torch.device(device)
     backend, staged = transport_for(device, local_world, backend)
     if device.type == "cuda":
@@ -312,17 +379,35 @@ def _join(rank: int, world: int, local_rank: int, local_world: int,
         device = torch.device("cuda", local_rank if not staged
                               else local_rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    sizes = (world,) if grid is None else tuple(int(s) for s in grid)
+    model = int(model)
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide the "
+                         f"world's {world} ranks")
+    sizes = ((world // model,) if grid is None
+             else tuple(int(s) for s in grid))
     axes = ("data",) if len(sizes) == 1 else ("pod", "data")
-    group = AgentGroup(index=rank, sizes=sizes, axes=axes, device=device,
-                       backend=backend, staged=staged)
-    if group.n_agents != world:
-        raise ValueError(f"grid {sizes} holds {group.n_agents} agents, the "
-                         f"world has {world} ranks")
+    group = AgentGroup(index=rank // model, sizes=sizes, axes=axes,
+                       device=device, backend=backend, staged=staged,
+                       model_size=model, model_index=rank % model)
+    if group.n_agents * model != world:
+        raise ValueError(f"grid {sizes} x model {model} holds "
+                         f"{group.n_agents * model} ranks, the world has "
+                         f"{world}")
     dist.init_process_group(
         backend, init_method=init_method, world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s),
         **({"device_id": device} if backend == "nccl" else {}))
+    if model > 1:
+        # every rank makes every group, in one order
+        n = group.n_agents
+        for m in range(model):
+            pg = dist.new_group([a * model + m for a in range(n)])
+            if m == group.model_index:
+                group._agent_pg = pg
+        for a in range(n):
+            pg = dist.new_group([a * model + m for m in range(model)])
+            if a == group.index:
+                group._model_pg = pg
     return group
 
 
@@ -341,13 +426,13 @@ def _to_host(obj):
 
 
 def _rank_main(rank, world, store, grid, device, backend, threads,
-               timeout_s, env, fn, args, results):
+               timeout_s, env, fn, args, results, model):
     try:
         os.environ.update(env)
         if threads:
             torch.set_num_threads(threads)
         group = _join(rank, world, rank, world, grid, device, backend,
-                      f"file://{store}", timeout_s)
+                      f"file://{store}", timeout_s, model)
         try:
             out = fn(group, *args)
             results.put((rank, "ok", pickle.dumps(_to_host(out))))
@@ -362,9 +447,11 @@ def spawn_agents(fn: Callable, world: int, args: Sequence[Any] = (), *,
                  grid: Optional[Sequence[int]] = None, device="cuda",
                  backend: Optional[str] = None, timeout_s: float = 120.0,
                  threads: Optional[int] = None,
-                 env: Optional[Dict[str, str]] = None) -> List[Any]:
+                 env: Optional[Dict[str, str]] = None,
+                 model: int = 1) -> List[Any]:
     """Run ``fn(group, *args)`` in ``world`` new processes, one agent
-    each, and return their results in rank order.
+    each (``model`` ranks each on a ``(data, model)`` grid: ``world`` is
+    ``n_agents * model``), and return their results in rank order.
 
     The ranks meet through a ``file://`` store in a fresh temporary
     directory (no ports).  ``fn`` must be importable by name (a module's
@@ -388,7 +475,7 @@ def spawn_agents(fn: Callable, world: int, args: Sequence[Any] = (), *,
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, world, store, grid, str(device), backend,
                                threads, timeout_s, dict(env or {}), fn,
-                               tuple(args), results))
+                               tuple(args), results, model))
              for r in range(world)]
     out: Dict[int, Any] = {}
     failure = None

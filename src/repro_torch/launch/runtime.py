@@ -144,15 +144,41 @@ def run_chunked(algo, source: BatchSource, state, seed: int, steps: int, *,
     return state, seed
 
 
-def gather_state(state, group):
+def gather_state(state, group, specs=None):
     """The one-card state from every rank's agent row: each tensor of
     ``state`` (this rank's ``(1, ...)`` rows) all-gathered along its agent
     axis in one collective, on every rank; the round counter and other
-    non-tensors as they are."""
+    non-tensors as they are.  On a grid with a model axis ``specs`` (the
+    parameters' tree of :class:`repro_torch.nn.module.Spec`, one replica's)
+    says which leaves of each parameter-shaped field of ``state`` are
+    sharded: those are then all-gathered over ``'model'`` (one more
+    collective) and joined along their sharded dimension."""
     leaves, treedef = tree_flatten(state)
     idx = [i for i, leaf in enumerate(leaves)
            if isinstance(leaf, torch.Tensor)]
     full = group.all_gather([leaves[i] for i in idx])
     for i, f in zip(idx, full):
         leaves[i] = f.reshape((group.n_agents,) + tuple(leaves[i].shape[1:]))
+    if specs is None or getattr(group, "model_size", 1) == 1:
+        return treedef.unflatten(leaves)
+    dims = _field_dims(state, specs)
+    sharded = [i for i, d in enumerate(dims) if d is not None]
+    parts = group.all_gather([leaves[i] for i in sharded], axis="model")
+    for i, p in zip(sharded, parts):
+        leaves[i] = torch.cat(list(p.unbind(0)), dim=dims[i] + 1)
     return treedef.unflatten(leaves)
+
+
+def _field_dims(state, specs):
+    """Per leaf of ``state``: the model-sharded dimension of its one-
+    replica leaf for the fields shaped like the parameters, else None."""
+    spec_leaves, spec_def = tree_flatten(specs)
+    fields = state if isinstance(state, tuple) else (state,)
+    dims = []
+    for field in fields:
+        leaves, tdef = tree_flatten(field)
+        if tdef == spec_def:
+            dims += [s.model_dim for s in spec_leaves]
+        else:
+            dims += [None] * len(leaves)
+    return dims

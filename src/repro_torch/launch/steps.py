@@ -17,9 +17,16 @@ eta 1e-3, f32 EF planes unless ``plane_dtype`` says bf16, and
 With ``group=`` (an :class:`repro_torch.launch.mesh.AgentGroup`, the
 reference's agent axes of its mesh) every agent is a process: the rank's
 state and batch are its agent's row and the gossip executors ship its
-buffers across the group.  The reference's model axis (tensor-parallel
-leaves, its shardings and shard-local compressor) is ROADMAP queue 1 item
-12(c); its prefill and serve steps and the launch tooling item 14.
+buffers across the group.  On a ``(data, model)`` grid (``group.model_size
+= M > 1``) each agent's replica is split over its M ranks as the
+reference's PartitionSpecs say, for the dense family: the bundle is the
+tensor-parallel one (:func:`repro_torch.models.build_model` ``group=``),
+the leaf specs go to ``api.build`` (per-shard planes, the cross-shard
+clip), and ``local_compress`` picks the reference's shard-local compressor
+(:func:`make_shard_local_compress`) over the whole-leaf one.  The other
+families' tensor-parallel forward, the fleet axis and the server
+algorithms across processes are ROADMAP queue 1 item 12(c); the prefill
+and serve steps and the launch tooling item 14.
 """
 
 from __future__ import annotations
@@ -30,10 +37,56 @@ from typing import Any, Optional
 import torch
 
 from .. import api
+from ..core.agents import model_shard
+from ..core.comm_round import compress_stacked
+from ..core.compression import Compressor
 from ..core.porter import PorterConfig
 from ..models import ModelBundle, ModelConfig, build_model
+from ..nn.module import leaf_specs, prepend_axis_specs
+from ..tree import tree_flatten, tree_leaves
 
-__all__ = ["TrainSetup", "build_train_step"]
+__all__ = ["TrainSetup", "build_train_step", "make_shard_local_compress",
+           "shard_local_on_one_card"]
+
+
+def make_shard_local_compress(comp: Compressor):
+    """Shard-local compression (``src/repro/launch/steps.py:38-70``): each
+    rank compresses its own shard of every leaf, per agent row, so the
+    selection never crosses a shard boundary (per-shard top-k is block
+    top-k with shard-sized blocks, still a rho-compressor).  Only
+    deterministic compressors, as in the reference: a randomized one would
+    need per-shard draws."""
+    if not comp.deterministic:
+        raise ValueError("shard-local compression needs a deterministic "
+                         "compressor (top_k / block_top_k)")
+
+    def compress(gen, tree):
+        del gen      # deterministic
+        return compress_stacked(comp, None, tree)
+
+    return compress
+
+
+def shard_local_on_one_card(compress, specs, model_size: int):
+    """What a shard-local ``compress(gen, tree)`` gives on a grid with a
+    model axis of ``model_size``, computed with every agent on one card:
+    each leaf of the all-agents tree cut into its model shards (``specs``:
+    one replica's :class:`repro_torch.nn.module.Spec` tree), ``compress``
+    applied to each shard's tree, the shards joined (a replicated leaf
+    compressed once).  Deterministic compressors only."""
+    dims = [s.model_dim for s in tree_leaves(specs)]
+
+    def fn(gen, tree):
+        leaves, treedef = tree_flatten(tree)
+        shards = [tree_leaves(compress(gen, treedef.unflatten([
+            model_shard(leaf, None if d is None else d + 1, m, model_size)
+            for leaf, d in zip(leaves, dims)]))) for m in range(model_size)]
+        return treedef.unflatten([
+            shards[0][i] if d is None else
+            torch.cat([s[i] for s in shards], dim=d + 1)
+            for i, d in enumerate(dims)])
+
+    return fn
 
 
 @dataclasses.dataclass
@@ -74,8 +127,10 @@ def build_train_step(
     comm_backend: str = "auto",
     fleet: bool = False,
     gossip_mode: str = "dense",
+    wire: str = "dense",
     device=None,
     group=None,
+    local_compress: bool = False,
 ) -> TrainSetup:
     """The train step of ``cfg`` over ``n_agents`` agents on ``device``
     (cuda unless given; the group's device under ``group``).
@@ -87,23 +142,40 @@ def build_train_step(
     ``remat_policy`` None, 'full' or 'dots' (:mod:`repro_torch.core.remat`);
     ``fleet`` mixes all agents on one axis (:mod:`repro_torch.core.fleet`);
     ``gossip_mode`` 'dense', 'ring' or 'packed' picks the gossip executor
-    (:func:`repro_torch.core.gossip.make_mixer`), as the reference's knob.
-    ``group``: one agent a rank (``n_agents`` ranks); ``init_state`` then
-    returns this rank's row, and a batch source built with the same group
-    (``data.batch_source(..., group=)``) feeds its step.
+    (:func:`repro_torch.core.gossip.make_mixer`), as the reference's knob;
+    ``wire`` 'dense' or 'packed_bits' (the codec executors under 'ring' or
+    'packed'), the reference's knob too.
+    ``group``: one agent a rank (``n_agents`` ranks), or ``M`` ranks an
+    agent on a grid with a model axis; ``init_state`` then returns this
+    rank's row (of its shard), and a batch source built with the same
+    group (``data.batch_source(..., group=)``) feeds its step, every model
+    rank of an agent the agent's batch.  ``local_compress`` (the
+    reference's knob, on a model axis and the dense wire): each rank
+    compresses its shard; else the compressor sees each whole leaf (one
+    all-gather over ``'model'`` a compression).  Under
+    ``wire="packed_bits"`` the codec packs each shard's windows either way.
     """
     if device is None:
         device = "cuda" if group is None else group.device
     device = torch.device(device)
-    bundle = build_model(cfg, device=device)
+    bundle = build_model(cfg, device=device, group=group)
+    specs = None
+    if group is not None and group.model_size > 1:
+        axes = group.axes if len(group.axes) > 1 else group.axes[0]
+        specs = prepend_axis_specs(leaf_specs(bundle), axes)
     algo_name = api.VARIANT_TO_ALGO.get(variant, variant)
     spec = api.ExperimentSpec(
         algo=algo_name, n_agents=n_agents, topology=topology_kind,
         topology_weights="metropolis", topology_schedule=topology_schedule,
         compressor=compressor_name, frac=frac, comm_backend=comm_backend,
         eta=eta, tau=tau, sigma_p=sigma_p, plane_dtype=plane_dtype,
-        remat_policy=remat_policy, fleet=fleet, gossip_mode=gossip_mode)
-    algo = api.build(spec, bundle.loss, device=device, group=group)
+        remat_policy=remat_policy, fleet=fleet, gossip_mode=gossip_mode,
+        wire=wire)
+    compress_fn = None
+    if local_compress and specs is not None:
+        compress_fn = make_shard_local_compress(api.resolve_compressor(spec))
+    algo = api.build(spec, bundle.loss, device=device, group=group,
+                     leaf_specs=specs, compress_fn=compress_fn)
     return TrainSetup(cfg=cfg, bundle=bundle, algorithm=algo,
                       n_agents=n_agents, porter_cfg=algo.config,
                       device=device)

@@ -147,22 +147,31 @@ def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, lead=()):
     return p
 
 
-def _ffn(p, cfg: ModelConfig, h):
+def _ffn(p, cfg: ModelConfig, h, model=None):
     """The FFN's output and the MoE loss (0 for an MLP)."""
     if cfg.n_experts > 0:
         return M.moe(p["ffn"], cfg.moe_cfg(), h)
-    return M.mlp(p["ffn"], cfg.mlp_cfg(), h), torch.zeros(
+    return M.mlp(p["ffn"], cfg.mlp_cfg(), h, model), torch.zeros(
         (), dtype=torch.float32, device=h.device)
 
 
 def decoder_layer_seq(p, cfg: ModelConfig, x, positions, mode="causal",
                       prefix_len: int = 0, collect_cache: bool = False,
                       cache_dtype=torch.bfloat16,
-                      window: Optional[int] = "cfg"):
+                      window: Optional[int] = "cfg", model=None):
     """Attention under ``mode`` (and the window, ``"cfg"`` the config's),
     then the FFN.  Returns (x, cache or None, aux): the cache is {k, v}
-    (GQA) or {ckv, krope} (MLA) in ``cache_dtype``; aux the MoE loss."""
+    (GQA) or {ckv, krope} (MLA) in ``cache_dtype``; aux the MoE loss.
+
+    ``model``: a group with a model axis; ``p`` is this rank's shard, the
+    GQA attention and the MLP run tensor-parallel and the norms (whole on
+    every rank) replicated.  MLA and MoE layers refuse it (ROADMAP queue 1
+    item 12(c))."""
     _, norm = _norm_fns(cfg)
+    if model is not None and (cfg.mla or cfg.n_experts > 0):
+        raise ValueError(
+            "a tensor-parallel MLA or MoE layer (expert-parallel dispatch) "
+            "is not ported: ROADMAP queue 1 item 12(c)")
     h = norm(p["ln1"], x)
     if cfg.mla:
         y, ckv, krope = A.mla_attention_latent(p["attn"], cfg.mla_cfg(), h,
@@ -171,12 +180,12 @@ def decoder_layer_seq(p, cfg: ModelConfig, x, positions, mode="causal",
     else:
         y, k, v = A.attention_kv(p["attn"], cfg.attn_cfg(window), h,
                                  positions, mode, prefix_len,
-                                 q_chunk=cfg.q_chunk)
+                                 q_chunk=cfg.q_chunk, model=model)
         cache = {"k": k, "v": v}
     cache = ({n: t.to(cache_dtype) for n, t in cache.items()}
              if collect_cache else None)
     x = x + y
-    y, aux = _ffn(p, cfg, norm(p["ln2"], x))
+    y, aux = _ffn(p, cfg, norm(p["ln2"], x), model)
     return x + y, cache, aux
 
 

@@ -26,8 +26,19 @@ over that axis.  ``init``'s ``leaf`` is the hook of a
     encdec : {"frames": (B, S_enc, F), "tokens": (B, S_dec)}
 
 The modality frontends are stubs, as in the reference: ``patches`` and
-``frames`` arrive as precomputed embeddings.  The reference's sharding
-specs are dropped (one card), so ``init`` returns the parameters alone.
+``frames`` arrive as precomputed embeddings.  ``init`` returns the
+parameters alone; each leaf's reference PartitionSpec comes from
+:func:`repro_torch.nn.module.leaf_specs` (the embedding and an untied head
+vocab-parallel when the vocab divides by :data:`MODEL_AXIS_SIZE`, as in
+the reference).
+
+Tensor parallelism (``build_model(cfg, group=)``, the group's
+``model_size`` M > 1): the dense family's bundle holds this rank's shard of
+every sharded leaf (``init`` draws each full leaf and keeps the slice, so
+the shards are the one-card parameters') and its ``loss`` runs
+tensor-parallel (:mod:`repro_torch.nn.tensor_parallel`); such a bundle
+trains and does not serve.  Every other family refuses a model axis
+(ROADMAP queue 1 item 12(c)).
 
 ``loss`` is the reference's: the mean next-token cross-entropy of
 ``forward``'s logits (a decoder's plus ``0.01 * aux / n_layers``, the MoE
@@ -48,13 +59,15 @@ from typing import Callable
 import torch
 
 from ..nn import ssm as S
+from ..nn import tensor_parallel as TP
 from ..nn.module import (Hooked, cross_entropy_loss, dense, embedding,
-                         init_dense, init_embedding)
+                         init_dense, init_embedding, leaf_specs)
 from ..tree import tree_map
 from . import blocks as B
 from .blocks import ModelConfig
 
-__all__ = ["ModelConfig", "ModelBundle", "build_model", "cast_for_serving"]
+__all__ = ["ModelConfig", "ModelBundle", "build_model", "cast_for_serving",
+           "MODEL_AXIS_SIZE", "vocab_parallel"]
 
 
 @dataclasses.dataclass
@@ -77,11 +90,28 @@ def _logits(cfg: ModelConfig, params, x):
     return dense(params["head"], x)
 
 
+# The reference's production tensor-parallel axis size: the embedding and
+# an untied head are vocab-parallel when the vocab divides by it, else
+# their d_model axis is sharded (vocab 73,448, 256,206, 257,216).
+MODEL_AXIS_SIZE = 16
+
+
+def vocab_parallel(cfg: ModelConfig) -> bool:
+    """The reference's rule: shard the vocab when it divides by
+    :data:`MODEL_AXIS_SIZE`."""
+    return cfg.vocab % MODEL_AXIS_SIZE == 0
+
+
 def _init_common(cfg: ModelConfig, gen: torch.Generator):
-    p = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model),
+    vocab_ok = vocab_parallel(cfg)
+    p = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model,
+                                 spec=("model", None) if vocab_ok
+                                 else (None, "model")),
          "final_norm": B._norm_fns(cfg)[0](gen, cfg.d_model)}
     if not cfg.tie_embeddings:
-        p["head"] = init_dense(gen, cfg.d_model, cfg.vocab)
+        p["head"] = init_dense(gen, cfg.d_model, cfg.vocab,
+                               spec=(None, "model") if vocab_ok
+                               else ("model", None))
     return p
 
 
@@ -137,7 +167,7 @@ def _build_decoder(cfg: ModelConfig, cache_device) -> ModelBundle:
                                            lead=(cfg.n_layers,))
         if is_vlm:
             p["projector"] = init_dense(generator, cfg.frontend_dim,
-                                        cfg.d_model)
+                                        cfg.d_model, spec=(None, None))
         return p
 
     def _embed_inputs(params, batch):
@@ -380,7 +410,8 @@ def _build_encdec(cfg: ModelConfig, cache_device) -> ModelBundle:
 
     def init(generator: torch.Generator):
         p = _init_common(cfg, generator)
-        p["adapter"] = init_dense(generator, cfg.frontend_dim, cfg.d_model)
+        p["adapter"] = init_dense(generator, cfg.frontend_dim, cfg.d_model,
+                                  spec=(None, None))
         p["enc_layers"] = B.init_encoder_layer(generator, cfg,
                                                lead=(cfg.n_enc_layers,))
         p["dec_layers"] = B.init_xattn_decoder_layer(generator, cfg,
@@ -456,21 +487,74 @@ _BUNDLES = {
 
 
 def _hooked(init):
-    """``init(generator, leaf=None)``: the family's draw, each leaf through
-    ``leaf`` when given (:class:`repro_torch.nn.module.Hooked`)."""
-    def hooked(generator: torch.Generator, leaf=None):
-        return init(generator if leaf is None else Hooked(generator, leaf))
+    """``init(generator, leaf=None, with_spec=False)``: the family's draw,
+    each leaf through ``leaf`` when given
+    (:class:`repro_torch.nn.module.Hooked`)."""
+    def hooked(generator: torch.Generator, leaf=None, with_spec=False):
+        return init(generator if leaf is None
+                    else Hooked(generator, leaf, with_spec))
     return hooked
 
 
-def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
+def _tensor_parallel(cfg: ModelConfig, bundle: ModelBundle, model
+                     ) -> ModelBundle:
+    """The dense decoder's bundle on a model axis: ``init`` keeps this
+    rank's shard of every leaf drawn, ``loss`` the tensor-parallel
+    forward; serving refuses."""
+    if cfg.family != "dense" or cfg.mla or cfg.n_experts > 0:
+        kind = "MLA" if cfg.mla else ("MoE" if cfg.n_experts else cfg.family)
+        raise ValueError(
+            f"a model axis (model_size {model.model_size}) needs the "
+            f"{kind!r} tensor-parallel forward of {cfg.name}, which is not "
+            "ported: ROADMAP queue 1 item 12(c) (only the dense GQA "
+            "decoders run)")
+    if cfg.tie_embeddings or not vocab_parallel(cfg):
+        raise ValueError(
+            f"{cfg.name}: a tied or d_model-sharded embedding (vocab "
+            f"{cfg.vocab}) on a model axis is not ported: ROADMAP queue 1 "
+            "item 12(c) (the vocab-parallel, untied head runs)")
+    TP.check_shardable(leaf_specs(bundle), model.model_size)
+    TP.local_heads(cfg.n_heads, cfg.n_kv_heads, model)
+    _, norm = B._norm_fns(cfg)
+    plain_init = bundle.init
+
+    def init(generator, leaf=None, with_spec=False):
+        if with_spec:
+            return plain_init(generator, leaf, with_spec=True)
+        return plain_init(generator, TP.shard_hook(model, leaf),
+                          with_spec=True)
+
+    def loss(params, batch):
+        tokens = batch["tokens"]
+        x = TP.embedding(params["embed"], tokens, model, cfg.dtype)
+        pos = _positions(*x.shape[:2], device=x.device)
+        for i in range(cfg.n_layers):
+            x, _, _ = B.decoder_layer_seq(_layer(params["layers"], i), cfg,
+                                          x, pos, "causal", model=model)
+        z = TP.column_dense(params["head"], norm(params["final_norm"], x),
+                            model)
+        return TP.cross_entropy_loss(z[:, :-1], tokens[:, 1:], model)
+
+    def serving(*args, **kwargs):
+        raise ValueError("a tensor-parallel bundle trains; the port serves "
+                         "one replica on one card (build without group=)")
+
+    return ModelBundle(cfg, init, serving, loss, serving, serving, serving)
+
+
+def build_model(cfg: ModelConfig, device=None, group=None) -> ModelBundle:
     """The bundle of ``cfg``; ``device`` (cuda unless given) is where
-    ``init_cache`` puts a cache when it is not told otherwise."""
+    ``init_cache`` puts a cache when it is not told otherwise.  ``group``:
+    an agent group; with a model axis (``model_size > 1``) the dense
+    family's tensor-parallel bundle of this rank's shard."""
     if cfg.family not in _BUNDLES:
         raise ValueError(f"unknown family {cfg.family!r}")
     device = torch.device("cuda") if device is None else torch.device(device)
     bundle = _BUNDLES[cfg.family](cfg, device)
-    return dataclasses.replace(bundle, init=_hooked(bundle.init))
+    bundle = dataclasses.replace(bundle, init=_hooked(bundle.init))
+    if group is not None and getattr(group, "model_size", 1) > 1:
+        return _tensor_parallel(cfg, bundle, group)
+    return bundle
 
 
 # per family, the leaves the reference reads only through

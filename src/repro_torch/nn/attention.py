@@ -37,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from . import tensor_parallel as TP
 from .module import apply_rope, dense, init_dense, init_rmsnorm, rmsnorm
 
 __all__ = ["NEG_INF", "AttnConfig", "MLAConfig", "init_attention",
@@ -89,7 +90,7 @@ def init_attention(gen: torch.Generator, cfg: AttnConfig, lead=()):
         "wq": init_dense(gen, d, h * hd, bias=cfg.qkv_bias, lead=lead),
         "wk": init_dense(gen, d, hk * hd, bias=cfg.qkv_bias, lead=lead),
         "wv": init_dense(gen, d, hk * hd, bias=cfg.qkv_bias, lead=lead),
-        "wo": init_dense(gen, h * hd, d, lead=lead),
+        "wo": init_dense(gen, h * hd, d, lead=lead, spec=("model", None)),
     }
 
 
@@ -137,21 +138,34 @@ def make_mask(s: int, t: int, mode: str = "causal",
 
 def attention(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
               mode: str = "causal", prefix_len: int = 0,
-              q_chunk: Optional[int] = None) -> torch.Tensor:
+              q_chunk: Optional[int] = None, model=None) -> torch.Tensor:
     """Full-sequence attention.  x: (B,S,D); positions: (B,S).
 
     q_chunk: process queries in blocks of this size, so the materialized
-    score tensor is (B,H,q_chunk,S) instead of (B,H,S,S).
+    score tensor is (B,H,q_chunk,S) instead of (B,H,S,S).  ``model``: an
+    agent group with a model axis: ``p`` is this rank's shard and the
+    attention runs tensor-parallel (:func:`attention_kv`).
     """
-    return attention_kv(p, cfg, x, positions, mode, prefix_len, q_chunk)[0]
+    return attention_kv(p, cfg, x, positions, mode, prefix_len, q_chunk,
+                        model)[0]
 
 
 def attention_kv(p, cfg: AttnConfig, x, positions, mode: str = "causal",
-                 prefix_len: int = 0, q_chunk: Optional[int] = None):
+                 prefix_len: int = 0, q_chunk: Optional[int] = None,
+                 model=None):
     """:func:`attention`'s output and the keys (rotated) and values it
-    attended over, (B, S, Hk, hd) each: what a prefill caches."""
+    attended over, (B, S, Hk, hd) each: what a prefill caches.
+
+    Under ``model`` (a group whose ``model_size`` M > 1) the heads are
+    sharded: ``wq``, ``wk`` and ``wv`` column-parallel with whole heads
+    contiguous a shard (``hk % M == 0``), the attention over the rank's
+    heads (rotary, bias and window are head-local), ``wo`` row-parallel;
+    k and v are the rank's heads."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if model is not None:
+        h, hk = TP.local_heads(h, hk, model)
+        x = TP.copy_to_model(x, model)
     g = h // hk
     q = _split_heads(dense(p["wq"], x), h, hd)
     k = _split_heads(dense(p["wk"], x), hk, hd)
@@ -170,6 +184,8 @@ def attention_kv(p, cfg: AttnConfig, x, positions, mode: str = "causal",
         return _gqa_out(probs, v)
 
     out = _chunked(attend_block, q, s, q_chunk).reshape(b, s, h * hd)
+    if model is not None:
+        return TP.row_dense(p["wo"], out, model), k, v
     return dense(p["wo"], out), k, v
 
 
@@ -272,17 +288,20 @@ def init_mla(gen: torch.Generator, cfg: MLAConfig, lead=()):
     h = cfg.n_heads
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
     return {
-        "wdq": init_dense(gen, cfg.d_model, cfg.q_lora_rank, lead=lead),
+        "wdq": init_dense(gen, cfg.d_model, cfg.q_lora_rank, lead=lead,
+                          spec=(None, None)),
         "q_norm": init_rmsnorm(gen, cfg.q_lora_rank, lead=lead),
         "wuq": init_dense(gen, cfg.q_lora_rank, h * qk, lead=lead),
         "wdkv": init_dense(gen, cfg.d_model,
-                           cfg.kv_lora_rank + cfg.qk_rope_dim, lead=lead),
+                           cfg.kv_lora_rank + cfg.qk_rope_dim, lead=lead,
+                           spec=(None, None)),
         "kv_norm": init_rmsnorm(gen, cfg.kv_lora_rank, lead=lead),
         "wuk": init_dense(gen, cfg.kv_lora_rank, h * cfg.qk_nope_dim,
                           lead=lead),
         "wuv": init_dense(gen, cfg.kv_lora_rank, h * cfg.v_head_dim,
                           lead=lead),
-        "wo": init_dense(gen, h * cfg.v_head_dim, cfg.d_model, lead=lead),
+        "wo": init_dense(gen, h * cfg.v_head_dim, cfg.d_model, lead=lead,
+                         spec=("model", None)),
     }
 
 

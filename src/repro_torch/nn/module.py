@@ -9,25 +9,33 @@ reference builds with ``stack_inits``.  The draws are not the reference's
 (its ``jax.random`` keys have no PyTorch counterpart); the tests carry the
 reference's parameters across with :mod:`repro_torch.convert`.
 
-The reference's sharding specs (``Px``, ``P``) are dropped: the port runs
-on one card.
+Each ``init_*`` records the reference's PartitionSpec of its leaves
+(which dimension ``'model'`` shards, ``src/repro/nn/module.py``): a
+:class:`Spec` a leaf, with the same defaults (a dense layer's output
+columns, an embedding's rows).  :func:`leaf_specs` returns a bundle's
+specs as a tree without drawing anything, and :func:`prepend_axis_specs`
+adds the agent axes, as the reference's launcher does.
 
 An init given a :class:`Hooked` generator in place of a
 ``torch.Generator`` routes every draw of :func:`param` through ``hook(draw,
-shape, dtype)``: ``draw()`` makes the leaf as :func:`param` would, and the
-hook returns what stands in its place (a copy in another dtype, or a meta
-tensor when only the tree's shapes are wanted).  ``launch.serve.load``
-casts each leaf for serving as soon as it is drawn, so that a model's
-whole f32 parameters never exist at once.
+shape, dtype)`` (``hook(draw, shape, dtype, spec)`` when ``with_spec``):
+``draw()`` makes the leaf as :func:`param` would, and the hook returns what
+stands in its place (a copy in another dtype, a model shard's slice, a
+meta tensor when only the tree's shapes are wanted, or the leaf's
+:class:`Spec`).  ``launch.serve.load`` casts each leaf for serving as soon
+as it is drawn, so that a model's whole f32 parameters never exist at
+once.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["Hooked", "param", "init_dense", "dense", "init_embedding",
+from ..tree import tree_map
+
+__all__ = ["Hooked", "Spec", "leaf_specs", "prepend_axis_specs", "param", "init_dense", "dense", "init_embedding",
            "embedding", "init_rmsnorm", "rmsnorm", "init_layernorm",
            "layernorm", "rope_freqs", "apply_rope", "cross_entropy_loss"]
 
@@ -36,19 +44,73 @@ _F32 = torch.float32
 
 class Hooked(NamedTuple):
     """A generator whose :func:`param` draws go through ``hook`` (the
-    module docstring says how)."""
-    generator: torch.Generator
+    module docstring says how); ``with_spec`` hands the hook each leaf's
+    :class:`Spec` too."""
+    generator: Optional[torch.Generator]
     hook: Callable
+    with_spec: bool = False
+
+
+class Spec:
+    """A leaf's PartitionSpec (the reference's ``P``): one entry an axis
+    of the leaf, each None (replicated), a mesh axis name or a tuple of
+    names; ``shape`` is the one-replica leaf's shape (the agent axes that
+    :func:`prepend_axis_specs` adds have no extent in it).  Two specs are
+    equal when their entries are."""
+
+    __slots__ = ("entries", "shape")
+
+    def __init__(self, *entries, shape: Optional[Tuple[int, ...]] = None):
+        self.entries = tuple(entries)
+        self.shape = None if shape is None else tuple(shape)
+
+    def __eq__(self, other):
+        return isinstance(other, Spec) and self.entries == other.entries
+
+    def __repr__(self):
+        return f"Spec{self.entries!r}"
+
+    def _names(self, entry):
+        return () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+
+    @property
+    def model_dim(self) -> Optional[int]:
+        """The leaf dimension sharded over ``'model'``, or None."""
+        for i, entry in enumerate(self.entries):
+            if "model" in self._names(entry):
+                return i
+        return None
+
+
+def leaf_specs(bundle) -> Any:
+    """The reference's PartitionSpec of every parameter of ``bundle`` as
+    a tree of :class:`Spec` (the reference's ``abstract_init(bundle)[1]``),
+    from the family's ``init`` with every draw replaced by its spec."""
+    return bundle.init(None, lambda draw, shape, dtype, spec: spec,
+                       with_spec=True)
+
+
+def prepend_axis_specs(specs, axes) -> Any:
+    """``specs`` with ``axes`` (the agent axes, an entry) put first."""
+    return tree_map(lambda s: Spec(axes, *s.entries, shape=s.shape), specs)
 
 
 def param(gen, shape: Sequence[int], scale: float = 1.0, dtype=_F32,
-          mode: str = "normal") -> torch.Tensor:
+          mode: str = "normal", spec: Sequence = ()) -> torch.Tensor:
     """``scale * N(0, 1)``, ``scale * U(-1, 1)``, zeros or ones, drawn on
-    the generator's device (a :class:`Hooked` one through its hook)."""
+    the generator's device (a :class:`Hooked` one through its hook).
+    ``spec``: the reference's PartitionSpec of the trailing axes; the
+    leading ``lead`` axes of a stack are replicated."""
     shape = tuple(shape)
     if isinstance(gen, Hooked):
-        return gen.hook(lambda: _draw(gen.generator, shape, scale, dtype,
-                                      mode), shape, dtype)
+        draw = lambda: _draw(gen.generator, shape, scale, dtype, mode)
+        if gen.with_spec:
+            spec = tuple(spec)
+            full = Spec(*((None,) * (len(shape) - len(spec)) + spec),
+                        shape=shape)
+            return gen.hook(draw, shape, dtype, full)
+        return gen.hook(draw, shape, dtype)
     return _draw(gen, shape, scale, dtype, mode)
 
 
@@ -68,11 +130,13 @@ def _draw(gen, shape, scale, dtype, mode):
 
 
 def init_dense(gen, d_in: int, d_out: int, bias: bool = False,
-               scale: Optional[float] = None, dtype=_F32, lead=()):
+               scale: Optional[float] = None, dtype=_F32, lead=(),
+               spec=(None, "model")):
     scale = scale if scale is not None else 1.0 / d_in ** 0.5
-    p = {"w": param(gen, (*lead, d_in, d_out), scale, dtype)}
+    p = {"w": param(gen, (*lead, d_in, d_out), scale, dtype, spec=spec)}
     if bias:
-        p["b"] = param(gen, (*lead, d_out), 0.0, dtype, mode="zeros")
+        p["b"] = param(gen, (*lead, d_out), 0.0, dtype, mode="zeros",
+                       spec=(spec[-1],))
     return p
 
 
@@ -83,8 +147,9 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def init_embedding(gen, vocab: int, d: int, dtype=_F32, lead=()):
-    return {"table": param(gen, (*lead, vocab, d), 0.02, dtype)}
+def init_embedding(gen, vocab: int, d: int, dtype=_F32, lead=(),
+                   spec=("model", None)):
+    return {"table": param(gen, (*lead, vocab, d), 0.02, dtype, spec=spec)}
 
 
 def embedding(p, tokens: torch.Tensor, dtype=_F32) -> torch.Tensor:

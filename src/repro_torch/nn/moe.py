@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import tensor_parallel as TP
 from .module import dense, init_dense, param
 
 __all__ = ["MlpConfig", "init_mlp", "mlp", "MoeConfig", "init_moe", "moe",
@@ -54,18 +55,26 @@ def _act(name: str, x):
 def init_mlp(gen: torch.Generator, cfg: MlpConfig, lead=()):
     gated = cfg.activation in ("silu", "gelu")
     p = {"w_in": init_dense(gen, cfg.d_model, cfg.d_ff, lead=lead),
-         "w_out": init_dense(gen, cfg.d_ff, cfg.d_model, lead=lead)}
+         "w_out": init_dense(gen, cfg.d_ff, cfg.d_model, lead=lead,
+                             spec=("model", None))}
     if gated:
         p["w_gate"] = init_dense(gen, cfg.d_model, cfg.d_ff, lead=lead)
     return p
 
 
-def mlp(p, cfg: MlpConfig, x):
+def mlp(p, cfg: MlpConfig, x, model=None):
+    """The (gated) MLP.  Under ``model`` (a group with a model axis) ``p``
+    is this rank's shard: ``w_gate`` and ``w_in`` column-parallel, ``w_out``
+    row-parallel."""
+    if model is not None:
+        x = TP.copy_to_model(x, model)
     if "w_gate" in p:
         h = _act(cfg.activation, dense(p["w_gate"], x)) * dense(p["w_in"], x)
     else:
         act = "gelu" if cfg.activation == "gelu_plain" else cfg.activation
         h = _act(act, dense(p["w_in"], x))
+    if model is not None:
+        return TP.row_dense(p["w_out"], h, model)
     return dense(p["w_out"], h)
 
 
@@ -85,15 +94,27 @@ class MoeConfig:
     dense_d_ff: Optional[int] = None  # hidden of the residual MLP
     expert_parallel_threshold: int = 16
 
+    @property
+    def expert_spec(self):
+        """The reference's spec of the expert stacks: expert-parallel from
+        ``expert_parallel_threshold`` experts, else ffn-parallel."""
+        if self.n_experts >= self.expert_parallel_threshold:
+            return ("model", None, None)
+        return (None, None, "model")
+
 
 def init_moe(gen: torch.Generator, cfg: MoeConfig, lead=()):
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     scale = 1.0 / math.sqrt(d)
+    sp = cfg.expert_spec
+    sp_out = (sp[0], sp[2], sp[1]) if sp[0] is None else ("model", None, None)
     p = {
-        "router": init_dense(gen, d, e, scale=scale, lead=lead),
-        "w_gate": param(gen, (*lead, e, d, f), scale),
-        "w_in": param(gen, (*lead, e, d, f), scale),
-        "w_out": param(gen, (*lead, e, f, d), 1.0 / math.sqrt(f)),
+        "router": init_dense(gen, d, e, scale=scale, lead=lead,
+                             spec=(None, None)),
+        "w_gate": param(gen, (*lead, e, d, f), scale, spec=sp),
+        "w_in": param(gen, (*lead, e, d, f), scale, spec=sp),
+        "w_out": param(gen, (*lead, e, f, d), 1.0 / math.sqrt(f),
+                       spec=sp_out),
     }
     if cfg.dense_residual:
         p["dense_mlp"] = init_mlp(

@@ -75,17 +75,19 @@ def init_rwkv6_block(gen: torch.Generator, cfg: Rwkv6Config, lead=()):
         "wv": init_dense(gen, d, d, lead=lead),
         "wg": init_dense(gen, d, d, lead=lead),
         "w0": param(gen, (*lead, d), 0.5, mode="uniform"),
-        "w_lora_a": init_dense(gen, d, cfg.decay_lora, lead=lead),
+        "w_lora_a": init_dense(gen, d, cfg.decay_lora, lead=lead,
+                               spec=(None, None)),
         "w_lora_b": init_dense(gen, cfg.decay_lora, d, scale=0.01,
                                lead=lead),
-        "u": param(gen, (*lead, h, n), 0.3, mode="uniform"),
+        "u": param(gen, (*lead, h, n), 0.3, mode="uniform",
+                   spec=("model", None)),
         "out_norm": init_layernorm(gen, d, lead=lead),
-        "wo": init_dense(gen, d, d, lead=lead),
+        "wo": init_dense(gen, d, d, lead=lead, spec=("model", None)),
         # --- channel mix ---
         "mu_c": param(gen, (*lead, 2, d), 0.5, mode="uniform"),
         "ck": init_dense(gen, d, f, lead=lead),
-        "cr": init_dense(gen, d, d, lead=lead),
-        "cv": init_dense(gen, f, d, lead=lead),
+        "cr": init_dense(gen, d, d, lead=lead, spec=(None, None)),
+        "cv": init_dense(gen, f, d, lead=lead, spec=("model", None)),
     }
 
 
@@ -198,13 +200,16 @@ def init_mamba2_block(gen: torch.Generator, cfg: Mamba2Config, lead=()):
         # in_proj -> [z (di), x (di), B (n), C (n), dt (h)]
         "w_in": init_dense(gen, d, 2 * di + 2 * n + h, lead=lead),
         "conv_w": param(gen, (*lead, cfg.d_conv, conv_ch),
-                        1.0 / cfg.d_conv ** 0.5),
-        "conv_b": param(gen, (*lead, conv_ch), 0.0, mode="zeros"),
-        "a_log": param(gen, (*lead, h), 0.5, mode="uniform"),
-        "dt_bias": param(gen, (*lead, h), 0.5, mode="uniform"),
-        "d_skip": param(gen, (*lead, h), 1.0, mode="ones"),
+                        1.0 / cfg.d_conv ** 0.5, spec=(None, "model")),
+        "conv_b": param(gen, (*lead, conv_ch), 0.0, mode="zeros",
+                        spec=("model",)),
+        "a_log": param(gen, (*lead, h), 0.5, mode="uniform",
+                       spec=("model",)),
+        "dt_bias": param(gen, (*lead, h), 0.5, mode="uniform",
+                         spec=("model",)),
+        "d_skip": param(gen, (*lead, h), 1.0, mode="ones", spec=("model",)),
         "out_norm": init_layernorm(gen, di, lead=lead),
-        "w_out": init_dense(gen, di, d, lead=lead),
+        "w_out": init_dense(gen, di, d, lead=lead, spec=("model", None)),
     }
 
 

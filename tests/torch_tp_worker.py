@@ -1,0 +1,385 @@
+"""Rank programs of the model-axis tests (not a test module).
+
+``tests/test_torch_tp_train.py`` and ``tests/test_torch_tp_m4.py`` start
+their ranks on a ``(data, model)`` grid with
+:func:`repro_torch.launch.mesh.spawn_agents` (``model=M``), which imports
+this module by name in each rank.  It imports only ``repro_torch``,
+``numpy`` and ``torch``.  Every rank builds the same global inputs from a
+seed, runs the port's one-card path on them and the tensor-parallel path
+on its own block, and reports what it saw; the test files assert.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch import api, data
+from repro_torch.configs import get_smoke
+from repro_torch.core import clipping
+from repro_torch.core import wire_formats as WF
+from repro_torch.core.agents import model_shard
+from repro_torch.core.comm_round import CommRound
+from repro_torch.core.compression import make_compressor
+from repro_torch.core.gossip import make_codec_compress
+from repro_torch.kernels import flatten as FL
+from repro_torch.launch import runtime, steps
+from repro_torch.models import build_model
+from repro_torch.nn import tensor_parallel as TP
+from repro_torch.nn.module import leaf_specs, prepend_axis_specs
+from repro_torch.tree import tree_leaves, tree_map
+
+ETA = 3e-2
+BATCH, SEQ = 2, 16
+
+
+def smoke(arch: str = "tinyllama-1.1b", **over):
+    """The f32 smoke config (with ``over``)."""
+    return dataclasses.replace(get_smoke(arch), dtype=torch.float32,
+                               remat=False, **over)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    if t.dtype in (torch.float32, torch.int32):
+        return t.view(torch.int32)
+    if t.dtype in (torch.bfloat16, torch.int16):
+        return t.view(torch.int16)
+    return t
+
+
+def _specs(cfg):
+    return leaf_specs(build_model(cfg, device="cpu"))
+
+
+def _shard(tree, specs, group, stacked: bool):
+    """This rank's block of a one-card tree (agent rows too if stacked)."""
+    off = 1 if stacked else 0
+    return tree_map(lambda a, s: model_shard(
+        group.rows(a) if stacked else a,
+        None if s.model_dim is None else s.model_dim + off,
+        group.model_index, group.model_size).contiguous(), tree, specs)
+
+
+def _max_rel(got, want):
+    """Per leaf max |got - want| / max |want|, the largest."""
+    out = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        out = max(out, float((a - b).abs().max()) / (scale or 1.0))
+    return out
+
+
+def _max_abs(got, want):
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _replicated_bitwise(group, tree, specs) -> bool:
+    """Whether every replicated leaf of this rank's ``tree`` is bitwise
+    the other model ranks'."""
+    reps = [leaf for leaf, s in zip(tree_leaves(tree), tree_leaves(specs))
+            if s.model_dim is None]
+    full = group.all_gather([bits(leaf) for leaf in reps], axis="model")
+    return all(all(torch.equal(f[0], f[m]) for m in range(1, f.shape[0]))
+               for f in full)
+
+
+# ---------------------------------------------------------------------------
+# the loss and gradient
+# ---------------------------------------------------------------------------
+
+def grads(group, cfg, np_params, tokens):
+    """The tensor-parallel loss and this rank's gradient block, from the
+    one-replica parameters ``np_params`` (numpy) and ``tokens`` (b, s),
+    through the agent vmap the algorithms take."""
+    bundle = build_model(cfg, device="cpu", group=group)
+    specs = _specs(cfg)
+    params = _shard(tree_map(torch.from_numpy, np_params), specs, group,
+                    False)
+    batch = {"tokens": torch.from_numpy(tokens)[None]}
+    g, loss = vmap(grad_and_value(bundle.loss))(
+        tree_map(lambda a: a[None], params), batch)
+    return {"loss": float(loss[0]),
+            "grads": tree_map(lambda a: a[0], g)}
+
+
+# ---------------------------------------------------------------------------
+# training rounds
+# ---------------------------------------------------------------------------
+
+def _setup(cfg, n, group, variant, plane, gossip, wire, local, comp,
+           compress_fn=None, sigma=0.0):
+    """The train step; with ``compress_fn`` its algorithm rebuilt with
+    that compression (the one-card twin of a shard-local run)."""
+    setup = steps.build_train_step(
+        cfg, n, variant=variant, compressor_name=comp, eta=ETA,
+        gossip_mode=gossip, plane_dtype=plane, device="cpu", group=group,
+        local_compress=local, sigma_p=sigma, wire=wire)
+    if compress_fn is None:
+        return setup
+    return dataclasses.replace(setup, algorithm=api.build(
+        setup.algorithm.spec, setup.bundle.loss, device="cpu",
+        compress_fn=compress_fn))
+
+
+def _run(setup, cfg, n, group, rounds):
+    state = setup.init_state(torch.Generator().manual_seed(0))
+    source = data.batch_source(cfg, n, BATCH, SEQ, device="cpu", group=group)
+    metrics = []
+    state, _ = runtime.run_chunked(
+        setup.algorithm, source, state, 0, rounds, chunk=1,
+        on_chunk=lambda t0, t1, st, m: metrics.append(
+            {k: float(v[0]) for k, v in m.items()}))
+    return state, metrics
+
+
+def train(group, variant="gc", plane=None, gossip="ring", wire="dense",
+          local=False, comp="top_k", rounds=1, arch="tinyllama-1.1b",
+          over=()):
+    """``rounds`` rounds of ``variant`` on the grid against all agents in
+    this process (the one-card compressor: the whole-leaf one, or the
+    per-shard one when ``local`` or under a codec).  Returns x's largest
+    difference and the metrics, the replicated leaves' agreement across
+    the model ranks, the census and the bytes shipped."""
+    cfg = smoke(arch, **dict(over))
+    n = group.n_agents
+    specs = _specs(cfg)
+    sigma = 0.05 if variant == "dp" else 0.0
+    fn = None
+    if local or wire == "packed_bits":
+        base = (make_codec_compress(WF.make_wire_format(comp, frac=0.05))
+                if wire == "packed_bits"
+                else steps.make_shard_local_compress(
+                    make_compressor(comp, frac=0.05)))
+        fn = steps.shard_local_on_one_card(base, specs, group.model_size)
+    one = _setup(cfg, n, None, variant, plane, "dense" if wire != "dense"
+                 else gossip, "dense", False, comp, fn, sigma)
+    proc = _setup(cfg, n, group, variant, plane, gossip, wire, local, comp,
+                  sigma=sigma)
+    s1, m1 = _run(one, cfg, n, None, rounds)
+    group.census.clear()
+    group.model_census.clear()
+    s2, m2 = _run(proc, cfg, n, group, rounds)
+    census = (dict(group.census), dict(group.model_census))
+    full = runtime.gather_state(s2, group, specs)
+    mixer = proc.algorithm.engine.mixer
+    eng = proc.algorithm.engine
+    model, rep = _byte_split(eng, s2.q_x, specs, gossip, wire, n)
+    return dict(
+        x_diff=_max_abs(full.x, s1.x),
+        metrics_one=m1, metrics_proc=m2,
+        replicated=all(_replicated_bitwise(group, getattr(s2, f), specs)
+                       for f in ("x", "v", "q_x", "m_x", "q_v", "m_v",
+                                 "g_prev")),
+        census=census, budget=dict(mixer.budget.per_leaf),
+        n_leaves=len(tree_leaves(s2.x)),
+        shipped=int(mixer.shipped_nbytes), model_bytes=model,
+        replicated_bytes=rep,
+        windows=eng._packed_windows(s2.x),
+        finite=all(bool(torch.isfinite(leaf).all())
+                   for leaf in tree_leaves(s2.x)))
+
+
+def _byte_split(eng, tree, specs, gossip, wire, n):
+    """The reference's byte model of one exchange of ``tree`` (the whole
+    replica: ``d`` of every whole leaf, packed windows per leaf and model
+    shard) and the bytes one rank's executor ships for the replicated
+    leaves alone, which every model rank ships."""
+    leaves = tree_leaves(tree)
+    rep = [leaf for leaf, s in zip(leaves, tree_leaves(specs))
+           if s.model_dim is None]
+    db = leaves[0].element_size() if eng.plane_dtype is None else 2
+    links = n if gossip in ("dense", "packed") else (1 if n == 2 else 2)
+    if wire == "packed_bits":
+        per = WF.measured_pack_nbytes(eng.mixer.wire_codec, WF.PACK_BLOCK)
+        win = sum(-(-leaf[0].numel() // WF.PACK_BLOCK) for leaf in rep)
+        return float(eng.wire_bytes_model(tree)), links * win * per
+    if gossip == "packed":
+        k_b = WF.topk_keep(eng.mixer.wire_frac)
+        win = sum(-(-leaf[0].numel() // WF.PACK_BLOCK) for leaf in rep)
+        return float(eng.wire_bytes(tree)), links * win * k_b * (db + 4)
+    d = sum(leaf[0].numel() * (1 if s.model_dim is None
+                               else eng.sharded.group.model_size)
+            for leaf, s in zip(leaves, tree_leaves(specs)))
+    from repro_torch.core.gossip import gossip_wire_bytes
+    return (gossip_wire_bytes(gossip, n, d, dtype_bytes=db),
+            links * sum(leaf[0].numel() for leaf in rep) * db)
+
+
+def train_cases(group):
+    """The (data 2, model 2) cases of ``tests/test_torch_tp_train.py``."""
+    out = {}
+    for variant in ("gc", "dp"):
+        out[variant] = train(group, variant)
+    out["gc-5"] = train(group, "gc", rounds=5, plane="bf16")
+    out["gc-local-block"] = train(group, "gc", local=True,
+                                  comp="block_top_k")
+    for gossip in ("dense", "packed"):
+        out[f"gc-{gossip}"] = train(group, "gc", gossip=gossip)
+    for gossip in ("ring", "packed"):
+        out[f"gc-{gossip}-codec"] = train(group, "gc", gossip=gossip,
+                                          wire="packed_bits")
+    out["gc-chatglm3"] = train(group, "gc", arch="chatglm3-6b")
+    out["gc-danube"] = train(group, "gc", arch="h2o-danube-3-4b")
+    out["ef"] = ef_case(group)
+    out["faults"] = fault_cases(group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the ef updates on per-shard planes
+# ---------------------------------------------------------------------------
+
+def _tree(cfg, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return tree_map(lambda s: torch.from_numpy(rng.standard_normal(
+        (n,) + s.shape).astype(np.float32)).to(dtype), _specs(cfg))
+
+
+def ef_case(group):
+    """``track_update`` / ``step_update`` on this rank's per-shard planes
+    (bf16 EF buffers, the SR words from ``sr_draw``) against the one-card
+    engine's on all agents' whole leaves: bitwise, block for block."""
+    cfg = smoke()
+    n, specs = group.n_agents, _specs(cfg)
+    axes = group.axes[0]
+    sharded = FL.sharded_spec(group, prepend_axis_specs(specs, axes))
+    comp = make_compressor("top_k", frac=0.05)
+    one = CommRound(comp, mixer=None, backend="kernel",
+                    plane_dtype=torch.bfloat16)
+    mine = dataclasses.replace(one, sharded=sharded)
+    bf = torch.bfloat16
+    q, m, v, c, wc, g, gp = (_tree(cfg, n, bf, s) for s in range(7))
+    x = _tree(cfg, n, torch.float32, 9)
+    sh = lambda t: _shard(t, specs, group, True)   # noqa: E731
+    out = {}
+    gen = lambda: torch.Generator().manual_seed(5)   # noqa: E731
+    bits1 = one.sr_draw(gen(), (q, m, v))
+    bits2 = mine.sr_draw(gen(), tuple(sh(t) for t in (q, m, v)))
+    r1 = one.track_update(c, wc, v, q, m, g, gp, 0.3, sr_bits=bits1)
+    r2 = mine.track_update(*(sh(t) for t in (c, wc, v, q, m, g, gp)), 0.3,
+                           sr_bits=bits2)
+    out["track"] = all(torch.equal(bits(a), bits(b)) for a, b in zip(
+        tree_leaves([sh(t) for t in r1]), tree_leaves(list(r2))))
+    bits1 = one.sr_draw(gen(), (q, m, x))
+    bits2 = mine.sr_draw(gen(), tuple(sh(t) for t in (q, m, x)))
+    r1 = one.step_update(c, wc, x, q, m, v, 0.3, ETA, sr_bits=bits1)
+    r2 = mine.step_update(*(sh(t) for t in (c, wc, x, q, m, v)), 0.3, ETA,
+                          sr_bits=bits2)
+    out["step"] = all(torch.equal(bits(a), bits(b)) for a, b in zip(
+        tree_leaves([sh(t) for t in r1]), tree_leaves(list(r2))))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# planted faults
+# ---------------------------------------------------------------------------
+
+class _NoModelReduce:
+    """The group with its model-axis all-reduce skipped (a shard-local
+    clip norm)."""
+
+    def __init__(self, group):
+        self._g = group
+
+    def __getattr__(self, name):
+        return getattr(self._g, name)
+
+    def all_reduce_sum(self, x, axis=None):
+        if axis == "model":
+            return x.clone()
+        return self._g.all_reduce_sum(x, axis)
+
+
+def fault_cases(group):
+    """Each check's reading, sound and with its fault planted: the
+    cross-shard clip against the one-card clip (fault: the norm of the
+    rank's shard alone), the DP noise against the one-card draw's block
+    (fault: every rank's own draw at its local shape, from the same
+    seed), the gradient against the one-card gradient (fault: the copy's
+    backward all-reduce skipped)."""
+    cfg = smoke()
+    n, specs = group.n_agents, _specs(cfg)
+    sharded = FL.sharded_spec(group, prepend_axis_specs(specs,
+                                                        group.axes[0]))
+    g = _tree(cfg, n, torch.float32, 11)
+    want = _shard(clipping.stacked_clip(g, 1.0), specs, group, True)
+    out = {"clip": _max_rel(clipping.stacked_clip(
+        _shard(g, specs, group, True), 1.0, sharded=sharded), want)}
+    bad = sharded._replace(group=_NoModelReduce(group))
+    out["clip_fault"] = _max_rel(clipping.stacked_clip(
+        _shard(g, specs, group, True), 1.0, sharded=bad), want)
+
+    # the DP noise: z drawn inside dp_gradient, read back through sigma
+    bundle = build_model(cfg, device="cpu")
+    tp = build_model(cfg, device="cpu", group=group)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    x1 = tree_map(lambda a: a[None].expand((n,) + a.shape).clone(), params)
+    x2 = _shard(x1, specs, group, True)
+    tokens = {"tokens": torch.randint(0, cfg.vocab, (n, 2, 8),
+                                      generator=torch.Generator()
+                                      .manual_seed(3))}
+    mine_batch = tree_map(group.rows, tokens)
+    sigma = 1e4       # the noise dominates the mean
+    z1, _ = clipping.dp_gradient(bundle.loss, x1, tokens, 1.0, sigma,
+                                 gen=torch.Generator().manual_seed(4),
+                                 agents="stacked")
+    z2, _ = clipping.dp_gradient(tp.loss, x2, mine_batch, 1.0, sigma,
+                                 gen=torch.Generator().manual_seed(4),
+                                 agents="stacked", group=group,
+                                 sharded=sharded)
+    want = _shard(z1, specs, group, True)
+    out["noise"] = _max_rel(z2, want)
+    gen = torch.Generator().manual_seed(4)
+    own = tree_map(lambda a: torch.randn(a.shape, generator=gen), z2)
+    out["noise_fault"] = _max_rel(
+        tree_map(lambda a, z: a * 0 + sigma * z, z2, own), want)
+
+    # the gradient, with and without the backward all-reduce
+    def grad_err():
+        g1, _ = vmap(grad_and_value(bundle.loss))(x1, tokens)
+        g2, _ = vmap(grad_and_value(tp.loss))(x2, mine_batch)
+        return _max_rel(g2, _shard(g1, specs, group, True))
+
+    out["grad"] = grad_err()
+    saved = TP._Copy.backward
+    TP._Copy.backward = staticmethod(lambda ctx, g: (g, None))
+    try:
+        out["grad_fault"] = grad_err()
+    finally:
+        TP._Copy.backward = saved
+    return out
+
+
+def m4_cases(group):
+    """The (data 2, model 4) cases of ``tests/test_torch_tp_m4.py``."""
+    over = (("n_kv_heads", 4),)
+    return {"gc": train(group, "gc", over=over),
+            "dp": train(group, "dp", over=over),
+            "gc-local-bf16": train(group, "gc", plane="bf16", local=True,
+                                   comp="block_top_k", rounds=3, over=over)}
+
+
+def m1_case(group):
+    """A (data 2) grid built with the model-axis code: the LM smoke
+    config through ``build_train_step(group=)`` against all agents on one
+    card, bitwise, with no model axis made."""
+    cfg = smoke()
+    n = group.n_agents
+    one = _setup(cfg, n, None, "gc", "bf16", "ring", "dense", False, "top_k")
+    proc = _setup(cfg, n, group, "gc", "bf16", "ring", "dense", False,
+                  "top_k")
+    s1, m1 = _run(one, cfg, n, None, 2)
+    s2, m2 = _run(proc, cfg, n, group, 2)
+    full = runtime.gather_state(s2, group)
+    same = all(torch.equal(bits(a), bits(b)) for a, b in
+               zip(tree_leaves(full), tree_leaves(s1))
+               if isinstance(a, torch.Tensor))
+    return dict(bitwise=same, model_size=group.model_size,
+                axes=group.axes, sharded=proc.algorithm.engine
+                .sharded is None, loss=(m1[-1]["loss"], m2[-1]["loss"]))
