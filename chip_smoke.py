@@ -234,9 +234,30 @@ of the ``repro`` package.  Phases, each printing its own lines:
    agents as ranks: the first round forced with the one-card cell's
    gradient against its x at 1e-6 (bitwise), the free first round within
    ``AGENTS_LM["free_tol"]`` (a rank's x left unchanged by the round
-   outside it), 5 plain packed and 2 ring rounds (ms a round, the
+   outside it), 2 plain packed and 1 ring rounds (ms a round, the
    transport's share), the ranks' peaks summed within 76 GB.  A rank
    that fails or hangs fails the phase.
+16. The model axis (``[model-axis]`` lines): tinyllama's smoke config on
+   a ``(data 2, model 2)`` grid of ranks, each agent's replica
+   tensor-parallel (the gradient against one card's, PORTER-GC on the
+   ring with the shard-local ``block_top_k`` and on the packed codec, f32
+   and bf16, 20 rounds: the first round forced with the one-card clipped
+   gradient, the free run at round 10 against one card's with a planted
+   fault beyond the limit, launches a rank, one round's kernel calls
+   against their plain versions), then phase 12's LM cell on 4 x 2 ranks
+   (forced and free first rounds against one card with planted faults,
+   PORTER-GC and PORTER-DP rounds, one of each under the kernel checks,
+   ms a round, the transport's share per axis, the ranks' peaks).
+17. The rest of the decoder bundle on the model axis
+   (``[model-axis-families]`` lines): phase 16's smoke gates over 10
+   rounds on ``TP_FAMILIES`` (minicpm3's MLA, grok's ffn-parallel MoE,
+   arctic's expert-parallel MoE at 16 experts, paligemma's VLM with its
+   kv head split below a rank, and dp-csgp beside PORTER-GC there,
+   minicpm3 at vocab 500 with its d_model-sharded tied embedding), then
+   phase 16's LM gates on minicpm3-4b at full width (``TP_FAMILY_LM``: 2
+   of 62 layers, 2 agents x 2 model ranks).  Phase 16's smoke grid and
+   all of phase 17 run in one spawn of 2 x 2 ranks, which start up while
+   the one-card references are made.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -4628,7 +4649,9 @@ AGENTS_RUNS = {
 # card's four, products rounding to bf16 in another order; it lies between
 # the sound reading and that of a rank whose x the round left unchanged,
 # on an H100 80GB HBM3 (PERF.md, PR 28)
-AGENTS_LM = dict(ranks=4, packed=5, ring=2, tol=1e-6, free_tol=2e-5)
+# packed / ring: the timed rounds after the first, few to keep the whole
+# script within its time limit
+AGENTS_LM = dict(ranks=4, packed=2, ring=1, tol=1e-6, free_tol=2e-5)
 # the run whose rank-0 launches give each kernel's per-rank count
 AGENTS_LAUNCH_RUNS = {name: "porter-gc ring codec top_k f32" for name in
                       ("ef_track", "ef_step", "clip", "topk_pack",
@@ -5168,7 +5191,9 @@ TP_TIMEOUT_S = 300
 # another order.  Each limit lies between the sound reading and a planted
 # fault's (a missing forward / backward all-reduce) on an H100 80GB HBM3:
 # loss 1.65e-5 / 6.05e-2, gradient 1.95e-2 / 1.43 (PERF.md, PR 29)
-TP_LM = dict(model=2, gc=3, dp=1, tol=1e-6, loss_tol=1e-3, grad_tol=0.1,
+# gc / dp: the timed rounds after the first, few to keep the whole script
+# within its time limit
+TP_LM = dict(model=2, gc=1, dp=1, tol=1e-6, loss_tol=1e-3, grad_tol=0.1,
              mem_fraction=0.115)
 # the run whose rank-0 launches give each kernel's count a round on the
 # model axis (sr_cast: its roundings in the ef kernels' epilogue)
@@ -5305,13 +5330,16 @@ class _TpChecks(_LmChecks):
                 [c for c in self.calls if not c[3]])
 
 
-def _tp_launches(over, rounds, n_leaves):
-    """A rank's launches over ``rounds`` PORTER-GC rounds on a model axis:
-    the cross-shard clip's sumsq and scale (no fused clip), one ef_track
-    and one ef_step, five epilogue roundings under bf16 planes, and the
+def _tp_launches(over, rounds, n_leaves, chunks=1):
+    """A rank's launches over ``rounds`` rounds on a model axis: the
+    cross-shard clip's sumsq and scale (no fused clip; a DP round one of
+    each and one mean_noise a chunk of samples), one ef_track and one
+    ef_step, five epilogue roundings under bf16 planes, and the
     compressor's or codec's kernels for two exchanges."""
-    want = dict(sumsq=rounds, scale=rounds, clip=0, ef_track=rounds,
-                ef_step=rounds)
+    want = dict(sumsq=rounds * chunks, scale=rounds * chunks, clip=0,
+                ef_track=rounds, ef_step=rounds)
+    if over.get("variant") in ("dp", "csgp"):
+        want["mean_noise"] = rounds * chunks
     if over.get("plane_dtype") == "bf16":
         want["sr_epilogue"] = 5 * rounds
     if over.get("wire") == "packed_bits":
@@ -5321,30 +5349,37 @@ def _tp_launches(over, rounds, n_leaves):
     return want
 
 
-def tp_smoke_rank(group, ref_dir):
-    """One rank of phase 16's smoke spawn: the tensor-parallel gradient
-    against the one-card one, then every run of TP_RUNS: the first round
-    forced with the one-card clipped gradient, the free run with its
-    launches and its x at the gate round, the planted fault, and one round
-    under ``_TpChecks``."""
-    import torch
-    from repro_torch import configs, data
-    from repro_torch.kernels import ops, ref
+def _tp_dp_chunks(clipping, flatten, specs, model_size, batch):
+    """The chunks of samples a DP gradient takes on a rank's plane."""
+    local = sum(math.prod(s.shape) // (1 if s.model_dim is None
+                                       else model_size)
+                for s in specs)
+    return -(-batch // clipping.sample_chunk(1, -(-local // flatten.TILE),
+                                             batch))
+
+
+def _tp_smoke_cell(torch, group, cfg, runs, rounds, want):
+    """One smoke config on this rank: the tensor-parallel gradient against
+    the one-card one (``want``: the references of
+    :func:`_tp_smoke_refs`), then every run of ``runs``: the first round
+    forced with the one-card clipped gradient, the free run of ``rounds``
+    rounds with its launches and its x at the gate round, the planted
+    fault, and one round under ``_TpChecks``."""
+    from repro_torch import data
+    from repro_torch.core import clipping
+    from repro_torch.kernels import flatten, ops, ref
     from repro_torch.launch import runtime, steps
     from repro_torch.models import build_model
     from repro_torch.nn.module import leaf_specs
     from repro_torch.tree import tree_leaves, tree_map
     from torch.func import grad_and_value, vmap
     c, dev = TP_SMOKE, group.device
-    cfg = dataclasses.replace(configs.get_smoke(LM_ARCH),
-                              dtype=torch.float32)
     specs = leaf_specs(build_model(cfg, device=dev))
-    want = torch.load(f"{ref_dir}/smoke.pt")
     out = {}
     # the gradient
     tp = build_model(cfg, device=dev, group=group)
     params = tp.init(torch.Generator(device=dev).manual_seed(0))
-    batch = {"tokens": want["tokens"].to(dev)[None]}
+    batch = {k: v.to(dev)[None] for k, v in want["batch"].items()}
     g, loss = vmap(grad_and_value(tp.loss))(
         tree_map(lambda a: a[None], params), batch)
     g_want = _tp_shard(torch, want["grad"], specs, group, False)
@@ -5354,7 +5389,9 @@ def tp_smoke_rank(group, ref_dir):
                      / float(b.abs().max())
                      for a, b in zip(tree_leaves(g), tree_leaves(g_want))))
     del tp, params, g
-    for label, over in TP_RUNS.items():
+    chunks = _tp_dp_chunks(clipping, flatten, tree_leaves(specs),
+                           group.model_size, c["batch"])
+    for label, over in runs.items():
         rep = {}
         w = want["runs"][label]
 
@@ -5367,11 +5404,10 @@ def tp_smoke_rank(group, ref_dir):
                                    device=dev, group=group)
         init = lambda: setup.init_state(  # noqa: E731
             torch.Generator(device=dev).manual_seed(0))
-        # the first round forced with the one-card clipped gradient
-        state = init()
         gb, gs = runtime.round_generators(0, 0, dev)
+        # the first round forced with the one-card clipped gradient
         forced, _ = setup.step(
-            state, source(gb, 0), gs,
+            init(), source(gb, 0), gs,
             grad_override=(torch.zeros(1, device=dev), tree_map(
                 lambda a: a.to(dev), _tp_shard(torch, w["g"], specs, group,
                                                True))))
@@ -5383,29 +5419,41 @@ def tp_smoke_rank(group, ref_dir):
             bit_equal(torch, a.cpu(), b)
             for a, b in zip(tree_leaves(forced.x), tree_leaves(x1)))
         del forced
-        # the free run
-        kept = {}
+        # the free run (its state after round TP_GATE_ROUND // 2 kept for
+        # the planted fault below)
+        kept, k = {}, TP_GATE_ROUND // 2
+
+        def keep(t0, t1, st, m):
+            if t1 == k:
+                kept["mid"] = st
+            if t1 == TP_GATE_ROUND:
+                kept["x"] = tree_map(lambda a: a.clone(), st.x)
         state, losses, ms, launches = run_counted(
-            torch, ops, runtime, setup.algorithm, source, init(), TP_ROUNDS,
-            TP_GATE_ROUND // 2, on_chunk=lambda t0, t1, st, m: kept.update(
-                x=tree_map(lambda a: a.clone(), st.x))
-            if t1 == TP_GATE_ROUND else None)
+            torch, ops, runtime, setup.algorithm, source, init(), rounds, k,
+            on_chunk=keep)
         xg = _tp_shard(torch, w["x_gate"], specs, group, True)
+        fields = ["x", "v", "q_x", "m_x", "g_prev"]
         rep.update(losses=losses, ms=ms, launches=launches,
-                   want_launches=_tp_launches(over, TP_ROUNDS,
-                                              len(tree_leaves(state.x))),
+                   want_launches=_tp_launches(over, rounds,
+                                              len(tree_leaves(state.x)),
+                                              chunks),
                    gate_x_diff=max(
                        float((a.cpu().float() - b.float()).abs().max())
                        for a, b in zip(tree_leaves(kept["x"]),
                                        tree_leaves(xg))),
                    replicated=all(_tp_replicated_bitwise(
                        torch, group, getattr(state, f), specs, tree_leaves)
-                       for f in ("x", "v", "q_x", "m_x", "g_prev")))
+                       for f in fields))
+        if hasattr(state, "xw"):
+            # the push-sum weight planes, replicated on the model ranks
+            full = group.all_gather([getattr(state, f).view(torch.int32)
+                                     for f in ("xw", "q_w", "m_w")],
+                                    axis="model")
+            rep["weights_bitwise"] = all(torch.equal(f[0], f[m]) for f in full
+                                         for m in range(1, f.shape[0]))
         # the planted fault: agent 1's model rank 1 keeps its x shard at
-        # round TP_GATE_ROUND // 2
-        k = TP_GATE_ROUND // 2
-        st, _ = runtime.run_chunked(setup.algorithm, source, init(), 0, k,
-                                    chunk=k)
+        # round k, from the free run's state after round k
+        st = kept.pop("mid")
         before = st.x
         st, _ = runtime.run_chunked(setup.algorithm, source, st, 0, k + 1,
                                     chunk=1, start=k)
@@ -5421,33 +5469,39 @@ def tp_smoke_rank(group, ref_dir):
         # codec binds its kernels when it is built)
         with _TpChecks(torch, ops, ref) as checks:
             build().step(state, source(gb, 1), gs)
-        rep["checked"] = checks.report(f"rank {group.rank} {label}")
+        rep["checked"], bad = checks.tally()
+        if not rep["checked"] or bad:
+            raise AssertionError(f"rank {group.rank} {cfg.name} {label}: "
+                                 f"kernels differ from their plain versions "
+                                 f"on the shard operands: {bad}")
         out[label] = rep
     return out
 
 
-def phase_model_axis_smoke(torch, ops, runtime, steps, data, configs, mesh,
-                           models):
-    """Phase 16 (a): the smoke config's one-card references, then the
-    (data 2, model 2) spawn and its gates."""
-    import shutil
+def _tp_smoke_refs(torch, runtime, steps, data, models, cfg, runs):
+    """The one-card references of a smoke grid: the gradient and loss of
+    one replica on a seeded batch, and for each run of ``runs`` the
+    one-card twin's x after round 1 and after TP_GATE_ROUND, and its
+    first gradient."""
     from repro_torch.nn.module import leaf_specs
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
     from torch.func import grad_and_value
     c = TP_SMOKE
-    cfg = dataclasses.replace(configs.get_smoke(LM_ARCH),
-                              dtype=torch.float32)
     bundle = models.build_model(cfg, device=DEVICE)
     specs = leaf_specs(bundle)
     params = bundle.init(torch.Generator(device=DEVICE).manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab, (c["batch"], c["seq"]),
-                           generator=torch.Generator().manual_seed(1),
-                           dtype=torch.int32)
-    g, loss = grad_and_value(bundle.loss)(params,
-                                          {"tokens": tokens.to(DEVICE)})
-    ref_data = {"tokens": tokens, "loss": float(loss),
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (
+        c["batch"], c["seq"] - cfg.n_prefix), generator=gen,
+        dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(
+            (c["batch"], cfg.n_prefix, cfg.frontend_dim), generator=gen)
+    g, loss = grad_and_value(bundle.loss)(
+        params, {k: v.to(DEVICE) for k, v in batch.items()})
+    ref_data = {"batch": batch, "loss": float(loss),
                 "grad": tree_map(lambda a: a.cpu(), g), "runs": {}}
-    for label, over in TP_RUNS.items():
+    for label, over in runs.items():
         setup = _tp_one_card(steps, cfg, c["agents"], specs, c["model"],
                              over, DEVICE, eta=c["eta"], tau=c["tau"],
                              frac=c["frac"])
@@ -5463,20 +5517,18 @@ def phase_model_axis_smoke(torch, ops, runtime, steps, data, configs, mesh,
                                        start=1)
         run["x_gate"] = tree_map(lambda a: a.cpu(), state.x)
         ref_data["runs"][label] = run
-    ref_dir = ROOT / "build" / "model_axis"
-    ref_dir.mkdir(parents=True, exist_ok=True)
-    torch.save(ref_data, ref_dir / "smoke.pt")
-    try:
-        t0 = time.perf_counter()
-        ranks = mesh.spawn_agents(tp_smoke_rank, c["agents"] * c["model"],
-                                  (str(ref_dir),), model=c["model"],
-                                  device=DEVICE, timeout_s=TP_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(ref_dir, ignore_errors=True)
+    return ref_data
+
+
+def _tp_smoke_gates(tag, cfg, runs, rounds, ranks, ref_data, wall):
+    """Print a smoke grid's readings and fail on any gate: the gradient,
+    each run's forced first round, its free run against the limit and
+    the planted fault above it, the replicated leaves (and push-sum
+    weights), the launches a rank over ``rounds`` rounds."""
+    c = TP_SMOKE
     grad = {k: max(r["grad"][k] for r in ranks)
             for k in ("loss_diff", "grad_rel")}
-    print(f"[model-axis] smoke ({cfg.name} f32) on a (data {c['agents']}, "
+    print(f"[{tag}] smoke ({cfg.name} f32) on a (data {c['agents']}, "
           f"model {c['model']}) grid of {len(ranks)} ranks on one "
           f"{DEVICE} device ({TRANSPORT_NOTE[DEVICE]}), spawn to join "
           f"{wall:.1f} s; the tensor-parallel loss |diff| "
@@ -5484,45 +5536,99 @@ def phase_model_axis_smoke(torch, ops, runtime, steps, data, configs, mesh,
           f"{grad['grad_rel']} of its max magnitude (gates {c['tol']})")
     if not (grad["loss_diff"] <= c["tol"] * abs(ref_data["loss"])
             and grad["grad_rel"] <= c["tol"]):
-        raise AssertionError(f"model-axis: gradient {grad}")
+        raise AssertionError(f"{tag} {cfg.name}: gradient {grad}")
     report = {"grad": grad, "wall_s": wall}
-    for label, over in TP_RUNS.items():
+    for label, over in runs.items():
         reps = [r[label] for r in ranks]
         tol = TP_FREE_TOL["bf16" if over.get("plane_dtype") else "f32"]
         forced = max(r["forced_x_diff"] for r in reps)
         gate = max(r["gate_x_diff"] for r in reps)
         fault = max(r["fault_x_diff"] for r in reps)
         r0 = reps[0]
-        print(f"[model-axis] {label}: first round forced with the one-card "
-              f"clipped gradient: x max |diff| {forced} from the one-card "
-              f"round with the per-shard compressor (bitwise "
+        weights = ("" if "weights_bitwise" not in r0 else
+                   f"; push-sum weights bitwise across model ranks "
+                   f"{all(r['weights_bitwise'] for r in reps)}")
+        print(f"[{tag}] {cfg.name} {label}: first round forced with the "
+              f"one-card clipped gradient: x max |diff| {forced} from the "
+              f"one-card round with the per-shard compressor (bitwise "
               f"{all(r['forced_bitwise'] for r in reps)}, gate "
-              f"{c['forced_tol']}); free run x after round {TP_GATE_ROUND} "
-              f"{gate} (gate {tol}), the planted fault {fault}; "
-              f"{r0['ms']:.3f} ms/round on rank 0; loss "
+              f"{c['forced_tol']}); free run x "
+              f"after round {TP_GATE_ROUND} {gate} (gate {tol}), the planted "
+              f"fault {fault}; {r0['ms']:.3f} ms/round on rank 0; loss "
               f"{r0['losses'][0]:.6f} -> {r0['losses'][-1]:.6f}; replicated "
               f"leaves bitwise across model ranks "
-              f"{all(r['replicated'] for r in reps)}; rank-0 launches over "
-              f"{TP_ROUNDS} rounds {r0['launches']}; kernels checked on a "
-              f"round's shard operands {r0['checked']}")
+              f"{all(r['replicated'] for r in reps)}{weights}; rank-0 "
+              f"launches over {rounds} rounds {r0['launches']}; kernels "
+              f"checked on a round's shard operands {r0['checked']}")
         if not finite(r0["losses"]):
-            raise AssertionError(f"model-axis {label}: losses")
+            raise AssertionError(f"{tag} {label}: losses")
         if not forced <= c["forced_tol"]:
-            raise AssertionError(f"model-axis {label}: forced x {forced}")
+            raise AssertionError(f"{tag} {label}: forced x {forced}")
         if not gate <= tol < fault:
-            raise AssertionError(f"model-axis {label}: free x {gate}, fault "
+            raise AssertionError(f"{tag} {label}: free x {gate}, fault "
                                  f"{fault}, tolerance {tol}")
-        if not all(r["replicated"] for r in reps):
-            raise AssertionError(f"model-axis {label}: replicated leaves "
-                                 "differ across model ranks")
+        if not all(r["replicated"] and r.get("weights_bitwise", True)
+                   for r in reps):
+            raise AssertionError(f"{tag} {label}: replicated leaves or "
+                                 "weights differ across model ranks")
         for r in reps:
-            expect_launches(f"model-axis {label} rank", r["launches"],
+            expect_launches(f"{tag} {label} rank", r["launches"],
                             **r["want_launches"])
         report[label] = dict(forced_x_diff=forced, gate_x_diff=gate,
                              fault_x_diff=fault, ms=r0["ms"],
-                             launches=r0["launches"], rounds=TP_ROUNDS,
+                             launches=r0["launches"], rounds=rounds,
                              checked=r0["checked"])
     return report
+
+
+def _await_refs(ref_dir):
+    """Block a rank until its parent has written the one-card references
+    into ``ref_dir`` (:func:`_spawn_beside`): -> the seconds it waited."""
+    t0 = time.monotonic()
+    while not os.path.exists(os.path.join(ref_dir, "ready")):
+        if (os.path.exists(os.path.join(ref_dir, "failed"))
+                or time.monotonic() - t0 > TP_TIMEOUT_S):
+            raise RuntimeError(f"no one-card references in {ref_dir}")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _spawn_beside(mesh, fn, world, ref_dir, args, make_refs, **kw):
+    """Spawn ``world`` ranks of ``fn(group, ref_dir, *args)``, which wait
+    in :func:`_await_refs` before they touch the card, and meanwhile run
+    ``make_refs()`` here: the one-card references, written into
+    ``ref_dir``, their device memory freed before it returns.  The ranks
+    start up while the references are made.  -> (``make_refs()``'s
+    result, the ranks' results, seconds from spawn to join); ``kw`` go to
+    ``mesh.spawn_agents``."""
+    import shutil
+    import threading
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    box = {}
+
+    def spawn():
+        try:
+            box["ranks"] = mesh.spawn_agents(fn, world,
+                                             (str(ref_dir),) + tuple(args),
+                                             device=DEVICE, **kw)
+        except BaseException as e:   # raised below, on this thread
+            box["error"] = e
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=spawn, daemon=True)
+    thread.start()
+    try:
+        try:
+            refs = make_refs()
+        except BaseException:
+            (ref_dir / "failed").touch()
+            raise
+        (ref_dir / "ready").touch()
+    finally:
+        thread.join()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    if "error" in box:
+        raise box["error"]
+    return refs, box["ranks"], time.perf_counter() - t0
 
 
 def _tp_lm_rounds(torch, runtime, algo, source, state, start, rounds,
@@ -5553,18 +5659,28 @@ def _tp_rel(torch, got, want, tree_leaves):
                for a, b in zip(tree_leaves(got), tree_leaves(want)))
 
 
-def tp_lm_rank(group, ref_dir, sigma_p):
-    """One rank of phase 16's LM spawn: the full-width cell, its agent's
-    replica split over TP_LM["model"] ranks.  PORTER-GC (bf16 planes,
+def _tp_lm_cell(configs):
+    """Phase 16's full-width cell: phase 12's (LM_RUN, ``_lm_cfg``) with
+    TP_LM's model axis, rounds and limits."""
+    return dict(cfg=_lm_cfg(configs), tag="model-axis",
+                **{k: LM_RUN[k] for k in ("agents", "batch", "seq", "frac",
+                                          "eta", "tau")}, **TP_LM)
+
+
+def tp_lm_rank(group, ref_dir, sigma_p, cell):
+    """One rank of a full-width model-axis spawn (phase 16's cell, or
+    phase 17's): the cell's agent's replica split over ``cell["model"]``
+    ranks.  PORTER-GC (bf16 planes,
     ring, shard-local block_top_k): the first round forced with the
     one-card clipped gradient against the one-card round with the
     per-shard compressor; the clipped gradient at the first round's x and
     batch, sound and with each planted fault; then from a fresh init
-    1 + TP_LM["gc"] rounds (the first's loss and gradient against one
-    card's), PORTER-DP 1 + TP_LM["dp"], and for each one more round under
-    ``_TpChecks``."""
+    1 + ``cell["gc"]`` rounds (the first's loss and gradient against one
+    card's), PORTER-DP 1 + ``cell["dp"]``, and for each one more round
+    under ``_TpChecks``; it starts once :func:`_spawn_beside` has written
+    the references."""
     import torch
-    from repro_torch import configs, data
+    from repro_torch import data
     from repro_torch.core import clipping
     from repro_torch.core.porter import agent_metrics
     from repro_torch.kernels import flatten, ops, ref
@@ -5574,10 +5690,10 @@ def tp_lm_rank(group, ref_dir, sigma_p):
     from repro_torch.nn.module import leaf_specs
     from repro_torch.tree import tree_leaves, tree_map
     from torch.func import grad_and_value, vmap
-    c, dev = LM_RUN, group.device
-    cfg = _lm_cfg(configs)
+    _await_refs(ref_dir)
+    c, dev, cfg = cell, group.device, cell["cfg"]
     specs = leaf_specs(build_model(cfg, device=dev))
-    torch.cuda.set_per_process_memory_fraction(TP_LM["mem_fraction"], dev)
+    torch.cuda.set_per_process_memory_fraction(c["mem_fraction"], dev)
     torch.cuda.reset_peak_memory_stats()
     out = {}
     kw = dict(compressor_name="block_top_k", frac=c["frac"], eta=c["eta"],
@@ -5630,12 +5746,9 @@ def tp_lm_rank(group, ref_dir, sigma_p):
     del params, batch0
     torch.cuda.empty_cache()
     # a DP round's chunks of samples on this rank's plane
-    local = sum(math.prod(s.shape) // (1 if s.model_dim is None
-                                       else group.model_size)
-                for s in tree_leaves(specs))
-    c_dp = clipping.sample_chunk(1, -(-local // flatten.TILE), c["batch"])
-    out["dp_chunks"] = -(-c["batch"] // c_dp)
-    for variant, rounds in (("gc", TP_LM["gc"]), ("dp", TP_LM["dp"])):
+    out["dp_chunks"] = _tp_dp_chunks(clipping, flatten, tree_leaves(specs),
+                                     group.model_size, c["batch"])
+    for variant, rounds in (("gc", c["gc"]), ("dp", c["dp"])):
         if variant == "dp":
             setup = steps.build_train_step(cfg, c["agents"], variant="dp",
                                            sigma_p=sigma_p, **kw)
@@ -5672,23 +5785,18 @@ def tp_lm_rank(group, ref_dir, sigma_p):
     return out
 
 
-def phase_model_axis_lm(torch, ops, runtime, steps, data, configs, mesh,
-                        models, train, api):
-    """Phase 16 (b): phase 12's full-width cell with its 4 agents each
-    split over TP_LM["model"] ranks: the one-card round with the per-shard
-    compressor kept as the reference, then the 8 ranks."""
-    import shutil
+def _tp_lm_refs(torch, runtime, steps, data, models, c, ref_dir):
+    """A full-width cell's one-card round with the per-shard compressor,
+    each agent's x and clipped gradient written into ``ref_dir``: -> the
+    round's loss."""
     from repro_torch.nn.module import leaf_specs
-    from repro_torch.tree import tree_leaves, tree_map
-    c = LM_RUN
-    cfg = _lm_cfg(configs)
+    from repro_torch.tree import tree_map
+    cfg = c["cfg"]
     specs = leaf_specs(models.build_model(cfg, device=DEVICE))
-    ref_dir = ROOT / "build" / "model_axis_lm"
-    ref_dir.mkdir(parents=True, exist_ok=True)
     torch.cuda.empty_cache()
     over = dict(compressor_name="block_top_k", local_compress=True,
                 gossip_mode="ring", plane_dtype=LM_PLANE_DTYPE)
-    setup = _tp_one_card(steps, cfg, c["agents"], specs, TP_LM["model"],
+    setup = _tp_one_card(steps, cfg, c["agents"], specs, c["model"],
                          over, DEVICE, eta=c["eta"], tau=c["tau"],
                          frac=c["frac"])
     state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
@@ -5704,46 +5812,67 @@ def phase_model_axis_lm(torch, ops, runtime, steps, data, configs, mesh,
                    ref_dir / f"agent{i}.pt")
     del state, setup, source
     torch.cuda.empty_cache()
-    sigma_p = _lm_dp_sigma(train, api)
-    ranks_n = c["agents"] * TP_LM["model"]
-    try:
-        t0 = time.perf_counter()
-        ranks = mesh.spawn_agents(
-            tp_lm_rank, ranks_n, (str(ref_dir), sigma_p),
-            model=TP_LM["model"], device=DEVICE, timeout_s=TP_TIMEOUT_S,
-            env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
-        wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(ref_dir, ignore_errors=True)
+    return first[0]
+
+
+def _n_leaves(models, cfg):
+    """The number of parameter leaves of ``cfg``'s bundle."""
+    from repro_torch.nn.module import leaf_specs
+    from repro_torch.tree import tree_leaves
+    return len(tree_leaves(leaf_specs(models.build_model(cfg,
+                                                         device=DEVICE))))
+
+
+def phase_model_axis_lm(torch, runtime, steps, data, configs, mesh, models,
+                        train, api):
+    """Phase 16 (b): phase 12's full-width cell with its 4 agents each
+    split over TP_LM["model"] ranks; the one-card round with the
+    per-shard compressor, the reference, made while the ranks start."""
+    c = _tp_lm_cell(configs)
+    ref_dir = ROOT / "build" / "model_axis_lm"
+    first, ranks, wall = _spawn_beside(
+        mesh, tp_lm_rank, c["agents"] * c["model"], ref_dir,
+        (_lm_dp_sigma(train, api), c),
+        lambda: _tp_lm_refs(torch, runtime, steps, data, models, c, ref_dir),
+        model=c["model"], timeout_s=TP_TIMEOUT_S,
+        env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    return _tp_lm_gates(c, ranks, first, wall, _n_leaves(models, c["cfg"]))
+
+
+def _tp_lm_gates(c, ranks, first, wall, n_leaves):
+    """Print a full-width cell's readings and fail on any gate: ``first``
+    the one-card first round's loss, ``n_leaves`` the model's leaves."""
+    cfg, tag = c["cfg"], c["tag"]
+    ranks_n = len(ranks)
     peaks = [r["peak"] for r in ranks]
     forced = max(r["forced_x_diff"] for r in ranks)
     # the free first round's loss (relative) and clipped gradient (each
     # leaf's largest |diff| over its largest magnitude) against one card's,
     # the hand-made gradient's beside them, and each planted fault's
-    loss_rel = max(abs(r["gc"]["first_loss"] - first[0]) / abs(first[0])
+    loss_rel = max(abs(r["gc"]["first_loss"] - first) / abs(first)
                    for r in ranks)
     grad_rel = max(r["gc"]["first_grad_rel"] for r in ranks)
-    hand = (max(abs(r["hand_loss"] - first[0]) / abs(first[0])
+    hand = (max(abs(r["hand_loss"] - first) / abs(first)
                 for r in ranks), max(r["hand_grad_rel"] for r in ranks))
-    fault_loss = max(abs(r["fault_loss"][0] - first[0]) / abs(first[0])
+    fault_loss = max(abs(r["fault_loss"][0] - first) / abs(first)
                      for r in ranks)
     fault_grad = max(r["fault_grad"][1] for r in ranks)
-    print(f"[model-axis] LM cell ({cfg.name}, {cfg.n_layers} layers, "
-          f"{c['agents']} agents x model {TP_LM['model']} = {ranks_n} ranks, "
+    print(f"[{tag}] LM cell ({cfg.name}, {cfg.n_layers} layers, "
+          f"{c['agents']} agents x model {c['model']} = {ranks_n} ranks, "
           f"bf16 planes, ring, shard-local block_top_k): spawn to join "
           f"{wall:.1f} s; per-rank peak {peaks} B, sum {sum(peaks)} B "
           f"(gate {LM_PEAK_LIMIT:.0f}; reserved at most "
           f"{[r['reserved'] for r in ranks]} B, a rank's allocator capped "
-          f"at {TP_LM['mem_fraction']} of the card); first round forced "
+          f"at {c['mem_fraction']} of the card); first round forced "
           f"with the one-card clipped gradient: x max |diff| {forced} from "
           f"the "
           f"one-card round with the per-shard compressor (bitwise "
-          f"{all(r['forced_bitwise'] for r in ranks)}, gate {TP_LM['tol']})")
-    print(f"[model-axis] LM cell free first round against one card: loss "
-          f"{first[0]}, relative |diff| {loss_rel} (gate "
-          f"{TP_LM['loss_tol']}; a missing forward all-reduce "
+          f"{all(r['forced_bitwise'] for r in ranks)}, gate {c['tol']})")
+    print(f"[{tag}] LM cell free first round against one card: loss "
+          f"{first}, relative |diff| {loss_rel} (gate "
+          f"{c['loss_tol']}; a missing forward all-reduce "
           f"{fault_loss}); clipped gradient, each leaf's max |diff| over "
-          f"its max magnitude {grad_rel} (gate {TP_LM['grad_tol']}; a "
+          f"its max magnitude {grad_rel} (gate {c['grad_tol']}; a "
           f"missing backward all-reduce {fault_grad}); the same gradient by "
           f"hand: loss {hand[0]}, gradient {hand[1]}")
     out = {"peaks": peaks, "forced_x_diff": forced, "wall_s": wall,
@@ -5753,7 +5882,7 @@ def phase_model_axis_lm(torch, ops, runtime, steps, data, configs, mesh,
         r0 = ranks[0][variant]
         agent = {k: round(v, 4) for k, v in r0["agent_share"].items()}
         model = {k: round(v, 4) for k, v in r0["model_share"].items()}
-        print(f"[model-axis] LM cell porter-{variant}: "
+        print(f"[{tag}] LM cell porter-{variant}: "
               f"{len(r0['losses'])} rounds after the first, "
               f"{r0['ms']:.1f} ms/round on rank 0 "
               f"({', '.join(f'{r[variant]['ms']:.1f}' for r in ranks)} on "
@@ -5768,25 +5897,25 @@ def phase_model_axis_lm(torch, ops, runtime, steps, data, configs, mesh,
               f"calls on the {ranks_n} ranks, differing "
               f"{[r[variant]['checked_bad'] for r in ranks]})")
         if not finite([r0["first_loss"]] + r0["losses"]):
-            raise AssertionError(f"model-axis LM {variant}: losses")
+            raise AssertionError(f"{tag} LM {variant}: losses")
         if not all(r[variant]["replicated"] for r in ranks):
-            raise AssertionError(f"model-axis LM {variant}: replicated "
+            raise AssertionError(f"{tag} LM {variant}: replicated "
                                  "leaves differ across model ranks")
         chunks = ranks[0]["dp_chunks"] if variant == "dp" else 1
         want = dict(sumsq=chunks, scale=chunks, clip=0, ef_track=1,
                     ef_step=1, sr_epilogue=5,
-                    block_topk=2 * len(tree_leaves(specs)))
+                    block_topk=2 * n_leaves)
         if variant == "dp":
             want["mean_noise"] = chunks
         for r in ranks:
-            expect_launches(f"model-axis LM {variant} rank",
+            expect_launches(f"{tag} LM {variant} rank",
                             r[variant]["launches_first"], **want)
             checked = {k: v for k, v in want.items()
                        if k not in ("clip", "sr_epilogue")}
             if (r[variant]["checked_bad"]
                     or r[variant]["checked"] != checked):
                 raise AssertionError(
-                    f"model-axis LM {variant}: kernel calls against their "
+                    f"{tag} LM {variant}: kernel calls against their "
                     f"plain versions {r[variant]['checked']} (want "
                     f"{checked}), differing {r[variant]['checked_bad']}")
         out[variant] = dict(ms=r0["ms"], agent_share=r0["agent_share"],
@@ -5794,19 +5923,152 @@ def phase_model_axis_lm(torch, ops, runtime, steps, data, configs, mesh,
                             losses=r0["losses"],
                             launches_round=r0["launches_first"])
     if not sum(peaks) <= LM_PEAK_LIMIT:
-        raise AssertionError(f"model-axis LM: peaks {sum(peaks)}")
-    if not forced <= TP_LM["tol"]:
-        raise AssertionError(f"model-axis LM: forced round x {forced}")
-    if not (loss_rel <= TP_LM["loss_tol"] and grad_rel <= TP_LM["grad_tol"]
-            and hand[0] <= TP_LM["loss_tol"]
-            and hand[1] <= TP_LM["grad_tol"]):
-        raise AssertionError(f"model-axis LM: free first round loss "
+        raise AssertionError(f"{tag} LM: peaks {sum(peaks)}")
+    if not forced <= c["tol"]:
+        raise AssertionError(f"{tag} LM: forced round x {forced}")
+    if not (loss_rel <= c["loss_tol"] and grad_rel <= c["grad_tol"]
+            and hand[0] <= c["loss_tol"]
+            and hand[1] <= c["grad_tol"]):
+        raise AssertionError(f"{tag} LM: free first round loss "
                              f"{loss_rel} / {hand[0]}, gradient {grad_rel} / "
                              f"{hand[1]} against one card")
-    if fault_loss <= TP_LM["loss_tol"] or fault_grad <= TP_LM["grad_tol"]:
-        raise AssertionError(f"model-axis LM: a planted fault passes: loss "
+    if fault_loss <= c["loss_tol"] or fault_grad <= c["grad_tol"]:
+        raise AssertionError(f"{tag} LM: a planted fault passes: loss "
                              f"{fault_loss}, gradient {fault_grad}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the rest of the decoder bundle on the model axis (MLA, ffn- and
+# expert-parallel MoE, the VLM, tied and d_model-sharded embeddings) and
+# dp-csgp there
+# ---------------------------------------------------------------------------
+
+# name -> (arch, config overrides): each smoke config in f32 on phase 16's
+# (data 2, model 2) grid.  The smoke configs tie their embedding at vocab
+# 512 (vocab-parallel); arctic's smoke has 4 experts, which take the
+# ffn-parallel spec, so 16 give it the expert-parallel one; vocab 500 makes
+# minicpm3's embedding d_model-sharded, as its full vocab (73,448) is
+TP_FAMILIES = {
+    "minicpm3 mla": ("minicpm3-4b", {}),
+    "grok ffn-parallel": ("grok-1-314b", {}),
+    "arctic expert-parallel": ("arctic-480b", {"n_experts": 16}),
+    "paligemma vlm": ("paligemma-3b", {}),
+    "minicpm3 vocab 500": ("minicpm3-4b", {"vocab": 500}),
+}
+# every family runs phase 16's ring run; paligemma also dp-csgp on it
+TP_FAMILY_RUN = "ring block_top_k local f32"
+TP_FAMILY_CSGP = ("paligemma vlm", "dp-csgp ring block_top_k local f32",
+                  dict(TP_RUNS[TP_FAMILY_RUN], variant="csgp",
+                       sigma_p=DP_SIGMA))
+# the families' free runs end at the gate round
+TP_FAMILY_ROUNDS = TP_GATE_ROUND
+# the full-width cell: minicpm3-4b at its published width (d 2560, 40
+# heads, MLA ranks 768 / 256, vocab 73,448 d_model-sharded and tied), 2 of
+# its 62 layers (313,379,328 parameters, 159,400,448 a model rank), 2
+# agents x model 2 = 4 ranks, phase 12's batch, rounds and compressor and
+# phase 16's limits; each rank's allocator capped at mem_fraction of the
+# card
+TP_FAMILY_LM = dict(TP_LM, arch="minicpm3-4b", layers=2,
+                    params=313_379_328, agents=2, mem_fraction=0.2)
+# the one (data 2, model 2) spawn of phases 16 and 17 joins within this
+TP_GRID_TIMEOUT_S = 600
+
+
+def _tp_grid_cells(torch, configs):
+    """(name, f32 smoke config, runs, rounds) of every (data 2, model 2)
+    smoke grid: phase 16's (TP_RUNS over TP_ROUNDS), then every one of
+    TP_FAMILIES (over TP_FAMILY_ROUNDS)."""
+    cells = [(LM_ARCH, dataclasses.replace(configs.get_smoke(LM_ARCH),
+                                           dtype=torch.float32),
+              TP_RUNS, TP_ROUNDS)]
+    for name, (arch, over) in TP_FAMILIES.items():
+        cfg = dataclasses.replace(configs.get_smoke(arch),
+                                  dtype=torch.float32, **over)
+        runs = {TP_FAMILY_RUN: TP_RUNS[TP_FAMILY_RUN]}
+        if name == TP_FAMILY_CSGP[0]:
+            runs[TP_FAMILY_CSGP[1]] = TP_FAMILY_CSGP[2]
+        cells.append((name, cfg, runs, TP_FAMILY_ROUNDS))
+    return cells
+
+
+def tp_grid_rank(group, ref_dir, cells, lm):
+    """One rank of the (data 2, model 2) spawn of phases 16 and 17: once
+    the one-card references are written, :func:`_tp_smoke_cell` on every
+    grid of ``cells``, then :func:`tp_lm_rank` on phase 17's full-width
+    cell (``lm``: its sigma_p and cell)."""
+    import torch
+    out = {"waited_s": _await_refs(ref_dir)}
+    for i, (name, cfg, runs, rounds) in enumerate(cells):
+        out[name] = _tp_smoke_cell(torch, group, cfg, runs, rounds,
+                                   torch.load(f"{ref_dir}/{i}.pt"))
+    torch.cuda.empty_cache()
+    out["lm"] = tp_lm_rank(group, ref_dir, *lm)
+    return out
+
+
+def phase_model_axis_grids(torch, runtime, steps, data, configs, mesh,
+                           models, train, api):
+    """Phase 16 (a) and phase 17: one (data 2, model 2) spawn for phase
+    16's smoke grid, every grid of TP_FAMILIES and the full-width cell
+    TP_FAMILY_LM, their one-card references made while the ranks start,
+    then each one's gates: -> (phase 16's smoke report, phase 17's
+    reports)."""
+    c = TP_SMOKE
+    cells = _tp_grid_cells(torch, configs)
+    lm = _tp_family_lm_cell(torch, configs)
+    ref_dir = ROOT / "build" / "model_axis"
+
+    def make_refs():
+        refs = []
+        for i, (_, cfg, runs, _) in enumerate(cells):
+            refs.append(_tp_smoke_refs(torch, runtime, steps, data, models,
+                                       cfg, runs))
+            torch.save(refs[-1], ref_dir / f"{i}.pt")
+        return refs, _tp_lm_refs(torch, runtime, steps, data, models, lm,
+                                 ref_dir)
+    (refs, first), ranks, wall = _spawn_beside(
+        mesh, tp_grid_rank, c["agents"] * c["model"], ref_dir,
+        (cells, (_lm_dp_sigma(train, api), lm)), make_refs,
+        model=c["model"], timeout_s=TP_GRID_TIMEOUT_S,
+        env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    print(f"[model-axis] one spawn of (data {c['agents']}, model "
+          f"{c['model']}) ranks for phase 16's smoke grid, phase 17's "
+          f"{len(cells) - 1} and its full-width cell: spawn to join "
+          f"{wall:.1f} s, the ranks waiting up to "
+          f"{max(r['waited_s'] for r in ranks):.1f} s of it for the "
+          f"one-card references made beside their start")
+    reports = [_tp_smoke_gates("model-axis" if i == 0
+                               else "model-axis-families", cfg, runs,
+                               rounds, [r[name] for r in ranks], ref, wall)
+               for i, ((name, cfg, runs, rounds), ref)
+               in enumerate(zip(cells, refs))]
+    families = {name: rep for (name, *_), rep in zip(cells[1:],
+                                                     reports[1:])}
+    families["lm"] = _tp_lm_gates(lm, [r["lm"] for r in ranks], first, wall,
+                                  _n_leaves(models, lm["cfg"]))
+    return reports[0], families
+
+
+def _tp_family_lm_cell(torch, configs):
+    """Phase 17's full-width cell (TP_FAMILY_LM) in the form of
+    :func:`_tp_lm_cell`, its parameter count checked."""
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import leaf_specs
+    from repro_torch.tree import tree_leaves
+    d = TP_FAMILY_LM
+    cfg = dataclasses.replace(configs.get_config(d["arch"]),
+                              n_layers=d["layers"])
+    count = sum(math.prod(s.shape) for s in
+                tree_leaves(leaf_specs(build_model(cfg, device=DEVICE))))
+    if count != d["params"]:
+        raise AssertionError(f"model-axis-families LM: {count} parameters, "
+                             f"expected {d['params']}")
+    return dict(cfg=cfg, tag="model-axis-families",
+                **{k: LM_RUN[k] for k in ("batch", "seq", "frac", "eta",
+                                          "tau")},
+                **{k: v for k, v in d.items()
+                   if k not in ("arch", "layers", "params")})
 
 
 def lm_record(name, lm, lm_times):
@@ -6002,17 +6264,20 @@ def main() -> int:
     print(f"[agents] phase took {time.perf_counter() - t15:.1f} s")
     print("[agents] figures " + json.dumps(agents, default=str))
 
-    # phase 16: the model axis (the smoke config's 2 x 2 and the LM cell's
-    # 4 x 2 ranks on the card, each agent's replica tensor-parallel)
+    # phases 16 and 17: the model axis (one spawn of 2 x 2 ranks for
+    # phase 16's smoke grid, phase 17's five and minicpm3-4b's full-width
+    # cell, then phase 12's LM cell on 4 x 2 ranks)
     t16 = time.perf_counter()
-    model_axis = phase_model_axis_smoke(torch, ops, runtime, steps, data,
-                                        configs, mesh, models)
-    model_axis["lm"] = phase_model_axis_lm(torch, ops, runtime, steps, data,
+    model_axis, families = phase_model_axis_grids(
+        torch, runtime, steps, data, configs, mesh, models, train, api)
+    model_axis["lm"] = phase_model_axis_lm(torch, runtime, steps, data,
                                            configs, mesh, models, train,
                                            api)
-    print(f"[model-axis] phase took {time.perf_counter() - t16:.1f} s")
+    print(f"[model-axis] phases 16 and 17 took "
+          f"{time.perf_counter() - t16:.1f} s")
     print("[model-axis] figures " + json.dumps(model_axis, default=str))
-
+    print("[model-axis-families] figures " + json.dumps(families,
+                                                         default=str))
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
@@ -6179,6 +6444,20 @@ def main() -> int:
             for variant in ("gc", "dp"):
                 rec[f"launches_model_lm_{variant}_round"] = (
                     model_axis["lm"][variant]["launches_round"].get(key, 0))
+    # phase 17: each kernel's launches a round on one rank of every
+    # family's smoke grid (and dp-csgp's), and on the full-width cell's
+    for rec in record:
+        key = "sr_epilogue" if rec["name"] == "sr_cast" else rec["name"]
+        if rec["name"] not in MODEL_AXIS_LAUNCH_RUNS:
+            continue
+        rec["launches_model_families_rank_round"] = {
+            f"{name} {label}": run["launches"].get(key, 0) / run["rounds"]
+            for name, fam in families.items() if name != "lm"
+            for label, run in fam.items()
+            if isinstance(run, dict) and "launches" in run}
+        for variant in ("gc", "dp"):
+            rec[f"launches_model_families_lm_{variant}_round"] = (
+                families["lm"][variant]["launches_round"].get(key, 0))
     print(f"[time] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)   # again here: a long log keeps only its end

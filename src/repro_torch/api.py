@@ -492,8 +492,8 @@ def _check_group(spec: ExperimentSpec, group) -> None:
         if spec.algo not in _MODEL_AXIS_ALGOS:
             raise ValueError(
                 f"{spec.algo} on a model axis is not ported (the PORTER "
-                f"family {_MODEL_AXIS_ALGOS} runs there): ROADMAP queue 1 "
-                "item 12(c)")
+                f"family and push-sum {_MODEL_AXIS_ALGOS} run there): "
+                "ROADMAP queue 1 item 12(c)")
         if spec.remat_policy is not None:
             raise ValueError("remat_policy on a model axis is not ported: "
                              "ROADMAP queue 1 item 12(c)")
@@ -505,7 +505,7 @@ def _check_group(spec: ExperimentSpec, group) -> None:
 
 
 # the algorithms that run on a grid with a model axis
-_MODEL_AXIS_ALGOS = ("porter-gc", "porter-dp", "beer")
+_MODEL_AXIS_ALGOS = ("porter-gc", "porter-dp", "beer", "dp-csgp")
 
 
 def _sharded(group, leaf_specs) -> Optional[FL.ShardedFlatSpec]:

@@ -19,6 +19,15 @@ params, three f32 AXPYs for the weights); the v-side round is PORTER's
 ``track``.  On a doubly stochastic ``W`` the weight increments are 0, ``xw``
 stays exactly 1, ``x / 1`` is ``x``, and the round is bitwise PORTER-DP's
 (with ``m_x`` made by the same mix at init: ``porter_init(w=W)``).
+
+On a grid with a model axis (the engine's ``sharded`` layout) every rank
+holds its agent's shard of each buffer and the whole ``(n,)`` weight
+planes' row: the weights are replicated on an agent's M ranks and each
+model index's ranks run the same weight recursion on the same values, so
+they stay bitwise equal across them; the debias divides each shard by its
+agent's weight, the clip and the DP noise cross the shards as PORTER-DP's
+do, and a codec executor carries the weight words in each shard's last
+buffer, as the one-card codec carries them in its own.
 """
 
 from __future__ import annotations
@@ -111,15 +120,20 @@ def dp_csgp_step(
     gen: Optional[torch.Generator],
     engine: Optional[CommRound] = None,
     noise: Any = None,
+    grad_override: Optional[Tuple[torch.Tensor, Any]] = None,
 ) -> Tuple[DpCsgpState, Dict[str, torch.Tensor]]:
     """One DP-CSGP round: PORTER-DP's, with the gradients at ``z = x / xw``,
     the x-side round :meth:`CommRound.step_ps`, and the weight's bytes on
     the x stream.  ``gen`` is drawn from in ``porter_step``'s order;
-    ``noise`` stands in for the DP draws."""
+    ``noise`` stands in for the DP draws; ``grad_override``: optional
+    ``(losses, g)`` replacing the gradient oracle, as ``porter_step``'s."""
     eng = resolve_engine(engine, mixer, compressor)
     group = eng.group
-    z = debias(state.x, state.xw)
-    losses, g = _gradients(cfg, loss_fn, z, batch, gen, noise, group)
+    if grad_override is None:
+        losses, g = _gradients(cfg, loss_fn, debias(state.x, state.xw),
+                               batch, gen, noise, group, eng.sharded)
+    else:
+        losses, g = grad_override
     g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)
 
     if eng.overlap:
@@ -151,7 +165,7 @@ def dp_csgp_step(
         # Perron vector is push-sum at work, not disagreement
         **agent_metrics(losses, [("consensus_x", debias(x, xw)),
                                  ("consensus_v", v)], [("v_norm", v)],
-                        group),
+                        group, eng.sharded),
         "wire_bytes": torch.full((), wire, dtype=torch.float32,
                                  device=losses.device),
     }

@@ -150,7 +150,7 @@ def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, lead=()):
 def _ffn(p, cfg: ModelConfig, h, model=None):
     """The FFN's output and the MoE loss (0 for an MLP)."""
     if cfg.n_experts > 0:
-        return M.moe(p["ffn"], cfg.moe_cfg(), h)
+        return M.moe(p["ffn"], cfg.moe_cfg(), h, model)
     return M.mlp(p["ffn"], cfg.mlp_cfg(), h, model), torch.zeros(
         (), dtype=torch.float32, device=h.device)
 
@@ -164,18 +164,15 @@ def decoder_layer_seq(p, cfg: ModelConfig, x, positions, mode="causal",
     (GQA) or {ckv, krope} (MLA) in ``cache_dtype``; aux the MoE loss.
 
     ``model``: a group with a model axis; ``p`` is this rank's shard, the
-    GQA attention and the MLP run tensor-parallel and the norms (whole on
-    every rank) replicated.  MLA and MoE layers refuse it (ROADMAP queue 1
-    item 12(c))."""
+    attention (GQA or MLA) and the FFN (MLP, or MoE ffn- or
+    expert-parallel) run tensor-parallel and the norms (whole on every
+    rank) replicated."""
     _, norm = _norm_fns(cfg)
-    if model is not None and (cfg.mla or cfg.n_experts > 0):
-        raise ValueError(
-            "a tensor-parallel MLA or MoE layer (expert-parallel dispatch) "
-            "is not ported: ROADMAP queue 1 item 12(c)")
     h = norm(p["ln1"], x)
     if cfg.mla:
         y, ckv, krope = A.mla_attention_latent(p["attn"], cfg.mla_cfg(), h,
-                                               positions, q_chunk=cfg.q_chunk)
+                                               positions, q_chunk=cfg.q_chunk,
+                                               model=model)
         cache = {"ckv": ckv, "krope": krope}
     else:
         y, k, v = A.attention_kv(p["attn"], cfg.attn_cfg(window), h,

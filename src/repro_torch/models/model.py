@@ -33,12 +33,14 @@ vocab-parallel when the vocab divides by :data:`MODEL_AXIS_SIZE`, as in
 the reference).
 
 Tensor parallelism (``build_model(cfg, group=)``, the group's
-``model_size`` M > 1): the dense family's bundle holds this rank's shard of
-every sharded leaf (``init`` draws each full leaf and keeps the slice, so
-the shards are the one-card parameters') and its ``loss`` runs
-tensor-parallel (:mod:`repro_torch.nn.tensor_parallel`); such a bundle
-trains and does not serve.  Every other family refuses a model axis
-(ROADMAP queue 1 item 12(c)).
+``model_size`` M > 1): the decoder bundle (dense GQA or MLA, MoE ffn- or
+expert-parallel, the VLM) holds this rank's shard of every sharded leaf
+(``init`` draws each full leaf and keeps the slice, so the shards are the
+one-card parameters') and its ``loss`` runs tensor-parallel
+(:mod:`repro_torch.nn.tensor_parallel`), the embedding and the head tied
+or not, vocab-parallel or d_model-sharded by the reference's rule; such a
+bundle trains and does not serve.  rwkv6, the hybrid and the
+encoder-decoder refuse a model axis (ROADMAP queue 1 item 12(c)).
 
 ``loss`` is the reference's: the mean next-token cross-entropy of
 ``forward``'s logits (a decoder's plus ``0.01 * aux / n_layers``, the MoE
@@ -156,7 +158,11 @@ def _cache_dev(default, device):
 # dense / moe decoder (also the vlm text stack)
 # ===========================================================================
 
-def _build_decoder(cfg: ModelConfig, cache_device) -> ModelBundle:
+def _build_decoder(cfg: ModelConfig, cache_device, model=None
+                   ) -> ModelBundle:
+    """The decoder bundle; ``model``: a group with a model axis, whose
+    ``params`` are this rank's shards and whose embedding, layers and head
+    run tensor-parallel (:func:`_tensor_parallel` wraps the bundle)."""
     _, norm = B._norm_fns(cfg)
     is_vlm = cfg.family == "vlm"
     mode = "prefix" if is_vlm else "causal"
@@ -171,9 +177,14 @@ def _build_decoder(cfg: ModelConfig, cache_device) -> ModelBundle:
         return p
 
     def _embed_inputs(params, batch):
-        """The input embeddings (the VLM's projected patches first) and
-        the prefix length."""
-        x = embedding(params["embed"], batch["tokens"], cfg.dtype)
+        """The input embeddings (the VLM's projected patches first, the
+        projector replicated on a model axis) and the prefix length."""
+        if model is None:
+            x = embedding(params["embed"], batch["tokens"], cfg.dtype)
+        else:
+            embed = (TP.embedding if vocab_parallel(cfg)
+                     else TP.embedding_columns)
+            x = embed(params["embed"], batch["tokens"], model, cfg.dtype)
         if not is_vlm:
             return x, 0
         patches = dense(params["projector"], batch["patches"].to(cfg.dtype))
@@ -187,10 +198,21 @@ def _build_decoder(cfg: ModelConfig, cache_device) -> ModelBundle:
         for i in range(cfg.n_layers):
             x, cache, a = B.decoder_layer_seq(
                 _layer(params["layers"], i), cfg, x, pos, mode, prefix_len,
-                collect_cache=collect, cache_dtype=cfg.dtype, window=window)
+                collect_cache=collect, cache_dtype=cfg.dtype, window=window,
+                model=model)
             aux = aux + a
             caches.append(cache)
         return x, (_stack(caches) if collect else None), aux
+
+    def _ce(params, x, tokens):
+        """The next-token loss of the head over ``x`` (vocab-parallel on a
+        model axis where the logits are vocab-sharded)."""
+        if model is None:
+            return _lm_loss(_logits(cfg, params, x), tokens)
+        z, sharded = _tp_logits(cfg, params, x, model)
+        if sharded:
+            return TP.cross_entropy_loss(z[:, :-1], tokens[:, 1:], model)
+        return _lm_loss(z, tokens)
 
     def forward(params, batch):
         x, prefix_len = _embed_inputs(params, batch)
@@ -203,8 +225,7 @@ def _build_decoder(cfg: ModelConfig, cache_device) -> ModelBundle:
         x = norm(params["final_norm"], x)
         if is_vlm:   # only the text positions predict
             x = x[:, cfg.n_prefix:]
-        logits = _logits(cfg, params, x)
-        return (_lm_loss(logits, batch["tokens"])
+        return (_ce(params, x, batch["tokens"])
                 + 0.01 * aux / max(cfg.n_layers, 1))
 
     def prefill(params, batch, window="cfg"):
@@ -496,27 +517,33 @@ def _hooked(init):
     return hooked
 
 
-def _tensor_parallel(cfg: ModelConfig, bundle: ModelBundle, model
-                     ) -> ModelBundle:
-    """The dense decoder's bundle on a model axis: ``init`` keeps this
-    rank's shard of every leaf drawn, ``loss`` the tensor-parallel
-    forward; serving refuses."""
-    if cfg.family != "dense" or cfg.mla or cfg.n_experts > 0:
-        kind = "MLA" if cfg.mla else ("MoE" if cfg.n_experts else cfg.family)
+def _tp_logits(cfg: ModelConfig, params, x, model):
+    """The head over the replicated ``x`` on a model axis: ``(logits,
+    vocab-sharded)``.  Vocab-parallel (the vocab divides by
+    :data:`MODEL_AXIS_SIZE`): this rank's vocab columns, from the tied
+    table's rows or the untied head's columns.  d_model-sharded: this
+    rank's slice of ``x`` times its rows of the head (the tied table's
+    columns), summed over the model axis into whole logits."""
+    head = ({"w": params["embed"]["table"].T} if cfg.tie_embeddings
+            else params["head"])
+    if vocab_parallel(cfg):
+        return TP.column_dense(head, x, model), True
+    return TP.row_dense(head, TP.slice_for_model(x, model), model), False
+
+
+def _tensor_parallel(cfg: ModelConfig, device, model) -> ModelBundle:
+    """The decoder bundle (dense GQA or MLA, MoE, VLM) on a model axis:
+    ``init`` keeps this rank's shard of every leaf drawn, ``loss`` is
+    :func:`_build_decoder`'s over ``model`` (the embedding vocab-parallel
+    or d_model-sharded, tied or not); serving refuses."""
+    if _BUNDLES[cfg.family] is not _build_decoder:
         raise ValueError(
             f"a model axis (model_size {model.model_size}) needs the "
-            f"{kind!r} tensor-parallel forward of {cfg.name}, which is not "
-            "ported: ROADMAP queue 1 item 12(c) (only the dense GQA "
-            "decoders run)")
-    if cfg.tie_embeddings or not vocab_parallel(cfg):
-        raise ValueError(
-            f"{cfg.name}: a tied or d_model-sharded embedding (vocab "
-            f"{cfg.vocab}) on a model axis is not ported: ROADMAP queue 1 "
-            "item 12(c) (the vocab-parallel, untied head runs)")
-    TP.check_shardable(leaf_specs(bundle), model.model_size)
-    TP.local_heads(cfg.n_heads, cfg.n_kv_heads, model)
-    _, norm = B._norm_fns(cfg)
-    plain_init = bundle.init
+            f"{cfg.family!r} tensor-parallel forward of {cfg.name}, which "
+            "is not ported: ROADMAP queue 1 item 12(c) (the decoder "
+            "families run: dense GQA and MLA, MoE, VLM)")
+    bundle = _build_decoder(cfg, device, model)
+    plain_init = _hooked(bundle.init)
 
     def init(generator, leaf=None, with_spec=False):
         if with_spec:
@@ -524,37 +551,30 @@ def _tensor_parallel(cfg: ModelConfig, bundle: ModelBundle, model
         return plain_init(generator, TP.shard_hook(model, leaf),
                           with_spec=True)
 
-    def loss(params, batch):
-        tokens = batch["tokens"]
-        x = TP.embedding(params["embed"], tokens, model, cfg.dtype)
-        pos = _positions(*x.shape[:2], device=x.device)
-        for i in range(cfg.n_layers):
-            x, _, _ = B.decoder_layer_seq(_layer(params["layers"], i), cfg,
-                                          x, pos, "causal", model=model)
-        z = TP.column_dense(params["head"], norm(params["final_norm"], x),
-                            model)
-        return TP.cross_entropy_loss(z[:, :-1], tokens[:, 1:], model)
-
     def serving(*args, **kwargs):
         raise ValueError("a tensor-parallel bundle trains; the port serves "
                          "one replica on one card (build without group=)")
 
-    return ModelBundle(cfg, init, serving, loss, serving, serving, serving)
+    tp = ModelBundle(cfg, init, serving, bundle.loss, serving, serving,
+                     serving)
+    TP.check_shardable(leaf_specs(tp), model.model_size)
+    TP.local_heads(cfg.n_heads, cfg.n_heads if cfg.mla else cfg.n_kv_heads,
+                   model)
+    return tp
 
 
 def build_model(cfg: ModelConfig, device=None, group=None) -> ModelBundle:
     """The bundle of ``cfg``; ``device`` (cuda unless given) is where
     ``init_cache`` puts a cache when it is not told otherwise.  ``group``:
-    an agent group; with a model axis (``model_size > 1``) the dense
-    family's tensor-parallel bundle of this rank's shard."""
+    an agent group; with a model axis (``model_size > 1``) the decoder
+    families' tensor-parallel bundle of this rank's shard."""
     if cfg.family not in _BUNDLES:
         raise ValueError(f"unknown family {cfg.family!r}")
     device = torch.device("cuda") if device is None else torch.device(device)
-    bundle = _BUNDLES[cfg.family](cfg, device)
-    bundle = dataclasses.replace(bundle, init=_hooked(bundle.init))
     if group is not None and getattr(group, "model_size", 1) > 1:
-        return _tensor_parallel(cfg, bundle, group)
-    return bundle
+        return _tensor_parallel(cfg, device, group)
+    bundle = _BUNDLES[cfg.family](cfg, device)
+    return dataclasses.replace(bundle, init=_hooked(bundle.init))
 
 
 # per family, the leaves the reference reads only through

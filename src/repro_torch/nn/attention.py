@@ -26,7 +26,9 @@ masks by the window in decode too: key positions ``<= pos`` and ``> pos -
 window``, as the windowed ``attention`` masks.  The reference masks only
 ``<= pos`` there (``src/repro/nn/attention.py:216-218``), so past the
 window its decode leaves its own forward; up to the window the two masks
-agree.  The reference's sharding specs are dropped (one card).
+agree.  Under a model axis (``model=``) the GQA attention and MLA run
+tensor-parallel over the reference's specs (:func:`attention_kv`,
+:func:`mla_attention_latent`).
 """
 
 from __future__ import annotations
@@ -157,19 +159,34 @@ def attention_kv(p, cfg: AttnConfig, x, positions, mode: str = "causal",
     attended over, (B, S, Hk, hd) each: what a prefill caches.
 
     Under ``model`` (a group whose ``model_size`` M > 1) the heads are
-    sharded: ``wq``, ``wk`` and ``wv`` column-parallel with whole heads
-    contiguous a shard (``hk % M == 0``), the attention over the rank's
-    heads (rotary, bias and window are head-local), ``wo`` row-parallel;
-    k and v are the rank's heads."""
+    sharded as the reference's specs say (:func:`repro_torch.nn.
+    tensor_parallel.local_heads`): ``wq``, ``wk`` and ``wv``
+    column-parallel, whole q heads a shard, ``wo`` row-parallel.  With
+    whole kv heads a shard (``hk % M == 0``) the attention runs over the
+    rank's heads (rotary, bias and window are head-local).  Otherwise each
+    rank holds a slice of a kv head's columns: k and v are gathered over
+    the model axis (one all-gather), the rank keeps the kv head its q
+    heads share and rotates it whole (rotary pairs channel i with i +
+    hd / 2, across the split).  k and v are the ones the rank attended
+    over."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    heads = None
     if model is not None:
-        h, hk = TP.local_heads(h, hk, model)
+        heads = TP.local_heads(h, hk, model)
+        h, hk = heads.q, heads.kv
         x = TP.copy_to_model(x, model)
     g = h // hk
     q = _split_heads(dense(p["wq"], x), h, hd)
-    k = _split_heads(dense(p["wk"], x), hk, hd)
-    v = _split_heads(dense(p["wv"], x), hk, hd)
+    k, v = dense(p["wk"], x), dense(p["wv"], x)
+    if heads is not None and heads.gathered:
+        # one gather of both; every rank reads its own q heads of the
+        # gathered kv head, so the gradient is summed before the slice
+        kv = TP.copy_to_model(TP.gather_from_model(torch.stack([k, v]),
+                                                   model), model)
+        lo = heads.kv_head * hd
+        k, v = kv[0, ..., lo:lo + hd], kv[1, ..., lo:lo + hd]
+    k, v = _split_heads(k, hk, hd), _split_heads(v, hk, hd)
     if cfg.rotary_dim > 0:
         q = apply_rope(q, positions, cfg.rotary_dim, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rotary_dim, cfg.rope_theta)
@@ -305,12 +322,25 @@ def init_mla(gen: torch.Generator, cfg: MLAConfig, lead=()):
     }
 
 
-def _mla_qkv(p, cfg: MLAConfig, x, positions):
+def _mla_heads(cfg: MLAConfig, model) -> int:
+    """The heads a rank computes: all of them, or under ``model`` its
+    ``n_heads / M`` whole heads (``wuq``, ``wuk`` and ``wuv`` are
+    column-parallel by heads, ``wo`` row-parallel)."""
+    if model is None:
+        return cfg.n_heads
+    return TP.local_heads(cfg.n_heads, cfg.n_heads, model).q
+
+
+def _mla_qkv(p, cfg: MLAConfig, x, positions, model=None):
     """Shared q / latent computation.  Returns q_nope, q_rope (B,S,H,*),
-    ckv (B,S,dc) and krope (B,S,dr)."""
+    ckv (B,S,dc) and krope (B,S,dr).  Under ``model`` the latents (``wdq``,
+    ``wdkv`` and the norms are replicated) are every rank's, q its heads
+    and krope copied in front of the rank's heads."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = _mla_heads(cfg, model)
     cq = rmsnorm(p["q_norm"], dense(p["wdq"], x))
+    if model is not None:
+        cq = TP.copy_to_model(cq, model)
     q = dense(p["wuq"], cq).reshape(b, s, h, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.qk_rope_dim, cfg.rope_theta)
@@ -318,13 +348,18 @@ def _mla_qkv(p, cfg: MLAConfig, x, positions):
     ckv = rmsnorm(p["kv_norm"], dkv[..., : cfg.kv_lora_rank])
     krope = dkv[..., cfg.kv_lora_rank:][:, :, None, :]   # (B,S,1,dr)
     krope = apply_rope(krope, positions, cfg.qk_rope_dim, cfg.rope_theta)
-    return q_nope, q_rope, ckv, krope[:, :, 0, :]
+    krope = krope[:, :, 0, :]
+    if model is not None:
+        krope = TP.copy_to_model(krope, model)
+    return q_nope, q_rope, ckv, krope
 
 
-def _mla_kv(p, cfg: MLAConfig, ckv):
+def _mla_kv(p, cfg: MLAConfig, ckv, model=None):
     """The per-head keys (no rotary part) and values of a latent
-    (B,T,dc)."""
-    b, h = ckv.shape[0], cfg.n_heads
+    (B,T,dc): all heads, or under ``model`` the rank's."""
+    b, h = ckv.shape[0], _mla_heads(cfg, model)
+    if model is not None:
+        ckv = TP.copy_to_model(ckv, model)
     k_nope = dense(p["wuk"], ckv).reshape(b, -1, h, cfg.qk_nope_dim)
     v = dense(p["wuv"], ckv).reshape(b, -1, h, cfg.v_head_dim)
     return k_nope, v
@@ -340,13 +375,20 @@ def _mla_probs(cfg: MLAConfig, q_nope, q_rope, k_nope, krope, mask, dtype):
     return torch.softmax(scores, dim=-1).to(dtype)
 
 
-def _mla_attend(p, cfg: MLAConfig, q_nope, q_rope, ckv, krope, mask, dtype):
+def _mla_out(p, out, model):
+    if model is not None:
+        return TP.row_dense(p["wo"], out, model)
+    return dense(p["wo"], out)
+
+
+def _mla_attend(p, cfg: MLAConfig, q_nope, q_rope, ckv, krope, mask, dtype,
+                model=None):
     """q_*: (B,S,H,*); ckv: (B,T,dc); krope: (B,T,dr) -> (B,S,D)."""
     b, s = q_nope.shape[:2]
-    k_nope, v = _mla_kv(p, cfg, ckv)
+    k_nope, v = _mla_kv(p, cfg, ckv, model)
     probs = _mla_probs(cfg, q_nope, q_rope, k_nope, krope, mask, dtype)
     out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, -1)
-    return dense(p["wo"], out)
+    return _mla_out(p, out, model)
 
 
 def mla_attention(p, cfg: MLAConfig, x, positions,
@@ -356,17 +398,18 @@ def mla_attention(p, cfg: MLAConfig, x, positions,
 
 
 def mla_attention_latent(p, cfg: MLAConfig, x, positions,
-                         q_chunk: Optional[int] = None):
+                         q_chunk: Optional[int] = None, model=None):
     """:func:`mla_attention`'s output and the latent ``ckv`` and rotated
-    ``krope`` it attended over: what a prefill caches."""
+    ``krope`` it attended over: what a prefill caches.  ``model``: a group
+    with a model axis, ``p`` this rank's shard (:func:`_mla_qkv`)."""
     b, s, _ = x.shape
-    q_nope, q_rope, ckv, krope = _mla_qkv(p, cfg, x, positions)
+    q_nope, q_rope, ckv, krope = _mla_qkv(p, cfg, x, positions, model)
     if not (q_chunk and s > q_chunk and s % q_chunk == 0):
         mask = make_mask(s, s, "causal", device=x.device)
         return (_mla_attend(p, cfg, q_nope, q_rope, ckv, krope, mask,
-                            x.dtype), ckv, krope)
+                            x.dtype, model), ckv, krope)
     # chunked queries: expand k / v once, then one score block at a time
-    k_nope, v = _mla_kv(p, cfg, ckv)
+    k_nope, v = _mla_kv(p, cfg, ckv, model)
 
     def attend_block(qs, offset, blk_len):
         qn, qr = qs[..., : cfg.qk_nope_dim], qs[..., cfg.qk_nope_dim:]
@@ -377,7 +420,7 @@ def mla_attention_latent(p, cfg: MLAConfig, x, positions,
 
     out = _chunked(attend_block, torch.cat([q_nope, q_rope], dim=-1), s,
                    q_chunk).reshape(b, s, -1)
-    return dense(p["wo"], out), ckv, krope
+    return _mla_out(p, out, model), ckv, krope
 
 
 def init_mla_cache(batch: int, seq: int, cfg: MLAConfig,

@@ -15,8 +15,22 @@ the one scatter into the buffers (``scatter``) writes each at most
 once; the overflow row may take many writes, in any order.  The scatter
 and the expert one-hots (a comparison with ``arange(E)``) are functional,
 so ``torch.func.vmap`` batches the layer under ``grad`` without a
-per-sample loop.  The
-reference's sharding specs are dropped (one card).
+per-sample loop.
+
+Under a model axis (``model=``, the reference's specs,
+:attr:`MoeConfig.expert_spec`) the router, its softmax, the stable top-k,
+the capacity slots and the dispatch are computed on every rank from the
+replicated tokens, so they are the same on every rank, and the aux loss
+needs no collective.  Below 16 experts the stacks are ffn-parallel
+(``w_gate`` / ``w_in`` ``(E, d, f / M)``, ``w_out`` ``(E, f / M, d)``): each
+rank's combine is a partial sum over its ``f`` columns.  From 16 they are
+expert-parallel (the rank holds experts ``m E / M ...``): the rank runs
+only its experts' slots and combines only the choices that landed on
+them, 0 elsewhere.  Either way one all-reduce over ``'model'`` after the
+combine sums the ranks' outputs; expert-parallel, each choice's term
+comes from one rank and the others add exact zeros, so the sum is the
+one-card combine's.  arctic's dense residual MLP runs column / row
+parallel (:func:`mlp`).
 """
 
 from __future__ import annotations
@@ -129,9 +143,11 @@ def top_k_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe(p, cfg: MoeConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe(p, cfg: MoeConfig, x, model=None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss); the module docstring has the
-    dispatch."""
+    dispatch.  ``model``: a group with a model axis, ``p`` this rank's
+    shard (the module docstring: ffn- or expert-parallel)."""
     b, s, d = x.shape
     n_tok = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -154,23 +170,37 @@ def moe(p, cfg: MoeConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     dest = torch.where(keep, flat_expert * cap + slot, e * cap)
 
     # dispatch: one scatter into (E*C + 1, d), the last row the overflow
-    buf = xt.new_zeros((e * cap + 1, d)).scatter(
-        0, dest[:, None].expand(-1, d), xt.repeat_interleave(k, dim=0))
+    xd = xt if model is None else TP.copy_to_model(xt, model)
+    buf = xd.new_zeros((e * cap + 1, d)).scatter(
+        0, dest[:, None].expand(-1, d), xd.repeat_interleave(k, dim=0))
     buf = buf[: e * cap].reshape(e, cap, d)
+    first = 0                   # the first expert of this rank's stacks
+    if model is not None and cfg.expert_spec[0] == "model":
+        local = e // model.model_size
+        first = model.model_index * local
+        buf = buf[first:first + local]
+    rows = buf.shape[0] * cap
 
-    # expert compute, batched over E
+    # expert compute, batched over the experts held here
     gate_h = torch.bmm(buf, p["w_gate"].to(buf.dtype))
     in_h = torch.bmm(buf, p["w_in"].to(buf.dtype))
     h = _act(cfg.activation, gate_h) * in_h
     out_buf = torch.bmm(h, p["w_out"].to(buf.dtype))
 
-    # combine: gather back, weight, sum over the k choices
-    out_flat = out_buf.reshape(e * cap, d)
-    gathered = torch.where(keep[:, None],
-                           out_flat[torch.clamp(dest, max=e * cap - 1)], 0.0)
+    # combine: gather back, weight, sum over the k choices (a choice whose
+    # expert another rank holds is 0 here)
+    out_flat = out_buf.reshape(rows, d)
+    dest = dest - first * cap
+    mine = keep & (dest >= 0) & (dest < rows)
+    gathered = torch.where(mine[:, None],
+                           out_flat[torch.clamp(dest, 0, rows - 1)], 0.0)
+    if model is not None:
+        gate_vals = TP.copy_to_model(gate_vals, model)
     weighted = (gathered.reshape(n_tok, k, d)
                 * gate_vals[..., None].to(x.dtype))
     out = weighted.sum(dim=1).reshape(b, s, d)
+    if model is not None:
+        out = TP.reduce_from_model(out, model)
 
     # Switch load-balance aux loss
     me = probs.mean(dim=0)                                       # (E,)
@@ -180,5 +210,5 @@ def moe(p, cfg: MoeConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     if "dense_mlp" in p:
         dcfg = MlpConfig(cfg.d_model, cfg.dense_d_ff or cfg.d_ff,
                          cfg.activation)
-        out = out + mlp(p["dense_mlp"], dcfg, x)
+        out = out + mlp(p["dense_mlp"], dcfg, x, model)
     return out, aux

@@ -13,7 +13,15 @@ the forward says where the collectives go, as Megatron-LM does:
   input's gradient sums every shard's part;
 * :func:`reduce_from_model` -- all-reduce forward, identity backward:
   behind a row-parallel layer, whose output is a partial sum;
-* :func:`max_from_model` -- the max over the shards, with no gradient.
+* :func:`max_from_model` -- the max over the shards, with no gradient;
+* :func:`gather_from_model` -- all-gather forward along one dimension,
+  this rank's slice of the gradient backward: the gathered tensor is
+  replicated, so its gradient is whole on every rank.  Where each rank
+  reads the gathered tensor differently (its own heads of a kv head split
+  over the ranks) :func:`copy_to_model` goes after it, and the backward
+  is then an all-reduce followed by this rank's slice;
+* :func:`slice_for_model` -- this rank's slice of a replicated tensor, in
+  front of a row-parallel layer whose input is not already split.
 
 Every rank then computes the same replicated activations and the same
 loss, and its gradient of its own shard is the shard of the one-card
@@ -26,11 +34,17 @@ per-sample one of DP run through them.  Each sums in f32 and casts back.
 The layers: :func:`column_dense` / :func:`row_dense`, the vocab-parallel
 :func:`embedding` and :func:`cross_entropy_loss` (f32: the max over shards,
 detached; the sum of exponentials and the gold logit, each all-reduced;
-then ``lse - gold``).  :func:`check_shardable` refuses a leaf whose
-sharded dimension the model axis does not divide; nothing is padded.
+then ``lse - gold``), the d_model-sharded :func:`embedding_columns` (the
+reference's layout of a vocab that :data:`repro_torch.models.model.
+MODEL_AXIS_SIZE` does not divide: this rank's columns looked up, then
+gathered) and :func:`local_heads` (how the specs split the attention
+heads).  :func:`check_shardable` refuses a leaf whose sharded dimension
+the model axis does not divide; nothing is padded.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -38,8 +52,10 @@ from ..core.agents import model_shard
 from .module import dense
 
 __all__ = ["copy_to_model", "reduce_from_model", "max_from_model",
-           "column_dense", "row_dense", "embedding", "cross_entropy_loss",
-           "check_shardable", "local_heads", "shard_hook"]
+           "gather_from_model", "slice_for_model", "column_dense",
+           "row_dense", "embedding", "embedding_columns",
+           "cross_entropy_loss", "check_shardable", "Heads", "local_heads",
+           "shard_hook"]
 
 _F32 = torch.float32
 
@@ -101,7 +117,24 @@ class _Max(torch.autograd.Function):
         return None, None
 
 
-for _fn in (_Copy, _Reduce, _Max):
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(x, group, dim):
+        parts = group.all_gather([x.contiguous()], axis="model")[0]
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.group, ctx.dim = inputs
+        ctx.width = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.group.model_index * ctx.width,
+                         ctx.width), None, None)
+
+
+for _fn in (_Copy, _Reduce, _Max, _Gather):
     _fn.vmap = _vmap_rule(_fn)
 
 
@@ -119,6 +152,24 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
 def max_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over the model axis, without a gradient."""
     return _Max.apply(x.detach(), group)
+
+
+def gather_from_model(x: torch.Tensor, group, dim: int = -1
+                      ) -> torch.Tensor:
+    """Every model rank's ``x`` joined along ``dim`` in rank order (one
+    all-gather); the gradient is this rank's slice of the output's, which
+    is whole on every rank (the module docstring says when to follow it
+    with :func:`copy_to_model`)."""
+    return _Gather.apply(x, group, dim - x.dim() if dim >= 0 else dim)
+
+
+def slice_for_model(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """This rank's ``1 / M`` slice of the replicated ``x`` along ``dim``:
+    the input of a row-parallel layer.  Its gradient is all-reduced
+    (:func:`copy_to_model`), since each rank's covers its slice only."""
+    width = x.shape[dim] // group.model_size
+    return copy_to_model(x, group).narrow(dim, group.model_index * width,
+                                          width)
 
 
 # ---------------------------------------------------------------------------
@@ -141,17 +192,39 @@ def row_dense(p, x: torch.Tensor, group) -> torch.Tensor:
     return y
 
 
-def local_heads(n_heads: int, n_kv_heads: int, group):
-    """The heads a rank holds: whole heads, contiguous, the reference's
-    heads-major split of ``h * hd`` columns.  Requires ``n_kv_heads % M ==
-    0``; q heads ``m h / M ...`` then read kv heads ``m hk / M ...``."""
+class Heads(NamedTuple):
+    """How a rank's attention reads the heads: ``q`` whole q heads (``m q
+    ...``), attending with ``kv`` kv heads; ``gathered``: the kv head
+    columns are split below a head (``n_kv_heads % M != 0``), so k and v
+    are gathered over the model axis and the rank keeps kv head
+    ``kv_head``, the one its q heads share."""
+    q: int
+    kv: int
+    gathered: bool = False
+    kv_head: int = 0
+
+
+def local_heads(n_heads: int, n_kv_heads: int, group) -> Heads:
+    """The heads of the reference's heads-major ``h * hd`` column split:
+    ``wq``'s ``h / M`` whole q heads a rank (``n_heads % M == 0``); with
+    ``n_kv_heads % M == 0`` whole kv heads too, q heads ``m h / M ...``
+    reading kv heads ``m hk / M ...``; else ``wk`` / ``wv`` hold a slice of
+    a kv head's columns (paligemma's one kv head) and the rank's q heads
+    must lie in one kv head's group, which it then attends with whole
+    after a gather."""
     m = group.model_size
-    if n_kv_heads % m or n_heads % m:
-        raise ValueError(
-            f"tensor-parallel attention splits whole heads: {n_heads} "
-            f"heads / {n_kv_heads} kv heads over a model axis of {m} "
-            "(n_kv_heads % M must be 0)")
-    return n_heads // m, n_kv_heads // m
+    if n_heads % m == 0:
+        q = n_heads // m
+        if n_kv_heads % m == 0:
+            return Heads(q, n_kv_heads // m)
+        group_size = n_heads // n_kv_heads
+        if group_size % q == 0:
+            return Heads(q, 1, True, group.model_index * q // group_size)
+    raise ValueError(
+        f"tensor-parallel attention splits whole q heads: {n_heads} heads "
+        f"/ {n_kv_heads} kv heads over a model axis of {m} (n_heads % M "
+        "must be 0, and n_kv_heads % M 0 or a rank's q heads inside one kv "
+        "head's group)")
 
 
 def embedding(p, tokens: torch.Tensor, group, dtype=_F32) -> torch.Tensor:
@@ -165,6 +238,15 @@ def embedding(p, tokens: torch.Tensor, group, dtype=_F32) -> torch.Tensor:
     x = table[local.clamp(0, rows - 1)].to(dtype)
     x = x * mine.unsqueeze(-1).to(dtype)
     return reduce_from_model(x, group)
+
+
+def embedding_columns(p, tokens: torch.Tensor, group, dtype=_F32
+                      ) -> torch.Tensor:
+    """The embedding of ``tokens`` from this rank's columns ``m d / M
+    ...`` of the d_model-sharded table: the rows looked up, then gathered
+    over the model axis."""
+    x = p["table"][tokens.to(torch.int64)].to(dtype)
+    return gather_from_model(x, group, -1)
 
 
 def cross_entropy_loss(local_logits: torch.Tensor, labels: torch.Tensor,

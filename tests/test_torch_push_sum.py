@@ -244,6 +244,29 @@ def test_dp_csgp_is_porter_dp_bitwise_on_a_doubly_stochastic_table(
             assert torch.equal(cm[name], value), name
 
 
+def test_grad_override_stands_in_for_the_gradient_oracle():
+    """A round handed the gradient its oracle computes (the ``g_prev`` it
+    leaves) is bitwise that round, on a directed schedule whose weights
+    move; a model-axis grid forces its first round so."""
+    (_, loss_t), params, data = PROBLEMS["logreg"]()
+    talgo = tapi.build(tapi.ExperimentSpec(**_kw("one_way")), loss_t,
+                       device="cpu")
+    batch = minibatch_source(*data, batch=8, device="cpu")(
+        torch.Generator().manual_seed(0), 0)
+    init = lambda: talgo.init(convert.to_torch(params, "cpu"))  # noqa: E731
+    gen = torch.Generator().manual_seed(1)
+    noise = {k: torch.randn(v.shape, generator=gen)
+             for k, v in init().x.items()}
+    free, met = talgo.step(init(), batch, None, noise=noise)
+    forced, _ = talgo.step(init(), batch, None,
+                           grad_override=(torch.zeros(N), free.g_prev))
+    assert not torch.equal(free.xw, torch.ones(N))
+    for field in PS_FIELDS:
+        for a, b in zip(tree_leaves(getattr(forced, field)),
+                        tree_leaves(getattr(free, field))):
+            assert torch.equal(a, b), field
+
+
 def test_weight_planes_stay_f32_under_bf16_planes():
     """The weight recursion reads no param: under bf16 planes the three
     weight planes are f32 and bitwise those of the f32 run."""

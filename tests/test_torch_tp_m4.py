@@ -1,6 +1,7 @@
 """The model axis at M = 4: a ``(data 2, model 4)`` grid of 8 gloo ranks on
-the CPU, on the tinyllama smoke config narrowed to 4 kv heads (the smoke
-config's 2 do not split over 4 shards), against the JAX package's
+the CPU, on the tinyllama smoke config widened to 4 kv heads (whole kv
+heads a shard; ``tests/test_torch_tp_families_m4.py`` splits grok's and
+arctic's two and paligemma's one below a rank), against the JAX package's
 unsharded loss and gradient and the port on all agents in one process.
 
 Held here: the loss and every leaf's gradient within 1e-5 of the

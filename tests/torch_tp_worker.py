@@ -1,9 +1,9 @@
 """Rank programs of the model-axis tests (not a test module).
 
-``tests/test_torch_tp_train.py`` and ``tests/test_torch_tp_m4.py`` start
-their ranks on a ``(data, model)`` grid with
-:func:`repro_torch.launch.mesh.spawn_agents` (``model=M``), which imports
-this module by name in each rank.  It imports only ``repro_torch``,
+``tests/test_torch_tp_train.py``, ``tests/test_torch_tp_m4.py`` and
+``tests/test_torch_tp_families*.py`` start their ranks on a ``(data,
+model)`` grid with :func:`repro_torch.launch.mesh.spawn_agents`
+(``model=M``), which imports this module by name in each rank.  It imports only ``repro_torch``,
 ``numpy`` and ``torch``.  Every rank builds the same global inputs from a
 seed, runs the port's one-card path on them and the tensor-parallel path
 on its own block, and reports what it saw; the test files assert.
@@ -97,15 +97,19 @@ def grads(group, cfg, np_params, tokens):
     """The tensor-parallel loss and this rank's gradient block, from the
     one-replica parameters ``np_params`` (numpy) and ``tokens`` (b, s),
     through the agent vmap the algorithms take."""
+    return batch_grads(group, cfg, np_params, {"tokens": tokens})
+
+
+def batch_grads(group, cfg, np_params, np_batch):
+    """:func:`grads` for any batch of the decoder families (``np_batch``:
+    numpy, one replica's ``tokens`` and, for a VLM, ``patches``)."""
     bundle = build_model(cfg, device="cpu", group=group)
-    specs = _specs(cfg)
-    params = _shard(tree_map(torch.from_numpy, np_params), specs, group,
-                    False)
-    batch = {"tokens": torch.from_numpy(tokens)[None]}
+    params = _shard(tree_map(torch.from_numpy, np_params), _specs(cfg),
+                    group, False)
+    batch = {k: torch.from_numpy(v)[None] for k, v in np_batch.items()}
     g, loss = vmap(grad_and_value(bundle.loss))(
         tree_map(lambda a: a[None], params), batch)
-    return {"loss": float(loss[0]),
-            "grads": tree_map(lambda a: a[0], g)}
+    return {"loss": float(loss[0]), "grads": tree_map(lambda a: a[0], g)}
 
 
 # ---------------------------------------------------------------------------
@@ -113,13 +117,14 @@ def grads(group, cfg, np_params, tokens):
 # ---------------------------------------------------------------------------
 
 def _setup(cfg, n, group, variant, plane, gossip, wire, local, comp,
-           compress_fn=None, sigma=0.0):
+           compress_fn=None, sigma=0.0, schedule=None):
     """The train step; with ``compress_fn`` its algorithm rebuilt with
     that compression (the one-card twin of a shard-local run)."""
     setup = steps.build_train_step(
         cfg, n, variant=variant, compressor_name=comp, eta=ETA,
         gossip_mode=gossip, plane_dtype=plane, device="cpu", group=group,
-        local_compress=local, sigma_p=sigma, wire=wire)
+        local_compress=local, sigma_p=sigma, wire=wire,
+        topology_schedule=schedule)
     if compress_fn is None:
         return setup
     return dataclasses.replace(setup, algorithm=api.build(
@@ -140,7 +145,7 @@ def _run(setup, cfg, n, group, rounds):
 
 def train(group, variant="gc", plane=None, gossip="ring", wire="dense",
           local=False, comp="top_k", rounds=1, arch="tinyllama-1.1b",
-          over=()):
+          over=(), schedule=None):
     """``rounds`` rounds of ``variant`` on the grid against all agents in
     this process (the one-card compressor: the whole-leaf one, or the
     per-shard one when ``local`` or under a codec).  Returns x's largest
@@ -149,7 +154,7 @@ def train(group, variant="gc", plane=None, gossip="ring", wire="dense",
     cfg = smoke(arch, **dict(over))
     n = group.n_agents
     specs = _specs(cfg)
-    sigma = 0.05 if variant == "dp" else 0.0
+    sigma = 0.05 if variant in ("dp", "csgp") else 0.0
     fn = None
     if local or wire == "packed_bits":
         base = (make_codec_compress(WF.make_wire_format(comp, frac=0.05))
@@ -158,9 +163,9 @@ def train(group, variant="gc", plane=None, gossip="ring", wire="dense",
                     make_compressor(comp, frac=0.05)))
         fn = steps.shard_local_on_one_card(base, specs, group.model_size)
     one = _setup(cfg, n, None, variant, plane, "dense" if wire != "dense"
-                 else gossip, "dense", False, comp, fn, sigma)
+                 else gossip, "dense", False, comp, fn, sigma, schedule)
     proc = _setup(cfg, n, group, variant, plane, gossip, wire, local, comp,
-                  sigma=sigma)
+                  sigma=sigma, schedule=schedule)
     s1, m1 = _run(one, cfg, n, None, rounds)
     group.census.clear()
     group.model_census.clear()
@@ -182,7 +187,11 @@ def train(group, variant="gc", plane=None, gossip="ring", wire="dense",
         replicated_bytes=rep,
         windows=eng._packed_windows(s2.x),
         finite=all(bool(torch.isfinite(leaf).all())
-                   for leaf in tree_leaves(s2.x)))
+                   for leaf in tree_leaves(s2.x)),
+        **({} if not hasattr(s2, "xw") else dict(
+            weights_bitwise=_weights_bitwise(group, s2),
+            xw_diff=float((full.xw - s1.xw).abs().max()),
+            xw_moved=float((s1.xw - 1.0).abs().max()))))
 
 
 def _byte_split(eng, tree, specs, gossip, wire, n):
@@ -383,3 +392,79 @@ def m1_case(group):
     return dict(bitwise=same, model_size=group.model_size,
                 axes=group.axes, sharded=proc.algorithm.engine
                 .sharded is None, loss=(m1[-1]["loss"], m2[-1]["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# the decoder families on the model axis (tests/test_torch_tp_families*.py)
+# ---------------------------------------------------------------------------
+
+# label -> (arch, config overrides): MLA, ffn- and expert-parallel MoE, the
+# VLM with its one kv head split over the ranks (each smoke config tied at
+# vocab 512, vocab-parallel), and the embedding layouts
+FAMILIES = {
+    "mla": ("minicpm3-4b", ()),
+    "moe-ffn": ("grok-1-314b", ()),
+    "moe-expert": ("arctic-480b", (("n_experts", 16),)),
+    "vlm": ("paligemma-3b", ()),
+    "tied-vocab": ("tinyllama-1.1b", (("tie_embeddings", True),)),
+    "tied-dmodel": ("minicpm3-4b", (("vocab", 500),)),
+    "untied-dmodel": ("tinyllama-1.1b", (("vocab", 500),)),
+}
+
+
+def family_cfg(label):
+    arch, over = FAMILIES[label]
+    return smoke(arch, **dict(over))
+
+
+def _weights_bitwise(group, state) -> bool:
+    """Whether the push-sum weight planes are bitwise the other model
+    ranks'."""
+    full = group.all_gather([bits(getattr(state, f)) for f in
+                             ("xw", "q_w", "m_w")], axis="model")
+    return all(torch.equal(f[0], f[m]) for f in full
+               for m in range(1, f.shape[0]))
+
+
+def expert_combine(group, seed=5):
+    """The expert-parallel MoE layer (16 experts, f32) on this rank's
+    experts against the one-card layer on the same tokens: the output and
+    the aux loss, bitwise or not."""
+    from repro_torch.nn import moe as MO
+    cfg = MO.MoeConfig(d_model=32, d_ff=48, n_experts=16, top_k=2)
+    one = MO.init_moe(torch.Generator().manual_seed(seed), cfg)
+    mine = {"router": one["router"],
+            **{k: model_shard(one[k], 0, group.model_index,
+                              group.model_size).contiguous()
+               for k in ("w_gate", "w_in", "w_out")}}
+    x = torch.randn((2, 24, 32), generator=torch.Generator().manual_seed(
+        seed + 1))
+    want, aux1 = MO.moe(one, cfg, x)
+    got, aux2 = MO.moe(mine, cfg, x, group)
+    return dict(bitwise=torch.equal(bits(got), bits(want)),
+                aux_bitwise=torch.equal(bits(aux2), bits(aux1)),
+                max_abs=float((got - want).abs().max()))
+
+
+def family_cases(group, cases, variants=(), grad_inputs=None):
+    """The grid's runs for :data:`FAMILIES`: each label of ``grad_inputs``
+    (``label -> (np_params, np_batch)``) through :func:`batch_grads`, one
+    PORTER-GC round on the ring with the whole-leaf top-k for each of
+    ``cases``, then ``variants``: ``(name, label, variant, gossip, wire,
+    schedule, compressor, rounds)`` (a ``block_top_k`` compressor
+    shard-local), and the expert-parallel combine."""
+    out = {}
+    for label, (np_params, np_batch) in (grad_inputs or {}).items():
+        out[f"grads {label}"] = batch_grads(group, family_cfg(label),
+                                            np_params, np_batch)
+    for label in cases:
+        arch, over = FAMILIES[label]
+        out[label] = train(group, "gc", arch=arch, over=over)
+    for name, label, variant, gossip, wire, schedule, comp, rounds in (
+            variants):
+        arch, over = FAMILIES[label]
+        out[name] = train(group, variant, gossip=gossip, wire=wire,
+                          comp=comp, arch=arch, over=over, rounds=rounds,
+                          schedule=schedule, local=comp == "block_top_k")
+    out["combine"] = expert_combine(group)
+    return out
