@@ -50,11 +50,12 @@ of the ``repro`` package.  Phases, each printing its own lines:
    head dims padded on chip (8, 5, 48), with a state-chaining check, timed
    beside its bound (``scan_bound``: the bytes over HBM bandwidth against
    the operations on the tensor cores, the earlier f32-rate figure printed
-   beside it), and N = 65 refused (``[rwkv6]`` lines); then rwkv6-7b at full width and depth (32 layers, d 4096,
-   vocab 65536), its parameters drawn on the card from a seed, serving
-   batch 4 x prompt 512 and 32 greedy decode steps through
-   ``launch.serve`` (32 kernel launches a prefill, finite logits, ids in
-   range, prefill and decode tokens/s, the scans' share of a profiled
+   beside it), and N = 65 refused (``[rwkv6]`` lines); then rwkv6-7b at
+   full width (d 4096, vocab 65536), 8 of its 32 layers, its parameters
+   drawn on the card from a seed, serving batch 4 x prompt 512 and 32
+   greedy decode steps through ``launch.serve`` (8 kernel launches a
+   prefill, one a layer, finite logits, ids in range, prefill and
+   decode tokens/s, the scans' share of a profiled
    prefill); then 4 layers in f32: decode after a 512-token prefill held
    against ``forward`` over 528 tokens at 2e-3.
 7. the zamba2 serving path: ``ssd_chunk`` (through ``ops.ssd_scan``)
@@ -67,12 +68,13 @@ of the ``repro`` package.  Phases, each printing its own lines:
    bound (``scan_bound``), and P or N of 65 refused (``[ssd]`` lines); the
    zamba2 smoke config served on the card (a 128-token prefill, 5
    launches; in f32, prefill and 64 decode steps against ``forward`` at
-   2e-3); then zamba2-7b at full width and depth (81
-   Mamba2 layers of d 3584, the shared attention + MLP block 13 times,
-   vocab 32000; 6,637,023,440 parameters drawn on the card from a seed),
+   2e-3); then zamba2-7b at full width (Mamba2 layers of d 3584, the
+   shared attention + MLP block, vocab 32000), 13 of its 81 layers (the
+   block twice; 1,334,027,664 parameters drawn on the card from a seed),
    serving batch 4 x prompt 512 and 32 greedy decode steps through
-   ``launch.serve`` (81 kernel launches a prefill and none in decode,
-   finite logits, ids in range, prefill and decode tokens/s, resident and
+   ``launch.serve`` (13 kernel launches a prefill, one a layer, and none
+   in decode, finite logits, ids in range, prefill and decode
+   tokens/s, resident and
    peak memory, a profiled prefill and decode step); then 13 layers in f32
    (2 groups with the shared block and 1 trailing layer): decode after a
    512-token prefill held against ``forward`` over 576 tokens at 2e-3
@@ -153,7 +155,8 @@ of the ``repro`` package.  Phases, each printing its own lines:
    ``forward`` at 2e-3 (window None, capacity factor 4: the reference
    oracle's settings), and the danube one decoding past its 32 window;
    then each at full width (grok-1 at 4 of 64 layers, arctic at 1 of 35:
-   what the card holds while drawing), its drawn parameter count checked,
+   what the card holds while drawing; the other six at 4 layers,
+   seamless 4 + 4: the script's time limit), its drawn parameter count checked,
    serving batch 4 x prompt 512 and 32 greedy decode steps through
    ``launch.serve`` (prefill and decode tokens/s, peak memory, ids in
    range, no kernel launched: these families run no Pallas kernel in the
@@ -166,7 +169,7 @@ of the ``repro`` package.  Phases, each printing its own lines:
    width, 2 of its 22 layers (219,162,624 parameters an agent), 4 agents
    on a ring, PORTER-GC with ``top_k`` 5 %, tau 1, eta 3e-2, batch 4 x 64
    tokens, bf16 EF planes (an f32 round does not fit in 80 GB), through
-   ``launch.steps.build_train_step``: 20 rounds in chunks of 10 after a
+   ``launch.steps.build_train_step``: 10 rounds in chunks of 5 after a
    warm chunk, each round's old state donated (ms a round, one
    ``ef_track``, ``ef_step`` and ``clip`` a round and five epilogue
    roundings, the peak memory), one round with each of those
@@ -193,7 +196,7 @@ of the ``repro`` package.  Phases, each printing its own lines:
    ``launch.train.resolve_privacy`` at ``main``'s defaults (epsilon 0.1,
    delta 1e-3, 4,096 local samples, the cell's rounds): the per-sample
    gradients in chunks of c = 1 sample (the 4 x 26,754-tile per-sample
-   plane is 3.51 GB), 10 rounds in chunks of 5 after a warm chunk, each
+   plane is 3.51 GB), 5 rounds one a chunk after a warm chunk, each
    old state donated (ms a round, b / c ``clip`` and ``mean_noise``
    launches a round, one ``ef_track`` and ``ef_step``, the peak memory
    under 76 GB), a profiled window, every ``clip`` and ``mean_noise`` call
@@ -234,7 +237,7 @@ of the ``repro`` package.  Phases, each printing its own lines:
    agents as ranks: the first round forced with the one-card cell's
    gradient against its x at 1e-6 (bitwise), the free first round within
    ``AGENTS_LM["free_tol"]`` (a rank's x left unchanged by the round
-   outside it), 2 plain packed and 1 ring rounds (ms a round, the
+   outside it), 1 plain packed and 1 ring round (ms a round, the
    transport's share), the ranks' peaks summed within 76 GB.  A rank
    that fails or hangs fails the phase.
 16. The model axis (``[model-axis]`` lines): tinyllama's smoke config on
@@ -258,6 +261,15 @@ of the ``repro`` package.  Phases, each printing its own lines:
    of 62 layers, 2 agents x 2 model ranks).  Phase 16's smoke grid and
    all of phase 17 run in one spawn of 2 x 2 ranks, which start up while
    the one-card references are made.
+18. rwkv6, the Mamba2 hybrid and the encoder-decoder on the model axis
+   (``[model-axis-recurrent]`` lines), in phase 16-17's spawn: phase 16's
+   smoke gates over 10 rounds on ``TP_RECURRENT`` (the rwkv6-7b, zamba2-7b
+   and seamless-m4t-medium smoke configs; PORTER-DP beside PORTER-GC on
+   the hybrid), then phase 16's LM gates, PORTER-GC only, on
+   seamless-m4t-medium at full width (``TP_ENCDEC_LM``: 2 of 12 encoder
+   and 2 of 12 decoder layers, 322,146,304 parameters, its tied vocab of
+   256,206 d_model-sharded, 2 agents x 2 model ranks).  Each rank waits
+   only for the one-card references of the grid it runs next.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -634,6 +646,9 @@ def run_timed(torch, run_chunked, algo, source, state, seed, steps, chunk,
         if on_chunk is not None:
             on_chunk(t0, t1, st, metrics)
 
+    if steps <= chunk:
+        raise ValueError(f"run_timed times from the end of the first chunk: "
+                         f"{steps} rounds in chunks of {chunk} leave none")
     torch.cuda.synchronize()
     state, _ = run_chunked(algo, source, state, seed, steps, chunk=chunk,
                            on_chunk=keep, **kw)
@@ -1261,7 +1276,10 @@ RWKV_SHAPES = {"path": ((4, 512, 64, 64), "bf16"),
                "N=48": ((2, 128, 3, 48), "bf16"),
                "N=48 f32": ((2, 128, 3, 48), "f32")}
 RWKV_TOL = 1e-4
-RWKV_SERVE = dict(batch=4, prompt=512, gen=32)
+# rwkv6-7b served at full width, its depth cut to 8 of 32 layers to keep
+# the script within its time limit (decode is host-bound, so a step's time
+# follows the depth; the full-depth figures are in PERF.md)
+RWKV_SERVE = dict(batch=4, prompt=512, gen=32, layers=8)
 # decode after a 512-token prefill against forward over 528 (the
 # reference's decode-consistency tolerance)
 RWKV_CONSIST = dict(layers=4, prompt=512, extra=16, tol=2e-3)
@@ -1439,17 +1457,20 @@ def _profile_call(torch, label, fn, tag="rwkv6", kernel="rwkv6_chunk"):
 
 
 def phase_rwkv6_serve(torch, ops, serve, tree_leaves):
-    """rwkv6-7b at full width and depth, random parameters drawn on the
-    card: serve batch 4 x prompt 512 and 32 greedy decode steps through
-    ``launch.serve``; returns the kernel's launches in that run."""
+    """rwkv6-7b at full width and RWKV_SERVE's depth, random parameters
+    drawn on the card: serve batch 4 x prompt 512 and 32 greedy decode
+    steps through ``launch.serve``; returns the kernel's launches in that
+    run (one a layer)."""
     sc = RWKV_SERVE
     t0 = time.perf_counter()
-    cfg, bundle, params = serve.load("rwkv6-7b", device=DEVICE, seed=0)
+    cfg, bundle, params = serve.load("rwkv6-7b", device=DEVICE, seed=0,
+                                     n_layers=sc["layers"])
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_bytes = sum(t.nbytes for t in tree_leaves(params))
-    print(f"[rwkv6] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.rwkv_cfg().n_heads} heads x {cfg.ssm_head_dim}, d_ff "
+    print(f"[rwkv6] {cfg.name}: {cfg.n_layers} of 32 layers (cut), d "
+          f"{cfg.d_model}, {cfg.rwkv_cfg().n_heads} heads x "
+          f"{cfg.ssm_head_dim}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}, dtype {cfg.dtype}: {n_params} "
           f"parameters drawn on {DEVICE} in "
           f"{time.perf_counter() - t0:.2f} s, {n_bytes} B resident for "
@@ -1552,10 +1573,13 @@ SSD_SHAPES = {"path": ((4, 512, 112, 64, 64), "bf16"),
               "P5 N7": ((1, 128, 3, 5, 7), "bf16"),
               "P5 N7 f32": ((1, 128, 3, 5, 7), "f32")}
 SSD_TOL = 1e-4
-ZAMBA_SERVE = dict(batch=4, prompt=512, gen=32)
-# counted from src/repro/configs/zamba2_7b.py's shapes (the reference's
-# jax.eval_shape of its init gives the same)
-ZAMBA_PARAMS = 6_637_023_440
+# zamba2-7b served at full width, its depth cut to 13 of 81 Mamba2 layers
+# (2 groups with the shared block and 1 trailing layer, ZAMBA_CONSIST's) to
+# keep the script within its time limit; the full-depth figures
+# (6,637,023,440 parameters, 81 launches a prefill) are in PERF.md
+ZAMBA_SERVE = dict(batch=4, prompt=512, gen=32, layers=13)
+# counted from src/repro/configs/zamba2_7b.py's shapes at that depth
+ZAMBA_PARAMS = 1_334_027_664
 # decode after a 512-token prefill against forward over 576 (9 chunks of
 # 64, so forward runs the kernel too), at 13 layers: 2 groups with the
 # shared block and 1 trailing layer (the reference's decode-consistency
@@ -1733,22 +1757,23 @@ def phase_zamba2_smoke(torch, ops, serve):
 
 
 def phase_zamba2_serve(torch, ops, serve, tree_leaves):
-    """zamba2-7b at full width and depth, random parameters drawn on the
-    card: serve batch 4 x prompt 512 and 32 greedy decode steps through
-    ``launch.serve``; returns the kernel's launches in that run and the
-    rates."""
+    """zamba2-7b at full width and ZAMBA_SERVE's depth, random parameters
+    drawn on the card: serve batch 4 x prompt 512 and 32 greedy decode
+    steps through ``launch.serve``; returns the kernel's launches in that
+    run (one a Mamba2 layer) and the rates."""
     sc = ZAMBA_SERVE
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, bundle, params = serve.load("zamba2-7b", device=DEVICE, seed=0)
+    cfg, bundle, params = serve.load("zamba2-7b", device=DEVICE, seed=0,
+                                     n_layers=sc["layers"])
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     load_peak = torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_bytes = sum(t.nbytes for t in tree_leaves(params))
     mc = cfg.mamba_cfg()
-    print(f"[zamba2] {cfg.name}: {cfg.n_layers} Mamba2 layers, d "
-          f"{cfg.d_model}, d_inner {mc.d_inner}, {mc.n_heads} heads x "
+    print(f"[zamba2] {cfg.name}: {cfg.n_layers} of 81 Mamba2 layers (cut), "
+          f"d {cfg.d_model}, d_inner {mc.d_inner}, {mc.n_heads} heads x "
           f"{mc.head_dim}, state {mc.d_state}; the shared block "
           f"{cfg.n_layers // cfg.attn_every} times ({cfg.n_heads} heads x "
           f"{cfg.hd}, d_ff {cfg.d_ff}); vocab {cfg.vocab}, dtype {cfg.dtype}: "
@@ -1756,7 +1781,8 @@ def phase_zamba2_serve(torch, ops, serve, tree_leaves):
           f"{n_bytes} B resident for serving (dense weights, conv and "
           f"embedding in {cfg.dtype}), peak {load_peak} B while drawing")
     if n_params != ZAMBA_PARAMS:
-        raise AssertionError(f"zamba2-7b has {n_params} parameters, expected "
+        raise AssertionError(f"zamba2-7b at {cfg.n_layers} layers has "
+                             f"{n_params} parameters, expected "
                              f"{ZAMBA_PARAMS}")
     tokens = serve.make_prompt(cfg, sc["batch"], sc["prompt"], DEVICE, 1)
     serve.generate(bundle, params, tokens, 2)       # warm: library set-up
@@ -3263,16 +3289,21 @@ def _resume_case(torch, api, runtime, paper, tree_leaves, checkpoint, train,
 # stack is drawn in f32 and cast at once (``serve.load``), so the draw
 # peaks near the bf16 model plus one f32 stack and its bf16 copy (grok-1 at
 # 4 layers ~67 GB, arctic at 1 ~46 GB; arctic at 2 would need ~89 GB).
+# The other six serve at 4 layers (seamless 4 encoder + 4 decoder layers),
+# each at full width: decode is host-bound, a step's time follows the
+# depth, and the cut keeps the script within its time limit (the
+# full-depth figures are in PERF.md).  arch -> (layers, encoder layers or
+# None, parameters at that depth).
 DECODER_SERVE = dict(batch=4, prompt=512, gen=32)
 DECODER_ARCHS = {
-    "tinyllama-1.1b": (None, 1_100_048_384),
-    "chatglm3-6b": (None, 6_243_584_000),
-    "h2o-danube-3-4b": (None, 3_961_839_360),
-    "minicpm3-4b": (None, 4_073_875_968),
-    "paligemma-3b": (None, 2_511_022_080),
-    "seamless-m4t-medium": (None, 615_849_984),
-    "grok-1-314b": (4, 20_485_232_640),
-    "arctic-480b": (1, 13_840_569_344),
+    "tinyllama-1.1b": (4, None, 307_251_200),
+    "chatglm3-6b": (4, None, 1_348_524_032),
+    "h2o-danube-3-4b": (4, None, 865_109_760),
+    "minicpm3-4b": (4, None, 438_729_216),
+    "paligemma-3b": (4, None, 969_558_016),
+    "seamless-m4t-medium": (4, 4, 380_887_040),
+    "grok-1-314b": (4, None, 20_485_232_640),
+    "arctic-480b": (1, None, 13_840_569_344),
 }
 # the serve runs whose one decode step is profiled (host-bound figures)
 DECODER_PROFILED = ("minicpm3-4b", "grok-1-314b")
@@ -3363,19 +3394,20 @@ def phase_decoder_smoke(torch, ops, serve, models):
 
 
 def phase_decoder_serve(torch, ops, serve, tree_leaves):
-    """The eight architectures at full width (the MoE models at reduced
-    depth), random parameters drawn on the card: serve batch 4 x prompt
-    512 and 32 greedy decode steps each through ``launch.serve``, one
-    model at a time.  Returns {arch: figures}."""
+    """The eight architectures at full width and DECODER_ARCHS's depth,
+    random parameters drawn on the card: serve batch 4 x prompt 512 and 32
+    greedy decode steps each through ``launch.serve``, one model at a
+    time.  Returns {arch: figures}."""
     sc = DECODER_SERVE
     b, s, g = sc["batch"], sc["prompt"], sc["gen"]
     rates = {}
-    for arch, (depth, want) in DECODER_ARCHS.items():
+    for arch, (depth, enc_depth, want) in DECODER_ARCHS.items():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         cfg, bundle, params = serve.load(arch, device=DEVICE, seed=0,
-                                         n_layers=depth)
+                                         n_layers=depth,
+                                         n_enc_layers=enc_depth)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         load_peak = torch.cuda.max_memory_allocated()
@@ -3485,7 +3517,7 @@ LM_ARCH = "tinyllama-1.1b"
 LM_LAYERS = 2
 LM_PARAMS = 219_162_624          # 131.1 M embed + head, 44.0 M a layer
 LM_RUN = dict(agents=4, batch=4, seq=64, frac=0.05, eta=3e-2, tau=1.0,
-              chunk=10, rounds=20, profiled=5, block_rounds=2)
+              chunk=5, rounds=10, profiled=5, block_rounds=2)
 # the EF planes of the cell: bf16 (x f32 3.51 GB + six bf16 trees 10.5
 # GB), since the f32 cell does not fit: on an H100 80GB its round runs
 # out of memory in ef_step's outputs at 68.6 GiB allocated, each old
@@ -4016,7 +4048,7 @@ def phase_lm_remat(torch, ops, steps, data, configs, tree_leaves):
 
 # the full-width cell of phase 12 (LM_RUN: 4 agents, batch 4 x 64), under
 # PORTER-DP: sigma_p from resolve_privacy at launch.train.main's defaults
-LM_DP = dict(warm=2, rounds=10, chunk=5, profiled=5, example_steps=20,
+LM_DP = dict(warm=2, rounds=5, chunk=1, profiled=5, example_steps=20,
              epsilon=0.1, delta=1e-3, local_samples=4096, smoke_tol=1e-4,
              smoke_batch=4)
 LM_DP_CHUNK = 1                  # 4 x 26,754 tiles x 8,192 x 4 B = 3.51 GB
@@ -4651,7 +4683,7 @@ AGENTS_RUNS = {
 # on an H100 80GB HBM3 (PERF.md, PR 28)
 # packed / ring: the timed rounds after the first, few to keep the whole
 # script within its time limit
-AGENTS_LM = dict(ranks=4, packed=2, ring=1, tol=1e-6, free_tol=2e-5)
+AGENTS_LM = dict(ranks=4, packed=1, ring=1, tol=1e-6, free_tol=2e-5)
 # the run whose rank-0 launches give each kernel's per-rank count
 AGENTS_LAUNCH_RUNS = {name: "porter-gc ring codec top_k f32" for name in
                       ("ef_track", "ef_step", "clip", "topk_pack",
@@ -5497,6 +5529,9 @@ def _tp_smoke_refs(torch, runtime, steps, data, models, cfg, runs):
     if cfg.family == "vlm":
         batch["patches"] = torch.randn(
             (c["batch"], cfg.n_prefix, cfg.frontend_dim), generator=gen)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (c["batch"], c["seq"], cfg.frontend_dim), generator=gen)
     g, loss = grad_and_value(bundle.loss)(
         params, {k: v.to(DEVICE) for k, v in batch.items()})
     ref_data = {"batch": batch, "loss": float(loss),
@@ -5581,16 +5616,24 @@ def _tp_smoke_gates(tag, cfg, runs, rounds, ranks, ref_data, wall):
     return report
 
 
-def _await_refs(ref_dir):
-    """Block a rank until its parent has written the one-card references
-    into ``ref_dir`` (:func:`_spawn_beside`): -> the seconds it waited."""
+def _await_refs(ref_dir, name="ready"):
+    """Block a rank until its parent has written ``name`` into ``ref_dir``
+    (``ready``: every one-card reference, :func:`_spawn_beside`; a file of
+    :func:`_put_ref`: that one): -> the seconds it waited."""
     t0 = time.monotonic()
-    while not os.path.exists(os.path.join(ref_dir, "ready")):
+    while not os.path.exists(os.path.join(ref_dir, name)):
         if (os.path.exists(os.path.join(ref_dir, "failed"))
                 or time.monotonic() - t0 > TP_TIMEOUT_S):
             raise RuntimeError(f"no one-card references in {ref_dir}")
         time.sleep(0.05)
     return time.monotonic() - t0
+
+
+def _put_ref(torch, obj, path):
+    """``torch.save(obj, path)`` whole or not at all (a rank waiting in
+    :func:`_await_refs` for ``path`` never reads half a file)."""
+    torch.save(obj, f"{path}.tmp")
+    os.replace(f"{path}.tmp", path)
 
 
 def _spawn_beside(mesh, fn, world, ref_dir, args, make_refs, **kw):
@@ -5677,8 +5720,10 @@ def tp_lm_rank(group, ref_dir, sigma_p, cell):
     batch, sound and with each planted fault; then from a fresh init
     1 + ``cell["gc"]`` rounds (the first's loss and gradient against one
     card's), PORTER-DP 1 + ``cell["dp"]``, and for each one more round
-    under ``_TpChecks``; it starts once :func:`_spawn_beside` has written
-    the references."""
+    under ``_TpChecks`` (``cell["variants"]``, when given, names the
+    variants that run); it starts once :func:`_spawn_beside` has written
+    the references (every one: the cells' one-card rounds free their
+    memory first)."""
     import torch
     from repro_torch import data
     from repro_torch.core import clipping
@@ -5692,6 +5737,7 @@ def tp_lm_rank(group, ref_dir, sigma_p, cell):
     from torch.func import grad_and_value, vmap
     _await_refs(ref_dir)
     c, dev, cfg = cell, group.device, cell["cfg"]
+    prefix = c.get("ref", "agent")
     specs = leaf_specs(build_model(cfg, device=dev))
     torch.cuda.set_per_process_memory_fraction(c["mem_fraction"], dev)
     torch.cuda.reset_peak_memory_stats()
@@ -5704,7 +5750,7 @@ def tp_lm_rank(group, ref_dir, sigma_p, cell):
                                device=dev, group=group)
     init = lambda: setup.init_state(  # noqa: E731
         torch.Generator(device=dev).manual_seed(0))
-    want = torch.load(f"{ref_dir}/agent{group.index}.pt")
+    want = torch.load(f"{ref_dir}/{prefix}{group.index}.pt")
     g = _tp_shard(torch, want["g"], specs, group, False)
     state = init()
     gb, gs = runtime.round_generators(0, 0, dev)
@@ -5748,7 +5794,8 @@ def tp_lm_rank(group, ref_dir, sigma_p, cell):
     # a DP round's chunks of samples on this rank's plane
     out["dp_chunks"] = _tp_dp_chunks(clipping, flatten, tree_leaves(specs),
                                      group.model_size, c["batch"])
-    for variant, rounds in (("gc", c["gc"]), ("dp", c["dp"])):
+    for variant in c.get("variants", ("gc", "dp")):
+        rounds = c[variant]
         if variant == "dp":
             setup = steps.build_train_step(cfg, c["agents"], variant="dp",
                                            sigma_p=sigma_p, **kw)
@@ -5807,9 +5854,9 @@ def _tp_lm_refs(torch, runtime, steps, data, models, c, ref_dir):
         setup.algorithm, source, state, 0, 1, chunk=1, donate=True,
         on_chunk=lambda t0, t1, st, m: first.append(float(m["loss"][0])))
     for i in range(c["agents"]):
-        torch.save({"x": tree_map(lambda a: a[i].cpu(), state.x),
-                    "g": tree_map(lambda a: a[i].cpu(), state.g_prev)},
-                   ref_dir / f"agent{i}.pt")
+        _put_ref(torch, {"x": tree_map(lambda a: a[i].cpu(), state.x),
+                         "g": tree_map(lambda a: a[i].cpu(), state.g_prev)},
+                 ref_dir / f"{c.get('ref', 'agent')}{i}.pt")
     del state, setup, source
     torch.cuda.empty_cache()
     return first[0]
@@ -5857,7 +5904,9 @@ def _tp_lm_gates(c, ranks, first, wall, n_leaves):
     fault_loss = max(abs(r["fault_loss"][0] - first) / abs(first)
                      for r in ranks)
     fault_grad = max(r["fault_grad"][1] for r in ranks)
-    print(f"[{tag}] LM cell ({cfg.name}, {cfg.n_layers} layers, "
+    layers = (f"{cfg.n_enc_layers} + {cfg.n_layers}"
+              if cfg.family == "encdec" else f"{cfg.n_layers}")
+    print(f"[{tag}] LM cell ({cfg.name}, {layers} layers, "
           f"{c['agents']} agents x model {c['model']} = {ranks_n} ranks, "
           f"bf16 planes, ring, shard-local block_top_k): spawn to join "
           f"{wall:.1f} s; per-rank peak {peaks} B, sum {sum(peaks)} B "
@@ -5878,7 +5927,7 @@ def _tp_lm_gates(c, ranks, first, wall, n_leaves):
     out = {"peaks": peaks, "forced_x_diff": forced, "wall_s": wall,
            "first_loss_rel": loss_rel, "first_grad_rel": grad_rel,
            "fault_loss_rel": fault_loss, "fault_grad_rel": fault_grad}
-    for variant in ("gc", "dp"):
+    for variant in c.get("variants", ("gc", "dp")):
         r0 = ranks[0][variant]
         agent = {k: round(v, 4) for k, v in r0["agent_share"].items()}
         model = {k: round(v, 4) for k, v in r0["model_share"].items()}
@@ -5968,107 +6017,164 @@ TP_FAMILY_ROUNDS = TP_GATE_ROUND
 # its 62 layers (313,379,328 parameters, 159,400,448 a model rank), 2
 # agents x model 2 = 4 ranks, phase 12's batch, rounds and compressor and
 # phase 16's limits; each rank's allocator capped at mem_fraction of the
-# card
+# card; ``ref``: the prefix of its one-card references' files
 TP_FAMILY_LM = dict(TP_LM, arch="minicpm3-4b", layers=2,
-                    params=313_379_328, agents=2, mem_fraction=0.2)
-# the one (data 2, model 2) spawn of phases 16 and 17 joins within this
+                    params=313_379_328, agents=2, mem_fraction=0.2,
+                    ref="minicpm3-")
+# the one (data 2, model 2) spawn of phases 16 to 18 joins within this
 TP_GRID_TIMEOUT_S = 600
 
 
+# ---------------------------------------------------------------------------
+# phase 18: rwkv6, the Mamba2 hybrid and the encoder-decoder on the model
+# axis, and seamless-m4t-medium at full width there
+# ---------------------------------------------------------------------------
+
+# name -> (arch, config overrides): each smoke config in f32 on phase 16's
+# grid: rwkv6 (4 heads x 32), zamba2 (8 Mamba2 heads x 32, state 16, 552
+# w_in columns; the shared block twice), seamless (4 heads, frontend 64,
+# vocab 512 vocab-parallel)
+TP_RECURRENT = {
+    "rwkv6": ("rwkv6-7b", {}),
+    "zamba2 hybrid": ("zamba2-7b", {}),
+    "seamless encdec": ("seamless-m4t-medium", {}),
+}
+# every one runs phase 16's ring run; the hybrid also PORTER-DP on it (the
+# packed w_in and conv gathered under the per-sample vmap)
+TP_RECURRENT_DP = ("zamba2 hybrid", "porter-dp ring block_top_k local f32",
+                   dict(TP_RUNS[TP_FAMILY_RUN], variant="dp",
+                        sigma_p=DP_SIGMA))
+# the full-width cell: seamless-m4t-medium at its published width (d 1024,
+# 16 heads, d_ff 4096 plain gelu, layernorm, frontend 1024, tied vocab
+# 256,206, d_model-sharded since 256,206 % 16 != 0), 2 of its 12 encoder
+# and 2 of its 12 decoder layers (322,146,304 parameters, 161,608,704 a
+# model rank), 2 agents x model 2 = 4 ranks in phase 16-17's spawn, phase
+# 12's batch (4 x 64 tokens over 64 frames), PORTER-GC only, phase 16's
+# limits
+TP_ENCDEC_LM = dict(TP_LM, arch="seamless-m4t-medium", layers=2,
+                    enc_layers=2, params=322_146_304, agents=2,
+                    mem_fraction=0.2, variants=("gc",), ref="seamless-")
+
+
 def _tp_grid_cells(torch, configs):
-    """(name, f32 smoke config, runs, rounds) of every (data 2, model 2)
-    smoke grid: phase 16's (TP_RUNS over TP_ROUNDS), then every one of
-    TP_FAMILIES (over TP_FAMILY_ROUNDS)."""
+    """(name, f32 smoke config, runs, rounds, tag) of every (data 2, model
+    2) smoke grid: phase 16's (TP_RUNS over TP_ROUNDS), then every one of
+    TP_FAMILIES (phase 17) and of TP_RECURRENT (phase 18), over
+    TP_FAMILY_ROUNDS."""
     cells = [(LM_ARCH, dataclasses.replace(configs.get_smoke(LM_ARCH),
                                            dtype=torch.float32),
-              TP_RUNS, TP_ROUNDS)]
-    for name, (arch, over) in TP_FAMILIES.items():
-        cfg = dataclasses.replace(configs.get_smoke(arch),
-                                  dtype=torch.float32, **over)
-        runs = {TP_FAMILY_RUN: TP_RUNS[TP_FAMILY_RUN]}
-        if name == TP_FAMILY_CSGP[0]:
-            runs[TP_FAMILY_CSGP[1]] = TP_FAMILY_CSGP[2]
-        cells.append((name, cfg, runs, TP_FAMILY_ROUNDS))
+              TP_RUNS, TP_ROUNDS, "model-axis")]
+    for tag, table, extra in (
+            ("model-axis-families", TP_FAMILIES, TP_FAMILY_CSGP),
+            ("model-axis-recurrent", TP_RECURRENT, TP_RECURRENT_DP)):
+        for name, (arch, over) in table.items():
+            cfg = dataclasses.replace(configs.get_smoke(arch),
+                                      dtype=torch.float32, **over)
+            runs = {TP_FAMILY_RUN: TP_RUNS[TP_FAMILY_RUN]}
+            if name == extra[0]:
+                runs[extra[1]] = extra[2]
+            cells.append((name, cfg, runs, TP_FAMILY_ROUNDS, tag))
     return cells
 
 
-def tp_grid_rank(group, ref_dir, cells, lm):
-    """One rank of the (data 2, model 2) spawn of phases 16 and 17: once
-    the one-card references are written, :func:`_tp_smoke_cell` on every
-    grid of ``cells``, then :func:`tp_lm_rank` on phase 17's full-width
-    cell (``lm``: its sigma_p and cell)."""
+def tp_grid_rank(group, ref_dir, cells, lms):
+    """One rank of the (data 2, model 2) spawn of phases 16 to 18:
+    :func:`_tp_smoke_cell` on every grid of ``cells``, each once its
+    one-card references are written, then :func:`tp_lm_rank` on each
+    full-width cell of ``lms`` (``(sigma_p, cell)`` pairs: phase 17's and
+    phase 18's).  Each grid's and cell's seconds on this rank under
+    ``"s"``."""
     import torch
-    out = {"waited_s": _await_refs(ref_dir)}
-    for i, (name, cfg, runs, rounds) in enumerate(cells):
+    out = {"waited_s": 0.0, "s": {}}
+    for i, (name, cfg, runs, rounds, _) in enumerate(cells):
+        t0 = time.perf_counter()
+        out["waited_s"] += _await_refs(ref_dir, f"{i}.pt")
         out[name] = _tp_smoke_cell(torch, group, cfg, runs, rounds,
                                    torch.load(f"{ref_dir}/{i}.pt"))
-    torch.cuda.empty_cache()
-    out["lm"] = tp_lm_rank(group, ref_dir, *lm)
+        out["s"][name] = time.perf_counter() - t0
+    for sigma_p, cell in lms:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[cell["cfg"].name] = tp_lm_rank(group, ref_dir, sigma_p, cell)
+        out["s"][cell["cfg"].name] = time.perf_counter() - t0
     return out
 
 
 def phase_model_axis_grids(torch, runtime, steps, data, configs, mesh,
                            models, train, api):
-    """Phase 16 (a) and phase 17: one (data 2, model 2) spawn for phase
-    16's smoke grid, every grid of TP_FAMILIES and the full-width cell
-    TP_FAMILY_LM, their one-card references made while the ranks start,
-    then each one's gates: -> (phase 16's smoke report, phase 17's
-    reports)."""
+    """Phase 16 (a), phase 17 and phase 18: one (data 2, model 2) spawn
+    for phase 16's smoke grid, every grid of TP_FAMILIES and TP_RECURRENT
+    and the full-width cells TP_FAMILY_LM and TP_ENCDEC_LM, their one-card
+    references made while the ranks start (each grid's written as soon as
+    it is made, the full-width cells' before any rank starts one), then
+    each one's gates: -> (phase 16's smoke report, phase 17's reports,
+    phase 18's reports, each grid's and cell's seconds on rank 0)."""
     c = TP_SMOKE
     cells = _tp_grid_cells(torch, configs)
-    lm = _tp_family_lm_cell(torch, configs)
+    sigma_p = _lm_dp_sigma(train, api)
+    lms = [_tp_full_cell(torch, configs, TP_FAMILY_LM,
+                         "model-axis-families"),
+           _tp_full_cell(torch, configs, TP_ENCDEC_LM,
+                         "model-axis-recurrent")]
     ref_dir = ROOT / "build" / "model_axis"
 
     def make_refs():
         refs = []
-        for i, (_, cfg, runs, _) in enumerate(cells):
+        for i, (_, cfg, runs, _, _) in enumerate(cells):
             refs.append(_tp_smoke_refs(torch, runtime, steps, data, models,
                                        cfg, runs))
-            torch.save(refs[-1], ref_dir / f"{i}.pt")
-        return refs, _tp_lm_refs(torch, runtime, steps, data, models, lm,
-                                 ref_dir)
-    (refs, first), ranks, wall = _spawn_beside(
+            _put_ref(torch, refs[-1], ref_dir / f"{i}.pt")
+        return refs, [_tp_lm_refs(torch, runtime, steps, data, models, lm,
+                                  ref_dir) for lm in lms]
+    (refs, firsts), ranks, wall = _spawn_beside(
         mesh, tp_grid_rank, c["agents"] * c["model"], ref_dir,
-        (cells, (_lm_dp_sigma(train, api), lm)), make_refs,
+        (cells, [(sigma_p, lm) for lm in lms]), make_refs,
         model=c["model"], timeout_s=TP_GRID_TIMEOUT_S,
         env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    seconds = ranks[0]["s"]
     print(f"[model-axis] one spawn of (data {c['agents']}, model "
           f"{c['model']}) ranks for phase 16's smoke grid, phase 17's "
-          f"{len(cells) - 1} and its full-width cell: spawn to join "
+          f"{len(TP_FAMILIES)} grids and its full-width cell, phase 18's "
+          f"{len(TP_RECURRENT)} and its full-width cell: spawn to join "
           f"{wall:.1f} s, the ranks waiting up to "
           f"{max(r['waited_s'] for r in ranks):.1f} s of it for the "
-          f"one-card references made beside their start")
-    reports = [_tp_smoke_gates("model-axis" if i == 0
-                               else "model-axis-families", cfg, runs,
-                               rounds, [r[name] for r in ranks], ref, wall)
-               for i, ((name, cfg, runs, rounds), ref)
-               in enumerate(zip(cells, refs))]
-    families = {name: rep for (name, *_), rep in zip(cells[1:],
-                                                     reports[1:])}
-    families["lm"] = _tp_lm_gates(lm, [r["lm"] for r in ranks], first, wall,
-                                  _n_leaves(models, lm["cfg"]))
-    return reports[0], families
+          f"one-card references made beside them; rank 0's seconds a grid "
+          f"or cell "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    reports = [_tp_smoke_gates(tag, cfg, runs, rounds,
+                               [r[name] for r in ranks], ref, wall)
+               for (name, cfg, runs, rounds, tag), ref in zip(cells, refs)]
+    by_tag = {"model-axis-families": {}, "model-axis-recurrent": {}}
+    for (name, *_, tag), rep in zip(cells[1:], reports[1:]):
+        by_tag[tag][name] = rep
+    for lm, first in zip(lms, firsts):
+        by_tag[lm["tag"]]["lm"] = _tp_lm_gates(
+            lm, [r[lm["cfg"].name] for r in ranks], first, wall,
+            _n_leaves(models, lm["cfg"]))
+    return (reports[0], by_tag["model-axis-families"],
+            by_tag["model-axis-recurrent"], seconds)
 
 
-def _tp_family_lm_cell(torch, configs):
-    """Phase 17's full-width cell (TP_FAMILY_LM) in the form of
+def _tp_full_cell(torch, configs, d, tag):
+    """A full-width grid cell (TP_FAMILY_LM, TP_ENCDEC_LM) in the form of
     :func:`_tp_lm_cell`, its parameter count checked."""
     from repro_torch.models import build_model
     from repro_torch.nn.module import leaf_specs
     from repro_torch.tree import tree_leaves
-    d = TP_FAMILY_LM
-    cfg = dataclasses.replace(configs.get_config(d["arch"]),
-                              n_layers=d["layers"])
+    cfg = configs.get_config(d["arch"])
+    cfg = dataclasses.replace(cfg, n_layers=d["layers"],
+                              n_enc_layers=d.get("enc_layers",
+                                                 cfg.n_enc_layers))
     count = sum(math.prod(s.shape) for s in
                 tree_leaves(leaf_specs(build_model(cfg, device=DEVICE))))
     if count != d["params"]:
-        raise AssertionError(f"model-axis-families LM: {count} parameters, "
-                             f"expected {d['params']}")
-    return dict(cfg=cfg, tag="model-axis-families",
+        raise AssertionError(f"{tag} LM: {count} parameters, expected "
+                             f"{d['params']}")
+    return dict(cfg=cfg, tag=tag,
                 **{k: LM_RUN[k] for k in ("batch", "seq", "frac", "eta",
                                           "tau")},
                 **{k: v for k, v in d.items()
-                   if k not in ("arch", "layers", "params")})
+                   if k not in ("arch", "layers", "enc_layers", "params")})
 
 
 def lm_record(name, lm, lm_times):
@@ -6264,20 +6370,30 @@ def main() -> int:
     print(f"[agents] phase took {time.perf_counter() - t15:.1f} s")
     print("[agents] figures " + json.dumps(agents, default=str))
 
-    # phases 16 and 17: the model axis (one spawn of 2 x 2 ranks for
-    # phase 16's smoke grid, phase 17's five and minicpm3-4b's full-width
-    # cell, then phase 12's LM cell on 4 x 2 ranks)
+    # phases 16 to 18: the model axis (one spawn of 2 x 2 ranks for
+    # phase 16's smoke grid, phase 17's five grids and minicpm3-4b's
+    # full-width cell, phase 18's three grids and seamless-m4t-medium's
+    # full-width cell, then phase 12's LM cell on 4 x 2 ranks)
     t16 = time.perf_counter()
-    model_axis, families = phase_model_axis_grids(
+    model_axis, families, recurrent, cell_s = phase_model_axis_grids(
         torch, runtime, steps, data, configs, mesh, models, train, api)
+    t16b = time.perf_counter()
     model_axis["lm"] = phase_model_axis_lm(torch, runtime, steps, data,
                                            configs, mesh, models, train,
                                            api)
-    print(f"[model-axis] phases 16 and 17 took "
-          f"{time.perf_counter() - t16:.1f} s")
+    p18 = sum(v for k, v in cell_s.items()
+              if k in TP_RECURRENT or k == "seamless-m4t-medium")
+    print(f"[model-axis] phases 16 to 18 took "
+          f"{time.perf_counter() - t16:.1f} s: the shared spawn "
+          f"{t16b - t16:.1f} s, of which phase 18's grids and cell "
+          f"{p18:.1f} s on rank 0; phase 16's LM cell "
+          f"{time.perf_counter() - t16b:.1f} s")
+    print(f"[time] phase 18 took {p18:.1f} s (in phases 16-17's spawn)")
     print("[model-axis] figures " + json.dumps(model_axis, default=str))
     print("[model-axis-families] figures " + json.dumps(families,
                                                          default=str))
+    print("[model-axis-recurrent] figures " + json.dumps(recurrent,
+                                                          default=str))
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
@@ -6458,6 +6574,20 @@ def main() -> int:
         for variant in ("gc", "dp"):
             rec[f"launches_model_families_lm_{variant}_round"] = (
                 families["lm"][variant]["launches_round"].get(key, 0))
+    # phase 18: each kernel's launches a round on one rank of the rwkv6,
+    # hybrid and encoder-decoder smoke grids, and on seamless-m4t-medium's
+    # full-width cell (PORTER-GC)
+    for rec in record:
+        key = "sr_epilogue" if rec["name"] == "sr_cast" else rec["name"]
+        if rec["name"] not in MODEL_AXIS_LAUNCH_RUNS:
+            continue
+        rec["launches_model_recurrent_rank_round"] = {
+            f"{name} {label}": run["launches"].get(key, 0) / run["rounds"]
+            for name, fam in recurrent.items() if name != "lm"
+            for label, run in fam.items()
+            if isinstance(run, dict) and "launches" in run}
+        rec["launches_model_recurrent_lm_gc_round"] = (
+            recurrent["lm"]["gc"]["launches_round"].get(key, 0))
     print(f"[time] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)   # again here: a long log keeps only its end

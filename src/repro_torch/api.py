@@ -501,7 +501,8 @@ def _check_group(spec: ExperimentSpec, group) -> None:
             raise ValueError(
                 "a randomized wire codec (qsgd) on a model axis would draw "
                 "per shard; only deterministic codecs (top_k, block_top_k) "
-                "run per shard, as the reference's shard-local compressor")
+                "run per shard, as the reference's shard-local compressor "
+                "(ROADMAP queue 1 item 12(c))")
 
 
 # the algorithms that run on a grid with a model axis

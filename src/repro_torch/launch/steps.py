@@ -19,17 +19,18 @@ reference's agent axes of its mesh) every agent is a process: the rank's
 state and batch are its agent's row and the gossip executors ship its
 buffers across the group.  On a ``(data, model)`` grid (``group.model_size
 = M > 1``) each agent's replica is split over its M ranks as the
-reference's PartitionSpecs say, for the decoder families (dense GQA and
-MLA, MoE ffn- and expert-parallel, the VLM; tied or untied, vocab-parallel
-or d_model-sharded embeddings) and the variants 'gc', 'dp', 'beer' and
-'csgp': the bundle is the tensor-parallel one
+reference's PartitionSpecs say, for every family (the decoders: dense GQA
+and MLA, MoE ffn- and expert-parallel, the VLM; rwkv6, the Mamba2 hybrid
+and the encoder-decoder; tied or untied, vocab-parallel or d_model-sharded
+embeddings) and the variants 'gc', 'dp', 'beer' and 'csgp': the bundle is
+the tensor-parallel one
 (:func:`repro_torch.models.build_model` ``group=``), the leaf specs go to
 ``api.build`` (per-shard planes, the cross-shard clip, push-sum weights
 replicated on an agent's ranks), and ``local_compress`` picks the
 reference's shard-local compressor (:func:`make_shard_local_compress`)
 over the whole-leaf one.  ROADMAP queue 1 item 12(c) keeps the rest: the
-rwkv6, hybrid and encoder-decoder forwards on a model axis, the other
-algorithms, ``remat_policy`` and a qsgd codec there, the fleet axis and
+other algorithms, ``remat_policy`` and a qsgd codec on a model axis, an SR
+draw that costs a rank only its own block, the fleet axis and
 the server algorithms across processes, and the NCCL path; the prefill
 and serve steps and the launch tooling are item 14.
 """

@@ -9,6 +9,9 @@ draws a family's layers as one stack (``lead=(n_layers,)``) and applies
 them in a Python loop.  A layer that collects its prefill cache keeps the
 keys and values (or MLA's latent) its attention has just computed, where
 the reference computes them a second time; the values are the same.
+Every ``*_layer_seq`` takes ``model=``, a group with a model axis: ``p``
+is then this rank's shard, the mixer and the FFN run tensor-parallel and
+the norms (whole on every rank) replicated.
 """
 
 from __future__ import annotations
@@ -223,10 +226,11 @@ def init_rwkv_layer(gen: torch.Generator, cfg: ModelConfig, lead=()):
             "blk": S.init_rwkv6_block(gen, cfg.rwkv_cfg(), lead=lead)}
 
 
-def rwkv_layer_seq(p, cfg: ModelConfig, x, state=None, plain_scan=False):
+def rwkv_layer_seq(p, cfg: ModelConfig, x, state=None, plain_scan=False,
+                   model=None):
     _, norm = _norm_fns(cfg)
     y, st = S.rwkv6_block(p["blk"], cfg.rwkv_cfg(), norm(p["ln"], x), state,
-                          plain_scan=plain_scan)
+                          plain_scan=plain_scan, model=model)
     return y, st
 
 
@@ -245,10 +249,11 @@ def init_mamba_layer(gen: torch.Generator, cfg: ModelConfig, lead=()):
             "blk": S.init_mamba2_block(gen, cfg.mamba_cfg(), lead=lead)}
 
 
-def mamba_layer_seq(p, cfg: ModelConfig, x, state=None, plain_scan=False):
+def mamba_layer_seq(p, cfg: ModelConfig, x, state=None, plain_scan=False,
+                    model=None):
     _, norm = _norm_fns(cfg)
     y, st = S.mamba2_block(p["blk"], cfg.mamba_cfg(), norm(p["ln"], x), state,
-                           plain_scan=plain_scan)
+                           plain_scan=plain_scan, model=model)
     return x + y, st
 
 
@@ -270,11 +275,12 @@ def init_encoder_layer(gen: torch.Generator, cfg: ModelConfig, lead=()):
             "ffn": M.init_mlp(gen, cfg.mlp_cfg(), lead=lead)}
 
 
-def encoder_layer_seq(p, cfg: ModelConfig, x, positions):
+def encoder_layer_seq(p, cfg: ModelConfig, x, positions, model=None):
     _, norm = _norm_fns(cfg)
     x = x + A.attention(p["attn"], cfg.attn_cfg(), norm(p["ln1"], x),
-                        positions, mode="full", q_chunk=cfg.q_chunk)
-    return x + M.mlp(p["ffn"], cfg.mlp_cfg(), norm(p["ln2"], x))
+                        positions, mode="full", q_chunk=cfg.q_chunk,
+                        model=model)
+    return x + M.mlp(p["ffn"], cfg.mlp_cfg(), norm(p["ln2"], x), model)
 
 
 # ---------------------------------------------------------------------------
@@ -295,17 +301,19 @@ def init_xattn_decoder_layer(gen: torch.Generator, cfg: ModelConfig,
 
 def xattn_decoder_layer_seq(p, cfg: ModelConfig, x, positions, enc_out,
                             collect_cache: bool = False,
-                            cache_dtype=torch.bfloat16):
+                            cache_dtype=torch.bfloat16, model=None):
     """Causal self-attention, cross-attention over ``enc_out``, the MLP.
-    Returns (x, cache or None): ``{"self": {k, v}, "cross": {k, v}}``."""
+    Returns (x, cache or None): ``{"self": {k, v}, "cross": {k, v}}``
+    (a one-card layer's: ``model`` trains, it collects no cache)."""
     _, norm = _norm_fns(cfg)
     acfg = cfg.attn_cfg()
     y, k, v = A.attention_kv(p["self_attn"], acfg, norm(p["ln1"], x),
-                             positions, mode="causal", q_chunk=cfg.q_chunk)
+                             positions, mode="causal", q_chunk=cfg.q_chunk,
+                             model=model)
     x = x + y
     x = x + A.cross_attention(p["cross_attn"], acfg, norm(p["ln2"], x),
-                              enc_out, q_chunk=cfg.q_chunk)
-    x = x + M.mlp(p["ffn"], cfg.mlp_cfg(), norm(p["ln3"], x))
+                              enc_out, q_chunk=cfg.q_chunk, model=model)
+    x = x + M.mlp(p["ffn"], cfg.mlp_cfg(), norm(p["ln3"], x), model)
     cache = None
     if collect_cache:
         cache = {"self": {"k": k.to(cache_dtype), "v": v.to(cache_dtype)},

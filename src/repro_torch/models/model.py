@@ -33,14 +33,16 @@ vocab-parallel when the vocab divides by :data:`MODEL_AXIS_SIZE`, as in
 the reference).
 
 Tensor parallelism (``build_model(cfg, group=)``, the group's
-``model_size`` M > 1): the decoder bundle (dense GQA or MLA, MoE ffn- or
-expert-parallel, the VLM) holds this rank's shard of every sharded leaf
-(``init`` draws each full leaf and keeps the slice, so the shards are the
-one-card parameters') and its ``loss`` runs tensor-parallel
-(:mod:`repro_torch.nn.tensor_parallel`), the embedding and the head tied
-or not, vocab-parallel or d_model-sharded by the reference's rule; such a
-bundle trains and does not serve.  rwkv6, the hybrid and the
-encoder-decoder refuse a model axis (ROADMAP queue 1 item 12(c)).
+``model_size`` M > 1), for every family: the bundle holds this rank's
+shard of every sharded leaf (``init`` draws each full leaf and keeps the
+slice, so the shards are the one-card parameters') and its ``loss`` runs
+tensor-parallel (:mod:`repro_torch.nn.tensor_parallel`): the decoder
+(dense GQA or MLA, MoE ffn- or expert-parallel, the VLM), rwkv6, the
+hybrid (Mamba2 layers and the shared block) and the encoder-decoder (the
+encoder, the cross-attention decoder), the embedding and the head tied or
+not, vocab-parallel or d_model-sharded by the reference's rule.  Each
+family's builder takes ``model`` and there is one ``loss`` a family; such
+a bundle trains and does not serve.
 
 ``loss`` is the reference's: the mean next-token cross-entropy of
 ``forward``'s logits (a decoder's plus ``0.01 * aux / n_layers``, the MoE
@@ -154,6 +156,27 @@ def _cache_dev(default, device):
     return default if device is None else torch.device(device)
 
 
+def _embed(cfg: ModelConfig, params, tokens, model):
+    """The token embeddings; on a model axis vocab-parallel or
+    d_model-sharded by the reference's rule (:func:`vocab_parallel`)."""
+    if model is None:
+        return embedding(params["embed"], tokens, cfg.dtype)
+    embed = TP.embedding if vocab_parallel(cfg) else TP.embedding_columns
+    return embed(params["embed"], tokens, model, cfg.dtype)
+
+
+def _head_loss(cfg: ModelConfig, params, x, tokens, model):
+    """The next-token loss of the head over the normalised ``x`` (the
+    vocab-parallel cross-entropy on a model axis where the logits are
+    vocab-sharded)."""
+    if model is None:
+        return _lm_loss(_logits(cfg, params, x), tokens)
+    z, sharded = _tp_logits(cfg, params, x, model)
+    if sharded:
+        return TP.cross_entropy_loss(z[:, :-1], tokens[:, 1:], model)
+    return _lm_loss(z, tokens)
+
+
 # ===========================================================================
 # dense / moe decoder (also the vlm text stack)
 # ===========================================================================
@@ -179,12 +202,7 @@ def _build_decoder(cfg: ModelConfig, cache_device, model=None
     def _embed_inputs(params, batch):
         """The input embeddings (the VLM's projected patches first, the
         projector replicated on a model axis) and the prefix length."""
-        if model is None:
-            x = embedding(params["embed"], batch["tokens"], cfg.dtype)
-        else:
-            embed = (TP.embedding if vocab_parallel(cfg)
-                     else TP.embedding_columns)
-            x = embed(params["embed"], batch["tokens"], model, cfg.dtype)
+        x = _embed(cfg, params, batch["tokens"], model)
         if not is_vlm:
             return x, 0
         patches = dense(params["projector"], batch["patches"].to(cfg.dtype))
@@ -204,16 +222,6 @@ def _build_decoder(cfg: ModelConfig, cache_device, model=None
             caches.append(cache)
         return x, (_stack(caches) if collect else None), aux
 
-    def _ce(params, x, tokens):
-        """The next-token loss of the head over ``x`` (vocab-parallel on a
-        model axis where the logits are vocab-sharded)."""
-        if model is None:
-            return _lm_loss(_logits(cfg, params, x), tokens)
-        z, sharded = _tp_logits(cfg, params, x, model)
-        if sharded:
-            return TP.cross_entropy_loss(z[:, :-1], tokens[:, 1:], model)
-        return _lm_loss(z, tokens)
-
     def forward(params, batch):
         x, prefix_len = _embed_inputs(params, batch)
         x, _, _ = _run_layers(params, x, prefix_len, False, "cfg")
@@ -225,7 +233,7 @@ def _build_decoder(cfg: ModelConfig, cache_device, model=None
         x = norm(params["final_norm"], x)
         if is_vlm:   # only the text positions predict
             x = x[:, cfg.n_prefix:]
-        return (_ce(params, x, batch["tokens"])
+        return (_head_loss(cfg, params, x, batch["tokens"], model)
                 + 0.01 * aux / max(cfg.n_layers, 1))
 
     def prefill(params, batch, window="cfg"):
@@ -262,7 +270,9 @@ def _build_decoder(cfg: ModelConfig, cache_device, model=None
 # RWKV6 (attention-free; cache = recurrent state)
 # ===========================================================================
 
-def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
+def _build_rwkv(cfg: ModelConfig, cache_device, model=None) -> ModelBundle:
+    """The rwkv6 bundle; ``model`` as in :func:`_build_decoder` (each
+    layer's block tensor-parallel, :func:`repro_torch.nn.ssm.rwkv6_block`)."""
     _, norm = B._norm_fns(cfg)
 
     def init(generator: torch.Generator):
@@ -278,14 +288,14 @@ def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
             new_states.append(st)
         return x, _stack(new_states)
 
-    def _forward(params, batch, plain_scan):
+    def _hidden(params, batch, plain_scan):
+        """The final-normed hidden states from fresh states."""
         tokens = batch["tokens"]
-        x = embedding(params["embed"], tokens, cfg.dtype)
+        x = _embed(cfg, params, tokens, model)
         states = init_cache(tokens.shape[0], device=tokens.device)
         x, _ = _run(params, x, states, functools.partial(
-            B.rwkv_layer_seq, plain_scan=plain_scan))
-        x = norm(params["final_norm"], x)
-        return _logits(cfg, params, x)
+            B.rwkv_layer_seq, plain_scan=plain_scan, model=model))
+        return norm(params["final_norm"], x)
 
     def init_cache(batch, device=None):
         one = S.init_rwkv6_state(batch, cfg.rwkv_cfg(),
@@ -293,10 +303,11 @@ def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
         return _repeat(one, cfg.n_layers)
 
     def forward(params, batch):
-        return _forward(params, batch, False)
+        return _logits(cfg, params, _hidden(params, batch, False))
 
     def loss(params, batch):
-        return _lm_loss(_forward(params, batch, True), batch["tokens"])
+        return _head_loss(cfg, params, _hidden(params, batch, True),
+                          batch["tokens"], model)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -324,7 +335,11 @@ def _build_rwkv(cfg: ModelConfig, cache_device) -> ModelBundle:
 # port runs the same order in one Python loop.
 # ===========================================================================
 
-def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
+def _build_hybrid(cfg: ModelConfig, cache_device, model=None
+                  ) -> ModelBundle:
+    """The hybrid bundle; ``model`` as in :func:`_build_decoder` (the
+    Mamba2 layers tensor-parallel, :func:`repro_torch.nn.ssm.mamba2_block`,
+    and the shared block as a decoder layer's)."""
     _, norm = B._norm_fns(cfg)
     g = cfg.attn_every
     n_groups = cfg.n_layers // g   # the trailing n_layers % g skip the block
@@ -344,7 +359,8 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
         mamba states, the collected caches)."""
         decode = isinstance(attn_ctx, dict)
         apply = (B.mamba_layer_decode if decode else
-                 functools.partial(B.mamba_layer_seq, plain_scan=plain_scan))
+                 functools.partial(B.mamba_layer_seq, plain_scan=plain_scan,
+                                   model=model))
         shared = params["shared_attn"]
         states, caches = [], []
         for i in range(cfg.n_layers):
@@ -362,7 +378,7 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
                 x, cache, _ = B.decoder_layer_seq(
                     shared, acfg, x, positions,
                     collect_cache=attn_ctx == "collect",
-                    cache_dtype=cfg.dtype, window=window)
+                    cache_dtype=cfg.dtype, window=window, model=model)
                 caches.append(cache)
         return x, _stack(states), caches
 
@@ -380,21 +396,22 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
         return {"mamba": _mamba_cache(batch, dev),
                 "attn": _repeat(one, n_groups)}
 
-    def _forward(params, batch, plain_scan):
+    def _hidden(params, batch, plain_scan):
+        """The final-normed hidden states from fresh states."""
         tokens = batch["tokens"]
-        x = embedding(params["embed"], tokens, cfg.dtype)
+        x = _embed(cfg, params, tokens, model)
         pos = _positions(*tokens.shape[:2], device=tokens.device)
         x, _, _ = _run(params, x, _mamba_cache(tokens.shape[0],
                                                tokens.device), pos, None,
                        plain_scan=plain_scan)
-        x = norm(params["final_norm"], x)
-        return _logits(cfg, params, x)
+        return norm(params["final_norm"], x)
 
     def forward(params, batch):
-        return _forward(params, batch, False)
+        return _logits(cfg, params, _hidden(params, batch, False))
 
     def loss(params, batch):
-        return _lm_loss(_forward(params, batch, True), batch["tokens"])
+        return _head_loss(cfg, params, _hidden(params, batch, True),
+                          batch["tokens"], model)
 
     def prefill(params, batch, window="cfg"):
         tokens = batch["tokens"]
@@ -426,7 +443,12 @@ def _build_hybrid(cfg: ModelConfig, cache_device) -> ModelBundle:
 # cross-attention.
 # ===========================================================================
 
-def _build_encdec(cfg: ModelConfig, cache_device) -> ModelBundle:
+def _build_encdec(cfg: ModelConfig, cache_device, model=None
+                  ) -> ModelBundle:
+    """The encoder-decoder bundle; ``model`` as in :func:`_build_decoder`
+    (the adapter replicated, the encoder and decoder layers
+    tensor-parallel, the cross-attention's keys and values over the
+    replicated encoder output)."""
     _, norm = B._norm_fns(cfg)
 
     def init(generator: torch.Generator):
@@ -444,27 +466,31 @@ def _build_encdec(cfg: ModelConfig, cache_device) -> ModelBundle:
         pos = _positions(*x.shape[:2], device=x.device)
         for i in range(cfg.n_enc_layers):
             x = B.encoder_layer_seq(_layer(params["enc_layers"], i), cfg, x,
-                                    pos)
+                                    pos, model=model)
         return x
 
     def _decode_seq(params, tokens, enc_out, collect):
-        x = embedding(params["embed"], tokens, cfg.dtype)
+        x = _embed(cfg, params, tokens, model)
         pos = _positions(*tokens.shape[:2], device=tokens.device)
         caches = []
         for i in range(cfg.n_layers):
             x, cache = B.xattn_decoder_layer_seq(
                 _layer(params["dec_layers"], i), cfg, x, pos, enc_out,
-                collect_cache=collect, cache_dtype=cfg.dtype)
+                collect_cache=collect, cache_dtype=cfg.dtype, model=model)
             caches.append(cache)
         return x, (_stack(caches) if collect else None)
 
-    def forward(params, batch):
+    def _hidden(params, batch):
         enc_out = _encode(params, batch["frames"])
         x, _ = _decode_seq(params, batch["tokens"], enc_out, False)
-        return _logits(cfg, params, norm(params["final_norm"], x))
+        return norm(params["final_norm"], x)
+
+    def forward(params, batch):
+        return _logits(cfg, params, _hidden(params, batch))
 
     def loss(params, batch):
-        return _lm_loss(forward(params, batch), batch["tokens"])
+        return _head_loss(cfg, params, _hidden(params, batch),
+                          batch["tokens"], model)
 
     def prefill(params, batch):
         enc_out = _encode(params, batch["frames"])
@@ -532,17 +558,11 @@ def _tp_logits(cfg: ModelConfig, params, x, model):
 
 
 def _tensor_parallel(cfg: ModelConfig, device, model) -> ModelBundle:
-    """The decoder bundle (dense GQA or MLA, MoE, VLM) on a model axis:
-    ``init`` keeps this rank's shard of every leaf drawn, ``loss`` is
-    :func:`_build_decoder`'s over ``model`` (the embedding vocab-parallel
-    or d_model-sharded, tied or not); serving refuses."""
-    if _BUNDLES[cfg.family] is not _build_decoder:
-        raise ValueError(
-            f"a model axis (model_size {model.model_size}) needs the "
-            f"{cfg.family!r} tensor-parallel forward of {cfg.name}, which "
-            "is not ported: ROADMAP queue 1 item 12(c) (the decoder "
-            "families run: dense GQA and MLA, MoE, VLM)")
-    bundle = _build_decoder(cfg, device, model)
+    """The family's bundle on a model axis: ``init`` keeps this rank's
+    shard of every leaf drawn, ``loss`` is the family builder's over
+    ``model`` (the embedding vocab-parallel or d_model-sharded, tied or
+    not); serving refuses."""
+    bundle = _BUNDLES[cfg.family](cfg, device, model)
     plain_init = _hooked(bundle.init)
 
     def init(generator, leaf=None, with_spec=False):
@@ -566,8 +586,8 @@ def _tensor_parallel(cfg: ModelConfig, device, model) -> ModelBundle:
 def build_model(cfg: ModelConfig, device=None, group=None) -> ModelBundle:
     """The bundle of ``cfg``; ``device`` (cuda unless given) is where
     ``init_cache`` puts a cache when it is not told otherwise.  ``group``:
-    an agent group; with a model axis (``model_size > 1``) the decoder
-    families' tensor-parallel bundle of this rank's shard."""
+    an agent group; with a model axis (``model_size > 1``) the family's
+    tensor-parallel bundle of this rank's shard."""
     if cfg.family not in _BUNDLES:
         raise ValueError(f"unknown family {cfg.family!r}")
     device = torch.device("cuda") if device is None else torch.device(device)

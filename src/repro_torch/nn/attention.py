@@ -26,9 +26,10 @@ masks by the window in decode too: key positions ``<= pos`` and ``> pos -
 window``, as the windowed ``attention`` masks.  The reference masks only
 ``<= pos`` there (``src/repro/nn/attention.py:216-218``), so past the
 window its decode leaves its own forward; up to the window the two masks
-agree.  Under a model axis (``model=``) the GQA attention and MLA run
-tensor-parallel over the reference's specs (:func:`attention_kv`,
-:func:`mla_attention_latent`).
+agree.  Under a model axis (``model=``) the GQA attention, MLA and the
+cross-attention run tensor-parallel over the reference's specs
+(:func:`attention_kv`, :func:`mla_attention_latent`,
+:func:`cross_attention`).
 """
 
 from __future__ import annotations
@@ -455,18 +456,42 @@ def init_cross_attention(gen: torch.Generator, cfg: AttnConfig, lead=()):
     return init_attention(gen, cfg, lead=lead)
 
 
-def _cross_kv(p, cfg: AttnConfig, enc_out):
-    hk, hd = cfg.n_kv_heads, cfg.head_dim
+def _cross_heads(cfg: AttnConfig, model) -> Tuple[int, int]:
+    """The (q, kv) heads a rank computes: all of them, or under ``model``
+    its whole heads of the column split (a kv head split below a rank is
+    refused: the encoder-decoder's kv heads are its q heads)."""
+    if model is None:
+        return cfg.n_heads, cfg.n_kv_heads
+    heads = TP.local_heads(cfg.n_heads, cfg.n_kv_heads, model)
+    if heads.gathered:
+        raise ValueError(
+            f"tensor-parallel cross-attention splits whole kv heads: "
+            f"{cfg.n_kv_heads} kv heads over a model axis of "
+            f"{model.model_size}")
+    return heads.q, heads.kv
+
+
+def _cross_kv(p, cfg: AttnConfig, enc_out, model=None):
+    """The encoder's keys and values (B,T,Hk,hd): all kv heads, or under
+    ``model`` the rank's (``wk`` / ``wv`` column-parallel on ``enc_out``
+    behind :func:`repro_torch.nn.tensor_parallel.copy_to_model`, so
+    ``enc_out``'s gradient sums every rank's part)."""
+    hk, hd = _cross_heads(cfg, model)[1], cfg.head_dim
+    if model is not None:
+        enc_out = TP.copy_to_model(enc_out, model)
     k = _split_heads(dense(p["wk"], enc_out), hk, hd)
     v = _split_heads(dense(p["wv"], enc_out), hk, hd)
     return k, v
 
 
-def _cross_attend(p, cfg: AttnConfig, x, k, v, q_chunk=None):
+def _cross_attend(p, cfg: AttnConfig, x, k, v, q_chunk=None, model=None):
     """Unmasked attention of decoder states x (B,S,D) over encoder keys
-    and values (B,T,Hk,hd)."""
+    and values (B,T,Hk,hd); under ``model`` ``wq`` column-parallel and
+    ``wo`` row-parallel over the rank's heads."""
     b, s, _ = x.shape
-    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (h, hk), hd = _cross_heads(cfg, model), cfg.head_dim
+    if model is not None:
+        x = TP.copy_to_model(x, model)
     q = _split_heads(dense(p["wq"], x), h, hd).reshape(b, s, hk, h // hk, hd)
 
     def attend_block(q_blk, offset, blk_len):
@@ -476,14 +501,18 @@ def _cross_attend(p, cfg: AttnConfig, x, k, v, q_chunk=None):
         return _gqa_out(probs, v)
 
     out = _chunked(attend_block, q, s, q_chunk).reshape(b, s, h * hd)
+    if model is not None:
+        return TP.row_dense(p["wo"], out, model)
     return dense(p["wo"], out)
 
 
 def cross_attention(p, cfg: AttnConfig, x, enc_out,
-                    q_chunk: Optional[int] = None) -> torch.Tensor:
-    """x: (B,S,D) decoder states; enc_out: (B,T,D).  No mask (full)."""
-    k, v = _cross_kv(p, cfg, enc_out)
-    return _cross_attend(p, cfg, x, k, v, q_chunk)
+                    q_chunk: Optional[int] = None, model=None
+                    ) -> torch.Tensor:
+    """x: (B,S,D) decoder states; enc_out: (B,T,D).  No mask (full).
+    ``model``: a group with a model axis, ``p`` this rank's shard."""
+    k, v = _cross_kv(p, cfg, enc_out, model)
+    return _cross_attend(p, cfg, x, k, v, q_chunk, model)
 
 
 def make_cross_cache(p, cfg: AttnConfig, enc_out, dtype=torch.bfloat16):

@@ -21,7 +21,16 @@ the forward says where the collectives go, as Megatron-LM does:
   over the ranks) :func:`copy_to_model` goes after it, and the backward
   is then an all-reduce followed by this rank's slice;
 * :func:`slice_for_model` -- this rank's slice of a replicated tensor, in
-  front of a row-parallel layer whose input is not already split.
+  front of a row-parallel layer whose input is not already split;
+* :func:`split_norm` -- a norm over a last axis that is split across the
+  ranks (rwkv6's and Mamba2's ``out_norm`` over heads split by rank): the
+  slices gathered, normalised replicated, this rank's slice kept, so the
+  statistics' gradient reaches every rank's channels;
+* :func:`gather_packed` -- a model-sharded leaf whole at use (Mamba2's
+  ``w_in``, whose one sharded dimension packs fields of different widths
+  that the reference's contiguous blocks cut across): the all-gather,
+  then :func:`copy_to_model`, so the backward sums every rank's partial
+  gradient and keeps this rank's block.
 
 Every rank then computes the same replicated activations and the same
 loss, and its gradient of its own shard is the shard of the one-card
@@ -52,7 +61,8 @@ from ..core.agents import model_shard
 from .module import dense
 
 __all__ = ["copy_to_model", "reduce_from_model", "max_from_model",
-           "gather_from_model", "slice_for_model", "column_dense",
+           "gather_from_model", "slice_for_model", "split_norm",
+           "gather_packed", "column_dense",
            "row_dense", "embedding", "embedding_columns",
            "cross_entropy_loss", "check_shardable", "Heads", "local_heads",
            "shard_hook"]
@@ -170,6 +180,27 @@ def slice_for_model(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     width = x.shape[dim] // group.model_size
     return copy_to_model(x, group).narrow(dim, group.model_index * width,
                                           width)
+
+
+def split_norm(norm, p, x: torch.Tensor, group) -> torch.Tensor:
+    """``norm(p, x)`` over a last axis split across the model ranks in
+    rank order (``x`` this rank's slice, ``p`` whole on every rank): the
+    slices gathered, ``norm`` applied replicated, this rank's slice of the
+    result kept.  The slice's backward all-reduces, so the gradient of the
+    normalised tensor is whole on every rank, the norm's parameters get
+    their whole gradient everywhere, and the gather's backward hands each
+    rank the part of its own channels (mean and variance included)."""
+    return slice_for_model(norm(p, gather_from_model(x, group, -1)), group,
+                           -1)
+
+
+def gather_packed(w: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """A model-sharded leaf whole on every rank, for a layer that reads
+    other columns than its own block: every rank's block joined along
+    ``dim``, then :func:`copy_to_model`.  Each rank's gradient of the whole
+    leaf covers what it read; the backward sums them over the model axis
+    and keeps this rank's block."""
+    return copy_to_model(gather_from_model(w, group, dim), group)
 
 
 # ---------------------------------------------------------------------------

@@ -69,7 +69,8 @@ CSGP = [v[0] for v in VARIANTS if v[2] == "csgp"]
 
 def inputs(label, seed=0):
     """One replica's f32 parameters (the port's draw, as numpy) and a
-    batch (numpy, from a seed): tokens, and the VLM's patches."""
+    batch (numpy, from a seed): tokens, and the VLM's patches or the
+    encoder-decoder's frames."""
     cfg = W.family_cfg(label)
     drawn = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(seed))
@@ -79,12 +80,19 @@ def inputs(label, seed=0):
     if cfg.family == "vlm":
         batch["patches"] = rng.standard_normal(
             (W.BATCH, cfg.n_prefix, cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (W.BATCH, W.SEQ, cfg.frontend_dim)).astype(np.float32)
     return convert.to_numpy(drawn), batch
 
 
-def spawn(model, cases, variants, seed=0):
-    grad_inputs = {label: inputs(label, seed) for label in FAMILIES}
-    return mesh.spawn_agents(W.family_cases, 2 * model,
+def spawn(model, cases, variants, seed=0, labels=FAMILIES,
+          fn=W.family_cases):
+    """``fn(group, cases, variants, grad_inputs)`` on a ``(data 2, model
+    model)`` grid of gloo ranks, ``grad_inputs`` for every label of
+    ``labels``."""
+    grad_inputs = {label: inputs(label, seed) for label in labels}
+    return mesh.spawn_agents(fn, 2 * model,
                              (cases, variants, grad_inputs), model=model,
                              device="cpu", threads=1, timeout_s=300)
 
@@ -96,7 +104,7 @@ def ranks():
 
 def reference(label, np_params, np_batch):
     """The reference's unsharded loss and gradient (f32)."""
-    arch, over = W.FAMILIES[label]
+    arch, over = W.family_of(label)
     jcfg = dataclasses.replace(jget_smoke(arch), dtype=jax.numpy.float32,
                                remat=False, **dict(over))
     loss, g = jax.value_and_grad(jbuild_model(jcfg).loss)(

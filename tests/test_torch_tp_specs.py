@@ -10,9 +10,11 @@ package, the refusals, and the reference's own model-sharded step.
   bitwise the reference's compressor on each shard slice;
 * ``CommRound._packed_windows`` on a ``(data 2, model 2)`` layout equals
   the reference's ``CommRound._packed_windows``;
-* rwkv6, the hybrid and the encoder-decoder refuse a model axis naming
-  ROADMAP queue 1 item 12(c), and a dimension the axis does not divide
-  or a head split across kv groups raises;
+* Mamba2's packed ``w_in`` and its conv keep the reference's contiguous
+  blocks on each rank at M 2 and 4 (the forward gathers them at use);
+* a dimension the axis does not divide or a head split across kv groups
+  raises, and so does a randomized codec, naming ROADMAP queue 1 item
+  12(c);
 * the reference's ``build_train_step`` on a ``(data 2, model 2)`` mesh of
   4 fake CPU devices raises ``Mapped away dimension ...`` on its first
   step (ROADMAP queue 3, faults of the reference), so the tensor-parallel
@@ -53,10 +55,6 @@ from repro_torch.nn.module import Spec, leaf_specs, prepend_axis_specs
 from repro_torch.tree import tree_leaves, tree_map
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-DENSE = ["tinyllama-1.1b", "chatglm3-6b", "h2o-danube-3-4b"]
-DECODERS = DENSE + ["minicpm3-4b", "grok-1-314b", "arctic-480b",
-                    "paligemma-3b"]
-OTHERS = [a for a in ARCHS if a not in DECODERS]
 
 
 def fake_group(model_size=2, model_index=0, index=0, n_agents=2):
@@ -102,7 +100,7 @@ def test_prepend_axis_specs_puts_the_agent_axes_first():
     assert got.model_dim == 2 and got.shape == (3, 4)
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("m", [0, 1])
 def test_sharded_init_holds_the_one_card_slices(arch, m):
     cfg = get_smoke(arch)
@@ -116,10 +114,27 @@ def test_sharded_init_holds_the_one_card_slices(arch, m):
         assert torch.equal(model_shard(a, s.model_dim, m, 2), b)
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_other_families_refuse_a_model_axis(arch):
-    with pytest.raises(ValueError, match=r"12\(c\)"):
-        build_model(get_smoke(arch), device="cpu", group=fake_group())
+@pytest.mark.parametrize("leaf", ["w_in", "conv_w", "conv_b"])
+@pytest.mark.parametrize("size", [2, 4])
+def test_packed_mamba_leaves_keep_the_reference_blocks(leaf, size):
+    """zamba2's smoke ``w_in`` (552 columns: z 256 | x 256 | B 16 | C 16 |
+    dt 8) and its conv (288 channels: x | B | C): rank m holds columns
+    ``[m w / M, (m + 1) w / M)`` of the one-card leaf, a slice that cuts
+    across the fields, as the reference's ``(None, 'model')`` spec
+    shards it."""
+    cfg = get_smoke("zamba2-7b")
+    full = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))["mamba"]["blk"]
+    width = {"w_in": 552, "conv_w": 288, "conv_b": 288}[leaf]
+    for m in range(size):
+        tp = build_model(cfg, device="cpu", group=fake_group(
+            model_size=size, model_index=m))
+        blk = tp.init(torch.Generator().manual_seed(0))["mamba"]["blk"]
+        got = blk["w_in"]["w"] if leaf == "w_in" else blk[leaf]
+        want = full["w_in"]["w"] if leaf == "w_in" else full[leaf]
+        lo, w = m * width // size, width // size
+        assert got.shape[-1] == w
+        assert torch.equal(got, want[..., lo:lo + w])
 
 
 def test_a_dimension_the_model_axis_does_not_divide_raises():
@@ -138,6 +153,21 @@ def test_a_tensor_parallel_bundle_does_not_serve():
                      group=fake_group())
     with pytest.raises(ValueError, match="one card"):
         tp.forward({}, {})
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b",
+                                  "seamless-m4t-medium"])
+def test_recurrent_and_encdec_bundles_train_but_do_not_serve(arch):
+    """rwkv6, the hybrid and the encoder-decoder build on a model axis
+    (their ``loss`` is the family builder's) and refuse every serving
+    entry."""
+    tp = build_model(get_smoke(arch), device="cpu", group=fake_group())
+    assert tp.loss.__qualname__.split(".")[0] == {
+        "rwkv6-7b": "_build_rwkv", "zamba2-7b": "_build_hybrid",
+        "seamless-m4t-medium": "_build_encdec"}[arch]
+    for entry in (tp.forward, tp.prefill, tp.init_cache, tp.decode_step):
+        with pytest.raises(ValueError, match="one card"):
+            entry({}, {})
 
 
 @pytest.mark.parametrize("comp", ["top_k", "block_top_k"])
@@ -179,7 +209,7 @@ class _Mesh:
     shape = {"data": 2, "model": 2}
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_packed_windows_are_the_reference(arch):
     """Windows per (leaf x model shard), a replicated leaf once: the
     port's count of a rank's block equals the reference's of the whole
@@ -275,7 +305,7 @@ def test_model_axis_refuses_remat_and_a_random_codec():
     with pytest.raises(ValueError, match="remat"):
         api._check_group(api.ExperimentSpec(n_agents=2,
                                             remat_policy="full"), group)
-    with pytest.raises(ValueError, match="qsgd"):
+    with pytest.raises(ValueError, match=r"qsgd.*12\(c\)"):
         api._check_group(api.ExperimentSpec(
             n_agents=2, wire="packed_bits", gossip_mode="ring",
             compressor="qsgd"), group)
@@ -287,6 +317,7 @@ def test_model_axis_refuses_remat_and_a_random_codec():
                                     "launch/mesh.py", "launch/steps.py",
                                     "kernels/flatten.py", "core/agents.py",
                                     "nn/attention.py", "nn/moe.py",
+                                    "nn/ssm.py",
                                     "models/blocks.py", "models/model.py",
                                     "core/push_sum.py"])
 def test_model_axis_modules_import_no_jax(module):

@@ -1,7 +1,8 @@
 """Rank programs of the model-axis tests (not a test module).
 
-``tests/test_torch_tp_train.py``, ``tests/test_torch_tp_m4.py`` and
-``tests/test_torch_tp_families*.py`` start their ranks on a ``(data,
+``tests/test_torch_tp_train.py``, ``tests/test_torch_tp_m4.py``,
+``tests/test_torch_tp_families*.py`` and
+``tests/test_torch_tp_recurrent*.py`` start their ranks on a ``(data,
 model)`` grid with :func:`repro_torch.launch.mesh.spawn_agents`
 (``model=M``), which imports this module by name in each rank.  It imports only ``repro_torch``,
 ``numpy`` and ``torch``.  Every rank builds the same global inputs from a
@@ -101,8 +102,9 @@ def grads(group, cfg, np_params, tokens):
 
 
 def batch_grads(group, cfg, np_params, np_batch):
-    """:func:`grads` for any batch of the decoder families (``np_batch``:
-    numpy, one replica's ``tokens`` and, for a VLM, ``patches``)."""
+    """:func:`grads` for any family's batch (``np_batch``: numpy, one
+    replica's ``tokens`` and a VLM's ``patches`` or an encoder-decoder's
+    ``frames``)."""
     bundle = build_model(cfg, device="cpu", group=group)
     params = _shard(tree_map(torch.from_numpy, np_params), _specs(cfg),
                     group, False)
@@ -412,8 +414,24 @@ FAMILIES = {
 }
 
 
+# the recurrent families and the encoder-decoder, each smoke config (f32):
+# rwkv6 at 4 heads x 32, zamba2 at 8 heads x 32 and state 16 (552 w_in
+# columns, the shared block twice), seamless at 4 heads and frontend 64
+RECURRENT = {
+    "rwkv6": ("rwkv6-7b", ()),
+    "hybrid": ("zamba2-7b", ()),
+    "encdec": ("seamless-m4t-medium", ()),
+}
+
+
+def family_of(label):
+    """(arch, config overrides) of a label of :data:`FAMILIES` or
+    :data:`RECURRENT`."""
+    return FAMILIES[label] if label in FAMILIES else RECURRENT[label]
+
+
 def family_cfg(label):
-    arch, over = FAMILIES[label]
+    arch, over = family_of(label)
     return smoke(arch, **dict(over))
 
 
@@ -447,24 +465,54 @@ def expert_combine(group, seed=5):
 
 
 def family_cases(group, cases, variants=(), grad_inputs=None):
-    """The grid's runs for :data:`FAMILIES`: each label of ``grad_inputs``
-    (``label -> (np_params, np_batch)``) through :func:`batch_grads`, one
-    PORTER-GC round on the ring with the whole-leaf top-k for each of
-    ``cases``, then ``variants``: ``(name, label, variant, gossip, wire,
-    schedule, compressor, rounds)`` (a ``block_top_k`` compressor
-    shard-local), and the expert-parallel combine."""
+    """The grid's runs for :data:`FAMILIES` or :data:`RECURRENT`: each
+    label of ``grad_inputs`` (``label -> (np_params, np_batch)``) through
+    :func:`batch_grads`, one PORTER-GC round on the ring with the
+    whole-leaf top-k for each of ``cases``, then ``variants``: ``(name,
+    label, variant, gossip, wire, schedule, compressor, rounds)`` (a
+    ``block_top_k`` compressor shard-local), and the expert-parallel
+    combine."""
     out = {}
     for label, (np_params, np_batch) in (grad_inputs or {}).items():
         out[f"grads {label}"] = batch_grads(group, family_cfg(label),
                                             np_params, np_batch)
     for label in cases:
-        arch, over = FAMILIES[label]
+        arch, over = family_of(label)
         out[label] = train(group, "gc", arch=arch, over=over)
     for name, label, variant, gossip, wire, schedule, comp, rounds in (
             variants):
-        arch, over = FAMILIES[label]
+        arch, over = family_of(label)
         out[name] = train(group, variant, gossip=gossip, wire=wire,
                           comp=comp, arch=arch, over=over, rounds=rounds,
                           schedule=schedule, local=comp == "block_top_k")
     out["combine"] = expert_combine(group)
     return out
+
+
+def recurrent_cases(group, cases, variants, grad_inputs):
+    """The ``(data 2, model M)`` runs of ``tests/test_torch_tp_recurrent*.py``:
+    :func:`family_cases` over :data:`RECURRENT`, and the encoder-decoder's
+    frames (:func:`frames_case`)."""
+    out = family_cases(group, cases, variants, grad_inputs)
+    out["frames"] = frames_case(group)
+    return out
+
+
+def frames_case(group):
+    """The encoder-decoder's batch on this rank against the one-card
+    batch from the same generator: the agent's rows, bitwise, and the same
+    on each of its model ranks."""
+    cfg = family_cfg("encdec")
+    n = group.n_agents
+    one = data.batch_source(cfg, n, BATCH, SEQ, device="cpu")(
+        torch.Generator().manual_seed(3), 0)
+    mine = data.batch_source(cfg, n, BATCH, SEQ, device="cpu", group=group)(
+        torch.Generator().manual_seed(3), 0)
+    rows = {k: torch.equal(bits(v), bits(group.rows(one[k])))
+            for k, v in mine.items()}
+    full = group.all_gather([bits(mine[k]) for k in sorted(mine)],
+                            axis="model")
+    same = all(torch.equal(f[0], f[m]) for f in full
+               for m in range(1, f.shape[0]))
+    return dict(rows=rows, same_on_model_ranks=same,
+                shapes={k: tuple(v.shape) for k, v in mine.items()})
