@@ -270,6 +270,18 @@ of the ``repro`` package.  Phases, each printing its own lines:
    and 2 of 12 decoder layers, 322,146,304 parameters, its tied vocab of
    256,206 d_model-sharded, 2 agents x 2 model ranks).  Each rank waits
    only for the one-card references of the grid it runs next.
+19. The other algorithms, remat and the qsgd codec on the model axis
+   (``[model-axis-algos]`` lines), in phase 16-17's spawn after phase
+   18's grids: ``TP_ALGO_RUNS`` on tinyllama's smoke config over 10
+   rounds, each built through ``api.build(..., group=, leaf_specs=)``:
+   dsgd, choco (f32 and bf16 planes), subgrad-comp (piecewise clip),
+   porter-adam, clip21, PORTER-GC under ``remat_policy`` "dots" (and the
+   gradient under "full" and "dots" bitwise the one without, the
+   model-axis collectives up by the forward's) and on the packed qsgd
+   codec at 7 levels (each shard packing with its block of one global
+   draw); phase 16's smoke gates against each one's one-card twin
+   (porter-adam's free run normwise), ``ef_gossip``, ``qsgd_pack`` and
+   ``qsgd_unpack`` checked on the shard operands.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Any failure raises and exits non-zero.  The line before
@@ -6021,7 +6033,7 @@ TP_FAMILY_ROUNDS = TP_GATE_ROUND
 TP_FAMILY_LM = dict(TP_LM, arch="minicpm3-4b", layers=2,
                     params=313_379_328, agents=2, mem_fraction=0.2,
                     ref="minicpm3-")
-# the one (data 2, model 2) spawn of phases 16 to 18 joins within this
+# the one (data 2, model 2) spawn of phases 16 to 19 joins within this
 TP_GRID_TIMEOUT_S = 600
 
 
@@ -6056,11 +6068,420 @@ TP_ENCDEC_LM = dict(TP_LM, arch="seamless-m4t-medium", layers=2,
                     mem_fraction=0.2, variants=("gc",), ref="seamless-")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: dsgd, choco, subgrad-comp, porter-adam and clip21 on the model
+# axis, remat_policy there and the qsgd wire codec's per-shard draws
+# ---------------------------------------------------------------------------
+
+# label -> the build: ``algo`` through ``api.build`` on the tinyllama smoke
+# config's tensor-parallel bundle, the ring with the shard-local
+# block_top_k unless named (its one-card twin: the per-shard compressor;
+# the codec's: ``steps.codec_on_one_card`` over the dense W @ c)
+TP_ALGO_RUNS = {
+    "dsgd": dict(algo="dsgd"),
+    "choco f32": dict(algo="choco"),
+    "choco bf16": dict(algo="choco", plane_dtype="bf16"),
+    "subgrad-comp piecewise": dict(algo="subgrad-comp",
+                                   clip_mode="piecewise"),
+    "porter-adam": dict(algo="porter-adam", eta=2e-3),
+    "clip21": dict(algo="clip21"),
+    "porter-gc remat": dict(algo="porter-gc", remat_policy="dots"),
+    "porter-gc packed codec qsgd 7": dict(algo="porter-gc",
+                                          gossip_mode="packed",
+                                          wire="packed_bits",
+                                          compressor="qsgd", levels=7),
+}
+TP_ALGO_TAG = "model-axis-algos"
+# a remat run trains under its own policy ("dots", which replays the
+# forward's products) and checks the gradient of each of these against
+# the one without: "full" and "dots" share one grid (their gradients are
+# bitwise the plain one, so their trajectories are the same)
+TP_REMAT_POLICIES = ("full", "dots")
+# porter-adam runs at eta 2e-3 (phase 9's: Adam steps ~eta an element
+# whatever the gradient's scale, and at phase 16's 3e-2 the smoke loss
+# climbs, 6.70 -> 6.95 in 10 rounds in a CPU rehearsal), and its free run
+# is read normwise (||x - x_1card|| / ||x_1card|| over the rank's block),
+# within this limit: Adam moves an element by eta * v / (|v| + eps), near
+# +-eta wherever |v| is near eps, so the tensor-parallel gradient's last
+# bits move a few elements of x by up to ~eta a round (largest |diff|
+# 1.12e-2 after 10 rounds in the CPU rehearsal, the same as the planted
+# fault's), while the fault moves every element of a shard (normwise
+# 4.48e-4 sound, 8.95e-3 the fault there; the limit their geometric mean)
+TP_ALGO_NORMWISE = {"porter-adam": 2e-3}
+
+
+def _tp_algo_setup(cfg, n, group, run, specs=None, device=None):
+    """``run`` of TP_ALGO_RUNS built through ``api.build`` on the bundle of
+    ``cfg`` over ``n`` agents: on the grid of ``group`` (the tensor-
+    parallel bundle, its leaf specs, the shard-local compressor on the
+    dense wire), or with ``group`` None its one-card twin (``specs``: one
+    replica's, for the twin's per-shard compression)."""
+    from repro_torch import api
+    from repro_torch.core import wire_formats as WF
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import leaf_specs, prepend_axis_specs
+    c = TP_SMOKE
+    run = dict(run)
+    algo, comp = run.pop("algo"), run.pop("compressor", "block_top_k")
+    levels = run.pop("levels", None)
+    device = group.device if group is not None else (device or DEVICE)
+    bundle = build_model(cfg, device=device, group=group)
+    codec = run.get("wire") == "packed_bits"
+    if group is None and codec:
+        run.update(gossip_mode="dense", wire="dense")
+    spec = api.ExperimentSpec(
+        algo=algo, n_agents=n, topology="ring",
+        topology_weights="metropolis", compressor=comp, frac=c["frac"],
+        compressor_kwargs={} if levels is None else {"levels": levels},
+        tau=c["tau"], **{"gossip_mode": "ring", "eta": c["eta"], **run})
+    leafs, fn = None, None
+    if group is not None:
+        leafs = prepend_axis_specs(leaf_specs(bundle), group.axes[0])
+        if not codec:
+            fn = steps.make_shard_local_compress(make_compressor(
+                comp, frac=c["frac"]))
+    elif codec:
+        fn = steps.codec_on_one_card(
+            WF.make_wire_format(comp, levels=levels), specs, c["model"])
+    else:
+        fn = steps.shard_local_on_one_card(steps.make_shard_local_compress(
+            make_compressor(comp, frac=c["frac"])), specs, c["model"])
+    algorithm = api.build(spec, bundle.loss, device=device, group=group,
+                          leaf_specs=leafs, compress_fn=fn)
+    return steps.TrainSetup(cfg=cfg, bundle=bundle, algorithm=algorithm,
+                            n_agents=n, porter_cfg=algorithm.config,
+                            device=device)
+
+
+def _tp_x(state):
+    """x of a state (porter-adam's and clip21's under ``base``)."""
+    return state.base.x if hasattr(state, "base") else state.x
+
+
+def _tp_with_x(state, x):
+    if hasattr(state, "base"):
+        return state._replace(base=state.base._replace(x=x))
+    return state._replace(x=x)
+
+
+def _tp_algo_grad(clipping, run, g_raw, tau):
+    """The forced first round's gradient of ``run``: the one-card raw
+    gradient, clipped as the algorithm clips it (Clip21 takes it raw)."""
+    if run["algo"] == "clip21":
+        return g_raw
+    return clipping.stacked_clip(g_raw, tau, run.get("clip_mode", "smooth"))
+
+
+def _tp_algo_refs(torch, runtime, steps, data, models, cfg, runs):
+    """The one-card references of phase 19's grid: the raw gradient of
+    round 0 (every run starts from the same replica and batch, so one
+    gradient serves every forced round), and for each run the one-card
+    twin's x after the forced first round and after TP_GATE_ROUND free
+    rounds."""
+    from repro_torch.core import clipping
+    from repro_torch.nn.module import leaf_specs
+    from repro_torch.tree import tree_map
+    from torch.func import grad_and_value, vmap
+    c = TP_SMOKE
+    n = c["agents"]
+    bundle = models.build_model(cfg, device=DEVICE)
+    specs = leaf_specs(bundle)
+    source = data.batch_source(cfg, n, c["batch"], c["seq"], device=DEVICE)
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(0)  # noqa: E731
+    cpu = lambda t: tree_map(lambda a: a.cpu(), t)  # noqa: E731
+    out, g_raw = {"runs": {}}, None
+    for label, run in runs.items():
+        setup = _tp_algo_setup(cfg, n, None, run, specs=specs)
+        state = setup.init_state(gen())
+        gb, gs = runtime.round_generators(0, 0, DEVICE)
+        batch = source(gb, 0)
+        if g_raw is None:
+            g_raw, _ = vmap(grad_and_value(bundle.loss))(_tp_x(state), batch)
+        g = _tp_algo_grad(clipping, run, g_raw, c["tau"])
+        forced, _ = setup.step(state, batch, gs, grad_override=(
+            torch.zeros(n, device=DEVICE), g))
+        rec = {"g": cpu(g), "x1": cpu(_tp_x(forced))}
+        del forced, state
+        state, _ = runtime.run_chunked(setup.algorithm, source,
+                                       setup.init_state(gen()), 0,
+                                       TP_GATE_ROUND, chunk=TP_GATE_ROUND)
+        rec["x_gate"] = cpu(_tp_x(state))
+        out["runs"][label] = rec
+    return out
+
+
+class _TpAlgoChecks(_TpChecks):
+    """``_TpChecks`` plus ``ops.ef_gossip`` (slice by slice, as the other
+    ef kernels) and the qsgd codec's ``ops.wire_qsgd_pack`` /
+    ``wire_qsgd_unpack``, each on the rank's own shard operands against
+    its plain version."""
+
+    NAMES = _TpChecks.NAMES + ("ef_gossip", "wire_qsgd_pack",
+                               "wire_qsgd_unpack")
+
+    def _ef_gossip(self, *a, **kw):
+        return self._ef("ef_gossip", 5, *a, **kw)
+
+    def _wire_qsgd_pack(self, rows, noise, levels):
+        return self._plain("qsgd_pack", self.saved["wire_qsgd_pack"](
+            rows, noise, levels), self.ref.qsgd_pack_ref(rows, noise, levels),
+            tuple(rows.shape), str(rows.dtype))
+
+    def _wire_qsgd_unpack(self, words, scale, levels):
+        return self._plain("qsgd_unpack", self.saved["wire_qsgd_unpack"](
+            words, scale, levels), self.ref.qsgd_unpack_ref(words, scale,
+                                                            levels),
+            tuple(words.shape), str(words.dtype))
+
+
+def _tp_algo_launches(run, rounds, n_leaves):
+    """A rank's launches over ``rounds`` rounds of ``run``: the cross-shard
+    clip's sumsq and scale (clip21: the residual norm's sumsq alone), the
+    algorithm's ef kernels (CHOCO and subgrad-comp one ef_gossip, the
+    PORTER family one ef_track and one ef_step, dsgd none), their
+    epilogue roundings under bf16 planes, and the compressor's or codec's
+    kernels for each exchange."""
+    algo = run["algo"]
+    one = algo in ("choco", "subgrad-comp")
+    want = dict(sumsq=rounds, scale=0 if algo == "clip21" else rounds)
+    if one:
+        want["ef_gossip"] = rounds
+    elif algo != "dsgd":
+        want.update(ef_track=rounds, ef_step=rounds)
+    if run.get("plane_dtype") == "bf16":
+        want["sr_epilogue"] = (2 if one else 5) * rounds
+    exchanges = 0 if algo == "dsgd" else 1 if one else 2
+    if run.get("wire") == "packed_bits":
+        want.update(qsgd_pack=exchanges * rounds,
+                    qsgd_unpack=exchanges * rounds)
+    elif exchanges:
+        want["block_topk"] = exchanges * n_leaves * rounds
+    return want
+
+
+def _tp_remat_grad(torch, group, setup, state, batch, policy):
+    """The agent-vmapped gradient of the tensor-parallel loss with
+    ``policy`` against the one without: bitwise, and the model-axis
+    collectives it adds against the forward's (the agent axis's must not
+    move)."""
+    from repro_torch.core import remat
+    from repro_torch.tree import tree_leaves
+    from torch.func import grad_and_value, vmap
+    loss, x = setup.bundle.loss, _tp_x(state)
+
+    def census(fn):
+        group.census.clear()
+        group.model_census.clear()
+        out = fn()
+        return out, dict(group.census), dict(group.model_census)
+    _, _, fwd = census(lambda: vmap(loss)(x, batch))
+    (g0, l0), a0, m0 = census(lambda: vmap(grad_and_value(loss))(x, batch))
+    remat.DOTS_REPLAYS.clear()
+    (g1, l1), a1, m1 = census(lambda: vmap(grad_and_value(
+        remat.apply_remat(loss, policy)))(x, batch))
+    rise = {k: m1.get(k, 0) - m0.get(k, 0) for k in set(m0) | set(m1)}
+    return dict(bitwise=bit_equal(torch, l0, l1) and all(
+        bit_equal(torch, a, b) for a, b in zip(tree_leaves(g0),
+                                               tree_leaves(g1))),
+        agent_same=a0 == a1, rise=rise, forward=fwd,
+        replays=dict(remat.DOTS_REPLAYS))
+
+
+def _tp_algo_cell(torch, group, cfg, runs, rounds, want):
+    """Phase 19's grid on this rank, every run of TP_ALGO_RUNS: the first
+    round forced with the one-card gradient's block, the free run of
+    ``rounds`` rounds with its launches and its x at the gate round, the
+    planted fault, the remat runs' gradient against the one without, and
+    one round under ``_TpAlgoChecks``."""
+    from repro_torch import data
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import runtime
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import leaf_specs
+    from repro_torch.tree import tree_leaves, tree_map
+    c, dev = TP_SMOKE, group.device
+    n = c["agents"]
+    specs = leaf_specs(build_model(cfg, device=dev))
+    out = {}
+
+    def diff(tree, want_tree):
+        return max(float((a.cpu().float() - b.float()).abs().max())
+                   for a, b in zip(tree_leaves(tree), tree_leaves(want_tree)))
+
+    def normwise(tree, want_tree):
+        pairs = list(zip(tree_leaves(tree), tree_leaves(want_tree)))
+        num = sum(float(torch.sum((a.cpu().double() - b.double()) ** 2))
+                  for a, b in pairs)
+        den = sum(float(torch.sum(b.double() ** 2)) for _, b in pairs)
+        return math.sqrt(num / den)
+    for label, run in runs.items():
+        rep, w = {}, want["runs"][label]
+
+        def build():
+            return _tp_algo_setup(cfg, n, group, run)
+        setup = build()
+        source = data.batch_source(cfg, n, c["batch"], c["seq"],
+                                   device=dev, group=group)
+        init = lambda: setup.init_state(  # noqa: E731
+            torch.Generator(device=dev).manual_seed(0))
+        gb, gs = runtime.round_generators(0, 0, dev)
+        forced, _ = setup.step(
+            init(), source(gb, 0), gs,
+            grad_override=(torch.zeros(1, device=dev), tree_map(
+                lambda a: a.to(dev), _tp_shard(torch, w["g"], specs, group,
+                                               True))))
+        x1 = _tp_shard(torch, w["x1"], specs, group, True)
+        rep["forced_x_diff"] = diff(_tp_x(forced), x1)
+        rep["forced_bitwise"] = all(
+            bit_equal(torch, a.cpu(), b)
+            for a, b in zip(tree_leaves(_tp_x(forced)), tree_leaves(x1)))
+        del forced
+        if run.get("remat_policy"):
+            gb, _ = runtime.round_generators(0, 0, dev)
+            rep["remat"] = {policy: _tp_remat_grad(
+                torch, group, setup, init(), source(gb, 0), policy)
+                for policy in TP_REMAT_POLICIES}
+        kept, k = {}, TP_GATE_ROUND // 2
+
+        def keep(t0, t1, st, m):
+            if t1 == k:
+                kept["mid"] = st
+            if t1 == TP_GATE_ROUND:
+                kept["x"] = tree_map(lambda a: a.clone(), _tp_x(st))
+        state, losses, ms, launches = run_counted(
+            torch, ops, runtime, setup.algorithm, source, init(), rounds, k,
+            on_chunk=keep)
+        xg = _tp_shard(torch, w["x_gate"], specs, group, True)
+        rep.update(losses=losses, ms=ms, launches=launches,
+                   want_launches=_tp_algo_launches(
+                       run, rounds, len(tree_leaves(_tp_x(state)))),
+                   gate_x_diff=diff(kept["x"], xg),
+                   gate_x_rel=normwise(kept["x"], xg),
+                   replicated=all(_tp_replicated_bitwise(
+                       torch, group, t, specs, tree_leaves)
+                       for t in _tp_param_fields(state, specs)))
+        # the planted fault: agent 1's model rank 1 keeps its x shard at
+        # round k, from the free run's state after round k
+        st = kept.pop("mid")
+        before = _tp_x(st)
+        st, _ = runtime.run_chunked(setup.algorithm, source, st, 0, k + 1,
+                                    chunk=1, start=k)
+        if group.index == 1 and group.model_index == 1:
+            st = _tp_with_x(st, before)
+        st, _ = runtime.run_chunked(setup.algorithm, source, st, 0,
+                                    TP_GATE_ROUND, chunk=TP_GATE_ROUND - k - 1,
+                                    start=k + 1)
+        rep["fault_x_diff"] = diff(_tp_x(st), xg)
+        rep["fault_x_rel"] = normwise(_tp_x(st), xg)
+        # one more round, every kernel call checked (the codec binds its
+        # kernels when it is built)
+        with _TpAlgoChecks(torch, ops, ref) as checks:
+            build().step(state, source(gb, 1), gs)
+        rep["checked"], bad = checks.tally()
+        if not rep["checked"] or bad:
+            raise AssertionError(f"rank {group.rank} {TP_ALGO_TAG} {label}: "
+                                 f"kernels differ from their plain versions "
+                                 f"on the shard operands: {bad}")
+        out[label] = rep
+    return out
+
+
+def _tp_param_fields(state, specs):
+    """The parameter-shaped trees of a (nested) state: x and every plane
+    beside it (porter-adam's moments, clip21's estimate)."""
+    from repro_torch.tree import tree_flatten
+    spec_def = tree_flatten(specs)[1]
+    out = []
+    for field in state:
+        if hasattr(field, "_fields"):
+            out += _tp_param_fields(field, specs)
+        elif (not isinstance(field, int)
+              and tree_flatten(field)[1] == spec_def):
+            out.append(field)
+    return out
+
+
+def _tp_algo_gates(tag, cfg, runs, rounds, ranks, ref_data, wall):
+    """Print phase 19's readings and fail on any gate: each run's forced
+    first round, its free run against its limit with the planted fault
+    above it, the replicated leaves in every parameter-shaped buffer, the
+    launches a rank, and the remat runs' gradient bitwise with the
+    forward's collectives once more on the model axis alone."""
+    c = TP_SMOKE
+    report = {"wall_s": wall}
+    for label, run in runs.items():
+        reps = [r[label] for r in ranks]
+        rel = label in TP_ALGO_NORMWISE
+        tol = (TP_ALGO_NORMWISE[label] if rel else TP_FREE_TOL[
+            "bf16" if run.get("plane_dtype") else "f32"])
+        forced = max(r["forced_x_diff"] for r in reps)
+        key = "x_rel" if rel else "x_diff"
+        gate = max(r["gate_" + key] for r in reps)
+        fault = max(r["fault_" + key] for r in reps)
+        r0 = reps[0]
+        print(f"[{tag}] {cfg.name} {label}: first round forced with the "
+              f"one-card gradient: x max |diff| {forced} from the one-card "
+              f"twin (bitwise {all(r['forced_bitwise'] for r in reps)}, gate "
+              f"{c['forced_tol']}); free run x after round {TP_GATE_ROUND} "
+              f"{'normwise ' if rel else ''}{gate} (gate {tol}), the planted "
+              f"fault {fault} (largest |diff| "
+              f"{max(r['gate_x_diff'] for r in reps)}, fault "
+              f"{max(r['fault_x_diff'] for r in reps)}; normwise "
+              f"{max(r['gate_x_rel'] for r in reps)}, fault "
+              f"{max(r['fault_x_rel'] for r in reps)}); "
+              f"{r0['ms']:.3f} ms/round on rank 0; loss "
+              f"{r0['losses'][0]:.6f} -> {r0['losses'][-1]:.6f}; replicated "
+              f"leaves bitwise across model ranks in every buffer "
+              f"{all(r['replicated'] for r in reps)}; rank-0 launches over "
+              f"{rounds} rounds {r0['launches']}; kernels checked on a "
+              f"round's shard operands {r0['checked']}")
+        if not finite(r0["losses"]):
+            raise AssertionError(f"{tag} {label}: losses")
+        if not forced <= c["forced_tol"]:
+            raise AssertionError(f"{tag} {label}: forced x {forced}")
+        if not gate <= tol < fault:
+            raise AssertionError(f"{tag} {label}: free x {gate}, fault "
+                                 f"{fault}, tolerance {tol}")
+        if not all(r["replicated"] for r in reps):
+            raise AssertionError(f"{tag} {label}: replicated leaves differ "
+                                 "across model ranks")
+        for r in reps:
+            expect_launches(f"{tag} {label} rank", r["launches"],
+                            **r["want_launches"])
+        report[label] = dict(forced_x_diff=forced, gate=gate, fault=fault,
+                             normwise=rel, ms=r0["ms"],
+                             launches=r0["launches"], rounds=rounds,
+                             checked=r0["checked"])
+        for policy in r0.get("remat", {}):
+            rm = [r["remat"][policy] for r in reps]
+            print(f"[{tag}] {label}: under remat {policy!r} the gradient "
+                  f"bitwise the one without on every rank "
+                  f"{all(x['bitwise'] for x in rm)}; model-axis collectives "
+                  f"added {rm[0]['rise']} against the forward's "
+                  f"{rm[0]['forward']}; agent axis unchanged "
+                  f"{all(x['agent_same'] for x in rm)}; dense products "
+                  f"{rm[0]['replays']}")
+            if not all(x["bitwise"] and x["agent_same"]
+                       and x["rise"] == {k: x["forward"].get(k, 0)
+                                         for k in x["rise"]}
+                       and set(x["rise"]) == set(x["forward"]) for x in rm):
+                raise AssertionError(f"{tag} {label}: remat {policy} {rm}")
+            if (policy == "dots"
+                    and not (rm[0]["replays"].get("replayed")
+                             and not rm[0]["replays"].get("computed"))):
+                raise AssertionError(f"{tag} {label}: dots replays "
+                                     f"{rm[0]['replays']}")
+            report[label].setdefault("remat", {})[policy] = rm[0]
+    return report
+
+
 def _tp_grid_cells(torch, configs):
     """(name, f32 smoke config, runs, rounds, tag) of every (data 2, model
     2) smoke grid: phase 16's (TP_RUNS over TP_ROUNDS), then every one of
-    TP_FAMILIES (phase 17) and of TP_RECURRENT (phase 18), over
-    TP_FAMILY_ROUNDS."""
+    TP_FAMILIES (phase 17) and of TP_RECURRENT (phase 18), then phase 19's
+    (TP_ALGO_RUNS on phase 16's config), over TP_FAMILY_ROUNDS."""
     cells = [(LM_ARCH, dataclasses.replace(configs.get_smoke(LM_ARCH),
                                            dtype=torch.float32),
               TP_RUNS, TP_ROUNDS, "model-axis")]
@@ -6074,23 +6495,27 @@ def _tp_grid_cells(torch, configs):
             if name == extra[0]:
                 runs[extra[1]] = extra[2]
             cells.append((name, cfg, runs, TP_FAMILY_ROUNDS, tag))
+    cells.append(("algorithms", cells[0][1], TP_ALGO_RUNS, TP_FAMILY_ROUNDS,
+                  TP_ALGO_TAG))
     return cells
 
 
 def tp_grid_rank(group, ref_dir, cells, lms):
-    """One rank of the (data 2, model 2) spawn of phases 16 to 18:
-    :func:`_tp_smoke_cell` on every grid of ``cells``, each once its
-    one-card references are written, then :func:`tp_lm_rank` on each
+    """One rank of the (data 2, model 2) spawn of phases 16 to 19:
+    :func:`_tp_smoke_cell` (phase 19's grid: :func:`_tp_algo_cell`) on
+    every grid of ``cells``, each once its one-card references are
+    written, then :func:`tp_lm_rank` on each
     full-width cell of ``lms`` (``(sigma_p, cell)`` pairs: phase 17's and
     phase 18's).  Each grid's and cell's seconds on this rank under
     ``"s"``."""
     import torch
     out = {"waited_s": 0.0, "s": {}}
-    for i, (name, cfg, runs, rounds, _) in enumerate(cells):
+    for i, (name, cfg, runs, rounds, tag) in enumerate(cells):
         t0 = time.perf_counter()
         out["waited_s"] += _await_refs(ref_dir, f"{i}.pt")
-        out[name] = _tp_smoke_cell(torch, group, cfg, runs, rounds,
-                                   torch.load(f"{ref_dir}/{i}.pt"))
+        cell = _tp_algo_cell if tag == TP_ALGO_TAG else _tp_smoke_cell
+        out[name] = cell(torch, group, cfg, runs, rounds,
+                         torch.load(f"{ref_dir}/{i}.pt"))
         out["s"][name] = time.perf_counter() - t0
     for sigma_p, cell in lms:
         torch.cuda.empty_cache()
@@ -6102,13 +6527,14 @@ def tp_grid_rank(group, ref_dir, cells, lms):
 
 def phase_model_axis_grids(torch, runtime, steps, data, configs, mesh,
                            models, train, api):
-    """Phase 16 (a), phase 17 and phase 18: one (data 2, model 2) spawn
-    for phase 16's smoke grid, every grid of TP_FAMILIES and TP_RECURRENT
-    and the full-width cells TP_FAMILY_LM and TP_ENCDEC_LM, their one-card
-    references made while the ranks start (each grid's written as soon as
-    it is made, the full-width cells' before any rank starts one), then
-    each one's gates: -> (phase 16's smoke report, phase 17's reports,
-    phase 18's reports, each grid's and cell's seconds on rank 0)."""
+    """Phase 16 (a), phase 17, phase 18 and phase 19: one (data 2, model
+    2) spawn for phase 16's smoke grid, every grid of TP_FAMILIES and
+    TP_RECURRENT, phase 19's grid of TP_ALGO_RUNS and the full-width cells
+    TP_FAMILY_LM and TP_ENCDEC_LM, their one-card references made while
+    the ranks start (each grid's written as soon as it is made, the
+    full-width cells' before any rank starts one), then each one's gates:
+    -> (phase 16's smoke report, phase 17's reports, phase 18's reports,
+    phase 19's report, each grid's and cell's seconds on rank 0)."""
     c = TP_SMOKE
     cells = _tp_grid_cells(torch, configs)
     sigma_p = _lm_dp_sigma(train, api)
@@ -6120,9 +6546,9 @@ def phase_model_axis_grids(torch, runtime, steps, data, configs, mesh,
 
     def make_refs():
         refs = []
-        for i, (_, cfg, runs, _, _) in enumerate(cells):
-            refs.append(_tp_smoke_refs(torch, runtime, steps, data, models,
-                                       cfg, runs))
+        for i, (_, cfg, runs, _, tag) in enumerate(cells):
+            make = _tp_algo_refs if tag == TP_ALGO_TAG else _tp_smoke_refs
+            refs.append(make(torch, runtime, steps, data, models, cfg, runs))
             _put_ref(torch, refs[-1], ref_dir / f"{i}.pt")
         return refs, [_tp_lm_refs(torch, runtime, steps, data, models, lm,
                                   ref_dir) for lm in lms]
@@ -6135,16 +6561,18 @@ def phase_model_axis_grids(torch, runtime, steps, data, configs, mesh,
     print(f"[model-axis] one spawn of (data {c['agents']}, model "
           f"{c['model']}) ranks for phase 16's smoke grid, phase 17's "
           f"{len(TP_FAMILIES)} grids and its full-width cell, phase 18's "
-          f"{len(TP_RECURRENT)} and its full-width cell: spawn to join "
+          f"{len(TP_RECURRENT)} and its full-width cell, phase 19's grid of "
+          f"{len(TP_ALGO_RUNS)} runs: spawn to join "
           f"{wall:.1f} s, the ranks waiting up to "
           f"{max(r['waited_s'] for r in ranks):.1f} s of it for the "
           f"one-card references made beside them; rank 0's seconds a grid "
           f"or cell "
           f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
-    reports = [_tp_smoke_gates(tag, cfg, runs, rounds,
-                               [r[name] for r in ranks], ref, wall)
-               for (name, cfg, runs, rounds, tag), ref in zip(cells, refs)]
-    by_tag = {"model-axis-families": {}, "model-axis-recurrent": {}}
+    reports = [(_tp_algo_gates if tag == TP_ALGO_TAG else _tp_smoke_gates)(
+        tag, cfg, runs, rounds, [r[name] for r in ranks], ref, wall)
+        for (name, cfg, runs, rounds, tag), ref in zip(cells, refs)]
+    by_tag = {"model-axis-families": {}, "model-axis-recurrent": {},
+              TP_ALGO_TAG: {}}
     for (name, *_, tag), rep in zip(cells[1:], reports[1:]):
         by_tag[tag][name] = rep
     for lm, first in zip(lms, firsts):
@@ -6152,7 +6580,8 @@ def phase_model_axis_grids(torch, runtime, steps, data, configs, mesh,
             lm, [r[lm["cfg"].name] for r in ranks], first, wall,
             _n_leaves(models, lm["cfg"]))
     return (reports[0], by_tag["model-axis-families"],
-            by_tag["model-axis-recurrent"], seconds)
+            by_tag["model-axis-recurrent"], by_tag[TP_ALGO_TAG]["algorithms"],
+            seconds)
 
 
 def _tp_full_cell(torch, configs, d, tag):
@@ -6370,12 +6799,13 @@ def main() -> int:
     print(f"[agents] phase took {time.perf_counter() - t15:.1f} s")
     print("[agents] figures " + json.dumps(agents, default=str))
 
-    # phases 16 to 18: the model axis (one spawn of 2 x 2 ranks for
+    # phases 16 to 19: the model axis (one spawn of 2 x 2 ranks for
     # phase 16's smoke grid, phase 17's five grids and minicpm3-4b's
     # full-width cell, phase 18's three grids and seamless-m4t-medium's
-    # full-width cell, then phase 12's LM cell on 4 x 2 ranks)
+    # full-width cell, phase 19's grid of the other algorithms, remat and
+    # the qsgd codec, then phase 12's LM cell on 4 x 2 ranks)
     t16 = time.perf_counter()
-    model_axis, families, recurrent, cell_s = phase_model_axis_grids(
+    model_axis, families, recurrent, algos, cell_s = phase_model_axis_grids(
         torch, runtime, steps, data, configs, mesh, models, train, api)
     t16b = time.perf_counter()
     model_axis["lm"] = phase_model_axis_lm(torch, runtime, steps, data,
@@ -6383,17 +6813,20 @@ def main() -> int:
                                            api)
     p18 = sum(v for k, v in cell_s.items()
               if k in TP_RECURRENT or k == "seamless-m4t-medium")
-    print(f"[model-axis] phases 16 to 18 took "
+    print(f"[model-axis] phases 16 to 19 took "
           f"{time.perf_counter() - t16:.1f} s: the shared spawn "
           f"{t16b - t16:.1f} s, of which phase 18's grids and cell "
           f"{p18:.1f} s on rank 0; phase 16's LM cell "
           f"{time.perf_counter() - t16b:.1f} s")
     print(f"[time] phase 18 took {p18:.1f} s (in phases 16-17's spawn)")
+    print(f"[time] phase 19 took {cell_s['algorithms']:.1f} s (its grid in "
+          f"phases 16-17's spawn, on rank 0)")
     print("[model-axis] figures " + json.dumps(model_axis, default=str))
     print("[model-axis-families] figures " + json.dumps(families,
                                                          default=str))
     print("[model-axis-recurrent] figures " + json.dumps(recurrent,
                                                           default=str))
+    print(f"[{TP_ALGO_TAG}] figures " + json.dumps(algos, default=str))
 
     # each kernel's launches on the path that carries its timed variant:
     # f32 PORTER-GC (ef_track, ef_step), f32 CHOCO (ef_gossip) and bf16
@@ -6588,6 +7021,16 @@ def main() -> int:
             if isinstance(run, dict) and "launches" in run}
         rec["launches_model_recurrent_lm_gc_round"] = (
             recurrent["lm"]["gc"]["launches_round"].get(key, 0))
+    # phase 19: each kernel's launches a round on one rank of every run of
+    # the algorithms' grid (sr_cast: its roundings in the ef kernels'
+    # epilogue)
+    for rec in record:
+        key = "sr_epilogue" if rec["name"] == "sr_cast" else rec["name"]
+        counts = {label: run["launches"].get(key, 0) / run["rounds"]
+                  for label, run in algos.items()
+                  if isinstance(run, dict) and "launches" in run}
+        if any(counts.values()):
+            rec["launches_model_algos_rank_round"] = counts
     print(f"[time] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)   # again here: a long log keeps only its end

@@ -46,10 +46,15 @@ group=)`` puts each agent in a process of a
 the executors ship buffers across the group's ranks.  On a grid with a
 model axis (``group.model_size > 1``) ``build(..., group=, leaf_specs=)``
 takes the leaves' specs (the agent axes first, as the reference's
-``leaf_specs=``): the engine runs on per-shard planes, the clip across
-shards and the metrics over the whole replica; the PORTER family (porter-
-gc, porter-dp, beer) runs there.  The spec keeps the
-reference's field names.  ``remat_policy`` (None, ``"full"``, ``"dots"``) wraps the loss once
+``leaf_specs=``): the engine runs on per-shard planes (dsgd, which has no
+engine, takes the layout itself), the clip across shards in every mode
+(Clip21's residual norm too) and the metrics over the whole replica; every
+decentralized algorithm of the registry runs there, with any
+``remat_policy`` and any wire codec (a qsgd codec draws each shard's
+block of one global draw: :func:`repro_torch.core.gossip.make_mixer`).
+The server algorithms (dp-sgd, soteriafl) and the fleet axis refuse a
+group: ROADMAP queue 1 item 12(c).  The spec keeps the reference's field
+names.  ``remat_policy`` (None, ``"full"``, ``"dots"``) wraps the loss once
 in ``build`` for every algorithm (:mod:`repro_torch.core.remat`).
 """
 
@@ -168,6 +173,8 @@ class Resolved:
     device: torch.device
     schedule: Optional[Union[TopologySchedule, FleetSchedule]] = None
     group: Any = None
+    # the per-shard layout on a grid with a model axis, else None
+    sharded: Optional[FL.ShardedFlatSpec] = None
 
 
 def resolve_topology(spec: ExperimentSpec) -> Topology:
@@ -488,25 +495,6 @@ def _check_group(spec: ExperimentSpec, group) -> None:
     if spec.n_agents != group.n_agents:
         raise ValueError(f"spec.n_agents={spec.n_agents} but the group has "
                          f"{group.n_agents} ranks: one agent a rank")
-    if getattr(group, "model_size", 1) > 1:
-        if spec.algo not in _MODEL_AXIS_ALGOS:
-            raise ValueError(
-                f"{spec.algo} on a model axis is not ported (the PORTER "
-                f"family and push-sum {_MODEL_AXIS_ALGOS} run there): "
-                "ROADMAP queue 1 item 12(c)")
-        if spec.remat_policy is not None:
-            raise ValueError("remat_policy on a model axis is not ported: "
-                             "ROADMAP queue 1 item 12(c)")
-        if spec.wire == "packed_bits" and spec.compressor == "qsgd":
-            raise ValueError(
-                "a randomized wire codec (qsgd) on a model axis would draw "
-                "per shard; only deterministic codecs (top_k, block_top_k) "
-                "run per shard, as the reference's shard-local compressor "
-                "(ROADMAP queue 1 item 12(c))")
-
-
-# the algorithms that run on a grid with a model axis
-_MODEL_AXIS_ALGOS = ("porter-gc", "porter-dp", "beer", "dp-csgp")
 
 
 def _sharded(group, leaf_specs) -> Optional[FL.ShardedFlatSpec]:
@@ -538,6 +526,7 @@ def build_engine(spec: ExperimentSpec, *,
     rank: the executors across processes; with a model axis ``leaf_specs``
     (the agent axes first) give the per-shard layout."""
     _check_group(spec, group)
+    sharded = _sharded(group, leaf_specs)
     if spec.fleet:
         _check_fleet_spec(spec)
         top = resolve_fleet_topology(spec) if topology is None else topology
@@ -549,12 +538,13 @@ def build_engine(spec: ExperimentSpec, *,
         sched = resolve_schedule(spec, top) if schedule is None else schedule
         mixer = make_mixer(sched if sched is not None else top,
                            spec.gossip_mode, frac=spec.frac,
-                           codec=resolve_wire_format(spec), group=group)
+                           codec=resolve_wire_format(spec), group=group,
+                           sharded=sharded)
     return CommRound(compressor=resolve_compressor(spec), mixer=mixer,
                      compress_fn=compress_fn, backend=spec.comm_backend,
                      overlap=spec.overlap,
                      plane_dtype=resolve_plane_dtype(spec),
-                     sharded=_sharded(group, leaf_specs))
+                     sharded=sharded)
 
 
 def build(spec: ExperimentSpec, loss_fn, *, device=None,
@@ -628,7 +618,7 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
                  else (1.0 if spec.gamma is None else spec.gamma))
     r = Resolved(info=info, topology=top, compressor=comp, mixer=mixer,
                  engine=engine, gamma=gamma, device=device, schedule=sched,
-                 group=group)
+                 group=group, sharded=_sharded(group, leaf_specs))
     return get_factory(spec.algo)(spec, loss_fn, r)
 
 
@@ -745,7 +735,8 @@ def _build_porter_adam(spec, loss_fn, r):
 def _build_dsgd(spec, loss_fn, r):
     step = functools.partial(BL.dsgd_step, spec.eta, r.gamma, loss_fn,
                              r.mixer, tau=spec.tau, clip_mode=spec.clip_mode,
-                             sigma_p=spec.sigma_p, dp=spec.dp)
+                             sigma_p=spec.sigma_p, dp=spec.dp,
+                             sharded=r.sharded)
     init = _bind_init(spec, r, lambda params, n, w: BL.dsgd_init(params, n))
     return _algorithm(spec, r, state_cls=BL.DsgdState, init=init, step=step)
 

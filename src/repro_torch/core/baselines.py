@@ -48,8 +48,15 @@ __all__ = [
 Metrics = Dict[str, torch.Tensor]
 
 
-def _param_count(tree, n_agents: int) -> int:
-    return sum(leaf.numel() // n_agents for leaf in tree_leaves(tree))
+def _param_count(tree, n_agents: int, sharded=None) -> int:
+    """Elements of one agent's replica: every leaf's row, a model-sharded
+    leaf's times the model axis under ``sharded`` (a rank holds its
+    shard), so the count is the whole replica's."""
+    leaves = tree_leaves(tree)
+    m = ([1] * len(leaves) if sharded is None else
+         [1 if d is None else sharded.group.model_size
+          for d in sharded.dims()])
+    return sum(leaf.numel() // n_agents * k for leaf, k in zip(leaves, m))
 
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -58,11 +65,17 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
                       device=like.device)
 
 
-def _agent_grads(loss_fn, x, batch, tau, clip_mode):
-    """Per-agent (losses, gradients), clipped by tau unless it is None."""
+def _agent_grads(loss_fn, x, batch, tau, clip_mode, sharded=None,
+                 grad_override=None):
+    """Per-agent (losses, gradients), clipped by tau unless it is None;
+    across model shards under ``sharded`` (the layout of a model axis).
+    ``grad_override``: ``(losses, g)`` returned as given (the clipped
+    gradients of a forced round)."""
+    if grad_override is not None:
+        return grad_override
     g, losses = vmap(grad_and_value(loss_fn))(x, batch)
     if tau is not None:
-        g = clipping.stacked_clip(g, tau, clip_mode)
+        g = clipping.stacked_clip(g, tau, clip_mode, sharded)
     return losses, g
 
 
@@ -82,28 +95,38 @@ def dsgd_init(params, n_agents: int) -> DsgdState:
 def dsgd_step(eta: float, gamma: float, loss_fn: LossFn, mixer: MixFn,
               state: DsgdState, batch, gen: Optional[torch.Generator],
               tau: Optional[float] = None, clip_mode: str = "smooth",
-              sigma_p: float = 0.0, dp: bool = False, noise: Any = None
+              sigma_p: float = 0.0, dp: bool = False, noise: Any = None,
+              sharded=None, grad_override=None
               ) -> Tuple[DsgdState, Metrics]:
-    """X^{t+1} = X + gamma X(W - I) - eta G   (uncompressed gossip)."""
+    """X^{t+1} = X + gamma X(W - I) - eta G   (uncompressed gossip).
+
+    ``sharded``: the per-shard layout on a model axis (dsgd has no
+    engine to carry it): the clip across shards, the metrics and the wire
+    bytes over the whole replica.  ``grad_override``: ``(losses, g)``
+    replacing the gradient oracle."""
     rows = tree_leaves(state.x)[0].shape[0]
     group = getattr(mixer, "group", None)
     n = rows if group is None else group.n_agents
-    if dp:
+    if grad_override is not None:
+        losses, g = grad_override
+    elif dp:
         g, losses = clipping.dp_gradient(
             loss_fn, state.x, batch, tau, sigma_p, gen=gen, noise=noise,
-            mode=clip_mode, agents="stacked", group=group)
+            mode=clip_mode, agents="stacked", group=group, sharded=sharded)
     else:
-        losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode)
+        losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode,
+                                 sharded)
     mixed = apply_mixer(mixer, state.x, state.step)
     x = tree_map(lambda x0, wx, gg: x0 + gamma * (wx - x0) - eta * gg,
                  state.x, mixed, g)
     # uncompressed gossip of the full parameter buffer every round
     frac = getattr(mixer, "wire_frac", None)
     wire = gossip_wire_bytes(getattr(mixer, "wire_mode", "dense"), n,
-                             _param_count(state.x, rows),
+                             _param_count(state.x, rows, sharded),
                              frac=1.0 if frac is None else frac)
     return DsgdState(x=x, step=state.step + 1), {
-        **agent_metrics(losses, [("consensus_x", x)], group=group),
+        **agent_metrics(losses, [("consensus_x", x)], group=group,
+                        sharded=sharded),
         "wire_bytes": _scalar(wire, losses)}
 
 
@@ -132,16 +155,19 @@ def choco_step(eta: float, gamma: float, loss_fn: LossFn,
                mixer: Optional[MixFn], compressor: Optional[Compressor],
                state: ChocoState, batch, gen: Optional[torch.Generator],
                tau: Optional[float] = None, clip_mode: str = "smooth",
-               engine: Optional[CommRound] = None,
+               engine: Optional[CommRound] = None, grad_override=None,
                ) -> Tuple[ChocoState, Metrics]:
-    """CHOCO-SGD: x+ = x - eta g;  q += C(x+ - q);  x = x+ + gamma (m - q)."""
+    """CHOCO-SGD: x+ = x - eta g;  q += C(x+ - q);  x = x+ + gamma (m - q).
+    ``grad_override``: ``(losses, g)`` replacing the gradient oracle."""
     eng = resolve_engine(engine, mixer, compressor)
-    losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode)
+    losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode,
+                             eng.sharded, grad_override)
     x_half = tree_map(lambda x0, gg: x0 - eta * gg, state.x, g)
     x, q, m = eng.gossip_apply(gen, x_half, state.q, state.m, gamma,
                                t=state.step)
     return ChocoState(x=x, q=q, m=m, step=state.step + 1), {
-        **agent_metrics(losses, [("consensus_x", x)], group=eng.group),
+        **agent_metrics(losses, [("consensus_x", x)], group=eng.group,
+                        sharded=eng.sharded),
         "wire_bytes": _scalar(eng.wire_bytes(state.x), losses)}
 
 

@@ -13,9 +13,12 @@ the unclipped gradients, updates the estimates, and hands
 ``(losses, hat g)`` to ``porter_step(grad_override=...)``, whose comm
 rounds are PORTER's.  The residual clip is piecewise (``min(1, tau /
 ||delta||)``; the smooth factor never reaches 1) and eager: the reference
-runs it in jnp and has no kernel for it.  Where the factor is 1 the
-estimate is the raw gradient bitwise, so at ``tau = inf`` the round is
-bitwise porter-gc's with a piecewise clip at ``tau = inf``.
+runs it in jnp and has no kernel for it.  On a model axis the residual's
+norm is the whole replica's, from ``clipping.cross_shard_sumsq`` (one
+``sumsq`` over the rank's plane of shards and one all-reduce over
+``'model'``), as the reference's norm of a model-sharded tree.  Where the
+factor is 1 the estimate is the raw gradient bitwise, so at ``tau = inf``
+the round is bitwise porter-gc's with a piecewise clip at ``tau = inf``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels import flatten as FL
 from ..kernels import ref
 from ..tree import tree_leaves, tree_map
 from . import clipping
@@ -42,21 +46,31 @@ class Clip21State(NamedTuple):
     g_est: Any          # hat g: each agent's gradient estimate, f32
 
 
-def _agent_norms(tree) -> torch.Tensor:
+def _agent_norms(tree, sharded=None) -> torch.Tensor:
     """Each agent's l2 norm over all leaves of a stacked tree, the root
-    correctly rounded as ``clipping.tree_global_norm``'s."""
+    correctly rounded as ``clipping.tree_global_norm``'s.  Under
+    ``sharded`` (a model axis) the norm of the agent's whole replica: the
+    sums of ``clipping.cross_shard_sumsq`` over the rank's plane of
+    shards (the replicated leaves counted once, one all-reduce over
+    ``'model'``), then the root."""
+    if sharded is not None:
+        spec = FL.flat_spec(tree)
+        return ref.sqrt_rn(clipping.cross_shard_sumsq(
+            FL.to_planes(tree, spec), spec, sharded))
     n = tree_leaves(tree)[0].shape[0]
     return ref.sqrt_rn(sum(
         torch.sum(torch.square(leaf.to(torch.float32)).reshape(n, -1), dim=1)
         for leaf in tree_leaves(tree)))
 
 
-def clip21_update(g_est: Any, g_raw: Any, tau: float) -> Any:
+def clip21_update(g_est: Any, g_raw: Any, tau: float, sharded=None) -> Any:
     """Every agent's ``g_est + Clip_tau(g_raw - g_est)``, piecewise, by the
-    agent's norm over all leaves.  Where the factor is 1 the result is
-    ``g_raw`` itself, bitwise (``a + 1.0 * (b - a)`` need not be b)."""
+    agent's norm over all leaves (of its whole replica under ``sharded``).
+    Where the factor is 1 the result is ``g_raw`` itself, bitwise (``a +
+    1.0 * (b - a)`` need not be b)."""
     delta = tree_map(lambda a, b: a - b, g_raw, g_est)
-    factor = clipping.clip_factor(_agent_norms(delta), tau, "piecewise")
+    factor = clipping.clip_factor(_agent_norms(delta, sharded), tau,
+                                  "piecewise")
 
     def one(ge, gr, d):
         f = factor.reshape((-1,) + (1,) * (d.dim() - 1))
@@ -86,19 +100,26 @@ def clip21_step(
     batch: Any,
     gen: Optional[torch.Generator],
     engine: Optional[CommRound] = None,
+    grad_override: Optional[Tuple[torch.Tensor, Any]] = None,
 ) -> Tuple[Clip21State, Dict[str, torch.Tensor]]:
     """One Clip21 round: the unclipped gradients, the EF-clipped estimate,
     PORTER's comm rounds.  ``cfg.tau`` is the residual's threshold; the
-    round draws from ``gen`` as porter-gc's does."""
-    raw_cfg = dataclasses.replace(cfg, variant="beer")
-    losses, g_raw = _gradients(raw_cfg, loss_fn, state.base.x, batch, gen,
-                               None)
-    g_est = clip21_update(state.g_est, g_raw, cfg.tau)
-    base, metrics = porter_step(cfg, loss_fn, mixer, compressor, state.base,
-                                batch, gen, engine=engine,
+    round draws from ``gen`` as porter-gc's does.  ``grad_override``:
+    ``(losses, g_raw)`` replacing the unclipped gradients.  On a model
+    axis (the engine's ``sharded``) the residual's norm and the metrics
+    cover each agent's whole replica."""
+    eng = resolve_engine(engine, mixer, compressor)
+    if grad_override is None:
+        raw_cfg = dataclasses.replace(cfg, variant="beer")
+        losses, g_raw = _gradients(raw_cfg, loss_fn, state.base.x, batch,
+                                   gen, None)
+    else:
+        losses, g_raw = grad_override
+    g_est = clip21_update(state.g_est, g_raw, cfg.tau, eng.sharded)
+    base, metrics = porter_step(cfg, loss_fn, None, None, state.base,
+                                batch, gen, engine=eng,
                                 grad_override=(losses, g_est))
     resid = tree_map(lambda a, b: a - b, g_raw, g_est)
-    metrics.update(agent_metrics(
-        norms=[("clip_residual", resid)],
-        group=resolve_engine(engine, mixer, compressor).group))
+    metrics.update(agent_metrics(norms=[("clip_residual", resid)],
+                                 group=eng.group, sharded=eng.sharded))
     return Clip21State(base=base, g_est=g_est), metrics

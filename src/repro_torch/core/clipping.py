@@ -14,8 +14,8 @@ row-stacked tree (each leaf's leading axis one agent, or one sample) and
 clips each row by its own norm over all its leaves.  The smooth mode runs
 on the flat tile planes of :mod:`repro_torch.kernels.flatten` through the
 fused ``clip`` kernel (``kernels/ops.clip_planes``), one launch for all
-rows; piecewise and none stay eager (the reference has no kernel for
-them).
+rows; piecewise and none stay eager on one card (the reference has no
+kernel for them).
 
 Per-sample clipped mini-batch gradients (:func:`clipped_grad_accumulate`,
 the mean alone; :func:`dp_gradient`, the mean plus ``sigma * z``, the DP
@@ -46,9 +46,14 @@ holds its shards only.  So the clip is ``ops.clip_sumsq`` (the ``sumsq``
 kernel) over the rank's plane, with the replicated leaves counted on model
 rank 0 only (zeroed for the pass elsewhere, then restored); each row's
 partials summed in the fused kernel's fixed order (``ref.row_sumsq``); one
-all-reduce of the ``(rows,)`` sums over ``'model'``; the factors
-(``ref.sumsq_factors``); and ``ops.clip_scale`` (the ``scale`` kernel).
-The DP path takes it for every chunk's per-sample rows, then
+all-reduce of the ``(rows,)`` sums over ``'model'``
+(:func:`cross_shard_sumsq`, which Clip21's residual norm takes too); the
+factors (``ref.sumsq_factors`` for the smooth mode, :func:`clip_factor` of
+the correctly rounded root for piecewise and none); and
+``ops.clip_scale`` (the ``scale`` kernel), in every mode, as the
+reference's ``tree_clip`` over a model-sharded tree takes the global norm
+whatever the mode.  The DP path takes it for every chunk's per-sample
+rows, then
 ``mean_noise`` on the rank's shard with its slice of the one-card noise.
 """
 
@@ -62,10 +67,11 @@ from torch.func import grad_and_value, vmap
 from ..kernels import flatten as FL
 from ..kernels import ops, ref
 from .agents import local_rows, model_shard
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_flatten, tree_leaves, tree_map
 
 __all__ = ["smooth_clip", "piecewise_clip", "tree_global_norm", "tree_clip",
-           "clip_factor", "stacked_clip",
+           "clip_factor", "stacked_clip", "cross_shard_sumsq",
+           "cross_shard_clip",
            "SAMPLE_PLANE_BYTES", "sample_chunk", "per_sample_grads",
            "clipped_grad_accumulate", "dp_gradient"]
 
@@ -120,13 +126,13 @@ def tree_clip(tree, tau: float, mode: ClipMode = "smooth"):
     return tree_map(lambda leaf: (leaf * c).to(leaf.dtype), tree)
 
 
-def cross_shard_clip(planes, spec: FL.FlatSpec, tau: float, sharded):
-    """Definition 2 over a rank's ``(rows * T, TILE)`` plane of model
-    shards (layout ``spec``), each row by the norm of its whole replica:
-    ``sumsq`` with the replicated leaves counted on model rank 0 only, the
-    rows' sums in a fixed order, one all-reduce over ``'model'``, the
-    factors, ``scale``.  Returns (the clipped plane, the ``(rows,)``
-    factors)."""
+def cross_shard_sumsq(planes, spec: FL.FlatSpec, sharded) -> torch.Tensor:
+    """Each row's sum of squares over its whole replica, from a rank's
+    ``(rows * T, TILE)`` plane of model shards (layout ``spec``):
+    ``sumsq`` with the replicated leaves counted on model rank 0 only
+    (zeroed for the pass elsewhere, then restored), the rows' partials
+    summed in the fused kernel's fixed order, one all-reduce over
+    ``'model'`` -> ``(rows,)`` f32, the same on every model rank."""
     group = sharded.group
     hidden = []
     if group.model_index != 0:
@@ -139,21 +145,32 @@ def cross_shard_clip(planes, spec: FL.FlatSpec, tau: float, sharded):
     for lo, hi, kept in hidden:
         view[:, lo:hi] = kept
     rows = max(spec.rows, 1)
-    sums = group.all_reduce_sum(ref.row_sumsq(partials, rows), axis="model")
-    factors = ref.sumsq_factors(sums, tau)
+    return group.all_reduce_sum(ref.row_sumsq(partials, rows), axis="model")
+
+
+def cross_shard_clip(planes, spec: FL.FlatSpec, tau: float, sharded,
+                     mode: ClipMode = "smooth"):
+    """Definition 2 (or Remark 1, or no clip, by ``mode``) over a rank's
+    plane of model shards, each row by the norm of its whole replica: the
+    sums of :func:`cross_shard_sumsq`, the factors (the smooth mode's
+    ``ref.sumsq_factors``, else :func:`clip_factor` of their correctly
+    rounded roots), ``scale``.  Returns (the clipped plane, the
+    ``(rows,)`` factors)."""
+    sums = cross_shard_sumsq(planes, spec, sharded)
+    if mode == "smooth":
+        factors = ref.sumsq_factors(sums, tau)
+    else:
+        factors = clip_factor(ref.sqrt_rn(sums), tau, mode)
     return ops.clip_scale(planes, factors), factors
 
 
-def _smooth_plane(planes, spec: FL.FlatSpec, tau: float, sharded):
+def _clip_plane(planes, spec: FL.FlatSpec, tau: float, mode: ClipMode,
+                sharded):
+    """The clipped plane: the fused ``clip`` (smooth, one card) or
+    :func:`cross_shard_clip` (any mode, under ``sharded``)."""
     if sharded is None:
         return ops.clip_planes(planes, max(spec.rows, 1), tau)[0]
-    return cross_shard_clip(planes, spec, tau, sharded)[0]
-
-
-def _refuse_eager_modes(mode: ClipMode, sharded) -> None:
-    if sharded is not None:
-        raise ValueError(f"clip mode {mode!r} under a model axis: only the "
-                         "smooth clip runs across shards")
+    return cross_shard_clip(planes, spec, tau, sharded, mode)[0]
 
 
 def stacked_clip(tree, tau: float, mode: ClipMode = "smooth", sharded=None):
@@ -161,26 +178,27 @@ def stacked_clip(tree, tau: float, mode: ClipMode = "smooth", sharded=None):
     all leaves: ``tree_clip`` of every row.  Smooth clipping packs the
     rows into one flat plane and clips it in ``ops.clip_planes`` (the
     per-tile sums of squares, one factor a row, the scale: one launch on
-    the card), or across model shards in :func:`cross_shard_clip` under
-    ``sharded``; each leaf comes back in its own dtype."""
-    if mode != "smooth":
-        _refuse_eager_modes(mode, sharded)
+    the card); under ``sharded`` every mode packs the rows and clips
+    across model shards in :func:`cross_shard_clip`, as the reference's
+    ``tree_clip`` over a model-sharded tree takes the whole norm; each
+    leaf comes back in its own dtype."""
+    if mode != "smooth" and sharded is None:
         return vmap(lambda t: tree_clip(t, tau, mode))(tree)
     spec = FL.flat_spec(tree)
     return FL.from_planes(
-        _smooth_plane(FL.to_planes(tree, spec), spec, tau, sharded), spec)
+        _clip_plane(FL.to_planes(tree, spec), spec, tau, mode, sharded),
+        spec)
 
 
 def _clipped_plane(rows, tau: float, mode: ClipMode, sharded=None):
     """Each row of a row-stacked tree clipped by its own norm, in the rows'
-    plane: the smooth mode through ``ops.clip_planes`` (or
-    :func:`cross_shard_clip`), piecewise and none eagerly, then packed.
-    Returns (the plane, its layout)."""
+    plane: the smooth mode through ``ops.clip_planes``, every mode through
+    :func:`cross_shard_clip` under ``sharded``, piecewise and none on one
+    card eagerly, then packed.  Returns (the plane, its layout)."""
     spec = FL.flat_spec(rows)
-    if mode == "smooth":
-        return _smooth_plane(FL.to_planes(rows, spec), spec, tau,
-                             sharded), spec
-    _refuse_eager_modes(mode, sharded)
+    if mode == "smooth" or sharded is not None:
+        return _clip_plane(FL.to_planes(rows, spec), spec, tau, mode,
+                           sharded), spec
     return FL.to_planes(stacked_clip(rows, tau, mode), spec), spec
 
 
@@ -278,10 +296,11 @@ def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
         if noise is not None:
             if group is None:
                 return noise
-            return tree_map(lambda z, d: model_shard(
+            leaves, treedef = tree_flatten(noise)
+            return treedef.unflatten([model_shard(
                 group.rows(z), d, getattr(group, "model_index", 0),
-                getattr(group, "model_size", 1)), noise,
-                mean.treedef.unflatten(dims))
+                getattr(group, "model_size", 1))
+                for z, d in zip(leaves, dims)])
         lead = (mean.rows,) if mean.rows else ()
         return mean.treedef.unflatten([
             local_rows(group, lead + shape, lambda full, dt=dt: torch.randn(

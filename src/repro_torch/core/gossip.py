@@ -39,7 +39,11 @@ its agent, in the same order, so its rows are bitwise the one-card
 executor's (the dense and packed-codec products are the whole ``W_t @ c``
 on the gathered rows, a matrix product's rounding depending on its row
 count).  On the ``(pod, data)`` grid the ring sends straight to the
-global neighbour, which is what the reference's seam patch computes.
+global neighbour, which is what the reference's seam patch computes.  On a
+``(data, model)`` grid every executor runs on the rank's shards among the
+ranks of its model index; a qsgd codec draws the global noise of every
+(agent, model shard) pair's windows and packs with its block
+(:func:`_pack_rank`), so the shards of one agent never share a draw.
 
 Each executor's ``shipped_nbytes`` holds the bytes of its last call's
 buffers, as the reference's wire accounting counts them (the ring's for
@@ -685,22 +689,32 @@ def make_packed_process_mixer(w, frac: float, group) -> MixFn:
     return mix
 
 
-def _rank_windows(full, group, nbs):
-    """This rank's rows of a one-card codec row matrix ``full`` (leaf by
-    leaf, every agent's ``nbs[l]`` windows inside leaf l)."""
+def _rank_windows(full, group, nbs, shards=None):
+    """This rank's rows of a global codec row matrix ``full``: leaf by
+    leaf, every agent's ``shards[l]`` model shards of ``nbs[l]`` windows
+    inside leaf l (agent-major, then shard, then window; ``shards`` None:
+    one a leaf), this agent's block of this rank's shard (of shard 0 for
+    a replicated leaf, which every model rank packs whole)."""
     n, i = group.n_agents, group.index
+    shards = [1] * len(nbs) if shards is None else shards
+    m_idx = getattr(group, "model_index", 0)
     parts, off = [], 0
-    for nb in nbs:
-        parts.append(full[off + i * nb:off + (i + 1) * nb])
-        off += n * nb
+    for nb, m in zip(nbs, shards):
+        start = off + (i * m + (m_idx if m > 1 else 0)) * nb
+        parts.append(full[start:start + nb])
+        off += n * m * nb
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def _pack_rank(codec: WireFormat, group, gen, leaves, noise):
+def _pack_rank(codec: WireFormat, group, gen, leaves, noise, shards=None):
     """Pack this rank's windows of every leaf once: -> (buffers, windows a
-    leaf).  A qsgd codec draws the one-card noise of all agents' windows
-    from ``gen`` (or takes it injected, at that global shape) and keeps
-    this rank's rows."""
+    leaf).  A qsgd codec draws the global noise of every agent's windows
+    from ``gen`` -- on a model axis of every (agent, model shard) pair's
+    windows, ``shards[l]`` shards of leaf l (:func:`_rank_windows`'
+    order) -- or takes it injected at that global shape, and keeps this
+    rank's rows: each shard packs with its block of one draw, so a run on
+    processes is bitwise the one-card twin that packs every shard's
+    windows with the same draw (``launch.steps.codec_on_one_card``)."""
     _check_block(leaves)
     windows = [to_windows(leaf.reshape(1, -1).to(torch.float32))
                .reshape(-1, PACK_BLOCK) for leaf in leaves]
@@ -708,9 +722,11 @@ def _pack_rank(codec: WireFormat, group, gen, leaves, noise):
     nbs = [win.shape[0] for win in windows]
     if not codec.deterministic:
         if noise is None:
-            noise = torch.rand((group.n_agents * rows.shape[0], PACK_BLOCK),
+            total = sum(nb * m for nb, m in zip(
+                nbs, [1] * len(nbs) if shards is None else shards))
+            noise = torch.rand((group.n_agents * total, PACK_BLOCK),
                                generator=gen, device=rows.device)
-        noise = _rank_windows(noise, group, nbs)
+        noise = _rank_windows(noise, group, nbs, shards)
     return codec.pack(rows, noise), nbs
 
 
@@ -723,13 +739,16 @@ def _unpack_sets(codec: WireFormat, sets):
     return list(codec.unpack(*bufs).chunk(len(sets)))
 
 
-def make_ring_codec_process_mixer(w, codec: WireFormat, group) -> MixFn:
+def make_ring_codec_process_mixer(w, codec: WireFormat, group,
+                                  shards=None) -> MixFn:
     """Banded-W gossip over bit-packed buffers with one agent a rank: the
     rank packs its windows once, ships the buffers to each live neighbour
     (one exchange a band), unpacks its own and the received ones in one
     call, and adds ``b_self c + b_prev c_prev + b_next c_next`` in f32 as
     :func:`make_ring_codec_mixer` does.  ``exchange_ps`` appends the (1,)
-    f32 weight increment to the last buffer.  ``mix.shipped_nbytes``: the
+    f32 weight increment to the last buffer.  ``shards``: each leaf's model
+    shards on a model axis (1 for a replicated leaf), the layout of a
+    randomized codec's global draw (:func:`_pack_rank`).  ``mix.shipped_nbytes``: the
     bytes this rank sent in the last exchange."""
     bands_at, use_prev, use_next = _ring_bands(w, "ring codec mixer")
     live = int(use_prev) + int(use_next)
@@ -739,7 +758,7 @@ def make_ring_codec_process_mixer(w, codec: WireFormat, group) -> MixFn:
 
     def _exchange(gen, tree, t, noise, dw):
         leaves, treedef = tree_flatten(tree)
-        bufs, nbs = _pack_rank(codec, group, gen, leaves, noise)
+        bufs, nbs = _pack_rank(codec, group, gen, leaves, noise, shards)
         if dw is not None:
             bufs, last_shape = _append_weight(bufs, dw)
         sets = [bufs]
@@ -783,13 +802,15 @@ def make_ring_codec_process_mixer(w, codec: WireFormat, group) -> MixFn:
     return mix
 
 
-def make_packed_codec_process_mixer(w, codec: WireFormat, group) -> MixFn:
+def make_packed_codec_process_mixer(w, codec: WireFormat, group,
+                                    shards=None) -> MixFn:
     """All-gather gossip over bit-packed buffers with one agent a rank: the
     rank packs its windows once and all-gathers the buffers (the weight
     words appended to the last one by ``exchange_ps``); every agent's
     windows unpack in one call and go back into the one-card row order,
     and the rank keeps its row of the whole ``W_t @ c``, as
     :func:`make_dense_process_mixer` does and for the same reason.
+    ``shards``: as :func:`make_ring_codec_process_mixer`'s.
     ``mix.shipped_nbytes``: every agent's buffers, what the all-gather
     ships."""
     w_at = _table_on(w, "packed codec mixer")
@@ -800,7 +821,7 @@ def make_packed_codec_process_mixer(w, codec: WireFormat, group) -> MixFn:
 
     def _exchange(gen, tree, t, noise, dw):
         leaves, treedef = tree_flatten(tree)
-        bufs, nbs = _pack_rank(codec, group, gen, leaves, noise)
+        bufs, nbs = _pack_rank(codec, group, gen, leaves, noise, shards)
         if dw is not None:
             bufs, last_shape = _append_weight(bufs, dw)
         full = group.all_gather(bufs)                    # each (n, ...)
@@ -849,7 +870,8 @@ def make_packed_codec_process_mixer(w, codec: WireFormat, group) -> MixFn:
 
 def make_mixer(topology: Union[Topology, TopologySchedule],
                mode: str = "dense", frac: Optional[float] = None,
-               codec: Optional[WireFormat] = None, group=None) -> MixFn:
+               codec: Optional[WireFormat] = None, group=None,
+               sharded=None) -> MixFn:
     """The gossip executor for a static :class:`Topology` or a
     :class:`TopologySchedule` (whose ``(period, n, n)`` table the mixer
     indexes with the round), tagged with its ``wire_mode`` (and
@@ -866,8 +888,12 @@ def make_mixer(topology: Union[Topology, TopologySchedule],
     card; or a :class:`repro_torch.launch.mesh.AgentGroup`, one agent a
     rank, which picks the executors across processes
     (:func:`make_dense_process_mixer` and its siblings; the reference
-    dispatches on ``mesh``).  Every executor carries the reference's
-    ``budget``; ``mix.group`` and ``mix.n_agents`` name the agents.
+    dispatches on ``mesh``).  ``sharded``: the per-shard layout on a
+    grid with a model axis (a :class:`repro_torch.kernels.flatten.
+    ShardedFlatSpec`), which tells a randomized codec's process executor
+    each leaf's shards (the reference's ``leaf_specs=``).  Every executor
+    carries the reference's ``budget``; ``mix.group`` and ``mix.n_agents``
+    name the agents.
     """
     schedule = topology if isinstance(topology, TopologySchedule) else None
     w = schedule.ws if schedule is not None else topology.w
@@ -876,6 +902,9 @@ def make_mixer(topology: Union[Topology, TopologySchedule],
         raise ValueError(f"the topology has {n} agents, the group "
                          f"{group.n_agents} ranks: one agent a rank")
     proc = group is not None
+    shards = (None if sharded is None else
+              [1 if d is None else sharded.group.model_size
+               for d in sharded.dims()])
     if mode == "dense":
         if codec is not None:
             raise ValueError(
@@ -894,12 +923,12 @@ def make_mixer(topology: Union[Topology, TopologySchedule],
             mix = (make_ring_process_mixer(w, group) if proc
                    else make_ring_mixer(w))
         else:
-            mix = (make_ring_codec_process_mixer(w, codec, group) if proc
-                   else make_ring_codec_mixer(w, codec))
+            mix = (make_ring_codec_process_mixer(w, codec, group, shards)
+                   if proc else make_ring_codec_mixer(w, codec))
     elif mode == "packed":
         if codec is not None:
-            mix = (make_packed_codec_process_mixer(w, codec, group) if proc
-                   else make_packed_codec_mixer(w, codec))
+            mix = (make_packed_codec_process_mixer(w, codec, group, shards)
+                   if proc else make_packed_codec_mixer(w, codec))
         elif frac is None:
             raise ValueError("packed gossip needs a top-k fraction")
         else:

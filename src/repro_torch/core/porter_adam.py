@@ -76,15 +76,23 @@ def porter_adam_step(
     adam_eps: float = 1e-8,
     engine: Optional[CommRound] = None,
     noise: Any = None,
+    grad_override: Optional[Tuple[torch.Tensor, Any]] = None,
 ) -> Tuple[PorterAdamState, Dict[str, torch.Tensor]]:
     """One PORTER-Adam round: Algorithm 1 lines 4-12 as ``porter_step``,
     the local moments, then lines 13-14 with the preconditioned update.
     ``gen`` is drawn from in ``porter_step``'s order; ``noise`` stands in
-    for the DP draws as there."""
+    for the DP draws and ``grad_override`` for the gradient oracle as
+    there.  On a model axis (the engine's ``sharded``) the clip and the
+    metrics cover each agent's whole replica; the moments are
+    elementwise, so a shard's moments are the one-card moments' block."""
     st = state.base
     eng = resolve_engine(engine, mixer, compressor)
     group = eng.group
-    losses, g = _gradients(cfg, loss_fn, st.x, batch, gen, noise, group)
+    if grad_override is None:
+        losses, g = _gradients(cfg, loss_fn, st.x, batch, gen, noise, group,
+                               eng.sharded)
+    else:
+        losses, g = grad_override
     g = tree_map(lambda leaf: leaf.to(cfg.grad_dtype), g)
 
     if eng.overlap:
@@ -120,7 +128,7 @@ def porter_adam_step(
                        m_v=m_v, step=st.step + 1)
     metrics = {
         **agent_metrics(losses, [("consensus_x", x), ("consensus_v", v)],
-                        group=group),
+                        group=group, sharded=eng.sharded),
         "wire_bytes": torch.full((), 2.0 * eng.wire_bytes(st.x),
                                  dtype=torch.float32, device=losses.device),
     }

@@ -28,6 +28,15 @@ Function's forward as extra outputs that carry no gradient.
 
 The gradient is the same function of the same inputs either way: on the
 CPU it is bitwise the gradient without remat.
+
+Around the tensor-parallel loss of a model axis
+(:mod:`repro_torch.nn.tensor_parallel`) both policies run as they are:
+the collectives' ``autograd.Function`` s and their ``vmap`` rules nest
+inside the generated rule, and the dispatch modes pass the collectives
+through unrecorded, as every op that is not a dense product.  The
+recompute then issues the forward's model-axis collectives once more a
+gradient (under "dots" too: only the products are replayed), and nothing
+on the agent axes.
 """
 
 from __future__ import annotations

@@ -59,15 +59,20 @@ def subgrad_step(eta: float, gamma: float, loss_fn,
                  mixer: Optional[MixFn], compressor: Optional[Compressor],
                  state: SubgradState, batch, gen: Optional[torch.Generator],
                  tau: Optional[float] = None, clip_mode: str = "piecewise",
-                 engine: Optional[CommRound] = None,
+                 engine: Optional[CommRound] = None, grad_override=None,
                  ) -> Tuple[SubgradState, Dict[str, torch.Tensor]]:
-    """One compressed-gossip subgradient round (diminishing stepsize)."""
+    """One compressed-gossip subgradient round (diminishing stepsize).
+    ``grad_override``: ``(losses, g)`` replacing the (clipped)
+    subgradients; on a model axis the clip and the metrics cover each
+    agent's whole replica."""
     eng = resolve_engine(engine, mixer, compressor)
-    losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode)
+    losses, g = _agent_grads(loss_fn, state.x, batch, tau, clip_mode,
+                             eng.sharded, grad_override)
     eta_t = _stepsize(eta, state.step)
     x_half = tree_map(lambda x0, gg: x0 - eta_t * gg.to(x0.dtype), state.x, g)
     x, q, m = eng.gossip_apply(gen, x_half, state.q, state.m, gamma,
                                t=state.step)
     return SubgradState(x=x, q=q, m=m, step=state.step + 1), {
-        **agent_metrics(losses, [("consensus_x", x)], group=eng.group),
+        **agent_metrics(losses, [("consensus_x", x)], group=eng.group,
+                        sharded=eng.sharded),
         "wire_bytes": _scalar(eng.wire_bytes(state.x), losses)}

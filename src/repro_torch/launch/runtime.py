@@ -171,7 +171,8 @@ def gather_state(state, group, specs=None):
 
 def _field_dims(state, specs):
     """Per leaf of ``state``: the model-sharded dimension of its one-
-    replica leaf for the fields shaped like the parameters, else None."""
+    replica leaf for the fields shaped like the parameters, else None;
+    a nested state (porter-adam's and clip21's ``base``) field by field."""
     spec_leaves, spec_def = tree_flatten(specs)
     fields = state if isinstance(state, tuple) else (state,)
     dims = []
@@ -179,6 +180,8 @@ def _field_dims(state, specs):
         leaves, tdef = tree_flatten(field)
         if tdef == spec_def:
             dims += [s.model_dim for s in spec_leaves]
+        elif hasattr(field, "_fields"):
+            dims += _field_dims(field, specs)
         else:
             dims += [None] * len(leaves)
     return dims

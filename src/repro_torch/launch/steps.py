@@ -22,17 +22,23 @@ buffers across the group.  On a ``(data, model)`` grid (``group.model_size
 reference's PartitionSpecs say, for every family (the decoders: dense GQA
 and MLA, MoE ffn- and expert-parallel, the VLM; rwkv6, the Mamba2 hybrid
 and the encoder-decoder; tied or untied, vocab-parallel or d_model-sharded
-embeddings) and the variants 'gc', 'dp', 'beer' and 'csgp': the bundle is
+embeddings) and the variants 'gc', 'dp', 'beer' and 'csgp' (the
+reference's four), with any ``remat_policy`` and any wire codec (a qsgd
+codec packs each shard with its block of one global draw): the bundle is
 the tensor-parallel one
 (:func:`repro_torch.models.build_model` ``group=``), the leaf specs go to
-``api.build`` (per-shard planes, the cross-shard clip, push-sum weights
-replicated on an agent's ranks), and ``local_compress`` picks the
-reference's shard-local compressor (:func:`make_shard_local_compress`)
-over the whole-leaf one.  ROADMAP queue 1 item 12(c) keeps the rest: the
-other algorithms, ``remat_policy`` and a qsgd codec on a model axis, an SR
-draw that costs a rank only its own block, the fleet axis and
-the server algorithms across processes, and the NCCL path; the prefill
-and serve steps and the launch tooling are item 14.
+``api.build`` (per-shard planes, the cross-shard clip in every mode,
+push-sum weights replicated on an agent's ranks), and ``local_compress``
+picks the reference's shard-local compressor
+(:func:`make_shard_local_compress`) over the whole-leaf one.  The other
+decentralized algorithms (dsgd, choco, subgrad-comp, porter-adam,
+clip21) run there through ``api.build(spec, bundle.loss, group=,
+leaf_specs=)``.  :func:`shard_local_on_one_card` and
+:func:`codec_on_one_card` compute on one card what a model axis's
+per-shard compressor and codec give.  ROADMAP queue 1 item 12(c) keeps
+the rest: the fleet axis and the server algorithms across processes, an
+SR draw that costs a rank only its own block, and the NCCL path; the
+prefill and serve steps and the launch tooling are item 14.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from ..nn.module import leaf_specs, prepend_axis_specs
 from ..tree import tree_flatten, tree_leaves
 
 __all__ = ["TrainSetup", "build_train_step", "make_shard_local_compress",
-           "shard_local_on_one_card"]
+           "shard_local_on_one_card", "codec_on_one_card"]
 
 
 def make_shard_local_compress(comp: Compressor):
@@ -91,6 +97,55 @@ def shard_local_on_one_card(compress, specs, model_size: int):
             shards[0][i] if d is None else
             torch.cat([s[i] for s in shards], dim=d + 1)
             for i, d in enumerate(dims)])
+
+    return fn
+
+
+def codec_on_one_card(codec, specs, model_size: int):
+    """What a wire codec's process executor packs on a grid with a model
+    axis of ``model_size``, computed with every agent on one card: each
+    leaf cut into its model shards (``specs``: one replica's
+    :class:`repro_torch.nn.module.Spec` tree; a replicated leaf one
+    shard), every shard's windows packed and unpacked on their own.  A
+    randomized codec (qsgd) draws one global ``(rows, PACK_BLOCK)``
+    uniform plane from ``gen`` -- leaf by leaf, every agent's windows of
+    its every shard, agent-major -- and packs each shard with its block,
+    as each rank keeps its block of the same draw
+    (``core.gossip._pack_rank``).  Returns ``compress(gen, tree, noise=
+    None)``; ``noise`` injects that global plane."""
+    from ..core.wire_formats import PACK_BLOCK, to_windows
+    dims = [s.model_dim for s in tree_leaves(specs)]
+
+    def fn(gen, tree, noise=None):
+        leaves, treedef = tree_flatten(tree)
+        n = leaves[0].shape[0]
+        cut = [[leaf] if d is None else
+               [model_shard(leaf, d + 1, m, model_size)
+                for m in range(model_size)]
+               for leaf, d in zip(leaves, dims)]
+        wins = [[to_windows(p.reshape(n, -1).to(torch.float32))
+                 for p in parts] for parts in cut]
+        total = sum(n * len(w) * w[0].shape[1] for w in wins)
+        if noise is None and not codec.deterministic:
+            noise = torch.rand((total, PACK_BLOCK), generator=gen,
+                               device=leaves[0].device)
+        out, off = [], 0
+        for leaf, d, parts, w in zip(leaves, dims, cut, wins):
+            k, nb = len(w), w[0].shape[1]
+            block = (None if noise is None else
+                     noise[off:off + n * k * nb].reshape(n, k, nb,
+                                                         PACK_BLOCK))
+            off += n * k * nb
+            cs = []
+            for m, (part, rows) in enumerate(zip(parts, w)):
+                z = (None if block is None
+                     else block[:, m].reshape(-1, PACK_BLOCK))
+                c = codec.unpack(*codec.pack(rows.reshape(-1, PACK_BLOCK),
+                                             z))
+                cs.append(c.reshape(n, -1)[:, :part[0].numel()]
+                          .reshape(part.shape).to(leaf.dtype))
+            out.append(cs[0] if d is None else torch.cat(cs, dim=d + 1))
+        return treedef.unflatten(out)
 
     return fn
 

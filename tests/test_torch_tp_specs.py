@@ -13,8 +13,8 @@ package, the refusals, and the reference's own model-sharded step.
 * Mamba2's packed ``w_in`` and its conv keep the reference's contiguous
   blocks on each rank at M 2 and 4 (the forward gathers them at use);
 * a dimension the axis does not divide or a head split across kv groups
-  raises, and so does a randomized codec, naming ROADMAP queue 1 item
-  12(c);
+  raises; every decentralized algorithm, remat and a randomized codec
+  pass the group check (their runs: ``tests/test_torch_tp_algos.py``);
 * the reference's ``build_train_step`` on a ``(data 2, model 2)`` mesh of
   4 fake CPU devices raises ``Mapped away dimension ...`` on its first
   step (ROADMAP queue 3, faults of the reference), so the tensor-parallel
@@ -290,25 +290,42 @@ def test_agent_group_grid_with_a_model_axis():
                    model_index=2)
 
 
+def _model_axis_specs():
+    return prepend_axis_specs(leaf_specs(build_model(get_smoke(
+        "tinyllama-1.1b"), device="cpu")), "data")
+
+
 @pytest.mark.parametrize("algo", ["dsgd", "choco", "porter-adam", "clip21",
                                   "subgrad-comp"])
 def test_algorithms_outside_the_porter_family_refuse_a_model_axis(algo):
+    """They refused a model axis until every decentralized algorithm was
+    ported there: now ``build`` hands them the per-shard layout (dsgd's
+    step, which has no engine, takes it itself)."""
     group = fake_group()
     spec = api.ExperimentSpec(algo=algo, n_agents=2, topology="ring",
                               gossip_mode="ring")
-    with pytest.raises(ValueError, match=r"12\(c\)"):
-        api._check_group(spec, group)
+    assert api._check_group(spec, group) is None
+    built = api.build(spec, lambda p, b: p, device="cpu", group=group,
+                      leaf_specs=_model_axis_specs())
+    sharded = (built.step.keywords["sharded"] if algo == "dsgd"
+               else built.engine.sharded)
+    assert sharded is not None and sharded.group is group
 
 
 def test_model_axis_refuses_remat_and_a_random_codec():
+    """remat and a qsgd codec ran on one card only until this slice of
+    item 12(c): now they pass the group check, and the codec's process
+    executor is told each leaf's model shards (its per-shard draw); a
+    model axis without the leaves' specs still raises."""
     group = fake_group()
-    with pytest.raises(ValueError, match="remat"):
-        api._check_group(api.ExperimentSpec(n_agents=2,
-                                            remat_policy="full"), group)
-    with pytest.raises(ValueError, match=r"qsgd.*12\(c\)"):
-        api._check_group(api.ExperimentSpec(
-            n_agents=2, wire="packed_bits", gossip_mode="ring",
-            compressor="qsgd"), group)
+    assert api._check_group(api.ExperimentSpec(
+        n_agents=2, remat_policy="full"), group) is None
+    spec = api.ExperimentSpec(n_agents=2, wire="packed_bits",
+                              gossip_mode="ring", compressor="qsgd")
+    assert api._check_group(spec, group) is None
+    engine = api.build_engine(spec, group=group,
+                              leaf_specs=_model_axis_specs())
+    assert engine.sharded is not None and engine.mixer.wire_codec is not None
     with pytest.raises(ValueError, match="leaf_specs"):
         api._sharded(group, None)
 

@@ -1,11 +1,11 @@
 """Rank programs of the model-axis tests (not a test module).
 
 ``tests/test_torch_tp_train.py``, ``tests/test_torch_tp_m4.py``,
-``tests/test_torch_tp_families*.py`` and
-``tests/test_torch_tp_recurrent*.py`` start their ranks on a ``(data,
+``tests/test_torch_tp_families*.py``, ``tests/test_torch_tp_recurrent*.py``
+and ``tests/test_torch_tp_algos*.py`` start their ranks on a ``(data,
 model)`` grid with :func:`repro_torch.launch.mesh.spawn_agents`
-(``model=M``), which imports this module by name in each rank.  It imports only ``repro_torch``,
-``numpy`` and ``torch``.  Every rank builds the same global inputs from a
+(``model=M``), which imports this module by name in each rank.  It
+imports only ``repro_torch``, ``numpy`` and ``torch``.  Every rank builds the same global inputs from a
 seed, runs the port's one-card path on them and the tensor-parallel path
 on its own block, and reports what it saw; the test files assert.
 """
@@ -31,7 +31,7 @@ from repro_torch.launch import runtime, steps
 from repro_torch.models import build_model
 from repro_torch.nn import tensor_parallel as TP
 from repro_torch.nn.module import leaf_specs, prepend_axis_specs
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 ETA = 3e-2
 BATCH, SEQ = 2, 16
@@ -516,3 +516,426 @@ def frames_case(group):
                for m in range(1, f.shape[0]))
     return dict(rows=rows, same_on_model_ranks=same,
                 shapes={k: tuple(v.shape) for k, v in mine.items()})
+
+
+# ---------------------------------------------------------------------------
+# the other algorithms, remat and the qsgd codec on the model axis
+# (tests/test_torch_tp_algos*.py)
+# ---------------------------------------------------------------------------
+
+def algo_setup(cfg, n, group, algo, *, plane=None, gossip="ring",
+               wire="dense", comp="block_top_k", local=True,
+               compress_fn=None, **over):
+    """``algo`` built through ``api.build`` on the bundle of ``cfg`` (the
+    tensor-parallel one under a grid with a model axis, with its leaf
+    specs), ring Metropolis weights, ``comp`` at 5 %; under a model axis
+    with ``local`` on the dense wire the shard-local compressor; else
+    ``compress_fn`` (the one-card twin's)."""
+    bundle = build_model(cfg, device="cpu", group=group)
+    specs = None
+    if group is not None and group.model_size > 1:
+        specs = prepend_axis_specs(leaf_specs(bundle), group.axes[0])
+    kw = {"levels": 7} if comp == "qsgd" else {}
+    spec = api.ExperimentSpec(
+        algo=algo, n_agents=n, topology="ring",
+        topology_weights="metropolis", compressor=comp, frac=0.05,
+        compressor_kwargs=kw, eta=ETA, tau=1.0, plane_dtype=plane,
+        gossip_mode=gossip, wire=wire, **over)
+    if (compress_fn is None and local and specs is not None
+            and wire == "dense"):
+        compress_fn = steps.make_shard_local_compress(
+            api.resolve_compressor(spec))
+    algorithm = api.build(spec, bundle.loss, device="cpu", group=group,
+                          leaf_specs=specs, compress_fn=compress_fn)
+    return steps.TrainSetup(cfg=cfg, bundle=bundle, algorithm=algorithm,
+                            n_agents=n, porter_cfg=algorithm.config,
+                            device=torch.device("cpu"))
+
+
+def _twin_compress(specs, model, comp, wire, local):
+    """The one-card twin's compression of a model-axis run: the per-shard
+    compressor, the codec's per-shard round trip, or None (the whole-leaf
+    compressor sees the same leaves on one card)."""
+    if wire == "packed_bits":
+        kw = {"levels": 7} if comp == "qsgd" else {"frac": 0.05}
+        return steps.codec_on_one_card(WF.make_wire_format(comp, **kw),
+                                       specs, model)
+    if local:
+        return steps.shard_local_on_one_card(steps.make_shard_local_compress(
+            make_compressor(comp, frac=0.05)), specs, model)
+    return None
+
+
+def param_fields(state, specs):
+    """The parameter-shaped trees of a (nested) state, by field name."""
+    spec_def = tree_flatten(specs)[1]
+    out = {}
+    for name, field in zip(state._fields, state):
+        if hasattr(field, "_fields"):
+            out.update({f"{name}.{k}": v
+                        for k, v in param_fields(field, specs).items()})
+        elif (not isinstance(field, (int, torch.Tensor))
+              and tree_flatten(field)[1] == spec_def):
+            out[name] = field
+    return out
+
+
+def x_of(state):
+    return state.base.x if hasattr(state, "base") else state.x
+
+
+def algo_train(group, algo, *, plane=None, gossip="ring", wire="dense",
+               comp="block_top_k", local=True, rounds=1, noise=False,
+               arch_over=(), **over):
+    """``rounds`` rounds of ``algo`` on the grid against the one-process
+    twin (every agent in this process, the twin's compression): x's and
+    every state field's largest difference, the metrics, the replicated
+    leaves across the model ranks in every parameter-shaped buffer, the
+    extra planes' shapes, the census.  ``noise``: one round with the
+    one-card DP noise injected (dsgd's ``dp=True``); ``arch_over``: the
+    smoke config's overrides."""
+    cfg = smoke(**dict(arch_over))
+    n, specs = group.n_agents, _specs(cfg)
+    fn = _twin_compress(specs, group.model_size, comp, wire, local)
+    one = algo_setup(cfg, n, None, algo, plane=plane,
+                     gossip="dense" if wire != "dense" else gossip,
+                     comp=comp, local=False, compress_fn=fn, **over)
+    proc = algo_setup(cfg, n, group, algo, plane=plane, gossip=gossip,
+                      wire=wire, comp=comp, local=local, **over)
+    if noise:
+        s1, m1 = _step_noise(one, cfg, n, None)
+        group.census.clear()
+        group.model_census.clear()
+        s2, m2 = _step_noise(proc, cfg, n, group)
+    else:
+        s1, m1 = _run(one, cfg, n, None, rounds)
+        group.census.clear()
+        group.model_census.clear()
+        s2, m2 = _run(proc, cfg, n, group, rounds)
+    census = (dict(group.census), dict(group.model_census))
+    forced = _forced_diff(one, proc, cfg, n, group, specs, algo,
+                          over.get("clip_mode", "smooth"))
+    full = runtime.gather_state(s2, group, specs)
+    fields2 = param_fields(s2, specs)
+    shapes_ok = all(
+        tuple(a.shape) == tuple(b.shape) for tree in fields2.values()
+        for a, b in zip(tree_leaves(tree), tree_leaves(x_of(s2))))
+    mixer = proc.algorithm.mixer
+    f1, ff = param_fields(s1, specs), param_fields(full, specs)
+    return dict(
+        x_diff=_max_abs(x_of(full), x_of(s1)), forced=forced,
+        field_diff={k: _max_abs(ff[k], f1[k]) for k in f1},
+        metrics_one=m1, metrics_proc=m2,
+        replicated={k: _replicated_bitwise(group, t, specs)
+                    for k, t in fields2.items()},
+        shapes_ok=shapes_ok, fields=sorted(fields2),
+        census=census, budget=dict(mixer.budget.per_leaf),
+        n_leaves=len(tree_leaves(x_of(s2))),
+        finite=all(bool(torch.isfinite(leaf).all())
+                   for leaf in tree_leaves(x_of(s2))))
+
+
+def _forced_diff(one, proc, cfg, n, group, specs, algo, mode):
+    """The first round forced with the one-card gradient on both sides
+    (clipped as ``algo`` clips it; Clip21 takes the raw gradient): the
+    rank's x against its block of the one-card x, largest difference and
+    bitwise."""
+    src = data.batch_source(cfg, n, BATCH, SEQ, device="cpu")
+    gb, gs = runtime.round_generators(0, 0, "cpu")
+    s1 = one.init_state(torch.Generator().manual_seed(0))
+    g, _ = vmap(grad_and_value(one.bundle.loss))(x_of(s1), src(gb, 0))
+    if algo != "clip21":
+        g = clipping.stacked_clip(g, 1.0, mode)
+    zero = torch.zeros(n)
+    s1, _ = one.step(s1, src(gb, 0), gs, grad_override=(zero, g))
+    s2 = proc.init_state(torch.Generator().manual_seed(0))
+    mine = data.batch_source(cfg, n, BATCH, SEQ, device="cpu", group=group)
+    gb, gs = runtime.round_generators(0, 0, "cpu")
+    s2, _ = proc.step(s2, mine(gb, 0), gs, grad_override=(
+        zero[:1], _shard(g, specs, group, True)))
+    want = _shard(x_of(s1), specs, group, True)
+    return dict(x_diff=_max_abs(x_of(s2), want),
+                bitwise=all(torch.equal(bits(a), bits(b)) for a, b in zip(
+                    tree_leaves(x_of(s2)), tree_leaves(want))))
+
+
+def _step_noise(setup, cfg, n, group):
+    """One round with the one-card DP noise (all agents' whole leaves,
+    seeded) injected."""
+    state = setup.init_state(torch.Generator().manual_seed(0))
+    source = data.batch_source(cfg, n, BATCH, SEQ, device="cpu", group=group)
+    gb, gs = runtime.round_generators(0, 0, "cpu")
+    z = _tree(cfg, n, torch.float32, 21)
+    state, m = setup.step(state, source(gb, 0), gs, noise=z)
+    return state, [{k: float(v) for k, v in m.items()}]
+
+
+# label -> (algo, algo_train keywords)
+ALGO_RUNS = {
+    "dsgd": ("dsgd", {}),
+    "dsgd-dp": ("dsgd", dict(dp=True, sigma_p=0.01, noise=True)),
+    "choco": ("choco", {}),
+    "choco-bf16": ("choco", dict(plane="bf16")),
+    "subgrad": ("subgrad-comp", dict(clip_mode="piecewise")),
+    "porter-adam": ("porter-adam", {}),
+    "porter-adam-bf16": ("porter-adam", dict(plane="bf16")),
+    "clip21": ("clip21", {}),
+    "choco-whole": ("choco", dict(comp="top_k", local=False)),
+    "choco-qsgd-whole": ("choco", dict(comp="qsgd", local=False)),
+    "choco-randk-whole": ("choco", dict(comp="random_k", local=False)),
+    "gc-qsgd-packed": ("porter-gc", dict(comp="qsgd", gossip="packed",
+                                         wire="packed_bits")),
+    "choco-qsgd-ring": ("choco", dict(comp="qsgd", gossip="ring",
+                                      wire="packed_bits")),
+    "csgp-qsgd-packed": ("dp-csgp", dict(comp="qsgd", gossip="packed",
+                                         wire="packed_bits",
+                                         sigma_p=0.01)),
+}
+
+
+def ef_gossip_case(group):
+    """``ef_gossip`` (through ``FL.plane_apply``, as ``gossip_apply`` runs
+    it) on this rank's per-shard planes against the one-card planes of all
+    agents' whole leaves, f32 and bf16 EF buffers (the SR words from
+    ``sr_draw``): bitwise, block for block."""
+    from repro_torch.kernels import ops
+    cfg = smoke()
+    n, specs = group.n_agents, _specs(cfg)
+    sharded = FL.sharded_spec(group, prepend_axis_specs(specs,
+                                                        group.axes[0]))
+    sh = lambda t: _shard(t, specs, group, True)   # noqa: E731
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        one = CommRound(make_compressor("top_k", frac=0.05), mixer=None,
+                        backend="kernel",
+                        plane_dtype=None if name == "f32" else dt)
+        mine = dataclasses.replace(one, sharded=sharded)
+        q, m, c, wc = (_tree(cfg, n, dt, s) for s in range(30, 34))
+        y = _tree(cfg, n, torch.float32, 35)
+        gen = lambda: torch.Generator().manual_seed(8)   # noqa: E731
+        b1 = one.sr_draw(gen(), (q, m, y))
+        b2 = mine.sr_draw(gen(), tuple(sh(t) for t in (q, m, y)))
+        r1 = FL.plane_apply(lambda *p: ops.ef_gossip(*p, 0.3, 1.0,
+                                                     sr_bits=b1),
+                            (q, m, y, c, wc), 3)
+        r2 = FL.plane_apply(lambda *p: ops.ef_gossip(*p, 0.3, 1.0,
+                                                     sr_bits=b2),
+                            tuple(sh(t) for t in (q, m, y, c, wc)), 3)
+        out[name] = all(torch.equal(bits(a), bits(b)) for a, b in zip(
+            tree_leaves([sh(t) for t in r1]), tree_leaves(list(r2))))
+    return out
+
+
+def clip_modes_case(group):
+    """The cross-shard clip in every mode against the one-card clip, the
+    factors and the clipped blocks; Clip21's residual norms and its
+    estimate against the one-card ones; and each with a shard-local norm
+    planted."""
+    from repro_torch.core import clip21
+    from repro_torch.kernels import ops
+    cfg = smoke()
+    n, specs = group.n_agents, _specs(cfg)
+    sharded = FL.sharded_spec(group, prepend_axis_specs(specs,
+                                                        group.axes[0]))
+    bad = sharded._replace(group=_NoModelReduce(group))
+    g = _tree(cfg, n, torch.float32, 40)
+    mine = _shard(g, specs, group, True)
+    out = {}
+    for mode in ("smooth", "piecewise", "none"):
+        want = _shard(clipping.stacked_clip(g, 1.0, mode), specs, group, True)
+        spec1 = FL.flat_spec(g)
+        if mode == "smooth":
+            f1 = ops.clip_planes(FL.to_planes(g, spec1), n, 1.0)[2]
+        else:
+            f1 = clipping.clip_factor(torch.stack([
+                clipping.tree_global_norm(tree_map(lambda a: a[i], g))
+                for i in range(n)]), 1.0, mode)
+        f1 = f1[group.index:group.index + 1]
+        spec2 = FL.flat_spec(mine)
+        _, f2 = clipping.cross_shard_clip(FL.to_planes(mine, spec2), spec2,
+                                          1.0, sharded, mode)
+        _, f3 = clipping.cross_shard_clip(FL.to_planes(mine, spec2), spec2,
+                                          1.0, bad, mode)
+        out[mode] = dict(
+            block=_max_rel(clipping.stacked_clip(mine, 1.0, mode,
+                                                 sharded=sharded), want),
+            fault=_max_rel(clipping.stacked_clip(mine, 1.0, mode,
+                                                 sharded=bad), want),
+            factor=float(((f2 - f1).abs() / f1.abs()).max()),
+            factor_fault=float(((f3 - f1).abs() / f1.abs()).max()),
+            factor_bitwise=torch.equal(bits(f2), bits(f1)))
+    # clip21: agent 0's residual inside tau (factor 1), agent 1's outside
+    g_raw = _tree(cfg, n, torch.float32, 41)
+    g_est = tree_map(lambda a: torch.cat([a[:1] * (1 + 1e-4),
+                                          torch.zeros_like(a[1:])]), g_raw)
+    delta = tree_map(torch.sub, g_raw, g_est)
+    mine_d = _shard(delta, specs, group, True)
+    n1 = clip21._agent_norms(delta)[group.index:group.index + 1]
+    n2 = clip21._agent_norms(mine_d, sharded)
+    n3 = clip21._agent_norms(mine_d, bad)
+    est1 = _shard(clip21.clip21_update(g_est, g_raw, 1.0), specs, group,
+                  True)
+    mine_est, mine_raw = (_shard(t, specs, group, True)
+                          for t in (g_est, g_raw))
+    est2 = clip21.clip21_update(mine_est, mine_raw, 1.0, sharded)
+    est3 = clip21.clip21_update(mine_est, mine_raw, 1.0, bad)
+    out["clip21"] = dict(
+        norms=float(((n2 - n1).abs() / n1).max()),
+        norms_fault=float(((n3 - n1).abs() / n1).max()),
+        factor_one=bool(n1[0] < 1.0),
+        est=_max_rel(est2, est1), est_fault=_max_rel(est3, est1),
+        est_bitwise=all(torch.equal(bits(a), bits(b))
+                        for a, b in zip(tree_leaves(est2),
+                                        tree_leaves(est1))))
+    return out
+
+
+def _count(group, fn):
+    """``fn()`` with this rank's census cleared first: -> (its result, the
+    agent-axis census, the model-axis census)."""
+    group.census.clear()
+    group.model_census.clear()
+    out = fn()
+    return out, dict(group.census), dict(group.model_census)
+
+
+def remat_case(group):
+    """``remat_policy`` "full" and "dots" around the tensor-parallel loss:
+    the agent-vmapped gradient and the per-sample (DP) gradients bitwise
+    the ones without remat, with the census of each beside the forward's;
+    then a PORTER-GC and a PORTER-DP round through ``api.build`` with
+    each policy against the round without it."""
+    from repro_torch.core.remat import DOTS_REPLAYS, apply_remat
+    cfg = smoke()
+    n = group.n_agents
+    tp = build_model(cfg, device="cpu", group=group)
+    x = tree_map(lambda a: a[None], tp.init(torch.Generator().manual_seed(0)))
+    tokens = torch.randint(0, cfg.vocab, (n, 2, SEQ), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(7))
+    batch = {"tokens": group.rows(tokens)}
+
+    def same(a, b):
+        return all(torch.equal(bits(u), bits(v))
+                   for u, v in zip(tree_leaves(a), tree_leaves(b))
+                   if isinstance(u, torch.Tensor))
+
+    def grads(loss):
+        return vmap(grad_and_value(loss))(x, batch)
+
+    def per_sample(loss):
+        return clipping.per_sample_grads(loss, x, batch, "stacked")
+
+    _, _, fwd = _count(group, lambda: vmap(tp.loss)(x, batch))
+    out = {"forward": fwd}
+    want = {"grad": _count(group, lambda: grads(tp.loss)),
+            "per_sample": _count(group, lambda: per_sample(tp.loss))}
+    for policy in ("full", "dots"):
+        loss = apply_remat(tp.loss, policy)
+        for kind, fn in (("grad", grads), ("per_sample", per_sample)):
+            DOTS_REPLAYS.clear()
+            got, agent, model = _count(group, lambda: fn(loss))
+            ref, agent0, model0 = want[kind]
+            out[f"{policy} {kind}"] = dict(
+                bitwise=same(got, ref), agent_same=agent == agent0,
+                rise={k: model.get(k, 0) - model0.get(k, 0)
+                      for k in set(model) | set(model0)},
+                replays=dict(DOTS_REPLAYS))
+    # whole rounds through api.build
+    for algo, over in (("porter-gc", {}), ("porter-dp", {"sigma_p": 0.01})):
+        runs = {}
+        for policy in (None, "full", "dots"):
+            setup = algo_setup(cfg, n, group, algo, remat_policy=policy,
+                               **over)
+            runs[policy] = _count(group, lambda: _run(setup, cfg, n, group,
+                                                      1))
+        (s0, m0), agent0, model0 = runs[None]
+        for policy in ("full", "dots"):
+            (s1, m1), agent1, model1 = runs[policy]
+            out[f"{policy} {algo} round"] = dict(
+                bitwise=same(s1, s0), metrics_same=m1 == m0,
+                agent_same=agent1 == agent0,
+                rise={k: model1.get(k, 0) - model0.get(k, 0)
+                      for k in set(model1) | set(model0)})
+    return out
+
+
+def _codec_rows(specs, n, model):
+    """Rows of the global codec draw: every (agent, model shard) pair's
+    windows of every leaf, a replicated leaf one shard."""
+    total = 0
+    for s in tree_leaves(specs):
+        m = 1 if s.model_dim is None else model
+        total += n * m * -(-(int(np.prod(s.shape)) // m) // WF.PACK_BLOCK)
+    return total
+
+
+def codec_draw_case(group, over=()):
+    """The qsgd codec's per-shard draw: each process executor's ``c`` on
+    this rank against the one-card twin's block (``steps.
+    codec_on_one_card``) with the global draw injected and with the same
+    generator, ``exchange_ps`` too; ``wc`` against the twin's dense
+    ``W @ c``."""
+    from repro_torch.core.gossip import make_dense_mixer, make_mixer
+    cfg = smoke(**dict(over))
+    n, specs = group.n_agents, _specs(cfg)
+    sharded = FL.sharded_spec(group, prepend_axis_specs(specs,
+                                                        group.axes[0]))
+    codec = WF.make_wire_format("qsgd", levels=7)
+    twin = steps.codec_on_one_card(codec, specs, group.model_size)
+    top = api.resolve_topology(api.ExperimentSpec(n_agents=n))
+    delta = _tree(cfg, n, torch.float32, 50)
+    mine = _shard(delta, specs, group, True)
+    noise = torch.rand((_codec_rows(specs, n, group.model_size),
+                        WF.PACK_BLOCK),
+                       generator=torch.Generator().manual_seed(9))
+    gen = lambda: torch.Generator().manual_seed(10)   # noqa: E731
+    out = {}
+    for how, want in (("injected", twin(None, delta, noise=noise)),
+                      ("drawn", twin(gen(), delta))):
+        wc1 = _shard(make_dense_mixer(top.w)(want), specs, group, True)
+        c1 = _shard(want, specs, group, True)
+        for mode in ("ring", "packed"):
+            mixer = make_mixer(top, mode, codec=codec, group=group,
+                               sharded=sharded)
+            kw = {"noise": noise} if how == "injected" else {}
+            c2, wc2 = mixer.exchange(gen(), mine, 0, **kw)
+            c3, _, cw, _ = mixer.exchange_ps(
+                gen(), mine, torch.ones(1), 0, **kw)
+            out[f"{how} {mode}"] = dict(
+                c_bitwise=all(torch.equal(bits(a), bits(b)) for a, b in zip(
+                    tree_leaves(c2), tree_leaves(c1))),
+                ps_bitwise=all(torch.equal(bits(a), bits(b)) for a, b in zip(
+                    tree_leaves(c3), tree_leaves(c1))),
+                wc_diff=_max_abs(wc2, wc1), weight=float(cw[0]))
+    # the reference's layout fault: every shard of an agent drawing the
+    # agent's windows (the shards' blocks not kept)
+    mixer = make_mixer(top, "packed", codec=codec, group=group)
+    c4, _ = mixer.exchange(gen(), mine, 0)
+    out["unsharded_draw_differs"] = not all(
+        torch.equal(bits(a), bits(b)) for a, b in zip(
+            tree_leaves(c4), tree_leaves(_shard(twin(gen(), delta), specs,
+                                                group, True))))
+    return out
+
+
+def algo_cases(group, labels=tuple(ALGO_RUNS)):
+    """The (data 2, model 2) cases of ``tests/test_torch_tp_algos.py``."""
+    out = {label: algo_train(group, ALGO_RUNS[label][0],
+                             **ALGO_RUNS[label][1]) for label in labels}
+    out["ef_gossip"] = ef_gossip_case(group)
+    out["clip"] = clip_modes_case(group)
+    out["remat"] = remat_case(group)
+    out["codec"] = codec_draw_case(group)
+    return out
+
+
+def algo_m4_cases(group):
+    """The (data 2, model 4) cases of ``tests/test_torch_tp_algos_m4.py``:
+    dsgd, choco and PORTER-GC on the qsgd packed codec on the smoke
+    config widened to 4 kv heads, and the codec's per-shard draw."""
+    over = (("n_kv_heads", 4),)
+    out = {label: algo_train(group, ALGO_RUNS[label][0], arch_over=over,
+                             **ALGO_RUNS[label][1])
+           for label in ("dsgd", "choco", "gc-qsgd-packed")}
+    out["codec"] = codec_draw_case(group, over)
+    return out
