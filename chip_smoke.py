@@ -5036,12 +5036,14 @@ def agents_lm_rank(group, ref_dir):
     other operand is the round's own), then from a fresh init the free
     first round, each held against the one-card cell's x, then
     AGENTS_LM["packed"] rounds; on the ring, the first round and
-    AGENTS_LM["ring"] more."""
+    AGENTS_LM["ring"] more.  It starts once :func:`_spawn_beside` has
+    written the one-card references."""
     import torch
     from repro_torch import configs, data
     from repro_torch.kernels import ops
     from repro_torch.launch import runtime, steps
     from repro_torch.tree import tree_flatten, tree_leaves
+    _await_refs(ref_dir)
     c, dev = LM_RUN, group.device
     cfg = _lm_cfg(configs)
     torch.cuda.reset_peak_memory_stats()
@@ -5103,42 +5105,39 @@ def phase_agents_lm(torch, ops, runtime, steps, data, configs, mesh,
                     tree_leaves):
     """Phase 15 (b): phase 12's full-width tinyllama cell with each of its
     4 agents a process on the card: the one-card cell's first round kept
-    as the reference, then the ranks."""
-    import shutil
+    as the reference, made while the ranks start."""
     c = LM_RUN
     cfg = _lm_cfg(configs)
     ref_dir = ROOT / "build" / "agents_lm"
-    ref_dir.mkdir(parents=True, exist_ok=True)
-    torch.cuda.empty_cache()
-    setup = steps.build_train_step(
-        cfg, c["agents"], compressor_name="top_k", frac=c["frac"],
-        eta=c["eta"], tau=c["tau"], plane_dtype=LM_PLANE_DTYPE,
-        gossip_mode="packed", device=DEVICE)
-    state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
-    source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
-                               device=DEVICE)
-    state, _ = runtime.run_chunked(setup.algorithm, source, state, 0, 1,
-                                   chunk=1, donate=True)
-    # each agent's row of x after the round and of the round's clipped
-    # gradient (g_prev, in the planes' dtype)
-    for i in range(c["agents"]):
-        torch.save({"x": [leaf[i].cpu() for leaf in tree_leaves(state.x)],
-                    "g": [leaf[i].cpu() for leaf in
-                          tree_leaves(state.g_prev)]},
-                   ref_dir / f"agent{i}.pt")
-    del state, setup, source
-    torch.cuda.empty_cache()
-    try:
-        t0 = time.perf_counter()
-        # four allocators on one card: expandable segments keep each
-        # rank's freed blocks from pinning memory the others need
-        ranks = mesh.spawn_agents(
-            agents_lm_rank, AGENTS_LM["ranks"], (str(ref_dir),),
-            device=DEVICE, timeout_s=AGENTS_TIMEOUT_S,
-            env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
-        wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(ref_dir, ignore_errors=True)
+
+    def make_refs():
+        torch.cuda.empty_cache()
+        setup = steps.build_train_step(
+            cfg, c["agents"], compressor_name="top_k", frac=c["frac"],
+            eta=c["eta"], tau=c["tau"], plane_dtype=LM_PLANE_DTYPE,
+            gossip_mode="packed", device=DEVICE)
+        state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(
+            0))
+        source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+                                   device=DEVICE)
+        state, _ = runtime.run_chunked(setup.algorithm, source, state, 0, 1,
+                                       chunk=1, donate=True)
+        # each agent's row of x after the round and of the round's clipped
+        # gradient (g_prev, in the planes' dtype)
+        for i in range(c["agents"]):
+            torch.save({"x": [leaf[i].cpu() for leaf in
+                              tree_leaves(state.x)],
+                        "g": [leaf[i].cpu() for leaf in
+                              tree_leaves(state.g_prev)]},
+                       ref_dir / f"agent{i}.pt")
+        del state, setup, source
+        torch.cuda.empty_cache()
+    # four allocators on one card: expandable segments keep each rank's
+    # freed blocks from pinning memory the others need
+    _, ranks, wall = _spawn_beside(
+        mesh, agents_lm_rank, AGENTS_LM["ranks"], ref_dir, (), make_refs,
+        timeout_s=AGENTS_TIMEOUT_S,
+        env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
     peaks = [r["peak"] for r in ranks]
     forced = max(r["packed"]["forced_x_diff"] for r in ranks)
     x_diff = max(r["packed"]["x_diff"] for r in ranks)
@@ -5235,9 +5234,11 @@ TP_TIMEOUT_S = 300
 # another order.  Each limit lies between the sound reading and a planted
 # fault's (a missing forward / backward all-reduce) on an H100 80GB HBM3:
 # loss 1.65e-5 / 6.05e-2, gradient 1.95e-2 / 1.43 (PERF.md, PR 29)
-# gc / dp: the timed rounds after the first, few to keep the whole script
-# within its time limit
-TP_LM = dict(model=2, gc=1, dp=1, tol=1e-6, loss_tol=1e-3, grad_tol=0.1,
+# each variant runs its free first round alone, its kernel calls held
+# against their plain versions: its ms and transport shares stand for a
+# round's (0.86-1.34x the next round's on an H100 80GB HBM3, the checks
+# included; PERF.md, PR 32), to keep the whole script within its limit
+TP_LM = dict(model=2, tol=1e-6, loss_tol=1e-3, grad_tol=0.1,
              mem_fraction=0.115)
 # the run whose rank-0 launches give each kernel's count a round on the
 # model axis (sr_cast: its roundings in the ef kernels' epilogue)
@@ -5295,16 +5296,26 @@ def _tp_replicated_bitwise(torch, group, tree, specs, tree_leaves):
 
 
 class _TpChecks(_LmChecks):
-    """``_LmChecks`` plus the cross-shard clip's ``ops.clip_sumsq`` and
-    ``ops.clip_scale``, the DP path's ``ops.dp_mean_noise`` and the codec's
-    ``ops.wire_topk_pack`` / ``wire_topk_unpack``: each call on the rank's
-    own shard operands against its plain version on the same CUDA operands
-    (sumsq, scale and mean_noise slice by slice of tiles, as the ef
-    kernels: per tile or elementwise, so bit for bit the whole call)."""
+    """``_LmChecks`` plus ``ops.ef_gossip``, the cross-shard clip's
+    ``ops.clip_sumsq`` and ``ops.clip_scale``, the DP path's
+    ``ops.dp_mean_noise`` and the codecs' ``ops.wire_topk_pack`` /
+    ``wire_topk_unpack`` and ``wire_qsgd_pack`` / ``wire_qsgd_unpack``:
+    each call on the rank's own shard operands against its plain version
+    on the same CUDA operands (sumsq, scale and mean_noise slice by slice
+    of tiles, as the ef kernels: per tile or elementwise, so bit for bit
+    the whole call).  A codec binds its wrappers when it is built, so a
+    round with a codec builds its setup inside the checks; a codec's call
+    on host operands (the wire bytes measured on zero windows) launches
+    no kernel and is not recorded."""
 
-    NAMES = _LmChecks.NAMES + ("clip_sumsq", "clip_scale", "dp_mean_noise",
-                               "wire_topk_pack", "wire_topk_unpack")
+    NAMES = _LmChecks.NAMES + ("ef_gossip", "clip_sumsq", "clip_scale",
+                               "dp_mean_noise", "wire_topk_pack",
+                               "wire_topk_unpack", "wire_qsgd_pack",
+                               "wire_qsgd_unpack")
     TAG = "model-axis"
+
+    def _ef_gossip(self, *a, **kw):
+        return self._ef("ef_gossip", 5, *a, **kw)
 
     def _record(self, name, planes, equal):
         self.calls.append((name, tuple(planes.shape), str(planes.dtype),
@@ -5349,22 +5360,32 @@ class _TpChecks(_LmChecks):
             for lo, hi in self._slices(tiles)))
         return out
 
-    def _plain(self, name, out, want, shape, dt):
+    def _plain(self, name, args, plain):
+        """The wrapper ``name`` on ``args`` against ``plain(*args)``."""
+        out = self.saved[name](*args)
+        if not args[0].is_cuda:
+            return out
         equal = all(bit_equal(self.torch, o, w) for o, w in
-                    zip(_as_tuple(out), _as_tuple(want)))
-        self.calls.append((name, shape, dt, equal))
+                    zip(_as_tuple(out), _as_tuple(plain(*args))))
+        self.calls.append((name[len("wire_"):], tuple(args[0].shape),
+                           str(args[0].dtype), equal))
         return out
 
     def _wire_topk_pack(self, rows, k):
-        return self._plain("topk_pack", self.saved["wire_topk_pack"](rows, k),
-                           self.ref.topk_pack_ref(rows, k),
-                           tuple(rows.shape), str(rows.dtype))
+        return self._plain("wire_topk_pack", (rows, k),
+                           self.ref.topk_pack_ref)
 
     def _wire_topk_unpack(self, vals, idx):
-        return self._plain(
-            "topk_unpack", self.saved["wire_topk_unpack"](vals, idx),
-            self.ref.topk_unpack_ref(vals, idx), tuple(vals.shape),
-            str(vals.dtype))
+        return self._plain("wire_topk_unpack", (vals, idx),
+                           self.ref.topk_unpack_ref)
+
+    def _wire_qsgd_pack(self, rows, noise, levels):
+        return self._plain("wire_qsgd_pack", (rows, noise, levels),
+                           self.ref.qsgd_pack_ref)
+
+    def _wire_qsgd_unpack(self, words, scale, levels):
+        return self._plain("wire_qsgd_unpack", (words, scale, levels),
+                           self.ref.qsgd_unpack_ref)
 
     def tally(self):
         """-> (calls by kernel, the calls that differ from their plain
@@ -5374,22 +5395,37 @@ class _TpChecks(_LmChecks):
                 [c for c in self.calls if not c[3]])
 
 
-def _tp_launches(over, rounds, n_leaves, chunks=1):
-    """A rank's launches over ``rounds`` rounds on a model axis: the
-    cross-shard clip's sumsq and scale (no fused clip; a DP round one of
-    each and one mean_noise a chunk of samples), one ef_track and one
-    ef_step, five epilogue roundings under bf16 planes, and the
-    compressor's or codec's kernels for two exchanges."""
-    want = dict(sumsq=rounds * chunks, scale=rounds * chunks, clip=0,
-                ef_track=rounds, ef_step=rounds)
-    if over.get("variant") in ("dp", "csgp"):
-        want["mean_noise"] = rounds * chunks
-    if over.get("plane_dtype") == "bf16":
-        want["sr_epilogue"] = 5 * rounds
-    if over.get("wire") == "packed_bits":
-        want.update(topk_pack=2 * rounds, topk_unpack=2 * rounds)
-    elif over["compressor_name"] == "block_top_k":
-        want["block_topk"] = 2 * n_leaves * rounds
+def _tp_launches(run, rounds, n_leaves, chunks=1):
+    """A rank's launches over ``rounds`` rounds of ``run`` on a model axis:
+    the cross-shard clip's sumsq and scale, no fused clip (a DP round one
+    of each and one mean_noise a chunk of samples; clip21 the residual
+    norm's sumsq alone, its residual clip eager), the algorithm's ef
+    kernels (CHOCO and subgrad-comp one ef_gossip, dsgd none, the PORTER
+    family one ef_track and one ef_step), their epilogue roundings under
+    bf16 planes, and the compressor's or codec's kernels for each
+    exchange."""
+    algo = run.get("algo", {"dp": "porter-dp", "csgp": "dp-csgp"}.get(
+        run.get("variant"), "porter-gc"))
+    one = algo in ("choco", "subgrad-comp")
+    dp = algo in ("porter-dp", "dp-csgp")
+    k = rounds * (chunks if dp else 1)
+    want = dict(sumsq=k, scale=0 if algo == "clip21" else k, clip=0)
+    if dp:
+        want["mean_noise"] = k
+    if one:
+        want["ef_gossip"] = rounds
+    elif algo != "dsgd":
+        want.update(ef_track=rounds, ef_step=rounds)
+    if run.get("plane_dtype") == "bf16":
+        want["sr_epilogue"] = (2 if one else 5) * rounds
+    exchanges = 0 if algo == "dsgd" else 1 if one else 2
+    comp = run.get("compressor_name", "block_top_k")
+    if run.get("wire") == "packed_bits":
+        kind = "qsgd" if comp == "qsgd" else "topk"
+        want.update({f"{kind}_pack": exchanges * rounds,
+                     f"{kind}_unpack": exchanges * rounds})
+    elif exchanges and comp == "block_top_k":
+        want["block_topk"] = exchanges * n_leaves * rounds
     return want
 
 
@@ -5402,22 +5438,42 @@ def _tp_dp_chunks(clipping, flatten, specs, model_size, batch):
                                              batch))
 
 
+def _tp_diff(tree, want_tree):
+    """The largest |difference| over every leaf (``want_tree`` on the
+    host)."""
+    from repro_torch.tree import tree_leaves
+    return max(float((a.cpu().float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(tree), tree_leaves(want_tree)))
+
+
+def _tp_normwise(torch, tree, want_tree):
+    """||tree - want|| / ||want|| over every leaf, in f64."""
+    from repro_torch.tree import tree_leaves
+    pairs = list(zip(tree_leaves(tree), tree_leaves(want_tree)))
+    num = sum(float(torch.sum((a.cpu().double() - b.double()) ** 2))
+              for a, b in pairs)
+    den = sum(float(torch.sum(b.double() ** 2)) for _, b in pairs)
+    return math.sqrt(num / den)
+
+
 def _tp_smoke_cell(torch, group, cfg, runs, rounds, want):
-    """One smoke config on this rank: the tensor-parallel gradient against
-    the one-card one (``want``: the references of
-    :func:`_tp_smoke_refs`), then every run of ``runs``: the first round
-    forced with the one-card clipped gradient, the free run of ``rounds``
-    rounds with its launches and its x at the gate round, the planted
-    fault, and one round under ``_TpChecks``."""
+    """One smoke grid on this rank: the tensor-parallel gradient against
+    the one-card one (``want``: the references of :func:`_tp_smoke_refs`),
+    then every run of ``runs`` (:func:`_tp_setup` builds it): the first
+    round forced with the one-card gradient's block, the free run of
+    ``rounds`` rounds with its launches and its x at the gate round, the
+    planted fault, a remat run's gradient against the one without, and
+    one round under ``_TpChecks``."""
     from repro_torch import data
     from repro_torch.core import clipping
     from repro_torch.kernels import flatten, ops, ref
-    from repro_torch.launch import runtime, steps
+    from repro_torch.launch import runtime
     from repro_torch.models import build_model
     from repro_torch.nn.module import leaf_specs
     from repro_torch.tree import tree_leaves, tree_map
     from torch.func import grad_and_value, vmap
     c, dev = TP_SMOKE, group.device
+    n = c["agents"]
     specs = leaf_specs(build_model(cfg, device=dev))
     out = {}
     # the gradient
@@ -5435,34 +5491,34 @@ def _tp_smoke_cell(torch, group, cfg, runs, rounds, want):
     del tp, params, g
     chunks = _tp_dp_chunks(clipping, flatten, tree_leaves(specs),
                            group.model_size, c["batch"])
-    for label, over in runs.items():
-        rep = {}
-        w = want["runs"][label]
+    for label, run in runs.items():
+        rep, w = {}, want["runs"][label]
 
         def build():
-            return steps.build_train_step(
-                cfg, c["agents"], eta=c["eta"], tau=c["tau"],
-                frac=c["frac"], group=group, **over)
+            return _tp_setup(cfg, n, group, run)
         setup = build()
-        source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
+        source = data.batch_source(cfg, n, c["batch"], c["seq"],
                                    device=dev, group=group)
         init = lambda: setup.init_state(  # noqa: E731
             torch.Generator(device=dev).manual_seed(0))
         gb, gs = runtime.round_generators(0, 0, dev)
-        # the first round forced with the one-card clipped gradient
+        # the first round forced with the one-card gradient's block
         forced, _ = setup.step(
             init(), source(gb, 0), gs,
             grad_override=(torch.zeros(1, device=dev), tree_map(
                 lambda a: a.to(dev), _tp_shard(torch, w["g"], specs, group,
                                                True))))
         x1 = _tp_shard(torch, w["x1"], specs, group, True)
-        rep["forced_x_diff"] = max(
-            float((a.cpu().float() - b.float()).abs().max())
-            for a, b in zip(tree_leaves(forced.x), tree_leaves(x1)))
+        rep["forced_x_diff"] = _tp_diff(_tp_x(forced), x1)
         rep["forced_bitwise"] = all(
             bit_equal(torch, a.cpu(), b)
-            for a, b in zip(tree_leaves(forced.x), tree_leaves(x1)))
+            for a, b in zip(tree_leaves(_tp_x(forced)), tree_leaves(x1)))
         del forced
+        if run.get("remat_policy"):
+            gb, _ = runtime.round_generators(0, 0, dev)
+            rep["remat"] = {policy: _tp_remat_grad(
+                torch, group, setup, init(), source(gb, 0), policy)
+                for policy in TP_REMAT_POLICIES}
         # the free run (its state after round TP_GATE_ROUND // 2 kept for
         # the planted fault below)
         kept, k = {}, TP_GATE_ROUND // 2
@@ -5471,23 +5527,19 @@ def _tp_smoke_cell(torch, group, cfg, runs, rounds, want):
             if t1 == k:
                 kept["mid"] = st
             if t1 == TP_GATE_ROUND:
-                kept["x"] = tree_map(lambda a: a.clone(), st.x)
+                kept["x"] = tree_map(lambda a: a.clone(), _tp_x(st))
         state, losses, ms, launches = run_counted(
             torch, ops, runtime, setup.algorithm, source, init(), rounds, k,
             on_chunk=keep)
         xg = _tp_shard(torch, w["x_gate"], specs, group, True)
-        fields = ["x", "v", "q_x", "m_x", "g_prev"]
         rep.update(losses=losses, ms=ms, launches=launches,
-                   want_launches=_tp_launches(over, rounds,
-                                              len(tree_leaves(state.x)),
-                                              chunks),
-                   gate_x_diff=max(
-                       float((a.cpu().float() - b.float()).abs().max())
-                       for a, b in zip(tree_leaves(kept["x"]),
-                                       tree_leaves(xg))),
+                   want_launches=_tp_launches(
+                       run, rounds, len(tree_leaves(_tp_x(state))), chunks),
+                   gate_x_diff=_tp_diff(kept["x"], xg),
+                   gate_x_rel=_tp_normwise(torch, kept["x"], xg),
                    replicated=all(_tp_replicated_bitwise(
-                       torch, group, getattr(state, f), specs, tree_leaves)
-                       for f in fields))
+                       torch, group, t, specs, tree_leaves)
+                       for t in _tp_param_fields(state, specs)))
         if hasattr(state, "xw"):
             # the push-sum weight planes, replicated on the model ranks
             full = group.all_gather([getattr(state, f).view(torch.int32)
@@ -5498,17 +5550,16 @@ def _tp_smoke_cell(torch, group, cfg, runs, rounds, want):
         # the planted fault: agent 1's model rank 1 keeps its x shard at
         # round k, from the free run's state after round k
         st = kept.pop("mid")
-        before = st.x
+        before = _tp_x(st)
         st, _ = runtime.run_chunked(setup.algorithm, source, st, 0, k + 1,
                                     chunk=1, start=k)
         if group.index == 1 and group.model_index == 1:
-            st = st._replace(x=before)
+            st = _tp_with_x(st, before)
         st, _ = runtime.run_chunked(setup.algorithm, source, st, 0,
                                     TP_GATE_ROUND, chunk=TP_GATE_ROUND - k - 1,
                                     start=k + 1)
-        rep["fault_x_diff"] = max(
-            float((a.cpu().float() - b.float()).abs().max())
-            for a, b in zip(tree_leaves(st.x), tree_leaves(xg)))
+        rep["fault_x_diff"] = _tp_diff(_tp_x(st), xg)
+        rep["fault_x_rel"] = _tp_normwise(torch, _tp_x(st), xg)
         # one more round of the free run, every kernel call checked (the
         # codec binds its kernels when it is built)
         with _TpChecks(torch, ops, ref) as checks:
@@ -5524,13 +5575,17 @@ def _tp_smoke_cell(torch, group, cfg, runs, rounds, want):
 
 def _tp_smoke_refs(torch, runtime, steps, data, models, cfg, runs):
     """The one-card references of a smoke grid: the gradient and loss of
-    one replica on a seeded batch, and for each run of ``runs`` the
-    one-card twin's x after round 1 and after TP_GATE_ROUND, and its
-    first gradient."""
+    one replica on a seeded batch; the raw gradient of round 0 (every run
+    starts from the same replica and batch, so one gradient serves every
+    forced round), and for each run of ``runs`` the forced round's
+    gradient (:func:`_tp_forced_grad`), the one-card twin's x after that
+    round and after TP_GATE_ROUND free rounds."""
+    from repro_torch.core import clipping
     from repro_torch.nn.module import leaf_specs
     from repro_torch.tree import tree_map
-    from torch.func import grad_and_value
+    from torch.func import grad_and_value, vmap
     c = TP_SMOKE
+    n = c["agents"]
     bundle = models.build_model(cfg, device=DEVICE)
     specs = leaf_specs(bundle)
     params = bundle.init(torch.Generator(device=DEVICE).manual_seed(0))
@@ -5546,32 +5601,41 @@ def _tp_smoke_refs(torch, runtime, steps, data, models, cfg, runs):
             (c["batch"], c["seq"], cfg.frontend_dim), generator=gen)
     g, loss = grad_and_value(bundle.loss)(
         params, {k: v.to(DEVICE) for k, v in batch.items()})
-    ref_data = {"batch": batch, "loss": float(loss),
-                "grad": tree_map(lambda a: a.cpu(), g), "runs": {}}
-    for label, over in runs.items():
-        setup = _tp_one_card(steps, cfg, c["agents"], specs, c["model"],
-                             over, DEVICE, eta=c["eta"], tau=c["tau"],
-                             frac=c["frac"])
-        source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
-                                   device=DEVICE)
-        state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
-        state, _ = runtime.run_chunked(setup.algorithm, source, state, 0, 1,
-                                       chunk=1)
-        run = {"x1": tree_map(lambda a: a.cpu(), state.x),
-               "g": tree_map(lambda a: a.cpu(), state.g_prev)}
-        state, _ = runtime.run_chunked(setup.algorithm, source, state, 0,
-                                       TP_GATE_ROUND, chunk=TP_GATE_ROUND - 1,
-                                       start=1)
-        run["x_gate"] = tree_map(lambda a: a.cpu(), state.x)
-        ref_data["runs"][label] = run
+    cpu = lambda t: tree_map(lambda a: a.cpu(), t)  # noqa: E731
+    ref_data = {"batch": batch, "loss": float(loss), "grad": cpu(g),
+                "runs": {}}
+    del params, g
+    source = data.batch_source(cfg, n, c["batch"], c["seq"], device=DEVICE)
+    seed = lambda: torch.Generator(device=DEVICE).manual_seed(0)  # noqa
+    g_raw = None
+    for label, run in runs.items():
+        setup = _tp_setup(cfg, n, None, run, specs=specs)
+        state = setup.init_state(seed())
+        gb, gs = runtime.round_generators(0, 0, DEVICE)
+        batch = source(gb, 0)
+        if g_raw is None:
+            g_raw, _ = vmap(grad_and_value(bundle.loss))(_tp_x(state), batch)
+        g = _tp_forced_grad(clipping, run, g_raw, c["tau"])
+        forced, _ = setup.step(state, batch, gs, grad_override=(
+            torch.zeros(n, device=DEVICE), g))
+        rec = {"g": cpu(g), "x1": cpu(_tp_x(forced))}
+        del forced, state
+        state, _ = runtime.run_chunked(setup.algorithm, source,
+                                       setup.init_state(seed()), 0,
+                                       TP_GATE_ROUND, chunk=TP_GATE_ROUND)
+        rec["x_gate"] = cpu(_tp_x(state))
+        ref_data["runs"][label] = rec
     return ref_data
 
 
 def _tp_smoke_gates(tag, cfg, runs, rounds, ranks, ref_data, wall):
     """Print a smoke grid's readings and fail on any gate: the gradient,
-    each run's forced first round, its free run against the limit and
-    the planted fault above it, the replicated leaves (and push-sum
-    weights), the launches a rank over ``rounds`` rounds."""
+    each run's forced first round, its free run against its limit (read
+    normwise for the runs of TP_ALGO_NORMWISE) and the planted fault
+    beyond it, the replicated leaves in every parameter-shaped buffer
+    (and the push-sum weights), the launches a rank over ``rounds``
+    rounds, and a remat run's gradient bitwise with the forward's
+    collectives once more on the model axis alone."""
     c = TP_SMOKE
     grad = {k: max(r["grad"][k] for r in ranks)
             for k in ("loss_diff", "grad_rel")}
@@ -5585,25 +5649,32 @@ def _tp_smoke_gates(tag, cfg, runs, rounds, ranks, ref_data, wall):
             and grad["grad_rel"] <= c["tol"]):
         raise AssertionError(f"{tag} {cfg.name}: gradient {grad}")
     report = {"grad": grad, "wall_s": wall}
-    for label, over in runs.items():
+    for label, run in runs.items():
         reps = [r[label] for r in ranks]
-        tol = TP_FREE_TOL["bf16" if over.get("plane_dtype") else "f32"]
+        rel = label in TP_ALGO_NORMWISE
+        tol = (TP_ALGO_NORMWISE[label] if rel else TP_FREE_TOL[
+            "bf16" if run.get("plane_dtype") else "f32"])
         forced = max(r["forced_x_diff"] for r in reps)
-        gate = max(r["gate_x_diff"] for r in reps)
-        fault = max(r["fault_x_diff"] for r in reps)
+        key = "x_rel" if rel else "x_diff"
+        gate = max(r["gate_" + key] for r in reps)
+        fault = max(r["fault_" + key] for r in reps)
         r0 = reps[0]
         weights = ("" if "weights_bitwise" not in r0 else
                    f"; push-sum weights bitwise across model ranks "
                    f"{all(r['weights_bitwise'] for r in reps)}")
         print(f"[{tag}] {cfg.name} {label}: first round forced with the "
-              f"one-card clipped gradient: x max |diff| {forced} from the "
-              f"one-card round with the per-shard compressor (bitwise "
-              f"{all(r['forced_bitwise'] for r in reps)}, gate "
-              f"{c['forced_tol']}); free run x "
-              f"after round {TP_GATE_ROUND} {gate} (gate {tol}), the planted "
-              f"fault {fault}; {r0['ms']:.3f} ms/round on rank 0; loss "
+              f"one-card gradient: x max |diff| {forced} from the one-card "
+              f"twin (bitwise {all(r['forced_bitwise'] for r in reps)}, gate "
+              f"{c['forced_tol']}); free run x after round {TP_GATE_ROUND} "
+              f"{'normwise ' if rel else ''}{gate} (gate {tol}), the planted "
+              f"fault {fault} (largest |diff| "
+              f"{max(r['gate_x_diff'] for r in reps)}, fault "
+              f"{max(r['fault_x_diff'] for r in reps)}; normwise "
+              f"{max(r['gate_x_rel'] for r in reps)}, fault "
+              f"{max(r['fault_x_rel'] for r in reps)}); "
+              f"{r0['ms']:.3f} ms/round on rank 0; loss "
               f"{r0['losses'][0]:.6f} -> {r0['losses'][-1]:.6f}; replicated "
-              f"leaves bitwise across model ranks "
+              f"leaves bitwise across model ranks in every buffer "
               f"{all(r['replicated'] for r in reps)}{weights}; rank-0 "
               f"launches over {rounds} rounds {r0['launches']}; kernels "
               f"checked on a round's shard operands {r0['checked']}")
@@ -5621,10 +5692,30 @@ def _tp_smoke_gates(tag, cfg, runs, rounds, ranks, ref_data, wall):
         for r in reps:
             expect_launches(f"{tag} {label} rank", r["launches"],
                             **r["want_launches"])
-        report[label] = dict(forced_x_diff=forced, gate_x_diff=gate,
-                             fault_x_diff=fault, ms=r0["ms"],
+        report[label] = dict(forced_x_diff=forced, gate=gate, fault=fault,
+                             normwise=rel, ms=r0["ms"],
                              launches=r0["launches"], rounds=rounds,
                              checked=r0["checked"])
+        for policy in r0.get("remat", {}):
+            rm = [r["remat"][policy] for r in reps]
+            print(f"[{tag}] {label}: under remat {policy!r} the gradient "
+                  f"bitwise the one without on every rank "
+                  f"{all(x['bitwise'] for x in rm)}; model-axis collectives "
+                  f"added {rm[0]['rise']} against the forward's "
+                  f"{rm[0]['forward']}; agent axis unchanged "
+                  f"{all(x['agent_same'] for x in rm)}; dense products "
+                  f"{rm[0]['replays']}")
+            if not all(x["bitwise"] and x["agent_same"]
+                       and x["rise"] == {k: x["forward"].get(k, 0)
+                                         for k in x["rise"]}
+                       and set(x["rise"]) == set(x["forward"]) for x in rm):
+                raise AssertionError(f"{tag} {label}: remat {policy} {rm}")
+            if (policy == "dots"
+                    and not (rm[0]["replays"].get("replayed")
+                             and not rm[0]["replays"].get("computed"))):
+                raise AssertionError(f"{tag} {label}: dots replays "
+                                     f"{rm[0]['replays']}")
+            report[label].setdefault("remat", {})[policy] = rm[0]
     return report
 
 
@@ -5724,18 +5815,19 @@ def _tp_lm_cell(configs):
 
 def tp_lm_rank(group, ref_dir, sigma_p, cell):
     """One rank of a full-width model-axis spawn (phase 16's cell, or
-    phase 17's): the cell's agent's replica split over ``cell["model"]``
-    ranks.  PORTER-GC (bf16 planes,
-    ring, shard-local block_top_k): the first round forced with the
-    one-card clipped gradient against the one-card round with the
-    per-shard compressor; the clipped gradient at the first round's x and
-    batch, sound and with each planted fault; then from a fresh init
-    1 + ``cell["gc"]`` rounds (the first's loss and gradient against one
-    card's), PORTER-DP 1 + ``cell["dp"]``, and for each one more round
-    under ``_TpChecks`` (``cell["variants"]``, when given, names the
-    variants that run); it starts once :func:`_spawn_beside` has written
-    the references (every one: the cells' one-card rounds free their
-    memory first)."""
+    phase 17's, or phase 18's): the cell's agent's replica split over
+    ``cell["model"]`` ranks.  PORTER-GC (bf16 planes, ring, shard-local
+    block_top_k): the first round forced with the one-card clipped
+    gradient against the one-card round with the per-shard compressor;
+    the clipped gradient at the first round's x and batch, sound and with
+    each planted fault; then from a fresh init the free first round (its
+    loss and gradient against one card's, its ms, every kernel call held
+    against its plain version on the rank's own operands), PORTER-DP's
+    likewise (``cell["variants"]``, when given, names the variants that
+    run); then each run of
+    ``cell["algos"]`` (:func:`_tp_lm_algo`).  It starts once
+    :func:`_spawn_beside` has written the references (every one: the
+    cells' one-card rounds free their memory first)."""
     import torch
     from repro_torch import data
     from repro_torch.core import clipping
@@ -5749,7 +5841,6 @@ def tp_lm_rank(group, ref_dir, sigma_p, cell):
     from torch.func import grad_and_value, vmap
     _await_refs(ref_dir)
     c, dev, cfg = cell, group.device, cell["cfg"]
-    prefix = c.get("ref", "agent")
     specs = leaf_specs(build_model(cfg, device=dev))
     torch.cuda.set_per_process_memory_fraction(c["mem_fraction"], dev)
     torch.cuda.reset_peak_memory_stats()
@@ -5762,7 +5853,7 @@ def tp_lm_rank(group, ref_dir, sigma_p, cell):
                                device=dev, group=group)
     init = lambda: setup.init_state(  # noqa: E731
         torch.Generator(device=dev).manual_seed(0))
-    want = torch.load(f"{ref_dir}/{prefix}{group.index}.pt")
+    want = torch.load(f"{ref_dir}/{_tp_lm_ref_name(c, None, group.index)}")
     g = _tp_shard(torch, want["g"], specs, group, False)
     state = init()
     gb, gs = runtime.round_generators(0, 0, dev)
@@ -5807,47 +5898,121 @@ def tp_lm_rank(group, ref_dir, sigma_p, cell):
     out["dp_chunks"] = _tp_dp_chunks(clipping, flatten, tree_leaves(specs),
                                      group.model_size, c["batch"])
     for variant in c.get("variants", ("gc", "dp")):
-        rounds = c[variant]
         if variant == "dp":
             setup = steps.build_train_step(cfg, c["agents"], variant="dp",
                                            sigma_p=sigma_p, **kw)
+        # the free first round, every kernel call held against its plain
+        # version on the rank's own operands
         state = init()
         ops.reset_launches()
-        state, first, ms_first, _ = _tp_lm_rounds(
-            torch, runtime, setup.algorithm, source, state, 0, 1, group)
-        launches = dict(ops.LAUNCHES)
-        rep = dict(first_loss=first[0], first_ms=ms_first,
-                   launches_first=launches)
+        with _TpChecks(torch, ops, ref) as checks:
+            state, first, ms, shares = _tp_lm_rounds(
+                torch, runtime, setup.algorithm, source, state, 0, 1, group)
+        rep = dict(first_loss=first[0], launches_first=dict(ops.LAUNCHES))
+        rep["checked"], rep["checked_bad"] = checks.tally()
+        del checks
         if variant == "gc":
             rep["first_grad_rel"] = _tp_rel(torch, state.g_prev, g,
                                             tree_leaves)
-        state, losses, ms, shares = _tp_lm_rounds(
-            torch, runtime, setup.algorithm, source, state, 1, rounds, group)
-        # one more round, every kernel call held against its plain version
-        # on the rank's own operands
-        with _TpChecks(torch, ops, ref) as checks:
-            state, _ = runtime.run_chunked(
-                setup.algorithm, source, state, 0, rounds + 2, chunk=1,
-                start=rounds + 1, donate=True)
-        rep["checked"], rep["checked_bad"] = checks.tally()
-        del checks
-        rep.update(losses=losses, ms=ms, agent_share=shares[0],
+        rep.update(ms=ms, agent_share=shares[0],
                    model_share=shares[1], replicated=all(
-                       _tp_replicated_bitwise(torch, group, getattr(state, f),
-                                              specs, tree_leaves)
-                       for f in ("x", "v", "q_x", "m_x", "g_prev")))
+                       _tp_replicated_bitwise(torch, group, t, specs,
+                                              tree_leaves)
+                       for t in _tp_param_fields(state, specs)))
         out[variant] = rep
         del state
         torch.cuda.empty_cache()
     out["peak"] = torch.cuda.max_memory_allocated()
     out["reserved"] = torch.cuda.max_memory_reserved()
+    del setup
+    t0 = time.perf_counter()
+    for label, run in c.get("algos", {}).items():
+        out[label] = _tp_lm_algo(torch, group, ref_dir, c, specs, source, g,
+                                 label, run)
+        out["peak"] = max(out["peak"], out[label]["peak"])
+        out["reserved"] = max(out["reserved"], out[label]["reserved"])
+    out["algos_s"] = time.perf_counter() - t0
     return out
+
+
+def _tp_lm_ref_name(c, label, index):
+    """The file of a full-width cell's one-card reference: agent
+    ``index``'s x after the forced round of ``label`` (None: PORTER-GC's x
+    and gradient)."""
+    slug = "" if label is None else label.replace(" ", "_") + "-"
+    return f"{c.get('ref', 'agent')}{slug}{index}.pt"
+
+
+def _tp_lm_algo(torch, group, ref_dir, c, specs, source, g, label, run):
+    """One run of a full-width cell's ``algos`` on this rank, bf16 planes:
+    its first round forced with the one-card clipped gradient ``g`` (this
+    rank's block) against the one-card twin's, with the planted fault (the
+    round left this rank's x unchanged); its free first round, every
+    kernel call held against its plain version on the rank's own operands
+    (the setup built inside the checks: a codec binds its wrappers then),
+    its loss (and PORTER-GC's gradient) against one card's; its launches,
+    its replicated leaves and its per-rank peak."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import runtime
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = group.device
+    run = dict(run, plane_dtype=LM_PLANE_DTYPE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep = {}
+
+    def init(setup):
+        return setup.init_state(torch.Generator(device=dev).manual_seed(0))
+
+    def diff(tree):
+        return max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(tree_leaves(tree), tree_leaves(x1)))
+    setup = _tp_setup(c["cfg"], c["agents"], group, run, c=c)
+    x1 = tree_map(lambda a: a[None].to(dev), _tp_shard(torch, torch.load(
+        f"{ref_dir}/{_tp_lm_ref_name(c, label, group.index)}"), specs,
+        group, False))
+    state = init(setup)
+    rep["fault_x_diff"] = diff(_tp_x(state))
+    gb, gs = runtime.round_generators(0, 0, dev)
+    forced, _ = setup.step(state, source(gb, 0), gs, grad_override=(
+        torch.zeros(1, device=dev), tree_map(lambda a: a[None].to(dev), g)))
+    del state
+    rep["forced_x_diff"] = diff(_tp_x(forced))
+    rep["forced_bitwise"] = all(
+        bit_equal(torch, a, b)
+        for a, b in zip(tree_leaves(_tp_x(forced)), tree_leaves(x1)))
+    del forced, setup, x1
+    torch.cuda.empty_cache()
+    with _TpChecks(torch, ops, ref) as checks:
+        setup = _tp_setup(c["cfg"], c["agents"], group, run, c=c)
+        state = init(setup)
+        ops.reset_launches()
+        state, first, ms, shares = _tp_lm_rounds(
+            torch, runtime, setup.algorithm, source, state, 0, 1, group)
+        launches = dict(ops.LAUNCHES)
+    rep.update(first_loss=first[0], ms=ms,
+               agent_share=shares[0], model_share=shares[1],
+               launches_first=launches,
+               want_launches=_tp_launches(run, 1,
+                                          len(tree_leaves(_tp_x(state)))),
+               replicated=all(_tp_replicated_bitwise(
+                   torch, group, t, specs, tree_leaves)
+                   for t in _tp_param_fields(state, specs)))
+    rep["checked"], rep["checked_bad"] = checks.tally()
+    if hasattr(state, "g_prev"):
+        rep["first_grad_rel"] = _tp_rel(torch, state.g_prev, g, tree_leaves)
+    del checks, state, setup
+    rep["peak"] = torch.cuda.max_memory_allocated()
+    rep["reserved"] = torch.cuda.max_memory_reserved()
+    torch.cuda.empty_cache()
+    return rep
 
 
 def _tp_lm_refs(torch, runtime, steps, data, models, c, ref_dir):
     """A full-width cell's one-card round with the per-shard compressor,
-    each agent's x and clipped gradient written into ``ref_dir``: -> the
-    round's loss."""
+    each agent's x and clipped gradient written into ``ref_dir``, and for
+    each run of ``c["algos"]`` its one-card twin's first round forced with
+    that gradient, each agent's x written: -> the round's loss."""
     from repro_torch.nn.module import leaf_specs
     from repro_torch.tree import tree_map
     cfg = c["cfg"]
@@ -5858,7 +6023,8 @@ def _tp_lm_refs(torch, runtime, steps, data, models, c, ref_dir):
     setup = _tp_one_card(steps, cfg, c["agents"], specs, c["model"],
                          over, DEVICE, eta=c["eta"], tau=c["tau"],
                          frac=c["frac"])
-    state = setup.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+    seed = lambda: torch.Generator(device=DEVICE).manual_seed(0)  # noqa
+    state = setup.init_state(seed())
     source = data.batch_source(cfg, c["agents"], c["batch"], c["seq"],
                                device=DEVICE)
     first = []
@@ -5868,8 +6034,24 @@ def _tp_lm_refs(torch, runtime, steps, data, models, c, ref_dir):
     for i in range(c["agents"]):
         _put_ref(torch, {"x": tree_map(lambda a: a[i].cpu(), state.x),
                          "g": tree_map(lambda a: a[i].cpu(), state.g_prev)},
-                 ref_dir / f"{c.get('ref', 'agent')}{i}.pt")
-    del state, setup, source
+                 ref_dir / _tp_lm_ref_name(c, None, i))
+    g = state.g_prev
+    del state, setup
+    torch.cuda.empty_cache()
+    for label, run in c.get("algos", {}).items():
+        setup = _tp_setup(cfg, c["agents"], None,
+                          dict(run, plane_dtype=LM_PLANE_DTYPE), specs=specs,
+                          c=c)
+        gb, gs = runtime.round_generators(0, 0, DEVICE)
+        state, _ = setup.step(setup.init_state(seed()), source(gb, 0), gs,
+                              grad_override=(torch.zeros(c["agents"],
+                                                         device=DEVICE), g))
+        for i in range(c["agents"]):
+            _put_ref(torch, tree_map(lambda a: a[i].cpu(), _tp_x(state)),
+                     ref_dir / _tp_lm_ref_name(c, label, i))
+        del state, setup
+        torch.cuda.empty_cache()
+    del g, source
     torch.cuda.empty_cache()
     return first[0]
 
@@ -5943,22 +6125,20 @@ def _tp_lm_gates(c, ranks, first, wall, n_leaves):
         r0 = ranks[0][variant]
         agent = {k: round(v, 4) for k, v in r0["agent_share"].items()}
         model = {k: round(v, 4) for k, v in r0["model_share"].items()}
-        print(f"[{tag}] LM cell porter-{variant}: "
-              f"{len(r0['losses'])} rounds after the first, "
-              f"{r0['ms']:.1f} ms/round on rank 0 "
+        print(f"[{tag}] LM cell porter-{variant}: the free first round "
+              f"(its kernels checked) {r0['ms']:.1f} ms on rank 0 "
               f"({', '.join(f'{r[variant]['ms']:.1f}' for r in ranks)} on "
               f"the ranks); transport share, agent axis {agent}, model axis "
-              f"{model}; first round {r0['first_ms']:.1f} ms; losses "
-              f"{[r0['first_loss']] + r0['losses']}; first-round launches "
+              f"{model}; loss {r0['first_loss']}; launches "
               f"{r0['launches_first']}; replicated leaves bitwise across "
               f"model ranks {all(r[variant]['replicated'] for r in ranks)}; "
-              f"one more round's kernel calls held against their plain "
+              f"the first round's kernel calls held against their plain "
               f"versions on rank 0's shard operands {r0['checked']} "
               f"({sum(sum(r[variant]['checked'].values()) for r in ranks)} "
               f"calls on the {ranks_n} ranks, differing "
               f"{[r[variant]['checked_bad'] for r in ranks]})")
-        if not finite([r0["first_loss"]] + r0["losses"]):
-            raise AssertionError(f"{tag} LM {variant}: losses")
+        if not finite([r0["first_loss"]]):
+            raise AssertionError(f"{tag} LM {variant}: loss")
         if not all(r[variant]["replicated"] for r in ranks):
             raise AssertionError(f"{tag} LM {variant}: replicated "
                                  "leaves differ across model ranks")
@@ -5981,8 +6161,11 @@ def _tp_lm_gates(c, ranks, first, wall, n_leaves):
                     f"{checked}), differing {r[variant]['checked_bad']}")
         out[variant] = dict(ms=r0["ms"], agent_share=r0["agent_share"],
                             model_share=r0["model_share"],
-                            losses=r0["losses"],
+                            loss=r0["first_loss"],
                             launches_round=r0["launches_first"])
+    for label, run in c.get("algos", {}).items():
+        out[label] = _tp_lm_algo_gates(c, label, [r[label] for r in ranks],
+                                       first)
     if not sum(peaks) <= LM_PEAK_LIMIT:
         raise AssertionError(f"{tag} LM: peaks {sum(peaks)}")
     if not forced <= c["tol"]:
@@ -5997,6 +6180,67 @@ def _tp_lm_gates(c, ranks, first, wall, n_leaves):
         raise AssertionError(f"{tag} LM: a planted fault passes: loss "
                              f"{fault_loss}, gradient {fault_grad}")
     return out
+
+
+def _tp_lm_algo_gates(c, label, reps, first):
+    """Print a full-width cell's run of ``c["algos"]`` (each rank's report
+    of :func:`_tp_lm_algo` in ``reps``) and fail on any gate: the forced
+    first round within the cell's limit and the planted fault beyond it,
+    the free first round's loss (and PORTER-GC's gradient) against one
+    card's, the launches a rank, every kernel call bitwise its plain
+    version and one a launch, the replicated leaves."""
+    tag = c["tag"]
+    forced = max(r["forced_x_diff"] for r in reps)
+    fault = min(r["fault_x_diff"] for r in reps)
+    loss_rel = max(abs(r["first_loss"] - first) / abs(first) for r in reps)
+    grads = [r["first_grad_rel"] for r in reps if "first_grad_rel" in r]
+    r0 = reps[0]
+    agent = {k: round(v, 4) for k, v in r0["agent_share"].items()}
+    model = {k: round(v, 4) for k, v in r0["model_share"].items()}
+    grad = ("" if not grads else
+            f", clipped gradient {max(grads)} (gate {c['grad_tol']})")
+    print(f"[{tag}] LM cell {label} (bf16 planes): first round forced with "
+          f"the one-card clipped gradient: x max |diff| {forced} from the "
+          f"one-card twin (bitwise {all(r['forced_bitwise'] for r in reps)},"
+          f" gate {c['tol']}; a rank whose x the round left unchanged "
+          f"{fault}); free first round {r0['ms']:.1f} ms on rank 0 "
+          f"(its kernels checked), transport share agent axis {agent}, "
+          f"model axis {model}; against one card: loss {r0['first_loss']}, "
+          f"relative |diff| {loss_rel} (gate {c['loss_tol']}){grad}; "
+          f"per-rank peak {[r['peak'] for r in reps]} B (reserved "
+          f"{[r['reserved'] for r in reps]}); launches "
+          f"{r0['launches_first']}; replicated leaves bitwise across model "
+          f"ranks in every buffer {all(r['replicated'] for r in reps)}; the "
+          f"round's kernel calls held against their plain versions on rank "
+          f"0's shard operands {r0['checked']} "
+          f"({sum(sum(r['checked'].values()) for r in reps)} calls on the "
+          f"{len(reps)} ranks, differing {[r['checked_bad'] for r in reps]})")
+    if not finite([r0["first_loss"]]):
+        raise AssertionError(f"{tag} LM {label}: loss")
+    if not forced <= c["tol"] < fault:
+        raise AssertionError(f"{tag} LM {label}: forced round x {forced}, "
+                             f"fault {fault}")
+    if not (loss_rel <= c["loss_tol"]
+            and all(x <= c["grad_tol"] for x in grads)):
+        raise AssertionError(f"{tag} LM {label}: free first round loss "
+                             f"{loss_rel}, gradient {grads}")
+    if not all(r["replicated"] for r in reps):
+        raise AssertionError(f"{tag} LM {label}: replicated leaves differ "
+                             "across model ranks")
+    want = reps[0]["want_launches"]
+    checked = {k: v for k, v in want.items()
+               if v and k not in ("clip", "sr_epilogue")}
+    for r in reps:
+        expect_launches(f"{tag} LM {label} rank", r["launches_first"], **want)
+        if r["checked_bad"] or r["checked"] != checked:
+            raise AssertionError(
+                f"{tag} LM {label}: kernel calls against their plain "
+                f"versions {r['checked']} (want {checked}), differing "
+                f"{r['checked_bad']}")
+    return dict(forced_x_diff=forced, fault_x_diff=fault, loss_rel=loss_rel,
+                grad_rel=max(grads) if grads else None,
+                ms=r0["ms"], peaks=[r["peak"] for r in reps],
+                launches_round=r0["launches_first"])
 
 
 # ---------------------------------------------------------------------------
@@ -6061,11 +6305,22 @@ TP_RECURRENT_DP = ("zamba2 hybrid", "porter-dp ring block_top_k local f32",
 # 256,206, d_model-sharded since 256,206 % 16 != 0), 2 of its 12 encoder
 # and 2 of its 12 decoder layers (322,146,304 parameters, 161,608,704 a
 # model rank), 2 agents x model 2 = 4 ranks in phase 16-17's spawn, phase
-# 12's batch (4 x 64 tokens over 64 frames), PORTER-GC only, phase 16's
-# limits
+# 12's batch (4 x 64 tokens over 64 frames), PORTER-GC (phase 18), phase
+# 16's limits; and phase 19's algorithms at this width (``algos``, bf16
+# planes, through ``api.build``): CHOCO on the ring with the shard-local
+# block_top_k (ef_gossip on per-shard planes) and PORTER-GC on the packed
+# qsgd codec at 7 levels (each rank packs with its block of one global
+# draw: n_agents x M x its windows of uniforms), each its forced first
+# round with the planted fault, its free first round and its peak
+# (:func:`_tp_lm_algo`)
 TP_ENCDEC_LM = dict(TP_LM, arch="seamless-m4t-medium", layers=2,
                     enc_layers=2, params=322_146_304, agents=2,
-                    mem_fraction=0.2, variants=("gc",), ref="seamless-")
+                    mem_fraction=0.2, variants=("gc",), ref="seamless-",
+                    algos={"choco": dict(algo="choco"),
+                           "porter-gc packed codec qsgd 7": dict(
+                               algo="porter-gc", gossip_mode="packed",
+                               wire="packed_bits", compressor_name="qsgd",
+                               levels=7)})
 
 
 # ---------------------------------------------------------------------------
@@ -6076,7 +6331,8 @@ TP_ENCDEC_LM = dict(TP_LM, arch="seamless-m4t-medium", layers=2,
 # label -> the build: ``algo`` through ``api.build`` on the tinyllama smoke
 # config's tensor-parallel bundle, the ring with the shard-local
 # block_top_k unless named (its one-card twin: the per-shard compressor;
-# the codec's: ``steps.codec_on_one_card`` over the dense W @ c)
+# the codec's: ``steps.codec_on_one_card`` over the dense W @ c); phase
+# 16's loop runs them (:func:`_tp_smoke_cell`)
 TP_ALGO_RUNS = {
     "dsgd": dict(algo="dsgd"),
     "choco f32": dict(algo="choco"),
@@ -6089,7 +6345,7 @@ TP_ALGO_RUNS = {
     "porter-gc packed codec qsgd 7": dict(algo="porter-gc",
                                           gossip_mode="packed",
                                           wire="packed_bits",
-                                          compressor="qsgd", levels=7),
+                                          compressor_name="qsgd", levels=7),
 }
 TP_ALGO_TAG = "model-axis-algos"
 # a remat run trains under its own policy ("dots", which replays the
@@ -6099,34 +6355,43 @@ TP_ALGO_TAG = "model-axis-algos"
 TP_REMAT_POLICIES = ("full", "dots")
 # porter-adam runs at eta 2e-3 (phase 9's: Adam steps ~eta an element
 # whatever the gradient's scale, and at phase 16's 3e-2 the smoke loss
-# climbs, 6.70 -> 6.95 in 10 rounds in a CPU rehearsal), and its free run
-# is read normwise (||x - x_1card|| / ||x_1card|| over the rank's block),
-# within this limit: Adam moves an element by eta * v / (|v| + eps), near
-# +-eta wherever |v| is near eps, so the tensor-parallel gradient's last
-# bits move a few elements of x by up to ~eta a round (largest |diff|
-# 1.12e-2 after 10 rounds in the CPU rehearsal, the same as the planted
-# fault's), while the fault moves every element of a shard (normwise
-# 4.48e-4 sound, 8.95e-3 the fault there; the limit their geometric mean)
+# climbs, 6.70 -> 6.95 in 10 rounds on the CPU), and its free run is read
+# normwise (||x - x_1card|| / ||x_1card|| over the rank's block), within
+# this limit: Adam moves an element by eta * v / (|v| + eps), near +-eta
+# wherever |v| is near eps, so the tensor-parallel gradient's last bits
+# move a few elements of x by up to ~eta a round (largest |diff| 1.10e-2
+# after 10 rounds on an H100 80GB HBM3, the same as the planted fault's),
+# while the fault moves every element of a shard (normwise 5.07e-4 sound,
+# 8.85e-3 the fault there; PERF.md, PR 32)
 TP_ALGO_NORMWISE = {"porter-adam": 2e-3}
 
 
-def _tp_algo_setup(cfg, n, group, run, specs=None, device=None):
-    """``run`` of TP_ALGO_RUNS built through ``api.build`` on the bundle of
-    ``cfg`` over ``n`` agents: on the grid of ``group`` (the tensor-
+def _tp_setup(cfg, n, group, run, specs=None, device=None, c=TP_SMOKE):
+    """``run`` (of TP_RUNS, TP_ALGO_RUNS or a full-width cell's
+    ``algos``) built on the bundle of ``cfg`` over ``n`` agents at ``c``'s
+    eta, tau, frac and model axis: on the grid of ``group`` (the tensor-
     parallel bundle, its leaf specs, the shard-local compressor on the
     dense wire), or with ``group`` None its one-card twin (``specs``: one
-    replica's, for the twin's per-shard compression)."""
+    replica's, for the twin's per-shard compression).  A run that names
+    its ``algo`` goes through ``api.build``, the others through
+    ``build_train_step``."""
     from repro_torch import api
     from repro_torch.core import wire_formats as WF
     from repro_torch.core.compression import make_compressor
     from repro_torch.launch import steps
     from repro_torch.models import build_model
     from repro_torch.nn.module import leaf_specs, prepend_axis_specs
-    c = TP_SMOKE
-    run = dict(run)
-    algo, comp = run.pop("algo"), run.pop("compressor", "block_top_k")
-    levels = run.pop("levels", None)
     device = group.device if group is not None else (device or DEVICE)
+    sizes = dict(eta=c["eta"], tau=c["tau"], frac=c["frac"])
+    if "algo" not in run:
+        if group is None:
+            return _tp_one_card(steps, cfg, n, specs, c["model"], run,
+                                device, **sizes)
+        return steps.build_train_step(cfg, n, group=group, **sizes, **run)
+    run = dict(run)
+    algo = run.pop("algo")
+    comp = run.pop("compressor_name", "block_top_k")
+    levels = run.pop("levels", None)
     bundle = build_model(cfg, device=device, group=group)
     codec = run.get("wire") == "packed_bits"
     if group is None and codec:
@@ -6166,99 +6431,12 @@ def _tp_with_x(state, x):
     return state._replace(x=x)
 
 
-def _tp_algo_grad(clipping, run, g_raw, tau):
+def _tp_forced_grad(clipping, run, g_raw, tau):
     """The forced first round's gradient of ``run``: the one-card raw
     gradient, clipped as the algorithm clips it (Clip21 takes it raw)."""
-    if run["algo"] == "clip21":
+    if run.get("algo") == "clip21":
         return g_raw
     return clipping.stacked_clip(g_raw, tau, run.get("clip_mode", "smooth"))
-
-
-def _tp_algo_refs(torch, runtime, steps, data, models, cfg, runs):
-    """The one-card references of phase 19's grid: the raw gradient of
-    round 0 (every run starts from the same replica and batch, so one
-    gradient serves every forced round), and for each run the one-card
-    twin's x after the forced first round and after TP_GATE_ROUND free
-    rounds."""
-    from repro_torch.core import clipping
-    from repro_torch.nn.module import leaf_specs
-    from repro_torch.tree import tree_map
-    from torch.func import grad_and_value, vmap
-    c = TP_SMOKE
-    n = c["agents"]
-    bundle = models.build_model(cfg, device=DEVICE)
-    specs = leaf_specs(bundle)
-    source = data.batch_source(cfg, n, c["batch"], c["seq"], device=DEVICE)
-    gen = lambda: torch.Generator(device=DEVICE).manual_seed(0)  # noqa: E731
-    cpu = lambda t: tree_map(lambda a: a.cpu(), t)  # noqa: E731
-    out, g_raw = {"runs": {}}, None
-    for label, run in runs.items():
-        setup = _tp_algo_setup(cfg, n, None, run, specs=specs)
-        state = setup.init_state(gen())
-        gb, gs = runtime.round_generators(0, 0, DEVICE)
-        batch = source(gb, 0)
-        if g_raw is None:
-            g_raw, _ = vmap(grad_and_value(bundle.loss))(_tp_x(state), batch)
-        g = _tp_algo_grad(clipping, run, g_raw, c["tau"])
-        forced, _ = setup.step(state, batch, gs, grad_override=(
-            torch.zeros(n, device=DEVICE), g))
-        rec = {"g": cpu(g), "x1": cpu(_tp_x(forced))}
-        del forced, state
-        state, _ = runtime.run_chunked(setup.algorithm, source,
-                                       setup.init_state(gen()), 0,
-                                       TP_GATE_ROUND, chunk=TP_GATE_ROUND)
-        rec["x_gate"] = cpu(_tp_x(state))
-        out["runs"][label] = rec
-    return out
-
-
-class _TpAlgoChecks(_TpChecks):
-    """``_TpChecks`` plus ``ops.ef_gossip`` (slice by slice, as the other
-    ef kernels) and the qsgd codec's ``ops.wire_qsgd_pack`` /
-    ``wire_qsgd_unpack``, each on the rank's own shard operands against
-    its plain version."""
-
-    NAMES = _TpChecks.NAMES + ("ef_gossip", "wire_qsgd_pack",
-                               "wire_qsgd_unpack")
-
-    def _ef_gossip(self, *a, **kw):
-        return self._ef("ef_gossip", 5, *a, **kw)
-
-    def _wire_qsgd_pack(self, rows, noise, levels):
-        return self._plain("qsgd_pack", self.saved["wire_qsgd_pack"](
-            rows, noise, levels), self.ref.qsgd_pack_ref(rows, noise, levels),
-            tuple(rows.shape), str(rows.dtype))
-
-    def _wire_qsgd_unpack(self, words, scale, levels):
-        return self._plain("qsgd_unpack", self.saved["wire_qsgd_unpack"](
-            words, scale, levels), self.ref.qsgd_unpack_ref(words, scale,
-                                                            levels),
-            tuple(words.shape), str(words.dtype))
-
-
-def _tp_algo_launches(run, rounds, n_leaves):
-    """A rank's launches over ``rounds`` rounds of ``run``: the cross-shard
-    clip's sumsq and scale (clip21: the residual norm's sumsq alone), the
-    algorithm's ef kernels (CHOCO and subgrad-comp one ef_gossip, the
-    PORTER family one ef_track and one ef_step, dsgd none), their
-    epilogue roundings under bf16 planes, and the compressor's or codec's
-    kernels for each exchange."""
-    algo = run["algo"]
-    one = algo in ("choco", "subgrad-comp")
-    want = dict(sumsq=rounds, scale=0 if algo == "clip21" else rounds)
-    if one:
-        want["ef_gossip"] = rounds
-    elif algo != "dsgd":
-        want.update(ef_track=rounds, ef_step=rounds)
-    if run.get("plane_dtype") == "bf16":
-        want["sr_epilogue"] = (2 if one else 5) * rounds
-    exchanges = 0 if algo == "dsgd" else 1 if one else 2
-    if run.get("wire") == "packed_bits":
-        want.update(qsgd_pack=exchanges * rounds,
-                    qsgd_unpack=exchanges * rounds)
-    elif exchanges:
-        want["block_topk"] = exchanges * n_leaves * rounds
-    return want
 
 
 def _tp_remat_grad(torch, group, setup, state, batch, policy):
@@ -6289,105 +6467,6 @@ def _tp_remat_grad(torch, group, setup, state, batch, policy):
         replays=dict(remat.DOTS_REPLAYS))
 
 
-def _tp_algo_cell(torch, group, cfg, runs, rounds, want):
-    """Phase 19's grid on this rank, every run of TP_ALGO_RUNS: the first
-    round forced with the one-card gradient's block, the free run of
-    ``rounds`` rounds with its launches and its x at the gate round, the
-    planted fault, the remat runs' gradient against the one without, and
-    one round under ``_TpAlgoChecks``."""
-    from repro_torch import data
-    from repro_torch.kernels import ops, ref
-    from repro_torch.launch import runtime
-    from repro_torch.models import build_model
-    from repro_torch.nn.module import leaf_specs
-    from repro_torch.tree import tree_leaves, tree_map
-    c, dev = TP_SMOKE, group.device
-    n = c["agents"]
-    specs = leaf_specs(build_model(cfg, device=dev))
-    out = {}
-
-    def diff(tree, want_tree):
-        return max(float((a.cpu().float() - b.float()).abs().max())
-                   for a, b in zip(tree_leaves(tree), tree_leaves(want_tree)))
-
-    def normwise(tree, want_tree):
-        pairs = list(zip(tree_leaves(tree), tree_leaves(want_tree)))
-        num = sum(float(torch.sum((a.cpu().double() - b.double()) ** 2))
-                  for a, b in pairs)
-        den = sum(float(torch.sum(b.double() ** 2)) for _, b in pairs)
-        return math.sqrt(num / den)
-    for label, run in runs.items():
-        rep, w = {}, want["runs"][label]
-
-        def build():
-            return _tp_algo_setup(cfg, n, group, run)
-        setup = build()
-        source = data.batch_source(cfg, n, c["batch"], c["seq"],
-                                   device=dev, group=group)
-        init = lambda: setup.init_state(  # noqa: E731
-            torch.Generator(device=dev).manual_seed(0))
-        gb, gs = runtime.round_generators(0, 0, dev)
-        forced, _ = setup.step(
-            init(), source(gb, 0), gs,
-            grad_override=(torch.zeros(1, device=dev), tree_map(
-                lambda a: a.to(dev), _tp_shard(torch, w["g"], specs, group,
-                                               True))))
-        x1 = _tp_shard(torch, w["x1"], specs, group, True)
-        rep["forced_x_diff"] = diff(_tp_x(forced), x1)
-        rep["forced_bitwise"] = all(
-            bit_equal(torch, a.cpu(), b)
-            for a, b in zip(tree_leaves(_tp_x(forced)), tree_leaves(x1)))
-        del forced
-        if run.get("remat_policy"):
-            gb, _ = runtime.round_generators(0, 0, dev)
-            rep["remat"] = {policy: _tp_remat_grad(
-                torch, group, setup, init(), source(gb, 0), policy)
-                for policy in TP_REMAT_POLICIES}
-        kept, k = {}, TP_GATE_ROUND // 2
-
-        def keep(t0, t1, st, m):
-            if t1 == k:
-                kept["mid"] = st
-            if t1 == TP_GATE_ROUND:
-                kept["x"] = tree_map(lambda a: a.clone(), _tp_x(st))
-        state, losses, ms, launches = run_counted(
-            torch, ops, runtime, setup.algorithm, source, init(), rounds, k,
-            on_chunk=keep)
-        xg = _tp_shard(torch, w["x_gate"], specs, group, True)
-        rep.update(losses=losses, ms=ms, launches=launches,
-                   want_launches=_tp_algo_launches(
-                       run, rounds, len(tree_leaves(_tp_x(state)))),
-                   gate_x_diff=diff(kept["x"], xg),
-                   gate_x_rel=normwise(kept["x"], xg),
-                   replicated=all(_tp_replicated_bitwise(
-                       torch, group, t, specs, tree_leaves)
-                       for t in _tp_param_fields(state, specs)))
-        # the planted fault: agent 1's model rank 1 keeps its x shard at
-        # round k, from the free run's state after round k
-        st = kept.pop("mid")
-        before = _tp_x(st)
-        st, _ = runtime.run_chunked(setup.algorithm, source, st, 0, k + 1,
-                                    chunk=1, start=k)
-        if group.index == 1 and group.model_index == 1:
-            st = _tp_with_x(st, before)
-        st, _ = runtime.run_chunked(setup.algorithm, source, st, 0,
-                                    TP_GATE_ROUND, chunk=TP_GATE_ROUND - k - 1,
-                                    start=k + 1)
-        rep["fault_x_diff"] = diff(_tp_x(st), xg)
-        rep["fault_x_rel"] = normwise(_tp_x(st), xg)
-        # one more round, every kernel call checked (the codec binds its
-        # kernels when it is built)
-        with _TpAlgoChecks(torch, ops, ref) as checks:
-            build().step(state, source(gb, 1), gs)
-        rep["checked"], bad = checks.tally()
-        if not rep["checked"] or bad:
-            raise AssertionError(f"rank {group.rank} {TP_ALGO_TAG} {label}: "
-                                 f"kernels differ from their plain versions "
-                                 f"on the shard operands: {bad}")
-        out[label] = rep
-    return out
-
-
 def _tp_param_fields(state, specs):
     """The parameter-shaped trees of a (nested) state: x and every plane
     beside it (porter-adam's moments, clip21's estimate)."""
@@ -6401,80 +6480,6 @@ def _tp_param_fields(state, specs):
               and tree_flatten(field)[1] == spec_def):
             out.append(field)
     return out
-
-
-def _tp_algo_gates(tag, cfg, runs, rounds, ranks, ref_data, wall):
-    """Print phase 19's readings and fail on any gate: each run's forced
-    first round, its free run against its limit with the planted fault
-    above it, the replicated leaves in every parameter-shaped buffer, the
-    launches a rank, and the remat runs' gradient bitwise with the
-    forward's collectives once more on the model axis alone."""
-    c = TP_SMOKE
-    report = {"wall_s": wall}
-    for label, run in runs.items():
-        reps = [r[label] for r in ranks]
-        rel = label in TP_ALGO_NORMWISE
-        tol = (TP_ALGO_NORMWISE[label] if rel else TP_FREE_TOL[
-            "bf16" if run.get("plane_dtype") else "f32"])
-        forced = max(r["forced_x_diff"] for r in reps)
-        key = "x_rel" if rel else "x_diff"
-        gate = max(r["gate_" + key] for r in reps)
-        fault = max(r["fault_" + key] for r in reps)
-        r0 = reps[0]
-        print(f"[{tag}] {cfg.name} {label}: first round forced with the "
-              f"one-card gradient: x max |diff| {forced} from the one-card "
-              f"twin (bitwise {all(r['forced_bitwise'] for r in reps)}, gate "
-              f"{c['forced_tol']}); free run x after round {TP_GATE_ROUND} "
-              f"{'normwise ' if rel else ''}{gate} (gate {tol}), the planted "
-              f"fault {fault} (largest |diff| "
-              f"{max(r['gate_x_diff'] for r in reps)}, fault "
-              f"{max(r['fault_x_diff'] for r in reps)}; normwise "
-              f"{max(r['gate_x_rel'] for r in reps)}, fault "
-              f"{max(r['fault_x_rel'] for r in reps)}); "
-              f"{r0['ms']:.3f} ms/round on rank 0; loss "
-              f"{r0['losses'][0]:.6f} -> {r0['losses'][-1]:.6f}; replicated "
-              f"leaves bitwise across model ranks in every buffer "
-              f"{all(r['replicated'] for r in reps)}; rank-0 launches over "
-              f"{rounds} rounds {r0['launches']}; kernels checked on a "
-              f"round's shard operands {r0['checked']}")
-        if not finite(r0["losses"]):
-            raise AssertionError(f"{tag} {label}: losses")
-        if not forced <= c["forced_tol"]:
-            raise AssertionError(f"{tag} {label}: forced x {forced}")
-        if not gate <= tol < fault:
-            raise AssertionError(f"{tag} {label}: free x {gate}, fault "
-                                 f"{fault}, tolerance {tol}")
-        if not all(r["replicated"] for r in reps):
-            raise AssertionError(f"{tag} {label}: replicated leaves differ "
-                                 "across model ranks")
-        for r in reps:
-            expect_launches(f"{tag} {label} rank", r["launches"],
-                            **r["want_launches"])
-        report[label] = dict(forced_x_diff=forced, gate=gate, fault=fault,
-                             normwise=rel, ms=r0["ms"],
-                             launches=r0["launches"], rounds=rounds,
-                             checked=r0["checked"])
-        for policy in r0.get("remat", {}):
-            rm = [r["remat"][policy] for r in reps]
-            print(f"[{tag}] {label}: under remat {policy!r} the gradient "
-                  f"bitwise the one without on every rank "
-                  f"{all(x['bitwise'] for x in rm)}; model-axis collectives "
-                  f"added {rm[0]['rise']} against the forward's "
-                  f"{rm[0]['forward']}; agent axis unchanged "
-                  f"{all(x['agent_same'] for x in rm)}; dense products "
-                  f"{rm[0]['replays']}")
-            if not all(x["bitwise"] and x["agent_same"]
-                       and x["rise"] == {k: x["forward"].get(k, 0)
-                                         for k in x["rise"]}
-                       and set(x["rise"]) == set(x["forward"]) for x in rm):
-                raise AssertionError(f"{tag} {label}: remat {policy} {rm}")
-            if (policy == "dots"
-                    and not (rm[0]["replays"].get("replayed")
-                             and not rm[0]["replays"].get("computed"))):
-                raise AssertionError(f"{tag} {label}: dots replays "
-                                     f"{rm[0]['replays']}")
-            report[label].setdefault("remat", {})[policy] = rm[0]
-    return report
 
 
 def _tp_grid_cells(torch, configs):
@@ -6502,8 +6507,8 @@ def _tp_grid_cells(torch, configs):
 
 def tp_grid_rank(group, ref_dir, cells, lms):
     """One rank of the (data 2, model 2) spawn of phases 16 to 19:
-    :func:`_tp_smoke_cell` (phase 19's grid: :func:`_tp_algo_cell`) on
-    every grid of ``cells``, each once its one-card references are
+    :func:`_tp_smoke_cell` on every grid of ``cells``, each once its
+    one-card references are
     written, then :func:`tp_lm_rank` on each
     full-width cell of ``lms`` (``(sigma_p, cell)`` pairs: phase 17's and
     phase 18's).  Each grid's and cell's seconds on this rank under
@@ -6513,15 +6518,18 @@ def tp_grid_rank(group, ref_dir, cells, lms):
     for i, (name, cfg, runs, rounds, tag) in enumerate(cells):
         t0 = time.perf_counter()
         out["waited_s"] += _await_refs(ref_dir, f"{i}.pt")
-        cell = _tp_algo_cell if tag == TP_ALGO_TAG else _tp_smoke_cell
-        out[name] = cell(torch, group, cfg, runs, rounds,
-                         torch.load(f"{ref_dir}/{i}.pt"))
+        out[name] = _tp_smoke_cell(torch, group, cfg, runs, rounds,
+                                   torch.load(f"{ref_dir}/{i}.pt"))
         out["s"][name] = time.perf_counter() - t0
     for sigma_p, cell in lms:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        out[cell["cfg"].name] = tp_lm_rank(group, ref_dir, sigma_p, cell)
-        out["s"][cell["cfg"].name] = time.perf_counter() - t0
+        name = cell["cfg"].name
+        out[name] = tp_lm_rank(group, ref_dir, sigma_p, cell)
+        out["s"][name] = time.perf_counter() - t0
+        if cell.get("algos"):
+            out["s"][f"{name} algorithms"] = out[name]["algos_s"]
+            out["s"][name] -= out[name]["algos_s"]
     return out
 
 
@@ -6546,9 +6554,9 @@ def phase_model_axis_grids(torch, runtime, steps, data, configs, mesh,
 
     def make_refs():
         refs = []
-        for i, (_, cfg, runs, _, tag) in enumerate(cells):
-            make = _tp_algo_refs if tag == TP_ALGO_TAG else _tp_smoke_refs
-            refs.append(make(torch, runtime, steps, data, models, cfg, runs))
+        for i, (_, cfg, runs, _, _) in enumerate(cells):
+            refs.append(_tp_smoke_refs(torch, runtime, steps, data, models,
+                                       cfg, runs))
             _put_ref(torch, refs[-1], ref_dir / f"{i}.pt")
         return refs, [_tp_lm_refs(torch, runtime, steps, data, models, lm,
                                   ref_dir) for lm in lms]
@@ -6562,15 +6570,16 @@ def phase_model_axis_grids(torch, runtime, steps, data, configs, mesh,
           f"{c['model']}) ranks for phase 16's smoke grid, phase 17's "
           f"{len(TP_FAMILIES)} grids and its full-width cell, phase 18's "
           f"{len(TP_RECURRENT)} and its full-width cell, phase 19's grid of "
-          f"{len(TP_ALGO_RUNS)} runs: spawn to join "
+          f"{len(TP_ALGO_RUNS)} runs and its {len(TP_ENCDEC_LM['algos'])} "
+          f"runs in phase 18's full-width cell: spawn to join "
           f"{wall:.1f} s, the ranks waiting up to "
           f"{max(r['waited_s'] for r in ranks):.1f} s of it for the "
           f"one-card references made beside them; rank 0's seconds a grid "
           f"or cell "
           f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
-    reports = [(_tp_algo_gates if tag == TP_ALGO_TAG else _tp_smoke_gates)(
-        tag, cfg, runs, rounds, [r[name] for r in ranks], ref, wall)
-        for (name, cfg, runs, rounds, tag), ref in zip(cells, refs)]
+    reports = [_tp_smoke_gates(tag, cfg, runs, rounds,
+                               [r[name] for r in ranks], ref, wall)
+               for (name, cfg, runs, rounds, tag), ref in zip(cells, refs)]
     by_tag = {"model-axis-families": {}, "model-axis-recurrent": {},
               TP_ALGO_TAG: {}}
     for (name, *_, tag), rep in zip(cells[1:], reports[1:]):
@@ -6819,7 +6828,9 @@ def main() -> int:
           f"{p18:.1f} s on rank 0; phase 16's LM cell "
           f"{time.perf_counter() - t16b:.1f} s")
     print(f"[time] phase 18 took {p18:.1f} s (in phases 16-17's spawn)")
-    print(f"[time] phase 19 took {cell_s['algorithms']:.1f} s (its grid in "
+    p19 = cell_s["algorithms"], cell_s["seamless-m4t-medium algorithms"]
+    print(f"[time] phase 19 took {sum(p19):.1f} s (its grid {p19[0]:.1f} s "
+          f"and its runs in phase 18's full-width cell {p19[1]:.1f} s, in "
           f"phases 16-17's spawn, on rank 0)")
     print("[model-axis] figures " + json.dumps(model_axis, default=str))
     print("[model-axis-families] figures " + json.dumps(families,
@@ -7009,7 +7020,7 @@ def main() -> int:
                 families["lm"][variant]["launches_round"].get(key, 0))
     # phase 18: each kernel's launches a round on one rank of the rwkv6,
     # hybrid and encoder-decoder smoke grids, and on seamless-m4t-medium's
-    # full-width cell (PORTER-GC)
+    # full-width cell (PORTER-GC; phase 19's algorithms there)
     for rec in record:
         key = "sr_epilogue" if rec["name"] == "sr_cast" else rec["name"]
         if rec["name"] not in MODEL_AXIS_LAUNCH_RUNS:
@@ -7021,6 +7032,12 @@ def main() -> int:
             if isinstance(run, dict) and "launches" in run}
         rec["launches_model_recurrent_lm_gc_round"] = (
             recurrent["lm"]["gc"]["launches_round"].get(key, 0))
+    for rec in record:
+        key = "sr_epilogue" if rec["name"] == "sr_cast" else rec["name"]
+        counts = {label: recurrent["lm"][label]["launches_round"].get(key, 0)
+                  for label in TP_ENCDEC_LM["algos"]}
+        if any(counts.values()):
+            rec["launches_model_algos_lm_round"] = counts
     # phase 19: each kernel's launches a round on one rank of every run of
     # the algorithms' grid (sr_cast: its roundings in the ef kernels'
     # epilogue)

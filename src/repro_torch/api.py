@@ -526,7 +526,13 @@ def build_engine(spec: ExperimentSpec, *,
     rank: the executors across processes; with a model axis ``leaf_specs``
     (the agent axes first) give the per-shard layout."""
     _check_group(spec, group)
-    sharded = _sharded(group, leaf_specs)
+    return _engine(spec, topology, schedule, compress_fn, group,
+                   _sharded(group, leaf_specs))
+
+
+def _engine(spec, topology, schedule, compress_fn, group, sharded):
+    """:func:`build_engine` on the per-shard layout ``sharded`` (None: no
+    model axis), worked out once by the caller."""
     if spec.fleet:
         _check_fleet_spec(spec)
         top = resolve_fleet_topology(spec) if topology is None else topology
@@ -578,6 +584,7 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
     device = torch.device(device)
     info = algorithm_info(spec.algo)
     loss_fn = apply_remat(loss_fn, spec.remat_policy)
+    sharded = _sharded(group, leaf_specs)
     top, sched, comp, mixer, engine, gamma = (None,) * 6
     if info.decentralized:
         if spec.fleet:
@@ -597,9 +604,7 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
                 "drift toward the Perron vector -- use algo='dp-csgp' "
                 "for directed topologies")
     if info.decentralized and info.compressed:
-        engine = build_engine(spec, topology=top, schedule=sched,
-                              compress_fn=compress_fn, group=group,
-                              leaf_specs=leaf_specs)
+        engine = _engine(spec, top, sched, compress_fn, group, sharded)
         comp, mixer = engine.compressor, engine.mixer
     elif info.decentralized:
         if spec.fleet:
@@ -618,7 +623,7 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
                  else (1.0 if spec.gamma is None else spec.gamma))
     r = Resolved(info=info, topology=top, compressor=comp, mixer=mixer,
                  engine=engine, gamma=gamma, device=device, schedule=sched,
-                 group=group, sharded=_sharded(group, leaf_specs))
+                 group=group, sharded=sharded)
     return get_factory(spec.algo)(spec, loss_fn, r)
 
 

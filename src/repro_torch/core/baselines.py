@@ -53,9 +53,7 @@ def _param_count(tree, n_agents: int, sharded=None) -> int:
     leaf's times the model axis under ``sharded`` (a rank holds its
     shard), so the count is the whole replica's."""
     leaves = tree_leaves(tree)
-    m = ([1] * len(leaves) if sharded is None else
-         [1 if d is None else sharded.group.model_size
-          for d in sharded.dims()])
+    m = [1] * len(leaves) if sharded is None else sharded.shards()
     return sum(leaf.numel() // n_agents * k for leaf, k in zip(leaves, m))
 
 

@@ -546,8 +546,7 @@ class CommRound:
         ``sharded``, else 1."""
         if self.sharded is None:
             return [1] * len(leaves)
-        m = self.sharded.group.model_size
-        return [1 if d is None else m for d in self.sharded.dims()]
+        return self.sharded.shards()
 
     def _packed_windows(self, tree) -> int:
         """PACK_BLOCK windows the packed executors pad for one agent's row

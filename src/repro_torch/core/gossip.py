@@ -689,20 +689,34 @@ def make_packed_process_mixer(w, frac: float, group) -> MixFn:
     return mix
 
 
-def _rank_windows(full, group, nbs, shards=None):
-    """This rank's rows of a global codec row matrix ``full``: leaf by
-    leaf, every agent's ``shards[l]`` model shards of ``nbs[l]`` windows
-    inside leaf l (agent-major, then shard, then window; ``shards`` None:
-    one a leaf), this agent's block of this rank's shard (of shard 0 for
-    a replicated leaf, which every model rank packs whole)."""
-    n, i = group.n_agents, group.index
+def draw_blocks(full, n_agents: int, nbs, shards=None):
+    """A global codec row matrix ``full`` (a qsgd draw) cut leaf by leaf:
+    leaf l is ``(n_agents, shards[l], nbs[l], PACK_BLOCK)``, agent-major,
+    then model shard, then window (``shards`` None: one a leaf).  The one
+    layout of the draw, for a rank's block (:func:`_rank_windows`) and for
+    the one-card twin (``launch.steps.codec_on_one_card``)."""
     shards = [1] * len(nbs) if shards is None else shards
-    m_idx = getattr(group, "model_index", 0)
-    parts, off = [], 0
+    out, off = [], 0
     for nb, m in zip(nbs, shards):
-        start = off + (i * m + (m_idx if m > 1 else 0)) * nb
-        parts.append(full[start:start + nb])
-        off += n * m * nb
+        size = n_agents * m * nb
+        out.append(full[off:off + size].reshape(n_agents, m, nb, PACK_BLOCK))
+        off += size
+    return out
+
+
+def draw_rows(n_agents: int, nbs, shards=None) -> int:
+    """The rows of the global draw :func:`draw_blocks` cuts."""
+    shards = [1] * len(nbs) if shards is None else shards
+    return n_agents * sum(nb * m for nb, m in zip(nbs, shards))
+
+
+def _rank_windows(full, group, nbs, shards=None):
+    """This rank's rows of a global codec row matrix ``full`` laid out as
+    :func:`draw_blocks` says: this agent's block of this rank's shard (of
+    shard 0 for a replicated leaf, which every model rank packs whole)."""
+    m_idx = getattr(group, "model_index", 0)
+    parts = [b[group.index, m_idx if b.shape[1] > 1 else 0]
+             for b in draw_blocks(full, group.n_agents, nbs, shards)]
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
@@ -722,10 +736,9 @@ def _pack_rank(codec: WireFormat, group, gen, leaves, noise, shards=None):
     nbs = [win.shape[0] for win in windows]
     if not codec.deterministic:
         if noise is None:
-            total = sum(nb * m for nb, m in zip(
-                nbs, [1] * len(nbs) if shards is None else shards))
-            noise = torch.rand((group.n_agents * total, PACK_BLOCK),
-                               generator=gen, device=rows.device)
+            noise = torch.rand((draw_rows(group.n_agents, nbs, shards),
+                                PACK_BLOCK), generator=gen,
+                               device=rows.device)
         noise = _rank_windows(noise, group, nbs, shards)
     return codec.pack(rows, noise), nbs
 
@@ -902,9 +915,7 @@ def make_mixer(topology: Union[Topology, TopologySchedule],
         raise ValueError(f"the topology has {n} agents, the group "
                          f"{group.n_agents} ranks: one agent a rank")
     proc = group is not None
-    shards = (None if sharded is None else
-              [1 if d is None else sharded.group.model_size
-               for d in sharded.dims()])
+    shards = None if sharded is None else sharded.shards()
     if mode == "dense":
         if codec is not None:
             raise ValueError(

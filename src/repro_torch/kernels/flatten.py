@@ -189,6 +189,12 @@ class ShardedFlatSpec(NamedTuple):
         or None for a replicated leaf (tree order)."""
         return [s.model_dim for s in tree_leaves(self.leaf_specs)]
 
+    def shards(self):
+        """Each leaf's model shards: the model axis's size for a sharded
+        leaf, 1 for a replicated one (tree order)."""
+        m = self.group.model_size
+        return [1 if d is None else m for d in self.dims()]
+
     def counted(self):
         """Per leaf: whether this rank counts it in a sum over the whole
         replica (a norm, a consensus error): its shard, or a replicated

@@ -113,6 +113,7 @@ def codec_on_one_card(codec, specs, model_size: int):
     as each rank keeps its block of the same draw
     (``core.gossip._pack_rank``).  Returns ``compress(gen, tree, noise=
     None)``; ``noise`` injects that global plane."""
+    from ..core.gossip import draw_blocks, draw_rows
     from ..core.wire_formats import PACK_BLOCK, to_windows
     dims = [s.model_dim for s in tree_leaves(specs)]
 
@@ -125,17 +126,14 @@ def codec_on_one_card(codec, specs, model_size: int):
                for leaf, d in zip(leaves, dims)]
         wins = [[to_windows(p.reshape(n, -1).to(torch.float32))
                  for p in parts] for parts in cut]
-        total = sum(n * len(w) * w[0].shape[1] for w in wins)
+        nbs, shards = [w[0].shape[1] for w in wins], [len(w) for w in wins]
         if noise is None and not codec.deterministic:
-            noise = torch.rand((total, PACK_BLOCK), generator=gen,
-                               device=leaves[0].device)
-        out, off = [], 0
-        for leaf, d, parts, w in zip(leaves, dims, cut, wins):
-            k, nb = len(w), w[0].shape[1]
-            block = (None if noise is None else
-                     noise[off:off + n * k * nb].reshape(n, k, nb,
-                                                         PACK_BLOCK))
-            off += n * k * nb
+            noise = torch.rand((draw_rows(n, nbs, shards), PACK_BLOCK),
+                               generator=gen, device=leaves[0].device)
+        blocks = ([None] * len(leaves) if noise is None
+                  else draw_blocks(noise, n, nbs, shards))
+        out = []
+        for leaf, d, parts, w, block in zip(leaves, dims, cut, wins, blocks):
             cs = []
             for m, (part, rows) in enumerate(zip(parts, w)):
                 z = (None if block is None

@@ -19,7 +19,8 @@ through ``api.build(spec, bundle.loss, group=, leaf_specs=)``.  Held here:
   x is the exception: Adam's first step moves an element by ``eta * v /
   (|v| + eps)``, so where |v| is ~1e-9 (a leaf's max ~5e-3) the tensor-
   parallel gradient's last-bit differences move x by up to ~1e-3; its
-  free round is held on v, m and s, and its x on the forced round;
+  free round is held on v, m and s, its x normwise (within ADAM_X_REL,
+  a planted unchanged replica beyond it) and on the forced round;
 * every algorithm's first round forced with the one-card gradient (its
   block on each rank): x bitwise the one-process round's;
 * the replicated leaves bitwise across an agent's model ranks in every
@@ -77,6 +78,9 @@ ADAM = ("porter-adam", "porter-adam-bf16")
 FIELD_TOL = {label: 1e-4 if W.ALGO_RUNS[label][1].get("plane") == "bf16"
              else 1e-6 for label in LABELS}
 FREE_X = [label for label in LABELS if label not in ADAM]
+# porter-adam's free x, normwise: the sound round reads 2.4e-5 (f32) and
+# 3.6e-5 (bf16 planes) on the CPU, agent 1's replica left unchanged 0.22
+ADAM_X_REL = 1e-3
 CODEC = ("gc-qsgd-packed", "choco-qsgd-ring", "csgp-qsgd-packed")
 SUMS = ("consensus_x", "consensus_v", "v_norm", "clip_residual")
 
@@ -106,14 +110,18 @@ def test_every_state_buffer_within_1e6_of_one_process(ranks, label):
 
 @pytest.mark.parametrize("label", ADAM)
 def test_porter_adam_free_x_moves_only_where_v_is_near_zero(ranks, label):
-    """The free round's x differs by Adam's amplification alone: at most
-    eta (3e-2) times the largest change of ``v / (|v| + eps)``.  With bf16
-    planes the f32 update's EF operands take ``ef_step`` as f32 and the
-    two bf16-bound outputs ``sr_cast``, on the rank's shards."""
+    """The free round's x differs by Adam's amplification alone, on the
+    few elements where |v| is near eps: read normwise (||x - x_1p|| /
+    ||x_1p||), x lies within ADAM_X_REL of the one-process x, and a
+    planted fault (agent 1's replica left unchanged by the round) lies
+    beyond it.  With bf16 planes the f32 update's EF operands take
+    ``ef_step`` as f32 and the two bf16-bound outputs ``sr_cast``, on the
+    rank's shards."""
     for rank in ranks:
         got = rank[label]
         assert got["field_diff"]["base.v"] <= FIELD_TOL[label]
-        assert got["x_diff"] <= 2 * W.ETA
+        assert got["x_rel"] <= ADAM_X_REL < got["fault_x_rel"], (
+            got["x_rel"], got["fault_x_rel"])
 
 
 @pytest.mark.parametrize("label", LABELS)

@@ -330,6 +330,40 @@ def test_model_axis_refuses_remat_and_a_random_codec():
         api._sharded(group, None)
 
 
+@pytest.mark.parametrize("model_size", [2, 4])
+def test_sharded_layout_counts_each_leaf_shards(model_size):
+    """``ShardedFlatSpec.shards()``: the model axis's size for a sharded
+    leaf and 1 for a replicated one, the one list that the wire bytes,
+    dsgd's replica count and the codec's draw read."""
+    sharded = api._sharded(fake_group(model_size=model_size),
+                           _model_axis_specs())
+    dims = sharded.dims()
+    assert None in dims and any(d is not None for d in dims)
+    assert sharded.shards() == [1 if d is None else model_size
+                                for d in dims]
+
+
+def test_qsgd_draw_layout_is_agent_then_shard_then_window():
+    """``gossip.draw_blocks`` cuts one global draw leaf by leaf into
+    (agent, model shard, window) blocks, and a rank keeps its agent's
+    block of its shard (of the one shard of a replicated leaf)."""
+    from repro_torch.core import gossip as G
+    from repro_torch.core.wire_formats import PACK_BLOCK
+    nbs, shards, n = [3, 2], [2, 1], 3
+    rows = G.draw_rows(n, nbs, shards)
+    assert rows == n * (3 * 2 + 2 * 1)
+    full = torch.arange(rows * PACK_BLOCK, dtype=torch.float32).reshape(
+        rows, PACK_BLOCK)
+    blocks = G.draw_blocks(full, n, nbs, shards)
+    assert [tuple(b.shape) for b in blocks] == [(3, 2, 3, PACK_BLOCK),
+                                                (3, 1, 2, PACK_BLOCK)]
+    assert torch.equal(blocks[0][1, 1, 0], full[(1 * 2 + 1) * 3])
+    assert torch.equal(blocks[1][2, 0, 1], full[18 + 2 * 2 + 1])
+    group = fake_group(model_size=2, model_index=1, index=1, n_agents=3)
+    assert torch.equal(G._rank_windows(full, group, nbs, shards),
+                       torch.cat([full[9:12], full[20:22]]))
+
+
 @pytest.mark.parametrize("module", ["nn/tensor_parallel.py",
                                     "launch/mesh.py", "launch/steps.py",
                                     "kernels/flatten.py", "core/agents.py",

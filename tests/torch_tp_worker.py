@@ -80,6 +80,15 @@ def _max_abs(got, want):
                for a, b in zip(tree_leaves(got), tree_leaves(want)))
 
 
+def _normwise(got, want):
+    """||got - want|| / ||want|| over every leaf, in f64."""
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    num = sum(float(torch.sum((a.double() - b.double()) ** 2))
+              for a, b in pairs)
+    return (num / sum(float(torch.sum(b.double() ** 2))
+                      for _, b in pairs)) ** 0.5
+
+
 def _replicated_bitwise(group, tree, specs) -> bool:
     """Whether every replicated leaf of this rank's ``tree`` is bitwise
     the other model ranks'."""
@@ -622,8 +631,14 @@ def algo_train(group, algo, *, plane=None, gossip="ring", wire="dense",
         for a, b in zip(tree_leaves(tree), tree_leaves(x_of(s2))))
     mixer = proc.algorithm.mixer
     f1, ff = param_fields(s1, specs), param_fields(full, specs)
+    # a planted fault: agent 1's replica left unchanged by the round(s)
+    x0 = x_of(one.init_state(torch.Generator().manual_seed(0)))
+    fault = tree_map(lambda a, b: torch.cat([a[:1], b[1:2], a[2:]]),
+                     x_of(full), x0)
     return dict(
         x_diff=_max_abs(x_of(full), x_of(s1)), forced=forced,
+        x_rel=_normwise(x_of(full), x_of(s1)),
+        fault_x_rel=_normwise(fault, x_of(s1)),
         field_diff={k: _max_abs(ff[k], f1[k]) for k in f1},
         metrics_one=m1, metrics_proc=m2,
         replicated={k: _replicated_bitwise(group, t, specs)
