@@ -206,7 +206,8 @@ of the ``repro`` package.  Phases, each printing its own lines:
    gradient of tinyllama's smoke config on the card within 1e-4 of the
    CPU's, ``mean_noise`` timed at the DP plane with and without its
    running sum beside its bound, and
-   ``examples/private_decentralized_lm_torch.py --steps 20``.
+   ``examples/private_decentralized_lm_torch.py --steps 20`` (in a process
+   of its own beside phase 15's MLP spawn).
 14. The ring and plain packed gossip executors (``[gossip-executors]``
    lines): PORTER-GC on the Section-5.2 MLP with 10 agents on a ring
    (Metropolis) for 200 rounds on both backends with ``gossip_mode``
@@ -238,8 +239,19 @@ of the ``repro`` package.  Phases, each printing its own lines:
    gradient against its x at 1e-6 (bitwise), the free first round within
    ``AGENTS_LM["free_tol"]`` (a rank's x left unchanged by the round
    outside it), 1 plain packed and 1 ring round (ms a round, the
-   transport's share), the ranks' peaks summed within 76 GB.  A rank
-   that fails or hangs fails the phase.
+   transport's share), the ranks' peaks summed within 76 GB.  In the
+   same spawns: phase 4's DP-SGD and SoteriaFL (f32, bf16) with
+   one client a rank (``AGENTS_SERVER_RUNS``: the first round forced with
+   the one-card operand, bitwise; x after round 40 within
+   ``AGENTS_SERVER_TOL`` of phase 4's, a dropped upload outside it; x
+   the same bits on every rank; one all-gather a round), and, first on
+   the LM spawn's ranks, phase 10's fleets with 1,024 and 64 agents a
+   rank (``AGENTS_FLEET``: the exchange and the forced first round
+   bitwise, the final x within ``AGENTS_FLEET_TOL`` of phase 10's, a
+   rank's block kept outside it, one all-gather a mix); each with a
+   checked round, every kernel call bitwise its plain version.  The old
+   runs' one-card twins run here while the MLP ranks run.  A rank that
+   fails or hangs fails the phase.
 16. The model axis (``[model-axis]`` lines): tinyllama's smoke config on
    a ``(data 2, model 2)`` grid of ranks, each agent's replica
    tensor-parallel (the gradient against one card's, PORTER-GC on the
@@ -932,7 +944,9 @@ def phase_mlp(torch, ops, api, data, runtime, paper, tree_leaves, num=60000,
 def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
                     rounds=200, short=50):
     """The paper's baselines on the full-width MLP: CHOCO-SGD (the
-    ``ef_gossip`` path) in f32 and bf16, then DSGD, DP-SGD and SoteriaFL."""
+    ``ef_gossip`` path) in f32 and bf16, then DSGD, DP-SGD and SoteriaFL.
+    -> (CHOCO's launches, the x of each run of AGENTS_SERVER_RUNS after
+    round AGENTS_GATE_ROUND on the CPU: phase 15's twins)."""
     source, base, loss_fn = _mlp_problem(api, data, paper, num)
     choco = {}
     for plane in (None, "bf16"):
@@ -952,15 +966,21 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
                         sr_epilogue=2 * rounds if plane else 0, clip=rounds)
         _falls(f"choco {label}", losses)
     dp = dict(sigma_p=DP_SIGMA)
+    server_x = {}
     for algo_name, plane, over in (("dsgd", None, {}),
                                    ("dp-sgd", None, dp),
                                    ("soteriafl", None, dp),
                                    ("soteriafl", "bf16", dp)):
         algo = _build(api, base.replace(algo=algo_name, plane_dtype=plane,
                                       **over), loss_fn)
+        kept = {}
         _, losses, ms, launches = run_counted(
             torch, ops, runtime, algo, source,
-            _init(algo, paper), short, short // 2)
+            _init(algo, paper), short, AGENTS_CHUNK,
+            on_chunk=_keep_gate_x(kept))
+        label = f"{algo_name} {plane or 'f32'}"
+        if label in AGENTS_SERVER_RUNS:
+            server_x[label] = {k: v.cpu() for k, v in kept["x"].items()}
         print(f"[baselines] {algo_name} {plane or 'f32'} {short} rounds: loss "
               f"{losses[0]:.6f} -> {losses[-1]:.6f}, {ms:.4f} ms/round, "
               f"launches {launches}")
@@ -970,7 +990,7 @@ def phase_baselines(torch, ops, api, data, runtime, paper, num=60000,
         # every sample's) and the DP ones take the mean and noise once
         expect_launches(algo_name, launches, clip=short,
                         mean_noise=0 if algo_name == "dsgd" else short)
-    return choco
+    return choco, server_x
 
 
 def _wire_variants(torch, ops, ref):
@@ -2872,12 +2892,14 @@ CKPT_SCHEDULE = "rotate:ring+complete+star"      # period 3
 CKPT_ROUNDS, CKPT_AT = 8, 4                      # 4 % 3 = 1: mid-period
 
 
-def _fleet_problem(api, data, n):
+def _fleet_problem(api, data, n, group=None):
     """Section 5.1's logreg on Dirichlet(0.3) shards of 16 samples an
-    agent, batch 4 (``benchmarks/fleet_ablation.py``), and its spec."""
+    agent, batch 4 (``benchmarks/fleet_ablation.py``), and its spec; under
+    an agent ``group`` the source draws the rank's block of agents."""
     x, y = data.a9a_like(n * FLEET_SHARD, 123, seed=0)
     source = data.dirichlet_source(x, y, n_agents=n, batch=FLEET_BATCH,
-                                   alpha=0.3, seed=0, device=DEVICE)
+                                   alpha=0.3, seed=0, device=DEVICE,
+                                   group=group)
     spec = api.ExperimentSpec(algo="clip21", n_agents=n,
                               topology="exponential",
                               topology_weights="metropolis",
@@ -3044,8 +3066,10 @@ def phase_fleet_runs(torch, ops, ref, api, data, runtime, flatten,
     repeated from the same start with the path's kernel wrappers
     (``FLEET_PLAIN``) swapped for their plain versions on the same CUDA
     tensors: the final state must be bitwise the kernels' and the plain
-    run must launch no kernel."""
+    run must launch no kernel.  -> (each run's final x on the CPU: phase
+    15's twins; each run's ms a round)."""
     source, spec = _fleet_problem(api, data, FLEET_N)
+    final_x, ms_round = {}, {}
     for name, rounds in FLEET_ROUNDS.items():
         t0 = time.perf_counter()
         algo = api.build(spec.replace(
@@ -3056,6 +3080,8 @@ def phase_fleet_runs(torch, ops, ref, api, data, runtime, flatten,
         state, losses, ms, counts = run_counted(
             torch, ops, runtime, algo, source, state, rounds, FLEET_CHUNK)
         x = state.base.x if hasattr(state, "base") else state.x
+        final_x[name] = {k: v.cpu() for k, v in x.items()}
+        ms_round[f"n={FLEET_N} {name}"] = ms
         plane = flatten.flat_spec(x).plane_shape
         plane_bytes = plane[0] * plane[1] * 4
         useful = sum(v[0].numel() for v in x.values()) * FLEET_N * 4
@@ -3124,6 +3150,7 @@ def phase_fleet_runs(torch, ops, ref, api, data, runtime, flatten,
                   for k, v in planes.items() if k in want))
         profile_rounds(torch, runtime, algo, source, state, 8,
                        f"fleet {name} n={FLEET_N}")
+    return final_x, ms_round
 
 
 def phase_fleet_coo(torch, fleet):
@@ -3174,17 +3201,18 @@ def phase_fleet_coo(torch, fleet):
 
 def phase_fleet_below_gate(torch, ops, api, data, runtime, tree_leaves):
     """n = 256 (the gate) on the exponential graph: the fleet run's final
-    state bitwise the per-device engine's, on the card."""
+    state bitwise the per-device engine's, on the card.  -> (the fleet
+    run's final x on the CPU: phase 15's twin; its ms a round)."""
     source, spec = _fleet_problem(api, data, FLEET_BELOW)
     spec = spec.replace(algo="porter-gc")
-    states = {}
+    states, ms_round = {}, {}
     for fleet_on in (False, True):
         algo = api.build(spec.replace(fleet=fleet_on), logreg_loss,
                          device=DEVICE)
         state, losses, ms, counts = run_counted(
             torch, ops, runtime, algo, source, algo.init(
                 _logreg_params(torch)), FLEET_BELOW_ROUNDS, 10)
-        states[fleet_on] = state
+        states[fleet_on], ms_round[fleet_on] = state, ms
         print(f"[fleet] n={FLEET_BELOW} fleet={fleet_on} porter-gc "
               f"{FLEET_BELOW_ROUNDS} rounds: mixer "
               f"{getattr(getattr(algo.mixer, 'budget', None), 'executor', 'dense')}, "
@@ -3196,6 +3224,7 @@ def phase_fleet_below_gate(torch, ops, api, data, runtime, tree_leaves):
     if not same:
         raise AssertionError("the fleet below the gate is not the per-device "
                              "engine's")
+    return {k: v.cpu() for k, v in states[True].x.items()}, ms_round[True]
 
 
 def _resume_args(spec):
@@ -4114,7 +4143,8 @@ def phase_lm_dp(torch, ops, ref, runtime, steps, data, configs, models,
                 train, api, clipping, tree_leaves):
     """PORTER-DP on the full-width cell: launches, ms a round, peak memory,
     the busy share, the kernels bitwise on a round's own planes, c = 1
-    against c = 2, the smoke config card vs CPU, and the example."""
+    against c = 2, the smoke config card vs CPU (the example runs beside
+    phase 15's MLP spawn)."""
     from repro_torch.tree import tree_map
     c, d = LM_RUN, LM_DP
     cfg = _lm_cfg(configs)
@@ -4217,13 +4247,12 @@ def phase_lm_dp(torch, ops, ref, runtime, steps, data, configs, models,
     torch.cuda.empty_cache()
     smoke = _lm_dp_smoke(torch, ops, configs, models, data, clipping,
                          tree_leaves, sigma_p)
-    example = _lm_dp_example(torch)
     return {"ms_round": ms, "launches": launches, "peak_bytes": peak,
             "chunk": chunk, "per_round": per_round, "sigma_p": sigma_p,
             "clip_round": launches["clip"] // d["rounds"],
             "mean_noise_round": launches["mean_noise"] // d["rounds"],
             "checked": checked, "rise_c1": rises[1], "rise_c2": rises[2],
-            "profile": prof, "smoke_err": smoke, "example_s": example}
+            "profile": prof, "smoke_err": smoke}
 
 
 def _lm_dp_smoke(torch, ops, configs, models, data, clipping, tree_leaves,
@@ -4271,25 +4300,40 @@ def _lm_dp_smoke(torch, ops, configs, models, data, clipping, tree_leaves,
     return err
 
 
-def _lm_dp_example(torch):
-    """``examples/private_decentralized_lm_torch.py --steps N`` on the card
-    in a process of its own (it finds the kernels already built)."""
-    t0 = time.perf_counter()
-    run = subprocess.run(
+def _lm_dp_example_start():
+    """Start ``examples/private_decentralized_lm_torch.py --steps N`` on
+    the card in a process of its own (it finds the kernels already built):
+    -> the handle :func:`_lm_dp_example_result` takes.  The script starts
+    it beside phase 15's MLP spawn, whose ranks leave this process idle."""
+    proc = subprocess.Popen(
         [sys.executable, str(ROOT / "examples" /
                              "private_decentralized_lm_torch.py"),
          "--steps", str(LM_DP["example_steps"])], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        capture_output=True, text=True, timeout=600)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def _lm_dp_example_result(handle):
+    """Wait for the example (600 s at most), print its first and last
+    lines and fail unless it exited 0: -> its seconds."""
+    proc, t0 = handle
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     took = time.perf_counter() - t0
-    lines = [line for line in run.stdout.splitlines() if line.strip()]
+    lines = [line for line in out.splitlines() if line.strip()]
     for line in lines[:1] + lines[-2:]:
         print(f"[lm-dp] example: {line}")
     print(f"[lm-dp] examples/private_decentralized_lm_torch.py --steps "
-          f"{LM_DP['example_steps']}: exit {run.returncode} in {took:.1f} s")
-    if run.returncode != 0:
-        raise AssertionError(f"lm-dp: the example exited {run.returncode}: "
-                             f"{run.stderr[-2000:]}")
+          f"{LM_DP['example_steps']}: exit {proc.returncode} in {took:.1f} s"
+          " (beside phase 15's MLP spawn)")
+    if proc.returncode != 0:
+        raise AssertionError(f"lm-dp: the example exited {proc.returncode}: "
+                             f"{err[-2000:]}")
     return took
 
 
@@ -4827,10 +4871,11 @@ def _agents_fault_run(runtime, algo, source, state, group):
     return state
 
 
-def agents_mlp_rank(group, labels):
+def agents_mlp_rank(group, labels, servers=()):
     """One rank of phase 15's MLP spawn: every run of ``labels`` with this
-    rank's agent, then its checks.  -> {label: report}; rank 0's reports
-    carry the gathered final x (on the CPU)."""
+    rank's agent, then its checks, then every server run of ``servers``
+    with this rank's client (:func:`_agents_server`).  -> {label: report};
+    rank 0's reports carry the gathered final x (on the CPU)."""
     import torch
     from repro_torch import api, data
     from repro_torch.kernels import ops
@@ -4900,38 +4945,47 @@ def agents_mlp_rank(group, labels):
         if group.index == 0:
             print(f"[agents] rank 0 finished {label}: {rounds} rounds, "
                   f"{ms:.3f} ms/round", flush=True)
+    for label in servers:
+        out[label] = _agents_server(torch, group, label)
     return out
 
 
 def phase_agents_mlp(torch, ops, api, data, runtime, paper, mesh,
-                     tree_leaves):
+                     tree_leaves, server_x):
     """Phase 15 (a): the MLP and the quickstart with each of the 10 agents
     a process on the card (gloo, staged through host buffers), one spawn
-    for every run, against the same runs on one card."""
+    for every run, against the same runs on one card; (c) in the same
+    spawn DP-SGD and SoteriaFL with one client a rank against phase 4's
+    runs (``server_x``: their x after round AGENTS_GATE_ROUND).  The
+    same runs on one card run here while the ranks run (their ms a round
+    timed beside the spawn)."""
     labels = list(AGENTS_RUNS)
-    one_card = {}
-    for label in labels:
-        problem, over, rounds = AGENTS_RUNS[label]
-        spec, (x, y), loss_fn, params = _agents_spec(api, data, paper,
-                                                     problem, over)
-        xs, ys = data.shard_to_agents(x, y, AGENTS_RANKS)
-        source = data.minibatch_source(xs, ys, batch=8, device=DEVICE)
-        algo = _build(api, spec, loss_fn)
-        kept = {}
-        state, losses, ms, launches = run_counted(
-            torch, ops, runtime, algo, source, algo.init(params(torch,
-                                                                DEVICE)),
-            rounds, min(AGENTS_CHUNK, rounds // 2),
-            on_chunk=_keep_gate_x(kept))
-        one_card[label] = (state, kept["x"], losses, ms, spec, loss_fn,
-                           (xs, ys))
-    t0 = time.perf_counter()
-    ranks = mesh.spawn_agents(agents_mlp_rank, AGENTS_RANKS, (labels,),
-                              device=DEVICE, timeout_s=AGENTS_TIMEOUT_S)
-    wall = time.perf_counter() - t0
+
+    def one_card_runs():
+        one_card = {}
+        for label in labels:
+            problem, over, rounds = AGENTS_RUNS[label]
+            spec, (x, y), loss_fn, params = _agents_spec(api, data, paper,
+                                                         problem, over)
+            xs, ys = data.shard_to_agents(x, y, AGENTS_RANKS)
+            source = data.minibatch_source(xs, ys, batch=8, device=DEVICE)
+            algo = _build(api, spec, loss_fn)
+            kept = {}
+            state, losses, ms, launches = run_counted(
+                torch, ops, runtime, algo, source,
+                algo.init(params(torch, DEVICE)), rounds,
+                min(AGENTS_CHUNK, rounds // 2), on_chunk=_keep_gate_x(kept))
+            one_card[label] = (state, kept["x"], losses, ms, spec, loss_fn,
+                               (xs, ys))
+        return one_card
+    one_card, ranks, wall = _spawn_while(
+        mesh, agents_mlp_rank, AGENTS_RANKS,
+        (labels, list(AGENTS_SERVER_RUNS)), one_card_runs,
+        timeout_s=AGENTS_TIMEOUT_S)
     print(f"[agents] MLP spawn: {AGENTS_RANKS} ranks on one {DEVICE} "
           f"device ({TRANSPORT_NOTE[DEVICE]}), "
-          f"{len(labels)} runs, {wall:.1f} s from spawn to join")
+          f"{len(labels) + len(AGENTS_SERVER_RUNS)} runs, {wall:.1f} s from "
+          "spawn to join (the one-card runs made beside it)")
     report = {}
     for label in labels:
         (state, gate_x, losses, ms_one, spec, loss_fn,
@@ -4959,7 +5013,8 @@ def phase_agents_mlp(torch, ops, api, data, runtime, paper, mesh,
               f"ms a round: "
               f"{ {k: round(v, 3) for k, v in rep0['transport_ms'].items()} }"
               f") against "
-              f"{ms_one:.4f} on one card; loss {rep0['losses'][0]:.6f} -> "
+              f"{ms_one:.4f} on one card (timed beside the spawn); loss "
+              f"{rep0['losses'][0]:.6f} -> "
               f"{rep0['losses'][-1]:.6f} (one card {losses[-1]:.6f}); x max "
               f"|diff| after round {AGENTS_GATE_ROUND} {gate} (tolerance "
               f"{tol}), at the end {diff} (bitwise {same}); exchange "
@@ -5004,6 +5059,7 @@ def phase_agents_mlp(torch, ops, api, data, runtime, paper, mesh,
                              bitwise=same, launches=rep0["launches"],
                              rounds=rounds, bytes=rep0["bytes"][0],
                              gate_x_diff=gate, fault_x_diff=fault)
+    report["servers"] = _server_gates(ranks, server_x)
     return report
 
 
@@ -5036,14 +5092,20 @@ def agents_lm_rank(group, ref_dir):
     other operand is the round's own), then from a fresh init the free
     first round, each held against the one-card cell's x, then
     AGENTS_LM["packed"] rounds; on the ring, the first round and
-    AGENTS_LM["ring"] more.  It starts once :func:`_spawn_beside` has
-    written the one-card references."""
+    AGENTS_LM["ring"] more.  First, while the parent makes the one-card
+    references, phase 10's fleet with this rank's block of agents
+    (:func:`agents_fleet_rank`); then it waits until :func:`_spawn_beside`
+    has written the references."""
     import torch
     from repro_torch import configs, data
     from repro_torch.kernels import ops
     from repro_torch.launch import runtime, steps
     from repro_torch.tree import tree_flatten, tree_leaves
-    _await_refs(ref_dir)
+    t0 = time.perf_counter()
+    fleet = agents_fleet_rank(group)
+    torch.cuda.empty_cache()         # the fleet's blocks, before the cell's
+    fleet_s = time.perf_counter() - t0
+    await_s = _await_refs(ref_dir)
     c, dev = LM_RUN, group.device
     cfg = _lm_cfg(configs)
     torch.cuda.reset_peak_memory_stats()
@@ -5098,14 +5160,17 @@ def agents_lm_rank(group, ref_dir):
         del state, setup, source
         torch.cuda.empty_cache()
     out["peak"] = torch.cuda.max_memory_allocated()
+    out.update(fleet=fleet, fleet_s=fleet_s, await_s=await_s)
     return out
 
 
 def phase_agents_lm(torch, ops, runtime, steps, data, configs, mesh,
-                    tree_leaves):
+                    tree_leaves, fleet_x, fleet_ms):
     """Phase 15 (b): phase 12's full-width tinyllama cell with each of its
     4 agents a process on the card: the one-card cell's first round kept
-    as the reference, made while the ranks start."""
+    as the reference, made while the ranks start; (d) in the same spawn,
+    phase 10's fleet runs with the fleet axis over the 4 ranks, against
+    phase 10's final x (``fleet_x``; ``fleet_ms``: its ms a round)."""
     c = LM_RUN
     cfg = _lm_cfg(configs)
     ref_dir = ROOT / "build" / "agents_lm"
@@ -5182,7 +5247,472 @@ def phase_agents_lm(torch, ops, runtime, steps, data, configs, mesh,
     if not fault > AGENTS_LM["free_tol"]:
         raise AssertionError(f"agents LM: an unchanged x reads {fault}, "
                              "within the free round's tolerance")
+    print(f"[agents] fleet runs took {ranks[0]['fleet_s']:.1f} s on rank 0, "
+          f"beside the LM references; then it waited "
+          f"{ranks[0]['await_s']:.1f} s for them")
+    out["fleet"] = _fleet_gates([r["fleet"] for r in ranks], fleet_x,
+                                fleet_ms)
+    out["fleet_s"] = ranks[0]["fleet_s"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15 (c, d): the server algorithms with their clients as processes
+# (in the MLP spawn) and phase 10's fleet with the fleet axis over the LM
+# spawn's 4 ranks
+# ---------------------------------------------------------------------------
+
+# label -> (spec overrides, rounds): phase 4's DP-SGD and SoteriaFL runs
+# (the same MLP, data, batch 8 and seed 0; the server algorithms resolve
+# no topology), one client a rank; phase 4's run is each one's twin
+AGENTS_SERVER_RUNS = {
+    "dp-sgd f32": (dict(algo="dp-sgd", sigma_p=DP_SIGMA), 50),
+    "soteriafl f32": (dict(algo="soteriafl", sigma_p=DP_SIGMA), 50),
+    "soteriafl bf16": (dict(algo="soteriafl", sigma_p=DP_SIGMA,
+                            plane_dtype="bf16"), 40),
+}
+# the planted fault: at round AGENTS_GATE_ROUND // 2 the client of rank
+# ``rank`` has its upload dropped (zeros in its place in the server's
+# all-gather: DP-SGD's clipped rows, SoteriaFL's c)
+AGENTS_SERVER_FAULT = dict(rank=3, runs=tuple(AGENTS_SERVER_RUNS))
+# free x after AGENTS_GATE_ROUND against phase 4's one-card run: each
+# limit lies between the sound run's reading and the planted fault's on
+# an H100 80GB HBM3 (PERF.md §6: 2.98e-8 / 4.13e-4 for DP-SGD, 8.20e-8
+# / 1.52e-2 for SoteriaFL f32, 0.0 / 1.64e-2 under bf16); a rank's clipped
+# rows or client gradient are not bitwise the one-card ones (other cuBLAS
+# products for 8 rows than for 80, for one client than for ten)
+AGENTS_SERVER_TOL = {"dp-sgd f32": 1e-5, "soteriafl f32": 1e-4,
+                     "soteriafl bf16": 2e-4}
+# n -> {algorithm: rounds}: phase 10's fleet runs (its problem, spec,
+# seed and chunks), k = n / 4 agents a rank; phase 10's final x is each
+# one's twin
+AGENTS_FLEET = {FLEET_N: dict(FLEET_ROUNDS),
+                FLEET_BELOW: {"porter-gc": FLEET_BELOW_ROUNDS}}
+AGENTS_FLEET_CHUNK = {FLEET_N: FLEET_CHUNK, FLEET_BELOW: 10}
+# the planted fault: at half the rounds rank ``rank``'s block of x is left
+# as it was before the round
+AGENTS_FLEET_FAULT = dict(rank=3, runs=((FLEET_N, "porter-gc"),
+                                        (FLEET_BELOW, "porter-gc")))
+# the fleet's final x against phase 10's: between the sound reading and
+# the planted fault's on an H100 80GB HBM3 (PERF.md §6: 0.0 at n =
+# 4096, 8.94e-8 at 256; faults 8.51e-3 and 9.85e-3)
+AGENTS_FLEET_TOL = 1e-4
+
+
+class _AgentChecks(_DpChecks):
+    """``_DpChecks`` on a rank (printing nothing): :meth:`verdict` -> (all
+    calls bitwise, each kernel's count)."""
+
+    TAG = "agents"
+
+    def verdict(self):
+        ok = bool(self.calls) and all(c[3] for c in self.calls)
+        counts = {}
+        for name, *_ in self.calls:
+            key = "mean_noise" if name.startswith("mean_noise") else name
+            counts[key] = counts.get(key, 0) + 1
+        return ok, counts
+
+
+def _tensor_rows_bitwise(torch, group, want, got, tree_leaves):
+    """Every tensor leaf of ``got`` (this rank's) bitwise this rank's rows
+    of ``want``'s (one card's); ``rows=False`` leaves (a server's x)
+    whole."""
+    ok = True
+    for a, b in zip(tree_leaves(want), tree_leaves(got)):
+        if isinstance(a, torch.Tensor):
+            a = a if a.shape == b.shape else group.rows(a)
+            ok = ok and bit_equal(torch, a, b)
+    return ok
+
+
+def _server_forced(torch, group, spec, algo, loss_fn, params, xs, ys,
+                   source):
+    """Round 0 on one card inside the rank (the twin: all ten clients) and
+    on the ranks with the twin's gradient operand forced: DP-SGD's clipped
+    per-sample rows (``clipped=``), SoteriaFL's client DP gradients
+    (``grad_override=``); every other operand is the round's own.  ->
+    (the forced round's state bitwise the twin's, the rank's own operand
+    bitwise its rows of the twin's, the two rounds' wire bytes)."""
+    from repro_torch import api, data
+    from repro_torch.core import clipping
+    from repro_torch.launch import runtime
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = group.device
+
+    def gens():
+        return runtime.round_generators(0, 0, dev)
+    twin = api.build(spec, loss_fn, device=dev)
+    full = data.minibatch_source(xs, ys, batch=8, device=dev)(gens()[0], 0)
+    mine = source(gens()[0], 0)
+    x0 = params(torch, dev)
+    want, twin_m = twin.step(twin.init(x0), full, gens()[1])
+    r, b = group.index, 8
+    if spec.algo == "dp-sgd":
+        pooled = tree_map(lambda a: a.reshape((-1,) + a.shape[2:]), full)
+        rows, losses = clipping.per_sample_grads(loss_fn, x0, pooled, None)
+        plane = clipping._clipped_plane(rows, spec.tau, spec.clip_mode)[0]
+        tiles = plane.shape[0] // (group.n_agents * b)
+        rows_r = (plane[r * b * tiles:(r + 1) * b * tiles],
+                  losses[r * b:(r + 1) * b])
+        own, _ = clipping.per_sample_grads(
+            loss_fn, x0, tree_map(lambda a: a[0], mine), None)
+        own = clipping._clipped_plane(own, spec.tau, spec.clip_mode)[0]
+        operand = bit_equal(torch, own, rows_r[0])
+        got, m = algo.step(algo.init(x0), mine, gens()[1], clipped=rows_r)
+    else:
+        g, losses = clipping.dp_gradient(
+            loss_fn, x0, full, spec.tau, spec.sigma_p, gen=gens()[1],
+            mode=spec.clip_mode, agents="shared")
+        own, _ = clipping.dp_gradient(
+            loss_fn, x0, mine, spec.tau, spec.sigma_p, gen=gens()[1],
+            mode=spec.clip_mode, agents="shared", group=group)
+        operand = _tensor_rows_bitwise(torch, group, g, own, tree_leaves)
+        got, m = algo.step(algo.init(x0), mine, gens()[1],
+                           grad_override=(group.rows(losses),
+                                          tree_map(group.rows, g)))
+    same = _tensor_rows_bitwise(torch, group, want, got, tree_leaves)
+    return same, operand, (float(m["wire_bytes"]),
+                           float(twin_m["wire_bytes"]))
+
+
+def _server_fault_run(runtime, algo, source, state, group):
+    """The run to AGENTS_GATE_ROUND with AGENTS_SERVER_FAULT planted: at
+    round k = AGENTS_GATE_ROUND // 2 the fault rank's client upload is
+    dropped, zeros in its place in the server's all-gather (every tensor
+    of the message but the losses, its last)."""
+    import torch
+    rounds, k = AGENTS_GATE_ROUND, AGENTS_GATE_ROUND // 2
+    state, _ = runtime.run_chunked(algo, source, state, 0, k, chunk=k)
+    gather = group.all_gather
+
+    def dropped(tensors, axis=None):
+        return gather([torch.zeros_like(t) for t in tensors[:-1]]
+                      + [tensors[-1]], axis)
+    if group.index == AGENTS_SERVER_FAULT["rank"]:
+        group.all_gather = dropped
+    try:
+        state, _ = runtime.run_chunked(algo, source, state, 0, k + 1,
+                                       chunk=1, start=k)
+    finally:
+        group.__dict__.pop("all_gather", None)
+    state, _ = runtime.run_chunked(algo, source, state, 0, rounds,
+                                   chunk=AGENTS_CHUNK, start=k + 1)
+    return state.x
+
+
+def _agents_server(torch, group, label):
+    """One server run of AGENTS_SERVER_RUNS with this rank's client: the
+    forced first round, the free run (launches, ms, the transport, x after
+    AGENTS_GATE_ROUND and at the end), one more round with every kernel
+    call checked, the planted fault where AGENTS_SERVER_FAULT names it."""
+    from repro_torch import api, data
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import runtime
+    from repro_torch.models import paper
+    over, rounds = AGENTS_SERVER_RUNS[label]
+    spec, (x, y), loss_fn, params = _agents_spec(api, data, paper, "mlp",
+                                                 over)
+    dev = group.device
+    xs, ys = data.shard_to_agents(x, y, AGENTS_RANKS)
+    source = data.minibatch_source(xs, ys, batch=8, device=dev, group=group)
+    algo = api.build(spec, loss_fn, group=group)
+    t_run = time.perf_counter()
+    forced, operand, wire = _server_forced(torch, group, spec, algo,
+                                           loss_fn, params, xs, ys, source)
+    group.census.clear()
+    group.transport_s.clear()
+    kept = {}
+    state, losses, ms, launches = run_counted(
+        torch, ops, runtime, algo, source, algo.init(params(torch, dev)),
+        rounds, min(AGENTS_CHUNK, rounds // 2), on_chunk=_keep_gate_x(kept))
+    census = dict(group.census)
+    transport_ms = {k: 1e3 * v / rounds for k, v in group.transport_s.items()}
+    with _AgentChecks(torch, ops, ref) as checks:
+        g_batch, g_step = runtime.round_generators(0, rounds, dev)
+        algo.step(state, source(g_batch, rounds), g_step)
+    checked, checked_counts = checks.verdict()
+    fault = None
+    if label in AGENTS_SERVER_FAULT["runs"]:
+        fault = _server_fault_run(runtime, algo, source,
+                                  algo.init(params(torch, dev)), group)
+    host = lambda tree: {k: v.cpu() for k, v in tree.items()}
+    if group.index == 0:
+        print(f"[agents] rank 0 finished {label}: {rounds} rounds, "
+              f"{ms:.3f} ms/round", flush=True)
+    return dict(losses=losses, ms=ms, launches=launches, rounds=rounds,
+                seconds=time.perf_counter() - t_run,
+                census=census, transport_ms=transport_ms, forced=forced,
+                operand=operand, wire=wire, checked=checked,
+                checked_counts=checked_counts, x=host(state.x),
+                gate_x=host(kept["x"]) if group.index == 0 else None,
+                fault_x=(host(fault) if group.index == 0
+                         and fault is not None else None))
+
+
+def _server_gates(ranks, server_x):
+    """Phase 15 (c)'s gates over the ranks' reports of each server run."""
+    import torch
+    report = {}
+    for label, (over, rounds) in AGENTS_SERVER_RUNS.items():
+        reps = [r[label] for r in ranks]
+        rep0, twin = reps[0], server_x[label]
+        tol = AGENTS_SERVER_TOL[label]
+        gate = max(float((twin[k] - rep0["gate_x"][k]).abs().max())
+                   for k in twin)
+        fault = (None if rep0["fault_x"] is None else
+                 max(float((twin[k] - rep0["fault_x"][k]).abs().max())
+                     for k in twin))
+        same_x = all(bit_equal(torch, r["x"][k], rep0["x"][k])
+                     for r in reps for k in rep0["x"])
+        per_round = {k: v / rounds for k, v in rep0["launches"].items() if v}
+        gathers = rep0["census"].get("all-gather", 0) / rounds
+        share = sum(rep0["transport_ms"].values()) / rep0["ms"]
+        print(f"[agents] {label}: {rep0['seconds']:.1f} s on rank 0 (its "
+              f"forced, timed, checked and fault rounds); "
+              f"{rounds} rounds, one client a rank on "
+              f"{AGENTS_RANKS} processes, {rep0['ms']:.4f} ms/round on rank "
+              f"0 (transport, ms a round: "
+              f"{ {k: round(v, 3) for k, v in rep0['transport_ms'].items()} }"
+              f", {100 * share:.1f} % of the round); first round forced "
+              f"bitwise the one-card twin's on every rank "
+              f"{all(r['forced'] for r in reps)}; each rank's own "
+              f"{'clipped rows' if 'dp-sgd' in label else 'DP gradient'} "
+              f"bitwise its rows of the twin's "
+              f"{[r['operand'] for r in reps]}; x after round "
+              f"{AGENTS_GATE_ROUND} max |diff| {gate} from phase 4's one-card "
+              f"run (tolerance {tol}), planted fault (rank "
+              f"{AGENTS_SERVER_FAULT['rank']}'s upload dropped at round "
+              f"{AGENTS_GATE_ROUND // 2}) {fault}; x the same bits on every "
+              f"rank {same_x}; wire bytes rank / one card {rep0['wire']}; "
+              f"all-gathers a round {gathers}; launches a rank a round "
+              f"{per_round}; the checked round's calls bitwise "
+              f"{all(r['checked'] for r in reps)} {rep0['checked_counts']}; "
+              f"loss {rep0['losses'][0]:.6f} -> {rep0['losses'][-1]:.6f}")
+        if not finite(rep0["losses"]):
+            raise AssertionError(f"agents {label}: non-finite losses")
+        if not all(r["forced"] for r in reps):
+            raise AssertionError(f"agents {label}: the forced first round "
+                                 "differs from the one-card twin's")
+        if not same_x:
+            raise AssertionError(f"agents {label}: x differs across ranks")
+        if not gate <= tol:
+            raise AssertionError(f"agents {label}: x {gate} from one card "
+                                 f"after round {AGENTS_GATE_ROUND}")
+        if fault is not None and not fault > tol:
+            raise AssertionError(f"agents {label}: the planted fault reads "
+                                 f"{fault}, within the tolerance {tol}")
+        if rep0["wire"][0] != rep0["wire"][1] or gathers != 1:
+            raise AssertionError(f"agents {label}: wire bytes {rep0['wire']}"
+                                 f", {gathers} all-gathers a round")
+        for r in reps:
+            if not r["checked"]:
+                raise AssertionError(f"agents {label}: a kernel call differs "
+                                     "from its plain version")
+            expect_launches(f"agents {label} rank", r["launches"],
+                            clip=rounds, mean_noise=rounds)
+        report[label] = dict(ms=rep0["ms"], rounds=rounds,
+                             launches=rep0["launches"], gate_x_diff=gate,
+                             fault_x_diff=fault,
+                             transport_ms=rep0["transport_ms"],
+                             transport_share=share, seconds=rep0["seconds"],
+                             operand_bitwise=[r["operand"] for r in reps])
+    return report
+
+
+def _fleet_rank_exchange(torch, group, algo, twin):
+    """A mix (round 3 of a schedule) and a push of seeded inputs through
+    the fleet mixer on this rank's block against the one-card fleet
+    mixer, on the card: -> bitwise."""
+    from repro_torch.core.gossip import apply_mixer
+    from repro_torch.tree import tree_leaves, tree_map
+    n, dev = twin.spec.n_agents, group.device
+    gen = torch.Generator().manual_seed(17)
+    full = {"w": torch.randn(n, 123, generator=gen).to(dev),
+            "b": torch.randn(n, generator=gen).to(dev)}
+    dw = torch.rand(n, generator=gen).to(dev)
+    mine = tree_map(group.rows, full)
+    pairs = [(apply_mixer(twin.mixer, full, 3),
+              apply_mixer(algo.mixer, mine, 3)),
+             (twin.mixer.push(full, dw, 3),
+              algo.mixer.push(mine, group.rows(dw), 3))]
+    return all(bit_equal(torch, group.rows(a), b) for want, got in pairs
+               for a, b in zip(tree_leaves(want), tree_leaves(got)))
+
+
+def _fleet_forced(torch, group, algo, twin, source, one_source):
+    """Round 0 of the fleet on one card inside the rank (the twin, its
+    batch from ``one_source``) and on the ranks, both with the twin's
+    per-agent gradient forced (``grad_override``; every other operand the
+    round's own): -> the rank's state bitwise its rows of the twin's."""
+    from repro_torch.launch import runtime
+    from repro_torch.tree import tree_leaves, tree_map
+    from torch.func import grad_and_value, vmap
+    dev = group.device
+
+    def gens():
+        return runtime.round_generators(0, 0, dev)
+    full = one_source(gens()[0], 0)
+    state = twin.init(_logreg_params(torch))
+    x = state.base.x if hasattr(state, "base") else state.x
+    g, losses = vmap(grad_and_value(logreg_loss))(x, full)
+    want, _ = twin.step(state, full, gens()[1], grad_override=(losses, g))
+    got, _ = algo.step(algo.init(_logreg_params(torch)),
+                       source(gens()[0], 0), gens()[1],
+                       grad_override=(group.rows(losses),
+                                      tree_map(group.rows, g)))
+    return _tensor_rows_bitwise(torch, group, want, got, tree_leaves)
+
+
+def _fleet_fault_run(runtime, algo, source, state, group, rounds, chunk):
+    """The run with AGENTS_FLEET_FAULT planted: at round k = rounds // 2
+    the fault rank keeps its block of x from before the round."""
+    k = rounds // 2
+    state, _ = runtime.run_chunked(algo, source, state, 0, k, chunk=k)
+    x = state.base.x if hasattr(state, "base") else state.x
+    before = {name: leaf.clone() for name, leaf in x.items()}
+    state, _ = runtime.run_chunked(algo, source, state, 0, k + 1, chunk=1,
+                                   start=k)
+    if group.index == AGENTS_FLEET_FAULT["rank"]:
+        state = state._replace(x=before)
+    state, _ = runtime.run_chunked(algo, source, state, 0, rounds,
+                                   chunk=chunk, start=k + 1)
+    return state.x
+
+
+def agents_fleet_rank(group):
+    """Phase 15 (d) on one rank of the LM spawn: each run of AGENTS_FLEET
+    with this rank's block of k = n / 4 agents: the mixer's exchange and
+    the first round forced against the one-card twin, the free run
+    (launches, ms, collectives), one more round with every kernel call
+    checked, the planted fault, the final x gathered (rank 0 keeps it)."""
+    import torch
+    from repro_torch import api, data
+    from repro_torch.core.gossip import gather_blocks
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import runtime
+    out = {}
+    for n, runs in AGENTS_FLEET.items():
+        chunk = AGENTS_FLEET_CHUNK[n]
+        source, base = _fleet_problem(api, data, n, group=group)
+        one_source = _fleet_problem(api, data, n)[0]
+        for name, rounds in runs.items():
+            t_run = time.perf_counter()
+            label = f"n={n} {name}"
+            spec = base.replace(
+                algo=name, sigma_p=DP_SIGMA if name == "porter-dp" else 0.0)
+            algo = api.build(spec, logreg_loss, group=group)
+            twin = api.build(spec, logreg_loss, device=group.device)
+            exchange = _fleet_rank_exchange(torch, group, algo, twin)
+            forced = _fleet_forced(torch, group, algo, twin, source,
+                                   one_source)
+            del twin
+            group.census.clear()
+            group.transport_s.clear()
+            state, losses, ms, launches = run_counted(
+                torch, ops, runtime, algo, source,
+                algo.init(_logreg_params(torch)), rounds, chunk)
+            census = dict(group.census)
+            transport_ms = {k: 1e3 * v / rounds
+                            for k, v in group.transport_s.items()}
+            with _AgentChecks(torch, ops, ref) as checks:
+                g_batch, g_step = runtime.round_generators(0, rounds,
+                                                           group.device)
+                algo.step(state, source(g_batch, rounds), g_step)
+            checked, checked_counts = checks.verdict()
+            x = state.base.x if hasattr(state, "base") else state.x
+            rows = x["w"].shape[0]
+            full = dict(zip(x, (t.cpu() for t in gather_blocks(
+                group, list(x.values())))))
+            fault = None
+            if (n, name) in AGENTS_FLEET_FAULT["runs"]:
+                fx = _fleet_fault_run(runtime, algo, source,
+                                      algo.init(_logreg_params(torch)),
+                                      group, rounds, chunk)
+                fault = dict(zip(fx, (t.cpu() for t in gather_blocks(
+                    group, list(fx.values())))))
+            if group.index == 0:
+                print(f"[agents] rank 0 finished fleet {label}: {rounds} "
+                      f"rounds, {ms:.3f} ms/round", flush=True)
+            out[label] = dict(
+                n=n, name=name, rounds=rounds, rows=rows, ms=ms,
+                seconds=time.perf_counter() - t_run,
+                losses=losses, launches=launches, census=census,
+                mixes=algo.info.comm_rounds * rounds,
+                transport_ms=transport_ms, exchange=exchange, forced=forced,
+                checked=checked, checked_counts=checked_counts,
+                x=full if group.index == 0 else None,
+                fault_x=fault if group.index == 0 else None)
+    return out
+
+
+def _fleet_gates(ranks, fleet_x, ms_one):
+    """Phase 15 (d)'s gates over the ranks' fleet reports; ``ms_one``:
+    phase 10's ms a round of each run on one card, where timed."""
+    import torch
+    report = {}
+    for label, rep0 in ranks[0].items():
+        reps = [r[label] for r in ranks]
+        n, name, rounds = rep0["n"], rep0["name"], rep0["rounds"]
+        twin = fleet_x[n][name]
+        diff = max(float((twin[k] - rep0["x"][k]).abs().max()) for k in twin)
+        fault = (None if rep0["fault_x"] is None else
+                 max(float((twin[k] - rep0["fault_x"][k]).abs().max())
+                     for k in twin))
+        per_mix = rep0["census"].get("all-gather", 0) / rep0["mixes"]
+        per_round = {k: v / rounds for k, v in rep0["launches"].items() if v}
+        share = sum(rep0["transport_ms"].values()) / rep0["ms"]
+        one = ms_one.get(label)
+        print(f"[agents] fleet {label}: {rep0['seconds']:.1f} s on rank 0; "
+              f"{rounds} rounds, {rep0['rows']} "
+              f"agents a rank on {len(ranks)} processes, {rep0['ms']:.4f} "
+              f"ms/round on rank 0 ({n * 1e3 / rep0['ms']:.1f} agent-rounds "
+              f"a second; one card in phase 10: "
+              f"{'not timed' if one is None else f'{one:.4f} ms/round'}), "
+              f"transport {100 * share:.1f} % of the round "
+              f"{ {k: round(v, 3) for k, v in rep0['transport_ms'].items()} }"
+              f"; exchange bitwise {all(r['exchange'] for r in reps)}, first "
+              f"round forced bitwise {all(r['forced'] for r in reps)}; final "
+              f"x max |diff| {diff} from phase 10's one card (tolerance "
+              f"{AGENTS_FLEET_TOL}), planted fault (rank "
+              f"{AGENTS_FLEET_FAULT['rank']}'s block kept at round "
+              f"{rounds // 2}) {fault}; all-gathers a mix {per_mix}; "
+              f"launches a rank a round {per_round}; the checked round's "
+              f"calls bitwise {all(r['checked'] for r in reps)} "
+              f"{rep0['checked_counts']}; loss {rep0['losses'][0]:.6f} -> "
+              f"{rep0['losses'][-1]:.6f}")
+        if not finite(rep0["losses"]):
+            raise AssertionError(f"agents fleet {label}: losses")
+        if not (all(r["exchange"] for r in reps)
+                and all(r["forced"] for r in reps)):
+            raise AssertionError(f"agents fleet {label}: the exchange or the "
+                                 "forced first round differs from one card")
+        if not diff <= AGENTS_FLEET_TOL:
+            raise AssertionError(f"agents fleet {label}: x {diff} from one "
+                                 "card")
+        if fault is not None and not fault > AGENTS_FLEET_TOL:
+            raise AssertionError(f"agents fleet {label}: the planted fault "
+                                 f"reads {fault}")
+        if per_mix != 1:
+            raise AssertionError(f"agents fleet {label}: {per_mix} "
+                                 "all-gathers a mix")
+        want = dict(ef_track=rounds, ef_step=rounds)
+        if name != "clip21":
+            want["clip"] = rounds
+        if name == "porter-dp":
+            want["mean_noise"] = rounds
+        for r in reps:
+            if not r["checked"]:
+                raise AssertionError(f"agents fleet {label}: a kernel call "
+                                     "differs from its plain version")
+            expect_launches(f"agents fleet {label} rank", r["launches"],
+                            **want)
+        report[label] = dict(ms=rep0["ms"], rounds=rounds, rows=rep0["rows"],
+                             launches=rep0["launches"], x_diff=diff,
+                             fault_x_diff=fault, transport_share=share,
+                             seconds=rep0["seconds"],
+                             agent_rounds_per_s=n * 1e3 / rep0["ms"])
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -5739,6 +6269,32 @@ def _put_ref(torch, obj, path):
     os.replace(f"{path}.tmp", path)
 
 
+def _spawn_while(mesh, fn, world, args, work, **kw):
+    """Spawn ``world`` ranks of ``fn(group, *args)`` on a thread and run
+    ``work()`` here meanwhile.  -> (``work()``'s result, the ranks'
+    results, seconds from spawn to join); ``kw`` go to
+    ``mesh.spawn_agents``."""
+    import threading
+    box = {}
+
+    def spawn():
+        try:
+            box["ranks"] = mesh.spawn_agents(fn, world, tuple(args),
+                                             device=DEVICE, **kw)
+        except BaseException as e:   # raised below, on this thread
+            box["error"] = e
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=spawn, daemon=True)
+    thread.start()
+    try:
+        done = work()
+    finally:
+        thread.join()
+    if "error" in box:
+        raise box["error"]
+    return done, box["ranks"], time.perf_counter() - t0
+
+
 def _spawn_beside(mesh, fn, world, ref_dir, args, make_refs, **kw):
     """Spawn ``world`` ranks of ``fn(group, ref_dir, *args)``, which wait
     in :func:`_await_refs` before they touch the card, and meanwhile run
@@ -5748,33 +6304,21 @@ def _spawn_beside(mesh, fn, world, ref_dir, args, make_refs, **kw):
     result, the ranks' results, seconds from spawn to join); ``kw`` go to
     ``mesh.spawn_agents``."""
     import shutil
-    import threading
     ref_dir.mkdir(parents=True, exist_ok=True)
-    box = {}
 
-    def spawn():
-        try:
-            box["ranks"] = mesh.spawn_agents(fn, world,
-                                             (str(ref_dir),) + tuple(args),
-                                             device=DEVICE, **kw)
-        except BaseException as e:   # raised below, on this thread
-            box["error"] = e
-    t0 = time.perf_counter()
-    thread = threading.Thread(target=spawn, daemon=True)
-    thread.start()
-    try:
+    def work():
         try:
             refs = make_refs()
         except BaseException:
             (ref_dir / "failed").touch()
             raise
         (ref_dir / "ready").touch()
+        return refs
+    try:
+        return _spawn_while(mesh, fn, world, (str(ref_dir),) + tuple(args),
+                            work, **kw)
     finally:
-        thread.join()
         shutil.rmtree(ref_dir, ignore_errors=True)
-    if "error" in box:
-        raise box["error"]
-    return refs, box["ranks"], time.perf_counter() - t0
 
 
 def _tp_lm_rounds(torch, runtime, algo, source, state, start, rounds,
@@ -6685,7 +7229,7 @@ def main() -> int:
         torch, ops, api, data, runtime, paper, tree_leaves)
     print("[mlp] median ms/round: " + ", ".join(
         f"{b} {statistics.median(v):.4f}" for b, v in ms_per_round.items()))
-    choco = phase_baselines(torch, ops, api, data, runtime, paper)
+    choco, server_x = phase_baselines(torch, ops, api, data, runtime, paper)
 
     print(f"[time] phase 4 took {time.perf_counter() - t_phase:.1f} s")
     # phase 5: the bit-packed wire, its kernels and its path
@@ -6741,10 +7285,13 @@ def main() -> int:
     # phase 10: fleet-scale agents, and checkpoint / resume
     t10 = time.perf_counter()
     phase_fleet_kernels(torch, ops, ref, smooth_clip)
-    phase_fleet_runs(torch, ops, ref, api, data, runtime, flatten,
-                     tree_leaves)
+    fleet_x, fleet_ms = {}, {}
+    fleet_x[FLEET_N], fleet_ms = phase_fleet_runs(
+        torch, ops, ref, api, data, runtime, flatten, tree_leaves)
     phase_fleet_coo(torch, fleet)
-    phase_fleet_below_gate(torch, ops, api, data, runtime, tree_leaves)
+    below_x, fleet_ms[f"n={FLEET_BELOW} porter-gc"] = phase_fleet_below_gate(
+        torch, ops, api, data, runtime, tree_leaves)
+    fleet_x[FLEET_BELOW] = {"porter-gc": below_x}
     phase_checkpoint(torch, api, data, runtime, paper, tree_leaves,
                      checkpoint, train)
     print(f"[fleet] phase took {time.perf_counter() - t10:.1f} s")
@@ -6801,10 +7348,19 @@ def main() -> int:
     # phase 15: agents as processes (the MLP's 10 and the LM cell's 4
     # ranks on the card)
     t15 = time.perf_counter()
-    agents = phase_agents_mlp(torch, ops, api, data, runtime, paper, mesh,
-                              tree_leaves)
+    # phase 13's example runs in its own process beside the MLP spawn
+    example = _lm_dp_example_start()
+    try:
+        agents = phase_agents_mlp(torch, ops, api, data, runtime, paper,
+                                  mesh, tree_leaves, server_x)
+    except BaseException:
+        example[0].kill()
+        example[0].communicate()
+        raise
+    lm_dp["example_s"] = _lm_dp_example_result(example)
     agents["lm"] = phase_agents_lm(torch, ops, runtime, steps, data,
-                                   configs, mesh, tree_leaves)
+                                   configs, mesh, tree_leaves, fleet_x,
+                                   fleet_ms)
     print(f"[agents] phase took {time.perf_counter() - t15:.1f} s")
     print("[agents] figures " + json.dumps(agents, default=str))
 
@@ -6991,6 +7547,19 @@ def main() -> int:
             run = agents[label]
             rec["launches_agents_rank_round"] = (
                 run["launches"][rec["name"]] / run["rounds"])
+    # phase 15 (c, d): each kernel's launches a round on one rank of the
+    # fleet (k agents a rank) and on one client's rank of a server run
+    for rec in record:
+        fleet_counts = {label: run["launches"].get(rec["name"], 0)
+                        / run["rounds"]
+                        for label, run in agents["lm"]["fleet"].items()}
+        if any(fleet_counts.values()):
+            rec["launches_fleet_rank_round"] = fleet_counts
+        server_counts = {label: run["launches"].get(rec["name"], 0)
+                         / run["rounds"]
+                         for label, run in agents["servers"].items()}
+        if any(server_counts.values()):
+            rec["launches_server_rank_round"] = server_counts
     # phase 16: each kernel's launches a round on one rank of the model
     # axis (the smoke grid) and on the LM cell's ranks (PORTER-GC, DP)
     for rec in record:

@@ -31,7 +31,8 @@ simulated fleet of n = 1k-100k agents on one card, mixed by
 ``n <= FLEET_DENSE_GATE`` (bitwise the per-device engine) and the sparse
 COO slots above it, where the topology and schedule builders also switch
 to the sparse fleet generators (:func:`resolve_fleet_topology`,
-:func:`resolve_fleet_schedule`).
+:func:`resolve_fleet_schedule`).  Under ``group=`` the fleet axis is
+sharded over the group's P ranks, k = n / P agents a rank.
 
 Registered here, all eleven of the reference's algorithms: ``porter-gc``,
 ``porter-dp``, ``beer``, ``porter-adam``, the paper's baselines ``dsgd``,
@@ -52,8 +53,10 @@ engine, takes the layout itself), the clip across shards in every mode
 decentralized algorithm of the registry runs there, with any
 ``remat_policy`` and any wire codec (a qsgd codec draws each shard's
 block of one global draw: :func:`repro_torch.core.gossip.make_mixer`).
-The server algorithms (dp-sgd, soteriafl) and the fleet axis refuse a
-group: ROADMAP queue 1 item 12(c).  The spec keeps the reference's field
+The server algorithms (dp-sgd, soteriafl) run with one client a rank (the
+server's mean or pooled batch one all-gather, the server's state the same
+on every rank) and the fleet with n / P agents a rank; beside a model axis
+both are ROADMAP queue 1 item 20.  The spec keeps the reference's field
 names.  ``remat_policy`` (None, ``"full"``, ``"dots"``) wraps the loss once
 in ``build`` for every algorithm (:mod:`repro_torch.core.remat`).
 """
@@ -477,21 +480,27 @@ def resolve_wire_format(spec: ExperimentSpec):
 
 
 def _check_group(spec: ExperimentSpec, group) -> None:
-    """Refuse what the agents-as-processes executors do not run yet."""
+    """Refuse what the agents-as-processes executors do not run: a server
+    algorithm or a fleet beside a model axis, a fleet whose n does not
+    divide over the ranks, any other count than one agent (or client) a
+    rank."""
     if group is None:
         return
-    info = algorithm_info(spec.algo)
-    if not info.decentralized:
+    server = not algorithm_info(spec.algo).decentralized
+    if (server or spec.fleet) and getattr(group, "model_size", 1) > 1:
+        what = (f"{spec.algo}, a server algorithm," if server
+                else "the fleet axis")
         raise ValueError(
-            f"{spec.algo} is a server algorithm: it pools or averages every "
-            "client's upload on one server and has no gossip to run across "
-            "processes (ROADMAP queue 1 item 12(c)); build it without "
-            "group=")
-    if spec.fleet:
-        raise ValueError(
-            "fleet mode holds the whole fleet axis on one card; the fleet "
-            "axis over processes is ROADMAP queue 1 item 12(c) -- build it "
-            "without group=")
+            f"{what} does not run beside a model axis (model_size "
+            f"{group.model_size}): ROADMAP queue 1 item 20 -- build it on a "
+            "grid without one")
+    if spec.fleet and not server:
+        if spec.n_agents % group.n_agents:
+            raise ValueError(
+                f"a fleet of spec.n_agents={spec.n_agents} does not divide "
+                f"over the group's {group.n_agents} ranks (k = n / ranks "
+                "agents a rank)")
+        return
     if spec.n_agents != group.n_agents:
         raise ValueError(f"spec.n_agents={spec.n_agents} but the group has "
                          f"{group.n_agents} ranks: one agent a rank")
@@ -523,8 +532,9 @@ def build_engine(spec: ExperimentSpec, *,
     ``schedule`` is given) and backend.  ``compress_fn``: optional
     ``(gen, tree) -> tree`` compression override, refused beside a codec.
     ``group``: an agent group (:mod:`repro_torch.launch.mesh`), one agent a
-    rank: the executors across processes; with a model axis ``leaf_specs``
-    (the agent axes first) give the per-shard layout."""
+    rank (a fleet's n / ranks): the executors across processes; with a
+    model axis ``leaf_specs`` (the agent axes first) give the per-shard
+    layout."""
     _check_group(spec, group)
     return _engine(spec, topology, schedule, compress_fn, group,
                    _sharded(group, leaf_specs))
@@ -538,7 +548,8 @@ def _engine(spec, topology, schedule, compress_fn, group, sharded):
         top = resolve_fleet_topology(spec) if topology is None else topology
         sched = (resolve_fleet_schedule(spec, top) if schedule is None
                  else schedule)
-        mixer = make_fleet_mixer(sched if sched is not None else top)
+        mixer = make_fleet_mixer(sched if sched is not None else top,
+                                 group=group)
     else:
         top = resolve_topology(spec) if topology is None else topology
         sched = resolve_schedule(spec, top) if schedule is None else schedule
@@ -566,13 +577,16 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
     topology: pre-built Topology (or, under ``fleet=True``, FleetTopology)
       override.
     compress_fn: optional ``(gen, tree) -> tree`` compression override for
-      the decentralized compressed algorithms (not under a codec).
+      the compressed algorithms (not under a codec).
     group: an :class:`repro_torch.launch.mesh.AgentGroup`, one agent a
       process (the reference's ``mesh=``): the gossip runs across the
       group's ranks, ``init(params)`` returns this rank's agent row, and
       ``step`` takes this rank's batch row and its round's generator (the
-      same seed on every rank) and reports metrics over all agents.  The
-      server algorithms (dp-sgd, soteriafl) and fleet mode refuse it.
+      same seed on every rank) and reports metrics over all agents.  Under
+      ``fleet=True`` a rank holds k = n / ranks agent rows (n must divide);
+      a server algorithm (dp-sgd, soteriafl) takes one client a rank and
+      keeps the server's state, the same on every rank.  Neither runs
+      beside a model axis (ROADMAP queue 1 item 20).
     leaf_specs: the parameters' specs with the agent axes first (a tree of
       :class:`repro_torch.nn.module.Spec`), needed on a grid with a model
       axis: ``loss_fn`` is then the tensor-parallel loss of this rank's
@@ -608,16 +622,19 @@ def build(spec: ExperimentSpec, loss_fn, *, device=None,
         comp, mixer = engine.compressor, engine.mixer
     elif info.decentralized:
         if spec.fleet:
-            mixer = make_fleet_mixer(sched if sched is not None else top)
+            mixer = make_fleet_mixer(sched if sched is not None else top,
+                                     group=group)
         else:
             mixer = make_mixer(sched if sched is not None else top,
                                spec.gossip_mode, frac=spec.frac, group=group)
     elif info.compressed:
-        # server/client: compression without gossip
+        # server/client: compression without gossip, the clients a group
         comp = resolve_compressor(spec)
         engine = CommRound(compressor=comp, mixer=None,
+                           compress_fn=compress_fn,
                            backend=spec.comm_backend,
-                           plane_dtype=resolve_plane_dtype(spec))
+                           plane_dtype=resolve_plane_dtype(spec),
+                           clients=group)
     if info.decentralized:
         gamma = (resolve_gamma(spec, top, comp, sched) if info.compressed
                  else (1.0 if spec.gamma is None else spec.gamma))
@@ -641,17 +658,18 @@ def _bind_init(spec: ExperimentSpec, r: Resolved, init_fn):
     """Uniform ``init(params, n_agents=None, w=None)``: the params go to the
     build's device first.  ``w`` passes through as given: every init
     broadcasts one replica, so W X^0 = X^0 needs no mix.  Under an agent
-    group the state holds this rank's row: ``n_agents`` (if given, all
-    agents) becomes 1 and the init functions that mix by ``w`` take the
-    group (:func:`_grouped`)."""
+    group the state holds this rank's rows: ``n_agents`` (if given, all
+    agents) becomes 1, or a fleet's k = n / ranks, and the init functions
+    that mix by ``w`` take the group (:func:`_grouped`)."""
 
     def init(params, n_agents: Optional[int] = None, w=None):
         n = spec.n_agents if n_agents is None else n_agents
         if r.group is not None:
-            if n != r.group.n_agents:
+            ranks = r.group.n_agents
+            if n % ranks or (n != ranks and not spec.fleet):
                 raise ValueError(f"init for {n} agents under a group of "
-                                 f"{r.group.n_agents} ranks")
-            n = 1
+                                 f"{ranks} ranks")
+            n //= ranks
         on_device = tree_map(
             lambda p: torch.as_tensor(p).to(r.device), params)
         return init_fn(on_device, n, w)
@@ -762,22 +780,25 @@ def _build_choco(spec, loss_fn, r):
 def _build_dpsgd(spec, loss_fn, r):
     tau = _require_tau(spec)
 
-    def step(state, batch, gen, noise=None):
-        # the registry feeds agent-stacked batches (n_agents, b, ...); the
-        # central server pools them into one batch of n*b samples
+    def step(state, batch, gen, noise=None, clipped=None):
+        # the registry feeds agent-stacked batches (n_agents, b, ...), under
+        # a group this rank's client's (1, b, ...); the central server
+        # pools them into one batch of n*b samples
+        rows = spec.n_agents if r.group is None else 1
         lead = {leaf.shape[0] for leaf in tree_leaves(batch)
                 if leaf.dim() >= 1}
-        if lead != {spec.n_agents}:
+        if lead != {rows}:
             raise ValueError(
                 f"dp-sgd consumes agent-stacked batches with leading dim "
-                f"n_agents={spec.n_agents}; got leading dims {sorted(lead)} "
-                "-- call repro_torch.core.baselines.dpsgd_step directly for "
-                "plain central batches")
+                f"{rows} (n_agents={spec.n_agents}, one client a rank under "
+                f"a group); got leading dims {sorted(lead)} -- call "
+                "repro_torch.core.baselines.dpsgd_step directly for plain "
+                "central batches")
         flat = tree_map(lambda leaf: leaf.reshape((-1,) + leaf.shape[2:])
                         if leaf.dim() >= 2 else leaf, batch)
         return BL.dpsgd_step(spec.eta, loss_fn, state, flat, gen, tau=tau,
                              clip_mode=spec.clip_mode, sigma_p=spec.sigma_p,
-                             noise=noise)
+                             noise=noise, group=r.group, clipped=clipped)
 
     # a single server replica: n_agents and w do not apply
     init = _bind_init(spec, r, lambda params, n, w: BL.dpsgd_init(params))

@@ -1,7 +1,8 @@
 """An agent's rows of agent-major tensors.
 
-Across processes (one agent a rank, :class:`repro_torch.launch.mesh.
-AgentGroup`) every buffer holds the rank's rows of the one-card tensor.
+Across processes (:class:`repro_torch.launch.mesh.AgentGroup`: one agent
+a rank, or a fleet's block of k = n / ranks agents) every buffer holds the
+rank's rows of the one-card tensor, rows ``[index * k, (index + 1) * k)``.
 :func:`agent_rows` slices them out; :func:`local_rows` is the draw sites'
 form: a rank draws the global shape from the round's generator and keeps
 its own rows, so a run across processes draws what the one-card run draws

@@ -19,6 +19,14 @@ parity tests inject the reference's).  Every DP gradient is
 ``clipping.dp_gradient``'s: one clip and one mean-plus-noise launch a
 chunk of samples.
 
+The server algorithms run with their clients as processes too (one
+client a rank of an agent group): SoteriaFL's server mean is one
+all-gather of the clients' uploads, DP-SGD's pooled batch one all-gather
+of each client's clipped per-sample rows
+(:func:`clipping.pooled_dp_gradient`).  The server's state is the same
+on every rank, and the one-card run's wherever each client's gradients
+are the same bits.
+
 Metrics: ``loss`` (mean agent loss), ``consensus_x`` (decentralized
 algorithms) and ``wire_bytes`` (model-level bytes per round), as device
 tensors.
@@ -31,11 +39,11 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.func import grad_and_value, vmap
 
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_flatten, tree_leaves, tree_map
 from . import clipping
 from .comm_round import CommRound, resolve_engine
 from .compression import Compressor
-from .gossip import MixFn, apply_mixer, gossip_wire_bytes
+from .gossip import MixFn, apply_mixer, gather_blocks, gossip_wire_bytes
 from .porter import LossFn, agent_metrics, replicas
 
 __all__ = [
@@ -104,7 +112,7 @@ def dsgd_step(eta: float, gamma: float, loss_fn: LossFn, mixer: MixFn,
     replacing the gradient oracle."""
     rows = tree_leaves(state.x)[0].shape[0]
     group = getattr(mixer, "group", None)
-    n = rows if group is None else group.n_agents
+    n = rows if group is None else group.n_agents * rows
     if grad_override is not None:
         losses, g = grad_override
     elif dp:
@@ -186,9 +194,24 @@ def dpsgd_init(params) -> DpSgdState:
 def dpsgd_step(eta: float, loss_fn: LossFn, state: DpSgdState, batch,
                gen: Optional[torch.Generator], tau: float = 1.0,
                clip_mode: str = "smooth", sigma_p: float = 0.0,
-               noise: Any = None) -> Tuple[DpSgdState, Metrics]:
-    g, loss = clipping.dp_gradient(loss_fn, state.x, batch, tau, sigma_p,
-                                   gen=gen, noise=noise, mode=clip_mode)
+               noise: Any = None, group=None, clipped=None
+               ) -> Tuple[DpSgdState, Metrics]:
+    """One server step on the pooled batch: x -= eta (mean of the
+    per-sample clipped gradients + sigma z).  ``group``: the clients as
+    processes, ``batch`` this rank's client's samples, ``x`` the same on
+    every rank (:func:`clipping.pooled_dp_gradient`; ``clipped`` forces
+    its per-sample oracle)."""
+    if group is None:
+        if clipped is not None:
+            raise ValueError("clipped= forces a rank's rows of the pooled "
+                             "batch: it needs the clients' group")
+        g, loss = clipping.dp_gradient(loss_fn, state.x, batch, tau,
+                                       sigma_p, gen=gen, noise=noise,
+                                       mode=clip_mode)
+    else:
+        g, loss = clipping.pooled_dp_gradient(
+            loss_fn, state.x, batch, tau, sigma_p, group, gen=gen,
+            noise=noise, mode=clip_mode, clipped=clipped)
     x = tree_map(lambda x0, gg: x0 - eta * gg, state.x, g)
     # one dense gradient upload to the server per round, at each buffer's
     # own dtype width
@@ -226,16 +249,29 @@ def soteria_step(eta: float, alpha_shift: float, loss_fn: LossFn,
                  compressor: Optional[Compressor], state: SoteriaState,
                  batch, gen: Optional[torch.Generator], tau: float = 1.0,
                  clip_mode: str = "smooth", sigma_p: float = 0.0,
-                 engine: Optional[CommRound] = None, noise: Any = None
-                 ) -> Tuple[SoteriaState, Metrics]:
+                 engine: Optional[CommRound] = None, noise: Any = None,
+                 grad_override=None) -> Tuple[SoteriaState, Metrics]:
     """SoteriaFL-SGD: clients send C(g_i - h_i); the server steps with
     h_bar + mean(c).  g_i is each client's per-sample-clipped, perturbed
-    gradient at the server model (LDP)."""
+    gradient at the server model (LDP).  Under the engine's ``clients``
+    group (one client a rank) ``h`` and ``batch`` are this rank's client's
+    row, the uploads ``c`` (and the clients' losses) are all-gathered in
+    one collective and every rank takes the one-card mean, so ``x`` and
+    ``h_bar`` stay the same on every rank.  ``grad_override``: ``(losses,
+    g)`` replacing the clients' DP gradients."""
     eng = resolve_engine(engine, None, compressor)
-    g, losses = clipping.dp_gradient(
-        loss_fn, state.x, batch, tau, sigma_p, gen=gen, noise=noise,
-        mode=clip_mode, agents="shared")
+    group = eng.group
+    if grad_override is None:
+        g, losses = clipping.dp_gradient(
+            loss_fn, state.x, batch, tau, sigma_p, gen=gen, noise=noise,
+            mode=clip_mode, agents="shared", group=group)
+    else:
+        losses, g = grad_override
     c, h = eng.shift(gen, g, state.h, scale=alpha_shift)
+    if group is not None:
+        leaves, treedef = tree_flatten(c)
+        *full, losses = gather_blocks(group, leaves + [losses])
+        c = treedef.unflatten(full)
     c_bar = tree_map(lambda cc: torch.mean(cc, dim=0), c)
     g_tilde = tree_map(torch.add, state.h_bar, c_bar)
     h_bar = tree_map(lambda hb, cb: hb + alpha_shift * cb, state.h_bar, c_bar)

@@ -55,6 +55,12 @@ reference's ``tree_clip`` over a model-sharded tree takes the global norm
 whatever the mode.  The DP path takes it for every chunk's per-sample
 rows, then
 ``mean_noise`` on the rank's shard with its slice of the one-card noise.
+
+DP-SGD with its clients as processes (:func:`pooled_dp_gradient`): each
+rank clips its own client's per-sample rows, the rows are all-gathered in
+rank order (the one-card pool's order) and every rank adds them onto one
+running sum: every rank's mean is the one-card mean wherever each
+clipped row is the same bits.
 """
 
 from __future__ import annotations
@@ -73,7 +79,7 @@ __all__ = ["smooth_clip", "piecewise_clip", "tree_global_norm", "tree_clip",
            "clip_factor", "stacked_clip", "cross_shard_sumsq",
            "cross_shard_clip",
            "SAMPLE_PLANE_BYTES", "sample_chunk", "per_sample_grads",
-           "clipped_grad_accumulate", "dp_gradient"]
+           "clipped_grad_accumulate", "dp_gradient", "pooled_dp_gradient"]
 
 ClipMode = Literal["smooth", "piecewise", "none"]
 
@@ -265,6 +271,33 @@ def per_sample_grads(loss_fn: Callable, params, batch, agents: Optional[str]):
     return rows, losses
 
 
+def _noise(gen: Optional[torch.Generator], noise, group=None, sharded=None):
+    """``z_of(mean, device)``: ``noise``, or z ~ N(0, 1) from ``gen`` leaf
+    by leaf in tree order, in the mean's shape and each leaf's dtype;
+    under an agent ``group`` this rank's rows of the one-card draw (or of
+    ``noise``, given at the one-card shape), under ``sharded`` its model
+    shard's block of them."""
+
+    def z_of(mean, device):
+        dims = ([None] * len(mean.shapes) if sharded is None
+                else sharded.dims())
+        if noise is not None:
+            if group is None:
+                return noise
+            leaves, treedef = tree_flatten(noise)
+            return treedef.unflatten([model_shard(
+                group.rows(z), d, getattr(group, "model_index", 0),
+                getattr(group, "model_size", 1))
+                for z, d in zip(leaves, dims)])
+        lead = (mean.rows,) if mean.rows else ()
+        return mean.treedef.unflatten([
+            local_rows(group, lead + shape, lambda full, dt=dt: torch.randn(
+                full, generator=gen, dtype=dt, device=device), dim)
+            for shape, dt, dim in zip(mean.shapes, mean.dtypes, dims)])
+
+    return z_of
+
+
 def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
                   mode: ClipMode, agents: Optional[str], sigma: float,
                   gen: Optional[torch.Generator], noise, dp: bool,
@@ -286,27 +319,7 @@ def _chunked_mean(loss_fn: Callable, params, batch, tau: float,
     if chunk < 1:
         raise ValueError(f"sample_chunk must be at least 1, got {chunk}")
 
-    def z_of(mean, device):
-        """``noise``, or z ~ N(0, 1) from ``gen`` leaf by leaf in tree
-        order, in the mean's shape and each leaf's dtype; under an agent
-        ``group`` this rank's rows of the one-card draw (or of ``noise``,
-        given at the one-card shape)."""
-        dims = ([None] * len(mean.shapes) if sharded is None
-                else sharded.dims())
-        if noise is not None:
-            if group is None:
-                return noise
-            leaves, treedef = tree_flatten(noise)
-            return treedef.unflatten([model_shard(
-                group.rows(z), d, getattr(group, "model_index", 0),
-                getattr(group, "model_size", 1))
-                for z, d in zip(leaves, dims)])
-        lead = (mean.rows,) if mean.rows else ()
-        return mean.treedef.unflatten([
-            local_rows(group, lead + shape, lambda full, dt=dt: torch.randn(
-                full, generator=gen, dtype=dt, device=device), dim)
-            for shape, dt, dim in zip(mean.shapes, mean.dtypes, dims)])
-
+    z_of = _noise(gen, noise, group, sharded)
     acc, losses = None, []
     for lo in range(0, b, chunk):
         size = min(chunk, b - lo)
@@ -366,3 +379,77 @@ def dp_gradient(loss_fn: Callable, params, batch, tau: float, sigma: float,
     ``(perturbed_mean, mean_loss)``."""
     return _chunked_mean(loss_fn, params, batch, tau, mode, agents, sigma,
                          gen, noise, True, sample_chunk, group, sharded)
+
+
+def pooled_dp_gradient(loss_fn: Callable, params, batch, tau: float,
+                       sigma: float, group,
+                       gen: Optional[torch.Generator] = None, noise=None,
+                       mode: ClipMode = "smooth", chunk: Optional[int] = None,
+                       clipped=None):
+    """DP-SGD's pooled gradient with its clients as processes: the
+    :func:`dp_gradient` of the server's pooled batch (``agents=None``) when
+    ``batch`` is this rank's b samples and ``params`` the server's replica,
+    the same on every rank of ``group``.
+
+    Each rank differentiates and clips only its own samples (one clip a
+    chunk, on its plane of per-sample rows).  The clipped rows are
+    all-gathered in rank order, which is the one-card pool's agent-major
+    order, and every rank adds them onto one running sum in that order
+    (``mean_noise`` a chunk), so the sum is the one-card sum wherever each
+    sample's clipped row is the same bits.  z is drawn at the server's
+    shape from ``gen`` on every rank (or is ``noise``), and the loss is the
+    mean over all the samples' losses, gathered with the rows.  When every
+    rank's b rows fit :data:`SAMPLE_PLANE_BYTES` together (c = b,
+    :func:`sample_chunk` over the ranks' planes, or ``chunk``), one gather
+    takes them all; else rank after rank, c of its samples a gather, the
+    other ranks sending zeros of the same shape.  ``clipped``: ``(plane,
+    losses)``, this rank's clipped ``(b * T, TILE)`` plane and its ``(b,)``
+    losses in place of the per-sample oracle (a forced round).  Returns
+    ``(perturbed_mean, mean_loss)``, the same on every rank."""
+    b = tree_leaves(batch)[0].shape[0]
+    ranks, me = group.n_agents, group.index
+    one = FL.flat_spec(tree_map(lambda p: p.unsqueeze(0), params))
+    tiles = one.tiles
+    c = (sample_chunk(ranks, tiles, b, one.plane_dtype.itemsize)
+         if chunk is None else chunk)
+    if c < 1:
+        raise ValueError(f"sample_chunk must be at least 1, got {c}")
+    # (the rank whose samples [lo, hi) a gather takes, None: every rank's)
+    pieces = ([(None, 0, b)] if c >= b else
+              [(p, lo, min(lo + c, b)) for p in range(ranks)
+               for lo in range(0, b, c)])
+    total = ranks * b
+    z_of = _noise(gen, noise)
+    acc, losses, done = None, [], 0
+    for owner, lo, hi in pieces:
+        size = hi - lo
+        if owner not in (None, me):
+            plane = torch.zeros((size * tiles, FL.TILE), dtype=one.plane_dtype,
+                                device=tree_leaves(params)[0].device)
+            loss = plane.new_zeros((size,), dtype=torch.float32)
+        elif clipped is not None:
+            plane, loss = clipped[0][lo * tiles:hi * tiles], clipped[1][lo:hi]
+        else:
+            part = tree_map(lambda x: x.narrow(0, lo, size), batch)
+            rows, loss = per_sample_grads(loss_fn, params, part, None)
+            plane = _clipped_plane(rows, tau, mode)[0]
+            del rows
+        # the losses cross in f32: exact, and the mean adds in f32
+        planes, sample_losses = group.all_gather([plane,
+                                                  loss.to(torch.float32)])
+        del plane
+        if owner is None:
+            size = total
+            planes = planes.reshape(-1, FL.TILE)
+            sample_losses = sample_losses.reshape(-1)
+        else:
+            planes, sample_losses = planes[owner], sample_losses[owner]
+        losses.append(sample_losses)
+        done += size
+        finish = done == total
+        acc, mean = _add_chunk(planes, one._replace(rows=size), size, False,
+                               sigma, z_of if finish else None, acc, finish,
+                               total)
+        del planes
+    losses = losses[0] if len(losses) == 1 else torch.cat(losses)
+    return FL.from_planes(acc, mean), ref.sample_mean(losses, 0)

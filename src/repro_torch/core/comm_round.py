@@ -48,11 +48,15 @@ Time-varying topologies: every round method takes the absolute round index
 from its schedule table; the fused updates read ``wc = W_t @ c`` as data.
 
 Agents as processes: with a mixer built over an agent group
-(``make_mixer(..., group=)``), every buffer is the rank's ``(1, ...)``
-agent row.  The engine's draws (the SR words, a random compressor's)
-draw the one-card shape from the round's generator and keep the rank's
-rows (:func:`repro_torch.core.agents.local_rows`), and its wire accounting
-counts all ``group.n_agents`` agents, so both are the one-card run's.
+(``make_mixer(..., group=)``, or a fleet's ``make_fleet_mixer(...,
+group=)``), every buffer is the rank's block of agent rows: one agent
+(``(1, ...)``), or a fleet's k = n / ranks (``(k, ...)``).  A server
+algorithm's engine has no mixer and takes its clients' group itself
+(``clients``, one client a rank).  The engine's draws (the SR words, a
+random compressor's) draw the one-card shape from the round's generator
+and keep the rank's rows (:func:`repro_torch.core.agents.local_rows`),
+and its wire accounting counts all ``group.n_agents * k`` agents, so both
+are the one-card run's.
 
 The model axis (``sharded``, a :class:`repro_torch.kernels.flatten.
 ShardedFlatSpec`): every buffer is the rank's block, its agent row of its
@@ -206,6 +210,8 @@ class CommRound:
       params keep f32 planes beside bf16 EF buffers; this field drives the
       wire-byte width of the ring and packed byte models.
     sharded: the per-shard layout on a grid with a model axis, or None.
+    clients: a server algorithm's agent group (no mixer; one client a
+      rank), or None.
     """
 
     compressor: Compressor
@@ -215,6 +221,7 @@ class CommRound:
     overlap: bool = False
     plane_dtype: Any = None
     sharded: Optional[FL.ShardedFlatSpec] = None
+    clients: Any = None
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
@@ -236,17 +243,18 @@ class CommRound:
 
     @property
     def group(self):
-        """The mixer's agent group (one agent a rank), or None: every agent
-        on one card."""
-        return getattr(self.mixer, "group", None)
+        """The agent group, the mixer's or a server's ``clients``, or None:
+        every agent on one card."""
+        group = getattr(self.mixer, "group", None)
+        return self.clients if group is None else group
 
     def _agents(self, leaves) -> Tuple[int, int]:
         """``(n_agents, rows)`` of agent-stacked ``leaves``: all agents, and
-        the rows held here (every one on one card, this rank's one under a
-        group)."""
+        the rows held here (every one on one card, this rank's block of
+        ``rows`` under a group of ``group.n_agents`` ranks)."""
         rows = leaves[0].shape[0]
         group = self.group
-        return (rows if group is None else group.n_agents), rows
+        return (rows if group is None else group.n_agents * rows), rows
 
     def _use_kernel(self, tree) -> bool:
         device = tree_leaves(tree)[0].device

@@ -1,4 +1,5 @@
-"""Fleet-scale agents: n >> devices, one leading agent axis on one card.
+"""Fleet-scale agents: n >> devices, one leading agent axis on one card
+(or sharded over processes).
 
 A copy of ``src/repro/core/fleet.py``.  The agent-stacked state keeps its
 layout, with the agent axis grown to n = 1k-100k simulated agents: every
@@ -24,6 +25,13 @@ Two regimes, one mixer (:func:`make_fleet_mixer`):
   values on row 0, past each round's real nnz) are dropped from the
   layout: they would only add +-0.0 last to row 0.
 
+Across processes (``make_fleet_mixer(obj, group=)``): the fleet axis is
+sharded over the P ranks of an agent group, k = n / P agents a rank (the
+reference's fleet under pjit).  A mix all-gathers every rank's block and
+keeps the rank's rows of the one-card product (the dense one below the
+gate, the slots of the rank's own rows above it), so every row is
+bitwise the one-card fleet's.
+
 The numpy part (COO tables, spectra, generators) is the reference's own
 code: the same arguments give ``np.array_equal`` triplets and the same
 floats.  :class:`FleetSchedule` also records each round's real nnz
@@ -45,7 +53,8 @@ except Exception:  # pragma: no cover - exercised only without scipy
     _LinOp = _eigsh = None
 
 from ..tree import tree_flatten
-from .gossip import GossipBudget, make_dense_mixer
+from .gossip import (GossipBudget, _check_block, _nbytes, gather_blocks,
+                     make_dense_mixer, make_dense_process_mixer)
 from .mixing import Topology, TopologySchedule, WeightKind
 
 __all__ = [
@@ -443,7 +452,8 @@ _Layout = Tuple[Optional[np.ndarray], Tuple[int, ...], np.ndarray,
 
 
 def _coo_slots(n: int, rows: np.ndarray, cols: np.ndarray,
-               vals: np.ndarray) -> _Layout:
+               vals: np.ndarray, block: Optional[Tuple[int, int]] = None
+               ) -> _Layout:
     """Lay one round's COO triplets out as slots per row, for the apply.
 
     A row's triplets keep their COO order (a stable sort by row), so slot
@@ -451,10 +461,16 @@ def _coo_slots(n: int, rows: np.ndarray, cols: np.ndarray,
     ``i``.  The rows are ordered by slot count, most first (stable), so
     the rows with an ``s``-th slot are a prefix of that order and each
     slot is one contiguous update.  ``vals`` become f32, as the reference
-    casts them.
+    casts them.  ``block = (lo, k)``: only rows ``[lo, lo + k)``, numbered
+    from 0, their columns still global (a rank's rows of the fleet).
     """
     rows = np.asarray(rows, np.int64)
     _check_coo(n, rows, np.asarray(cols), np.asarray(vals))
+    if block is not None:
+        lo, n = block
+        keep = (rows >= lo) & (rows < lo + n)
+        rows, cols, vals = (rows[keep] - lo, np.asarray(cols)[keep],
+                            np.asarray(vals)[keep])
     by_row = np.argsort(rows, kind="stable")
     r = rows[by_row]
     deg = np.bincount(r, minlength=n)
@@ -472,13 +488,15 @@ def _coo_slots(n: int, rows: np.ndarray, cols: np.ndarray,
     return (None if identity else rank), ks, c, v
 
 
-def _round_layouts(obj) -> List[_Layout]:
+def _round_layouts(obj, block: Optional[Tuple[int, int]] = None
+                   ) -> List[_Layout]:
     """The slot layout of every round of a FleetTopology (one) or a
-    FleetSchedule (``period``), its padding triplets dropped."""
+    FleetSchedule (``period``), its padding triplets dropped; of the rows
+    ``block = (lo, k)`` only, when given."""
     if isinstance(obj, FleetTopology):
-        return [_coo_slots(obj.n, obj.rows, obj.cols, obj.vals)]
+        return [_coo_slots(obj.n, obj.rows, obj.cols, obj.vals, block)]
     return [_coo_slots(obj.n, obj.rows[t, :live], obj.cols[t, :live],
-                       obj.vals[t, :live])
+                       obj.vals[t, :live], block)
             for t, live in enumerate(obj.round_nnz)]
 
 
@@ -500,14 +518,16 @@ def _layouts_on(layouts: List[_Layout]):
     return at
 
 
-def _coo_apply(layout, x: torch.Tensor) -> torch.Tensor:
+def _coo_apply(layout, x: torch.Tensor,
+               rows: Optional[int] = None) -> torch.Tensor:
     """``W @ x`` for an ``(n, d)`` f32 ``x`` and one round's device
-    layout: every row's terms added onto +0.0 in the reference's order, in
-    f32.  One gather and one product over all the triplets (an ``(nnz,
-    d)`` f32 temporary), then one add a slot."""
+    layout (of ``rows`` rows of W, all n when None): every row's terms
+    added onto +0.0 in the reference's order, in f32.  One gather and one
+    product over all the triplets (an ``(nnz, d)`` f32 temporary), then one
+    add a slot."""
     rank, ks, cols, vals = layout
     prod = vals * x.index_select(0, cols)
-    acc = torch.zeros_like(x)
+    acc = x.new_zeros((x.shape[0] if rows is None else rows,) + x.shape[1:])
     off = 0
     for k in ks:
         acc[:k].add_(prod[off:off + k])
@@ -515,28 +535,82 @@ def _coo_apply(layout, x: torch.Tensor) -> torch.Tensor:
     return acc if rank is None else acc.index_select(0, rank)
 
 
-def _coo_tree(layout, tree):
-    """Apply W to every leaf of an agent-stacked tree: the leaves' f32
-    columns side by side in one ``(n, d)`` matrix (each column's sum is
-    its own, so this is the reference's apply leaf by leaf), cast back to
-    each leaf's dtype."""
-    leaves, treedef = tree_flatten(tree)
+def _coo_leaves(layout, leaves, rows: Optional[int] = None):
+    """Apply W (its ``rows`` rows, all when None) to agent-stacked
+    ``leaves``: their f32 columns side by side in one ``(n, d)`` matrix
+    (each column's sum is its own, so this is the reference's apply leaf by
+    leaf), cast back to each leaf's dtype."""
     n = leaves[0].shape[0]
     cols = [leaf.reshape(n, -1).to(torch.float32) for leaf in leaves]
     mixed = _coo_apply(layout, cols[0] if len(cols) == 1
-                       else torch.cat(cols, dim=1))
+                       else torch.cat(cols, dim=1), rows)
     out, start = [], 0
     for leaf, col in zip(leaves, cols):
         width = col.shape[1]
-        out.append(mixed[:, start:start + width].reshape(leaf.shape)
+        out.append(mixed[:, start:start + width]
+                   .reshape((mixed.shape[0],) + tuple(leaf.shape[1:]))
                    .to(leaf.dtype))
         start += width
-    return treedef.unflatten(out)
+    return out
+
+
+def _coo_tree(layout, tree):
+    """Apply W to every leaf of an agent-stacked tree
+    (:func:`_coo_leaves`)."""
+    leaves, treedef = tree_flatten(tree)
+    return treedef.unflatten(_coo_leaves(layout, leaves))
+
+
+def _fleet_block(n: int, group) -> int:
+    """k = n / ranks, the agents a rank holds; refused unless it divides,
+    as pjit refuses an axis that does not."""
+    if n % group.n_agents:
+        raise ValueError(f"a fleet of {n} agents does not divide over "
+                         f"{group.n_agents} ranks")
+    return n // group.n_agents
+
+
+def _coo_process_mixer(obj, group, time_varying: bool):
+    """The COO slots with a fleet's k agents a rank: every leaf is
+    all-gathered (a call's leaves in one message) and the rank applies the
+    slots of its own rows ``[index * k, (index + 1) * k)``, laid out once
+    from the one-card triplets of those rows in COO order with global
+    columns, so each row adds its terms in the one-card order."""
+    k = _fleet_block(obj.n, group)
+    layout_at = _layouts_on(_round_layouts(obj, (group.index * k, k)))
+
+    def gather(leaves):
+        _check_block(leaves, k)
+        mix.shipped_nbytes = group.n_agents * _nbytes(leaves)
+        return gather_blocks(group, leaves)
+
+    def mix(tree, t=None):
+        if time_varying and t is None:
+            raise ValueError("time-varying fleet mixer needs the round "
+                             "index (pass t=state.step)")
+        leaves, treedef = tree_flatten(tree)
+        layout = layout_at(leaves[0].device, 0 if t is None else t)
+        return treedef.unflatten(_coo_leaves(layout, gather(leaves), k))
+
+    def push(tree, wvec, t=None):
+        if time_varying and t is None:
+            raise ValueError("time-varying fleet mixer needs the round "
+                             "index (pass t=state.step)")
+        leaves, treedef = tree_flatten(tree)
+        *full, full_w = gather(leaves + [wvec])
+        layout = layout_at(wvec.device, 0 if t is None else t)
+        w_m = _coo_apply(layout, full_w.to(torch.float32)[:, None], k)
+        return (treedef.unflatten(_coo_leaves(layout, full, k)),
+                w_m[:, 0].to(wvec.dtype))
+
+    mix.push = push
+    mix.shipped_nbytes = 0
+    return mix
 
 
 def make_fleet_mixer(obj: Union[Topology, TopologySchedule, FleetTopology,
                                 FleetSchedule],
-                     dense_gate: int = FLEET_DENSE_GATE):
+                     dense_gate: int = FLEET_DENSE_GATE, group=None):
     """Mixer over a fleet of simulated agents.
 
     ``obj`` is a dense :class:`Topology` / :class:`TopologySchedule`
@@ -547,17 +621,29 @@ def make_fleet_mixer(obj: Union[Topology, TopologySchedule, FleetTopology,
     densified back onto the dense path; ``dense_gate=0`` forces the COO
     path (tests).
 
+    ``group``: an agent group of P ranks (:class:`repro_torch.launch.mesh.
+    AgentGroup`), the fleet axis sharded over them as pjit lays it out:
+    rank r holds agents ``[r k, (r + 1) k)``, k = n / P.  Every mix then
+    all-gathers the rank's blocks (one message for all leaves) and the rank
+    keeps its rows of the one-card product: below the gate the dense
+    process executor's whole ``W_t @ C``
+    (:func:`repro_torch.core.gossip.make_dense_process_mixer`), above it
+    the COO slots of its own rows only.  Each row is bitwise the one-card
+    fleet's.  The budget is one all-gather, and ``mix.shipped_nbytes``
+    every agent's bytes, as the dense process executor reports them.
+
     The mixer has the dense mixer's surface: ``mix(tree[, t])``,
     ``mix.push(tree, wvec, t)`` (the (n,) push-sum weight mixed by the same
     W_t, in its own product), ``time_varying``, ``n``, ``budget``,
-    ``wire_mode = "dense"``, ``wire_frac = None`` and ``schedule``.  A
-    time-varying mixer takes the host int round index and picks its
-    round's device tables with it: no sync.
+    ``wire_mode = "dense"``, ``wire_frac = None``, ``schedule``, ``group``
+    and ``n_agents``.  A time-varying mixer takes the host int round index
+    and picks its round's device tables with it: no sync.
     """
     if isinstance(obj, (Topology, TopologySchedule)):
         w = obj.ws if isinstance(obj, TopologySchedule) else obj.w
-        mix = make_dense_mixer(w)
         n = int(np.shape(w)[-1])
+        mix = (make_dense_mixer(w) if group is None else
+               make_dense_process_mixer(w, group, _fleet_block(n, group)))
         time_varying = mix.time_varying
         note = (f"fleet dense-gate (n={n} <= {dense_gate}): the dense "
                 "mixer, bitwise the per-device engine")
@@ -567,8 +653,15 @@ def make_fleet_mixer(obj: Union[Topology, TopologySchedule, FleetTopology,
         if n <= dense_gate:
             dense = (np.stack([obj.densify(t) for t in range(obj.period)])
                      if time_varying else obj.densify())
-            mix = make_dense_mixer(dense)
+            mix = (make_dense_mixer(dense) if group is None else
+                   make_dense_process_mixer(dense, group,
+                                            _fleet_block(n, group)))
             note = f"fleet dense-gate (n={n} <= {dense_gate}), COO densified"
+        elif group is not None:
+            mix = _coo_process_mixer(obj, group, time_varying)
+            mix.time_varying = time_varying
+            note = (f"fleet COO slots (n={n}, nnz={obj.rows.size}) of a "
+                    "rank's rows after one all-gather")
         else:
             layout_at = _layouts_on(_round_layouts(obj))
 
@@ -599,8 +692,11 @@ def make_fleet_mixer(obj: Union[Topology, TopologySchedule, FleetTopology,
 
     mix.n = n
     mix.budget = GossipBudget(
-        executor="fleet", per_leaf={}, spmd_dependent=True, note=note)
+        executor="fleet", per_leaf={} if group is None else {"all-gather": 1},
+        spmd_dependent=True, note=note)
     mix.wire_mode = "dense"
     mix.wire_frac = None
     mix.schedule = obj if time_varying else None
+    mix.group = group
+    mix.n_agents = n
     return mix

@@ -30,7 +30,8 @@ packs every agent's windows once and unpacks them once.
 
 *Across processes* (``make_mixer(..., group=)``, one agent a rank of a
 :class:`repro_torch.launch.mesh.AgentGroup`; ``make_dense_process_mixer``
-and its siblings): every tensor is the rank's ``(1, ...)`` block; the
+and its siblings): every tensor is the rank's ``(1, ...)`` block (the
+dense one's also a fleet's ``(k, ...)``, :mod:`repro_torch.core.fleet`); the
 ring shifts all leaves to each live neighbour in one point-to-point
 exchange, the packed executors and the dense one all-gather, the codecs
 pack the rank's windows once and unpack its own and the received buffers
@@ -108,8 +109,10 @@ class GossipBudget:
     rank's shards among the ranks of its model index, so the budget holds
     per shard and the model axis's collectives (the tensor-parallel
     forward's, the clip's) count apart (``group.model_census``).  The
-    fleet axis over processes is ROADMAP queue 1 item 12(c); the static
-    census over every executor is item 14.
+    fleet mixer over processes (:func:`repro_torch.core.fleet.
+    make_fleet_mixer` ``group=``) declares the dense process executor's
+    one all-gather; the static census over every executor is ROADMAP
+    queue 1 item 14.
     """
 
     executor: str
@@ -553,39 +556,46 @@ def make_ring_codec_mixer(w, codec: WireFormat) -> MixFn:
 
 # ---------------------------------------------------------------------------
 # Across processes: one agent a rank, each executor over an AgentGroup
-# (repro_torch.launch.mesh), its tensors this rank's (1, ...) blocks
+# (repro_torch.launch.mesh), its tensors this rank's (1, ...) blocks (the
+# dense one also a fleet's (k, ...) blocks, core/fleet.py)
 # ---------------------------------------------------------------------------
 
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _check_block(leaves) -> None:
+def _check_block(leaves, block: int = 1) -> None:
     bad = [tuple(leaf.shape) for leaf in leaves
-           if leaf.dim() < 1 or leaf.shape[0] != 1]
+           if leaf.dim() < 1 or leaf.shape[0] != block]
     if bad:
         raise ValueError("an executor across processes takes this rank's "
-                         f"(1, ...) block of every leaf; got shapes {bad}")
+                         f"({block}, ...) block of every leaf; got shapes "
+                         f"{bad}")
 
 
-def make_dense_process_mixer(w, group) -> MixFn:
-    """The dense executor with one agent a rank: every leaf is
-    all-gathered (all of a call's leaves in one all-gather) and the rank
-    keeps its row of the whole ``W_t @ C``.  The whole product, not the row
-    alone: a matrix product's rounding may depend on its row count, and the
-    row of the whole product is bitwise the one-card executor's.
-    ``mix.push`` gathers the (1,) push-sum weight in the same message.
-    ``mix.shipped_nbytes``: every agent's leaves, what the all-gather
-    ships."""
+def gather_blocks(group, leaves):
+    """Every rank's ``(k, ...)`` block of each of ``leaves``, joined
+    rank-major into the one-card ``(n_ranks * k, ...)`` tensor, in one
+    all-gather."""
+    return [f.reshape((-1,) + tuple(leaf.shape[1:]))
+            for f, leaf in zip(group.all_gather(leaves), leaves)]
+
+
+def make_dense_process_mixer(w, group, block: int = 1) -> MixFn:
+    """The dense executor with ``block`` agents a rank (one, or a fleet's
+    k = n / ranks): every leaf is all-gathered (all of a call's leaves in
+    one all-gather) and the rank keeps its rows of the whole ``W_t @ C``.
+    The whole product, not the rows alone: a matrix product's rounding may
+    depend on its row count, and a row of the whole product is bitwise the
+    one-card executor's.  ``mix.push`` gathers the ``(block,)`` push-sum
+    weights in the same message.  ``mix.shipped_nbytes``: every agent's
+    leaves, what the all-gather ships."""
     w_at = _table_on(w, "dense mixer")
-    n = group.n_agents
 
     def gather(leaves):
-        _check_block(leaves)
-        full = group.all_gather(leaves)
-        mix.shipped_nbytes = n * _nbytes(leaves)
-        return [f.reshape((n,) + tuple(leaf.shape[1:]))
-                for f, leaf in zip(full, leaves)]
+        _check_block(leaves, block)
+        mix.shipped_nbytes = group.n_agents * _nbytes(leaves)
+        return gather_blocks(group, leaves)
 
     def mix(tree, t=None):
         leaves, treedef = tree_flatten(tree)

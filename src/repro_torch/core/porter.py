@@ -209,7 +209,8 @@ def porter_step(
     return new_state, metrics
 
 
-# Cross-agent reductions.  Under an agent group (one agent a rank) each
+# Cross-agent reductions.  Under an agent group (a block of agent rows a
+# rank: one, or a fleet's n / ranks) each
 # reduces over the group, so every rank reports the value of the whole
 # agent axis: the loss mean bitwise the one-card one (the per-agent losses
 # cross exactly), the sums over agents up to their order.  ``step``
@@ -226,17 +227,22 @@ def average_params(x_stacked, group=None):
                     _agent_bar(x_stacked, group), x_stacked)
 
 
+def _row_sum(leaf: torch.Tensor) -> torch.Tensor:
+    """The sum of a rank's agent rows, flat (one row as it is)."""
+    return (leaf if leaf.shape[0] == 1 else leaf.sum(0)).reshape(-1)
+
+
 def _agent_bar(tree, group):
-    """Every f32 leaf's mean over all agents, from one all-reduce of this
-    rank's rows."""
+    """Every f32 leaf's mean over all agents, from one all-reduce of the
+    sums of this rank's rows."""
     leaves = [leaf.to(torch.float32) for leaf in tree_leaves(tree)]
-    total = group.all_reduce_sum(torch.cat([leaf.reshape(-1)
+    total = group.all_reduce_sum(torch.cat([_row_sum(leaf)
                                             for leaf in leaves]))
     bars, off = [], 0
     for leaf in leaves:
         size = leaf[0].numel()
         bars.append(total[off:off + size].reshape(leaf.shape[1:])
-                    / group.n_agents)
+                    / (group.n_agents * leaf.shape[0]))
         off += size
     return tree_flatten(tree)[1].unflatten(bars)
 
@@ -249,14 +255,16 @@ def agent_metrics(losses: Optional[torch.Tensor] = None, consensus=(),
     :func:`consensus_error` and each of ``norms`` as ``||Y||_F / sqrt(n)``,
     in that order.
 
-    Under a group they take two all-reduces: one of every consensus
-    tree's rows, every rank's loss in its own slot of an ``(n,)`` vector
-    (``v + 0`` is exact, so the mean is the one-card ``torch.mean``) and
-    every norm's sum of squares; then one of the deviations from the
-    means.  Under ``sharded`` (a model axis) the rank's trees are its
-    shards, the replicated leaves counted on model rank 0 only, and a
-    third all-reduce, over ``'model'``, sums the deviations and the norms'
-    sums over the shards, so every rank reports the whole replica's value.
+    Under a group (each rank a block of k agent rows: one, or a fleet's
+    n / ranks) they take two all-reduces: one of the sums of every
+    consensus tree's rows, every rank's k losses in their own slots of an
+    ``(n,)`` vector (``v + 0`` is exact, so the mean is the one-card
+    ``torch.mean``) and every norm's sum of squares; then one of the
+    deviations from the means.  Under ``sharded`` (a model axis) the
+    rank's trees are its shards, the replicated leaves counted on model
+    rank 0 only, and a third all-reduce, over ``'model'``, sums the
+    deviations and the norms' sums over the shards, so every rank reports
+    the whole replica's value.
     """
     out = {}
     if group is None:
@@ -268,7 +276,6 @@ def agent_metrics(losses: Optional[torch.Tensor] = None, consensus=(),
             n = tree_leaves(tree)[0].shape[0]
             out[name] = clipping.tree_global_norm(tree) / math.sqrt(n)
         return out
-    n = group.n_agents
     keep = None if sharded is None else sharded.counted()
 
     def kept(tree):
@@ -277,10 +284,14 @@ def agent_metrics(losses: Optional[torch.Tensor] = None, consensus=(),
                 if keep is None or keep[i]]
 
     rows = [kept(tree) for _, tree in consensus]
-    parts = [leaf.reshape(-1) for leaves in rows for leaf in leaves]
+    trees = [tree for _, tree in (*consensus, *norms)]
+    k = (losses.numel() if losses is not None
+         else tree_leaves(trees[0])[0].shape[0] if trees else 1)
+    n = group.n_agents * k
+    parts = [_row_sum(leaf) for leaves in rows for leaf in leaves]
     if losses is not None:
         slots = torch.zeros(n, dtype=losses.dtype, device=losses.device)
-        slots[group.index] = losses.reshape(())
+        slots[group.index * k:(group.index + 1) * k] = losses.reshape(k)
         parts.append(slots.to(torch.float32))
     for _, tree in norms:
         parts.append(sum(torch.sum(torch.square(leaf))

@@ -76,13 +76,13 @@ def minibatch_source(xs, ys, batch: int, device=None, group=None):
     :func:`repro_torch.data.shard_to_agents`), moved to ``device`` (cuda
     unless given) once here.  Each call gathers ``(n_agents, batch, ...)``
     feature and label stacks.  Under an agent ``group`` only this rank's
-    shard moves to the device, and each call draws every agent's indices
-    (the one-card draw) and gathers this rank's ``(1, batch, ...)``.
+    shards move to the device (its block of k = n_agents / ranks agents:
+    one, or a fleet's), and each call draws every agent's indices (the
+    one-card draw) and gathers this rank's ``(k, batch, ...)``.
     """
     device = torch.device("cuda") if device is None else torch.device(device)
     if group is not None:
-        xs, ys = xs[group.index:group.index + 1], ys[group.index:
-                                                      group.index + 1]
+        xs, ys = group.rows(xs), group.rows(ys)
     xs = torch.as_tensor(xs).to(device)
     ys = torch.as_tensor(ys).to(device)
     m = xs.shape[1]

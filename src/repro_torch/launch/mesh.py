@@ -15,6 +15,11 @@ process's agent index (``pod * data_size + data``, the reference's
   leading agent axis: one ``all-gather``;
 * :meth:`AgentGroup.all_reduce_sum` -- one ``all-reduce``, for metrics.
 
+A rank may hold a block of k agent rows rather than one: a fleet's
+``n / ranks`` agents (:func:`repro_torch.core.fleet.make_fleet_mixer`
+``group=``), rows ``[index * k, (index + 1) * k)`` of the one-card tensor,
+rank-major.  ``n_agents`` still counts ranks.
+
 Shift and gather ship the tensors' bytes: every tensor is viewed as
 ``uint8``, all of a call's tensors go in one message, and the receiver
 views the bytes back as each tensor's dtype and shape.  That is the
@@ -235,9 +240,10 @@ class AgentGroup:
         raise ValueError(f"no agent axis {axis!r} in {self.axes}")
 
     def rows(self, full: torch.Tensor, per_agent: Optional[int] = None):
-        """This agent's rows of an agent-major tensor: rows ``[index * r,
+        """This rank's rows of an agent-major tensor: rows ``[index * r,
         (index + 1) * r)`` of ``full``, r = ``per_agent`` or ``len(full) /
-        n_agents``."""
+        n_agents`` (one agent's rows, or a fleet's block of k = n / ranks
+        agents, rank-major as pjit lays a sharded axis out)."""
         return agent_rows(full, self.index, self.n_agents, per_agent)
 
     # -- the transport -------------------------------------------------------
@@ -318,7 +324,10 @@ class AgentGroup:
                    axis: Optional[str] = None) -> List[torch.Tensor]:
         """Every agent's ``tensors`` (``axis="model"``: every model
         shard's of this agent), each stacked on a new leading axis in grid
-        order, in one all-gather."""
+        order, in one all-gather.  A rank's ``(k, ...)`` blocks of agent
+        rows come back ``(n_agents, k, ...)``: joined rank-major
+        (:func:`repro_torch.core.gossip.gather_blocks`) they are the
+        one-card tensor."""
         t0 = time.perf_counter()
         pg, n, tag, census, seconds = self._axis(axis)
         msg, meta = self._pack(tensors, tag + "send")

@@ -19,7 +19,7 @@ replaying earlier rounds' DP noise.
 Agents as processes: with an algorithm built under an agent group
 (:func:`repro_torch.api.build` ``group=``), every rank runs this same loop
 with the same seed.  Its generators are the one-card run's, its batch
-source draws the one-card batch and keeps the rank's row, its step reduces
+source draws the one-card batch and keeps the rank's rows, its step reduces
 the metrics over the group, so every rank's metrics are the whole run's.
 :func:`gather_state` assembles the one-card state from the ranks' rows.
 
@@ -43,6 +43,7 @@ from typing import Any, Callable, Optional, Protocol, Tuple
 import numpy as np
 import torch
 
+from ..core.gossip import gather_blocks
 from ..tree import tree_flatten, tree_leaves
 
 __all__ = ["BatchSource", "ChunkRunner", "round_generators", "make_runner",
@@ -145,10 +146,11 @@ def run_chunked(algo, source: BatchSource, state, seed: int, steps: int, *,
 
 
 def gather_state(state, group, specs=None):
-    """The one-card state from every rank's agent row: each tensor of
-    ``state`` (this rank's ``(1, ...)`` rows) all-gathered along its agent
-    axis in one collective, on every rank; the round counter and other
-    non-tensors as they are.  On a grid with a model axis ``specs`` (the
+    """The one-card state from every rank's agent rows: each tensor of
+    ``state`` (this rank's ``(k, ...)`` block: one agent, or a fleet's k =
+    n / ranks) all-gathered in one collective and joined rank-major along
+    its agent axis, on every rank; the round counter and other non-tensors
+    as they are.  On a grid with a model axis ``specs`` (the
     parameters' tree of :class:`repro_torch.nn.module.Spec`, one replica's)
     says which leaves of each parameter-shaped field of ``state`` are
     sharded: those are then all-gathered over ``'model'`` (one more
@@ -156,9 +158,8 @@ def gather_state(state, group, specs=None):
     leaves, treedef = tree_flatten(state)
     idx = [i for i, leaf in enumerate(leaves)
            if isinstance(leaf, torch.Tensor)]
-    full = group.all_gather([leaves[i] for i in idx])
-    for i, f in zip(idx, full):
-        leaves[i] = f.reshape((group.n_agents,) + tuple(leaves[i].shape[1:]))
+    for i, f in zip(idx, gather_blocks(group, [leaves[i] for i in idx])):
+        leaves[i] = f
     if specs is None or getattr(group, "model_size", 1) == 1:
         return treedef.unflatten(leaves)
     dims = _field_dims(state, specs)

@@ -35,10 +35,12 @@ decentralized algorithms (dsgd, choco, subgrad-comp, porter-adam,
 clip21) run there through ``api.build(spec, bundle.loss, group=,
 leaf_specs=)``.  :func:`shard_local_on_one_card` and
 :func:`codec_on_one_card` compute on one card what a model axis's
-per-shard compressor and codec give.  ROADMAP queue 1 item 12(c) keeps
-the rest: the fleet axis and the server algorithms across processes, an
-SR draw that costs a rank only its own block, and the NCCL path; the
-prefill and serve steps and the launch tooling are item 14.
+per-shard compressor and codec give.  The fleet axis and the server
+algorithms run across processes through ``api.build(..., group=)`` (on
+an agent grid; beside a model axis they are ROADMAP queue 1 item 20).
+Item 12(c) keeps an SR draw that costs a rank only its own block and the
+NCCL path; the prefill and serve steps and the launch tooling are item
+14.
 """
 
 from __future__ import annotations

@@ -207,17 +207,35 @@ def test_ring_refuses_a_schedule_off_the_ring_under_a_group():
         G.make_mixer(M.make_topology("ring", 5), "ring", group=_group())
 
 
+def _params():
+    return {"w": torch.zeros(123), "b": torch.zeros(())}
+
+
 @pytest.mark.parametrize("algo", ["dp-sgd", "soteriafl"])
 def test_server_algorithms_refuse_a_group(algo):
+    """Since the server algorithms run with one client a rank, a group
+    builds them: ``init`` hands out the server's replica and, for
+    SoteriaFL, this client's row of the shifts.  Any other client count
+    is refused."""
     spec = api.ExperimentSpec(algo=algo, n_agents=4)
-    with pytest.raises(ValueError, match="item 12\\(c\\)"):
-        api.build(spec, W.logreg_loss, device="cpu", group=_group())
+    state = api.build(spec, W.logreg_loss, device="cpu",
+                      group=_group()).init(_params())
+    assert state.x["w"].shape == (123,)
+    if algo == "soteriafl":
+        assert state.h["w"].shape == (1, 123)
+    with pytest.raises(ValueError, match="one agent a rank"):
+        api.build(spec.replace(n_agents=10), W.logreg_loss, device="cpu",
+                  group=_group())
 
 
 def test_fleet_and_agent_count_refuse_a_group():
-    with pytest.raises(ValueError, match="item 12\\(c\\)"):
-        api.build(api.ExperimentSpec(n_agents=4, fleet=True), W.logreg_loss,
-                  device="cpu", group=_group())
+    """Since the fleet axis shards over processes, a group builds a fleet
+    of n = 4 k agents and ``init`` hands out the rank's k rows; a build
+    without the fleet still takes one agent a rank."""
+    state = api.build(api.ExperimentSpec(n_agents=8, fleet=True),
+                      W.logreg_loss, device="cpu", group=_group()).init(
+                          _params())
+    assert state.x["w"].shape == (2, 123) and state.v["b"].shape == (2,)
     with pytest.raises(ValueError, match="one agent a rank"):
         api.build(api.ExperimentSpec(n_agents=10), W.logreg_loss,
                   device="cpu", group=_group())
